@@ -8,10 +8,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: requires CUDA (exit 1 without it); prints torch, CUDA and the
    card's name and power limit.
-2. Build: compiles ``csrc/bsr_spmm.cu`` with nvcc for sm_90a.
+2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
+   nvcc per source, started together).
 3. Kernels against their plain PyTorch versions on the same tensors on
-   the card (max relative error <= 1e-12 in float64, <= 1e-5 in float32),
-   with CUDA-event times (median of several runs) of both.
+   the card, with CUDA-event times (median of 7) of both:
+   - the SpMM kernels (1, 2): max relative error <= 1e-12 in float64 and
+     <= 1e-5 in float32 and with bf16 storage (summed in float32 by both);
+   - the new kernels (3: banded SpMM+Gram, 4: int8 banded SpMM, 5: int8
+     SpMM+Gram) in every variant (``v`` given or None, ``write_out``),
+     on a ragged small matrix, on the 2,097,152-row int8 matrix (4, 5)
+     and on the 1,048,576-row matrix in float32 (3): Y within 1e-5 of
+     max|Y|, and G elementwise within 1e-5 * (|V|ᵀ|Y|) (G sums ~10⁶
+     products with cancellation, so max|G| is the wrong yardstick); the
+     G reduction must give the same bits twice.
 4. Main path: ``eigensolve(A, 3)`` and ``eigensolve(A, 20)`` with default
    options on the 1,048,576-row banded BSR matrix
    ``generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3, seed=0)``
@@ -22,9 +31,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``max_dim_sub=12`` (must collapse), a pencil with a diagonal B, and a
    BSR without a declared bandwidth (the general kernel); plus a small
    solve checked against a dense ``eigvalsh``.
-6. Prints the kernels' JSON line (launch counts of phases 4-5), the card's
-   name and power limit, and as the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+6. The int8 loose stage of the JAX package's sparse north star
+   (``bench.py:615-672``): lowest-20 of
+   ``generate_banded_bsr_quantized(16384, 128, bandwidth=1,
+   coupling=1e-3, seed=0)`` (n = 2,097,152) in float32, lowest-k,
+   relative tolerance 1e-3. It converges through kernel 4, with a true
+   relative residual (float64, dequantized blocks plus the diagonal)
+   <= 1e-3, and the same solve through the plain version takes the same
+   iterations, eigenvalues to 1e-4 relative.
+7. The fused SpMM+Gram engine, on the 1M-row matrix at coupling 3 in
+   float32 (at coupling 1e-3 lowest-128 converges on its initial basis,
+   with no expansion to fuse): (a) ``fused_gram="auto"`` engages at
+   lowest-128 through kernel 3 over several expansions, at m_max = 1408
+   and with a collapse (``max_dim_sub=256``), converges with a true
+   relative residual <= 1e-3, and matches ``fused_gram="off"``:
+   iterations ±2, and each eigenvalue pair within the sum of the two
+   solves' true residuals (the float32 H of the two engines parts at
+   roundoff, ~1e-4 here, so that is what the residuals certify); (b)
+   fixed-iteration A/Bs against ``"off"``, per-iteration walls printed:
+   k=128 on the same matrix (``"auto"``, four iterations) and, as
+   ``bench.py:701-716`` runs it, k=20 on the int8 matrix (``"on"``,
+   kernel 5, eight iterations, eigenvalues to 1e-5 relative).
+8. Prints the solves' and kernels' JSON lines (launch counts of the solve
+   phases 4-7, each counted from 0 over its own phase; for kernels 3 and
+   5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
+   |G_k - G_p| / (|V|ᵀ|Y|)), the card's name and power limit, and as the
+   last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
 """
@@ -37,13 +69,39 @@ import subprocess
 import sys
 import time
 
-SOURCE = "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu"
+SOURCES = {
+    "banded_bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
+    "bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
+    "banded_bsr_spmm_gram": "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+    "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+    "banded_q_bsr_spmm_gram":
+        "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+}
 REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
     "bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:101",
+    "banded_bsr_spmm_gram": "fortran_davidson_tpu/ops/pallas_kernels.py:592",
+    "banded_q_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
+    "banded_q_bsr_spmm_gram":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:886",
 }
-TOL = {"float64": 1e-12, "float32": 1e-5}
+# The case whose times stand in the kernels line: the main path's shape.
+MAIN_CASE = {
+    "banded_bsr_spmm": ("float64", 48, None, True, "nbr=8192"),
+    "bsr_spmm": ("float64", 48, None, True, "nbr=8192"),
+    "banded_bsr_spmm_gram": ("float32", 128, 1408, True, "nbr=8192"),
+    "banded_q_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
+    "banded_q_bsr_spmm_gram": ("float32", 20, 220, True, "nbr=16384"),
+}
+TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5}
+GRAM_TOL = 1e-5
 SOLVE_TOL = 1e-8
+# (m, mv) of the gram cases at full size; mv None is G = XᵀAX. The k=20
+# engine's widths (m=20, mv from its first expansion's 60 up to m_max =
+# 220), the k=128 engine's (m=128, mv from 384 up to m_max = 1408), and
+# both initial blocks (m=40, m=256) in the v=None form.
+GRAM_WIDTHS = [(20, None), (20, 40), (20, 60), (20, 220), (40, None),
+               (40, 220), (128, None), (128, 384), (128, 1408), (256, None)]
 
 
 def _smi() -> str:
@@ -75,39 +133,101 @@ def _check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def phase_kernels(A, dev, record):
+def _dname(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def phase_kernels(A, A32, q, dev, record):
     """Phase 3: every kernel against its plain version on the card."""
     import numpy as np
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
-    from fortran_davidson_tpu_torch.ops.sparse import (BSROperator,
-                                                       generate_banded_bsr)
+    from fortran_davidson_tpu_torch.ops.sparse import (
+        BSROperator, generate_banded_bsr, generate_banded_bsr_quantized)
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def compare(name, kernel, plain, dtype, m, shape_note):
-        n = kernel_rows[name]
-        x = torch.randn((n, m), generator=gen, dtype=dtype, device=dev)
+    def randn(rows, cols, dtype=torch.float32):
+        return torch.randn((rows, cols), generator=gen, dtype=torch.float32,
+                           device=dev).to(dtype)
+
+    def emit(row, timed):
+        t = (f"kernel={row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms"
+             if timed else "(not timed)")
+        mv = "-" if row["mv"] is None else row["mv"]
+        y = ("Y -" if row["max_abs_err"] is None else
+             f"max_abs_err={row['max_abs_err']:.3e} rel={row['rel_err']:.3e}")
+        g = ("" if row["gram_ratio"] is None else
+             f" G abs={row['g_abs_err']:.3e} |dG|/(|V|ᵀ|Y|)="
+             f"{row['gram_ratio']:.3e}")
+        print(f"  {row['name']:22s} {row['dtype']:8s} {row['shape']:26s} "
+              f"m={row['m']:<4d} mv={mv!s:<5s} out={int(row['write_out'])} "
+              f"{y}{g} {t}", flush=True)
+        record.append(row)
+
+    def spmm_case(name, kernel, plain, dtype, m, note, timed):
+        n = kernel_rows
+        x = randn(n, m, dtype)
         y_k = kernel(x)
         y_p = plain(x)
         torch.cuda.synchronize()
-        err = float(torch.max(torch.abs(y_k - y_p)))
-        rel = err / max(float(torch.max(torch.abs(y_p))), 1e-300)
-        dname = str(dtype).removeprefix("torch.")
-        ms = _time_ms(lambda: kernel(x))
-        plain_ms = _time_ms(lambda: plain(x))
-        print(f"  {name:16s} {dname:8s} {shape_note:28s} m={m:<4d} "
-              f"max_abs_err={err:.3e} rel={rel:.3e} kernel={ms:.4f} ms "
-              f"plain={plain_ms:.4f} ms", flush=True)
-        _check(rel <= TOL[dname], f"{name} {dname} m={m}: rel err {rel:.3e} "
-               f"> {TOL[dname]}")
-        record.append(dict(name=name, dtype=dname, m=m, shape=shape_note,
-                           max_abs_err=err, rel_err=rel, ms=ms,
-                           plain_ms=plain_ms))
+        _check(y_k.dtype == y_p.dtype, f"{name}: output type {y_k.dtype}")
+        err = float(torch.max(torch.abs(y_k.double() - y_p.double())))
+        rel = err / max(float(torch.max(torch.abs(y_p.double()))), 1e-300)
+        dn = _dname(dtype)
+        row = dict(name=name, dtype=dn, m=m, mv=None, write_out=True,
+                   shape=note, max_abs_err=err, rel_err=rel, gram_ratio=None,
+                   ms=None, plain_ms=None)
+        if timed:
+            row["ms"] = _time_ms(lambda: kernel(x))
+            row["plain_ms"] = _time_ms(lambda: plain(x))
+        emit(row, timed)
+        _check(rel <= TOL[dn], f"{name} {dn} m={m} {note}: rel err "
+               f"{rel:.3e} > {TOL[dn]}")
 
-    kernel_rows = {}
+    def gram_case(name, kernel, plain, lead, n, m, mv, write_out, note, bw,
+                  timed):
+        x = randn(n, m)
+        v = None if mv is None else randn(n, mv)
+        vv = x if v is None else v
+        kw = dict(bandwidth=bw, write_out=write_out)
+        out_k = kernel(*lead, x, v, **kw)
+        y_p, g_p = plain(*lead, x, v, bandwidth=bw, write_out=True)
+        g_k = out_k[1] if write_out else out_k
+        again = kernel(*lead, x, v, **kw)
+        torch.cuda.synchronize()
+        _check(torch.equal(g_k, again[1] if write_out else again),
+               f"{name}: the G reduction gave other bits on a second run")
+        del again
+        _check(g_k.dtype == torch.float32
+               and tuple(g_k.shape) == (vv.shape[1], m),
+               f"{name}: G is {g_k.dtype} {tuple(g_k.shape)}")
+        # |G_k - G_p| relative to (|V|ᵀ|Y|), elementwise.
+        scale = torch.abs(vv).T @ torch.abs(y_p)
+        g_err = torch.abs(g_k - g_p)
+        ratio = float(torch.max(g_err / (scale + 1e-30)))
+        g_abs = float(torch.max(g_err))
+        y_err, rel = None, 0.0
+        if write_out:
+            y_err = float(torch.max(torch.abs(out_k[0] - y_p)))
+            rel = y_err / float(torch.max(torch.abs(y_p)))
+        del out_k, scale, g_err
+        row = dict(name=name, dtype="float32", m=m, mv=mv,
+                   write_out=write_out, shape=note, max_abs_err=y_err,
+                   g_abs_err=g_abs, rel_err=rel, gram_ratio=ratio, ms=None,
+                   plain_ms=None)
+        if timed:
+            row["ms"] = _time_ms(lambda: kernel(*lead, x, v, **kw))
+            row["plain_ms"] = _time_ms(lambda: plain(*lead, x, v, **kw))
+        emit(row, timed)
+        _check(rel <= TOL["float32"], f"{name} m={m} mv={mv} {note}: Y rel "
+               f"err {rel:.3e}")
+        _check(ratio <= GRAM_TOL, f"{name} m={m} mv={mv} {note}: G error "
+               f"{ratio:.3e} of |V|ᵀ|Y| > {GRAM_TOL}")
+        del x, v, vv, y_p, g_p, g_k
+        torch.cuda.empty_cache()
 
-    # Ragged shapes first: a failing kernel shows on a small case.
+    # -- kernels 1, 2 (f64, f32, and bf16 storage summed in f32) --------
     rag = generate_banded_bsr(17, 8, bandwidth=2, seed=9, device=dev)
     rng = np.random.default_rng(3)
     nbr_s, bs_s = 61, 16
@@ -119,41 +239,84 @@ def phase_kernels(A, dev, record):
     scr = BSROperator.from_block_coo(
         brows, bcols, rng.standard_normal((len(brows), bs_s, bs_s)), nbr_s,
         pad_width=12, device=dev)
+    f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     cases = [
-        ("banded_bsr_spmm", rag, "nbr=17 bs=8 bw=2", (torch.float64,
-                                                       torch.float32), (3,)),
-        ("bsr_spmm", rag, "nbr=17 bs=8 K=5 clipped cols",
-         (torch.float64, torch.float32), (3,)),
-        ("bsr_spmm", scr, "nbr=61 bs=16 K=12 scrambled",
-         (torch.float64, torch.float32), (3, 48)),
-        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (torch.float64,),
+        ("banded_bsr_spmm", rag, "nbr=17 bs=8 bw=2", (f64, f32, bf16), (3,)),
+        ("bsr_spmm", rag, "nbr=17 bs=8 K=5 clipped cols", (f64, f32, bf16),
+         (3,)),
+        ("bsr_spmm", scr, "nbr=61 bs=16 K=12 scrambled", (f64, f32, bf16),
+         (3, 48)),
+        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (f64,),
          (6, 12, 24, 40, 48, 80, 160, 320)),
-        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (torch.float32,),
+        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (f32,), (6, 48, 320)),
+        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (bf16,), (48, 320)),
+        ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)", (f64,),
+         (6, 24, 48, 320)),
+        ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)", (f32,),
          (6, 48, 320)),
-        ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)",
-         (torch.float64,), (6, 24, 48, 320)),
-        ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)",
-         (torch.float32,), (6, 48, 320)),
+        ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)", (bf16,),
+         (48, 320)),
     ]
     for name, op, note, dtypes, widths in cases:
-        kernel_rows[name] = op.shape[0]
+        kernel_rows = op.shape[0]
+        timed = op.shape[0] >= 1 << 20
         for dtype in dtypes:
             blocks = op.blocks.to(dtype)
+            # bf16 storage returns the float32 sums (the solver's use).
+            out = torch.float32 if dtype == bf16 else dtype
             if name == "banded_bsr_spmm":
                 bw = op.bandwidth
-                kernel = (lambda x, b=blocks, bw=bw:
-                          kernels.banded_bsr_spmm(b, x, bw))
-                plain = (lambda x, b=blocks, bw=bw:
-                         kernels.banded_bsr_spmm_plain(b, x, bw))
+                kernel = (lambda x, b=blocks, bw=bw, o=out:
+                          kernels.banded_bsr_spmm(b, x, bw, out_dtype=o))
+                plain = (lambda x, b=blocks, bw=bw, o=out:
+                         kernels.banded_bsr_spmm_plain(b, x, bw, out_dtype=o))
             else:
                 cols = op.block_cols
-                kernel = (lambda x, b=blocks, c=cols:
-                          kernels.bsr_spmm(c, b, x))
-                plain = (lambda x, b=blocks, c=cols:
-                         kernels.bsr_spmm_plain(c, b, x))
+                kernel = (lambda x, b=blocks, c=cols, o=out:
+                          kernels.bsr_spmm(c, b, x, out_dtype=o))
+                plain = (lambda x, b=blocks, c=cols, o=out:
+                         kernels.bsr_spmm_plain(c, b, x, out_dtype=o))
             for m in widths:
-                compare(name, kernel, plain, dtype, m, note)
+                spmm_case(name, kernel, plain, dtype, m, note, timed)
             del blocks
+    torch.cuda.empty_cache()
+
+    # -- kernels 3-5: ragged first, then the full-size matrices ---------
+    rag32 = generate_banded_bsr(17, 24, bandwidth=2, seed=9,
+                                dtype=torch.float32, device=dev)
+    ragq = generate_banded_bsr_quantized(17, 24, bandwidth=2, seed=9,
+                                         device=dev)
+    gram_sets = [
+        ("banded_bsr_spmm_gram", rag32, (rag32.blocks,),
+         "nbr=17 bs=24 bw=2", [(m, mv) for m in (20, 40, 128)
+                               for mv in (None, 40, 220, 1408)], False),
+        ("banded_q_bsr_spmm_gram", ragq,
+         (ragq.qblocks, ragq.scale_rows, ragq.diag), "nbr=17 bs=24 bw=2",
+         [(m, mv) for m in (20, 40, 128) for mv in (None, 40, 220, 1408)],
+         False),
+        ("banded_bsr_spmm_gram", A32, (A32.blocks,), "nbr=8192 bs=128 bw=1",
+         GRAM_WIDTHS, True),
+        ("banded_q_bsr_spmm_gram", q, (q.qblocks, q.scale_rows, q.diag),
+         "nbr=16384 bs=128 bw=1", GRAM_WIDTHS, True),
+    ]
+    for name, op, lead, note, widths, timed in gram_sets:
+        if name == "banded_q_bsr_spmm_gram":
+            kernel_rows = op.shape[0]
+            for m in sorted({m for m, _ in widths}):
+                spmm_case(
+                    "banded_q_bsr_spmm",
+                    lambda x, ql=lead, bw=op.bandwidth:
+                        kernels.banded_q_bsr_spmm(*ql, x, bw),
+                    lambda x, ql=lead, bw=op.bandwidth:
+                        kernels.banded_q_bsr_spmm_plain(*ql, x, bw),
+                    f32, m, note, timed)
+        kernel = getattr(kernels, name)
+        plain = getattr(kernels, f"{name}_plain")
+        for m, mv in widths:
+            for write_out in (True, False):
+                gram_case(name, kernel, plain, lead, op.shape[0], m, mv,
+                          write_out, note, op.bandwidth, timed)
+    del rag32, ragq
     torch.cuda.empty_cache()
 
 
@@ -181,10 +344,15 @@ def _solve(label, A, k, B=None, **kw):
           f"wall={wall:.3f} s dims={dims} "
           f"max_loop_residual={float(res.residual_norms.max()):.3e}",
           flush=True)
-    _check(res.converged, f"{label}: did not converge")
     _check(bool(torch.all(torch.isfinite(res.eigenvalues)))
            and tuple(res.eigenvectors.shape) == (A.shape[0], k),
            f"{label}: bad output")
+    return res, wall
+
+
+def _solve_converged(label, A, k, B=None, **kw):
+    res, wall = _solve(label, A, k, B=B, **kw)
+    _check(res.converged, f"{label}: did not converge")
     return res, wall
 
 
@@ -205,8 +373,9 @@ def phase_main(A, dev, solves):
         for path in ("kernels", "plain", "plain", "kernels"):
             before = kernels.banded_bsr_spmm.launches
             torch.cuda.reset_peak_memory_stats()
-            res, wall = _solve(f"eigensolve(A, {k}) [{path}]",
-                               A if path == "kernels" else plain_A, k)
+            res, wall = _solve_converged(f"eigensolve(A, {k}) [{path}]",
+                                         A if path == "kernels" else plain_A,
+                                         k)
             walls[path].append(wall)
             launches = kernels.banded_bsr_spmm.launches - before
             if path == "plain":
@@ -249,8 +418,8 @@ def phase_legs(A, dev, solves):
     strong = fdtt.generate_banded_bsr(A.n_block_rows, A.block_size,
                                       bandwidth=1, coupling=0.1, seed=0,
                                       device=dev)
-    res, wall = _solve("coupling 0.1, k=3, max_dim_sub=12", strong, 3,
-                       max_dim_sub=12)
+    res, wall = _solve_converged("coupling 0.1, k=3, max_dim_sub=12", strong,
+                                 3, max_dim_sub=12)
     dims = res.subspace_dims[:res.iterations].tolist()
     _check(any(b < a for a, b in zip(dims, dims[1:])),
            f"expected a collapse, dims={dims}")
@@ -265,8 +434,8 @@ def phase_legs(A, dev, solves):
 
     b_diag = torch.from_numpy(
         1.0 + 0.5 * np.random.default_rng(7).random(n)).to(dev)
-    res, wall = _solve("pencil A x = lam B x, B diagonal, k=3", A, 3,
-                       B=fdtt.DiagonalOperator(b_diag))
+    res, wall = _solve_converged("pencil A x = lam B x, B diagonal, k=3", A,
+                                 3, B=fdtt.DiagonalOperator(b_diag))
     tr = _true_residual(A.blocks, 1, None, res.eigenvectors, res.eigenvalues,
                         b_diag)
     _check(tr <= SOLVE_TOL, f"pencil leg: true residual {tr:.3e}")
@@ -277,8 +446,8 @@ def phase_legs(A, dev, solves):
 
     general = fdtt.BSROperator(A.block_cols, A.blocks)  # no bandwidth
     before = kernels.bsr_spmm.launches
-    res, wall = _solve("BSR without bandwidth (general kernel), k=3",
-                       general, 3)
+    res, wall = _solve_converged("BSR without bandwidth (general kernel), k=3",
+                                 general, 3)
     _check(kernels.bsr_spmm.launches > before, "bsr_spmm never launched")
     tr = _true_residual(A.blocks, None, A.block_cols, res.eigenvectors,
                         res.eigenvalues)
@@ -291,11 +460,213 @@ def phase_legs(A, dev, solves):
 
     small = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1,
                                      seed=0, device=dev)
-    res, _ = _solve("small banded (n=1024), k=3, vs dense eigvalsh", small, 3)
+    res, _ = _solve_converged("small banded (n=1024), k=3, vs dense eigvalsh",
+                              small, 3)
     want = torch.linalg.eigvalsh(small.to_dense().cpu())[:3]
     diff = float(torch.max(torch.abs(res.eigenvalues.cpu() - want)))
     print(f"  small solve vs dense eigvalsh: {diff:.3e}", flush=True)
     _check(diff <= 1e-8, f"small solve: eigenvalues off by {diff:.3e}")
+
+
+# The int8 loose stage of bench.py:660-666.
+LOOSE = dict(method="DPR", tolerance=1e-3, relative_tolerance=True,
+             dtype="float32", expansion="lowest-k", max_iterations=30)
+
+
+def _int8_true_residual(q, X, lam) -> float:
+    """max_j ||A x_j - lam_j x_j|| / max(|lam_j|, 1) in float64, with the
+    dequantized blocks and the exact diagonal."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    X = X.double()
+    lam = lam.double()
+    deq = (q.qblocks.float() * q.scale_rows[:, None, :]).double()
+    AX = kernels.banded_bsr_spmm_plain(deq, X, q.bandwidth)
+    del deq
+    AX += q.diag.reshape(-1, 1).double() * X
+    res = torch.linalg.vector_norm(AX - X * lam[None, :], dim=0)
+    return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
+
+
+def phase_int8(q, dev, solves):
+    """Phase 6: the int8 loose stage at the JAX package's single-chip
+    north-star shape, kernel path against the plain path."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    plain_q = fdtt.MatrixFreeOperator(
+        lambda X: kernels.banded_q_bsr_spmm_plain(
+            q.qblocks, q.scale_rows, q.diag, X.contiguous(), q.bandwidth),
+        q.shape[0], dtype=torch.float32, diag=q.diagonal(), device=dev)
+    walls = {"kernels": [], "plain": []}
+    for path in ("kernels", "plain", "kernels"):
+        before = kernels.banded_q_bsr_spmm.launches
+        torch.cuda.reset_peak_memory_stats()
+        res, wall = _solve_converged(
+            f"int8 n={q.shape[0]} lowest-20 loose [{path}]",
+            q if path == "kernels" else plain_q, 20, **LOOSE)
+        walls[path].append(wall)
+        launches = kernels.banded_q_bsr_spmm.launches - before
+        if path == "plain":
+            _check(launches == 0, "the plain int8 path launched a kernel")
+            ref = res
+        else:
+            _check(launches > 0, "banded_q_bsr_spmm never launched")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            out = res
+    true_res = _int8_true_residual(q, out.eigenvectors, out.eigenvalues)
+    rel = float(torch.max(torch.abs(out.eigenvalues - ref.eigenvalues)
+                          / torch.abs(ref.eigenvalues)))
+    print(f"  int8: launches per solve={launches} true relative residual="
+          f"{true_res:.3e} max |eig - eig_plain| / |eig_plain|={rel:.3e} "
+          f"iterations {out.iterations} vs plain {ref.iterations} "
+          f"warm wall={walls['kernels'][-1]:.3f} s peak_mem={peak:.2f} GB",
+          flush=True)
+    _check(true_res <= 1e-3, f"int8: true relative residual {true_res:.3e}")
+    _check(out.iterations == ref.iterations,
+           f"int8: {out.iterations} iterations vs {ref.iterations} plain")
+    _check(rel <= 1e-4, f"int8: eigenvalues differ by {rel:.3e} relative")
+    solves.append(dict(solve="int8 banded f32 lowest-20 loose (1e-3 rel)",
+                       n=q.shape[0], iterations=out.iterations,
+                       wall_s=walls["kernels"], plain_wall_s=walls["plain"],
+                       true_residual_rel=true_res, launches=launches,
+                       peak_mem_gb=peak))
+    del res, ref, out
+    torch.cuda.empty_cache()
+
+
+def _banded_residuals(op, X, lam):
+    """||A x_j - lam_j x_j|| per column in float64, with the plain SpMM."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    X, lam = X.double(), lam.double()
+    AX = kernels.banded_bsr_spmm_plain(op.blocks.double(), X, op.bandwidth)
+    return torch.linalg.vector_norm(AX - X * lam[None, :], dim=0)
+
+
+def _certified_agreement(a, b, op) -> tuple[float, float]:
+    """Each Ritz value lies within its true residual of an eigenvalue, so two
+    float32 solves agree to the sum of their residuals: returns the worst
+    |lam_a - lam_b| / (||r_a|| + ||r_b||) (must be <= 1) and the worst true
+    relative residual max(||r||) / max(|lam|, 1) of the two."""
+    import torch
+    r_a = _banded_residuals(op, a.eigenvectors, a.eigenvalues)
+    r_b = _banded_residuals(op, b.eigenvectors, b.eigenvalues)
+    diff = torch.abs(a.eigenvalues.double() - b.eigenvalues.double())
+    ratio = float(torch.max(diff / (r_a + r_b)))
+    rel = max(float(torch.max(r / torch.clamp(torch.abs(x.eigenvalues.double()),
+                                              min=1.0)))
+              for r, x in ((r_a, a), (r_b, b)))
+    return ratio, rel
+
+
+def phase_fused(q, dev, solves):
+    """Phase 7: (a) the "auto" gate engages the incremental-H engine at
+    lowest-128 on a 1M-row f32 matrix that needs several expansions,
+    converges, and matches "off", at the default m_max = 1408 and with a
+    collapse (m_max = 384); (b) fixed-iteration fused/off A/Bs at k=128 on
+    that matrix and at k=20 on the int8 matrix."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    # Coupling 3: at 1e-3 the coupling-1e-3 matrix converges on its initial
+    # basis, so no expansion, and no gram launch, would run.
+    A3 = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=3.0,
+                                  seed=0, dtype=torch.float32, device=dev)
+    n = A3.shape[0]
+    kw = dict(dtype="float32", expansion="lowest-k", relative_tolerance=True,
+              tolerance=1e-3)
+    gram = kernels.banded_bsr_spmm_gram
+    for tag, extra in (("m_max 1408", {}),
+                       ("max_dim_sub 256 (collapse)", dict(max_dim_sub=256))):
+        runs = {}
+        for option in ("auto", "off"):
+            before = gram.launches
+            torch.cuda.reset_peak_memory_stats()
+            res, wall = _solve_converged(
+                f"f32 n={n} coupling 3 lowest-128 {tag} fused_gram="
+                f"{option!r}", A3, 128, fused_gram=option, **kw, **extra)
+            runs[option] = (res, wall, gram.launches - before,
+                            torch.cuda.max_memory_allocated() / 1e9)
+        (on, on_wall, on_l, on_peak), (off, off_wall, off_l, off_peak) = \
+            runs["auto"], runs["off"]
+        _check(on_l > 0, f"{tag}: fused_gram='auto' did not launch "
+               "banded_bsr_spmm_gram at lowest-128")
+        _check(off_l == 0, f"{tag}: fused_gram='off' launched the gram kernel")
+        dims = on.subspace_dims[:on.iterations].tolist()
+        _check(len(dims) >= 3, f"{tag}: expected several expansions, "
+               f"dims={dims}")
+        if extra:
+            _check(any(b < a for a, b in zip(dims, dims[1:])),
+                   f"{tag}: expected a collapse, dims={dims}")
+        ratio, true_rel = _certified_agreement(on, off, A3)
+        rel = float(torch.max(torch.abs(on.eigenvalues - off.eigenvalues)
+                              / torch.abs(off.eigenvalues)))
+        print(f"  lowest-128 {tag}: gram launches={on_l} iterations "
+              f"{on.iterations} (off: {off.iterations}) true relative "
+              f"residual {true_rel:.3e}; |eig diff| / (r_auto + r_off) = "
+              f"{ratio:.3e}, max rel eig diff={rel:.3e}; walls "
+              f"{on_wall:.3f} s / {off_wall:.3f} s, peak {on_peak:.2f} / "
+              f"{off_peak:.2f} GB", flush=True)
+        _check(abs(on.iterations - off.iterations) <= 2,
+               f"{tag}: fused {on.iterations} vs {off.iterations} iterations")
+        _check(true_rel <= kw["tolerance"],
+               f"{tag}: true relative residual {true_rel:.3e}")
+        _check(ratio <= 1.0, f"{tag}: fused and off eigenvalues differ by "
+               f"{ratio:.3f} x the sum of their residuals")
+        solves.append(dict(
+            solve=f"f32 banded coupling 3 lowest-128 {tag}, fused auto vs off",
+            n=n, iterations=[on.iterations, off.iterations],
+            wall_s=[on_wall, off_wall], launches=on_l,
+            peak_mem_gb=[on_peak, off_peak], true_residual_rel=true_rel,
+            eig_diff_over_residuals=ratio, eig_rel_diff=rel))
+        del runs, on, off
+        torch.cuda.empty_cache()
+
+    # Fixed-iteration A/Bs (unreachable tolerance), in turns: k=128 on the
+    # coupling-3 matrix ("auto" engages there) and k=20 on the int8 matrix
+    # ("on" forces it), as bench.py:701-716 runs the latter.
+    for label, op, k, fused, kernel, iters in (
+            ("f32 coupling 3 k=128", A3, 128, "auto", gram, 4),
+            ("int8 k=20", q, 20, "on", kernels.banded_q_bsr_spmm_gram, 8)):
+        ab = {fused: [], "off": []}
+        last = {}
+        kw_ab = dict(LOOSE, tolerance=1e-30, max_iterations=iters)
+        for option in (fused, "off", "off", fused):
+            before = kernel.launches
+            res, wall = _solve(f"{label} A/B fused_gram={option!r}", op, k,
+                               fused_gram=option, **kw_ab)
+            launches = kernel.launches - before
+            _check((launches > 0) == (option == fused),
+                   f"{label} fused_gram={option!r}: {launches} gram launches")
+            ab[option].append(wall / max(res.iterations, 1))
+            last[option] = res
+        rel = float(torch.max(torch.abs(last[fused].eigenvalues
+                                        - last["off"].eigenvalues)
+                              / torch.abs(last["off"].eigenvalues)))
+        row = dict(solve=f"{label} fused {fused}/off A/B, {iters} iterations",
+                   n=op.shape[0], per_iter_s_fused=ab[fused],
+                   per_iter_s_off=ab["off"], eig_rel_diff=rel)
+        if op is A3:
+            ratio, _ = _certified_agreement(last[fused], last["off"], A3)
+            row["eig_diff_over_residuals"] = ratio
+            note = f"; |eig diff| / (r_{fused} + r_off) = {ratio:.3e}"
+            ok, why = ratio <= 1.0, f"{ratio:.3f} x the sum of their residuals"
+        else:
+            note = ""
+            ok, why = rel <= 1e-5, f"{rel:.3e} relative"
+        print(f"  {label} A/B per-iteration walls (s): {fused} {ab[fused]} "
+              f"off {ab['off']}; off/{fused} (warm) = "
+              f"{ab['off'][1] / ab[fused][1]:.3f}; max rel eig diff "
+              f"{rel:.3e}{note}", flush=True)
+        _check(ok, f"{label} A/B: eigenvalues differ by {why}")
+        solves.append(row)
+        del res, last
+        torch.cuda.empty_cache()
+    del A3
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -315,46 +686,83 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path, log = kernels.build()
-    print(f"[2] built {path.name} in {time.perf_counter() - t0:.1f} s")
+    print(f"[2] built {path.name} from {len(kernels.sources())} sources in "
+          f"{time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "error" in line.lower():
+        if "error" in line.lower():
             print("   ", line.strip())
     sys.stdout.flush()
 
     t0 = time.perf_counter()
     A = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3,
                                  seed=0, dtype=torch.float64, device=dev)
+    A32 = fdtt.BSROperator(A.block_cols, A.blocks.float(), bandwidth=1)
     torch.cuda.synchronize()
     print(f"    built A: n={A.shape[0]}, blocks {tuple(A.blocks.shape)} "
-          f"float64 ({A.blocks.numel() * 8 / 1e9:.2f} GB) in "
+          f"float64 ({A.blocks.numel() * 8 / 1e9:.2f} GB) and float32 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    q = fdtt.generate_banded_bsr_quantized(16384, 128, bandwidth=1,
+                                           coupling=1e-3, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"    built q: n={q.shape[0]}, int8 blocks "
+          f"{tuple(q.qblocks.shape)} ({q.qblocks.numel() / 1e6:.0f} MB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] kernels vs plain versions", flush=True)
     record = []
-    phase_kernels(A, dev, record)
+    phase_kernels(A, A32, q, dev, record)
 
     solves = []
-    kernels.reset_launch_counts()
-    print("[4] main path", flush=True)
-    phase_main(A, dev, solves)
-    print("[5] collapse and generalized legs", flush=True)
-    phase_legs(A, dev, solves)
-    counts = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    counts = {fn.__name__: 0 for fn in kernels.KERNELS}
+    paths = [
+        ("[4] main path", lambda: phase_main(A, dev, solves),
+         ("banded_bsr_spmm",)),
+        ("[5] collapse and generalized legs",
+         lambda: phase_legs(A, dev, solves), ("banded_bsr_spmm", "bsr_spmm")),
+        ("[6] int8 loose stage, n=2,097,152, lowest-20",
+         lambda: phase_int8(q, dev, solves), ("banded_q_bsr_spmm",)),
+        ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
+         ("banded_bsr_spmm_gram", "banded_q_bsr_spmm_gram")),
+    ]
+    for title, run, expected in paths:
+        print(title, flush=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        phase_counts = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        print(f"    phase launches {phase_counts} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name in expected:
+            _check(phase_counts[name] > 0,
+                   f"{name} was never launched on the path of {title}")
+        for name, count in phase_counts.items():
+            counts[name] += count
     for name, count in counts.items():
-        _check(count > 0, f"{name} was never launched on the main path")
+        _check(count > 0, f"{name} was never launched on a solve path")
 
     summary = []
     for name in REPLACES:
         rows = [r for r in record if r["name"] == name]
-        main_row = next(r for r in rows if r["dtype"] == "float64"
-                        and r["m"] == 48 and "8192" in r["shape"])
-        summary.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=counts[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=main_row["ms"], plain_ms=main_row["plain_ms"]))
+        dtype, m, mv, write_out, shape = MAIN_CASE[name]
+        main_row = next(r for r in rows if r["dtype"] == dtype
+                        and r["m"] == m and r["mv"] == mv
+                        and r["write_out"] == write_out
+                        and shape in r["shape"])
+        entry = dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=counts[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if r["max_abs_err"] is not None),
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"])
+        if name.endswith("_gram"):
+            # max_abs_err is Y's; G is held elementwise to its bound.
+            entry.update(
+                max_abs_err_G=max(r["g_abs_err"] for r in rows),
+                max_gram_err_rel=max(r["gram_ratio"] for r in rows),
+                gram_tol=GRAM_TOL)
+        summary.append(entry)
     print(json.dumps({"solves": solves}))
-    print(json.dumps({"kernel_cases": record}))
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

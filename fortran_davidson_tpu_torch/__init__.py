@@ -2,13 +2,14 @@
 with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 A port of ``fortran_davidson_tpu`` (JAX on a TPU), module path for module
-path. This first slice runs the default solve, ``eigensolve(A, k)`` with
-default options (DPR, float64, doubling expansion, CholeskyQR2, sticky
-convergence), plus Olsen, lowest-k expansion, generalized pencils and
-warm starts, on dense, diagonal, matrix-free and block-sparse (BSR)
-operators. The BSR operator's SpMM runs in the CUDA kernels of
-``csrc/bsr_spmm.cu`` on a GPU and in their plain PyTorch versions on the
-CPU. Options of later slices raise :class:`InvalidOptionsError`.
+path. It runs the default solve, ``eigensolve(A, k)`` with default
+options (DPR, float64, doubling expansion, CholeskyQR2, sticky
+convergence), plus Olsen, lowest-k expansion, generalized pencils, warm
+starts and the incremental-H engine (``fused_gram``), on dense, diagonal,
+matrix-free, block-sparse (BSR, f64/f32/bf16 storage) and int8 banded
+operators. Their SpMM (and fused SpMM+Gram) runs in the CUDA kernels of
+``csrc/`` on a GPU and in their plain PyTorch versions on the CPU.
+Options of later slices raise :class:`InvalidOptionsError`.
 """
 
 from fortran_davidson_tpu_torch.config import DavidsonOptions, DavidsonResult
@@ -22,8 +23,13 @@ from fortran_davidson_tpu_torch.ops.operators import (
     from_element_fn,
     probe_diagonal,
 )
-from fortran_davidson_tpu_torch.ops.sparse import (BSROperator,
-                                                  generate_banded_bsr)
+from fortran_davidson_tpu_torch.ops.sparse import (
+    BSROperator,
+    QuantizedBandedOperator,
+    generate_banded_bsr,
+    generate_banded_bsr_quantized,
+    quantize_banded_int8,
+)
 from fortran_davidson_tpu_torch.solver import eigensolve, generalized_eigensolver
 from fortran_davidson_tpu_torch.utils.errors import (DavidsonError,
                                                      InvalidOptionsError,
@@ -44,12 +50,15 @@ __all__ = [
     "MatrixFreeOperator",
     "NumericalError",
     "OperatorError",
+    "QuantizedBandedOperator",
     "SubtractDiagOperator",
     "as_operator",
     "eigensolve",
     "from_element_fn",
     "generalized_eigensolver",
     "generate_banded_bsr",
+    "generate_banded_bsr_quantized",
     "probe_diagonal",
+    "quantize_banded_int8",
     "__version__",
 ]

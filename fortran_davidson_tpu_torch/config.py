@@ -113,8 +113,6 @@ def _require_ported(opts: DavidsonOptions) -> None:
         (opts.cheb_degree != 0, "cheb_degree",
          "ROADMAP item 18 (Chebyshev restarts)"),
         (opts.locking, "locking=True", "ROADMAP item 18"),
-        (opts.fused_gram == "on", "fused_gram='on'",
-         "ROADMAP item 17 (fused SpMM+Gram engine)"),
         (opts.matmul_precision in ("bfloat16", "bfloat16_3x",
                                    "tensorfloat32"),
          f"matmul_precision={opts.matmul_precision!r}",
@@ -144,6 +142,9 @@ class ResolvedConfig:
     expansion: str
     dtype: str
     generalized: bool
+    # Incremental-H engine (fused SpMM+Gram); resolved by the solver entry
+    # point, where the operator is known (``solver.py``).
+    fused_gram: bool = False
 
 
 def merge_options(options: Optional[DavidsonOptions],

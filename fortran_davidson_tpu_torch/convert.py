@@ -1,8 +1,9 @@
 """Build the port's operators from the JAX package's, handed over as numpy.
 
 The JAX operators keep their data in a few arrays: ``DenseOperator.matrix``,
-``DiagonalOperator.diag`` and ``BSROperator.block_cols`` / ``.blocks`` /
-``.bandwidth``. These functions take those arrays (anything
+``DiagonalOperator.diag``, ``BSROperator.block_cols`` / ``.blocks`` /
+``.bandwidth`` and ``QuantizedBandedOperator.qblocks`` / ``.scale_rows`` /
+``.diag`` / ``.bandwidth``. These functions take those arrays (anything
 ``numpy.asarray`` accepts) and return the matching operator of this
 package on ``device``. The JAX operator's ``backend`` field is not carried
 across: here the kernel follows the tensors' device. Nothing here imports
@@ -19,7 +20,8 @@ import torch
 from fortran_davidson_tpu_torch.ops.operators import (DenseOperator,
                                                       DiagonalOperator,
                                                       LinearOperator)
-from fortran_davidson_tpu_torch.ops.sparse import BSROperator
+from fortran_davidson_tpu_torch.ops.sparse import (BSROperator,
+                                                  QuantizedBandedOperator)
 from fortran_davidson_tpu_torch.utils.dtypes import as_torch_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError
 
@@ -50,10 +52,27 @@ def bsr(block_cols, blocks, bandwidth: Optional[int] = None, dtype=None,
                        device=device)
 
 
+def quantized(qblocks, scale_rows, diag, bandwidth: int,
+              device=None) -> QuantizedBandedOperator:
+    """A :class:`QuantizedBandedOperator` from the (nbr, bs, K*bs) int8
+    blocks, the (nbr, K*bs) scales, the (nbr, bs) diagonal and the
+    bandwidth."""
+    return QuantizedBandedOperator(_tensor(qblocks), _tensor(scale_rows),
+                                   _tensor(diag), bandwidth=bandwidth,
+                                   device=device)
+
+
 def operator(op, dtype=None, device=None) -> LinearOperator:
     """The port's counterpart of a JAX operator, read through its array
-    attributes: a BSR (``blocks``, ``block_cols``, ``bandwidth``), a dense
-    (``matrix``) or a diagonal (``diag``) operator."""
+    attributes: an int8 banded (``qblocks``, ``scale_rows``, ``diag``,
+    ``bandwidth``; ``dtype`` does not apply), a BSR (``blocks``,
+    ``block_cols``, ``bandwidth``), a dense (``matrix``) or a diagonal
+    (``diag``) operator. The int8 operator is recognised first: it too
+    has a ``diag``, of shape (nbr, bs)."""
+    if all(hasattr(op, a) for a in ("qblocks", "scale_rows", "diag",
+                                    "bandwidth")):
+        return quantized(op.qblocks, op.scale_rows, op.diag, op.bandwidth,
+                         device=device)
     if hasattr(op, "blocks") and hasattr(op, "block_cols"):
         return bsr(op.block_cols, op.blocks, getattr(op, "bandwidth", None),
                    dtype=dtype, device=device)
@@ -64,5 +83,5 @@ def operator(op, dtype=None, device=None) -> LinearOperator:
         return diagonal(op.diag, dtype=dtype, device=device)
     raise OperatorError(
         f"no torch counterpart for {type(op).__name__}: convert dense, "
-        "diagonal and BSR operators; build matrix-free ones with "
+        "diagonal, BSR and int8 banded operators; build matrix-free ones with "
         "MatrixFreeOperator")

@@ -1,6 +1,7 @@
 """The block-Davidson outer loop as an eager loop over device tensors
 (counterpart of ``fortran_davidson_tpu/core/loop.py``: the branch that is
-not refined, uses flat carries and is not fused).
+not refined and uses flat carries, with or without the incremental-H
+engine of ``fused_gram``).
 
 The design keeps the JAX package's invariants:
 
@@ -25,6 +26,14 @@ arithmetic. The loop reads the device once per iteration: the
 ``all_conv`` flag, the exact active width and the previous expansion's
 stall flag, in one transfer; this replaces the ``lax.cond``s of
 ``core/loop.py:695-697``.
+
+The incremental-H engine (``cfg.fused_gram``, lowest-k standard solves)
+keeps the projected matrix H = VᵀAV in the state instead of recomputing it
+each iteration: seeded from the initial basis, extended at each expansion
+by the operator's fused ``G = Vᵀ(AQ)`` (``matmat_with_gram``), re-seeded
+at a collapse (``core/loop.py:119-127,343-344,589-604,682-688``). The
+gram operand is the basis up to the new block's end, ``V[:, :c0+kk]``,
+not all ``m_max`` columns: the columns past it are zero in V and in H.
 """
 
 from __future__ import annotations
@@ -64,6 +73,13 @@ def _apply(op: LinearOperator, X, dt):
     return op.matmat(X).to(dt)
 
 
+def _check_fused(cfg: ResolvedConfig, gen: bool) -> None:
+    if cfg.fused_gram and (gen or cfg.expansion != "lowest-k"):
+        raise ValueError(
+            "fused_gram requires a standard, non-refined, lowest-k "
+            "configuration (the solver entry point gates this)")
+
+
 def _roll_add(T, Q, m: int):
     """``T += roll(Q padded to T's width, m)`` on the leading columns: column
     j of Q lands on column (j + m) mod m_max (``core/loop.py:613-616``)."""
@@ -88,6 +104,7 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
     init_dim = cfg.init_dim
     dt = getattr(torch, cfg.dtype)
     dev = A.device
+    _check_fused(cfg, B is not None)
     diag_a = A.diagonal().to(dt)
 
     if X0 is None:
@@ -105,6 +122,13 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
             m = init_dim
     AV = torch.zeros_like(V)
     AV[:, :init_dim] = _apply(A, V[:, :init_dim], dt)
+    if cfg.fused_gram:
+        # The carried projection's seed, one full Gram
+        # (``core/loop.py:119-127``). The caller holds the precision
+        # context, so the product does not run in TF32.
+        H = torch.zeros((m_max, m_max), dtype=dt, device=dev)
+        H[:init_dim, :init_dim] = subspace.project(V[:, :init_dim],
+                                                   AV[:, :init_dim])
     state = dict(
         V=V, AV=AV, m=m, m_hi=init_dim, col_ok=col_ok, it=0,
         has_conv=torch.zeros((k,), dtype=torch.bool, device=dev),
@@ -122,6 +146,8 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
         BV = torch.zeros_like(V)
         BV[:, :init_dim] = _apply(B, V[:, :init_dim], dt)
         state["BV"] = BV
+    if cfg.fused_gram:
+        state["H"] = H
     return state
 
 
@@ -141,6 +167,8 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
     dt = getattr(torch, cfg.dtype)
     dev = A.device
     gen = B is not None
+    _check_fused(cfg, gen)
+    fused = cfg.fused_gram
     lowest_k = cfg.expansion == "lowest-k"
     diag_a = A.diagonal().to(dt)
     diag_b = (B.diagonal().to(dt) if gen
@@ -158,8 +186,10 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         pair_mask = (ar[:w] < torch.sum(mask)).to(dt)
 
         # Rayleigh-Ritz on the leading w columns (masked, penalized eigh).
+        # The fused engine reads H from the state: CGS2 never touches
+        # admitted columns, so their entries stay valid.
         Vw, AVw = V[:, :w], AV[:, :w]
-        H = subspace.project(Vw, AVw)
+        H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw)
         S = subspace.project(Vw, BV[:, :w]) if gen else None
         lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
 
@@ -222,7 +252,9 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
                 V[:, :m], corr, pmk, n_reorth=cfg.n_reorth, method=cfg.ortho,
                 rank_width=k if lowest_k else m_max)
             del corr
-            AQ = _apply(A, Q, dt)
+            # The fused engine applies A after the write of Q: the gram
+            # needs the basis that holds it.
+            AQ = None if fused else _apply(A, Q, dt)
             BQ = _apply(B, Q, dt) if gen else None
             live = torch.sum(alive_q).to(torch.int64)
             st["op_cols"] += live
@@ -231,6 +263,14 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
                 # at column m; the live count keeps the basis hole-free.
                 c0 = min(m, m_max - kk)
                 V[:, c0:c0 + kk] = Q
+                if fused:
+                    # G = V[:, :c0+kk]ᵀ (A Q) holds H's new rows and
+                    # columns; dead Q columns are zero, so are theirs.
+                    AQ, G = A.matmat_with_gram(Q, v=V[:, :c0 + kk])
+                    AQ, G = AQ.to(dt), G.to(dt)
+                    H = st["H"]
+                    H[:c0 + kk, c0:c0 + kk] = G
+                    H[c0:c0 + kk, :c0 + kk] = G.T
                 AV[:, c0:c0 + kk] = AQ
                 if gen:
                     BV[:, c0:c0 + kk] = BQ
@@ -266,6 +306,10 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             if gen:
                 BV.zero_()
                 BV[:, :init_dim] = BQc
+            if fused:
+                # Re-seed the carried projection from the restart basis.
+                st["H"].zero_()
+                st["H"][:init_dim, :init_dim] = subspace.project(Qc, AQc)
             st["col_ok"] = orthogonal.col_mask(init_dim, m_max, dt, dev)
             st["m"] = st["m_hi"] = init_dim
             st["stalled"] = lowest_k and init_dim == m

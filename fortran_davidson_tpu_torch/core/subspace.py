@@ -82,7 +82,7 @@ def _pad_penalties(H, mask, m_max: Optional[int] = None):
 def masked_eigh(H, mask, m_max: Optional[int] = None):
     """Eigendecomposition of the active block of a padded symmetric H:
     the first sum(mask) eigenpairs (ascending) are the active ones."""
-    return torch.linalg.eigh(H + torch.diag(_pad_penalties(H, mask, m_max)))
+    return orthogonal.eigh(H + torch.diag(_pad_penalties(H, mask, m_max)))
 
 
 def masked_generalized_eigh(H, S, mask, m_max: Optional[int] = None):
@@ -94,7 +94,7 @@ def masked_generalized_eigh(H, S, mask, m_max: Optional[int] = None):
     C1 = torch.linalg.solve_triangular(L, Hm, upper=False)
     C = torch.linalg.solve_triangular(L, C1.T, upper=False).T
     C = 0.5 * (C + C.T)
-    w, Y = torch.linalg.eigh(C)
+    w, Y = orthogonal.eigh(C)
     W = torch.linalg.solve_triangular(L.T, Y, upper=True)
     return w, W
 

@@ -1,0 +1,249 @@
+// Tile machinery shared by the block-sparse SpMM kernels of the port
+// (bsr_spmm.cu, banded_gram.cu), for Hopper (sm_90a).
+//
+// A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
+// block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
+// found either by the banded rule (slot k of block row r holds block
+// column r - bw + k, so the slab contracts the contiguous x window
+// [(r - bw) * bs, (r + bw + 1) * bs)) or by a (nbr, K) column table.
+//
+// One thread block computes a TM x TN tile of one block row's (bs, m)
+// output: it walks the contraction dimension K*bs in chunks of kTK,
+// stages the (TM, kTK) slab slice and the (kTK, TN) x slice in shared
+// memory, converted to the accumulation type, and accumulates a small
+// register tile per thread with plain FMAs. Two policies vary:
+//
+// - the block loader: dense stored blocks of type T (f64, f32, or bf16
+//   widened to f32 when staged), or int8 blocks times the (block row,
+//   slot) f32 scale, dequantized when staged;
+// - the epilogue, chosen by the kernel: store Y, add the exactly stored
+//   diagonal d[r, i] * x[r*bs + i, c] (int8 storage), and/or feed the
+//   gram G = V^T Y (banded_gram.cu).
+//
+// x rows outside [0, x_rows) load as zeros: a banded edge window
+// multiplies zero blocks there, and 0 * Inf must not enter the sum
+// (the counterpart of fortran_davidson_tpu/ops/pallas_kernels.py:233-244).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace fdt {
+
+constexpr int kTK = 16;        // contraction chunk staged per step
+constexpr int kThreadsM = 16;  // threads along the tile's rows
+
+template <int TM, int TN>
+struct Tile {
+  static constexpr int kThreadsN = TN < 16 ? TN : 16;
+  static constexpr int kThreads = kThreadsM * kThreadsN;
+  static constexpr int RM = TM / kThreadsM;  // rows per thread
+  static constexpr int RN = TN / kThreadsN;  // columns per thread
+};
+
+// Element conversion into the accumulation type.
+template <typename Acc, typename T>
+__device__ __forceinline__ Acc cvt(T v) {
+  return static_cast<Acc>(v);
+}
+template <>
+__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Dense stored blocks of type T with x of type T, accumulated in AccT.
+template <typename T, typename AccT>
+struct DenseBlocks {
+  using X = T;
+  using Acc = AccT;
+  const T* blocks;
+  __device__ __forceinline__ Acc at(long long r, int i, int bs, int L,
+                                    int l) const {
+    return cvt<Acc>(blocks[(r * bs + i) * static_cast<long long>(L) + l]);
+  }
+};
+
+// int8 off-diagonal blocks times one f32 scale per (block row, slot),
+// stored broadcast over the slot's lanes as scale[r, l]; x is f32.
+struct Int8Blocks {
+  using X = float;
+  using Acc = float;
+  const int8_t* q;
+  const float* scale;
+  __device__ __forceinline__ float at(long long r, int i, int bs, int L,
+                                      int l) const {
+    return static_cast<float>(q[(r * bs + i) * static_cast<long long>(L) + l])
+           * scale[r * L + l];
+  }
+};
+
+// acc = slab(r)[i0:i0+TM, :] @ x_rows(r)[:, c0:c0+TN] (+ d * x_centre when
+// diag is given). cols == nullptr selects the banded rule.
+template <typename Load, int TM, int TN>
+__device__ __forceinline__ void tile_product(
+    const Load& ld, const typename Load::X* __restrict__ x,
+    const int* __restrict__ cols, const float* __restrict__ diag,
+    long long r, int i0, int c0, int bs, int K, int bw, long long x_rows,
+    int m, typename Load::Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN]) {
+  using Acc = typename Load::Acc;
+  using P = Tile<TM, TN>;
+  __shared__ Acc As[kTK][TM + 1];  // slab chunk, transposed; +1 avoids bank conflicts
+  __shared__ Acc Xs[kTK][TN];
+
+  const int L = K * bs;
+  const int tid = threadIdx.x;
+  const int tm = tid / P::kThreadsN;
+  const int tn = tid % P::kThreadsN;
+  const long long win0 = (r - bw) * bs;
+
+#pragma unroll
+  for (int i = 0; i < P::RM; ++i)
+#pragma unroll
+    for (int j = 0; j < P::RN; ++j) acc[i][j] = Acc(0);
+
+  for (int l0 = 0; l0 < L; l0 += kTK) {
+    for (int e = tid; e < TM * kTK; e += P::kThreads) {
+      const int i = e / kTK;
+      const int l = e % kTK;
+      const int gi = i0 + i;
+      const int gl = l0 + l;
+      As[l][i] = (gi < bs && gl < L) ? ld.at(r, gi, bs, L, gl) : Acc(0);
+    }
+    for (int e = tid; e < kTK * TN; e += P::kThreads) {
+      const int l = e / TN;
+      const int c = e % TN;
+      const int gl = l0 + l;
+      const int gc = c0 + c;
+      Acc v = Acc(0);
+      if (gl < L && gc < m) {
+        long long xr;
+        if (cols != nullptr) {
+          const int k = gl / bs;
+          xr = static_cast<long long>(cols[r * K + k]) * bs + (gl - k * bs);
+        } else {
+          xr = win0 + gl;
+        }
+        if (xr >= 0 && xr < x_rows) v = cvt<Acc>(x[xr * m + gc]);
+      }
+      Xs[l][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int l = 0; l < kTK; ++l) {
+      Acc a[P::RM];
+      Acc b[P::RN];
+#pragma unroll
+      for (int i = 0; i < P::RM; ++i) a[i] = As[l][tm + i * kThreadsM];
+#pragma unroll
+      for (int j = 0; j < P::RN; ++j) b[j] = Xs[l][tn + j * P::kThreadsN];
+#pragma unroll
+      for (int i = 0; i < P::RM; ++i)
+#pragma unroll
+        for (int j = 0; j < P::RN; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();
+  }
+
+  if (diag != nullptr) {
+#pragma unroll
+    for (int i = 0; i < P::RM; ++i) {
+      const int gi = i0 + tm + i * kThreadsM;
+#pragma unroll
+      for (int j = 0; j < P::RN; ++j) {
+        const int gc = c0 + tn + j * P::kThreadsN;
+        if (gi < bs && gc < m) {
+          const long long row = r * bs + gi;
+          acc[i][j] += static_cast<Acc>(diag[row]) * cvt<Acc>(x[row * m + gc]);
+        }
+      }
+    }
+  }
+}
+
+template <typename Acc, int TM, int TN>
+__device__ __forceinline__ void store_tile(
+    Acc* __restrict__ y, const Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN],
+    long long r, int i0, int c0, int bs, int m) {
+  using P = Tile<TM, TN>;
+  const int tm = threadIdx.x / P::kThreadsN;
+  const int tn = threadIdx.x % P::kThreadsN;
+  Acc* out = y + r * bs * static_cast<long long>(m);
+#pragma unroll
+  for (int i = 0; i < P::RM; ++i) {
+    const int gi = i0 + tm + i * kThreadsM;
+#pragma unroll
+    for (int j = 0; j < P::RN; ++j) {
+      const int gc = c0 + tn + j * P::kThreadsN;
+      if (gi < bs && gc < m) out[static_cast<long long>(gi) * m + gc] = acc[i][j];
+    }
+  }
+}
+
+// Y = A @ X (+ d * x): one thread block per (block row, row tile, column
+// tile); column tiles are the fastest grid index, so the tiles of one
+// block row run together and read its slab from L2 after the first.
+template <typename Load, int TM, int TN>
+__global__ void __launch_bounds__(Tile<TM, TN>::kThreads)
+spmm_kernel(Load ld, const typename Load::X* __restrict__ x,
+            const int* __restrict__ cols, const float* __restrict__ diag,
+            typename Load::Acc* __restrict__ y, int bs, int K, int bw,
+            long long x_rows, int m, int col_tiles, int row_tiles) {
+  const long long bid = blockIdx.x;
+  const int ct = static_cast<int>(bid % col_tiles);
+  const long long rt = bid / col_tiles;
+  const long long r = rt / row_tiles;
+  const int i0 = static_cast<int>(rt % row_tiles) * TM;
+  const int c0 = ct * TN;
+  typename Load::Acc acc[Tile<TM, TN>::RM][Tile<TM, TN>::RN];
+  tile_product<Load, TM, TN>(ld, x, cols, diag, r, i0, c0, bs, K, bw, x_rows,
+                             m, acc);
+  store_tile<typename Load::Acc, TM, TN>(y, acc, r, i0, c0, bs, m);
+}
+
+template <typename Load, int TM, int TN>
+cudaError_t launch_spmm(const Load& ld, const typename Load::X* x,
+                        const int* cols, const float* diag,
+                        typename Load::Acc* y, int nbr, int bs, int K, int bw,
+                        long long x_rows, int m, cudaStream_t stream) {
+  const int col_tiles = (m + TN - 1) / TN;
+  const int row_tiles = (bs + TM - 1) / TM;
+  const long long grid = static_cast<long long>(nbr) * row_tiles * col_tiles;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  spmm_kernel<Load, TM, TN><<<static_cast<unsigned>(grid),
+                              Tile<TM, TN>::kThreads, 0, stream>>>(
+      ld, x, cols, diag, y, bs, K, bw, x_rows, m, col_tiles, row_tiles);
+  return cudaGetLastError();
+}
+
+template <typename Load, int TM>
+cudaError_t spmm_by_width(const Load& ld, const typename Load::X* x,
+                          const int* cols, const float* diag,
+                          typename Load::Acc* y, int nbr, int bs, int K,
+                          int bw, long long x_rows, int m, cudaStream_t s) {
+  if (m <= 8)
+    return launch_spmm<Load, TM, 8>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  if (m <= 16)
+    return launch_spmm<Load, TM, 16>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  if (m <= 32)
+    return launch_spmm<Load, TM, 32>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  return launch_spmm<Load, TM, 64>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+}
+
+// Y = A @ X on the current stream; returns a cudaError_t as int.
+template <typename Load>
+int spmm(const Load& ld, const typename Load::X* x, const int* cols,
+         const float* diag, typename Load::Acc* y, int nbr, int bs, int K,
+         int bw, long long x_rows, int m, void* stream) {
+  if (nbr <= 0 || bs <= 0 || K <= 0 || m <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bs <= 16
+          ? spmm_by_width<Load, 16>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s)
+          : spmm_by_width<Load, 64>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  return static_cast<int>(err);
+}
+
+}  // namespace fdt

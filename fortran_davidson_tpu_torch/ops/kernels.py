@@ -1,26 +1,44 @@
-"""The BSR SpMM kernels: hand-written CUDA for Hopper, their plain PyTorch
-versions, and launch counters (counterpart of
+"""The block-sparse SpMM kernels: hand-written CUDA for Hopper, their plain
+PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Two kernels carry the solver's main path, both in ``csrc/bsr_spmm.cu``:
+Five kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
-  block-ELL, where a block row reads one contiguous window of x.
+  block-ELL, where a block row reads one contiguous window of x
+  (``csrc/bsr_spmm.cu``).
 - :func:`bsr_spmm` replaces ``bsr_spmm`` (``pallas_kernels.py:101``):
-  general block-ELL, where a block row reads its own K column indices.
+  general block-ELL, where a block row reads its own K column indices
+  (``csrc/bsr_spmm.cu``).
+- :func:`banded_bsr_spmm_gram` replaces ``banded_bsr_spmm_gram``
+  (``pallas_kernels.py:592``): Y = A X and G = Vᵀ Y in one sweep
+  (``csrc/banded_gram.cu``).
+- :func:`banded_q_bsr_spmm` replaces ``banded_q_bsr_spmm``
+  (``pallas_kernels.py:755``): int8 off-diagonal blocks with per-slot
+  scales plus the exact diagonal (``csrc/banded_gram.cu``).
+- :func:`banded_q_bsr_spmm_gram` replaces ``banded_q_bsr_spmm_gram``
+  (``pallas_kernels.py:886``): the int8 apply fused with the gram
+  (``csrc/banded_gram.cu``).
 
-What bounds them on the H100, and what the simple design does about it,
-is written at the top of ``csrc/bsr_spmm.cu``. They are not tuned yet.
+What bounds them on the H100, and what the simple designs do about it,
+is written at the top of each source. They are not tuned yet.
+
+Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
+summed in float32, as the TPU kernels do); int8 storage takes float32 x.
+A kernel writes Y in its accumulation type; an ``out_dtype`` other than
+that is one conversion of those sums, so bf16 storage never rounds Y
+through bf16. G is float32, shape (mv, m).
 
 Dispatch follows the tensors' device: CPU tensors take the plain version;
-CUDA tensors launch the kernel, or raise for what it does not take (bf16
-storage, mixed types). There is no fallback from one to the other. Each
-wrapper counts its launches in ``wrapper.launches``.
+CUDA tensors launch the kernel, or raise for what it does not take
+(mixed types, float64 x on int8 storage). There is no fallback from one
+to the other. Each wrapper counts its launches in ``wrapper.launches``.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``fortran_davidson_tpu_torch/_build/`` (named by a hash of the source, so
-an edited source is rebuilt), and loaded with ``ctypes``.
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+``nvcc`` per source, all started together, then linked into one library
+in ``fortran_davidson_tpu_torch/_build/`` named by a hash of every file
+under ``csrc/`` (so an edited source is rebuilt), loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -36,22 +54,32 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "bsr_spmm.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+# blocks, x, y, nbr, bs, K, bw, m, stream
+_BANDED = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+# cols, blocks, x, y, nbr, bs, K, x_rows, m, stream
+_GENERAL = [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P]
+# blocks, x, v, ldv, y, partial, g, nbr, bs, K, bw, m, mv, n_groups, stream
+_GRAM = [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _ARGTYPES = {
-    # blocks, x, y, nbr, bs, K, bw, m, stream
-    "fdt_banded_bsr_spmm_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fdt_banded_bsr_spmm_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # cols, blocks, x, y, nbr, bs, K, x_rows, m, stream
-    "fdt_bsr_spmm_f64": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P],
-    "fdt_bsr_spmm_f32": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P],
+    **{f"fdt_banded_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
+    **{f"fdt_bsr_spmm_{s}": _GENERAL for s in _SUFFIX.values()},
+    **{f"fdt_banded_bsr_spmm_gram_{s}": _GRAM for s in _SUFFIX.values()},
+    # q, scale_rows, diag, x, y, nbr, bs, K, bw, m, stream
+    "fdt_banded_q_bsr_spmm_f32": [_P, _P, *_BANDED],
+    # q, scale_rows, diag, then the dense gram's arguments
+    "fdt_banded_q_bsr_spmm_gram_f32": [_P, _P, *_GRAM],
 }
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def _find_nvcc() -> str:
@@ -63,15 +91,23 @@ def _find_nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def sources() -> list:
+    """The translation units under ``csrc/`` (headers are included)."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    """Where the built library lives: named by a hash of source and flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfdt_bsr_spmm_{digest}.so"
+    """Where the built library lives: named by a hash of every file under
+    ``csrc/`` and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libfdt_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple:
-    """Compile ``csrc/bsr_spmm.cu`` unless it is built already.
+    """Compile ``csrc/*.cu`` unless the library is built already: one
+    ``nvcc`` per source, all started together, then one link.
 
     Returns ``(path, log)``; ``log`` holds ptxas's register/shared-memory
     report of a fresh build and is empty when the library already existed.
@@ -80,13 +116,36 @@ def build() -> tuple:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stderr
+    nvcc = _find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        logs.append(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{stderr}")
+    tmp = out.with_name(f"{tag}.tmp")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
+    return out, "".join(logs)
 
 
 @functools.cache
@@ -118,30 +177,103 @@ def _check_shapes(blocks, x, x_rows: int):
         raise ValueError(f"blocks on {blocks.device}, x on {x.device}")
 
 
-def _launch(name: str, blocks, x, out_dtype, args_before, args_after):
-    """Launch a kernel on the tensors' device and current stream."""
+def _check_banded(blocks, x, bandwidth: int) -> int:
+    """Shape checks of DIA-banded storage; returns K."""
+    _check_shapes(blocks, x, blocks.shape[0] * blocks.shape[1])
+    K = blocks.shape[2] // blocks.shape[1]
+    if K != 2 * bandwidth + 1:
+        raise ValueError(f"banded storage needs K == 2*bw+1, got K={K}, "
+                         f"bw={bandwidth}")
+    return K
+
+
+def _check_v(v, x):
+    if v is None:
+        return
+    if v.ndim != 2 or v.shape[0] != x.shape[0] or v.device != x.device:
+        raise ValueError(f"v must be ({x.shape[0]}, mv) on {x.device}, got "
+                         f"{tuple(v.shape)} on {v.device}")
+
+
+def _on_cpu(name: str, x) -> bool:
+    """True for CPU tensors (the plain version); False for CUDA tensors
+    (the kernel); raises for any other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"{name}: no kernel for {x.device}")
+    return False
+
+
+def _dense_suffix(name: str, blocks, x) -> str:
     if blocks.dtype != x.dtype:
         raise NotImplementedError(
             f"{name}: blocks {blocks.dtype} with x {x.dtype} has no CUDA "
             "kernel; cast both to one type")
     if x.dtype not in _SUFFIX:
         raise NotImplementedError(
-            f"{name}: {x.dtype} storage has no CUDA kernel yet (float32 and "
-            "float64 only; bf16 storage is on the ROADMAP)")
-    if not (blocks.is_contiguous() and x.is_contiguous()):
-        raise ValueError(f"{name}: blocks and x must be contiguous")
-    nbr, bs, _ = blocks.shape
-    y = torch.empty((nbr * bs, x.shape[1]), dtype=x.dtype, device=x.device)
-    if y.numel():
-        fn = getattr(_library(), f"fdt_{name}_{_SUFFIX[x.dtype]}")
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(*args_before, blocks.data_ptr(), x.data_ptr(),
-                     y.data_ptr(), *args_after, stream)
-        if err != 0:
-            raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    return y.to(out_dtype)
+            f"{name}: {x.dtype} storage has no CUDA kernel (float64, float32 "
+            "and bfloat16 only)")
+    return _SUFFIX[x.dtype]
 
+
+def _require_contiguous(name: str, *tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: blocks and x must be contiguous")
+
+
+def _run(entry: str, device, *args) -> None:
+    """Call one C entry on ``device``'s current stream; raise on its error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_library(), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
+
+
+def _out(y, out_dtype):
+    """Y left the kernel in its accumulation type; any other ``out_dtype``
+    is one conversion of those sums."""
+    return y if y.dtype == out_dtype else y.to(out_dtype)
+
+
+def _gram_plain(vv, y):
+    """G = vvᵀ y in float32, y rounded to vv's type first (the TPU
+    kernels' staged tile) and the sums in vv's accumulation type."""
+    acc = _acc_dtype(vv.dtype)
+    return (vv.to(acc).T @ y.to(vv.dtype).to(acc)).to(torch.float32)
+
+
+def _gram_launch(name: str, entry: str, lead_ptrs: tuple, x, v,
+                 write_out: bool, acc, nbr: int, bs: int, K: int, bw: int):
+    """Allocate Y (optional), G and the partials' scratch, and launch a
+    fused SpMM+Gram entry (see ``csrc/banded_gram.cu``)."""
+    if v is not None and v.dtype != x.dtype:
+        raise NotImplementedError(
+            f"{name}: v {v.dtype} with x {x.dtype} has no CUDA kernel; "
+            "cast v to x's type")
+    if v is not None and v.shape[1] > 1 and v.stride(1) != 1:
+        raise ValueError(f"{name}: v's rows must be contiguous (any row "
+                         "stride)")
+    n, m = x.shape
+    mv = m if v is None else v.shape[1]
+    dev = x.device
+    y = torch.empty((n, m), dtype=acc, device=dev) if write_out else None
+    g = torch.empty((mv, m), dtype=torch.float32, device=dev)
+    launched = g.numel() > 0 and n > 0
+    if launched:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_groups = min(nbr, 2 * sms)
+        scratch = torch.empty((n_groups, mv, m), dtype=acc, device=dev)
+        _run(entry, dev, *lead_ptrs, x.data_ptr(),
+             None if v is None else v.data_ptr(),
+             m if v is None else v.stride(0),
+             None if y is None else y.data_ptr(), scratch.data_ptr(),
+             g.data_ptr(), nbr, bs, K, bw, m, mv, n_groups)
+    return y, g, launched
+
+
+# -- kernel 1: DIA-banded SpMM ------------------------------------------
 
 def banded_bsr_spmm_plain(blocks, x, bandwidth: int, out_dtype=None):
     """Plain PyTorch ``banded_bsr_spmm``: pad ``bw`` block rows on each side
@@ -165,28 +297,30 @@ def banded_bsr_spmm(blocks, x, bandwidth: int, out_dtype=None):
 
     Args:
       blocks: (nbr, bs, K*bs), K = 2*bandwidth + 1.
-      x: (nbr*bs, m).
+      x: (nbr*bs, m), the blocks' type.
       out_dtype: output type (default ``x.dtype``).
     """
-    _check_shapes(blocks, x, blocks.shape[0] * blocks.shape[1])
-    nbr, bs, kbs = blocks.shape
-    K = kbs // bs
-    if K != 2 * bandwidth + 1:
-        raise ValueError(f"banded storage needs K == 2*bw+1, got K={K}, "
-                         f"bw={bandwidth}")
+    K = _check_banded(blocks, x, bandwidth)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if x.device.type == "cpu":
+    name = "banded_bsr_spmm"
+    if _on_cpu(name, x):
         return banded_bsr_spmm_plain(blocks, x, bandwidth, out_dtype)
-    if x.device.type != "cuda":
-        raise NotImplementedError(f"banded_bsr_spmm: no kernel for {x.device}")
-    y = _launch("banded_bsr_spmm", blocks, x, out_dtype, (),
-                (nbr, bs, K, int(bandwidth), x.shape[1]))
-    banded_bsr_spmm.launches += 1
-    return y
+    sfx = _dense_suffix(name, blocks, x)
+    _require_contiguous(name, blocks, x)
+    nbr, bs, _ = blocks.shape
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=_acc_dtype(x.dtype),
+                    device=x.device)
+    if y.numel():
+        _run(f"fdt_{name}_{sfx}", x.device, blocks.data_ptr(), x.data_ptr(),
+             y.data_ptr(), nbr, bs, K, int(bandwidth), x.shape[1])
+        banded_bsr_spmm.launches += 1
+    return _out(y, out_dtype)
 
 
 banded_bsr_spmm.launches = 0
 
+
+# -- kernel 2: general block-ELL SpMM -----------------------------------
 
 def bsr_spmm_plain(block_cols, blocks, x, out_dtype=None):
     """Plain PyTorch ``bsr_spmm``: gather the K (bs, m) slices of x by the
@@ -208,7 +342,7 @@ def bsr_spmm(block_cols, blocks, x, out_dtype=None):
       block_cols: (nbr, K) int32 block-column index of each slot (padded
         slots may point anywhere in range; their blocks must be zero).
       blocks: (nbr, bs, K*bs).
-      x: (nbc*bs, m).
+      x: (nbc*bs, m), the blocks' type.
       out_dtype: output type (default ``x.dtype``).
     """
     nbr, bs, kbs = blocks.shape
@@ -220,24 +354,196 @@ def bsr_spmm(block_cols, blocks, x, out_dtype=None):
         raise ValueError(f"block_cols must be ({nbr}, {K}), got "
                          f"{tuple(block_cols.shape)}")
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if x.device.type == "cpu":
+    name = "bsr_spmm"
+    if _on_cpu(name, x):
         return bsr_spmm_plain(block_cols, blocks, x, out_dtype)
-    if x.device.type != "cuda":
-        raise NotImplementedError(f"bsr_spmm: no kernel for {x.device}")
     if (block_cols.dtype != torch.int32 or block_cols.device != x.device
             or not block_cols.is_contiguous()):
         raise ValueError("bsr_spmm: block_cols must be a contiguous int32 "
                          "tensor on x's device")
-    y = _launch("bsr_spmm", blocks, x, out_dtype, (block_cols.data_ptr(),),
-                (nbr, bs, K, x.shape[0], x.shape[1]))
-    bsr_spmm.launches += 1
-    return y
+    sfx = _dense_suffix(name, blocks, x)
+    _require_contiguous(name, blocks, x)
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=_acc_dtype(x.dtype),
+                    device=x.device)
+    if y.numel():
+        _run(f"fdt_{name}_{sfx}", x.device, block_cols.data_ptr(),
+             blocks.data_ptr(), x.data_ptr(), y.data_ptr(), nbr, bs, K,
+             x.shape[0], x.shape[1])
+        bsr_spmm.launches += 1
+    return _out(y, out_dtype)
 
 
 bsr_spmm.launches = 0
 
 
-KERNELS = (banded_bsr_spmm, bsr_spmm)
+# -- kernel 3: DIA-banded SpMM + Gram -----------------------------------
+
+def banded_bsr_spmm_gram_plain(blocks, x, v=None, *, bandwidth: int,
+                               write_out: bool = True, out_dtype=None):
+    """Plain PyTorch ``banded_bsr_spmm_gram``: the plain apply, summed in
+    the accumulation type, then G = Vᵀ Y (:func:`_gram_plain`)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    y = banded_bsr_spmm_plain(blocks, x, bandwidth,
+                              out_dtype=_acc_dtype(x.dtype))
+    g = _gram_plain(x if v is None else v, y)
+    return (y.to(out_dtype), g) if write_out else g
+
+
+def banded_bsr_spmm_gram(blocks, x, v=None, *, bandwidth: int,
+                         write_out: bool = True, out_dtype=None):
+    """Fused banded SpMM + Gram: ``Y = A @ X`` and ``G = Vᵀ Y``.
+
+    Args:
+      blocks: (nbr, bs, K*bs) DIA-aligned storage, K = 2*bandwidth + 1.
+      x: (nbr*bs, m), the blocks' type.
+      v: (nbr*bs, mv) gram operand of x's type, rows contiguous (any row
+        stride, e.g. the leading columns of the basis), or ``None`` for
+        G = Xᵀ A X.
+      write_out: also return Y; ``False`` returns G alone.
+      out_dtype: Y's type (default ``x.dtype``).
+
+    Returns:
+      ``(Y, G)``, or ``G`` alone; G is float32 of shape (mv, m).
+    """
+    K = _check_banded(blocks, x, bandwidth)
+    _check_v(v, x)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    name = "banded_bsr_spmm_gram"
+    if _on_cpu(name, x):
+        return banded_bsr_spmm_gram_plain(blocks, x, v, bandwidth=bandwidth,
+                                          write_out=write_out,
+                                          out_dtype=out_dtype)
+    sfx = _dense_suffix(name, blocks, x)
+    _require_contiguous(name, blocks, x)
+    nbr, bs, _ = blocks.shape
+    y, g, launched = _gram_launch(name, f"fdt_{name}_{sfx}",
+                                  (blocks.data_ptr(),), x, v, write_out,
+                                  _acc_dtype(x.dtype), nbr, bs, K,
+                                  int(bandwidth))
+    if launched:
+        banded_bsr_spmm_gram.launches += 1
+    return (_out(y, out_dtype), g) if write_out else g
+
+
+banded_bsr_spmm_gram.launches = 0
+
+
+# -- kernel 4: int8 DIA-banded SpMM -------------------------------------
+
+def _check_quantized(qblocks, scale_rows, diag, x, bandwidth: int) -> int:
+    K = _check_banded(qblocks, x, bandwidth)
+    nbr, bs, kbs = qblocks.shape
+    if (tuple(scale_rows.shape) != (nbr, kbs)
+            or tuple(diag.shape) != (nbr, bs)):
+        raise ValueError(f"quantized banded needs ({nbr}, {kbs}) scale_rows "
+                         f"and ({nbr}, {bs}) diag, got "
+                         f"{tuple(scale_rows.shape)} / {tuple(diag.shape)}")
+    if scale_rows.device != x.device or diag.device != x.device:
+        raise ValueError("qblocks, scale_rows, diag and x must share a device")
+    return K
+
+
+def _quantized_args(name: str, qblocks, scale_rows, diag, x) -> tuple:
+    """Type and layout checks of the int8 kernels; their leading pointers."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{name}: {x.dtype} x has no CUDA kernel (float32 x only; the "
+            "solver's int8 path is float32)")
+    if (qblocks.dtype != torch.int8 or scale_rows.dtype != torch.float32
+            or diag.dtype != torch.float32):
+        raise ValueError(f"{name}: need int8 qblocks with float32 scale_rows "
+                         "and diag")
+    _require_contiguous(name, qblocks, scale_rows, diag, x)
+    return qblocks.data_ptr(), scale_rows.data_ptr(), diag.data_ptr()
+
+
+def banded_q_bsr_spmm_plain(qblocks, scale_rows, diag, x, bandwidth: int,
+                            out_dtype=None):
+    """Plain PyTorch ``banded_q_bsr_spmm``: the JAX package's fallback
+    (``fortran_davidson_tpu/ops/sparse.py:1011-1025``): dequantize to x's
+    type, the banded product summed into float32, plus d ∘ x in float32."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    deq = (qblocks.to(torch.float32) * scale_rows[:, None, :]).to(x.dtype)
+    y = banded_bsr_spmm_plain(deq, x, bandwidth, out_dtype=torch.float32)
+    y = y + diag.reshape(-1, 1) * x.to(torch.float32)
+    return y.to(out_dtype)
+
+
+def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, bandwidth: int,
+                      out_dtype=None):
+    """y = (Q ∘ s) @ x_window + d ∘ x_centre on int8 DIA-banded storage.
+
+    Args:
+      qblocks: (nbr, bs, K*bs) int8, the quantized off-diagonal blocks.
+      scale_rows: (nbr, K*bs) float32, each slot's scale over its lanes.
+      diag: (nbr, bs) float32, the exact diagonal.
+      x: (nbr*bs, m); float32 on a GPU.
+      out_dtype: output type (default ``x.dtype``).
+    """
+    K = _check_quantized(qblocks, scale_rows, diag, x, bandwidth)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    name = "banded_q_bsr_spmm"
+    if _on_cpu(name, x):
+        return banded_q_bsr_spmm_plain(qblocks, scale_rows, diag, x,
+                                       bandwidth, out_dtype)
+    lead = _quantized_args(name, qblocks, scale_rows, diag, x)
+    nbr, bs, _ = qblocks.shape
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    if y.numel():
+        _run(f"fdt_{name}_f32", x.device, *lead, x.data_ptr(), y.data_ptr(),
+             nbr, bs, K, int(bandwidth), x.shape[1])
+        banded_q_bsr_spmm.launches += 1
+    return _out(y, out_dtype)
+
+
+banded_q_bsr_spmm.launches = 0
+
+
+# -- kernel 5: int8 DIA-banded SpMM + Gram ------------------------------
+
+def banded_q_bsr_spmm_gram_plain(qblocks, scale_rows, diag, x, v=None, *,
+                                 bandwidth: int, write_out: bool = True,
+                                 out_dtype=None):
+    """Plain PyTorch ``banded_q_bsr_spmm_gram``: the plain int8 apply in
+    float32, then G = Vᵀ Y (:func:`_gram_plain`)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    y = banded_q_bsr_spmm_plain(qblocks, scale_rows, diag, x, bandwidth,
+                                out_dtype=torch.float32)
+    g = _gram_plain(x if v is None else v, y)
+    return (y.to(out_dtype), g) if write_out else g
+
+
+def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
+                           bandwidth: int, write_out: bool = True,
+                           out_dtype=None):
+    """int8 fused banded SpMM + Gram (see :func:`banded_bsr_spmm_gram` for
+    ``v``, ``write_out`` and the return contract, and
+    :func:`banded_q_bsr_spmm` for the storage); x and v float32 on a
+    GPU."""
+    K = _check_quantized(qblocks, scale_rows, diag, x, bandwidth)
+    _check_v(v, x)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    name = "banded_q_bsr_spmm_gram"
+    if _on_cpu(name, x):
+        return banded_q_bsr_spmm_gram_plain(
+            qblocks, scale_rows, diag, x, v, bandwidth=bandwidth,
+            write_out=write_out, out_dtype=out_dtype)
+    lead = _quantized_args(name, qblocks, scale_rows, diag, x)
+    nbr, bs, _ = qblocks.shape
+    y, g, launched = _gram_launch(name, f"fdt_{name}_f32", lead, x, v,
+                                  write_out, torch.float32, nbr, bs, K,
+                                  int(bandwidth))
+    if launched:
+        banded_q_bsr_spmm_gram.launches += 1
+    return (_out(y, out_dtype), g) if write_out else g
+
+
+banded_q_bsr_spmm_gram.launches = 0
+
+
+KERNELS = (banded_bsr_spmm, bsr_spmm, banded_bsr_spmm_gram,
+           banded_q_bsr_spmm, banded_q_bsr_spmm_gram)
 
 
 def reset_launch_counts() -> None:

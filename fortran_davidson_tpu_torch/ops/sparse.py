@@ -1,10 +1,12 @@
-"""Block-sparse (BSR, block-ELL) operator and its generator (counterpart of
-``BSROperator`` and ``generate_banded_bsr`` in
+"""Block-sparse operators and their generators (counterpart of
+``BSROperator``, ``QuantizedBandedOperator``, ``generate_banded_bsr``,
+``quantize_banded_int8`` and ``generate_banded_bsr_quantized`` in
 ``fortran_davidson_tpu/ops/sparse.py``).
 
-``matmat`` always goes through the SpMM wrappers of
+``matmat`` and ``matmat_with_gram`` go through the wrappers of
 :mod:`fortran_davidson_tpu_torch.ops.kernels`: the CUDA kernels for
-tensors on a GPU, their plain versions for tensors on the CPU.
+tensors on a GPU, their plain versions for tensors on the CPU. There is
+no ``backend`` field: the kernel follows the device.
 """
 
 from __future__ import annotations
@@ -137,6 +139,25 @@ class BSROperator(LinearOperator):
                                            out_dtype=target)
         return kernels.bsr_spmm(self.block_cols, blocks, x, out_dtype=target)
 
+    def matmat_with_gram(self, block, v=None, *, write_out: bool = True):
+        """Fused ``Y = A @ X`` and ``G = Vᵀ Y`` (``v=None``: V = X), G
+        float32 of shape (mv, m) (``ops/sparse.py:699-734``).
+
+        Banded storage runs the fused kernel; general storage takes the
+        two-pass composition (the same math, one more pass over Y).
+        Returns ``(Y, G)``, or ``G`` alone with ``write_out=False``.
+        """
+        if self.bandwidth is None:
+            return _two_pass_gram(self, block, block if v is None else v,
+                                  write_out)
+        target = block.dtype
+        compute = (self.dtype if self.dtype.itemsize < target.itemsize
+                   else target)
+        return kernels.banded_bsr_spmm_gram(
+            self.blocks.to(compute), block.to(compute).contiguous(),
+            None if v is None else v.to(compute), bandwidth=self.bandwidth,
+            write_out=write_out, out_dtype=target)
+
     def _blocks4(self):
         nbr, bs, kbs = self.blocks.shape
         return self.blocks.reshape(nbr, bs, kbs // bs, bs)
@@ -187,10 +208,18 @@ class BSROperator(LinearOperator):
 
     def astype(self, dtype) -> "BSROperator":
         """Recast the stored blocks (e.g. bfloat16 storage for float32
-        solves; the CUDA kernels take float32 and float64 only yet)."""
+        solves: the kernels sum bf16 products in float32)."""
         return BSROperator(self.block_cols,
                            self.blocks.to(as_torch_dtype(dtype)),
                            bandwidth=self.bandwidth)
+
+
+def _two_pass_gram(op, block, vv, write_out: bool):
+    """Two-pass composition of ``matmat_with_gram``
+    (``ops/sparse.py:549-556``): the apply, then a float32 product."""
+    y = op.matmat(block)
+    g = vv.to(torch.float32).T @ y.to(torch.float32)
+    return (y, g) if write_out else g
 
 
 def _dia_block_cols(nbr: int, bw: int):
@@ -237,3 +266,170 @@ def generate_banded_bsr(n_block_rows: int, bs: int, bandwidth: int = 1,
     del vals, dblocks
     return BSROperator(torch.from_numpy(_dia_block_cols(nbr, bw)),
                        torch.from_numpy(blocks), bandwidth=bw, device=device)
+
+
+class QuantizedBandedOperator(LinearOperator):
+    """int8-quantized DIA-banded BSR operator (``ops/sparse.py:938-1137``).
+
+    ``qblocks``: (nbr, bs, K*bs) int8, the OFF-diagonal part of the
+    operator, quantized with one float32 scale per (block row, band slot);
+    ``scale_rows``: (nbr, K*bs) float32, each slot's scale broadcast over
+    its lanes; ``diag``: (nbr, bs) float32, the exact matrix diagonal;
+    ``bandwidth``: the block bandwidth (K = 2*bw + 1). Off-diagonal entries
+    carry ~0.4% relative quantization error: bf16-class tolerances only.
+    Build with :func:`quantize_banded_int8` or
+    :func:`generate_banded_bsr_quantized`.
+    """
+
+    def __init__(self, qblocks, scale_rows, diag, bandwidth: int,
+                 device=None):
+        qblocks = torch.as_tensor(qblocks, device=device).to(torch.int8)
+        dev = qblocks.device
+        scale_rows = torch.as_tensor(scale_rows, device=dev).to(torch.float32)
+        diag = torch.as_tensor(diag, device=dev).to(torch.float32)
+        require(qblocks.ndim == 3, OperatorError,
+                f"quantized banded needs (nbr, bs, K*bs) int8 blocks, got "
+                f"{tuple(qblocks.shape)}")
+        nbr, bs, kbs = qblocks.shape
+        require(tuple(scale_rows.shape) == (nbr, kbs)
+                and tuple(diag.shape) == (nbr, bs), OperatorError,
+                f"quantized banded needs (nbr, K*bs) scales and (nbr, bs) "
+                f"diag for blocks {tuple(qblocks.shape)}; got "
+                f"{tuple(scale_rows.shape)} / {tuple(diag.shape)}")
+        require(kbs == (2 * bandwidth + 1) * bs, OperatorError,
+                "quantized banded needs DIA-aligned K == 2*bw+1 slots")
+        self.qblocks = qblocks.contiguous()
+        self.scale_rows = scale_rows.contiguous()
+        self.diag = diag.contiguous()
+        self.bandwidth = int(bandwidth)
+
+    @property
+    def block_size(self) -> int:
+        return self.qblocks.shape[1]
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.qblocks.shape[0]
+
+    @property
+    def shape(self):
+        n = self.n_block_rows * self.block_size
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.scale_rows.dtype
+
+    @property
+    def device(self):
+        return self.qblocks.device
+
+    def matmat(self, block):
+        return kernels.banded_q_bsr_spmm(
+            self.qblocks, self.scale_rows, self.diag, block.contiguous(),
+            self.bandwidth, out_dtype=block.dtype)
+
+    def matmat_with_gram(self, block, v=None, *, write_out: bool = True):
+        """Fused SpMM + Gram on int8 storage (see
+        :meth:`BSROperator.matmat_with_gram`)."""
+        return kernels.banded_q_bsr_spmm_gram(
+            self.qblocks, self.scale_rows, self.diag, block.contiguous(), v,
+            bandwidth=self.bandwidth, write_out=write_out,
+            out_dtype=block.dtype)
+
+    def matmat_ds(self, x_hi, x_lo):
+        raise NotImplementedError(
+            "QuantizedBandedOperator.matmat_ds is not ported to the torch "
+            "package yet; it waits for ROADMAP item 13 (the double-single "
+            "refined path)")
+
+    def diagonal(self):
+        return self.diag.reshape(-1)
+
+    def offdiag(self) -> "QuantizedBandedOperator":
+        """Exact: the diagonal is stored separately; zero it."""
+        return QuantizedBandedOperator(self.qblocks, self.scale_rows,
+                                       torch.zeros_like(self.diag),
+                                       bandwidth=self.bandwidth)
+
+    def to_dense(self):
+        deq = self.qblocks.to(torch.float32) * self.scale_rows[:, None, :]
+        cols = torch.from_numpy(_dia_block_cols(self.n_block_rows,
+                                                self.bandwidth))
+        base = BSROperator(cols, deq, bandwidth=self.bandwidth)
+        return base.to_dense() + torch.diag(self.diagonal())
+
+
+def quantize_banded_int8(op: BSROperator) -> QuantizedBandedOperator:
+    """Quantize a DIA-aligned banded :class:`BSROperator` to int8 storage
+    (``ops/sparse.py:1145-1169``): per band slot of each block row,
+    symmetric int8 quantization of the off-diagonal entries (scale =
+    max|block| / 127); the diagonal is split out and kept exact in
+    float32."""
+    require(op.bandwidth is not None, OperatorError,
+            "quantize_banded_int8 needs window-aligned banded storage "
+            "(BSROperator(..., bandwidth=bw))")
+    nbr, bs, kbs = op.blocks.shape
+    K = kbs // bs
+    b4 = op.offdiag().blocks.to(torch.float32).reshape(nbr, bs, K, bs)
+    amax = torch.amax(torch.abs(b4), dim=(1, 3))              # (nbr, K)
+    scales = torch.where(amax > 0, amax / 127.0,
+                         torch.ones((), dtype=torch.float32))
+    q4 = torch.clamp(torch.round(b4 / scales[:, None, :, None]),
+                     -127, 127).to(torch.int8)
+    scale_rows = scales[:, :, None].expand(nbr, K, bs).reshape(nbr, K * bs)
+    diag = op.diagonal().to(torch.float32).reshape(nbr, bs)
+    return QuantizedBandedOperator(q4.reshape(nbr, bs, K * bs), scale_rows,
+                                   diag, bandwidth=op.bandwidth)
+
+
+def generate_banded_bsr_quantized(n_block_rows: int, bs: int,
+                                  bandwidth: int = 1,
+                                  coupling: float = 1e-3, seed: int = 0,
+                                  device=None) -> QuantizedBandedOperator:
+    """Generate and int8-quantize a banded operator on the host
+    (``ops/sparse.py:1172-1227``), so only the int8 blocks and the float32
+    scales and diagonal reach the device. Bit-equal to the JAX package's:
+    the same numpy draws, assembly and quantization, in the same order.
+    """
+    rng = np.random.default_rng(seed)
+    dt = np.float32
+    nbr, bw = n_block_rows, bandwidth
+    K = 2 * bw + 1
+    require(nbr >= K, OperatorError,
+            f"need at least K={K} block rows for bandwidth {bw}")
+    vals = np.zeros((nbr, K, bs, bs), dt)
+    for d in range(1, bw + 1):
+        cnt = nbr - d
+        if cnt <= 0:
+            continue
+        blocks = (rng.random((cnt, bs, bs)).astype(dt) - 0.5) * coupling
+        r = np.arange(cnt)
+        vals[r, bw + d] = blocks
+        vals[r + d, bw - d] = blocks.transpose(0, 2, 1)
+    dblocks = (rng.random((nbr, bs, bs)).astype(dt) - 0.5) * coupling
+    dblocks = dblocks + dblocks.transpose(0, 2, 1)
+    diag = np.arange(1, nbr * bs + 1, dtype=dt).reshape(nbr, bs)
+    idx = np.arange(bs)
+    dblocks[:, idx, idx] = diag
+    vals[:, bw] = dblocks
+    del dblocks
+    # b4[r, i, k, j] == vals[r, k, i, j] (the stored row-major layout),
+    # with the centre slot's diagonal zeroed for the off-diagonal split.
+    b4 = vals.transpose(0, 2, 1, 3).copy()
+    del vals
+    b4[:, idx, bw, idx] = 0.0
+    amax = np.max(np.abs(b4), axis=(1, 3))              # (nbr, K)
+    scales = np.where(amax > 0, amax / dt(127.0), dt(1.0)).astype(dt)
+    # clip(round(b4 / s)), in place: the same float32 operations.
+    np.divide(b4, scales[:, None, :, None], out=b4)
+    np.round(b4, out=b4)
+    np.clip(b4, -127, 127, out=b4)
+    q4 = b4.astype(np.int8)
+    del b4
+    scale_rows = np.broadcast_to(
+        scales[:, :, None], (nbr, K, bs)).reshape(nbr, K * bs)
+    return QuantizedBandedOperator(
+        torch.from_numpy(q4.reshape(nbr, bs, K * bs)),
+        torch.from_numpy(np.ascontiguousarray(scale_rows)),
+        torch.from_numpy(diag), bandwidth=bw, device=device)

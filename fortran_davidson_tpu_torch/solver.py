@@ -8,6 +8,7 @@ operator's device.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Optional
 
@@ -53,6 +54,19 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
                 f"B lives on {B.device}, A on {A.device}")
     cfg = resolve_options(opts, lowest, A.shape[0], generalized=B is not None,
                           device=A.device)
+    if (opts.fused_gram in ("auto", "on") and B is None
+            and cfg.expansion == "lowest-k" and cfg.dtype == "float32"
+            and hasattr(A, "matmat_with_gram")
+            # "auto" also asks for wide blocks (the JAX package's gate,
+            # ``fortran_davidson_tpu/solver.py:69-85``, kept as it is until
+            # an H100 A/B decides it anew); "on" forces the engine. The
+            # refined path, which never takes it, raises before this.
+            and (opts.fused_gram == "on"
+                 or (lowest >= 128 and cfg.m_max % 128 == 0))):
+        # Incremental-H engine: the expand block's projection columns come
+        # from the operator's fused SpMM+Gram. Capability is an operator
+        # property, so the flag resolves here, not in resolve_options.
+        cfg = dataclasses.replace(cfg, fused_gram=True)
     X0 = validate_initial_vectors(initial_vectors, A.shape[0], cfg.init_dim,
                                   dt, device=A.device)
     return _engine(cfg, A, B, X0=X0)

@@ -13,7 +13,8 @@ from typing import Tuple
 
 import torch
 
-from fortran_davidson_tpu_torch.core.orthogonal import cholesky_nan, cholqr2
+from fortran_davidson_tpu_torch.core.orthogonal import (cholesky_nan, cholqr2,
+                                                        eigh)
 from fortran_davidson_tpu_torch.utils.errors import NumericalError
 
 
@@ -22,12 +23,12 @@ def generalized_eigensolver(H, S=None) -> Tuple[torch.Tensor, torch.Tensor]:
     (``src/lapack_wrapper.f90:14-91``). With S, eigenvectors come back
     S-orthonormal."""
     if S is None:
-        return torch.linalg.eigh(H)
+        return eigh(H)
     L = cholesky_nan(S)
     C1 = torch.linalg.solve_triangular(L, H, upper=False)
     C = torch.linalg.solve_triangular(L, C1.T, upper=False).T
     C = 0.5 * (C + C.T)
-    w, Y = torch.linalg.eigh(C)
+    w, Y = eigh(C)
     return w, torch.linalg.solve_triangular(L.T, Y, upper=True)
 
 

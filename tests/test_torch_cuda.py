@@ -31,6 +31,13 @@ def _tol(dtype):
     return dict(rtol=1e-5, atol=1e-4)
 
 
+def _assert_gram_close(g, g_plain, v, y, rel=1e-5):
+    """Elementwise |G - G_plain| <= rel * (|V|ᵀ|Y|): G sums n products
+    with cancellation, so max|G| is the wrong yardstick."""
+    bound = rel * (v.abs().double().T @ y.abs().double()) + 1e-30
+    assert bool(torch.all((g.double() - g_plain.double()).abs() <= bound))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("m", [1, 20, 64, 130])
 def test_kernels_match_plain(cuda_device, dtype, m):
@@ -49,6 +56,90 @@ def test_kernels_match_plain(cuda_device, dtype, m):
         y, kernels.bsr_spmm_plain(op.block_cols, op.blocks, x), **_tol(dtype))
 
 
+@pytest.mark.parametrize("m", [3, 48, 130])
+def test_bf16_storage_writes_f32_sums(cuda_device, m):
+    op = fdtt.generate_banded_bsr(37, 16, bandwidth=2, seed=3,
+                                  dtype=torch.float32, device=cuda_device)
+    blocks = op.blocks.to(torch.bfloat16)
+    x = torch.randn((op.shape[0], m), device=cuda_device).to(torch.bfloat16)
+    y = kernels.banded_bsr_spmm(blocks, x, 2, out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    # Exact products of bf16 values, summed in float32 in another order.
+    torch.testing.assert_close(
+        y, kernels.banded_bsr_spmm_plain(blocks, x, 2,
+                                         out_dtype=torch.float32),
+        rtol=1e-5, atol=1e-5)
+    y = kernels.bsr_spmm(op.block_cols, blocks, x, out_dtype=torch.float32)
+    torch.testing.assert_close(
+        y, kernels.bsr_spmm_plain(op.block_cols, blocks, x,
+                                  out_dtype=torch.float32),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,mv", [(4, None), (20, 40), (33, 70)])
+@pytest.mark.parametrize("write_out", [True, False])
+def test_gram_kernels_match_plain(cuda_device, m, mv, write_out):
+    dev = cuda_device
+    op = fdtt.generate_banded_bsr(17, 24, bandwidth=2, seed=4,
+                                  dtype=torch.float32, device=dev)
+    q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=2, seed=4,
+                                           device=dev)
+    n = op.shape[0]
+    x = torch.randn((n, m), device=dev)
+    v = None if mv is None else torch.randn((n, mv + 5), device=dev)[:, :mv]
+    vv = x if v is None else v
+    cases = [
+        (kernels.banded_bsr_spmm_gram, kernels.banded_bsr_spmm_gram_plain,
+         (op.blocks,)),
+        (kernels.banded_q_bsr_spmm_gram, kernels.banded_q_bsr_spmm_gram_plain,
+         (q.qblocks, q.scale_rows, q.diag)),
+    ]
+    for kernel, plain, lead in cases:
+        before = kernel.launches
+        out = kernel(*lead, x, v, bandwidth=2, write_out=write_out)
+        assert kernel.launches == before + 1
+        ref = plain(*lead, x, v, bandwidth=2, write_out=True)
+        g = out[1] if write_out else out
+        assert g.dtype == torch.float32 and g.shape == (vv.shape[1], m)
+        if write_out:
+            torch.testing.assert_close(out[0], ref[0], **_tol(torch.float32))
+        _assert_gram_close(g, ref[1], vv, ref[0])
+        again = kernel(*lead, x, v, bandwidth=2, write_out=write_out)
+        g2 = again[1] if write_out else again
+        assert torch.equal(g, g2), "the gram reduction is not deterministic"
+
+
+def test_gram_kernel_f64_and_bf16(cuda_device):
+    dev = cuda_device
+    op = fdtt.generate_banded_bsr(16, 8, bandwidth=1, seed=5, device=dev)
+    x = torch.randn((op.shape[0], 6), dtype=torch.float64, device=dev)
+    y, g = kernels.banded_bsr_spmm_gram(op.blocks, x, bandwidth=1)
+    yp, gp = kernels.banded_bsr_spmm_gram_plain(op.blocks, x, bandwidth=1)
+    torch.testing.assert_close(y, yp, **_tol(torch.float64))
+    _assert_gram_close(g, gp, x, yp, rel=1e-6)
+    blocks, xb = op.blocks.to(torch.bfloat16), x.to(torch.bfloat16)
+    y, g = kernels.banded_bsr_spmm_gram(blocks, xb, bandwidth=1,
+                                        out_dtype=torch.float32)
+    yp, gp = kernels.banded_bsr_spmm_gram_plain(blocks, xb, bandwidth=1,
+                                                out_dtype=torch.float32)
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    # Y is staged as bf16 for the gram; a sum in another order may round to
+    # the neighbouring bf16 value: one bf16 ulp (2^-8) of |V|ᵀ|Y|.
+    _assert_gram_close(g, gp, xb.float(), yp, rel=2.0 ** -8)
+
+
+def test_int8_kernel_matches_plain(cuda_device):
+    q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=2, seed=6,
+                                           device=cuda_device)
+    x = torch.randn((q.shape[0], 20), device=cuda_device)
+    before = kernels.banded_q_bsr_spmm.launches
+    y = q.matmat(x)
+    assert kernels.banded_q_bsr_spmm.launches == before + 1
+    torch.testing.assert_close(
+        y, kernels.banded_q_bsr_spmm_plain(q.qblocks, q.scale_rows, q.diag,
+                                           x, 2), **_tol(torch.float32))
+
+
 def test_edge_rows_never_read_past_the_window(cuda_device):
     # Inf/NaN in x rows that only zero blocks touch must not leak into y.
     op = fdtt.generate_banded_bsr(8, 4, bandwidth=2, seed=2,
@@ -59,13 +150,26 @@ def test_edge_rows_never_read_past_the_window(cuda_device):
     torch.testing.assert_close(y, op.to_dense() @ x, **_tol(torch.float64))
 
 
-def test_rejects_bf16_and_mixed_types(cuda_device):
-    blocks = torch.zeros((4, 2, 6), dtype=torch.bfloat16, device=cuda_device)
-    x = torch.zeros((8, 1), dtype=torch.bfloat16, device=cuda_device)
+def test_types_without_a_kernel_raise(cuda_device):
+    # A CUDA tensor of a type no kernel takes raises; it never falls back
+    # to the plain version.
+    dev = cuda_device
+    blocks = torch.zeros((4, 2, 6), dtype=torch.float16, device=dev)
+    x = torch.zeros((8, 1), dtype=torch.float16, device=dev)
     with pytest.raises(NotImplementedError):
         kernels.banded_bsr_spmm(blocks, x, 1, out_dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         kernels.banded_bsr_spmm(blocks.double(), x.float(), 1)
+    with pytest.raises(NotImplementedError):
+        kernels.banded_bsr_spmm_gram(blocks.float(), x.float(),
+                                     x.double(), bandwidth=1)
+    q = fdtt.generate_banded_bsr_quantized(4, 2, bandwidth=1, device=dev)
+    before = kernels.banded_q_bsr_spmm.launches
+    with pytest.raises(NotImplementedError):
+        q.matmat(x.double())
+    with pytest.raises(NotImplementedError):
+        q.matmat_with_gram(x.double())
+    assert kernels.banded_q_bsr_spmm.launches == before
 
 
 def test_solver_on_the_card_matches_dense(cuda_device):
@@ -77,3 +181,66 @@ def test_solver_on_the_card_matches_dense(cuda_device):
     want = torch.linalg.eigvalsh(op.to_dense().cpu())[:3]
     torch.testing.assert_close(res.eigenvalues.cpu(), want, rtol=0, atol=1e-9)
     assert res.eigenvectors.device.type == "cuda"
+
+
+def test_bf16_storage_solve_on_the_card(cuda_device):
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    before = kernels.banded_bsr_spmm.launches
+    res = fdtt.eigensolve(op.astype(torch.bfloat16), 3, dtype="float32",
+                          relative_tolerance=True, tolerance=1e-3)
+    assert res.converged and kernels.banded_bsr_spmm.launches > before
+    want = torch.linalg.eigvalsh(op.to_dense().cpu())[:3]
+    # bf16 storage perturbs the operator by ~2^-9 of its entries.
+    torch.testing.assert_close(res.eigenvalues.cpu().double(), want,
+                               rtol=1e-2, atol=0)
+
+
+def test_fused_engine_on_the_card(cuda_device):
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, seed=0,
+                                  dtype=torch.float32, device=cuda_device)
+    kw = dict(dtype="float32", expansion="lowest-k", relative_tolerance=True,
+              tolerance=1e-4, max_iterations=60, max_dim_sub=8, init_dim=6)
+    for A, kernel in ((op, kernels.banded_bsr_spmm_gram),
+                      (fdtt.quantize_banded_int8(op),
+                       kernels.banded_q_bsr_spmm_gram)):
+        before = kernel.launches
+        on = fdtt.eigensolve(A, 3, fused_gram="on", **kw)
+        assert on.converged and kernel.launches > before
+        off = fdtt.eigensolve(A, 3, fused_gram="off", **kw)
+        assert abs(on.iterations - off.iterations) <= 2
+        torch.testing.assert_close(on.eigenvalues, off.eigenvalues,
+                                   rtol=1e-5, atol=0)
+
+
+def test_float32_eigh_on_the_card_is_accurate(cuda_device):
+    # cuSOLVER's float32 eigh loses ~1e-4 of ‖M‖ (3.6e-2 here); the port's
+    # eigh takes float32 matrices in float64, to LAPACK's float32 accuracy
+    # or better: within 64 eps ‖M‖ of the float64 spectrum.
+    from fortran_davidson_tpu_torch.core import orthogonal
+    g = torch.Generator().manual_seed(0)
+    w = 400
+    M = torch.randn((w, w), generator=g, dtype=torch.float64)
+    M = M + M.T + torch.diag(torch.arange(w, dtype=torch.float64))
+    want = torch.linalg.eigvalsh(M)
+    lam, U = orthogonal.eigh(M.float().to(cuda_device))
+    assert lam.dtype == U.dtype == torch.float32
+    bound = 64 * torch.finfo(torch.float32).eps * float(torch.linalg.norm(M, 2))
+    assert float((lam.cpu().double() - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("max_dim_sub", [None, 256])
+def test_auto_engine_at_k128_on_the_card(cuda_device, max_dim_sub):
+    # The gate's own case on a matrix that expands twice (and with
+    # max_dim_sub=256, collapses): "auto" runs kernel 3 and returns pairs
+    # whose true relative residual meets the tolerance.
+    op = fdtt.generate_banded_bsr(32, 128, bandwidth=1, coupling=3.0, seed=0,
+                                  dtype=torch.float32, device=cuda_device)
+    before = kernels.banded_bsr_spmm_gram.launches
+    res = fdtt.eigensolve(op, 128, dtype="float32", expansion="lowest-k",
+                          relative_tolerance=True, tolerance=1e-3,
+                          max_dim_sub=max_dim_sub)
+    assert res.converged and kernels.banded_bsr_spmm_gram.launches > before
+    X, lam = res.eigenvectors.double(), res.eigenvalues.double()
+    r = torch.linalg.vector_norm(op.to_dense().double() @ X - X * lam, dim=0)
+    assert bool(torch.all(r <= 1e-3 * lam.abs().clamp(min=1.0)))

@@ -14,7 +14,8 @@ import torch
 
 from fortran_davidson_tpu.ops import pallas_kernels as pk
 from fortran_davidson_tpu.ops.sparse import BSROperator as JaxBSR
-from fortran_davidson_tpu.ops.sparse import generate_banded_bsr
+from fortran_davidson_tpu.ops.sparse import (generate_banded_bsr,
+                                             quantize_banded_int8)
 from fortran_davidson_tpu_torch.ops import kernels
 from tests.torch_parity import to_numpy
 
@@ -111,6 +112,24 @@ def test_bf16_storage_accumulates_in_f32():
                                atol=1e-5 * float(np.max(np.abs(ref))))
 
 
+def test_bf16_storage_general_accumulates_in_f32():
+    # As above, for the general kernel on a scrambled pattern.
+    brows, bcols, vals, nbr = _scrambled()
+    op = JaxBSR.from_block_coo(brows, bcols, vals.astype(np.float32), nbr,
+                               pad_width=9)
+    X = _x(op.shape[0], 8, jnp.float32, seed=4)
+    ref = pk.bsr_spmm(op.block_cols, op.blocks.astype(jnp.bfloat16),
+                      jnp.asarray(X).astype(jnp.bfloat16), interpret=True,
+                      out_dtype=jnp.float32)
+    out = kernels.bsr_spmm(
+        torch.from_numpy(np.array(op.block_cols)),
+        torch.from_numpy(np.array(op.blocks)).to(torch.bfloat16),
+        torch.from_numpy(X).to(torch.bfloat16), out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(to_numpy(out), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5 * float(np.max(np.abs(ref))))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     op = generate_banded_bsr(16, 8, bandwidth=1, seed=3)
     blocks = torch.from_numpy(np.array(op.blocks))
@@ -138,7 +157,163 @@ def test_wrappers_reject_bad_shapes():
                          torch.zeros((8, 1)))
 
 
-def test_source_hash_names_the_build():
+def test_source_hash_names_the_build(tmp_path, monkeypatch):
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR
-    assert path.name.startswith("libfdt_bsr_spmm_") and path.suffix == ".so"
+    assert path.name.startswith("libfdt_kernels_") and path.suffix == ".so"
+    assert {p.name for p in kernels.sources()} >= {"bsr_spmm.cu",
+                                                   "banded_gram.cu"}
+    # Every file under csrc/ names the build, headers included.
+    for f in kernels.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    assert kernels.library_path() == path
+    for name in ("banded_gram.cu", "spmm_tile.cuh"):
+        with open(tmp_path / name, "a") as fh:
+            fh.write("\n")
+        changed = kernels.library_path()
+        assert changed != path
+        path = changed
+
+
+# -- the fused SpMM+Gram and int8 kernels (#3-#5) ------------------------
+# Shapes where banded_pallas_supported holds (nbr % 8 == 0, nbr >= 16).
+
+def _gram_bound(v, y, rel):
+    """Elementwise bound rel * (|V|ᵀ|Y|): G sums n products with
+    cancellation, so max|G| is the wrong yardstick."""
+    return rel * (np.abs(np.asarray(v, np.float64)).T
+                  @ np.abs(np.asarray(y, np.float64)))
+
+
+def _split_gram(out, ref, gram_cols, m, write_out, y_rtol=1e-5):
+    """Check Y (when written) to ``y_rtol`` of max|Y| and G's type and
+    shape; return the port's and the Pallas kernel's G."""
+    if write_out:
+        y, g = (to_numpy(t) for t in out)
+        y_ref, g_ref = (np.asarray(t, np.float32) for t in ref)
+        np.testing.assert_allclose(
+            y, y_ref, rtol=y_rtol, atol=y_rtol * np.max(np.abs(y_ref)))
+    else:
+        g, g_ref = to_numpy(out), np.asarray(ref)
+    assert g.dtype == np.float32 and g.shape == (gram_cols, m)
+    return g, g_ref
+
+
+GRAM_CASES = [(nbr, bw, m, mv, wo)
+              for nbr, bw in [(16, 1), (24, 2)]
+              for m, mv in [(4, None), (20, 12)]
+              for wo in (True, False)]
+
+
+@pytest.mark.parametrize("nbr,bw,m,mv,write_out", GRAM_CASES)
+def test_gram_plain_matches_pallas(nbr, bw, m, mv, write_out):
+    # f32: Y to 1e-5 of max|Y|; G elementwise to 1e-5 of |V|ᵀ|Y| (the same
+    # products summed in another order).
+    op = generate_banded_bsr(nbr, 8, bandwidth=bw, seed=11, dtype=jnp.float32)
+    n = op.shape[0]
+    X = _x(n, m, jnp.float32, seed=4)
+    V = None if mv is None else _x(n, mv, jnp.float32, seed=5)
+    ref = pk.banded_bsr_spmm_gram(
+        op.blocks, jnp.asarray(X), None if V is None else jnp.asarray(V),
+        bandwidth=bw, write_out=write_out, interpret=True)
+    out = kernels.banded_bsr_spmm_gram(
+        torch.from_numpy(np.array(op.blocks)), torch.from_numpy(X),
+        None if V is None else torch.from_numpy(V), bandwidth=bw,
+        write_out=write_out)
+    g, g_ref = _split_gram(out, ref, m if V is None else mv, m, write_out)
+    Y = np.asarray(op.matmat(jnp.asarray(X)), np.float64)
+    assert np.all(np.abs(g - g_ref)
+                  <= _gram_bound(X if V is None else V, Y, 1e-5))
+
+
+@pytest.mark.parametrize("write_out", [True, False])
+@pytest.mark.parametrize("mv", [None, 12])
+def test_gram_plain_bf16_storage(mv, write_out):
+    # bf16 blocks, x and v, f32 sums; Y is staged as bf16 for the gram, as
+    # in the TPU kernel. Y to 1e-5 (exact products, another summation
+    # order); G to one bf16 ulp (2^-8) of |V|ᵀ|Y|: a Y sum in another
+    # order may round to the neighbouring bf16 value.
+    op = generate_banded_bsr(16, 8, bandwidth=1, seed=7, dtype=jnp.bfloat16)
+    n = op.shape[0]
+    X = jnp.asarray(_x(n, 8, jnp.float32, seed=6)).astype(jnp.bfloat16)
+    V = (None if mv is None else
+         jnp.asarray(_x(n, mv, jnp.float32, seed=8)).astype(jnp.bfloat16))
+    ref = pk.banded_bsr_spmm_gram(op.blocks, X, V, bandwidth=1,
+                                  write_out=write_out, interpret=True,
+                                  out_dtype=jnp.float32)
+    tb = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16)
+    out = kernels.banded_bsr_spmm_gram(
+        tb(op.blocks), tb(X), None if V is None else tb(V), bandwidth=1,
+        write_out=write_out, out_dtype=torch.float32)
+    Xf = np.asarray(X, np.float32)
+    Vf = Xf if V is None else np.asarray(V, np.float32)
+    g, g_ref = _split_gram(out, ref, Vf.shape[1], 8, write_out)
+    if write_out:
+        assert out[0].dtype == torch.float32
+    y = kernels.banded_bsr_spmm_plain(tb(op.blocks), tb(X), 1,
+                                      out_dtype=torch.float32)
+    assert np.all(np.abs(g - g_ref)
+                  <= _gram_bound(Vf, to_numpy(y), 2.0 ** -8))
+
+
+def _quantized(nbr, bw, seed):
+    return quantize_banded_int8(generate_banded_bsr(
+        nbr, 8, bandwidth=bw, coupling=1e-3, seed=seed, dtype=jnp.float32))
+
+
+def _q_torch(q):
+    return tuple(torch.from_numpy(np.array(a))
+                 for a in (q.qblocks, q.scale_rows, q.diag))
+
+
+@pytest.mark.parametrize("nbr,bw,m", [(16, 1, 4), (24, 2, 20), (32, 3, 7)])
+def test_int8_plain_matches_pallas(nbr, bw, m):
+    # f32 sums of the same dequantized products in another order: 1e-5 of
+    # max|Y|.
+    q = _quantized(nbr, bw, seed=nbr)
+    X = _x(q.shape[0], m, jnp.float32, seed=9)
+    ref = pk.banded_q_bsr_spmm(q.qblocks, q.scale_rows, q.diag,
+                               jnp.asarray(X), bandwidth=bw, interpret=True)
+    out = kernels.banded_q_bsr_spmm(*_q_torch(q), torch.from_numpy(X), bw)
+    assert out.dtype == torch.float32
+    _assert_close(out, ref, jnp.float32)
+
+
+@pytest.mark.parametrize("nbr,bw,m,mv,write_out", GRAM_CASES)
+def test_int8_gram_plain_matches_pallas(nbr, bw, m, mv, write_out):
+    # As test_gram_plain_matches_pallas, on int8 storage.
+    q = _quantized(nbr, bw, seed=nbr + 1)
+    n = q.shape[0]
+    X = _x(n, m, jnp.float32, seed=10)
+    V = None if mv is None else _x(n, mv, jnp.float32, seed=11)
+    ref = pk.banded_q_bsr_spmm_gram(
+        q.qblocks, q.scale_rows, q.diag, jnp.asarray(X),
+        None if V is None else jnp.asarray(V), bandwidth=bw,
+        write_out=write_out, interpret=True)
+    out = kernels.banded_q_bsr_spmm_gram(
+        *_q_torch(q), torch.from_numpy(X),
+        None if V is None else torch.from_numpy(V), bandwidth=bw,
+        write_out=write_out)
+    g, g_ref = _split_gram(out, ref, m if V is None else mv, m, write_out)
+    Y = np.asarray(q.matmat(jnp.asarray(X)), np.float64)
+    assert np.all(np.abs(g - g_ref)
+                  <= _gram_bound(X if V is None else V, Y, 1e-5))
+
+
+def test_new_wrappers_take_the_plain_version_on_the_cpu():
+    q = _quantized(16, 1, seed=3)
+    lead = _q_torch(q)
+    X = torch.from_numpy(_x(q.shape[0], 4, jnp.float32))
+    counts = [fn.launches for fn in kernels.KERNELS]
+    y = kernels.banded_q_bsr_spmm(*lead, X, 1)
+    y2, g = kernels.banded_q_bsr_spmm_gram(*lead, X, bandwidth=1)
+    assert [fn.launches for fn in kernels.KERNELS] == counts
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(g, X.T @ y, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        kernels.banded_q_bsr_spmm(lead[0], lead[1][:, :8], lead[2], X, 1)
+    with pytest.raises(ValueError):
+        kernels.banded_bsr_spmm_gram(torch.zeros((16, 8, 24)), X,
+                                     torch.zeros((5, 2)), bandwidth=1)
