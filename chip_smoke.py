@@ -21,6 +21,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      max|Y|, and G elementwise within 1e-5 * (|V|ᵀ|Y|) (G sums ~10⁶
      products with cancellation, so max|G| is the wrong yardstick); the
      G reduction must give the same bits twice.
+   - the halo kernels (6: banded SpMM over a shard's halo-extended rows,
+     7: its int8 form), ragged and at full size (f64 m = 6-160, int8
+     m = 20, 40), and four shards on one card: both matrices cut into
+     four row slabs, each applied by kernel 6/7 to its ring-wrapped
+     x_ext; put together they must equal kernel 1 on the whole matrix
+     bit for bit (f64) and kernel 4 within 1e-7 of max|Y|.
 4. Main path: ``eigensolve(A, 3)`` and ``eigensolve(A, 20)`` with default
    options on the 1,048,576-row banded BSR matrix
    ``generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3, seed=0)``
@@ -52,17 +58,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    k=128 on the same matrix (``"auto"``, four iterations) and, as
    ``bench.py:701-716`` runs it, k=20 on the int8 matrix (``"on"``,
    kernel 5, eight iterations, eigenvalues to 1e-5 relative).
-8. Prints the solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-7, each counted from 0 over its own phase; for kernels 3 and
+8. The row-sharded solve at world size 1 over a one-rank NCCL group
+   (``parallel.multihost.initialize``, ``file://`` store): lowest-3 and
+   lowest-20 on the 1M-row matrix as a ``HaloBSROperator`` (kernel 6),
+   and the int8 loose stage through ``shard_operator`` (kernel 7), each
+   held to phase 4's or 6's single-device solve (same iterations,
+   eigenvalues to 1e-10 / 1e-5 relative, true residuals); the shards are
+   views of the global tables; kernels 1 and 4 never launch. Times the
+   halo exchange.
+9. Prints the solves' and kernels' JSON lines (launch counts of the solve
+   phases 4-8, each counted from 0 over its own phase; for kernels 3 and
    5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
-   |G_k - G_p| / (|V|ᵀ|Y|)), the card's name and power limit, and as the
-   last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   |G_k - G_p| / (|V|ᵀ|Y|); each kernel's ``bound_ms``, the larger of its
+   bytes over 3.35 TB/s and its operations over the H100's peak for their
+   type, and ``library_ms``, one ``torch.sparse_bsr_tensor`` product where
+   one computes the same function), the card's name and power limit, and
+   as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -76,6 +94,8 @@ SOURCES = {
     "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+    "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
+    "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
 }
 REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
@@ -84,6 +104,9 @@ REPLACES = {
     "banded_q_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu/ops/pallas_kernels.py:886",
+    "banded_ext_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:1190",
+    "banded_q_ext_bsr_spmm":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:1059",
 }
 # The case whose times stand in the kernels line: the main path's shape.
 MAIN_CASE = {
@@ -92,7 +115,20 @@ MAIN_CASE = {
     "banded_bsr_spmm_gram": ("float32", 128, 1408, True, "nbr=8192"),
     "banded_q_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_q_bsr_spmm_gram": ("float32", 20, 220, True, "nbr=16384"),
+    "banded_ext_bsr_spmm": ("float64", 40, None, True, "nbr=8192"),
+    "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
 }
+# The live widths of the sharded solves: f64 lowest-3 and lowest-20 (the
+# same as phase 4's), the int8 lowest-20 loose stage.
+EXT_WIDTHS = (6, 12, 24, 40, 80, 160)
+EXT_WIDTHS_Q = (20, 40)
+SLABS = 4
+# The least time the card could take (H100 SXM data sheet, dense, at
+# 700 W): HBM bytes/s, and FLOP/s by the type the
+# operations run in (float64 at the FP64 tensor-core rate; int8 storage
+# is dequantized into float32 operations).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5}
 GRAM_TOL = 1e-5
 SOLVE_TOL = 1e-8
@@ -137,8 +173,9 @@ def _dname(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def phase_kernels(A, A32, q, dev, record):
-    """Phase 3: every kernel against its plain version on the card."""
+def phase_kernels(A, A32, q, dev, record, slab_checks):
+    """Phase 3: every kernel against its plain version on the card, and
+    the four-slab check of kernels 6 and 7 (into ``slab_checks``)."""
     import numpy as np
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
@@ -259,7 +296,7 @@ def phase_kernels(A, A32, q, dev, record):
     ]
     for name, op, note, dtypes, widths in cases:
         kernel_rows = op.shape[0]
-        timed = op.shape[0] >= 1 << 20
+        timed = op.n_block_rows >= 8192  # the full-size matrix
         for dtype in dtypes:
             blocks = op.blocks.to(dtype)
             # bf16 storage returns the float32 sums (the solver's use).
@@ -316,8 +353,112 @@ def phase_kernels(A, A32, q, dev, record):
             for write_out in (True, False):
                 gram_case(name, kernel, plain, lead, op.shape[0], m, mv,
                           write_out, note, op.bandwidth, timed)
-    del rag32, ragq
+    del rag32
+
+    # -- kernels 6, 7: a shard's halo-extended input ((nbr + 2bw) * bs
+    #    rows), ragged first, then the full-size matrices at world size 1
+    ext_sets = [
+        (rag, "nbr=17 bs=8 bw=2", (f64, f32, bf16), (1, 3, 20, 130), False),
+        (A, "nbr=8192 bs=128 bw=1", (f64,), EXT_WIDTHS, True),
+        (ragq, "nbr=17 bs=24 bw=2", (f32,), (1, 20, 130), False),
+        (q, "nbr=16384 bs=128 bw=1", (f32,), EXT_WIDTHS_Q, True),
+    ]
+    for op, note, dtypes, widths, timed in ext_sets:
+        bw = op.bandwidth
+        kernel_rows = op.shape[0] + 2 * bw * op.block_size
+        for dtype in dtypes:
+            if hasattr(op, "qblocks"):
+                name = "banded_q_ext_bsr_spmm"
+                lead = (op.qblocks, op.scale_rows, op.diag)
+                kernel = (lambda x, ql=lead, bw=bw:
+                          kernels.banded_q_ext_bsr_spmm(*ql, x, bandwidth=bw))
+                plain = (lambda x, ql=lead, bw=bw:
+                         kernels.banded_q_ext_bsr_spmm_plain(*ql, x,
+                                                             bandwidth=bw))
+            else:
+                name = "banded_ext_bsr_spmm"
+                blocks = op.blocks.to(dtype)
+                out = torch.float32 if dtype == bf16 else dtype
+                kernel = (lambda x, b=blocks, bw=bw, o=out:
+                          kernels.banded_ext_bsr_spmm(b, x, bandwidth=bw,
+                                                      out_dtype=o))
+                plain = (lambda x, b=blocks, bw=bw, o=out:
+                         kernels.banded_ext_bsr_spmm_plain(b, x, bandwidth=bw,
+                                                           out_dtype=o))
+            for m in widths:
+                spmm_case(name, kernel, plain, dtype, m, note, timed)
+    del ragq
     torch.cuda.empty_cache()
+
+    # Kernels 6 and 7 side by side with kernels 1 and 4 at the same widths.
+    def ms_of(name, dtype, m, shape):
+        return next(r["ms"] for r in record if r["name"] == name
+                    and r["dtype"] == dtype and r["m"] == m and r["mv"] is None
+                    and r["ms"] is not None and shape in r["shape"])
+    for ext, base, dtype, shape, widths in (
+            ("banded_ext_bsr_spmm", "banded_bsr_spmm", "float64", "nbr=8192",
+             EXT_WIDTHS),
+            ("banded_q_ext_bsr_spmm", "banded_q_bsr_spmm", "float32",
+             "nbr=16384", EXT_WIDTHS_Q)):
+        pairs = ", ".join(f"m={m}: {ms_of(ext, dtype, m, shape):.4f} / "
+                          f"{ms_of(base, dtype, m, shape):.4f}"
+                          for m in widths)
+        print(f"  {ext} / {base} ms: {pairs}", flush=True)
+
+    slab_checks.update(four_slab_check(A, q, randn))
+
+
+def _ring_ext(x, lo: int, hi: int, halo: int):
+    """Rows [lo - halo, hi + halo) of x, wrapped around the ring: the
+    halo-extended input that the exchange gives the slab [lo, hi)."""
+    import torch
+    idx = torch.arange(lo - halo, hi + halo, device=x.device) % x.shape[0]
+    return x[idx]
+
+
+def four_slab_check(A, q, randn) -> dict:
+    """Four shards on one card: cut A's and q's tables into SLABS row slabs,
+    apply kernels 6 and 7 slab by slab to each slab's ring-wrapped x_ext,
+    and hold the rows put together against kernels 1 and 4 on the whole
+    matrix. The kernels share one tile and differ only in masking (at the
+    ring's ends the wrapped rows meet zero blocks), so f64 must agree bit
+    for bit and f32 within 1e-7 of max|Y|. Returns name -> worst error."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    worst = {}
+    for op in (A, q):
+        bs, bw = op.block_size, op.bandwidth
+        nl = op.n_block_rows // SLABS
+        quant = hasattr(op, "qblocks")
+        tables = ((op.qblocks, op.scale_rows, op.diag) if quant
+                  else (op.blocks,))
+        for m in (20, 40):
+            x = randn(op.shape[0], m, torch.float32 if quant
+                      else torch.float64)
+            if quant:
+                whole = kernels.banded_q_bsr_spmm(*tables, x, bw)
+                apply = kernels.banded_q_ext_bsr_spmm
+                name = "banded_q_ext_bsr_spmm"
+            else:
+                whole = kernels.banded_bsr_spmm(*tables, x, bw)
+                apply = kernels.banded_ext_bsr_spmm
+                name = "banded_ext_bsr_spmm"
+            parts = [apply(*(t[s * nl:(s + 1) * nl] for t in tables),
+                           _ring_ext(x, s * nl * bs, (s + 1) * nl * bs,
+                                     bw * bs), bandwidth=bw)
+                     for s in range(SLABS)]
+            err = float(torch.max(torch.abs(torch.cat(parts) - whole)))
+            rel = err / float(torch.max(torch.abs(whole)))
+            print(f"  {SLABS} slabs of {name} vs the whole matrix, "
+                  f"{op.n_block_rows} block rows, m={m}: max_abs_err="
+                  f"{err:.3e} rel={rel:.3e}", flush=True)
+            _check(err == 0.0 if not quant else rel <= 1e-7,
+                   f"{name}: {SLABS} slabs differ from the whole matrix by "
+                   f"{err:.3e} (rel {rel:.3e}) at m={m}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            del x, whole, parts
+    torch.cuda.empty_cache()
+    return worst
 
 
 def _true_residual(op_blocks, bw, cols, X, lam, b_diag=None):
@@ -331,12 +472,15 @@ def _true_residual(op_blocks, bw, cols, X, lam, b_diag=None):
                                                     dim=0)))
 
 
-def _solve(label, A, k, B=None, **kw):
+def _solve(label, A, k, B=None, solver=None, **kw):
+    """One solve (``fdtt.eigensolve``, or ``solver`` with its signature)
+    timed on the host clock, synchronised on both ends."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
+    solver = fdtt.eigensolve if solver is None else solver
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = fdtt.eigensolve(A, k, second_matrix=B, **kw)
+    res = solver(A, k, second_matrix=B, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     dims = res.subspace_dims[:res.iterations].tolist()
@@ -350,14 +494,15 @@ def _solve(label, A, k, B=None, **kw):
     return res, wall
 
 
-def _solve_converged(label, A, k, B=None, **kw):
-    res, wall = _solve(label, A, k, B=B, **kw)
+def _solve_converged(label, A, k, B=None, solver=None, **kw):
+    res, wall = _solve(label, A, k, B=B, solver=solver, **kw)
     _check(res.converged, f"{label}: did not converge")
     return res, wall
 
 
-def phase_main(A, dev, solves):
-    """Phase 4: the default solve at k=3 and k=20, kernel vs plain path."""
+def phase_main(A, dev, solves, refs):
+    """Phase 4: the default solve at k=3 and k=20, kernel vs plain path;
+    ``refs[k]`` keeps each kernel-path result and its warm wall."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     from fortran_davidson_tpu_torch.ops import kernels
@@ -397,6 +542,9 @@ def phase_main(A, dev, solves):
         _check(out.iterations == ref.iterations,
                f"k={k}: {out.iterations} iterations vs {ref.iterations} plain")
         _check(dev_eval <= 1e-9, f"k={k}: eigenvalues differ by {dev_eval:.3e}")
+        refs[k] = dict(iterations=out.iterations,
+                       eigenvalues=out.eigenvalues.clone(),
+                       wall=walls["kernels"][-1])
         solves.append(dict(solve=f"banded f64 lowest-{k}", n=A.shape[0],
                            iterations=out.iterations, wall_s=walls["kernels"],
                            plain_wall_s=walls["plain"],
@@ -488,9 +636,10 @@ def _int8_true_residual(q, X, lam) -> float:
     return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
 
 
-def phase_int8(q, dev, solves):
+def phase_int8(q, dev, solves, refs):
     """Phase 6: the int8 loose stage at the JAX package's single-chip
-    north-star shape, kernel path against the plain path."""
+    north-star shape, kernel path against the plain path; ``refs["int8"]``
+    keeps the kernel-path result and its warm wall."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     from fortran_davidson_tpu_torch.ops import kernels
@@ -527,6 +676,9 @@ def phase_int8(q, dev, solves):
     _check(out.iterations == ref.iterations,
            f"int8: {out.iterations} iterations vs {ref.iterations} plain")
     _check(rel <= 1e-4, f"int8: eigenvalues differ by {rel:.3e} relative")
+    refs["int8"] = dict(iterations=out.iterations,
+                        eigenvalues=out.eigenvalues.clone(),
+                        wall=walls["kernels"][-1])
     solves.append(dict(solve="int8 banded f32 lowest-20 loose (1e-3 rel)",
                        n=q.shape[0], iterations=out.iterations,
                        wall_s=walls["kernels"], plain_wall_s=walls["plain"],
@@ -669,6 +821,246 @@ def phase_fused(q, dev, solves):
     torch.cuda.empty_cache()
 
 
+def phase_sharded(A, q, dev, solves, refs):
+    """Phase 8: the row-sharded solve at world size 1 over a one-rank NCCL
+    group, held to phases 4 and 6; then the halo exchange's time."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     HaloQuantizedOperator,
+                                                     RowMesh,
+                                                     eigensolve_sharded,
+                                                     multihost,
+                                                     shard_operator)
+    from fortran_davidson_tpu_torch.parallel.halo import extend, halo_slabs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = multihost.initialize(init_method=f"file://{tmp}/rendezvous",
+                                    world_size=1, rank=0, device=dev)
+        try:
+            backend = dist.get_backend(mesh.group)
+            print(f"  mesh: {mesh.size} rank over {backend} on {mesh.device}",
+                  flush=True)
+            _check(backend == "nccl", f"the mesh runs {backend}, not nccl")
+
+            def sharded(op, k, second_matrix=None, **kw):
+                return eigensolve_sharded(op, k, mesh,
+                                          second_matrix=second_matrix, **kw)
+
+            def runs(label, op, k, **kw):
+                """A cold and two warm sharded solves; the collectives of
+                the last one counted by kind."""
+                walls = []
+                for turn in ("cold", "warm", "warm"):
+                    with _counting_collectives(RowMesh) as calls:
+                        res, wall = _solve_converged(f"{label} [{turn}]", op, k,
+                                                     solver=sharded, **kw)
+                    walls.append(wall)
+                return res, walls, calls
+
+            H = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas")
+            _check(H.blocks.data_ptr() == A.blocks.data_ptr(),
+                   "the world-size-1 shard copied the blocks")
+            hq = shard_operator(q, mesh)
+            _check(isinstance(hq, HaloQuantizedOperator)
+                   and hq.qblocks.data_ptr() == q.qblocks.data_ptr(),
+                   "shard_operator(int8) is not a view HaloQuantizedOperator")
+            for k, op, kw in ((3, H, dict(tolerance=SOLVE_TOL)),
+                              (20, H, dict(tolerance=SOLVE_TOL)),
+                              ("int8", q, LOOSE)):
+                ref = refs[k]
+                lowest = 20 if k == "int8" else k
+                label = (f"eigensolve_sharded(q, 20) loose" if k == "int8"
+                         else f"eigensolve_sharded(Halo(A, pallas), {k})")
+                res, walls, calls = runs(label, op, lowest, **kw)
+                if k == "int8":
+                    true_res = _int8_true_residual(q, res.eigenvectors,
+                                                   res.eigenvalues)
+                    diff = float(torch.max(
+                        torch.abs(res.eigenvalues - ref["eigenvalues"])
+                        / torch.abs(ref["eigenvalues"])))
+                    limits = (1e-5, 1e-3)
+                else:
+                    true_res = _true_residual(A.blocks, 1, None,
+                                              res.eigenvectors,
+                                              res.eigenvalues)
+                    diff = float(torch.max(torch.abs(res.eigenvalues
+                                                     - ref["eigenvalues"])))
+                    limits = (1e-10, SOLVE_TOL)
+                warm = min(walls[1:])
+                print(f"  sharded {k}: iterations {res.iterations} (single "
+                      f"device {ref['iterations']}) eigenvalue diff "
+                      f"{diff:.3e} true residual {true_res:.3e}; warm wall "
+                      f"{warm:.4f} s (single device {ref['wall']:.4f} s); "
+                      f"collectives per solve {calls}", flush=True)
+                _check(res.iterations == ref["iterations"],
+                       f"sharded {k}: {res.iterations} iterations vs "
+                       f"{ref['iterations']} on one device")
+                _check(diff <= limits[0],
+                       f"sharded {k}: eigenvalues differ by {diff:.3e}")
+                _check(true_res <= limits[1],
+                       f"sharded {k}: true residual {true_res:.3e}")
+                solves.append(dict(
+                    solve=(f"sharded (world 1, nccl) "
+                           + ("int8 f32 lowest-20 loose" if k == "int8"
+                              else f"halo f64 lowest-{k}")),
+                    n=op.shape[0], iterations=res.iterations, wall_s=walls,
+                    single_device_wall_s=ref["wall"], true_residual=true_res,
+                    eig_diff_single=diff, collectives=calls))
+                del res
+
+            # The exchange alone (one all_gather of the 2*bw*bs boundary
+            # rows), with the concatenation into x_ext, which copies x, and
+            # one all_reduce of a Gram-sized matrix: CUDA events and the
+            # host clock (a collective's host cost leaves the card idle).
+            halo = A.bandwidth * A.block_size
+            for m in (20, 40, 160):
+                x = torch.randn((A.shape[0], m), dtype=torch.float64,
+                                device=dev)
+                G = torch.randn((m, m), dtype=torch.float64, device=dev)
+                row = dict(solve=f"collectives f64 m={m}")
+                for key, fn in (("exchange", lambda: halo_slabs(mesh, x, halo)),
+                                ("extend", lambda: extend(mesh, x, halo)),
+                                ("all_reduce", lambda: mesh.all_reduce(G))):
+                    row[f"{key}_ms"] = _time_ms(fn)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        fn()
+                    torch.cuda.synchronize()
+                    row[f"{key}_host_ms"] = (time.perf_counter() - t0) * 50
+                print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
+                                       else f"{v}" for k_, v in row.items()),
+                      flush=True)
+                solves.append(row)
+                del x, G
+            del H, hq
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    _check(kernels.banded_bsr_spmm.launches == 0
+           and kernels.banded_q_bsr_spmm.launches == 0,
+           "the sharded solves launched a single-device kernel")
+
+
+@contextlib.contextmanager
+def _counting_collectives(cls):
+    """Count the calls of the collectives of ``cls`` (a RowMesh) by name
+    inside the ``with`` block."""
+    counts = dict.fromkeys(("all_reduce", "all_gather_rows"), 0)
+    saved = {name: getattr(cls, name) for name in counts}
+
+    def counted(name, fn):
+        def call(self, t):
+            counts[name] += 1
+            return fn(self, t)
+        return call
+    for name, fn in saved.items():
+        setattr(cls, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def _nonzero_blocks(blocks, K: int) -> int:
+    """Stored blocks with a nonzero entry: the work this data needs."""
+    import torch
+    nbr, bs, _ = blocks.shape
+    return int(torch.sum(torch.any(torch.any(
+        blocks.reshape(nbr, bs, K, bs) != 0, dim=3), dim=1)))
+
+
+def _bound(name, dtype, m, mv, op, nnz_blocks):
+    """(bound_ms, bound_by) of one call of kernel ``name``: each input read
+    once and each output written once over HBM_BYTES_S, against 2
+    operations per multiply-add of the nonzero blocks (plus the int8
+    diagonal and the gram) over the peak of the operations' type."""
+    nbr, bs, bw = op.n_block_rows, op.block_size, op.bandwidth
+    K = 2 * bw + 1
+    n = nbr * bs
+    quant = "_q_" in name
+    isz = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
+    x_rows = n + 2 * bw * bs if "_ext_" in name else n
+    moved = nbr * bs * K * bs * (1 if quant else isz)
+    if quant:
+        moved += nbr * K * bs * 4 + n * 4            # scale_rows, diag
+    if name == "bsr_spmm":
+        moved += nbr * K * 4                          # block_cols
+    moved += x_rows * m * isz + n * m * max(isz, 4)   # x in, Y out
+    ops = 2 * nnz_blocks * bs * bs * m + (2 * n * m if quant else 0)
+    if name.endswith("_gram"):
+        width = m if mv is None else mv
+        moved += (0 if mv is None else n * mv * isz) + width * m * 4
+        ops += 2 * n * width * m
+    t_bytes = moved / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOP_S["float32" if quant else dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _library_bsr(op, ext: bool):
+    """``op``'s in-range blocks as a ``torch.sparse_bsr_tensor``: the whole
+    matrix, or with ``ext`` a shard's rows over its halo-extended columns
+    (slot k of block row r at block column r + k)."""
+    import torch
+    nbr, bs, kbs = op.blocks.shape
+    K, bw, dev = kbs // bs, op.bandwidth, op.blocks.device
+    r = torch.arange(nbr, device=dev)[:, None]
+    k = torch.arange(K, device=dev)[None, :]
+    col = r + k if ext else r - bw + k
+    ncols = nbr + 2 * bw if ext else nbr
+    keep = (col >= 0) & (col < ncols)
+    values = op.blocks.reshape(nbr, bs, K, bs).permute(0, 2, 1, 3)[keep]
+    crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.sum(keep, dim=1), 0)
+    return torch.sparse_bsr_tensor(crow, col[keep], values,
+                                   size=(nbr * bs, ncols * bs))
+
+
+def library_times(A) -> dict:
+    """Kernel name -> (ms, max relative error against the plain version) of
+    one ``torch.sparse_bsr_tensor @ x`` call (cuSPARSE) that computes the
+    kernel's function at its main case, or (None, reason). It is a
+    yardstick; the port never calls it. Kernels 3, 4, 5 and 7 have no
+    such call (a fused gram, int8 blocks with scales)."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    out = {}
+    for names, ext in ((("banded_bsr_spmm", "bsr_spmm"), False),
+                       (("banded_ext_bsr_spmm",), True)):
+        dtype, m = MAIN_CASE[names[0]][:2]
+        bw, bs = A.bandwidth, A.block_size
+        rows = A.shape[0] + (2 * bw * bs if ext else 0)
+        x = torch.randn((rows, m), dtype=getattr(torch, dtype),
+                        device=A.blocks.device)
+        plain = (kernels.banded_ext_bsr_spmm_plain(A.blocks, x, bandwidth=bw)
+                 if ext else kernels.banded_bsr_spmm_plain(A.blocks, x, bw))
+        try:
+            S = _library_bsr(A, ext)
+            y = S @ x
+            rel = float(torch.max(torch.abs(y - plain))
+                        / torch.max(torch.abs(plain)))
+            ms = _time_ms(lambda: S @ x)
+            result = (ms, rel)
+            del S, y
+        except (RuntimeError, NotImplementedError) as exc:
+            result = (None, f"{type(exc).__name__}: {exc}"[:200])
+        print(f"  torch.sparse_bsr_tensor @ x ({'shard, ext' if ext else 'whole'}"
+              f", {dtype} m={m}): {result}", flush=True)
+        if result[0] is not None:
+            _check(result[1] <= TOL[dtype],
+                   f"the library call differs from the plain version by "
+                   f"{result[1]:.3e}")
+        for name in names:
+            out[name] = result
+        del x, plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -710,20 +1102,24 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] kernels vs plain versions", flush=True)
-    record = []
-    phase_kernels(A, A32, q, dev, record)
+    record, slab_checks = [], {}
+    phase_kernels(A, A32, q, dev, record, slab_checks)
+    library = library_times(A)
 
-    solves = []
+    solves, refs = [], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
     paths = [
-        ("[4] main path", lambda: phase_main(A, dev, solves),
+        ("[4] main path", lambda: phase_main(A, dev, solves, refs),
          ("banded_bsr_spmm",)),
         ("[5] collapse and generalized legs",
          lambda: phase_legs(A, dev, solves), ("banded_bsr_spmm", "bsr_spmm")),
         ("[6] int8 loose stage, n=2,097,152, lowest-20",
-         lambda: phase_int8(q, dev, solves), ("banded_q_bsr_spmm",)),
+         lambda: phase_int8(q, dev, solves, refs), ("banded_q_bsr_spmm",)),
         ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
          ("banded_bsr_spmm_gram", "banded_q_bsr_spmm_gram")),
+        ("[8] sharded path, world size 1 (NCCL)",
+         lambda: phase_sharded(A, q, dev, solves, refs),
+         ("banded_ext_bsr_spmm", "banded_q_ext_bsr_spmm")),
     ]
     for title, run, expected in paths:
         print(title, flush=True)
@@ -742,6 +1138,8 @@ def main() -> int:
         _check(count > 0, f"{name} was never launched on a solve path")
 
     summary = []
+    nnz = {"nbr=8192": (A, _nonzero_blocks(A.blocks, 3)),
+           "nbr=16384": (q, _nonzero_blocks(q.qblocks, 3))}
     for name in REPLACES:
         rows = [r for r in record if r["name"] == name]
         dtype, m, mv, write_out, shape = MAIN_CASE[name]
@@ -749,18 +1147,24 @@ def main() -> int:
                         and r["m"] == m and r["mv"] == mv
                         and r["write_out"] == write_out
                         and shape in r["shape"])
+        bound_ms, bound_by = _bound(name, dtype, m, mv, *nnz[shape])
         entry = dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=counts[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["max_abs_err"] is not None),
-            ms=main_row["ms"], plain_ms=main_row["plain_ms"])
+            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library.get(name, (None,))[0],
+            main_case=f"{dtype} m={m} mv={mv} {shape}")
         if name.endswith("_gram"):
             # max_abs_err is Y's; G is held elementwise to its bound.
             entry.update(
                 max_abs_err_G=max(r["g_abs_err"] for r in rows),
                 max_gram_err_rel=max(r["gram_ratio"] for r in rows),
                 gram_tol=GRAM_TOL)
+        if name in slab_checks:
+            entry["four_slab_max_abs_err"] = slab_checks[name]
         summary.append(entry)
     print(json.dumps({"solves": solves}))
     print(json.dumps({"kernels": summary}))

@@ -7,9 +7,12 @@ options (DPR, float64, doubling expansion, CholeskyQR2, sticky
 convergence), plus Olsen, lowest-k expansion, generalized pencils, warm
 starts and the incremental-H engine (``fused_gram``), on dense, diagonal,
 matrix-free, block-sparse (BSR, f64/f32/bf16 storage) and int8 banded
-operators. Their SpMM (and fused SpMM+Gram) runs in the CUDA kernels of
-``csrc/`` on a GPU and in their plain PyTorch versions on the CPU.
-Options of later slices raise :class:`InvalidOptionsError`.
+operators, and the row-sharded solve over ``torch.distributed``
+(:mod:`fortran_davidson_tpu_torch.parallel`). Their SpMM (and fused
+SpMM+Gram) runs in the CUDA kernels of ``csrc/`` on a GPU and in their
+plain PyTorch versions on the CPU. Entry points build on the GPU unless
+given ``device="cpu"``. Options of later slices raise
+:class:`InvalidOptionsError`.
 """
 
 from fortran_davidson_tpu_torch.config import DavidsonOptions, DavidsonResult
@@ -31,7 +34,9 @@ from fortran_davidson_tpu_torch.ops.sparse import (
     quantize_banded_int8,
 )
 from fortran_davidson_tpu_torch.solver import eigensolve, generalized_eigensolver
+from fortran_davidson_tpu_torch.utils.dtypes import default_device
 from fortran_davidson_tpu_torch.utils.errors import (DavidsonError,
+                                                     DeviceUnavailableError,
                                                      InvalidOptionsError,
                                                      NumericalError,
                                                      OperatorError)
@@ -44,6 +49,7 @@ __all__ = [
     "DavidsonOptions",
     "DavidsonResult",
     "DenseOperator",
+    "DeviceUnavailableError",
     "DiagonalOperator",
     "InvalidOptionsError",
     "LinearOperator",
@@ -53,6 +59,7 @@ __all__ = [
     "QuantizedBandedOperator",
     "SubtractDiagOperator",
     "as_operator",
+    "default_device",
     "eigensolve",
     "from_element_fn",
     "generalized_eigensolver",

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from fortran_davidson_tpu_torch.core.correction import validate_method
-from fortran_davidson_tpu_torch.utils.dtypes import as_torch_dtype
+from fortran_davidson_tpu_torch.utils.dtypes import (as_device_tensor,
+                                                     as_torch_dtype)
 from fortran_davidson_tpu_torch.utils.errors import (InvalidOptionsError,
                                                      OperatorError, require)
 
@@ -212,11 +213,11 @@ def _memory_clamped_max_dim(max_dim: int, *, n_local: int, lowest: int,
 def validate_initial_vectors(initial_vectors, n: int, init_dim: int, dtype,
                              device=None):
     """Validated (n, j) warm-start block as a tensor of ``dtype`` on
-    ``device`` (None for None)."""
+    ``device`` (None for None; ``device=None`` follows a tensor's device
+    and sends anything else to the GPU)."""
     if initial_vectors is None:
         return None
-    X0 = torch.as_tensor(initial_vectors).to(device=device,
-                                             dtype=as_torch_dtype(dtype))
+    X0 = as_device_tensor(initial_vectors, device).to(as_torch_dtype(dtype))
     require(X0.ndim == 2 and X0.shape[0] == n, OperatorError,
             f"initial_vectors must be (n, j) with n={n}; got "
             f"{tuple(X0.shape)}")
@@ -227,8 +228,16 @@ def validate_initial_vectors(initial_vectors, n: int, init_dim: int, dtype,
 
 
 def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
-                    generalized: bool, device=None) -> ResolvedConfig:
+                    generalized: bool, device=None, sharded: bool = False,
+                    shard_row_divisor: int = 1) -> ResolvedConfig:
+    """Options resolved against a problem of order ``n``. A row-sharded
+    solve (``sharded``, over ``shard_row_divisor`` ranks) sizes the
+    memory clamp by the rows one rank holds, as the JAX package does."""
     _require_ported(opts)
+    require(not (sharded and opts.orthonormalization == "qr"),
+            InvalidOptionsError,
+            "orthonormalization='qr' is not ported to the sharded solve "
+            "(a Householder QR of row-sharded blocks); use 'cholqr2'")
     require(1 <= lowest, InvalidOptionsError, "lowest must be >= 1")
     require(lowest <= n, InvalidOptionsError,
             f"lowest={lowest} exceeds matrix dimension {n}")
@@ -250,7 +259,9 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
             max_dim //= 2
         # ... and clamped so the tall carries fit device memory.
         max_dim = _memory_clamped_max_dim(
-            max_dim, n_local=n, lowest=lowest, init_dim=init_dim, step=step,
+            max_dim,
+            n_local=n // max(shard_row_divisor if sharded else 1, 1),
+            lowest=lowest, init_dim=init_dim, step=step,
             itemsize=dtype.itemsize, generalized=generalized,
             budget=_carry_budget_bytes(device))
     m_max = subspace_cap(init_dim, max_dim, step)

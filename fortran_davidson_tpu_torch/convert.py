@@ -5,9 +5,9 @@ The JAX operators keep their data in a few arrays: ``DenseOperator.matrix``,
 ``.bandwidth`` and ``QuantizedBandedOperator.qblocks`` / ``.scale_rows`` /
 ``.diag`` / ``.bandwidth``. These functions take those arrays (anything
 ``numpy.asarray`` accepts) and return the matching operator of this
-package on ``device``. The JAX operator's ``backend`` field is not carried
-across: here the kernel follows the tensors' device. Nothing here imports
-JAX.
+package on ``device`` (by default the GPU; pass ``device="cpu"`` for the
+CPU). The JAX operator's ``backend`` field is not carried across: here the
+kernel follows the tensors' device. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +22,11 @@ from fortran_davidson_tpu_torch.ops.operators import (DenseOperator,
                                                       LinearOperator)
 from fortran_davidson_tpu_torch.ops.sparse import (BSROperator,
                                                   QuantizedBandedOperator)
-from fortran_davidson_tpu_torch.utils.dtypes import as_torch_dtype
+from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,
+                                                     HaloQuantizedOperator)
+from fortran_davidson_tpu_torch.parallel.mesh import RowMesh
+from fortran_davidson_tpu_torch.utils.dtypes import (as_torch_dtype,
+                                                     default_device)
 from fortran_davidson_tpu_torch.utils.errors import OperatorError
 
 
@@ -30,7 +34,7 @@ def _tensor(arr, dtype=None, device=None) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr))
     if dtype is not None:
         t = t.to(as_torch_dtype(dtype))
-    return t.to(device) if device is not None else t
+    return t.to(default_device(device))
 
 
 def dense(matrix, dtype=None, device=None) -> DenseOperator:
@@ -47,9 +51,8 @@ def bsr(block_cols, blocks, bandwidth: Optional[int] = None, dtype=None,
         device=None) -> BSROperator:
     """A :class:`BSROperator` from the (nbr, K) column table, the
     (nbr, bs, K*bs) block slabs and the declared bandwidth (or None)."""
-    return BSROperator(_tensor(block_cols).to(torch.int32),
-                       _tensor(blocks, dtype), bandwidth=bandwidth,
-                       device=device)
+    return BSROperator(_tensor(block_cols, device=device).to(torch.int32),
+                       _tensor(blocks, dtype, device), bandwidth=bandwidth)
 
 
 def quantized(qblocks, scale_rows, diag, bandwidth: int,
@@ -57,9 +60,10 @@ def quantized(qblocks, scale_rows, diag, bandwidth: int,
     """A :class:`QuantizedBandedOperator` from the (nbr, bs, K*bs) int8
     blocks, the (nbr, K*bs) scales, the (nbr, bs) diagonal and the
     bandwidth."""
-    return QuantizedBandedOperator(_tensor(qblocks), _tensor(scale_rows),
-                                   _tensor(diag), bandwidth=bandwidth,
-                                   device=device)
+    return QuantizedBandedOperator(_tensor(qblocks, device=device),
+                                   _tensor(scale_rows, device=device),
+                                   _tensor(diag, device=device),
+                                   bandwidth=bandwidth)
 
 
 def operator(op, dtype=None, device=None) -> LinearOperator:
@@ -85,3 +89,17 @@ def operator(op, dtype=None, device=None) -> LinearOperator:
         f"no torch counterpart for {type(op).__name__}: convert dense, "
         "diagonal, BSR and int8 banded operators; build matrix-free ones with "
         "MatrixFreeOperator")
+
+
+def halo(op, mesh: RowMesh, backend: Optional[str] = None):
+    """The port's counterpart of a JAX ``HaloBSROperator`` or
+    ``HaloQuantizedOperator`` for ``mesh``: their global tables, read with
+    ``numpy.asarray``, distributed over the mesh's ranks (each rank keeps
+    its rows). ``backend`` defaults to the JAX operator's."""
+    backend = op.backend if backend is None else backend
+    if hasattr(op, "qblocks"):
+        return HaloQuantizedOperator(
+            np.asarray(op.qblocks), np.asarray(op.scale_rows),
+            np.asarray(op.diag), op.bandwidth, mesh, backend=backend)
+    return HaloBSROperator(np.asarray(op.block_cols), np.asarray(op.blocks),
+                           op.bandwidth, mesh, backend=backend)

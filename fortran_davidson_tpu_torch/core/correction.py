@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 from fortran_davidson_tpu_torch.utils.dtypes import safe_denominator
 from fortran_davidson_tpu_torch.utils.errors import InvalidOptionsError
 
@@ -39,14 +40,14 @@ def dpr_correction(R, lam, diag_a, diag_b, mask):
     return (R / den) * mask[None, :]
 
 
-def olsen_correction(R, lam, X, diag_a, diag_b, mask):
+def olsen_correction(R, lam, X, diag_a, diag_b, mask, rows: Rows = LOCAL):
     """Olsen correction: ``t = K⁻¹r - μ K⁻¹x`` with
     ``μ = xᵀK⁻¹r / xᵀK⁻¹x``, so that ``xᵀt = 0`` (K = diag(λB - A))."""
     den = safe_denominator(lam[None, :] * diag_b[:, None] - diag_a[:, None])
     kinv_r = R / den
     kinv_x = X / den
-    num = torch.sum(X * kinv_r, dim=0)
-    dnm = torch.sum(X * kinv_x, dim=0)
+    num, dnm = rows.sum(torch.stack([torch.sum(X * kinv_r, dim=0),
+                                     torch.sum(X * kinv_x, dim=0)]))
     mu = torch.where(torch.abs(dnm) > 0,
                      num / torch.where(dnm != 0, dnm, 1.0), 0.0)
     return (kinv_r - kinv_x * mu[None, :]) * mask[None, :]

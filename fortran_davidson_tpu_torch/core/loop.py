@@ -34,6 +34,11 @@ by the operator's fused ``G = Vᵀ(AQ)`` (``matmat_with_gram``), re-seeded
 at a collapse (``core/loop.py:119-127,343-344,589-604,682-688``). The
 gram operand is the basis up to the new block's end, ``V[:, :c0+kk]``,
 not all ``m_max`` columns: the columns past it are zero in V and in H.
+
+The tall arrays may be one rank's rows of a row-sharded solve
+(``parallel.sharded``): every reduction over rows goes through the
+``rows`` hook (``core/rows.py``), so every rank sees the same small
+matrices, flags and counts and takes the same branches.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 from fortran_davidson_tpu_torch.config import DavidsonResult, ResolvedConfig
 from fortran_davidson_tpu_torch.core import correction as corr_mod
 from fortran_davidson_tpu_torch.core import orthogonal, subspace
+from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
 
 
@@ -93,12 +99,13 @@ def _roll_add(T, Q, m: int):
 
 
 def init_state(cfg: ResolvedConfig, A: LinearOperator,
-               B: Optional[LinearOperator], X0=None) -> dict:
+               B: Optional[LinearOperator], X0=None,
+               rows: Rows = LOCAL) -> dict:
     """Initial loop state (a dict of tensors and host scalars).
 
-    ``X0``: optional (n, j) warm-start vectors, j <= init_dim.
+    ``X0``: optional (n, j) warm-start vectors, j <= init_dim (the local
+    rows of a sharded solve).
     """
-    n = A.shape[0]
     k = cfg.lowest
     m_max = cfg.m_max
     init_dim = cfg.init_dim
@@ -106,14 +113,15 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
     dev = A.device
     _check_fused(cfg, B is not None)
     diag_a = A.diagonal().to(dt)
+    n = diag_a.shape[0]
 
     if X0 is None:
-        V = subspace.initial_subspace(diag_a, init_dim, m_max)
+        V = subspace.initial_subspace(diag_a, init_dim, m_max, rows)
         col_ok = orthogonal.col_mask(init_dim, m_max, dt, dev)
         m = init_dim
     else:
         V, col_ok, m = subspace.initial_subspace_with_guess(
-            diag_a, X0, init_dim, m_max)
+            diag_a, X0, init_dim, m_max, rows)
         if cfg.expansion == "doubling":
             # Doubling doubles m regardless of the live count
             # (``src/davidson.f90:199``) and its roll-add placement needs m
@@ -128,7 +136,7 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
         # context, so the product does not run in TF32.
         H = torch.zeros((m_max, m_max), dtype=dt, device=dev)
         H[:init_dim, :init_dim] = subspace.project(V[:, :init_dim],
-                                                   AV[:, :init_dim])
+                                                   AV[:, :init_dim], rows)
     state = dict(
         V=V, AV=AV, m=m, m_hi=init_dim, col_ok=col_ok, it=0,
         has_conv=torch.zeros((k,), dtype=torch.bool, device=dev),
@@ -152,7 +160,8 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
 
 
 def run_state(cfg: ResolvedConfig, A: LinearOperator,
-              B: Optional[LinearOperator], st: dict) -> dict:
+              B: Optional[LinearOperator], st: dict,
+              rows: Rows = LOCAL) -> dict:
     """Iterate until convergence, a stall, or ``max_iterations``.
 
     ``st`` is updated in place and returned. ``st["m"]`` and
@@ -160,7 +169,6 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
     are read at the next iteration's synchronisation (or by
     :func:`pack_result`).
     """
-    n = A.shape[0]
     k = cfg.lowest
     m_max = cfg.m_max
     init_dim = cfg.init_dim
@@ -171,6 +179,7 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
     fused = cfg.fused_gram
     lowest_k = cfg.expansion == "lowest-k"
     diag_a = A.diagonal().to(dt)
+    n = diag_a.shape[0]
     diag_b = (B.diagonal().to(dt) if gen
               else torch.ones((n,), dtype=dt, device=dev))
     V, AV = st["V"], st["AV"]
@@ -189,8 +198,8 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         # The fused engine reads H from the state: CGS2 never touches
         # admitted columns, so their entries stay valid.
         Vw, AVw = V[:, :w], AV[:, :w]
-        H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw)
-        S = subspace.project(Vw, BV[:, :w]) if gen else None
+        H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw, rows)
+        S = subspace.project(Vw, BV[:, :w], rows) if gen else None
         lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
 
         # Ritz vectors and block residuals from the caches. Lowest-k only
@@ -203,7 +212,7 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         BXW = BV[:, :w] @ Wk if gen else X
         R = (AXW - BXW * lam[:kk][None, :]) * pmk[None, :]
         del AXW, BXW
-        errors = torch.linalg.vector_norm(R[:, :k], dim=0)
+        errors = rows.norms(R[:, :k])
         if cfg.relative:
             conv_now = errors < cfg.tolerance * torch.clamp(
                 torch.abs(lam[:k]), min=1.0)
@@ -246,11 +255,11 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
                                                pmk)
             else:
                 corr = corr_mod.olsen_correction(R, lam[:kk], X, diag_a,
-                                                 diag_b, pmk)
+                                                 diag_b, pmk, rows)
             del R, X
             Q, alive_q = orthogonal.orthonormalize_block(
                 V[:, :m], corr, pmk, n_reorth=cfg.n_reorth, method=cfg.ortho,
-                rank_width=k if lowest_k else m_max)
+                rank_width=k if lowest_k else m_max, rows=rows)
             del corr
             # The fused engine applies A after the write of Q: the gram
             # needs the basis that holds it.
@@ -295,7 +304,8 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             # the caches follow by a triangular solve.
             del R, X
             W2 = W[:, :init_dim]
-            Qc, Rc = orthogonal.thin_qr_collapse(Vw @ W2, method=cfg.ortho)
+            Qc, Rc = orthogonal.thin_qr_collapse(Vw @ W2, method=cfg.ortho,
+                                                 rows=rows)
             AQc = orthogonal.right_tri_solve(AVw @ W2, Rc)
             BQc = (orthogonal.right_tri_solve(BV[:, :w] @ W2, Rc) if gen
                    else None)
@@ -309,7 +319,8 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             if fused:
                 # Re-seed the carried projection from the restart basis.
                 st["H"].zero_()
-                st["H"][:init_dim, :init_dim] = subspace.project(Qc, AQc)
+                st["H"][:init_dim, :init_dim] = subspace.project(Qc, AQc,
+                                                                 rows)
             st["col_ok"] = orthogonal.col_mask(init_dim, m_max, dt, dev)
             st["m"] = st["m_hi"] = init_dim
             st["stalled"] = lowest_k and init_dim == m
@@ -336,7 +347,8 @@ def pack_result(st: dict) -> DavidsonResult:
 
 
 def _engine(cfg: ResolvedConfig, A: LinearOperator,
-            B: Optional[LinearOperator], X0=None) -> DavidsonResult:
+            B: Optional[LinearOperator], X0=None,
+            rows: Rows = LOCAL) -> DavidsonResult:
     with _precision_ctx(), torch.no_grad():
-        st = init_state(cfg, A, B, X0=X0)
-        return pack_result(run_state(cfg, A, B, st))
+        st = init_state(cfg, A, B, X0=X0, rows=rows)
+        return pack_result(run_state(cfg, A, B, st, rows))

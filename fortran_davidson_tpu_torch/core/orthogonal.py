@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
+
 
 def col_mask(m, m_max: int, dtype, device=None):
     """(m_max,) float mask: 1.0 for columns < m (m an int or a 0-d tensor)."""
@@ -28,9 +30,9 @@ def col_mask(m, m_max: int, dtype, device=None):
     return (torch.arange(m_max, device=device) < m).to(dtype)
 
 
-def project_out(V, block):
+def project_out(V, block, rows: Rows = LOCAL):
     """Remove the component of ``block`` lying in span(V's nonzero columns)."""
-    return block - V @ (V.T @ block)
+    return block - V @ rows.sum(V.T @ block)
 
 
 def _eye(m: int, like):
@@ -66,7 +68,8 @@ def cholesky_nan(G):
 
 def orthonormalize_block(V, block, mask, n_reorth: int = 2,
                          method: str = "cholqr2",
-                         rank_width: Optional[int] = None):
+                         rank_width: Optional[int] = None,
+                         rows: Rows = LOCAL):
     """Orthonormalize ``block`` against the basis ``V`` and itself.
 
     Args:
@@ -79,6 +82,8 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         with (default ``b``). The solver passes the JAX engine's padded
         width when it hands over a narrower block, so the threshold, and
         with it which columns survive, is the JAX package's.
+      rows: the row-reduction hook (``core/rows.py``); the ``"qr"`` method
+        is single-device only.
 
     Returns:
       ``(q, alive)``: (n, b) block with orthonormal active columns,
@@ -87,12 +92,12 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
     """
     dt = block.dtype
     block = block * mask[None, :]
-    norms_before = torch.linalg.vector_norm(block, dim=0)
+    norms_before = rows.norms(block)
     for _ in range(n_reorth):
-        block = project_out(V, block)
+        block = project_out(V, block, rows)
     # Drop columns that lost (nearly) all their mass to the projection:
     # what survives is roundoff of the subtraction, not a new direction.
-    norms_after = torch.linalg.vector_norm(block, dim=0)
+    norms_after = rows.norms(block)
     finfo = torch.finfo(dt)
     drop_tol = finfo.eps ** 0.5
     alive = (norms_after > drop_tol * torch.clamp(norms_before,
@@ -116,17 +121,19 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         inv = torch.where(norms > 0, 1.0 / torch.where(norms > 0, norms, 1.0),
                           0.0)
         return q * inv[None, :], (norms > 0.5).to(dt)
-    return svqb(block, mask, return_alive=True, rank_width=rank_width)
+    return svqb(block, mask, return_alive=True, rank_width=rank_width,
+                rows=rows)
 
 
-def cholqr_once(X, unit_diag=None, jitter: float = 0.0):
+def cholqr_once(X, unit_diag=None, jitter: float = 0.0,
+                rows: Rows = LOCAL):
     """One CholeskyQR pass: X = Q R via R = chol(X^T X)^T, Q = X R^{-1}.
 
     ``unit_diag``: optional (m,) 0/1 mask; positions with 0 get a unit
     Gram diagonal so exactly-zero (padded) columns pass through as zero
     columns instead of breaking the factorization.
     """
-    G = X.T @ X
+    G = rows.sum(X.T @ X)
     if unit_diag is not None:
         G = G + torch.diag(1.0 - unit_diag)
     if jitter:
@@ -136,16 +143,16 @@ def cholqr_once(X, unit_diag=None, jitter: float = 0.0):
     return X @ Linv.T, L.T
 
 
-def cholqr2(X, unit_diag=None, jitter: float = 0.0):
+def cholqr2(X, unit_diag=None, jitter: float = 0.0, rows: Rows = LOCAL):
     """CholeskyQR2 (Yamamoto et al.): two passes give orthogonality at
     working precision for cond(X) up to ~1/sqrt(eps)."""
-    Q1, R1 = cholqr_once(X, unit_diag, jitter)
-    Q2, R2 = cholqr_once(Q1, unit_diag, jitter)
+    Q1, R1 = cholqr_once(X, unit_diag, jitter, rows)
+    Q2, R2 = cholqr_once(Q1, unit_diag, jitter, rows)
     return Q2, R2 @ R1
 
 
 def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
-         rank_width: Optional[int] = None):
+         rank_width: Optional[int] = None, rows: Rows = LOCAL):
     """SVQB (Stathopoulos & Wu 2002): rank-revealing block
     orthonormalization through the eigendecomposition of the Gram matrix.
 
@@ -156,11 +163,11 @@ def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
     """
     dt = block.dtype
     width = block.shape[1] if rank_width is None else rank_width
-    norms = torch.linalg.vector_norm(block, dim=0)
+    norms = rows.norms(block)
     inv = torch.where(norms > 0, 1.0 / torch.where(norms > 0, norms, 1.0), 0.0)
     Bh = block * inv[None, :]
     active = (norms > 0).to(dt) * mask
-    G = Bh.T @ Bh + torch.diag(1.0 - active)
+    G = rows.sum(Bh.T @ Bh) + torch.diag(1.0 - active)
     s, U = eigh(G)
     if rank_rtol is None:
         rank_rtol = width * torch.finfo(dt).eps
@@ -169,8 +176,8 @@ def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
         s, min=torch.finfo(dt).tiny)), 0.0).to(dt)
     Q = Bh @ (U * factor[None, :])
     # Refinement pass (the CholQR2 second sweep) on the surviving columns.
-    alive = (torch.sum(Q * Q, dim=0) > 0.5).to(dt)
-    Q, _ = cholqr_once(Q * alive[None, :], unit_diag=alive)
+    alive = (rows.sum(torch.sum(Q * Q, dim=0)) > 0.5).to(dt)
+    Q, _ = cholqr_once(Q * alive[None, :], unit_diag=alive, rows=rows)
     Q = Q * alive[None, :]
     order = torch.argsort((alive < 0.5).to(torch.int8), stable=True)
     if return_alive:
@@ -178,13 +185,13 @@ def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
     return Q[:, order]
 
 
-def thin_qr_collapse(X, method: str = "cholqr2"):
+def thin_qr_collapse(X, method: str = "cholqr2", rows: Rows = LOCAL):
     """Thin QR of the collapsed Ritz block, returned as (Q, R) so the
     cached A@V / B@V follow by a triangular solve with no operator
     application (see ``fortran_davidson_tpu.core.orthogonal``)."""
     if method == "qr":
         return torch.linalg.qr(X)
-    return cholqr2(X)
+    return cholqr2(X, rows=rows)
 
 
 def right_tri_solve(Y, R):

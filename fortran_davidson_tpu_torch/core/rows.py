@@ -1,0 +1,42 @@
+"""Reductions over the rows of the solver's tall arrays.
+
+The loop's tall arrays (V, AV, BV, the residual and correction blocks)
+are (n, w). On one device a process holds all n rows; in a row-sharded
+solve (``parallel.sharded``) each rank holds a contiguous slice of them,
+and every product that contracts over rows (Gram matrices, column norms
+and sums, the pick of the initial subspace) needs the sum over ranks.
+The JAX package leaves those sums to GSPMD, which inserts a ``psum``
+after each such product (``fortran_davidson_tpu/parallel/sharded.py:9-15``);
+here they are explicit: the core modules route each one through a
+:class:`Rows` hook. :data:`LOCAL` is the single-device hook, whose sums
+are the identity and whose norms are the single-device code's own, so the
+single-device solve is unchanged. ``parallel.sharded.MeshRows`` sums
+with ``all_reduce(SUM)`` over the mesh's process group.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Rows:
+    """The single-device hook: every row is local."""
+
+    #: Global index of the first local row.
+    offset = 0
+
+    def sum(self, t):
+        """The sum over all rows of a partial sum over the local rows."""
+        return t
+
+    def norms(self, X):
+        """Column 2-norms of the tall (rows, w) block."""
+        return torch.linalg.vector_norm(X, dim=0)
+
+    def smallest(self, values, count: int):
+        """Global indices of the ``count`` smallest entries of the tall
+        vector, ascending, ties by index."""
+        return torch.argsort(values, stable=True)[:count]
+
+
+LOCAL = Rows()

@@ -20,22 +20,28 @@ from typing import Optional
 import torch
 
 from fortran_davidson_tpu_torch.core import orthogonal
+from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 
 
-def initial_subspace(diag, m_init: int, m_max: int):
+def initial_subspace(diag, m_init: int, m_max: int, rows: Rows = LOCAL):
     """Canonical unit vectors at the positions of the ``m_init`` smallest
     diagonal entries (ascending, ties by index), padded to ``m_max``.
 
     Mirrors ``generate_preconditioner`` (``src/array_utils.f90:136-160``).
+    ``diag`` holds the local rows; the pick is over all rows (``rows``),
+    and a rank sets the ones that fall in its rows.
     """
     n = diag.shape[0]
-    idx = torch.argsort(diag, stable=True)[:m_init]
+    idx = rows.smallest(diag, m_init) - rows.offset
+    col = torch.arange(m_init, device=diag.device)
+    mine = (idx >= 0) & (idx < n)
     V = torch.zeros((n, m_max), dtype=diag.dtype, device=diag.device)
-    V[idx, torch.arange(m_init, device=diag.device)] = 1.0
+    V[idx[mine], col[mine]] = 1.0
     return V
 
 
-def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int):
+def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int,
+                                rows: Rows = LOCAL):
     """Warm-started basis: the (n, j) guess ``X0`` plus the canonical
     preconditioner fill, SVQB-orthonormalized together (rank-deficient
     guesses lose their redundant directions).
@@ -49,10 +55,10 @@ def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int):
     C = torch.zeros((n, m_init), dtype=dt, device=diag.device)
     C[:, :j] = X0.to(dt)
     if m_init > j:
-        C[:, j:] = initial_subspace(diag, m_init - j, m_init - j)
+        C[:, j:] = initial_subspace(diag, m_init - j, m_init - j, rows)
     Q, alive = orthogonal.svqb(C, torch.ones((m_init,), dtype=dt,
                                              device=diag.device),
-                               return_alive=True)
+                               return_alive=True, rows=rows)
     V0 = torch.zeros((n, m_max), dtype=dt, device=diag.device)
     V0[:, :m_init] = Q
     col_ok = torch.zeros((m_max,), dtype=dt, device=diag.device)
@@ -60,9 +66,9 @@ def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int):
     return V0, col_ok, torch.sum(alive).to(torch.int64)
 
 
-def project(V, AV):
+def project(V, AV, rows: Rows = LOCAL):
     """Projected (Gram) matrix H = V^T (A V)."""
-    return V.T @ AV
+    return rows.sum(V.T @ AV)
 
 
 def _pad_penalties(H, mask, m_max: Optional[int] = None):

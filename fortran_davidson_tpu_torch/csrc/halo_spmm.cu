@@ -1,0 +1,82 @@
+// Shard-local SpMM kernels of the row-sharded solve, for Hopper (sm_90a),
+// in plain CUDA C++ with a C interface (loaded with ctypes by
+// fortran_davidson_tpu_torch/ops/kernels.py). Storage and the shared tile
+// are described in spmm_tile.cuh.
+//
+//   fdt_banded_ext_bsr_spmm_*        replaces banded_ext_bsr_spmm
+//       (fortran_davidson_tpu/ops/pallas_kernels.py:1190, body :1130):
+//       the DIA-banded SpMM of kernel 1 over a halo-extended input.
+//   fdt_banded_q_ext_bsr_spmm_f32    replaces banded_q_ext_bsr_spmm
+//       (pallas_kernels.py:1059, body :997): the int8 form,
+//       y = (Q o s) @ x_ext[window] + d o x_ext[centre].
+//
+// A shard owns nbr block rows of DIA storage (slot k of local block row r
+// holds global block column r0 + r - bw + k). The caller (parallel/halo.py)
+// frames the shard's (nbr*bs, m) rows with bw*bs rows of each ring
+// neighbour, x_ext of (nbr + 2bw)*bs rows, so block row r contracts its K =
+// 2bw+1 blocks with x_ext[r*bs, (r + K)*bs): every window is valid and is
+// loaded unmasked. Kernel 1 on an offset pointer would not do: it zeroes x
+// rows outside [0, n) and would wipe out the halo. At the ring's two ends
+// the wrapped halo rows meet the zero blocks of out-of-range slots.
+//
+// Types as in kernels 1 and 4: f64, f32, or bf16 storage summed in f32 (Y
+// written in the accumulation type); int8 storage with f32 x, scales and
+// diagonal.
+//
+// What bounds them on the H100: the same as kernels 1 and 4 (bsr_spmm.cu,
+// banded_gram.cu) on nbr block rows, plus 2*bw*bs*m more x rows read: the
+// block table in HBM at small m, f64/f32 FMA on the CUDA cores from m of
+// about 64 in f64 (about 40 flop/B for int8 at m = 20). The design is that
+// tile's, one thread block per output tile of one block row; not tuned
+// (no tensor cores, no TMA), like the kernels it extends.
+
+#include "spmm_tile.cuh"
+
+namespace {
+
+using fdt::DenseBlocks;
+using fdt::Int8Blocks;
+using Bf16 = __nv_bfloat16;
+
+template <typename T, typename Acc>
+int banded_ext(const T* blocks, const T* x_ext, Acc* y, int nbr, int bs, int K,
+               int bw, int m, void* stream) {
+  return fdt::spmm<DenseBlocks<T, Acc>, true>(
+      DenseBlocks<T, Acc>{blocks}, x_ext, nullptr, nullptr, y, nbr, bs, K, bw,
+      static_cast<long long>(nbr + 2 * bw) * bs, m, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// blocks, x_ext, y, nbr, bs, K, bw, m, stream
+int fdt_banded_ext_bsr_spmm_f64(const double* blocks, const double* x_ext,
+                                double* y, int nbr, int bs, int K, int bw,
+                                int m, void* stream) {
+  return banded_ext(blocks, x_ext, y, nbr, bs, K, bw, m, stream);
+}
+
+int fdt_banded_ext_bsr_spmm_f32(const float* blocks, const float* x_ext,
+                                float* y, int nbr, int bs, int K, int bw,
+                                int m, void* stream) {
+  return banded_ext(blocks, x_ext, y, nbr, bs, K, bw, m, stream);
+}
+
+int fdt_banded_ext_bsr_spmm_bf16(const Bf16* blocks, const Bf16* x_ext,
+                                 float* y, int nbr, int bs, int K, int bw,
+                                 int m, void* stream) {
+  return banded_ext(blocks, x_ext, y, nbr, bs, K, bw, m, stream);
+}
+
+// q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
+int fdt_banded_q_ext_bsr_spmm_f32(const int8_t* q, const float* scale,
+                                  const float* diag, const float* x_ext,
+                                  float* y, int nbr, int bs, int K, int bw,
+                                  int m, void* stream) {
+  return fdt::spmm<Int8Blocks, true>(
+      Int8Blocks{q, scale}, x_ext, nullptr, diag, y, nbr, bs, K, bw,
+      static_cast<long long>(nbr + 2 * bw) * bs, m, stream);
+}
+
+}  // extern "C"

@@ -1,5 +1,5 @@
 // Tile machinery shared by the block-sparse SpMM kernels of the port
-// (bsr_spmm.cu, banded_gram.cu), for Hopper (sm_90a).
+// (bsr_spmm.cu, banded_gram.cu, halo_spmm.cu), for Hopper (sm_90a).
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
 // block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
@@ -23,6 +23,12 @@
 // x rows outside [0, x_rows) load as zeros: a banded edge window
 // multiplies zero blocks there, and 0 * Inf must not enter the sum
 // (the counterpart of fortran_davidson_tpu/ops/pallas_kernels.py:233-244).
+//
+// A halo-extended x (kExt, halo_spmm.cu) is a shard's rows framed by bw
+// block rows of its ring neighbours' rows on each side, so the window of
+// block row r is [r * bs, (r + 2bw + 1) * bs) and always valid: it loads
+// unmasked, and the diagonal epilogue reads the centre rows
+// [(r + bw) * bs, (r + bw + 1) * bs). Masking there would zero the halo.
 
 #pragma once
 
@@ -81,8 +87,9 @@ struct Int8Blocks {
 };
 
 // acc = slab(r)[i0:i0+TM, :] @ x_rows(r)[:, c0:c0+TN] (+ d * x_centre when
-// diag is given). cols == nullptr selects the banded rule.
-template <typename Load, int TM, int TN>
+// diag is given). cols == nullptr selects the banded rule; kExt the
+// halo-extended window.
+template <typename Load, int TM, int TN, bool kExt = false>
 __device__ __forceinline__ void tile_product(
     const Load& ld, const typename Load::X* __restrict__ x,
     const int* __restrict__ cols, const float* __restrict__ diag,
@@ -97,7 +104,8 @@ __device__ __forceinline__ void tile_product(
   const int tid = threadIdx.x;
   const int tm = tid / P::kThreadsN;
   const int tn = tid % P::kThreadsN;
-  const long long win0 = (r - bw) * bs;
+  const long long win0 = kExt ? r * bs : (r - bw) * bs;
+  const long long ctr0 = kExt ? (r + bw) * bs : r * bs;
 
 #pragma unroll
   for (int i = 0; i < P::RM; ++i)
@@ -126,7 +134,7 @@ __device__ __forceinline__ void tile_product(
         } else {
           xr = win0 + gl;
         }
-        if (xr >= 0 && xr < x_rows) v = cvt<Acc>(x[xr * m + gc]);
+        if (kExt || (xr >= 0 && xr < x_rows)) v = cvt<Acc>(x[xr * m + gc]);
       }
       Xs[l][c] = v;
     }
@@ -155,8 +163,8 @@ __device__ __forceinline__ void tile_product(
       for (int j = 0; j < P::RN; ++j) {
         const int gc = c0 + tn + j * P::kThreadsN;
         if (gi < bs && gc < m) {
-          const long long row = r * bs + gi;
-          acc[i][j] += static_cast<Acc>(diag[row]) * cvt<Acc>(x[row * m + gc]);
+          acc[i][j] += static_cast<Acc>(diag[r * bs + gi]) *
+                       cvt<Acc>(x[(ctr0 + gi) * m + gc]);
         }
       }
     }
@@ -185,7 +193,7 @@ __device__ __forceinline__ void store_tile(
 // Y = A @ X (+ d * x): one thread block per (block row, row tile, column
 // tile); column tiles are the fastest grid index, so the tiles of one
 // block row run together and read its slab from L2 after the first.
-template <typename Load, int TM, int TN>
+template <typename Load, int TM, int TN, bool kExt>
 __global__ void __launch_bounds__(Tile<TM, TN>::kThreads)
 spmm_kernel(Load ld, const typename Load::X* __restrict__ x,
             const int* __restrict__ cols, const float* __restrict__ diag,
@@ -198,12 +206,12 @@ spmm_kernel(Load ld, const typename Load::X* __restrict__ x,
   const int i0 = static_cast<int>(rt % row_tiles) * TM;
   const int c0 = ct * TN;
   typename Load::Acc acc[Tile<TM, TN>::RM][Tile<TM, TN>::RN];
-  tile_product<Load, TM, TN>(ld, x, cols, diag, r, i0, c0, bs, K, bw, x_rows,
-                             m, acc);
+  tile_product<Load, TM, TN, kExt>(ld, x, cols, diag, r, i0, c0, bs, K, bw,
+                                   x_rows, m, acc);
   store_tile<typename Load::Acc, TM, TN>(y, acc, r, i0, c0, bs, m);
 }
 
-template <typename Load, int TM, int TN>
+template <typename Load, int TM, int TN, bool kExt>
 cudaError_t launch_spmm(const Load& ld, const typename Load::X* x,
                         const int* cols, const float* diag,
                         typename Load::Acc* y, int nbr, int bs, int K, int bw,
@@ -212,28 +220,29 @@ cudaError_t launch_spmm(const Load& ld, const typename Load::X* x,
   const int row_tiles = (bs + TM - 1) / TM;
   const long long grid = static_cast<long long>(nbr) * row_tiles * col_tiles;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  spmm_kernel<Load, TM, TN><<<static_cast<unsigned>(grid),
-                              Tile<TM, TN>::kThreads, 0, stream>>>(
+  spmm_kernel<Load, TM, TN, kExt><<<static_cast<unsigned>(grid),
+                                    Tile<TM, TN>::kThreads, 0, stream>>>(
       ld, x, cols, diag, y, bs, K, bw, x_rows, m, col_tiles, row_tiles);
   return cudaGetLastError();
 }
 
-template <typename Load, int TM>
+template <typename Load, int TM, bool kExt>
 cudaError_t spmm_by_width(const Load& ld, const typename Load::X* x,
                           const int* cols, const float* diag,
                           typename Load::Acc* y, int nbr, int bs, int K,
                           int bw, long long x_rows, int m, cudaStream_t s) {
   if (m <= 8)
-    return launch_spmm<Load, TM, 8>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 8, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
   if (m <= 16)
-    return launch_spmm<Load, TM, 16>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 16, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
   if (m <= 32)
-    return launch_spmm<Load, TM, 32>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-  return launch_spmm<Load, TM, 64>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 32, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  return launch_spmm<Load, TM, 64, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
 }
 
-// Y = A @ X on the current stream; returns a cudaError_t as int.
-template <typename Load>
+// Y = A @ X on the current stream; returns a cudaError_t as int. kExt:
+// x is halo-extended (banded rule only, cols == nullptr).
+template <typename Load, bool kExt = false>
 int spmm(const Load& ld, const typename Load::X* x, const int* cols,
          const float* diag, typename Load::Acc* y, int nbr, int bs, int K,
          int bw, long long x_rows, int m, void* stream) {
@@ -241,8 +250,8 @@ int spmm(const Load& ld, const typename Load::X* x, const int* cols,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bs <= 16
-          ? spmm_by_width<Load, 16>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s)
-          : spmm_by_width<Load, 64>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+          ? spmm_by_width<Load, 16, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s)
+          : spmm_by_width<Load, 64, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
   return static_cast<int>(err);
 }
 

@@ -3,7 +3,8 @@
 
 ``generate_diagonal_dominant`` draws from ``jax.random`` and has no
 counterpart here: tests build that fixture with the JAX package and hand
-it over as numpy. The generators below are numpy-seeded or deterministic.
+it over as numpy. The generators below are numpy-seeded or deterministic,
+and build on ``device``, by default the GPU.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from fortran_davidson_tpu_torch.ops.operators import MatrixFreeOperator
-from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
+from fortran_davidson_tpu_torch.utils.dtypes import (canonical_dtype,
+                                                     default_device)
 
 
 def bse_surrogate(n: int = 864, coupling: float = 5e-4, seed: int = 864,
@@ -29,7 +31,8 @@ def bse_surrogate(n: int = 864, coupling: float = 5e-4, seed: int = 864,
     off = off + off.T
     t = np.arange(n) / max(n - 1, 1)
     diag = 0.3 + 0.45 * t ** 1.2
-    return torch.as_tensor(off + np.diag(diag), device=device).to(dt)
+    return torch.as_tensor(off + np.diag(diag),
+                           device=default_device(device)).to(dt)
 
 
 def _rank2_trig_factors(n: int, dtype, device=None):
@@ -53,6 +56,7 @@ def surrogate_hamiltonian(n: int, coupling: float = 1e-4, dtype=torch.float64,
     """Matrix-free CI-matrix surrogate: A_ii = i+1,
     A_ij = coupling * cos(t_i + t_j) for i != j."""
     dt = canonical_dtype(dtype)
+    device = default_device(device)
     c, s = _rank2_trig_factors(n, dt, device)
     diag = torch.arange(1, n + 1, dtype=dt, device=device)
     U = torch.stack([c, s], dim=1)
@@ -71,6 +75,7 @@ def surrogate_overlap(n: int, coupling: float = 1e-5, dtype=torch.float64,
     """Matrix-free SPD overlap surrogate: B_ii = 1,
     B_ij = coupling * sin(t_i) sin(t_j) for i != j."""
     dt = canonical_dtype(dtype)
+    device = default_device(device)
     _, s = _rank2_trig_factors(n, dt, device)
     diag = torch.ones((n,), dtype=dt, device=device)
     U = s[:, None]

@@ -2,7 +2,7 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Five kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
+Seven kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -20,6 +20,11 @@ Five kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
 - :func:`banded_q_bsr_spmm_gram` replaces ``banded_q_bsr_spmm_gram``
   (``pallas_kernels.py:886``): the int8 apply fused with the gram
   (``csrc/banded_gram.cu``).
+- :func:`banded_ext_bsr_spmm` replaces ``banded_ext_bsr_spmm``
+  (``pallas_kernels.py:1190``): kernel 1 over a shard's halo-extended
+  rows, every window valid (``csrc/halo_spmm.cu``).
+- :func:`banded_q_ext_bsr_spmm` replaces ``banded_q_ext_bsr_spmm``
+  (``pallas_kernels.py:1059``): the int8 form (``csrc/halo_spmm.cu``).
 
 What bounds them on the H100, and what the simple designs do about it,
 is written at the top of each source. They are not tuned yet.
@@ -79,6 +84,10 @@ _ARGTYPES = {
     "fdt_banded_q_bsr_spmm_f32": [_P, _P, *_BANDED],
     # q, scale_rows, diag, then the dense gram's arguments
     "fdt_banded_q_bsr_spmm_gram_f32": [_P, _P, *_GRAM],
+    # blocks, x_ext, y, nbr, bs, K, bw, m, stream
+    **{f"fdt_banded_ext_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
+    # q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
+    "fdt_banded_q_ext_bsr_spmm_f32": [_P, _P, *_BANDED],
 }
 
 
@@ -177,10 +186,12 @@ def _check_shapes(blocks, x, x_rows: int):
         raise ValueError(f"blocks on {blocks.device}, x on {x.device}")
 
 
-def _check_banded(blocks, x, bandwidth: int) -> int:
-    """Shape checks of DIA-banded storage; returns K."""
-    _check_shapes(blocks, x, blocks.shape[0] * blocks.shape[1])
-    K = blocks.shape[2] // blocks.shape[1]
+def _check_banded(blocks, x, bandwidth: int, ext: bool = False) -> int:
+    """Shape checks of DIA-banded storage over x, or with ``ext`` over a
+    halo-extended x of (nbr + 2*bw)*bs rows; returns K."""
+    nbr, bs = blocks.shape[0], blocks.shape[1]
+    _check_shapes(blocks, x, (nbr + (2 * bandwidth if ext else 0)) * bs)
+    K = blocks.shape[2] // bs
     if K != 2 * bandwidth + 1:
         raise ValueError(f"banded storage needs K == 2*bw+1, got K={K}, "
                          f"bw={bandwidth}")
@@ -430,8 +441,11 @@ banded_bsr_spmm_gram.launches = 0
 
 # -- kernel 4: int8 DIA-banded SpMM -------------------------------------
 
-def _check_quantized(qblocks, scale_rows, diag, x, bandwidth: int) -> int:
-    K = _check_banded(qblocks, x, bandwidth)
+def _check_quantized(qblocks, scale_rows, diag, x, bandwidth: int,
+                     ext: bool = False) -> int:
+    """Shape and device checks of int8 banded storage over x (halo-extended
+    with ``ext``); returns K."""
+    K = _check_banded(qblocks, x, bandwidth, ext)
     nbr, bs, kbs = qblocks.shape
     if (tuple(scale_rows.shape) != (nbr, kbs)
             or tuple(diag.shape) != (nbr, bs)):
@@ -542,8 +556,108 @@ def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
 banded_q_bsr_spmm_gram.launches = 0
 
 
+# -- kernel 6: DIA-banded SpMM over a halo-extended input --------------
+
+def _ext_windows(x_ext, nbr: int, bs: int, K: int, acc):
+    """The (nbr, K*bs, m) windows x_ext[r*bs : (r+K)*bs], in ``acc``."""
+    m = x_ext.shape[1]
+    xb = x_ext.to(acc).reshape(nbr + K - 1, bs, m)
+    return xb.unfold(0, K, 1).permute(0, 3, 1, 2).reshape(nbr, K * bs, m)
+
+
+def banded_ext_bsr_spmm_plain(blocks, x_ext, *, bandwidth: int,
+                              out_dtype=None):
+    """Plain PyTorch ``banded_ext_bsr_spmm``: unfold x_ext into the
+    (nbr, K*bs, m) windows and contract each block row as one product,
+    summed in the accumulation type."""
+    nbr, bs, kbs = blocks.shape
+    acc = _acc_dtype(x_ext.dtype)
+    out = torch.bmm(blocks.to(acc),
+                    _ext_windows(x_ext, nbr, bs, kbs // bs, acc))
+    out = out.reshape(nbr * bs, x_ext.shape[1])
+    return out.to(x_ext.dtype if out_dtype is None else out_dtype)
+
+
+def banded_ext_bsr_spmm(blocks, x_ext, *, bandwidth: int, out_dtype=None):
+    """Y = A_local @ X for a shard's DIA-banded rows, over the halo-extended
+    input (``fortran_davidson_tpu/ops/pallas_kernels.py:1190``).
+
+    Args:
+      blocks: (nbr, bs, K*bs), K = 2*bandwidth + 1, the shard's block rows.
+      x_ext: ((nbr + 2*bandwidth)*bs, m), the blocks' type: the shard's
+        rows framed by ``bandwidth`` block rows of halo on each side.
+      out_dtype: output type (default ``x_ext.dtype``).
+    """
+    K = _check_banded(blocks, x_ext, bandwidth, ext=True)
+    out_dtype = x_ext.dtype if out_dtype is None else out_dtype
+    name = "banded_ext_bsr_spmm"
+    if _on_cpu(name, x_ext):
+        return banded_ext_bsr_spmm_plain(blocks, x_ext, bandwidth=bandwidth,
+                                         out_dtype=out_dtype)
+    sfx = _dense_suffix(name, blocks, x_ext)
+    _require_contiguous(name, blocks, x_ext)
+    nbr, bs, _ = blocks.shape
+    y = torch.empty((nbr * bs, x_ext.shape[1]),
+                    dtype=_acc_dtype(x_ext.dtype), device=x_ext.device)
+    if y.numel():
+        _run(f"fdt_{name}_{sfx}", x_ext.device, blocks.data_ptr(),
+             x_ext.data_ptr(), y.data_ptr(), nbr, bs, K, int(bandwidth),
+             x_ext.shape[1])
+        banded_ext_bsr_spmm.launches += 1
+    return _out(y, out_dtype)
+
+
+banded_ext_bsr_spmm.launches = 0
+
+
+# -- kernel 7: int8 DIA-banded SpMM over a halo-extended input ---------
+
+def banded_q_ext_bsr_spmm_plain(qblocks, scale_rows, diag, x_ext, *,
+                                bandwidth: int, out_dtype=None):
+    """Plain PyTorch ``banded_q_ext_bsr_spmm``: dequantize to x's type, the
+    windowed product summed into float32, plus d ∘ x_centre in float32
+    (the JAX package's ``local_q_xla``, ``parallel/halo.py:318-331``)."""
+    out_dtype = x_ext.dtype if out_dtype is None else out_dtype
+    nbr, bs, _ = qblocks.shape
+    deq = (qblocks.to(torch.float32) * scale_rows[:, None, :]).to(x_ext.dtype)
+    y = banded_ext_bsr_spmm_plain(deq, x_ext, bandwidth=bandwidth,
+                                  out_dtype=torch.float32)
+    centre = x_ext[bandwidth * bs:(bandwidth + nbr) * bs]
+    y = y + diag.reshape(-1, 1) * centre.to(torch.float32)
+    return y.to(out_dtype)
+
+
+def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
+                          bandwidth: int, out_dtype=None):
+    """y = (Q ∘ s) @ x_ext[window] + d ∘ x_ext[centre] on a shard's int8
+    DIA-banded rows (``fortran_davidson_tpu/ops/pallas_kernels.py:1059``;
+    storage as :func:`banded_q_bsr_spmm`, input as
+    :func:`banded_ext_bsr_spmm`); x_ext float32 on a GPU."""
+    K = _check_quantized(qblocks, scale_rows, diag, x_ext, bandwidth,
+                         ext=True)
+    nbr, bs, _ = qblocks.shape
+    out_dtype = x_ext.dtype if out_dtype is None else out_dtype
+    name = "banded_q_ext_bsr_spmm"
+    if _on_cpu(name, x_ext):
+        return banded_q_ext_bsr_spmm_plain(qblocks, scale_rows, diag, x_ext,
+                                           bandwidth=bandwidth,
+                                           out_dtype=out_dtype)
+    lead = _quantized_args(name, qblocks, scale_rows, diag, x_ext)
+    y = torch.empty((nbr * bs, x_ext.shape[1]), dtype=torch.float32,
+                    device=x_ext.device)
+    if y.numel():
+        _run(f"fdt_{name}_f32", x_ext.device, *lead, x_ext.data_ptr(),
+             y.data_ptr(), nbr, bs, K, int(bandwidth), x_ext.shape[1])
+        banded_q_ext_bsr_spmm.launches += 1
+    return _out(y, out_dtype)
+
+
+banded_q_ext_bsr_spmm.launches = 0
+
+
 KERNELS = (banded_bsr_spmm, bsr_spmm, banded_bsr_spmm_gram,
-           banded_q_bsr_spmm, banded_q_bsr_spmm_gram)
+           banded_q_bsr_spmm, banded_q_bsr_spmm_gram, banded_ext_bsr_spmm,
+           banded_q_ext_bsr_spmm)
 
 
 def reset_launch_counts() -> None:

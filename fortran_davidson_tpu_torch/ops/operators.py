@@ -6,6 +6,9 @@ itself to a block of vectors (``matmat``: (n, m) -> (n, m)), and gives
 its diagonal (``diagonal``, for the DPR preconditioner and the initial
 subspace), its off-diagonal split (``offdiag``), ``shape``, ``dtype`` and
 ``device``. The solver runs on the operator's device.
+
+Constructors follow ``utils.dtypes.as_device_tensor``: a tensor stays on
+its device, numpy and Python values go to ``device`` (default: the GPU).
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ from typing import Callable, Optional
 
 import torch
 
-from fortran_davidson_tpu_torch.utils.dtypes import as_torch_dtype
+from fortran_davidson_tpu_torch.utils.dtypes import (as_device_tensor,
+                                                     as_torch_dtype,
+                                                     default_device)
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
 
 
@@ -92,7 +97,7 @@ class DenseOperator(LinearOperator):
     """Operator backed by a dense symmetric matrix (one GEMM per apply)."""
 
     def __init__(self, matrix, device=None):
-        matrix = torch.as_tensor(matrix, device=device)
+        matrix = as_device_tensor(matrix, device)
         require(matrix.ndim == 2 and matrix.shape[0] == matrix.shape[1],
                 OperatorError,
                 "DenseOperator needs a square matrix, got "
@@ -129,7 +134,7 @@ class DiagonalOperator(LinearOperator):
     """Operator backed by a diagonal (the cheapest useful B for pencils)."""
 
     def __init__(self, diag, device=None):
-        diag = torch.as_tensor(diag, device=device)
+        diag = as_device_tensor(diag, device)
         require(diag.ndim == 1, OperatorError,
                 "DiagonalOperator needs a 1-D diagonal")
         self.diag = diag
@@ -177,8 +182,10 @@ class MatrixFreeOperator(LinearOperator):
         self._n = int(n)
         self._dtype = as_torch_dtype(dtype)
         if device is None:
-            device = diag.device if isinstance(diag, torch.Tensor) else "cpu"
-        self._device = torch.device(device)
+            # Follow the tensors it was given; with none, the GPU.
+            device = next((t.device for t in (diag, *captured)
+                           if isinstance(t, torch.Tensor)), None)
+        self._device = default_device(device)
         self.diag = (None if diag is None
                      else torch.as_tensor(diag, device=self._device))
         self.captured = tuple(captured)
@@ -220,6 +227,7 @@ def probe_diagonal(matmat: Callable, n: int, dtype, device=None,
     n single-vector applications, ``src/davidson.f90:516-521``). The last
     block is shifted to end at row n, as in the JAX package."""
     dtype = as_torch_dtype(dtype)
+    device = default_device(device)
     block = min(block, n)
     nblocks = -(-n // block)
     eye = torch.eye(block, dtype=dtype, device=device)
@@ -246,7 +254,7 @@ def from_element_fn(fn: Callable, n: int, dtype=torch.float64,
     promotes ``1.0 + i`` to float32).
     """
     dt = as_torch_dtype(dtype)
-    device = torch.device("cpu" if device is None else device)
+    device = default_device(device)
     cols = torch.arange(n, device=device)
     if diag is None:
         diag = fn(cols, cols).to(dt)
@@ -266,8 +274,8 @@ def from_element_fn(fn: Callable, n: int, dtype=torch.float64,
 
 def as_operator(obj, dtype=None, device=None) -> LinearOperator:
     """Coerce user input (operator / dense array / diagonal) to a
-    LinearOperator. Arrays stay on their device (numpy goes to the CPU
-    unless ``device`` says otherwise)."""
+    LinearOperator. Tensors stay on their device unless ``device`` is
+    given; numpy goes to ``device``, by default the GPU."""
     if isinstance(obj, LinearOperator):
         return obj
     if hasattr(obj, "tocsr") and hasattr(obj, "shape"):
@@ -275,7 +283,7 @@ def as_operator(obj, dtype=None, device=None) -> LinearOperator:
             "scipy.sparse input becomes an ELLOperator, which the torch port "
             "does not have yet (ROADMAP Queue 1 item 16); build a BSROperator "
             "or a dense tensor instead")
-    arr = torch.as_tensor(obj, device=device)
+    arr = as_device_tensor(obj, device)
     if dtype is not None:
         arr = arr.to(as_torch_dtype(dtype))
     if arr.ndim == 2:

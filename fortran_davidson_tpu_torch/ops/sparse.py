@@ -7,6 +7,11 @@
 :mod:`fortran_davidson_tpu_torch.ops.kernels`: the CUDA kernels for
 tensors on a GPU, their plain versions for tensors on the CPU. There is
 no ``backend`` field: the kernel follows the device.
+
+Constructors, ``from_block_coo``, ``from_dense`` and the generators put
+what they build from numpy on ``device``, by default the GPU; tensors
+handed to a constructor stay on their device
+(``utils.dtypes.as_device_tensor``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,10 @@ import torch
 
 from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
-from fortran_davidson_tpu_torch.utils.dtypes import as_torch_dtype, numpy_dtype
+from fortran_davidson_tpu_torch.utils.dtypes import (as_device_tensor,
+                                                     as_torch_dtype,
+                                                     default_device,
+                                                     numpy_dtype)
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
 
 
@@ -37,7 +45,7 @@ class BSROperator(LinearOperator):
 
     def __init__(self, block_cols, blocks, bandwidth: Optional[int] = None,
                  device=None):
-        blocks = torch.as_tensor(blocks, device=device)
+        blocks = as_device_tensor(blocks, device)
         block_cols = torch.as_tensor(block_cols, device=blocks.device).to(
             torch.int32).contiguous()
         require(blocks.ndim == 3 and block_cols.ndim == 2
@@ -84,7 +92,7 @@ class BSROperator(LinearOperator):
         return cls(torch.from_numpy(cols.astype(np.int32)),
                    torch.from_numpy(np.ascontiguousarray(
                        vals.transpose(0, 2, 1, 3)).reshape(nbr, bs, K * bs)),
-                   device=device)
+                   device=default_device(device))
 
     @classmethod
     def from_dense(cls, matrix, bs: int, tol: float = 0.0, device=None):
@@ -265,7 +273,8 @@ def generate_banded_bsr(n_block_rows: int, bs: int, bandwidth: int = 1,
         nbr, bs, K * bs)
     del vals, dblocks
     return BSROperator(torch.from_numpy(_dia_block_cols(nbr, bw)),
-                       torch.from_numpy(blocks), bandwidth=bw, device=device)
+                       torch.from_numpy(blocks), bandwidth=bw,
+                       device=default_device(device))
 
 
 class QuantizedBandedOperator(LinearOperator):
@@ -283,7 +292,7 @@ class QuantizedBandedOperator(LinearOperator):
 
     def __init__(self, qblocks, scale_rows, diag, bandwidth: int,
                  device=None):
-        qblocks = torch.as_tensor(qblocks, device=device).to(torch.int8)
+        qblocks = as_device_tensor(qblocks, device).to(torch.int8)
         dev = qblocks.device
         scale_rows = torch.as_tensor(scale_rows, device=dev).to(torch.float32)
         diag = torch.as_tensor(diag, device=dev).to(torch.float32)
@@ -432,4 +441,4 @@ def generate_banded_bsr_quantized(n_block_rows: int, bs: int,
     return QuantizedBandedOperator(
         torch.from_numpy(q4.reshape(nbr, bs, K * bs)),
         torch.from_numpy(np.ascontiguousarray(scale_rows)),
-        torch.from_numpy(diag), bandwidth=bw, device=device)
+        torch.from_numpy(diag), bandwidth=bw, device=default_device(device))

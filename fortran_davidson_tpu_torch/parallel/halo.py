@@ -1,0 +1,286 @@
+"""Banded operators applied with a ring halo exchange (counterpart of
+``fortran_davidson_tpu/parallel/halo.py``).
+
+Each rank owns a contiguous slab of block rows of a banded operator (the
+tables and the basis rows are partitioned alike). A block row reads x
+rows at most ``bandwidth`` block rows away, so an apply needs, beyond
+the rank's own rows, only the last ``bandwidth * bs`` rows of its ring
+predecessor and the first of its successor. JAX moves them with two
+``ppermute``s. Here one ``all_gather`` of each rank's 2·bw·bs boundary
+rows does it (:func:`halo_slabs`): ``torch.distributed`` refuses a
+send to oneself, and at world size 1 the ring's neighbour is the rank
+itself, as in JAX's ``ppermute`` with the pair (0, 0). A collective that
+includes the rank works at every world size, on NCCL and gloo alike, and
+runs the same code at world size 1 as at 4. Its traffic is
+O(world · bw · bs · m), never the whole block. At the ring's two ends
+the wrapped rows meet the zero blocks of out-of-range slots.
+
+Backends, as in JAX:
+
+- ``"pallas"``: the shard-local contraction in the kernel, over the
+  halo-extended rows ``[from_prev; x; from_next]``:
+  :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_ext_bsr_spmm`
+  (kernel 6) and
+  :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_q_ext_bsr_spmm`
+  (kernel 7), which take their plain versions on the CPU. JAX runs its
+  Mosaic kernels only for ``nbr_local % 8 == 0`` (Mosaic's tiles); the
+  CUDA kernels have no tile constraint, so the port runs them for every
+  DIA-aligned operator (K == 2·bw + 1). ``HaloBSROperator`` with
+  ``"pallas"`` requires that storage and raises otherwise: on a GPU it
+  launches its kernel or raises, never falls back.
+- ``"xla"``: JAX's non-kernel path as plain torch: for the BSR operator
+  the interior contraction over the columns the rank owns plus the halo
+  contraction over the 2·bw received blocks (any banded column table);
+  for the int8 operator the dequantized windowed product.
+- ``"pallas-remote"`` (kernel 8, ``banded_remote_halo_spmm``, which
+  pushes the halos between chips from inside the kernel) is not ported:
+  it raises ``NotImplementedError``.
+
+The operators keep only their rank's rows; at world size 1 those are
+views of the global tables handed in (no copy when they are already on
+the mesh's device). ``shape`` is global; ``diagonal()`` and ``matmat``
+work on the rank's rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fortran_davidson_tpu_torch.ops import kernels
+from fortran_davidson_tpu_torch.ops.operators import LinearOperator
+from fortran_davidson_tpu_torch.parallel.mesh import ROWS_AXIS, RowMesh
+from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
+
+_REMOTE = ("backend='pallas-remote' needs kernel 8 (banded_remote_halo_spmm, "
+           "fortran_davidson_tpu/ops/pallas_kernels.py:1416), which is not "
+           "ported: it pushes halos between GPUs from inside the kernel and "
+           "waits in ROADMAP Queue 2; use backend='pallas'")
+
+
+def local_rows(t, rows: slice, device) -> torch.Tensor:
+    """Rows ``rows`` of ``t`` (a tensor or array) on ``device``: a view
+    when ``t`` already lives there, else a copy of those rows only."""
+    t = t if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+    return t[rows].to(device)
+
+
+def block_diagonal(blocks, block_cols, row0: int):
+    """The matrix diagonal of a rank's (nbr_l, bs, K*bs) block rows, whose
+    first global block row is ``row0``: the sum of the blocks stored at
+    each row's own block column, then their diagonals."""
+    nbr_l, bs, kbs = blocks.shape
+    own = block_cols == (row0 + torch.arange(
+        nbr_l, dtype=block_cols.dtype, device=blocks.device))[:, None]
+    b4 = blocks.reshape(nbr_l, bs, kbs // bs, bs)
+    diag_blocks = torch.sum(torch.where(own[:, None, :, None], b4, 0), dim=2)
+    return torch.diagonal(diag_blocks, dim1=1, dim2=2).reshape(-1)
+
+
+def halo_slabs(mesh: RowMesh, x, halo: int):
+    """``(from_prev, from_next)``: the last ``halo`` rows of the ring
+    predecessor's ``x`` and the first ``halo`` rows of its successor's."""
+    edges = mesh.all_gather_rows(torch.cat([x[:halo], x[-halo:]]))
+    edges = edges.reshape(mesh.size, 2 * halo, *x.shape[1:])
+    return (edges[(mesh.rank - 1) % mesh.size, halo:],
+            edges[(mesh.rank + 1) % mesh.size, :halo])
+
+
+def extend(mesh: RowMesh, x, halo: int):
+    """The halo-extended rows ``[from_prev; x; from_next]``."""
+    from_prev, from_next = halo_slabs(mesh, x, halo)
+    return torch.cat([from_prev, x, from_next])
+
+
+def _check_slab(nbr: int, bandwidth: int, mesh: RowMesh, axis: str) -> int:
+    require(axis == mesh.axis, OperatorError,
+            f"axis {axis!r} is not the mesh's {mesh.axis!r}")
+    require(nbr % mesh.size == 0, OperatorError,
+            f"{nbr} block rows not divisible by {mesh.size} devices")
+    nbr_local = nbr // mesh.size
+    require(bandwidth <= nbr_local, OperatorError,
+            f"bandwidth {bandwidth} exceeds local slab {nbr_local} — "
+            "halo exchange only reaches ring neighbors")
+    return nbr_local
+
+
+class HaloBSROperator(LinearOperator):
+    """Banded block-ELL operator applied with ring halo exchange.
+
+    ``block_cols``/``blocks`` are the global (nbr, K) and (nbr, bs, K*bs)
+    tables of :class:`~fortran_davidson_tpu_torch.ops.sparse.BSROperator`,
+    restricted to a band: every stored block's column lies within
+    ``bandwidth`` block rows of its own block row. The operator keeps the
+    mesh rank's block rows, on the mesh's device.
+    """
+
+    def __init__(self, block_cols, blocks, bandwidth: int, mesh: RowMesh,
+                 axis: str = ROWS_AXIS, backend: str = "xla"):
+        require(backend in ("xla", "pallas", "pallas-remote"), OperatorError,
+                f"unknown halo backend {backend!r}")
+        if backend == "pallas-remote":
+            raise NotImplementedError(_REMOTE)
+        nbr, K = block_cols.shape[:2]
+        nbr_local = _check_slab(nbr, bandwidth, mesh, axis)
+        require(backend != "pallas" or K == 2 * bandwidth + 1, OperatorError,
+                "backend='pallas' runs the DIA-banded kernel and needs "
+                f"K == 2*bandwidth+1 window-aligned slots, got K={K}, "
+                f"bw={bandwidth}; use backend='xla'")
+        rows = slice(mesh.rank * nbr_local, (mesh.rank + 1) * nbr_local)
+        self.block_cols = local_rows(block_cols, rows, mesh.device).to(
+            torch.int32)
+        self.blocks = local_rows(blocks, rows, mesh.device)
+        self.bandwidth = int(bandwidth)
+        self.mesh = mesh
+        self.axis = axis
+        self.backend = backend
+        self._nbr = nbr
+
+    @classmethod
+    def from_bsr(cls, op, bandwidth: int, mesh: RowMesh,
+                 axis: str = ROWS_AXIS,
+                 backend: str = "xla") -> "HaloBSROperator":
+        return cls(op.block_cols, op.blocks, bandwidth, mesh, axis,
+                   backend=backend)
+
+    # -- LinearOperator -------------------------------------------------
+    @property
+    def block_size(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def shape(self):
+        n = self._nbr * self.block_size
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def device(self):
+        return self.mesh.device
+
+    def matmat(self, block):
+        nbr_l, bs, kbs = self.blocks.shape
+        K = kbs // bs
+        bw = self.bandwidth
+        m = block.shape[1]
+        from_prev, from_next = halo_slabs(self.mesh, block, bw * bs)
+        if self.backend == "pallas":
+            # Mixed precision as BSROperator.matmat: the narrower type.
+            compute = (self.dtype if self.dtype.itemsize
+                       < block.dtype.itemsize else block.dtype)
+            x_ext = torch.cat([from_prev, block, from_next]).to(compute)
+            return kernels.banded_ext_bsr_spmm(
+                self.blocks.to(compute), x_ext, bandwidth=bw,
+                out_dtype=block.dtype)
+        # Interior contraction over the block columns this rank owns,
+        # then the halo contraction over the 2*bw received blocks
+        # (fortran_davidson_tpu/parallel/halo.py:139-172).
+        blks = self.blocks.to(block.dtype)
+        local = self.block_cols.long() - self.mesh.rank * nbr_l
+        is_local = (local >= 0) & (local < nbr_l)
+        xb = block.reshape(nbr_l, bs, m)
+        gi = xb[local.clamp(0, nbr_l - 1)] * is_local[:, :, None, None].to(
+            block.dtype)
+        out = torch.bmm(blks, gi.reshape(nbr_l, K * bs, m))
+        xh = torch.cat([from_prev, from_next]).reshape(2 * bw, bs, m)
+        halo_idx = torch.where(local < 0, local + bw, local - nbr_l + bw)
+        gh = xh[halo_idx.clamp(0, 2 * bw - 1)] * (~is_local)[
+            :, :, None, None].to(block.dtype)
+        out = out + torch.bmm(blks, gh.reshape(nbr_l, K * bs, m))
+        return out.reshape(nbr_l * bs, m)
+
+    def diagonal(self):
+        return block_diagonal(self.blocks, self.block_cols,
+                              self.mesh.rank * self.blocks.shape[0])
+
+    def offdiag(self) -> "HaloBSROperator":
+        """Exact off-diagonal split of the rank's rows."""
+        nbr_l, bs, kbs = self.blocks.shape
+        own = self.block_cols == (self.mesh.rank * nbr_l + torch.arange(
+            nbr_l, dtype=torch.int32, device=self.device))[:, None]
+        j = torch.arange(kbs, device=self.device)
+        in_block_diag = (torch.arange(bs, device=self.device)[:, None]
+                         == (j % bs)[None, :])
+        mask = own[:, None, j // bs] & in_block_diag[None]
+        out = object.__new__(HaloBSROperator)
+        out.__dict__.update(self.__dict__,
+                            blocks=torch.where(mask, 0, self.blocks))
+        return out
+
+
+class HaloQuantizedOperator(LinearOperator):
+    """Row-sharded int8-quantized banded operator (halo exchange).
+
+    The distributed face of
+    :class:`~fortran_davidson_tpu_torch.ops.sparse.QuantizedBandedOperator`:
+    the rank's int8 off-diagonal blocks, per-slot float32 scales and exact
+    float32 diagonal; the apply exchanges only the ``bandwidth * bs``
+    boundary rows and contracts the halo-extended slab, through kernel 7
+    (``"pallas"``, the default) or the dequantized product (``"xla"``).
+    Same accuracy contract as the single-device operator (bf16-class;
+    diagonal and ``offdiag`` exact).
+    """
+
+    def __init__(self, qblocks, scale_rows, diag, bandwidth: int,
+                 mesh: RowMesh, axis: str = ROWS_AXIS,
+                 backend: str = "pallas"):
+        nbr, bs, kbs = qblocks.shape
+        nbr_local = _check_slab(nbr, bandwidth, mesh, axis)
+        require(kbs == (2 * bandwidth + 1) * bs, OperatorError,
+                "quantized halo needs DIA-aligned K == 2*bw+1 slots")
+        require(backend in ("xla", "pallas"), OperatorError,
+                f"unknown backend {backend!r}")
+        rows = slice(mesh.rank * nbr_local, (mesh.rank + 1) * nbr_local)
+        self.qblocks = local_rows(qblocks, rows, mesh.device).to(torch.int8)
+        self.scale_rows = local_rows(scale_rows, rows, mesh.device).to(
+            torch.float32)
+        self.diag = local_rows(diag, rows, mesh.device).to(torch.float32)
+        self.bandwidth = int(bandwidth)
+        self.mesh = mesh
+        self.axis = axis
+        self.backend = backend
+        self._nbr = nbr
+
+    @classmethod
+    def from_quantized(cls, op, mesh: RowMesh, axis: str = ROWS_AXIS,
+                       backend: str = "pallas") -> "HaloQuantizedOperator":
+        """Distribute a single-device ``QuantizedBandedOperator``."""
+        return cls(op.qblocks, op.scale_rows, op.diag, op.bandwidth, mesh,
+                   axis, backend=backend)
+
+    # -- LinearOperator -------------------------------------------------
+    @property
+    def block_size(self) -> int:
+        return self.qblocks.shape[1]
+
+    @property
+    def shape(self):
+        n = self._nbr * self.block_size
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.scale_rows.dtype
+
+    @property
+    def device(self):
+        return self.mesh.device
+
+    def matmat(self, block):
+        bw, bs = self.bandwidth, self.block_size
+        x_ext = extend(self.mesh, block, bw * bs)
+        apply = (kernels.banded_q_ext_bsr_spmm if self.backend == "pallas"
+                 else kernels.banded_q_ext_bsr_spmm_plain)
+        return apply(self.qblocks, self.scale_rows, self.diag, x_ext,
+                     bandwidth=bw, out_dtype=block.dtype)
+
+    def diagonal(self):
+        return self.diag.reshape(-1)
+
+    def offdiag(self) -> "HaloQuantizedOperator":
+        """Exact: the diagonal is stored separately; zero it."""
+        out = object.__new__(HaloQuantizedOperator)
+        out.__dict__.update(self.__dict__, diag=torch.zeros_like(self.diag))
+        return out

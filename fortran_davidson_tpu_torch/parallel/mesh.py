@@ -1,0 +1,114 @@
+"""The process group of a row-sharded solve (counterpart of
+``fortran_davidson_tpu/parallel/mesh.py``).
+
+The JAX package runs one controller over a ``jax.sharding.Mesh`` and lets
+GSPMD place rows and insert collectives. PyTorch's idiom is SPMD over
+``torch.distributed``: one process per device, every process runs the
+same program on its own contiguous slice of the rows, and the reductions
+over rows are explicit collectives (NCCL on GPUs, gloo on the CPU). A
+:class:`RowMesh` names that group, this process's rank in it and its
+device. Conventions, as in the JAX package:
+
+- the distribution axis is named ``"rows"``; rank ``r`` of ``size`` holds
+  rows ``[r * n / size, (r + 1) * n / size)`` of every tall array;
+- the subspace axis is never sharded: the small Gram matrices and the
+  projected eigenproblem are all-reduced and solved on every rank.
+
+``replicated`` has no counterpart to place: every rank computes the small
+matrices from all-reduced sums and holds all of them. It is kept, as the
+whole-range slice, for code written against the JAX API.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from fortran_davidson_tpu_torch.utils.dtypes import default_device
+from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
+
+ROWS_AXIS = "rows"
+
+
+@dataclasses.dataclass(frozen=True)
+class RowMesh:
+    """One process group over which the rows are partitioned (hashable)."""
+
+    group: object        # torch.distributed ProcessGroup
+    size: int
+    rank: int
+    device: torch.device
+    axis: str = ROWS_AXIS
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous slice of ``n`` rows."""
+        require(n % self.size == 0, OperatorError,
+                f"{n} rows not divisible by the {self.size}-rank mesh")
+        n_local = n // self.size
+        return slice(self.rank * n_local, (self.rank + 1) * n_local)
+
+    def all_reduce(self, t):
+        """Sum ``t`` over the ranks, in place where ``t`` is contiguous;
+        every rank gets the same bits."""
+        t = t.contiguous()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_gather_rows(self, t):
+        """The ranks' ``t`` (same shape on each) stacked along rows, in
+        rank order."""
+        t = t.contiguous()
+        out = torch.empty((self.size * t.shape[0], *t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+        gather(out, t, group=self.group)
+        return out
+
+
+def mesh_device(device=None, rank: int = 0) -> torch.device:
+    """The device of ``rank``: ``device`` when it names one, else the GPU
+    of the launcher's ``LOCAL_RANK`` (by default ``rank`` modulo the
+    visible GPUs). Without a GPU and without ``device`` it raises
+    ``DeviceUnavailableError``."""
+    dev = default_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        local = os.environ.get("LOCAL_RANK")
+        index = int(local) if local is not None else (
+            rank % torch.cuda.device_count())
+        dev = torch.device("cuda", index)
+    return dev
+
+
+def default_mesh(n_devices: Optional[int] = None, axis: str = ROWS_AXIS,
+                 device=None) -> RowMesh:
+    """The mesh over the default process group, one device per rank.
+
+    The group must be up (:func:`~.multihost.initialize`, or
+    ``torch.distributed.init_process_group``). ``n_devices``, when given,
+    must equal its size: a rank cannot lend its device to a smaller mesh.
+    """
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "default_mesh needs a torch.distributed process group: call "
+            "parallel.multihost.initialize() first")
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if n_devices is not None and n_devices != size:
+        raise ValueError(f"requested {n_devices} devices; the process group "
+                         f"has {size} ranks of one device each")
+    return RowMesh(group=dist.group.WORLD, size=size, rank=rank,
+                   device=mesh_device(device, rank), axis=axis)
+
+
+def row_sharding(mesh: RowMesh, n: int) -> slice:
+    """The rows of an ``n``-row tall array that this rank holds."""
+    return mesh.rows(n)
+
+
+def replicated(mesh: RowMesh) -> slice:
+    """The rows of a replicated array that a rank holds: all of them."""
+    return slice(None)

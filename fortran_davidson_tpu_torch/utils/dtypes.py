@@ -1,15 +1,47 @@
-"""Dtype policy of the PyTorch port.
+"""Dtype and device policy of the PyTorch port.
 
 The reference computes everything in ``real64`` (``src/numeric_kinds.f90:10``).
 The solver supports float64 (the default, reference parity) and float32.
 PyTorch has float64 natively on the CPU and on the GPU, so there is no
 counterpart of the JAX package's x64 switch.
+
+Devices: the port runs on the card unless the caller asks for the CPU.
+An entry point that builds tensors from numpy, Python values or a seed
+puts them on :func:`default_device` of its ``device`` argument; a tensor
+that already lives on a device keeps following it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fortran_davidson_tpu_torch.utils.errors import DeviceUnavailableError
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means ``cuda``.
+
+    Raises :class:`DeviceUnavailableError` for ``None`` when there is no
+    CUDA device: it never drops to the CPU quietly.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise DeviceUnavailableError(
+            "no CUDA device: the port runs on the GPU by default; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def as_device_tensor(obj, device=None) -> torch.Tensor:
+    """``obj`` as a tensor: on ``device`` when it is given; else a tensor
+    stays on its own device and anything else goes to
+    :func:`default_device` (the GPU)."""
+    if isinstance(obj, torch.Tensor) and device is None:
+        return obj
+    return torch.as_tensor(obj, device=default_device(device))
+
 
 _BY_NAME = {
     "float64": torch.float64,

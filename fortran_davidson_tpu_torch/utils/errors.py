@@ -23,6 +23,12 @@ class OperatorError(DavidsonError, ValueError):
     """Raised for malformed linear operators (shape/dtype/symmetry issues)."""
 
 
+class DeviceUnavailableError(DavidsonError):
+    """Raised when an entry point is left to choose its device (``device``
+    not given, no tensor to follow) and there is no CUDA device: the port
+    runs on the card unless the caller asks for the CPU."""
+
+
 class NumericalError(DavidsonError, ArithmeticError):
     """Raised when a numerical routine produced non-finite results — the
     eager equivalent of the reference's ``check_lapack_call`` abort

@@ -244,3 +244,145 @@ def test_auto_engine_at_k128_on_the_card(cuda_device, max_dim_sub):
     X, lam = res.eigenvectors.double(), res.eigenvalues.double()
     r = torch.linalg.vector_norm(op.to_dense().double() @ X - X * lam, dim=0)
     assert bool(torch.all(r <= 1e-3 * lam.abs().clamp(min=1.0)))
+
+
+# -- the halo kernels (6, 7) and the sharded solve --------------------------
+
+def _ring_ext(x, lo, hi, halo):
+    """Rows [lo - halo, hi + halo) of x, wrapped around the ring: the
+    halo-extended input that the exchange gives the slab [lo, hi)."""
+    idx = torch.arange(lo - halo, hi + halo, device=x.device) % x.shape[0]
+    return x[idx]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 20, 64, 130])
+@pytest.mark.parametrize("bw", [1, 3])
+def test_ext_kernel_matches_plain(cuda_device, dtype, m, bw):
+    nbr, bs = 37, 16
+    store = torch.float32 if dtype == torch.bfloat16 else dtype
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=7, dtype=store,
+                                  device=cuda_device)
+    blocks = op.blocks.to(dtype)
+    x_ext = torch.randn(((nbr + 2 * bw) * bs, m),
+                        device=cuda_device).to(dtype)
+    # bf16 storage returns the float32 sums (the halo operator's use).
+    out = torch.float32 if dtype == torch.bfloat16 else None
+    before = kernels.banded_ext_bsr_spmm.launches
+    y = kernels.banded_ext_bsr_spmm(blocks, x_ext, bandwidth=bw,
+                                    out_dtype=out)
+    assert kernels.banded_ext_bsr_spmm.launches == before + 1
+    assert y.shape == (nbr * bs, m) and y.dtype == (out or dtype)
+    torch.testing.assert_close(
+        y, kernels.banded_ext_bsr_spmm_plain(blocks, x_ext, bandwidth=bw,
+                                             out_dtype=out),
+        **_tol(store))
+
+
+@pytest.mark.parametrize("m", [1, 20, 130])
+@pytest.mark.parametrize("bw", [1, 2])
+def test_q_ext_kernel_matches_plain(cuda_device, m, bw):
+    q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=bw, seed=8,
+                                           device=cuda_device)
+    x_ext = torch.randn((q.shape[0] + 2 * bw * 24, m), device=cuda_device)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    before = kernels.banded_q_ext_bsr_spmm.launches
+    y = kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw)
+    assert kernels.banded_q_ext_bsr_spmm.launches == before + 1
+    torch.testing.assert_close(
+        y, kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext, bandwidth=bw),
+        **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("kind", ["float64", "int8"])
+def test_ext_kernels_at_full_size(cuda_device, kind):
+    # The sharded solve's matrices at world size 1 (chip_smoke.py phase 8).
+    if kind == "int8":
+        op = fdtt.generate_banded_bsr_quantized(16384, 128, bandwidth=1,
+                                                seed=0, device=cuda_device)
+        lead, m = (op.qblocks, op.scale_rows, op.diag), 20
+        kernel, plain = (kernels.banded_q_ext_bsr_spmm,
+                         kernels.banded_q_ext_bsr_spmm_plain)
+        x_ext = torch.randn((op.shape[0] + 256, m), device=cuda_device)
+        rel = 1e-5
+    else:
+        op = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, seed=0,
+                                      device=cuda_device)
+        lead, m = (op.blocks,), 40
+        kernel, plain = (kernels.banded_ext_bsr_spmm,
+                         kernels.banded_ext_bsr_spmm_plain)
+        x_ext = torch.randn((op.shape[0] + 256, m), dtype=torch.float64,
+                            device=cuda_device)
+        rel = 1e-12
+    y = kernel(*lead, x_ext, bandwidth=1)
+    want = plain(*lead, x_ext, bandwidth=1)
+    assert float((y - want).abs().max()) <= rel * float(want.abs().max())
+
+
+@pytest.mark.parametrize("bw", [1, 2])
+def test_four_slabs_match_the_whole_matrix(cuda_device, bw):
+    # Four shards on one card: each slab's kernel 6/7 apply on its
+    # ring-wrapped x_ext, put together, is kernel 1/4 on the whole matrix.
+    # One tile, masking apart: bit for bit in f64, 1e-7 of max|Y| in f32.
+    slabs, nbr, bs = 4, 64, 16
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=9,
+                                  device=cuda_device)
+    q = fdtt.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw, seed=9,
+                                           device=cuda_device)
+    nl, halo = nbr // slabs, bw * bs
+    for m in (20, 40):
+        x = torch.randn((op.shape[0], m), dtype=torch.float64,
+                        device=cuda_device)
+        parts = [kernels.banded_ext_bsr_spmm(
+            op.blocks[s * nl:(s + 1) * nl],
+            _ring_ext(x, s * nl * bs, (s + 1) * nl * bs, halo), bandwidth=bw)
+            for s in range(slabs)]
+        assert torch.equal(torch.cat(parts),
+                           kernels.banded_bsr_spmm(op.blocks, x, bw))
+        xf = x.float()
+        tables = (q.qblocks, q.scale_rows, q.diag)
+        parts = [kernels.banded_q_ext_bsr_spmm(
+            *(t[s * nl:(s + 1) * nl] for t in tables),
+            _ring_ext(xf, s * nl * bs, (s + 1) * nl * bs, halo), bandwidth=bw)
+            for s in range(slabs)]
+        whole = kernels.banded_q_bsr_spmm(*tables, xf, bw)
+        err = float((torch.cat(parts) - whole).abs().max())
+        assert err <= 1e-7 * float(whole.abs().max())
+
+
+def test_sharded_solve_world_size_one_over_nccl(cuda_device, tmp_path):
+    # One rank over NCCL runs the same exchange as four: kernels 6 and 7
+    # launch, kernels 1 and 4 do not, and the solves match one device's.
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded,
+                                                     multihost)
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    q = fdtt.quantize_banded_int8(op.astype(torch.float32))
+    loose = dict(dtype="float32", expansion="lowest-k",
+                 relative_tolerance=True, tolerance=1e-3)
+    single = fdtt.eigensolve(op, 3, max_dim_sub=12)
+    single_q = fdtt.eigensolve(q, 3, **loose)
+    mesh = multihost.initialize(init_method=f"file://{tmp_path}/rendezvous",
+                                world_size=1, rank=0, device=cuda_device)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size == 1
+        H = HaloBSROperator.from_bsr(op, 1, mesh, backend="pallas")
+        assert H.blocks.data_ptr() == op.blocks.data_ptr()
+        kernels.reset_launch_counts()
+        res = eigensolve_sharded(H, 3, mesh, max_dim_sub=12)
+        res_q = eigensolve_sharded(q, 3, mesh, **loose)
+        assert kernels.banded_ext_bsr_spmm.launches > 0
+        assert kernels.banded_q_ext_bsr_spmm.launches > 0
+        assert (kernels.banded_bsr_spmm.launches
+                == kernels.banded_q_bsr_spmm.launches == 0)
+    finally:
+        dist.destroy_process_group()
+    assert res.converged and res.iterations == single.iterations
+    torch.testing.assert_close(res.eigenvalues, single.eigenvalues, rtol=0,
+                               atol=1e-10)
+    assert res_q.converged and res_q.iterations == single_q.iterations
+    torch.testing.assert_close(res_q.eigenvalues, single_q.eigenvalues,
+                               rtol=1e-5, atol=0)

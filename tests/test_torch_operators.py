@@ -32,7 +32,7 @@ def test_generate_banded_bsr_bit_equal(nbr, bs, bw, seed, dtype):
     j = jsparse.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=seed,
                                     coupling=0.05, dtype=dtype)
     t = tsparse.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=seed,
-                                    coupling=0.05, dtype=dtype)
+                                    coupling=0.05, dtype=dtype, device="cpu")
     assert t.bandwidth == j.bandwidth == bw
     np.testing.assert_array_equal(to_numpy(t.block_cols), np.asarray(j.block_cols))
     np.testing.assert_array_equal(to_numpy(t.blocks), np.asarray(j.blocks))
@@ -40,7 +40,7 @@ def test_generate_banded_bsr_bit_equal(nbr, bs, bw, seed, dtype):
 
 
 def test_bse_surrogate_bit_equal():
-    np.testing.assert_array_equal(to_numpy(tgen.bse_surrogate(200)),
+    np.testing.assert_array_equal(to_numpy(tgen.bse_surrogate(200, device="cpu")),
                                   np.asarray(jgen.bse_surrogate(200)))
 
 
@@ -60,7 +60,7 @@ def _bsr_pair(kind):
         vals = rng.standard_normal((8, 4, 4))
         j = jsparse.BSROperator.from_block_coo(brows, bcols, vals, 4,
                                                pad_width=4)
-    return j, convert.operator(j)
+    return j, convert.operator(j, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["banded", "general", "coo"])
@@ -86,19 +86,20 @@ def test_bsr_operator_matches_jax(kind, rng):
 def test_bsr_constructors_match_jax():
     j, _ = _bsr_pair("general")
     dense = np.asarray(j.to_dense())
-    t = tsparse.BSROperator.from_dense(dense, 8)
+    t = tsparse.BSROperator.from_dense(dense, 8, device="cpu")
     np.testing.assert_array_equal(to_numpy(t.block_cols), np.asarray(j.block_cols))
     np.testing.assert_array_equal(to_numpy(t.blocks), np.asarray(j.blocks))
     with pytest.raises(OperatorError):
-        tsparse.BSROperator.from_dense(dense[:47, :47], 8)
+        tsparse.BSROperator.from_dense(dense[:47, :47], 8, device="cpu")
     with pytest.raises(OperatorError):
-        tsparse.BSROperator(np.zeros((3, 2), np.int32), np.zeros((3, 4, 4)))
+        tsparse.BSROperator(np.zeros((3, 2), np.int32), np.zeros((3, 4, 4)),
+                            device="cpu")
 
 
 def test_bsr_mixed_precision_storage(rng):
     j = jsparse.generate_banded_bsr(16, 8, bandwidth=1, seed=12,
                                     dtype=jnp.float32)
-    t = convert.operator(j)
+    t = convert.operator(j, device="cpu")
     X = rng.standard_normal((j.shape[0], 4)).astype(np.float32)
     out = t.astype(torch.bfloat16).matmat(torch.from_numpy(X))
     assert out.dtype == torch.float32
@@ -110,11 +111,11 @@ def test_bsr_mixed_precision_storage(rng):
 def test_convert_roundtrips_dense_and_diagonal(rng):
     A = np.asarray(jgen.generate_diagonal_dominant(20, 1e-2))
     jd = fdt.DenseOperator(A)
-    td = convert.operator(jd)
+    td = convert.operator(jd, device="cpu")
     assert isinstance(td, fdtt.DenseOperator)
     np.testing.assert_array_equal(to_numpy(td.to_dense()), np.asarray(jd.to_dense()))
     jg = fdt.DiagonalOperator(jnp.arange(1.0, 21.0))
-    tg = convert.operator(jg)
+    tg = convert.operator(jg, device="cpu")
     assert isinstance(tg, fdtt.DiagonalOperator)
     np.testing.assert_array_equal(to_numpy(tg.diagonal()), np.asarray(jg.diagonal()))
     X = rng.standard_normal((20, 3))
@@ -126,10 +127,10 @@ def test_convert_roundtrips_dense_and_diagonal(rng):
             to_numpy(to.offdiag().matmat(torch.from_numpy(X))),
             np.asarray(jo.offdiag().matmat(jnp.asarray(X))),
             rtol=RTOL, atol=RTOL)
-    f32 = convert.dense(A, dtype="float32")
+    f32 = convert.dense(A, dtype="float32", device="cpu")
     assert f32.dtype == torch.float32
     with pytest.raises(OperatorError):
-        convert.operator(jgen.surrogate_hamiltonian(8))
+        convert.operator(jgen.surrogate_hamiltonian(8), device="cpu")
 
 
 def test_matrix_free_probed_diagonal_matches_jax():
@@ -149,7 +150,8 @@ def test_surrogates_match_jax(rng):
     X = rng.standard_normal((257, 4))
     for jfn, tfn in ((jgen.surrogate_hamiltonian, tgen.surrogate_hamiltonian),
                      (jgen.surrogate_overlap, tgen.surrogate_overlap)):
-        jop, top = jfn(257, coupling=1e-2), tfn(257, coupling=1e-2)
+        jop, top = jfn(257, coupling=1e-2), tfn(257, coupling=1e-2,
+                                                device="cpu")
         np.testing.assert_allclose(to_numpy(top.matmat(torch.from_numpy(X))),
                                    np.asarray(jop.matmat(jnp.asarray(X))),
                                    rtol=RTOL, atol=RTOL)
@@ -170,7 +172,7 @@ def test_from_element_fn_matches_jax(rng):
         return torch.where(i == j, 1.0 + i, 1e-3 / (1.0 + i + j))
 
     jop = fdt.from_element_fn(fn, 70, row_block=16)
-    top = fdtt.from_element_fn(tfn, 70, row_block=16)
+    top = fdtt.from_element_fn(tfn, 70, row_block=16, device="cpu")
     X = rng.standard_normal((70, 3))
     np.testing.assert_allclose(to_numpy(top.matmat(torch.from_numpy(X))),
                                np.asarray(jop.matmat(jnp.asarray(X))),
@@ -180,14 +182,16 @@ def test_from_element_fn_matches_jax(rng):
 
 
 def test_as_operator_routes_and_rejects():
-    assert isinstance(fdtt.as_operator(np.eye(3)), fdtt.DenseOperator)
-    assert isinstance(fdtt.as_operator(np.ones(3)), fdtt.DiagonalOperator)
+    assert isinstance(fdtt.as_operator(np.eye(3), device="cpu"),
+                      fdtt.DenseOperator)
+    assert isinstance(fdtt.as_operator(np.ones(3), device="cpu"),
+                      fdtt.DiagonalOperator)
     with pytest.raises(OperatorError, match="ELLOperator"):
         fdtt.as_operator(scipy.sparse.eye(4, format="csr"))
     with pytest.raises(OperatorError):
-        fdtt.as_operator(np.zeros((2, 2, 2)))
+        fdtt.as_operator(np.zeros((2, 2, 2)), device="cpu")
     with pytest.raises(OperatorError):
-        fdtt.DenseOperator(np.zeros((2, 3)))
+        fdtt.DenseOperator(np.zeros((2, 3)), device="cpu")
 
 
 def test_linalg_matches_jax(rng):

@@ -1,0 +1,349 @@
+"""The port's row-sharded solve (``fortran_davidson_tpu_torch.parallel``)
+against the JAX package, on the CPU.
+
+World sizes 1, 2 and 4 run as gloo process groups: one spawn per world
+size (``tests/torch_dist_worker.py``) runs every check on its ranks, and
+the tests here compare the ranks' rows, put back together, with:
+
+- the JAX halo operators on ``default_mesh(world)`` (kernel 6's and 7's
+  Pallas kernels in interpret mode): the applies within 1e-12 of max|Y|
+  in float64 and rtol = atol = 2e-5 for int8 storage (bf16-class, as
+  ``tests/test_quantized.py`` holds the JAX halo operator); diagonals
+  exactly; the off-diagonal splits through A x = offdiag(A) x + d ∘ x;
+- the JAX package's single-device solve and the port's own, on the cases
+  of ``tests/test_parallel.py``: equal iteration counts and converged
+  flags, eigenvalues within atol 1e-10 in float64 and rtol 1e-5 in
+  float32, true residuals of the gathered eigenvectors within the
+  solve's tolerance.
+
+The argument checks and ``convert.halo`` need no process group: they use
+a :class:`RowMesh` whose group is never called.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import fortran_davidson_tpu as fdt
+import fortran_davidson_tpu_torch as fdtt
+from fortran_davidson_tpu import config as jconfig
+from fortran_davidson_tpu import parallel as jpar
+from fortran_davidson_tpu.models import generators as jgen
+from fortran_davidson_tpu.ops import sparse as jsparse
+from fortran_davidson_tpu_torch import config as tconfig
+from fortran_davidson_tpu_torch import convert
+from fortran_davidson_tpu_torch import parallel as tpar
+from fortran_davidson_tpu_torch.parallel import multihost
+from fortran_davidson_tpu_torch.utils.errors import (InvalidOptionsError,
+                                                     OperatorError)
+from tests import torch_dist_worker as worker
+from tests.torch_parity import to_numpy
+
+WORLDS = (1, 2, 4)
+CPU = torch.device("cpu")
+
+
+def _fake_mesh(size: int, rank: int = 0) -> tpar.RowMesh:
+    """A mesh for checks that run before any collective."""
+    return tpar.RowMesh(group=None, size=size, rank=rank, device=CPU)
+
+
+def _tables(op) -> dict:
+    return dict(cols=np.asarray(op.block_cols), blocks=np.asarray(op.blocks),
+                bw=np.array(op.bandwidth))
+
+
+@pytest.fixture(scope="module")
+def jax_ops():
+    """The JAX operators of every check, built once."""
+    f32 = jnp.float32
+    ops = {f"halo{bw}": jsparse.generate_banded_bsr(
+        64, 8, bandwidth=bw, coupling=1e-3, seed=20 + bw)
+        for bw in worker.HALO_BANDS}
+    ops.update({f"int8_{bw}": jsparse.quantize_banded_int8(
+        jsparse.generate_banded_bsr(32, 8, bandwidth=bw, coupling=1e-3,
+                                    seed=bw, dtype=f32))
+        for bw in worker.INT8_BANDS})
+    # The cases of tests/test_parallel.py and tests/test_quantized.py.
+    ops["solve_halo"] = jsparse.generate_banded_bsr(64, 8, bandwidth=1,
+                                                    coupling=1e-3, seed=22)
+    ops["solve_bsr"] = jsparse.generate_banded_bsr(16, 8, bandwidth=1,
+                                                   coupling=1e-3, seed=6)
+    ops["solve_int8"] = jsparse.quantize_banded_int8(
+        jsparse.generate_banded_bsr(32, 8, bandwidth=1, coupling=1e-3,
+                                    dtype=f32))
+    return ops
+
+
+@pytest.fixture(scope="module")
+def inputs(jax_ops, tmp_path_factory):
+    rng = np.random.default_rng(7)
+    d = dict(A=np.asarray(jgen.generate_diagonal_dominant(64, 1e-3)),
+             B=np.asarray(jgen.generate_diagonal_dominant(64, 1e-3,
+                                                          diag_val=1.0)),
+             X0=rng.standard_normal((64, 2)),
+             X=rng.standard_normal((512, 6)),
+             Xq=rng.standard_normal((256, 4)).astype(np.float32))
+    for tag, op in jax_ops.items():
+        if hasattr(op, "qblocks"):
+            d.update({f"{tag}_q": np.asarray(op.qblocks),
+                      f"{tag}_scale": np.asarray(op.scale_rows),
+                      f"{tag}_diag": np.asarray(op.diag),
+                      f"{tag}_bw": np.array(op.bandwidth)})
+        else:
+            d.update({f"{tag}_{k}": v for k, v in _tables(op).items()})
+    path = tmp_path_factory.mktemp("inputs") / "inputs.npz"
+    np.savez(path, **d)
+    return d, path
+
+
+@pytest.fixture(scope="module")
+def ranks(inputs, tmp_path_factory):
+    """world -> the ranks' results, one spawn per world size."""
+    d, path = inputs
+
+    @functools.cache
+    def run(world: int) -> list:
+        run_dir = tmp_path_factory.mktemp(f"world{world}")
+        (run_dir / "inputs.npz").symlink_to(path)
+        return worker.spawn(world, str(run_dir))
+
+    return run
+
+
+def _gathered(results: list, key: str) -> np.ndarray:
+    return np.concatenate([r[key] for r in results])
+
+
+@pytest.fixture(scope="module")
+def jax_halo(inputs, jax_ops):
+    """(tag, world) -> the JAX halo operator's apply and diagonal on
+    default_mesh(world), through its Pallas kernel (interpret mode)."""
+    d, _ = inputs
+
+    @functools.cache
+    def run(tag: str, world: int):
+        mesh, op = jpar.default_mesh(world), jax_ops[tag]
+        if hasattr(op, "qblocks"):
+            h = jpar.HaloQuantizedOperator.from_quantized(op, mesh,
+                                                          backend="pallas")
+            X = d["Xq"]
+        else:
+            h = jpar.HaloBSROperator.from_bsr(op, op.bandwidth, mesh,
+                                              backend="pallas")
+            X = d["X"]
+        return np.asarray(h.matmat(jnp.asarray(X))), np.asarray(h.diagonal())
+
+    return run
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("bw", worker.HALO_BANDS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_halo_bsr_matches_jax(ranks, inputs, jax_halo, world, bw, backend):
+    d, _ = inputs
+    res = ranks(world)
+    y_j, diag_j = jax_halo(f"halo{bw}", world)
+    y = _gathered(res, f"halo{bw}_{backend}_y")
+    scale = np.max(np.abs(y_j))
+    assert np.max(np.abs(y - y_j)) <= 1e-12 * scale
+    np.testing.assert_array_equal(_gathered(res, f"halo{bw}_{backend}_diag"),
+                                  diag_j)
+    off = _gathered(res, f"halo{bw}_{backend}_offdiag_y")
+    assert np.max(np.abs(off - (y_j - diag_j[:, None] * d["X"]))) \
+        <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("bw", worker.INT8_BANDS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_halo_int8_matches_jax(ranks, jax_halo, world, bw, backend):
+    res = ranks(world)
+    y_j, diag_j = jax_halo(f"int8_{bw}", world)
+    np.testing.assert_allclose(_gathered(res, f"int8_{bw}_{backend}_y"), y_j,
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(_gathered(res, f"int8_{bw}_diag"), diag_j)
+    np.testing.assert_allclose(_gathered(res, f"int8_{bw}_split_y"), y_j,
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def single_device(inputs, jax_ops):
+    """name -> the JAX package's and the port's single-device solves of a
+    case, and its dense matrix."""
+    d, _ = inputs
+
+    @functools.cache
+    def run(name: str):
+        lowest, opts = worker.SOLVES[name]
+        jA = {"halo_pallas": jax_ops["solve_halo"],
+              "bsr": jax_ops["solve_bsr"],
+              "int8": jax_ops["solve_int8"]}.get(name, d["A"])
+        rj = fdt.eigensolve(jA, lowest,
+                            second_matrix=d["B"] if name == "pencil" else None,
+                            initial_vectors=d["X0"] if name == "warm" else None,
+                            **opts)
+        A, B, X0 = worker.solve_cases(d)[name]
+        rt = fdtt.eigensolve(A, lowest, second_matrix=B, initial_vectors=X0,
+                             **opts)
+        return rj, rt, to_numpy(A.to_dense()).astype(np.float64)
+
+    return run
+
+
+@pytest.mark.parametrize("name", list(worker.SOLVES))
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_solve_matches_single_device(ranks, inputs, single_device,
+                                             world, name):
+    d, _ = inputs
+    rj, rt, dense = single_device(name)
+    res = ranks(world)
+    lowest, opts = worker.SOLVES[name]
+    its = {int(r[f"{name}_iterations"]) for r in res}
+    conv = {bool(r[f"{name}_converged"]) for r in res}
+    assert len(its) == 1 and len(conv) == 1, "the ranks disagree"
+    for r in res[1:]:
+        np.testing.assert_array_equal(r[f"{name}_evals"], res[0][f"{name}_evals"])
+    assert its == {int(rj.iterations)} == {rt.iterations}
+    assert conv == {bool(rj.converged)} == {rt.converged} == {True}
+    lam = res[0][f"{name}_evals"]
+    tol = (dict(rtol=1e-5, atol=0) if opts.get("dtype") == "float32"
+           else dict(rtol=0, atol=1e-10))
+    np.testing.assert_allclose(lam, np.asarray(rj.eigenvalues), **tol)
+    np.testing.assert_allclose(lam, to_numpy(rt.eigenvalues), **tol)
+    X = _gathered(res, f"{name}_evecs").astype(np.float64)
+    assert X.shape == (dense.shape[0], lowest)
+    BX = X if name != "pencil" else d["B"] @ X
+    r = np.linalg.norm(dense @ X - BX * lam[None, :].astype(np.float64),
+                       axis=0)
+    if opts.get("relative_tolerance"):
+        r = r / np.maximum(np.abs(lam), 1.0)
+    # int8 in float32: the loop's residual floor plus float32 roundoff of X.
+    assert np.all(r <= opts["tolerance"] * (2.0 if "dtype" in opts else 1.0))
+
+
+# -- argument checks (no process group) --------------------------------
+
+def test_unported_kinds_have_no_sharding_rule():
+    mesh = _fake_mesh(2)
+    free = fdtt.MatrixFreeOperator(lambda X: X, 64, dtype=torch.float64,
+                                   diag=torch.ones(64), device="cpu")
+
+    class Mystery(fdtt.LinearOperator):
+        shape, dtype, device = (64, 64), torch.float64, CPU
+
+        def matmat(self, block):
+            return block
+
+        def diagonal(self):
+            return torch.ones(64, dtype=torch.float64)
+
+    for op in (free, Mystery()):
+        with pytest.raises(OperatorError, match="no sharding rule"):
+            tpar.shard_operator(op, mesh)
+
+
+def test_halo_constructor_checks():
+    bsr = fdtt.generate_banded_bsr(16, 8, bandwidth=1, seed=1, device="cpu")
+    q = fdtt.quantize_banded_int8(bsr.astype(torch.float32))
+    # 16 block rows on 8 ranks: 2 each, narrower than a bandwidth of 3.
+    with pytest.raises(OperatorError, match="exceeds local slab"):
+        tpar.HaloBSROperator(bsr.block_cols, bsr.blocks, 3, _fake_mesh(8))
+    with pytest.raises(OperatorError, match="exceeds local slab"):
+        tpar.HaloQuantizedOperator(q.qblocks, q.scale_rows, q.diag, 3,
+                                   _fake_mesh(8))
+    # 18 block rows do not split over 4 ranks.
+    odd = fdtt.generate_banded_bsr(18, 8, bandwidth=1, seed=1, device="cpu")
+    oq = fdtt.quantize_banded_int8(odd.astype(torch.float32))
+    for build in (lambda m: tpar.HaloBSROperator.from_bsr(odd, 1, m),
+                  lambda m: tpar.HaloQuantizedOperator.from_quantized(oq, m),
+                  lambda m: tpar.shard_operator(odd, m),
+                  lambda m: tpar.shard_operator(oq, m)):
+        with pytest.raises(OperatorError, match="not divisible"):
+            build(_fake_mesh(4))
+    # The quantized halo needs DIA-aligned storage, as in JAX.
+    with pytest.raises(OperatorError, match="K == 2"):
+        tpar.HaloQuantizedOperator(q.qblocks, q.scale_rows, q.diag, 2,
+                                   _fake_mesh(1))
+
+
+def test_pallas_remote_names_kernel_8():
+    bsr = fdtt.generate_banded_bsr(16, 8, bandwidth=1, seed=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="kernel 8"):
+        tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2),
+                                      backend="pallas-remote")
+    with pytest.raises(OperatorError, match="unknown halo backend"):
+        tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2), backend="mosaic")
+
+
+@pytest.mark.parametrize("option", [dict(refined=True), dict(method="GJD")])
+def test_sharded_solve_rejects_unported_options(option):
+    A = np.asarray(jgen.generate_diagonal_dominant(64, 1e-3))
+    with pytest.raises(InvalidOptionsError, match="not ported"):
+        tpar.eigensolve_sharded(A, 3, _fake_mesh(1), **option)
+
+
+def test_multihost_refuses_a_local_fallback(monkeypatch):
+    # WORLD_SIZE=2 and no rendezvous: init_process_group fails, and a
+    # one-rank group in its place would disagree with the other process.
+    for name in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="refusing to fall back"):
+        multihost.initialize(device="cpu")
+    assert not dist.is_initialized()
+    assert multihost.is_coordinator()
+
+
+def test_world_size_one_shard_is_a_view():
+    bsr = fdtt.generate_banded_bsr(16, 8, bandwidth=1, seed=1, device="cpu")
+    h = tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(1), backend="pallas")
+    assert h.blocks.data_ptr() == bsr.blocks.data_ptr()
+    q = fdtt.quantize_banded_int8(bsr.astype(torch.float32))
+    hq = tpar.shard_operator(q, _fake_mesh(1))
+    assert hq.qblocks.data_ptr() == q.qblocks.data_ptr()
+    # On two ranks, rank 1 keeps the second half of the rows.
+    h1 = tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2, 1))
+    assert torch.equal(h1.blocks, bsr.blocks[8:])
+    assert h1.shape == bsr.shape
+
+
+@pytest.mark.parametrize("kind", ["bsr", "int8"])
+def test_convert_halo_reads_the_jax_tables(jax_ops, kind):
+    jmesh = jpar.default_mesh(2)
+    if kind == "int8":
+        j = jpar.HaloQuantizedOperator.from_quantized(jax_ops["int8_1"],
+                                                      jmesh, backend="xla")
+        names = ("qblocks", "scale_rows", "diag")
+    else:
+        j = jpar.HaloBSROperator.from_bsr(jax_ops["halo1"], 1, jmesh,
+                                          backend="pallas")
+        names = ("block_cols", "blocks")
+    t = convert.halo(j, _fake_mesh(2, 1))
+    assert type(t).__name__ == type(j).__name__ and t.backend == j.backend
+    assert t.shape == j.shape and t.bandwidth == j.bandwidth
+    for name in names:
+        full = np.asarray(getattr(j, name))
+        np.testing.assert_array_equal(to_numpy(getattr(t, name)),
+                                      full[full.shape[0] // 2:])
+
+
+@pytest.mark.parametrize("divisor", [1, 2, 4])
+def test_memory_clamp_sizes_the_local_rows(monkeypatch, divisor):
+    # A budget that clamps the default width: the sharded solve sizes it by
+    # the rows one rank holds, as the JAX package does.
+    monkeypatch.setenv("FDT_CARRY_BUDGET_BYTES", "1e8")
+    n, k = 65536, 8
+    opts = fdtt.DavidsonOptions()
+    kw = dict(generalized=False, sharded=True, shard_row_divisor=divisor)
+    t = tconfig.resolve_options(opts, k, n, device="cpu", **kw)
+    j = jconfig.resolve_options(fdt.DavidsonOptions(), k, n, **kw)
+    assert (t.max_dim, t.m_max) == (j.max_dim, j.m_max)
+    unsharded = tconfig.resolve_options(opts, k, n, False, device="cpu")
+    assert (t.m_max > unsharded.m_max) == (divisor > 1)

@@ -42,7 +42,8 @@ def test_generate_banded_bsr_quantized_bit_equal(nbr, bs, bw, seed):
     j = jsparse.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw,
                                               coupling=1e-2, seed=seed)
     t = fdtt.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw,
-                                           coupling=1e-2, seed=seed)
+                                           coupling=1e-2, seed=seed,
+                                           device="cpu")
     for name in ("qblocks", "scale_rows", "diag"):
         np.testing.assert_array_equal(to_numpy(getattr(t, name)),
                                       np.asarray(getattr(j, name)))
@@ -53,19 +54,19 @@ def test_quantize_banded_int8_matches_jax():
     base = jsparse.generate_banded_bsr(32, 8, bandwidth=2, coupling=1e-3,
                                        dtype=jnp.float32)
     j = jsparse.quantize_banded_int8(base)
-    t = fdtt.quantize_banded_int8(convert.operator(base))
+    t = fdtt.quantize_banded_int8(convert.operator(base, device="cpu"))
     for name in ("qblocks", "scale_rows", "diag"):
         np.testing.assert_array_equal(to_numpy(getattr(t, name)),
                                       np.asarray(getattr(j, name)))
     with pytest.raises(fdtt.OperatorError):
         fdtt.quantize_banded_int8(fdtt.BSROperator(
-            np.array(base.block_cols), np.array(base.blocks)))
+            np.array(base.block_cols), np.array(base.blocks), device="cpu"))
 
 
 def test_quantized_operator_matches_jax():
     j = jsparse.quantize_banded_int8(jsparse.generate_banded_bsr(
         24, 8, bandwidth=2, coupling=1e-2, seed=5, dtype=jnp.float32))
-    t = convert.operator(j)
+    t = convert.operator(j, device="cpu")
     assert isinstance(t, fdtt.QuantizedBandedOperator)
     assert t.shape == j.shape and t.dtype == torch.float32
     assert t.device.type == "cpu"
@@ -87,7 +88,7 @@ def test_convert_recognises_the_int8_operator_before_the_diagonal():
     # The JAX int8 operator has a (nbr, bs) ``diag`` and no ``fn``: it
     # must not become a DiagonalOperator of a 2-D tensor.
     j = jsparse.generate_banded_bsr_quantized(16, 8, bandwidth=1, seed=2)
-    t = convert.operator(j)
+    t = convert.operator(j, device="cpu")
     assert isinstance(t, fdtt.QuantizedBandedOperator)
     X = _x(t.shape[0], 3, seed=2)
     _assert_apply_close(t.matmat(torch.from_numpy(X)),
@@ -103,7 +104,7 @@ def test_bsr_matmat_with_gram_matches_jax(bandwidth):
                                        dtype=jnp.float32)
     j = base if bandwidth else jsparse.BSROperator(base.block_cols,
                                                    base.blocks)
-    t = convert.operator(j)
+    t = convert.operator(j, device="cpu")
     n = t.shape[0]
     X, V = _x(n, 5, seed=3), _x(n, 9, seed=4)
     for v in (None, V):
@@ -150,7 +151,7 @@ def test_fused_gram_gate_resolves_as_jax(monkeypatch, kind, option):
     monkeypatch.setattr(jax_solver, "get_engine", jax_get_engine)
     monkeypatch.setattr(torch_solver, "_engine", torch_engine)
     op = _gate_operators()[kind]
-    op_t = convert.dense(op) if kind == "dense" else convert.operator(op)
+    op_t = convert.dense(op, device="cpu") if kind == "dense" else convert.operator(op, device="cpu")
     engaged = 0
     for k in (4, 128):
         for dtype in ("float32", "float64"):
@@ -197,7 +198,7 @@ def test_fused_engine_matches_jax(monkeypatch, case):
         k, extra = 3, dict(max_dim_sub=8, init_dim=6)
     rj = fdt.eigensolve(op, k, fused_gram="on", **KW, **extra)
     calls = []
-    op_t = convert.operator(op)
+    op_t = convert.operator(op, device="cpu")
     real = op_t.matmat_with_gram
     monkeypatch.setattr(op_t, "matmat_with_gram",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
@@ -207,7 +208,7 @@ def test_fused_engine_matches_jax(monkeypatch, case):
     if case == "collapse":
         dims = to_numpy(rt.subspace_dims)[:rt.iterations]
         assert np.any(np.diff(dims) < 0), f"no collapse in {dims}"
-    off = fdtt.eigensolve(convert.operator(op), k, fused_gram="off", **KW,
+    off = fdtt.eigensolve(convert.operator(op, device="cpu"), k, fused_gram="off", **KW,
                           **extra)
     assert abs(off.iterations - rt.iterations) <= 2
     np.testing.assert_allclose(to_numpy(off.eigenvalues),
@@ -234,7 +235,7 @@ def test_auto_engine_at_k128_matches_jax(monkeypatch):
     kw = dict(dtype="float32", expansion="lowest-k", tolerance=1e-3,
               relative_tolerance=True, max_dim_sub=256)
     rj = fdt.eigensolve(op, 128, **kw)
-    op_t = convert.operator(op)
+    op_t = convert.operator(op, device="cpu")
     calls = []
     real = op_t.matmat_with_gram
     monkeypatch.setattr(op_t, "matmat_with_gram",
@@ -261,10 +262,10 @@ def test_int8_solve_matches_jax(fused):
     kw = dict(tolerance=1e-3, dtype="float32", relative_tolerance=True,
               max_iterations=100, fused_gram=fused)
     rj = fdt.eigensolve(q, 3, **kw)
-    rt = fdtt.eigensolve(convert.operator(q), 3, **kw)
+    rt = fdtt.eigensolve(convert.operator(q, device="cpu"), 3, **kw)
     assert rt.converged
     _assert_solve_parity(rj, rt)
-    dense = to_numpy(convert.operator(q).to_dense()).astype(np.float64)
+    dense = to_numpy(convert.operator(q, device="cpu").to_dense()).astype(np.float64)
     X = to_numpy(rt.eigenvectors).astype(np.float64)
     lam = to_numpy(rt.eigenvalues).astype(np.float64)
     res = np.linalg.norm(dense @ X - X * lam, axis=0)

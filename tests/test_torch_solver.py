@@ -109,11 +109,12 @@ def test_matrix_free_generalized_surrogates():
     n, k = 400, 3
     rj = fdt.eigensolve(jgen.surrogate_hamiltonian(n, 1e-3), k,
                         second_matrix=jgen.surrogate_overlap(n, 1e-4))
-    rt = fdtt.eigensolve(tgen.surrogate_hamiltonian(n, 1e-3), k,
-                         second_matrix=tgen.surrogate_overlap(n, 1e-4))
+    rt = fdtt.eigensolve(tgen.surrogate_hamiltonian(n, 1e-3, device="cpu"), k,
+                         second_matrix=tgen.surrogate_overlap(n, 1e-4,
+                                                              device="cpu"))
     eye = torch.eye(n, dtype=torch.float64)
-    A = to_numpy(tgen.surrogate_hamiltonian(n, 1e-3).matmat(eye))
-    B = to_numpy(tgen.surrogate_overlap(n, 1e-4).matmat(eye))
+    A = to_numpy(tgen.surrogate_hamiltonian(n, 1e-3, device="cpu").matmat(eye))
+    B = to_numpy(tgen.surrogate_overlap(n, 1e-4, device="cpu").matmat(eye))
     assert_parity(rj, rt, A, 1e-8, B)
 
 

@@ -43,8 +43,9 @@ def solve_both(A, k, B=None, **opts):
     """
     res_jax = fdt.eigensolve(A, k, second_matrix=B, **opts)
     res_jax.block_until_ready()
-    At = convert.dense(A) if isinstance(A, np.ndarray) else convert.operator(A)
-    Bt = None if B is None else convert.dense(B)
+    At = (convert.dense(A, device="cpu") if isinstance(A, np.ndarray)
+          else convert.operator(A, device="cpu"))
+    Bt = None if B is None else convert.dense(B, device="cpu")
     x0 = opts.pop("initial_vectors", None)
     res_torch = fdtt.eigensolve(At, k, second_matrix=Bt,
                                 initial_vectors=None if x0 is None
