@@ -27,6 +27,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      four row slabs, each applied by kernel 6/7 to its ring-wrapped
      x_ext; put together they must equal kernel 1 on the whole matrix
      bit for bit (f64) and kernel 4 within 1e-7 of max|Y|.
+   - kernel 8 (a shard's rows and its two halos through three pointers,
+     in the halo operator's interior and edge launches, each part in a
+     buffer of its own framed by NaN rows), ragged and at full size
+     (m = 6-160) in f64, f32 and bf16 storage, against its plain version
+     and bit for bit against kernel 6 on the same rows; and in the
+     four-slab check, each slab's rows in a buffer of its own and its
+     halos pointing into its ring neighbours' buffers (no x_ext), equal to
+     kernel 1 bit for bit.
 4. Main path: ``eigensolve(A, 3)`` and ``eigensolve(A, 20)`` with default
    options on the 1,048,576-row banded BSR matrix
    ``generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3, seed=0)``
@@ -59,14 +67,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``bench.py:701-716`` runs it, k=20 on the int8 matrix (``"on"``,
    kernel 5, eight iterations, eigenvalues to 1e-5 relative).
 8. The row-sharded solve at world size 1 over a one-rank NCCL group
-   (``parallel.multihost.initialize``, ``file://`` store): lowest-3 and
-   lowest-20 on the 1M-row matrix as a ``HaloBSROperator`` (kernel 6),
-   and the int8 loose stage through ``shard_operator`` (kernel 7), each
-   held to phase 4's or 6's single-device solve (same iterations,
-   eigenvalues to 1e-10 / 1e-5 relative, true residuals); the shards are
-   views of the global tables; kernels 1 and 4 never launch. Times the
-   halo exchange.
-9. Prints the solves' and kernels' JSON lines (launch counts of the solve
+   (``parallel.multihost.initialize``, ``file://`` store), a cold and
+   two warm solves of each case, each held to phase 4's or 6's
+   single-device solve (same iterations, eigenvalues to 1e-10 / 1e-5
+   relative, true residuals); the shards are views of the global tables.
+   (a) Lowest-3 and lowest-20 on the 1M-row matrix as a
+   ``HaloBSROperator(backend="pallas")`` (kernel 6), and the int8 loose
+   stage through ``shard_operator`` (kernel 7); kernels 1 and 4 never
+   launch; times the all-gather exchange. (b) Lowest-3 and lowest-20
+   through ``backend="pallas-remote"`` (kernel 8, ring exchange, no
+   x_ext); kernels 1 and 6 never launch.
+9. One halo apply of the ``"pallas-remote"`` path against the
+   ``"pallas"`` path at m = 20, 40, 160: the same bits; CUDA-event and
+   host-clock times of both, in turns, and of each exchange alone.
+10. Prints the solves' and kernels' JSON lines (launch counts of the solve
    phases 4-8, each counted from 0 over its own phase; for kernels 3 and
    5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
    |G_k - G_p| / (|V|ᵀ|Y|); each kernel's ``bound_ms``, the larger of its
@@ -85,6 +99,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SOURCES = {
@@ -96,6 +111,8 @@ SOURCES = {
         "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
     "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
+    "banded_remote_halo_spmm":
+        "fortran_davidson_tpu_torch/csrc/remote_halo.cu",
 }
 REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
@@ -107,6 +124,8 @@ REPLACES = {
     "banded_ext_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:1190",
     "banded_q_ext_bsr_spmm":
         "fortran_davidson_tpu/ops/pallas_kernels.py:1059",
+    "banded_remote_halo_spmm":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:1416",
 }
 # The case whose times stand in the kernels line: the main path's shape.
 MAIN_CASE = {
@@ -117,6 +136,7 @@ MAIN_CASE = {
     "banded_q_bsr_spmm_gram": ("float32", 20, 220, True, "nbr=16384"),
     "banded_ext_bsr_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
+    "banded_remote_halo_spmm": ("float64", 40, None, True, "nbr=8192"),
 }
 # The live widths of the sharded solves: f64 lowest-3 and lowest-20 (the
 # same as phase 4's), the int8 lowest-20 loose stage.
@@ -191,6 +211,8 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
     def emit(row, timed):
         t = (f"kernel={row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms"
              if timed else "(not timed)")
+        if row.get("twin") is not None:
+            t = f"bits == {row['twin']}: {row['twin_equal']} {t}"
         mv = "-" if row["mv"] is None else row["mv"]
         y = ("Y -" if row["max_abs_err"] is None else
              f"max_abs_err={row['max_abs_err']:.3e} rel={row['rel_err']:.3e}")
@@ -202,11 +224,13 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
               f"{y}{g} {t}", flush=True)
         record.append(row)
 
-    def spmm_case(name, kernel, plain, dtype, m, note, timed):
+    def spmm_case(name, kernel, plain, dtype, m, note, timed, twin=None):
+        """``twin``: (name, fn), a kernel that must give the same bits."""
         n = kernel_rows
         x = randn(n, m, dtype)
         y_k = kernel(x)
         y_p = plain(x)
+        same = None if twin is None else torch.equal(y_k, twin[1](x))
         torch.cuda.synchronize()
         _check(y_k.dtype == y_p.dtype, f"{name}: output type {y_k.dtype}")
         err = float(torch.max(torch.abs(y_k.double() - y_p.double())))
@@ -214,13 +238,16 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
         dn = _dname(dtype)
         row = dict(name=name, dtype=dn, m=m, mv=None, write_out=True,
                    shape=note, max_abs_err=err, rel_err=rel, gram_ratio=None,
-                   ms=None, plain_ms=None)
+                   ms=None, plain_ms=None, twin=twin and twin[0],
+                   twin_equal=same)
         if timed:
             row["ms"] = _time_ms(lambda: kernel(x))
             row["plain_ms"] = _time_ms(lambda: plain(x))
         emit(row, timed)
         _check(rel <= TOL[dn], f"{name} {dn} m={m} {note}: rel err "
                f"{rel:.3e} > {TOL[dn]}")
+        _check(same is not False, f"{name} {dn} m={m} {note}: other bits "
+               f"than {twin and twin[0]} on the same rows")
 
     def gram_case(name, kernel, plain, lead, n, m, mv, write_out, note, bw,
                   timed):
@@ -390,7 +417,41 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
     del ragq
     torch.cuda.empty_cache()
 
-    # Kernels 6 and 7 side by side with kernels 1 and 4 at the same widths.
+    # -- kernel 8: the shard's rows and its two halos through three
+    #    pointers, each part of an x_ext of (nbr + 2bw) * bs rows in a buffer
+    #    of its own, in the interior and edge launches of the halo operator;
+    #    held to its plain version and, bit for bit, to kernel 6 on that
+    #    x_ext
+    remote_sets = [
+        (rag, "nbr=17 bs=8 bw=2", (1, 3, 20, 130)),
+        (A, "nbr=8192 bs=128 bw=1", EXT_WIDTHS),
+    ]
+    name = "banded_remote_halo_spmm"
+    for op, note, widths in remote_sets:
+        bw = op.bandwidth
+        halo = bw * op.block_size
+        kernel_rows = op.shape[0] + 2 * halo
+        for dtype in (f64, f32, bf16):
+            blocks = op.blocks.to(dtype)
+            acc = kernels.acc_dtype(dtype)
+            kernel = _remote_apart(blocks, bw, halo, acc)
+            plain = (lambda x, b=blocks, bw=bw, h=halo, o=acc:
+                     kernels.banded_remote_halo_spmm_plain(
+                         b, x[h:-h], x[:h], x[-h:], bandwidth=bw,
+                         out_dtype=o))
+            twin = ("banded_ext_bsr_spmm",
+                    lambda x, b=blocks, bw=bw, o=acc:
+                        kernels.banded_ext_bsr_spmm(b, x, bandwidth=bw,
+                                                    out_dtype=o))
+            timed = op.n_block_rows >= 8192 and dtype == f64
+            for m in widths:
+                spmm_case(name, kernel, plain, dtype, m, note, timed, twin)
+            del blocks
+    del rag
+    torch.cuda.empty_cache()
+
+    # Kernels 6 and 7 side by side with kernels 1 and 4, and kernel 8 with
+    # kernel 6, at the same widths.
     def ms_of(name, dtype, m, shape):
         return next(r["ms"] for r in record if r["name"] == name
                     and r["dtype"] == dtype and r["m"] == m and r["mv"] is None
@@ -399,13 +460,42 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
             ("banded_ext_bsr_spmm", "banded_bsr_spmm", "float64", "nbr=8192",
              EXT_WIDTHS),
             ("banded_q_ext_bsr_spmm", "banded_q_bsr_spmm", "float32",
-             "nbr=16384", EXT_WIDTHS_Q)):
+             "nbr=16384", EXT_WIDTHS_Q),
+            ("banded_remote_halo_spmm", "banded_ext_bsr_spmm", "float64",
+             "nbr=8192", EXT_WIDTHS)):
         pairs = ", ".join(f"m={m}: {ms_of(ext, dtype, m, shape):.4f} / "
                           f"{ms_of(base, dtype, m, shape):.4f}"
                           for m in widths)
         print(f"  {ext} / {base} ms: {pairs}", flush=True)
 
     slab_checks.update(four_slab_check(A, q, randn))
+
+
+def _apart(t, pad: int):
+    """``t`` copied into a buffer of its own between ``pad`` NaN rows on
+    each side, as a received halo lies apart from the shard's rows: a load
+    through the wrong pointer, or past an end, changes the bits."""
+    import torch
+    buf = torch.full((t.shape[0] + 2 * pad, t.shape[1]), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    buf[pad:-pad] = t
+    return buf[pad:-pad]
+
+
+def _remote_apart(blocks, bw: int, halo: int, out_dtype):
+    """Kernel 8 on a halo-extended x_ext: its shard rows and its two halos
+    go to the kernel as three buffers (:func:`_apart`). The buffers of the
+    last x_ext are kept, so that a timed call times the kernel alone."""
+    from fortran_davidson_tpu_torch.ops import kernels
+    kept = []
+
+    def apply(x_ext):
+        if not kept or kept[0] is not x_ext:
+            kept[:] = [x_ext, [_apart(t, halo) for t in (
+                x_ext[halo:-halo], x_ext[:halo], x_ext[-halo:])]]
+        return kernels.banded_remote_halo_spmm(blocks, *kept[1], bandwidth=bw,
+                                               out_dtype=out_dtype)
+    return apply
 
 
 def _ring_ext(x, lo: int, hi: int, halo: int):
@@ -419,10 +509,13 @@ def _ring_ext(x, lo: int, hi: int, halo: int):
 def four_slab_check(A, q, randn) -> dict:
     """Four shards on one card: cut A's and q's tables into SLABS row slabs,
     apply kernels 6 and 7 slab by slab to each slab's ring-wrapped x_ext,
-    and hold the rows put together against kernels 1 and 4 on the whole
-    matrix. The kernels share one tile and differ only in masking (at the
-    ring's ends the wrapped rows meet zero blocks), so f64 must agree bit
-    for bit and f32 within 1e-7 of max|Y|. Returns name -> worst error."""
+    and kernel 8 to each slab's rows, each slab in a buffer of its own, with
+    its halos pointing into the ring neighbours' buffers (no x_ext), and
+    hold the rows put together against
+    kernels 1 and 4 on the whole matrix. The kernels share one tile and
+    differ only in where the x rows come from (at the ring's ends the
+    wrapped rows meet zero blocks), so f64 must agree bit for bit and f32
+    within 1e-7 of max|Y|. Returns name -> worst error."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     worst = {}
@@ -443,19 +536,30 @@ def four_slab_check(A, q, randn) -> dict:
                 whole = kernels.banded_bsr_spmm(*tables, x, bw)
                 apply = kernels.banded_ext_bsr_spmm
                 name = "banded_ext_bsr_spmm"
-            parts = [apply(*(t[s * nl:(s + 1) * nl] for t in tables),
-                           _ring_ext(x, s * nl * bs, (s + 1) * nl * bs,
-                                     bw * bs), bandwidth=bw)
-                     for s in range(SLABS)]
-            err = float(torch.max(torch.abs(torch.cat(parts) - whole)))
-            rel = err / float(torch.max(torch.abs(whole)))
-            print(f"  {SLABS} slabs of {name} vs the whole matrix, "
-                  f"{op.n_block_rows} block rows, m={m}: max_abs_err="
-                  f"{err:.3e} rel={rel:.3e}", flush=True)
-            _check(err == 0.0 if not quant else rel <= 1e-7,
-                   f"{name}: {SLABS} slabs differ from the whole matrix by "
-                   f"{err:.3e} (rel {rel:.3e}) at m={m}")
-            worst[name] = max(worst.get(name, 0.0), err)
+            parts = {name: [apply(*(t[s * nl:(s + 1) * nl] for t in tables),
+                                  _ring_ext(x, s * nl * bs, (s + 1) * nl * bs,
+                                            bw * bs), bandwidth=bw)
+                            for s in range(SLABS)]}
+            if not quant:
+                halo = bw * bs
+                rows = [_apart(t, halo) for t in x.split(nl * bs)]
+                parts["banded_remote_halo_spmm"] = [
+                    kernels.banded_remote_halo_spmm(
+                        op.blocks[s * nl:(s + 1) * nl], rows[s],
+                        rows[s - 1][-halo:], rows[(s + 1) % SLABS][:halo],
+                        bandwidth=bw)
+                    for s in range(SLABS)]
+                del rows
+            for key, rows in parts.items():
+                err = float(torch.max(torch.abs(torch.cat(rows) - whole)))
+                rel = err / float(torch.max(torch.abs(whole)))
+                print(f"  {SLABS} slabs of {key} vs the whole matrix, "
+                      f"{op.n_block_rows} block rows, m={m}: max_abs_err="
+                      f"{err:.3e} rel={rel:.3e}", flush=True)
+                _check(err == 0.0 if not quant else rel <= 1e-7,
+                       f"{key}: {SLABS} slabs differ from the whole matrix "
+                       f"by {err:.3e} (rel {rel:.3e}) at m={m}")
+                worst[key] = max(worst.get(key, 0.0), err)
             del x, whole, parts
     torch.cuda.empty_cache()
     return worst
@@ -821,141 +925,215 @@ def phase_fused(q, dev, solves):
     torch.cuda.empty_cache()
 
 
-def phase_sharded(A, q, dev, solves, refs):
-    """Phase 8: the row-sharded solve at world size 1 over a one-rank NCCL
-    group, held to phases 4 and 6; then the halo exchange's time."""
-    import tempfile
-    import torch
+def _one_rank_mesh(rendezvous: str, dev):
+    """The one-rank NCCL group of phases 8-9 (started by the first call;
+    later calls return the same mesh)."""
     import torch.distributed as dist
+    from fortran_davidson_tpu_torch.parallel import multihost
+    mesh = multihost.initialize(init_method=rendezvous, world_size=1, rank=0,
+                                device=dev)
+    backend = dist.get_backend(mesh.group)
+    _check(backend == "nccl", f"the mesh runs {backend}, not nccl")
+    return mesh
+
+
+def _device_and_host_ms(fn) -> tuple[float, float]:
+    """(CUDA-event median ms, host-clock ms per call over 20 calls that end
+    in a synchronize) of ``fn``: a collective's host cost leaves the card
+    idle, which the events do not see."""
+    import torch
+    ms = _time_ms(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    return ms, (time.perf_counter() - t0) * 50
+
+
+def _sharded_solves(A, q, mesh, cases, refs, solves):
+    """Each case (k, op, options, label): a cold and two warm sharded
+    solves, the collectives of the last counted by kind, held to the
+    single-device solve ``refs[k]`` of phase 4 or 6: the same iterations,
+    eigenvalues to 1e-10 (int8: 1e-5 relative), true residuals."""
+    import torch
+    from fortran_davidson_tpu_torch.parallel import RowMesh, eigensolve_sharded
+
+    def sharded(op, k, second_matrix=None, **kw):
+        return eigensolve_sharded(op, k, mesh, second_matrix=second_matrix,
+                                  **kw)
+
+    for k, op, kw, label in cases:
+        ref = refs[k]
+        walls = []
+        for turn in ("cold", "warm", "warm"):
+            with _counting_collectives(RowMesh) as calls:
+                res, wall = _solve_converged(
+                    f"eigensolve_sharded({label}, {k}) [{turn}]", op,
+                    20 if k == "int8" else k, solver=sharded, **kw)
+            walls.append(wall)
+        if k == "int8":
+            true_res = _int8_true_residual(q, res.eigenvectors,
+                                           res.eigenvalues)
+            diff = float(torch.max(torch.abs(res.eigenvalues
+                                             - ref["eigenvalues"])
+                                   / torch.abs(ref["eigenvalues"])))
+            limits = (1e-5, 1e-3)
+        else:
+            true_res = _true_residual(A.blocks, 1, None, res.eigenvectors,
+                                      res.eigenvalues)
+            diff = float(torch.max(torch.abs(res.eigenvalues
+                                             - ref["eigenvalues"])))
+            limits = (1e-10, SOLVE_TOL)
+        print(f"  sharded {label} {k}: iterations {res.iterations} (single "
+              f"device {ref['iterations']}) eigenvalue diff {diff:.3e} true "
+              f"residual {true_res:.3e}; warm wall {min(walls[1:]):.4f} s "
+              f"(single device {ref['wall']:.4f} s); collectives per solve "
+              f"{calls}", flush=True)
+        _check(res.iterations == ref["iterations"],
+               f"sharded {label} {k}: {res.iterations} iterations vs "
+               f"{ref['iterations']} on one device")
+        _check(diff <= limits[0],
+               f"sharded {label} {k}: eigenvalues differ by {diff:.3e}")
+        _check(true_res <= limits[1],
+               f"sharded {label} {k}: true residual {true_res:.3e}")
+        solves.append(dict(
+            solve=(f"sharded (world 1, nccl) {label} "
+                   + ("int8 f32 lowest-20 loose" if k == "int8"
+                      else f"f64 lowest-{k}")),
+            n=op.shape[0], iterations=res.iterations, wall_s=walls,
+            single_device_wall_s=ref["wall"], true_residual=true_res,
+            eig_diff_single=diff, collectives=calls))
+        del res
+
+
+def phase_sharded(A, q, dev, rendezvous, solves, refs):
+    """Phase 8a: the row-sharded solve at world size 1 over a one-rank NCCL
+    group through kernels 6 and 7, held to phases 4 and 6; then the
+    all-gather halo exchange's time."""
+    import torch
     from fortran_davidson_tpu_torch.ops import kernels
     from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
                                                      HaloQuantizedOperator,
-                                                     RowMesh,
-                                                     eigensolve_sharded,
-                                                     multihost,
                                                      shard_operator)
     from fortran_davidson_tpu_torch.parallel.halo import extend, halo_slabs
 
-    with tempfile.TemporaryDirectory() as tmp:
-        mesh = multihost.initialize(init_method=f"file://{tmp}/rendezvous",
-                                    world_size=1, rank=0, device=dev)
-        try:
-            backend = dist.get_backend(mesh.group)
-            print(f"  mesh: {mesh.size} rank over {backend} on {mesh.device}",
-                  flush=True)
-            _check(backend == "nccl", f"the mesh runs {backend}, not nccl")
+    mesh = _one_rank_mesh(rendezvous, dev)
+    print(f"  mesh: {mesh.size} rank over nccl on {mesh.device}", flush=True)
+    H = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas")
+    _check(H.blocks.data_ptr() == A.blocks.data_ptr(),
+           "the world-size-1 shard copied the blocks")
+    hq = shard_operator(q, mesh)
+    _check(isinstance(hq, HaloQuantizedOperator)
+           and hq.qblocks.data_ptr() == q.qblocks.data_ptr(),
+           "shard_operator(int8) is not a view HaloQuantizedOperator")
+    f64 = dict(tolerance=SOLVE_TOL)
+    _sharded_solves(A, q, mesh, [(3, H, f64, "Halo(A, pallas)"),
+                                 (20, H, f64, "Halo(A, pallas)"),
+                                 ("int8", q, LOOSE, "q loose")], refs, solves)
 
-            def sharded(op, k, second_matrix=None, **kw):
-                return eigensolve_sharded(op, k, mesh,
-                                          second_matrix=second_matrix, **kw)
-
-            def runs(label, op, k, **kw):
-                """A cold and two warm sharded solves; the collectives of
-                the last one counted by kind."""
-                walls = []
-                for turn in ("cold", "warm", "warm"):
-                    with _counting_collectives(RowMesh) as calls:
-                        res, wall = _solve_converged(f"{label} [{turn}]", op, k,
-                                                     solver=sharded, **kw)
-                    walls.append(wall)
-                return res, walls, calls
-
-            H = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas")
-            _check(H.blocks.data_ptr() == A.blocks.data_ptr(),
-                   "the world-size-1 shard copied the blocks")
-            hq = shard_operator(q, mesh)
-            _check(isinstance(hq, HaloQuantizedOperator)
-                   and hq.qblocks.data_ptr() == q.qblocks.data_ptr(),
-                   "shard_operator(int8) is not a view HaloQuantizedOperator")
-            for k, op, kw in ((3, H, dict(tolerance=SOLVE_TOL)),
-                              (20, H, dict(tolerance=SOLVE_TOL)),
-                              ("int8", q, LOOSE)):
-                ref = refs[k]
-                lowest = 20 if k == "int8" else k
-                label = (f"eigensolve_sharded(q, 20) loose" if k == "int8"
-                         else f"eigensolve_sharded(Halo(A, pallas), {k})")
-                res, walls, calls = runs(label, op, lowest, **kw)
-                if k == "int8":
-                    true_res = _int8_true_residual(q, res.eigenvectors,
-                                                   res.eigenvalues)
-                    diff = float(torch.max(
-                        torch.abs(res.eigenvalues - ref["eigenvalues"])
-                        / torch.abs(ref["eigenvalues"])))
-                    limits = (1e-5, 1e-3)
-                else:
-                    true_res = _true_residual(A.blocks, 1, None,
-                                              res.eigenvectors,
-                                              res.eigenvalues)
-                    diff = float(torch.max(torch.abs(res.eigenvalues
-                                                     - ref["eigenvalues"])))
-                    limits = (1e-10, SOLVE_TOL)
-                warm = min(walls[1:])
-                print(f"  sharded {k}: iterations {res.iterations} (single "
-                      f"device {ref['iterations']}) eigenvalue diff "
-                      f"{diff:.3e} true residual {true_res:.3e}; warm wall "
-                      f"{warm:.4f} s (single device {ref['wall']:.4f} s); "
-                      f"collectives per solve {calls}", flush=True)
-                _check(res.iterations == ref["iterations"],
-                       f"sharded {k}: {res.iterations} iterations vs "
-                       f"{ref['iterations']} on one device")
-                _check(diff <= limits[0],
-                       f"sharded {k}: eigenvalues differ by {diff:.3e}")
-                _check(true_res <= limits[1],
-                       f"sharded {k}: true residual {true_res:.3e}")
-                solves.append(dict(
-                    solve=(f"sharded (world 1, nccl) "
-                           + ("int8 f32 lowest-20 loose" if k == "int8"
-                              else f"halo f64 lowest-{k}")),
-                    n=op.shape[0], iterations=res.iterations, wall_s=walls,
-                    single_device_wall_s=ref["wall"], true_residual=true_res,
-                    eig_diff_single=diff, collectives=calls))
-                del res
-
-            # The exchange alone (one all_gather of the 2*bw*bs boundary
-            # rows), with the concatenation into x_ext, which copies x, and
-            # one all_reduce of a Gram-sized matrix: CUDA events and the
-            # host clock (a collective's host cost leaves the card idle).
-            halo = A.bandwidth * A.block_size
-            for m in (20, 40, 160):
-                x = torch.randn((A.shape[0], m), dtype=torch.float64,
-                                device=dev)
-                G = torch.randn((m, m), dtype=torch.float64, device=dev)
-                row = dict(solve=f"collectives f64 m={m}")
-                for key, fn in (("exchange", lambda: halo_slabs(mesh, x, halo)),
-                                ("extend", lambda: extend(mesh, x, halo)),
-                                ("all_reduce", lambda: mesh.all_reduce(G))):
-                    row[f"{key}_ms"] = _time_ms(fn)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(20):
-                        fn()
-                    torch.cuda.synchronize()
-                    row[f"{key}_host_ms"] = (time.perf_counter() - t0) * 50
-                print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
-                                       else f"{v}" for k_, v in row.items()),
-                      flush=True)
-                solves.append(row)
-                del x, G
-            del H, hq
-            torch.cuda.empty_cache()
-        finally:
-            dist.destroy_process_group()
+    # The exchange alone (one all_gather of the 2*bw*bs boundary rows),
+    # with the concatenation into x_ext, which copies x, and one all_reduce
+    # of a Gram-sized matrix.
+    halo = A.bandwidth * A.block_size
+    for m in (20, 40, 160):
+        x = torch.randn((A.shape[0], m), dtype=torch.float64, device=dev)
+        G = torch.randn((m, m), dtype=torch.float64, device=dev)
+        row = dict(solve=f"collectives f64 m={m}")
+        for key, fn in (("exchange", lambda: halo_slabs(mesh, x, halo)),
+                        ("extend", lambda: extend(mesh, x, halo)),
+                        ("all_reduce", lambda: mesh.all_reduce(G))):
+            row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(fn)
+        print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
+                               else f"{v}" for k_, v in row.items()),
+              flush=True)
+        solves.append(row)
+        del x, G
+    del H, hq
+    torch.cuda.empty_cache()
     _check(kernels.banded_bsr_spmm.launches == 0
            and kernels.banded_q_bsr_spmm.launches == 0,
            "the sharded solves launched a single-device kernel")
+
+
+def phase_remote(A, dev, rendezvous, solves, refs):
+    """Phase 8b: lowest-3 and lowest-20 through ``backend="pallas-remote"``
+    (kernel 8: the ring exchange, then the interior and edge launches, no
+    x_ext) at world size 1 over the same NCCL group, held to phase 4;
+    kernels 1 and 6 must not launch."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import HaloBSROperator
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    R = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas-remote")
+    _check(R.blocks.data_ptr() == A.blocks.data_ptr(),
+           "the world-size-1 shard copied the blocks")
+    f64 = dict(tolerance=SOLVE_TOL)
+    _sharded_solves(A, None, mesh, [(3, R, f64, "Halo(A, pallas-remote)"),
+                                    (20, R, f64, "Halo(A, pallas-remote)")],
+                    refs, solves)
+    _check(kernels.banded_bsr_spmm.launches == 0
+           and kernels.banded_ext_bsr_spmm.launches == 0,
+           "the pallas-remote solves launched kernel 1 or kernel 6")
+    del R
+    torch.cuda.empty_cache()
+
+
+def remote_vs_pallas_apply(A, dev, rendezvous, solves):
+    """Phase 9: one apply of the ``"pallas-remote"`` path (the ring
+    exchange, kernel 8's interior and edge launches) against the
+    ``"pallas"`` path (the all-gather exchange, the x_ext concatenation,
+    kernel 6), f64 on the 1M-row matrix at world size 1: the same bits,
+    and the CUDA-event and host-clock times of each path, in turns
+    (pallas, remote, remote, pallas), and of each exchange alone."""
+    import torch
+    from fortran_davidson_tpu_torch.parallel import HaloBSROperator
+    from fortran_davidson_tpu_torch.parallel.halo import halo_slabs
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    ops = {b: HaloBSROperator.from_bsr(A, 1, mesh, backend=b)
+           for b in ("pallas", "pallas-remote")}
+    halo = A.bandwidth * A.block_size
+    for m in (20, 40, 160):
+        x = torch.randn((A.shape[0], m), dtype=torch.float64, device=dev)
+        same = torch.equal(ops["pallas"].matmat(x),
+                           ops["pallas-remote"].matmat(x))
+        row = dict(solve=f"halo apply f64 m={m}: pallas-remote vs pallas",
+                   same_bits=same)
+        for turn, backend in enumerate(("pallas", "pallas-remote",
+                                        "pallas-remote", "pallas")):
+            key = f"{backend}_apply_{turn}"
+            row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(
+                lambda op=ops[backend]: op.matmat(x))
+        for key, fn in (("ring_exchange",
+                         lambda: mesh.ring_exchange(x, halo)),
+                        ("all_gather_exchange",
+                         lambda: halo_slabs(mesh, x, halo))):
+            row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(fn)
+        print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
+                               else f"{k_}={v}" for k_, v in row.items()),
+              flush=True)
+        _check(same, f"m={m}: the pallas-remote apply gave other bits than "
+               "the pallas apply")
+        solves.append(row)
+        del x
+    del ops
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
 def _counting_collectives(cls):
     """Count the calls of the collectives of ``cls`` (a RowMesh) by name
     inside the ``with`` block."""
-    counts = dict.fromkeys(("all_reduce", "all_gather_rows"), 0)
+    counts = dict.fromkeys(("all_reduce", "all_gather_rows", "ring_exchange"),
+                           0)
     saved = {name: getattr(cls, name) for name in counts}
 
     def counted(name, fn):
-        def call(self, t):
+        def call(self, *args):
             counts[name] += 1
-            return fn(self, t)
+            return fn(self, *args)
         return call
     for name, fn in saved.items():
         setattr(cls, name, counted(name, fn))
@@ -984,7 +1162,8 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
     n = nbr * bs
     quant = "_q_" in name
     isz = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
-    x_rows = n + 2 * bw * bs if "_ext_" in name else n
+    # The halo kernels read 2*bw*bs more x rows (kernel 8: the two halos).
+    x_rows = n + 2 * bw * bs if "_ext_" in name or "remote" in name else n
     moved = nbr * bs * K * bs * (1 if quant else isz)
     if quant:
         moved += nbr * K * bs * 4 + n * 4            # scale_rows, diag
@@ -1024,13 +1203,16 @@ def library_times(A) -> dict:
     """Kernel name -> (ms, max relative error against the plain version) of
     one ``torch.sparse_bsr_tensor @ x`` call (cuSPARSE) that computes the
     kernel's function at its main case, or (None, reason). It is a
-    yardstick; the port never calls it. Kernels 3, 4, 5 and 7 have no
-    such call (a fused gram, int8 blocks with scales)."""
+    yardstick; the port never calls it. Kernels 6 and 8 share one: the
+    shard as a BSR over [from_prev; x; from_next] (one tensor, as the
+    library needs). Kernels 3, 4, 5 and 7 have no such call (a fused gram,
+    int8 blocks with scales)."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     out = {}
     for names, ext in ((("banded_bsr_spmm", "bsr_spmm"), False),
-                       (("banded_ext_bsr_spmm",), True)):
+                       (("banded_ext_bsr_spmm", "banded_remote_halo_spmm"),
+                        True)):
         dtype, m = MAIN_CASE[names[0]][:2]
         bw, bs = A.bandwidth, A.block_size
         rows = A.shape[0] + (2 * bw * bs if ext else 0)
@@ -1061,8 +1243,26 @@ def library_times(A) -> dict:
     return out
 
 
+def _tile_registers(log: str) -> dict:
+    """ptxas's register count of the f64 64x64 SpMM tile, the main cases of
+    kernels 1, 6 and 8, for each x source (``XRows`` in spmm_tile.cuh),
+    from the build's report."""
+    import re
+    regs, src = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"spmm_kernelINS_11DenseBlocksIddEELi64ELi64ELi(\d)E",
+                          line)
+            src = ("masked", "split", "inside")[int(m.group(1))] if m else None
+        m = re.search(r"Used (\d+) registers", line)
+        if m and src:
+            regs[src] = int(m.group(1))
+    return regs
+
+
 def main() -> int:
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -1083,6 +1283,9 @@ def main() -> int:
     for line in log.splitlines():
         if "error" in line.lower():
             print("   ", line.strip())
+    if log:
+        print(f"    ptxas registers of the f64 64x64 SpMM tile by x source "
+              f"(kernels 1, 8 edge, 6 and 8 interior): {_tile_registers(log)}")
     sys.stdout.flush()
 
     t0 = time.perf_counter()
@@ -1108,6 +1311,9 @@ def main() -> int:
 
     solves, refs = [], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
+    # The one-rank NCCL group of phases 8-9 meets at a file in here.
+    tmp = tempfile.TemporaryDirectory()
+    rendezvous = f"file://{tmp.name}/rendezvous"
     paths = [
         ("[4] main path", lambda: phase_main(A, dev, solves, refs),
          ("banded_bsr_spmm",)),
@@ -1117,25 +1323,36 @@ def main() -> int:
          lambda: phase_int8(q, dev, solves, refs), ("banded_q_bsr_spmm",)),
         ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
          ("banded_bsr_spmm_gram", "banded_q_bsr_spmm_gram")),
-        ("[8] sharded path, world size 1 (NCCL)",
-         lambda: phase_sharded(A, q, dev, solves, refs),
+        ("[8a] sharded path, world size 1 (NCCL), pallas",
+         lambda: phase_sharded(A, q, dev, rendezvous, solves, refs),
          ("banded_ext_bsr_spmm", "banded_q_ext_bsr_spmm")),
+        ("[8b] sharded path, world size 1 (NCCL), pallas-remote",
+         lambda: phase_remote(A, dev, rendezvous, solves, refs),
+         ("banded_remote_halo_spmm",)),
     ]
-    for title, run, expected in paths:
-        print(title, flush=True)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        run()
-        phase_counts = {fn.__name__: fn.launches for fn in kernels.KERNELS}
-        print(f"    phase launches {phase_counts} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for name in expected:
-            _check(phase_counts[name] > 0,
-                   f"{name} was never launched on the path of {title}")
-        for name, count in phase_counts.items():
-            counts[name] += count
-    for name, count in counts.items():
-        _check(count > 0, f"{name} was never launched on a solve path")
+    try:
+        for title, run, expected in paths:
+            print(title, flush=True)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            run()
+            phase_counts = {fn.__name__: fn.launches
+                            for fn in kernels.KERNELS}
+            print(f"    phase launches {phase_counts} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for name in expected:
+                _check(phase_counts[name] > 0,
+                       f"{name} was never launched on the path of {title}")
+            for name, count in phase_counts.items():
+                counts[name] += count
+        for name, count in counts.items():
+            _check(count > 0, f"{name} was never launched on a solve path")
+        print("[9] one halo apply: pallas-remote against pallas", flush=True)
+        remote_vs_pallas_apply(A, dev, rendezvous, solves)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
 
     summary = []
     nnz = {"nbr=8192": (A, _nonzero_blocks(A.blocks, 3)),

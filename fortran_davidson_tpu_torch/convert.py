@@ -6,8 +6,10 @@ The JAX operators keep their data in a few arrays: ``DenseOperator.matrix``,
 ``.diag`` / ``.bandwidth``. These functions take those arrays (anything
 ``numpy.asarray`` accepts) and return the matching operator of this
 package on ``device`` (by default the GPU; pass ``device="cpu"`` for the
-CPU). The JAX operator's ``backend`` field is not carried across: here the
-kernel follows the tensors' device. Nothing here imports JAX.
+CPU). A single-device operator's ``backend`` field is not carried across:
+here its kernel follows the tensors' device. :func:`halo` carries the halo
+operators' ``backend`` (``"xla"``, ``"pallas"`` or ``"pallas-remote"``),
+which picks the exchange and the kernel. Nothing here imports JAX.
 """
 
 from __future__ import annotations

@@ -14,10 +14,13 @@
 // holds global block column r0 + r - bw + k). The caller (parallel/halo.py)
 // frames the shard's (nbr*bs, m) rows with bw*bs rows of each ring
 // neighbour, x_ext of (nbr + 2bw)*bs rows, so block row r contracts its K =
-// 2bw+1 blocks with x_ext[r*bs, (r + K)*bs): every window is valid and is
-// loaded unmasked. Kernel 1 on an offset pointer would not do: it zeroes x
-// rows outside [0, n) and would wipe out the halo. At the ring's two ends
-// the wrapped halo rows meet the zero blocks of out-of-range slots.
+// 2bw+1 blocks with x_ext[r*bs, (r + K)*bs): every window is valid. The
+// launch points x at the shard's first row, x_ext + bw*bs*m (still inside
+// x_ext), and loads unmasked (the tile's kInside source): block row r reads
+// x rows [(r - bw)*bs, (r + bw + 1)*bs), halo included. Kernel 1's masked
+// load would zero x rows outside [0, nbr*bs) and wipe out the halo. At the
+// ring's two ends the wrapped halo rows meet the zero blocks of
+// out-of-range slots.
 //
 // Types as in kernels 1 and 4: f64, f32, or bf16 storage summed in f32 (Y
 // written in the accumulation type); int8 storage with f32 x, scales and
@@ -38,12 +41,18 @@ using fdt::DenseBlocks;
 using fdt::Int8Blocks;
 using Bf16 = __nv_bfloat16;
 
+// The shard's first row in x_ext.
+template <typename T>
+const T* centre(const T* x_ext, int bs, int bw, int m) {
+  return x_ext + static_cast<long long>(bw) * bs * m;
+}
+
 template <typename T, typename Acc>
 int banded_ext(const T* blocks, const T* x_ext, Acc* y, int nbr, int bs, int K,
                int bw, int m, void* stream) {
-  return fdt::spmm<DenseBlocks<T, Acc>, true>(
-      DenseBlocks<T, Acc>{blocks}, x_ext, nullptr, nullptr, y, nbr, bs, K, bw,
-      static_cast<long long>(nbr + 2 * bw) * bs, m, stream);
+  return fdt::spmm<DenseBlocks<T, Acc>, fdt::kInside>(
+      DenseBlocks<T, Acc>{blocks}, centre(x_ext, bs, bw, m), nullptr, nullptr,
+      y, nbr, bs, K, bw, static_cast<long long>(nbr) * bs, m, stream);
 }
 
 }  // namespace
@@ -74,9 +83,9 @@ int fdt_banded_q_ext_bsr_spmm_f32(const int8_t* q, const float* scale,
                                   const float* diag, const float* x_ext,
                                   float* y, int nbr, int bs, int K, int bw,
                                   int m, void* stream) {
-  return fdt::spmm<Int8Blocks, true>(
-      Int8Blocks{q, scale}, x_ext, nullptr, diag, y, nbr, bs, K, bw,
-      static_cast<long long>(nbr + 2 * bw) * bs, m, stream);
+  return fdt::spmm<Int8Blocks, fdt::kInside>(
+      Int8Blocks{q, scale}, centre(x_ext, bs, bw, m), nullptr, diag, y, nbr,
+      bs, K, bw, static_cast<long long>(nbr) * bs, m, stream);
 }
 
 }  // extern "C"

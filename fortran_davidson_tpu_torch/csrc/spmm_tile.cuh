@@ -24,11 +24,23 @@
 // multiplies zero blocks there, and 0 * Inf must not enter the sum
 // (the counterpart of fortran_davidson_tpu/ops/pallas_kernels.py:233-244).
 //
-// A halo-extended x (kExt, halo_spmm.cu) is a shard's rows framed by bw
-// block rows of its ring neighbours' rows on each side, so the window of
-// block row r is [r * bs, (r + 2bw + 1) * bs) and always valid: it loads
-// unmasked, and the diagonal epilogue reads the centre rows
-// [(r + bw) * bs, (r + bw + 1) * bs). Masking there would zero the halo.
+// Three sources of x rows (XRows):
+// - kMasked: x itself, rows outside [0, x_rows) load as zeros (above);
+// - kInside: x itself where every window lies inside the rows that x
+//   points into, loaded unmasked. halo_spmm.cu points x at the centre of
+//   a halo-extended x_ext (a shard's rows framed by bw block rows of its
+//   ring neighbours' rows on each side), so that every block row's window
+//   is valid: masking there would zero the halo. remote_halo.cu takes a
+//   shard's interior block rows [bw, nbr - bw) this way;
+// - kSplit (remote_halo.cu): a shard's x_rows rows and its halos through
+//   three pointers, no x_ext: rows below 0 come from top (bw * bs rows, at
+//   row + bw * bs), rows at x_rows or above from bot (at row - x_rows), the
+//   rest from x. Unmasked, as kInside; the values and the order of the sums
+//   are those of kInside over the extended rows, so the two give the same
+//   bits.
+//
+// A launch covers the block rows of a RowRange: [a0, a0 + na) and then
+// [b0, b0 + count - na), so one grid can take a shard's two edges.
 
 #pragma once
 
@@ -41,6 +53,17 @@ namespace fdt {
 
 constexpr int kTK = 16;        // contraction chunk staged per step
 constexpr int kThreadsM = 16;  // threads along the tile's rows
+
+enum XRows { kMasked = 0, kSplit = 1, kInside = 2 };
+
+// The launch's block rows: grid row j is block row a0 + j for j < na,
+// else b0 + (j - na).
+struct RowRange {
+  long long a0, na, b0;
+  __device__ __forceinline__ long long operator()(long long j) const {
+    return j < na ? a0 + j : b0 + (j - na);
+  }
+};
 
 template <int TM, int TN>
 struct Tile {
@@ -87,14 +110,16 @@ struct Int8Blocks {
 };
 
 // acc = slab(r)[i0:i0+TM, :] @ x_rows(r)[:, c0:c0+TN] (+ d * x_centre when
-// diag is given). cols == nullptr selects the banded rule; kExt the
-// halo-extended window.
-template <typename Load, int TM, int TN, bool kExt = false>
+// diag is given). cols == nullptr selects the banded rule; kRows where the
+// rows come from (top and bot for kSplit only).
+template <typename Load, int TM, int TN, int kRows = kMasked>
 __device__ __forceinline__ void tile_product(
     const Load& ld, const typename Load::X* __restrict__ x,
     const int* __restrict__ cols, const float* __restrict__ diag,
     long long r, int i0, int c0, int bs, int K, int bw, long long x_rows,
-    int m, typename Load::Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN]) {
+    int m, typename Load::Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN],
+    const typename Load::X* __restrict__ top = nullptr,
+    const typename Load::X* __restrict__ bot = nullptr) {
   using Acc = typename Load::Acc;
   using P = Tile<TM, TN>;
   __shared__ Acc As[kTK][TM + 1];  // slab chunk, transposed; +1 avoids bank conflicts
@@ -104,8 +129,8 @@ __device__ __forceinline__ void tile_product(
   const int tid = threadIdx.x;
   const int tm = tid / P::kThreadsN;
   const int tn = tid % P::kThreadsN;
-  const long long win0 = kExt ? r * bs : (r - bw) * bs;
-  const long long ctr0 = kExt ? (r + bw) * bs : r * bs;
+  const long long win0 = (r - bw) * bs;
+  const long long ctr0 = r * bs;
 
 #pragma unroll
   for (int i = 0; i < P::RM; ++i)
@@ -134,7 +159,14 @@ __device__ __forceinline__ void tile_product(
         } else {
           xr = win0 + gl;
         }
-        if (kExt || (xr >= 0 && xr < x_rows)) v = cvt<Acc>(x[xr * m + gc]);
+        if (kRows == kSplit) {
+          const long long halo = static_cast<long long>(bw) * bs;
+          v = cvt<Acc>(xr < 0         ? top[(xr + halo) * m + gc]
+                       : xr >= x_rows ? bot[(xr - x_rows) * m + gc]
+                                      : x[xr * m + gc]);
+        } else if (kRows == kInside || (xr >= 0 && xr < x_rows)) {
+          v = cvt<Acc>(x[xr * m + gc]);
+        }
       }
       Xs[l][c] = v;
     }
@@ -190,69 +222,92 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
+// The x rows of a launch: x, and for kSplit the two halos.
+template <typename X>
+struct XSource {
+  const X* x;
+  const X* top;
+  const X* bot;
+};
+
 // Y = A @ X (+ d * x): one thread block per (block row, row tile, column
 // tile); column tiles are the fastest grid index, so the tiles of one
 // block row run together and read its slab from L2 after the first.
-template <typename Load, int TM, int TN, bool kExt>
+template <typename Load, int TM, int TN, int kRows>
 __global__ void __launch_bounds__(Tile<TM, TN>::kThreads)
-spmm_kernel(Load ld, const typename Load::X* __restrict__ x,
+spmm_kernel(Load ld, XSource<typename Load::X> src,
             const int* __restrict__ cols, const float* __restrict__ diag,
-            typename Load::Acc* __restrict__ y, int bs, int K, int bw,
-            long long x_rows, int m, int col_tiles, int row_tiles) {
+            typename Load::Acc* __restrict__ y, RowRange rows, int bs, int K,
+            int bw, long long x_rows, int m, int col_tiles, int row_tiles) {
   const long long bid = blockIdx.x;
   const int ct = static_cast<int>(bid % col_tiles);
   const long long rt = bid / col_tiles;
-  const long long r = rt / row_tiles;
+  const long long r = rows(rt / row_tiles);
   const int i0 = static_cast<int>(rt % row_tiles) * TM;
   const int c0 = ct * TN;
   typename Load::Acc acc[Tile<TM, TN>::RM][Tile<TM, TN>::RN];
-  tile_product<Load, TM, TN, kExt>(ld, x, cols, diag, r, i0, c0, bs, K, bw,
-                                   x_rows, m, acc);
+  tile_product<Load, TM, TN, kRows>(ld, src.x, cols, diag, r, i0, c0, bs, K,
+                                    bw, x_rows, m, acc, src.top, src.bot);
   store_tile<typename Load::Acc, TM, TN>(y, acc, r, i0, c0, bs, m);
 }
 
-template <typename Load, int TM, int TN, bool kExt>
-cudaError_t launch_spmm(const Load& ld, const typename Load::X* x,
+template <typename Load, int TM, int TN, int kRows>
+cudaError_t launch_spmm(const Load& ld, XSource<typename Load::X> src,
                         const int* cols, const float* diag,
-                        typename Load::Acc* y, int nbr, int bs, int K, int bw,
-                        long long x_rows, int m, cudaStream_t stream) {
+                        typename Load::Acc* y, RowRange rows, long long count,
+                        int bs, int K, int bw, long long x_rows, int m,
+                        cudaStream_t stream) {
   const int col_tiles = (m + TN - 1) / TN;
   const int row_tiles = (bs + TM - 1) / TM;
-  const long long grid = static_cast<long long>(nbr) * row_tiles * col_tiles;
+  const long long grid = count * row_tiles * col_tiles;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  spmm_kernel<Load, TM, TN, kExt><<<static_cast<unsigned>(grid),
-                                    Tile<TM, TN>::kThreads, 0, stream>>>(
-      ld, x, cols, diag, y, bs, K, bw, x_rows, m, col_tiles, row_tiles);
+  spmm_kernel<Load, TM, TN, kRows><<<static_cast<unsigned>(grid),
+                                     Tile<TM, TN>::kThreads, 0, stream>>>(
+      ld, src, cols, diag, y, rows, bs, K, bw, x_rows, m, col_tiles,
+      row_tiles);
   return cudaGetLastError();
 }
 
-template <typename Load, int TM, bool kExt>
-cudaError_t spmm_by_width(const Load& ld, const typename Load::X* x,
+template <typename Load, int TM, int kRows>
+cudaError_t spmm_by_width(const Load& ld, XSource<typename Load::X> src,
                           const int* cols, const float* diag,
-                          typename Load::Acc* y, int nbr, int bs, int K,
-                          int bw, long long x_rows, int m, cudaStream_t s) {
+                          typename Load::Acc* y, RowRange rows,
+                          long long count, int bs, int K, int bw,
+                          long long x_rows, int m, cudaStream_t s) {
   if (m <= 8)
-    return launch_spmm<Load, TM, 8, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 8, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
   if (m <= 16)
-    return launch_spmm<Load, TM, 16, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 16, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
   if (m <= 32)
-    return launch_spmm<Load, TM, 32, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-  return launch_spmm<Load, TM, 64, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 32, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
+  return launch_spmm<Load, TM, 64, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
 }
 
-// Y = A @ X on the current stream; returns a cudaError_t as int. kExt:
-// x is halo-extended (banded rule only, cols == nullptr).
-template <typename Load, bool kExt = false>
-int spmm(const Load& ld, const typename Load::X* x, const int* cols,
-         const float* diag, typename Load::Acc* y, int nbr, int bs, int K,
-         int bw, long long x_rows, int m, void* stream) {
-  if (nbr <= 0 || bs <= 0 || K <= 0 || m <= 0) return 0;
+// Y = A @ X on the current stream for the block rows of ``rows`` (count
+// of them); returns a cudaError_t as int. kSplit and kInside:
+// banded rule only (cols == nullptr).
+template <typename Load, int kRows = kMasked>
+int spmm_rows(const Load& ld, XSource<typename Load::X> src, const int* cols,
+              const float* diag, typename Load::Acc* y, RowRange rows,
+              long long count, int bs, int K, int bw, long long x_rows, int m,
+              void* stream) {
+  if (count <= 0 || bs <= 0 || K <= 0 || m <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bs <= 16
-          ? spmm_by_width<Load, 16, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s)
-          : spmm_by_width<Load, 64, kExt>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+          ? spmm_by_width<Load, 16, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s)
+          : spmm_by_width<Load, 64, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
   return static_cast<int>(err);
+}
+
+// Y = A @ X over all nbr block rows.
+template <typename Load, int kRows = kMasked>
+int spmm(const Load& ld, const typename Load::X* x, const int* cols,
+         const float* diag, typename Load::Acc* y, int nbr, int bs, int K,
+         int bw, long long x_rows, int m, void* stream) {
+  return spmm_rows<Load, kRows>(ld, {x, nullptr, nullptr}, cols, diag, y,
+                                RowRange{0, nbr, 0}, nbr, bs, K, bw, x_rows,
+                                m, stream);
 }
 
 }  // namespace fdt

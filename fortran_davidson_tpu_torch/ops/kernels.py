@@ -2,7 +2,7 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Seven kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
+Eight kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -25,6 +25,10 @@ Seven kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
   rows, every window valid (``csrc/halo_spmm.cu``).
 - :func:`banded_q_ext_bsr_spmm` replaces ``banded_q_ext_bsr_spmm``
   (``pallas_kernels.py:1059``): the int8 form (``csrc/halo_spmm.cu``).
+- :func:`banded_remote_halo_spmm` replaces ``banded_remote_halo_spmm``
+  (``pallas_kernels.py:1416``): kernel 6 over a shard's rows and its two
+  received halos through three pointers, no halo-extended copy, in an
+  interior and an edge launch (``csrc/remote_halo.cu``).
 
 What bounds them on the H100, and what the simple designs do about it,
 is written at the top of each source. They are not tuned yet.
@@ -88,6 +92,10 @@ _ARGTYPES = {
     **{f"fdt_banded_ext_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
     # q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
     "fdt_banded_q_ext_bsr_spmm_f32": [_P, _P, *_BANDED],
+    # blocks, x, top, bot, y, nbr, bs, K, bw, m, a0, na, b0, nb, stream
+    **{f"fdt_banded_remote_halo_spmm_{s}": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _I, _I, _I, _I, _I, _I, _P]
+       for s in _SUFFIX.values()},
 }
 
 
@@ -168,7 +176,7 @@ def _library():
     return lib
 
 
-def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """Accumulation type: float32 for sub-32-bit storage, else the type."""
     return torch.float32 if dtype.itemsize < 4 else dtype
 
@@ -230,7 +238,7 @@ def _dense_suffix(name: str, blocks, x) -> str:
 
 def _require_contiguous(name: str, *tensors):
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: blocks and x must be contiguous")
+        raise ValueError(f"{name}: every input must be contiguous")
 
 
 def _run(entry: str, device, *args) -> None:
@@ -251,7 +259,7 @@ def _out(y, out_dtype):
 def _gram_plain(vv, y):
     """G = vvᵀ y in float32, y rounded to vv's type first (the TPU
     kernels' staged tile) and the sums in vv's accumulation type."""
-    acc = _acc_dtype(vv.dtype)
+    acc = acc_dtype(vv.dtype)
     return (vv.to(acc).T @ y.to(vv.dtype).to(acc)).to(torch.float32)
 
 
@@ -294,7 +302,7 @@ def banded_bsr_spmm_plain(blocks, x, bandwidth: int, out_dtype=None):
     nbr, bs, kbs = blocks.shape
     K = kbs // bs
     m = x.shape[1]
-    acc = _acc_dtype(x.dtype)
+    acc = acc_dtype(x.dtype)
     xb = x.to(acc).reshape(nbr, bs, m)
     xp = torch.nn.functional.pad(xb, (0, 0, 0, 0, bandwidth, bandwidth))
     window = torch.cat([xp[k:k + nbr] for k in range(K)], dim=1)
@@ -319,7 +327,7 @@ def banded_bsr_spmm(blocks, x, bandwidth: int, out_dtype=None):
     sfx = _dense_suffix(name, blocks, x)
     _require_contiguous(name, blocks, x)
     nbr, bs, _ = blocks.shape
-    y = torch.empty((nbr * bs, x.shape[1]), dtype=_acc_dtype(x.dtype),
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=acc_dtype(x.dtype),
                     device=x.device)
     if y.numel():
         _run(f"fdt_{name}_{sfx}", x.device, blocks.data_ptr(), x.data_ptr(),
@@ -339,7 +347,7 @@ def bsr_spmm_plain(block_cols, blocks, x, out_dtype=None):
     (``fortran_davidson_tpu/ops/sparse.py:689-697``)."""
     nbr, bs, kbs = blocks.shape
     m = x.shape[1]
-    acc = _acc_dtype(x.dtype)
+    acc = acc_dtype(x.dtype)
     xb = x.to(acc).reshape(-1, bs, m)
     gathered = xb[block_cols.long()].reshape(nbr, kbs, m)
     out = torch.bmm(blocks.to(acc), gathered).reshape(nbr * bs, m)
@@ -374,7 +382,7 @@ def bsr_spmm(block_cols, blocks, x, out_dtype=None):
                          "tensor on x's device")
     sfx = _dense_suffix(name, blocks, x)
     _require_contiguous(name, blocks, x)
-    y = torch.empty((nbr * bs, x.shape[1]), dtype=_acc_dtype(x.dtype),
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=acc_dtype(x.dtype),
                     device=x.device)
     if y.numel():
         _run(f"fdt_{name}_{sfx}", x.device, block_cols.data_ptr(),
@@ -395,7 +403,7 @@ def banded_bsr_spmm_gram_plain(blocks, x, v=None, *, bandwidth: int,
     the accumulation type, then G = Vᵀ Y (:func:`_gram_plain`)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     y = banded_bsr_spmm_plain(blocks, x, bandwidth,
-                              out_dtype=_acc_dtype(x.dtype))
+                              out_dtype=acc_dtype(x.dtype))
     g = _gram_plain(x if v is None else v, y)
     return (y.to(out_dtype), g) if write_out else g
 
@@ -429,7 +437,7 @@ def banded_bsr_spmm_gram(blocks, x, v=None, *, bandwidth: int,
     nbr, bs, _ = blocks.shape
     y, g, launched = _gram_launch(name, f"fdt_{name}_{sfx}",
                                   (blocks.data_ptr(),), x, v, write_out,
-                                  _acc_dtype(x.dtype), nbr, bs, K,
+                                  acc_dtype(x.dtype), nbr, bs, K,
                                   int(bandwidth))
     if launched:
         banded_bsr_spmm_gram.launches += 1
@@ -571,7 +579,7 @@ def banded_ext_bsr_spmm_plain(blocks, x_ext, *, bandwidth: int,
     (nbr, K*bs, m) windows and contract each block row as one product,
     summed in the accumulation type."""
     nbr, bs, kbs = blocks.shape
-    acc = _acc_dtype(x_ext.dtype)
+    acc = acc_dtype(x_ext.dtype)
     out = torch.bmm(blocks.to(acc),
                     _ext_windows(x_ext, nbr, bs, kbs // bs, acc))
     out = out.reshape(nbr * bs, x_ext.shape[1])
@@ -598,7 +606,7 @@ def banded_ext_bsr_spmm(blocks, x_ext, *, bandwidth: int, out_dtype=None):
     _require_contiguous(name, blocks, x_ext)
     nbr, bs, _ = blocks.shape
     y = torch.empty((nbr * bs, x_ext.shape[1]),
-                    dtype=_acc_dtype(x_ext.dtype), device=x_ext.device)
+                    dtype=acc_dtype(x_ext.dtype), device=x_ext.device)
     if y.numel():
         _run(f"fdt_{name}_{sfx}", x_ext.device, blocks.data_ptr(),
              x_ext.data_ptr(), y.data_ptr(), nbr, bs, K, int(bandwidth),
@@ -655,9 +663,135 @@ def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
 banded_q_ext_bsr_spmm.launches = 0
 
 
+# -- kernel 8: DIA-banded SpMM over a shard and its received halos ------
+
+ROW_SETS = ("all", "interior", "edge")
+
+
+def remote_row_ranges(nbr: int, bandwidth: int, rows: str) -> list:
+    """The block-row ranges ``[(lo, hi), ...]`` of one launch over
+    ``rows``: ``"interior"`` is [bw, nbr - bw), which reads no halo;
+    ``"edge"`` the first and last bw block rows, or every row when
+    nbr <= 2*bw (then ``"interior"`` is empty)."""
+    if rows not in ROW_SETS[1:]:
+        raise ValueError(f"rows must be one of {ROW_SETS[1:]}, got {rows!r}")
+    bw = int(bandwidth)
+    if nbr <= 2 * bw:
+        return [] if rows == "interior" or not nbr else [(0, nbr)]
+    if rows == "interior":
+        return [(bw, nbr - bw)]
+    return [(0, bw), (nbr - bw, nbr)]
+
+
+def _ext_slice(from_prev, x, from_next, lo: int, hi: int):
+    """Rows [lo, hi) of ``[from_prev; x; from_next]``, read from the parts
+    they overlap only (an interior range reads x alone)."""
+    parts, start = [], 0
+    for t in (from_prev, x, from_next):
+        a, b = max(lo - start, 0), min(hi - start, t.shape[0])
+        if a < b:
+            parts.append(t[a:b])
+        start += t.shape[0]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def banded_remote_halo_spmm_plain(blocks, x_local, from_prev, from_next, *,
+                                  bandwidth: int, out_dtype=None):
+    """Plain PyTorch ``banded_remote_halo_spmm``: kernel 6's plain version
+    over ``[from_prev; x_local; from_next]``."""
+    return banded_ext_bsr_spmm_plain(
+        blocks, torch.cat([from_prev, x_local, from_next]),
+        bandwidth=bandwidth, out_dtype=out_dtype)
+
+
+def _check_remote(blocks, x, from_prev, from_next, bandwidth: int, rows,
+                  out):
+    """Checks of kernel 8's arguments; returns K."""
+    K = _check_banded(blocks, x, bandwidth)
+    halo = (int(bandwidth) * blocks.shape[1], x.shape[1])
+    for name, t in (("from_prev", from_prev), ("from_next", from_next)):
+        if tuple(t.shape) != halo:
+            raise ValueError(f"{name} must be {halo}, got {tuple(t.shape)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; x is "
+                             f"{x.dtype} on {x.device}")
+    if rows not in ROW_SETS:
+        raise ValueError(f"rows must be one of {ROW_SETS}, got {rows!r}")
+    if out is None and rows != "all":
+        raise ValueError(f"rows={rows!r} writes part of Y: pass the output "
+                         "that the other launch fills as out=")
+    if out is not None and (tuple(out.shape) != tuple(x.shape)
+                            or out.dtype != acc_dtype(x.dtype)
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {tuple(x.shape)} "
+                         f"{acc_dtype(x.dtype)} tensor on {x.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    return K
+
+
+def banded_remote_halo_spmm(blocks, x_local, from_prev, from_next, *,
+                            bandwidth: int, rows: str = "all", out=None,
+                            out_dtype=None):
+    """Y = A_local @ [from_prev; x_local; from_next] for a shard's
+    DIA-banded rows (``fortran_davidson_tpu/ops/pallas_kernels.py:1416``),
+    reading the shard's rows and the two halos where they lie.
+
+    Args:
+      blocks: (nbr, bs, K*bs), K = 2*bandwidth + 1, the shard's block rows.
+      x_local: (nbr*bs, m), the blocks' type: the shard's rows.
+      from_prev, from_next: (bandwidth*bs, m), x's type: the ring
+        predecessor's last and the successor's first rows.
+      rows: ``"interior"`` or ``"edge"``, one launch over those block rows
+        (:func:`remote_row_ranges`) into ``out``, which is then required.
+        An ``"interior"`` launch reads neither halo, so it may run while
+        they are still in flight; ``"edge"`` then fills the rest of
+        ``out``. ``"all"`` (default): the two launches, one after the other.
+      out: a contiguous (nbr*bs, m) tensor of the accumulation type that
+        receives the rows; by default a new one.
+      out_dtype: Y's type when ``out`` is not given (default x's type).
+
+    Returns:
+      ``out`` when given (the accumulation type), else Y in ``out_dtype``.
+    """
+    K = _check_remote(blocks, x_local, from_prev, from_next, bandwidth, rows,
+                      out)
+    nbr, bs, _ = blocks.shape
+    bw, m = int(bandwidth), x_local.shape[1]
+    acc = acc_dtype(x_local.dtype)
+    y = (torch.empty((nbr * bs, m), dtype=acc, device=x_local.device)
+         if out is None else out)
+    name = "banded_remote_halo_spmm"
+    on_cpu = _on_cpu(name, x_local)
+    if not on_cpu:
+        sfx = _dense_suffix(name, blocks, x_local)
+        _require_contiguous(name, blocks, x_local, from_prev, from_next)
+    for sel in ROW_SETS[1:] if rows == "all" else (rows,):
+        ranges = remote_row_ranges(nbr, bw, sel)
+        if on_cpu:
+            for lo, hi in ranges:
+                y[lo * bs:hi * bs] = banded_ext_bsr_spmm_plain(
+                    blocks[lo:hi], _ext_slice(from_prev, x_local, from_next,
+                                              lo * bs, (hi + 2 * bw) * bs),
+                    bandwidth=bw, out_dtype=acc)
+        elif ranges and m:
+            (a0, a1), (b0, b1) = (ranges + [(0, 0)])[:2]
+            _run(f"fdt_{name}_{sfx}", x_local.device, blocks.data_ptr(),
+                 x_local.data_ptr(), from_prev.data_ptr(),
+                 from_next.data_ptr(), y.data_ptr(), nbr, bs, K, bw, m, a0,
+                 a1 - a0, b0, b1 - b0)
+            banded_remote_halo_spmm.launches += 1
+    if out is not None:
+        return out
+    return _out(y, x_local.dtype if out_dtype is None else out_dtype)
+
+
+banded_remote_halo_spmm.launches = 0
+
+
 KERNELS = (banded_bsr_spmm, bsr_spmm, banded_bsr_spmm_gram,
            banded_q_bsr_spmm, banded_q_bsr_spmm_gram, banded_ext_bsr_spmm,
-           banded_q_ext_bsr_spmm)
+           banded_q_ext_bsr_spmm, banded_remote_halo_spmm)
 
 
 def reset_launch_counts() -> None:

@@ -6,35 +6,46 @@ tables and the basis rows are partitioned alike). A block row reads x
 rows at most ``bandwidth`` block rows away, so an apply needs, beyond
 the rank's own rows, only the last ``bandwidth * bs`` rows of its ring
 predecessor and the first of its successor. JAX moves them with two
-``ppermute``s. Here one ``all_gather`` of each rank's 2·bw·bs boundary
-rows does it (:func:`halo_slabs`): ``torch.distributed`` refuses a
-send to oneself, and at world size 1 the ring's neighbour is the rank
-itself, as in JAX's ``ppermute`` with the pair (0, 0). A collective that
-includes the rank works at every world size, on NCCL and gloo alike, and
-runs the same code at world size 1 as at 4. Its traffic is
-O(world · bw · bs · m), never the whole block. At the ring's two ends
-the wrapped rows meet the zero blocks of out-of-range slots.
+``ppermute``s. At the ring's two ends the wrapped rows meet the zero
+blocks of out-of-range slots. Two exchanges move them here:
+
+- :func:`halo_slabs` (``"xla"``, ``"pallas"`` and the int8 operator):
+  one ``all_gather`` of each rank's 2·bw·bs boundary rows, after which a
+  rank takes its neighbours' slabs. Traffic O(world · bw · bs · m).
+- :meth:`RowMesh.ring_exchange` (``"pallas-remote"``): ring-neighbour
+  point-to-point, O(bw · bs · m) per rank at any world size; at world
+  size 1, where a send to oneself is refused, the rank's own rows.
 
 Backends, as in JAX:
 
 - ``"pallas"``: the shard-local contraction in the kernel, over the
-  halo-extended rows ``[from_prev; x; from_next]``:
+  halo-extended rows ``x_ext = [from_prev; x; from_next]`` (one copy of x
+  per apply):
   :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_ext_bsr_spmm`
   (kernel 6) and
   :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_q_ext_bsr_spmm`
-  (kernel 7), which take their plain versions on the CPU. JAX runs its
-  Mosaic kernels only for ``nbr_local % 8 == 0`` (Mosaic's tiles); the
-  CUDA kernels have no tile constraint, so the port runs them for every
-  DIA-aligned operator (K == 2·bw + 1). ``HaloBSROperator`` with
-  ``"pallas"`` requires that storage and raises otherwise: on a GPU it
-  launches its kernel or raises, never falls back.
+  (kernel 7), which take their plain versions on the CPU.
+- ``"pallas-remote"``: kernel 8,
+  :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_remote_halo_spmm`,
+  which reads the shard's rows and the two halos through their own
+  pointers (no x_ext). The TPU kernel pushes the halos to the neighbours
+  from inside itself while its interior tiles compute; here the ring
+  exchange starts, the interior block rows (which read no halo) launch
+  while it runs, the stream waits on its works, and the 2·bw edge block
+  rows launch (:meth:`HaloBSROperator.matmat`). The same two launches run
+  at every world size, so one GPU at world size 1 runs what N run, less
+  the transfer. BSR operator only, as in JAX.
 - ``"xla"``: JAX's non-kernel path as plain torch: for the BSR operator
   the interior contraction over the columns the rank owns plus the halo
   contraction over the 2·bw received blocks (any banded column table);
   for the int8 operator the dequantized windowed product.
-- ``"pallas-remote"`` (kernel 8, ``banded_remote_halo_spmm``, which
-  pushes the halos between chips from inside the kernel) is not ported:
-  it raises ``NotImplementedError``.
+
+JAX runs its Mosaic kernels only for ``nbr_local % 8 == 0`` (and the
+remote one for ``nbr_local >= 16``), Mosaic's tiles, and takes ``"xla"``
+otherwise; the CUDA kernels have no tile constraint, so the port runs
+them for every DIA-aligned operator (K == 2·bw + 1). ``HaloBSROperator``
+with ``"pallas"`` or ``"pallas-remote"`` requires that storage and raises
+otherwise: on a GPU it launches its kernel or raises, never falls back.
 
 The operators keep only their rank's rows; at world size 1 those are
 views of the global tables handed in (no copy when they are already on
@@ -50,11 +61,6 @@ from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
 from fortran_davidson_tpu_torch.parallel.mesh import ROWS_AXIS, RowMesh
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
-
-_REMOTE = ("backend='pallas-remote' needs kernel 8 (banded_remote_halo_spmm, "
-           "fortran_davidson_tpu/ops/pallas_kernels.py:1416), which is not "
-           "ported: it pushes halos between GPUs from inside the kernel and "
-           "waits in ROADMAP Queue 2; use backend='pallas'")
 
 
 def local_rows(t, rows: slice, device) -> torch.Tensor:
@@ -117,12 +123,10 @@ class HaloBSROperator(LinearOperator):
                  axis: str = ROWS_AXIS, backend: str = "xla"):
         require(backend in ("xla", "pallas", "pallas-remote"), OperatorError,
                 f"unknown halo backend {backend!r}")
-        if backend == "pallas-remote":
-            raise NotImplementedError(_REMOTE)
         nbr, K = block_cols.shape[:2]
         nbr_local = _check_slab(nbr, bandwidth, mesh, axis)
-        require(backend != "pallas" or K == 2 * bandwidth + 1, OperatorError,
-                "backend='pallas' runs the DIA-banded kernel and needs "
+        require(backend == "xla" or K == 2 * bandwidth + 1, OperatorError,
+                f"backend={backend!r} runs a DIA-banded kernel and needs "
                 f"K == 2*bandwidth+1 window-aligned slots, got K={K}, "
                 f"bw={bandwidth}; use backend='xla'")
         rows = slice(mesh.rank * nbr_local, (mesh.rank + 1) * nbr_local)
@@ -160,16 +164,38 @@ class HaloBSROperator(LinearOperator):
     def device(self):
         return self.mesh.device
 
+    def _matmat_remote(self, block, compute):
+        """Kernel 8 (``"pallas-remote"``): start the ring exchange, launch
+        the interior block rows while it runs, make the stream wait on it,
+        launch the edge rows into the same output. No host sync."""
+        bw, bs = self.bandwidth, self.block_size
+        # Cast before the send, so the halos travel in the compute type.
+        x = block.to(compute).contiguous()
+        blocks = self.blocks.to(compute)
+        from_prev, from_next, works = self.mesh.ring_exchange(x, bw * bs)
+        args = (blocks, x, from_prev, from_next)
+        y = torch.empty(x.shape, dtype=kernels.acc_dtype(compute),
+                        device=x.device)
+        kernels.banded_remote_halo_spmm(*args, bandwidth=bw, rows="interior",
+                                        out=y)
+        for work in works:
+            work.wait()
+        kernels.banded_remote_halo_spmm(*args, bandwidth=bw, rows="edge",
+                                        out=y)
+        return y.to(block.dtype)
+
     def matmat(self, block):
         nbr_l, bs, kbs = self.blocks.shape
         K = kbs // bs
         bw = self.bandwidth
         m = block.shape[1]
+        # Mixed precision as BSROperator.matmat: the narrower type.
+        compute = (self.dtype if self.dtype.itemsize < block.dtype.itemsize
+                   else block.dtype)
+        if self.backend == "pallas-remote":
+            return self._matmat_remote(block, compute)
         from_prev, from_next = halo_slabs(self.mesh, block, bw * bs)
         if self.backend == "pallas":
-            # Mixed precision as BSROperator.matmat: the narrower type.
-            compute = (self.dtype if self.dtype.itemsize
-                       < block.dtype.itemsize else block.dtype)
             x_ext = torch.cat([from_prev, block, from_next]).to(compute)
             return kernels.banded_ext_bsr_spmm(
                 self.blocks.to(compute), x_ext, bandwidth=bw,

@@ -69,6 +69,40 @@ class RowMesh:
         gather(out, t, group=self.group)
         return out
 
+    def ring_exchange(self, x, halo: int):
+        """``(from_prev, from_next, works)``: the last ``halo`` rows of the
+        ring predecessor's ``x`` and the first ``halo`` rows of its
+        successor's, by ring-neighbour point-to-point: O(halo · m) per rank
+        at any world size.
+
+        At world size 1 the ring's neighbour is the rank itself (JAX's
+        ``ppermute`` with the pair (0, 0)) and ``torch.distributed`` refuses
+        a send to oneself: the halos are the views ``x[-halo:]`` and
+        ``x[:halo]``, and ``works`` is empty. Above, they are fresh buffers
+        that are valid once every work of ``works`` is waited on (on NCCL,
+        ``wait()`` makes the current stream wait, not the host). Every rank
+        issues the four operations in one order with the default tag: send
+        its bottom rows right, its top rows left, receive ``from_prev`` from
+        the left, ``from_next`` from the right. At world size 2 the
+        predecessor is the successor, and NCCL pairs the messages between
+        two ranks by issue order, so the one order keeps the halos from
+        coming back swapped. Peers are ranks of the default group, which
+        is the mesh's group (:func:`default_mesh`).
+        """
+        x = x.contiguous()
+        if self.size == 1:
+            return x[-halo:], x[:halo], []
+        left = (self.rank - 1) % self.size
+        right = (self.rank + 1) % self.size
+        from_prev = torch.empty((halo, *x.shape[1:]), dtype=x.dtype,
+                                device=x.device)
+        from_next = torch.empty_like(from_prev)
+        ops = [dist.P2POp(dist.isend, x[-halo:], right, self.group),
+               dist.P2POp(dist.isend, x[:halo], left, self.group),
+               dist.P2POp(dist.irecv, from_prev, left, self.group),
+               dist.P2POp(dist.irecv, from_next, right, self.group)]
+        return from_prev, from_next, dist.batch_isend_irecv(ops)
+
 
 def mesh_device(device=None, rank: int = 0) -> torch.device:
     """The device of ``rank``: ``device`` when it names one, else the GPU

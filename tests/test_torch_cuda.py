@@ -386,3 +386,131 @@ def test_sharded_solve_world_size_one_over_nccl(cuda_device, tmp_path):
     assert res_q.converged and res_q.iterations == single_q.iterations
     torch.testing.assert_close(res_q.eigenvalues, single_q.eigenvalues,
                                rtol=1e-5, atol=0)
+
+
+# -- kernel 8: a shard's rows and its halos through three pointers ----------
+
+def _apart(t, pad: int):
+    """``t`` copied into a buffer of its own between ``pad`` NaN rows on
+    each side, as a received halo lies apart from the shard's rows: a load
+    through the wrong pointer, or past an end, changes the bits."""
+    buf = torch.full((t.shape[0] + 2 * pad, t.shape[1]), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    buf[pad:-pad] = t
+    return buf[pad:-pad]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 20, 64, 130])
+@pytest.mark.parametrize("bw", [1, 3])
+def test_remote_kernel_matches_plain_and_kernel_6(cuda_device, dtype, m, bw):
+    # 37 block rows (ragged against every tile); the halos and the shard's
+    # rows in three buffers. Kernel 6 on their concatenation sees the same
+    # values: the same products summed in the same order, the same bits.
+    nbr, bs = 37, 16
+    store = torch.float32 if dtype == torch.bfloat16 else dtype
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=11, dtype=store,
+                                  device=cuda_device)
+    blocks, halo = op.blocks.to(dtype), bw * bs
+    x_ext = torch.randn(((nbr + 2 * bw) * bs, m),
+                        device=cuda_device).to(dtype)
+    prev, x, nxt = (_apart(t, halo) for t in
+                    (x_ext[:halo], x_ext[halo:-halo], x_ext[-halo:]))
+    acc = kernels.acc_dtype(dtype)
+    before = kernels.banded_remote_halo_spmm.launches
+    y = kernels.banded_remote_halo_spmm(blocks, x, prev, nxt, bandwidth=bw,
+                                        out_dtype=acc)
+    assert kernels.banded_remote_halo_spmm.launches == before + 2
+    assert y.dtype == acc and y.shape == (nbr * bs, m)
+    assert torch.equal(y, kernels.banded_ext_bsr_spmm(
+        blocks, torch.cat([prev, x, nxt]), bandwidth=bw, out_dtype=acc))
+    torch.testing.assert_close(
+        y, kernels.banded_remote_halo_spmm_plain(blocks, x, prev, nxt,
+                                                 bandwidth=bw, out_dtype=acc),
+        **_tol(store))
+
+
+@pytest.mark.parametrize("nbr,bw", [(5, 3), (4, 2), (3, 3)])
+def test_remote_kernel_all_edge_rows(cuda_device, nbr, bw):
+    # nbr_l <= 2·bw: no interior launch, one edge launch over every row.
+    # (The generator needs nbr >= 2·bw + 1: random slabs stand in, nonzero
+    # in every slot.)
+    bs, m = 16, 7
+    blocks = torch.randn((nbr, bs, (2 * bw + 1) * bs), dtype=torch.float64,
+                         device=cuda_device)
+    halo = bw * bs
+    prev, x, nxt = (_apart(torch.randn((rows, m), dtype=torch.float64,
+                                       device=cuda_device), halo)
+                    for rows in (halo, nbr * bs, halo))
+    before = kernels.banded_remote_halo_spmm.launches
+    y = kernels.banded_remote_halo_spmm(blocks, x, prev, nxt, bandwidth=bw)
+    assert kernels.banded_remote_halo_spmm.launches == before + 1
+    assert torch.equal(y, kernels.banded_ext_bsr_spmm(
+        blocks, torch.cat([prev, x, nxt]), bandwidth=bw))
+
+
+def test_four_slabs_through_their_neighbours_rows(cuda_device):
+    # Four shards on one card, each slab's rows in a buffer of its own and
+    # its kernel 8 reading its ring neighbours' rows there (no x_ext): put
+    # together, kernel 1 on the whole matrix, bit for bit.
+    slabs, nbr, bs, bw = 4, 64, 16, 2
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=9,
+                                  device=cuda_device)
+    nl, halo = nbr // slabs, bw * bs
+    x = torch.randn((op.shape[0], 20), dtype=torch.float64,
+                    device=cuda_device)
+    rows = [_apart(t, halo) for t in x.split(nl * bs)]
+    parts = [kernels.banded_remote_halo_spmm(
+        op.blocks[s * nl:(s + 1) * nl], rows[s], rows[s - 1][-halo:],
+        rows[(s + 1) % slabs][:halo], bandwidth=bw) for s in range(slabs)]
+    assert torch.equal(torch.cat(parts),
+                       kernels.banded_bsr_spmm(op.blocks, x, bw))
+
+
+def test_remote_kernel_refuses_what_it_does_not_take(cuda_device):
+    dev = cuda_device
+    blocks = torch.zeros((8, 4, 12), dtype=torch.float64, device=dev)
+    x = torch.zeros((32, 3), dtype=torch.float64, device=dev)
+    halo = torch.zeros((4, 3), dtype=torch.float64, device=dev)
+    call = kernels.banded_remote_halo_spmm
+    before = call.launches
+    with pytest.raises(ValueError, match="from_prev must be"):
+        call(blocks, x, halo[:2], halo, bandwidth=1)
+    with pytest.raises(ValueError, match="from_next is"):
+        call(blocks, x, halo, halo.cpu(), bandwidth=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(blocks, x, halo, torch.zeros((3, 4), dtype=torch.float64,
+                                          device=dev).T, bandwidth=1)
+    with pytest.raises(NotImplementedError):
+        call(blocks.float(), x.float().half(), halo.half(), halo.half(),
+             bandwidth=1)
+    assert call.launches == before
+
+
+def test_remote_solve_world_size_one_over_nccl(cuda_device, tmp_path):
+    # "pallas-remote" at world size 1: the halos are the rank's own rows,
+    # kernel 8 launches twice per apply, kernels 1 and 6 never, and the
+    # solve is the single-device one.
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded,
+                                                     multihost)
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    single = fdtt.eigensolve(op, 3, max_dim_sub=12)
+    mesh = multihost.initialize(init_method=f"file://{tmp_path}/rendezvous",
+                                world_size=1, rank=0, device=cuda_device)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size == 1
+        H = HaloBSROperator.from_bsr(op, 1, mesh, backend="pallas-remote")
+        kernels.reset_launch_counts()
+        res = eigensolve_sharded(H, 3, mesh, max_dim_sub=12)
+        assert kernels.banded_remote_halo_spmm.launches > 0
+        assert (kernels.banded_bsr_spmm.launches
+                == kernels.banded_ext_bsr_spmm.launches == 0)
+    finally:
+        dist.destroy_process_group()
+    assert res.converged and res.iterations == single.iterations
+    torch.testing.assert_close(res.eigenvalues, single.eigenvalues, rtol=0,
+                               atol=1e-10)

@@ -1,6 +1,9 @@
-"""Kernels 6 and 7 of the port (the shard-local contractions of the
+"""Kernels 6, 7 and 8 of the port (the shard-local contractions of the
 row-sharded solve) against the JAX package's Pallas kernels, which run in
-interpret mode on the CPU (their default off the TPU).
+interpret mode on the CPU (their default off the TPU). Kernel 8's JAX
+form runs under ``shard_map`` on a ring of one or two CPU devices; its
+remote copies go to the ring neighbours (at one device, to itself), so
+the port's wrapper gets the neighbours' rows as its two halos.
 
 On the CPU the port's wrappers take their plain versions (an unfold of
 the halo-extended input into (nbr, K*bs, m) windows and a ``torch.bmm``);
@@ -12,10 +15,12 @@ kernel rtol = atol = 2e-5, as ``tests/test_quantized.py`` holds the JAX
 halo operator.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh, PartitionSpec as P
 
 from fortran_davidson_tpu.ops import pallas_kernels as jk
 from fortran_davidson_tpu_torch.ops import kernels
@@ -85,3 +90,140 @@ def test_ext_kernels_check_shapes():
         kernels.banded_q_ext_bsr_spmm(q, torch.zeros((8, 2 * BS)),
                                       torch.zeros((8, BS)),
                                       torch.zeros((10 * BS, 2)), bandwidth=1)
+
+
+# -- kernel 8: a shard's rows and its two halos through three pointers ----
+
+def _remote_case(rng, nbr, bw, m, dtype):
+    K = 2 * bw + 1
+    tdt = getattr(torch, dtype)
+    blocks = torch.from_numpy(rng.standard_normal((nbr, BS, K * BS))).to(tdt)
+    x = torch.from_numpy(rng.standard_normal((nbr * BS, m))).to(tdt)
+    prev, nxt = (torch.from_numpy(rng.standard_normal((bw * BS, m))).to(tdt)
+                 for _ in range(2))
+    return blocks, x, prev, nxt
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 20])
+@pytest.mark.parametrize("bw,nbr", [(1, 1), (1, 7), (2, 3), (2, 4), (3, 5),
+                                    (2, 16)])
+def test_remote_plain_is_ext_plain_over_the_spliced_rows(nbr, bw, m, dtype):
+    # Every nbr_l against 2·bw: fewer (all rows are edge rows), equal
+    # (no interior), more. The wrapper's interior and edge launches into
+    # one output, and its default of both, give kernel 6's plain version
+    # over [from_prev; x; from_next].
+    rng = np.random.default_rng(1000 * nbr + 10 * bw + m)
+    blocks, x, prev, nxt = _remote_case(rng, nbr, bw, m, dtype)
+    out = torch.float32 if dtype == "bfloat16" else None
+    want = kernels.banded_ext_bsr_spmm_plain(
+        blocks, torch.cat([prev, x, nxt]), bandwidth=bw, out_dtype=out)
+    plain = kernels.banded_remote_halo_spmm_plain(blocks, x, prev, nxt,
+                                                  bandwidth=bw, out_dtype=out)
+    assert torch.equal(plain, want)
+    whole = kernels.banded_remote_halo_spmm(blocks, x, prev, nxt,
+                                            bandwidth=bw, out_dtype=out)
+    assert whole.dtype == want.dtype and whole.shape == (nbr * BS, m)
+    y = torch.empty(want.shape, dtype=kernels.acc_dtype(x.dtype))
+    for rows in ("interior", "edge"):
+        assert kernels.banded_remote_halo_spmm(
+            blocks, x, prev, nxt, bandwidth=bw, rows=rows, out=y) is y
+    scale = float(want.abs().max())
+    for got in (whole, y):
+        err = float((got.double() - want.double()).abs().max())
+        assert err <= 1e-12 * scale if dtype == "float64" else \
+            err <= 1e-6 * scale, err
+
+
+@pytest.mark.parametrize("bw,nbr", [(1, 8), (2, 3)])
+def test_remote_interior_reads_no_halo(nbr, bw):
+    # The interior launch runs while the halos travel: NaN in them must not
+    # reach its rows, and the edge launch then fills the rest.
+    rng = np.random.default_rng(nbr + bw)
+    blocks, x, prev, nxt = _remote_case(rng, nbr, bw, 4, "float64")
+    y = torch.full(x.shape, float("nan"), dtype=torch.float64)
+    nan = torch.full_like(prev, float("nan"))
+    kernels.banded_remote_halo_spmm(blocks, x, nan, nan, bandwidth=bw,
+                                    rows="interior", out=y)
+    ranges = kernels.remote_row_ranges(nbr, bw, "interior")
+    assert ranges == ([] if nbr <= 2 * bw else [(bw, nbr - bw)])
+    for lo, hi in ranges:
+        assert bool(torch.all(torch.isfinite(y[lo * BS:hi * BS])))
+    kernels.banded_remote_halo_spmm(blocks, x, prev, nxt, bandwidth=bw,
+                                    rows="edge", out=y)
+    torch.testing.assert_close(
+        y, kernels.banded_remote_halo_spmm_plain(blocks, x, prev, nxt,
+                                                 bandwidth=bw),
+        rtol=0, atol=1e-12)
+
+
+def _jax_remote(blocks, x, bw, ndev, out_dtype):
+    """JAX's kernel 8 over ``ndev`` CPU devices in a ring, each holding
+    ``blocks.shape[0] // ndev`` block rows (interpret mode)."""
+    mesh = Mesh(np.array(jax.devices()[:ndev]), ("rows",))
+    fn = jax.shard_map(
+        lambda b, xl: jk.banded_remote_halo_spmm(
+            b, xl, bandwidth=bw, ndev=ndev, axis_name="rows",
+            out_dtype=out_dtype),
+        mesh=mesh, in_specs=(P("rows", None, None), P("rows", None)),
+        out_specs=P("rows", None), check_vma=False)
+    return np.asarray(fn(blocks, x), np.float64)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("bw", [1, 2])
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_banded_remote_matches_jax(ndev, bw, dtype):
+    # 16 block rows per device (JAX's kernel needs nbr_l % 8 == 0 and
+    # nbr_l >= 16); the port's wrapper gets each shard's ring neighbours'
+    # rows as its halos, the rows JAX's remote copies deliver.
+    nbr_l, m = 16, 5
+    rng = np.random.default_rng(100 * ndev + 10 * bw)
+    K, halo, n_l = 2 * bw + 1, bw * BS, nbr_l * BS
+    blocks = rng.standard_normal((ndev * nbr_l, BS, K * BS))
+    x = rng.standard_normal((ndev * n_l, m))
+    out = jnp.float32 if dtype == "bfloat16" else None
+    jdt = getattr(jnp, dtype)
+    yj = _jax_remote(jnp.asarray(blocks, jdt), jnp.asarray(x, jdt), bw, ndev,
+                     out)
+    tdt = getattr(torch, dtype)
+    tb, tx = torch.from_numpy(blocks).to(tdt), torch.from_numpy(x).to(tdt)
+    parts = []
+    for s in range(ndev):
+        xl = tx[s * n_l:(s + 1) * n_l]
+        prev = tx[((s - 1) % ndev + 1) * n_l - halo:][:halo]
+        nxt = tx[((s + 1) % ndev) * n_l:][:halo]
+        parts.append(kernels.banded_remote_halo_spmm(
+            tb[s * nbr_l:(s + 1) * nbr_l], xl, prev, nxt, bandwidth=bw,
+            out_dtype=None if out is None else torch.float32))
+    yt = to_numpy(torch.cat(parts).double())
+    err = np.max(np.abs(yt - yj)) / np.max(np.abs(yj))
+    assert err <= TOL[dtype], err
+
+
+def test_remote_kernel_checks_its_arguments():
+    blocks = torch.zeros((8, BS, 3 * BS), dtype=torch.float64)
+    x = torch.zeros((8 * BS, 2), dtype=torch.float64)
+    halo = torch.zeros((BS, 2), dtype=torch.float64)
+    call = kernels.banded_remote_halo_spmm
+    with pytest.raises(ValueError, match="from_prev must be"):
+        call(blocks, x, torch.zeros((2 * BS, 2), dtype=torch.float64), halo,
+             bandwidth=1)
+    with pytest.raises(ValueError, match="from_next must be"):
+        call(blocks, x, halo, torch.zeros((BS, 3), dtype=torch.float64),
+             bandwidth=1)
+    with pytest.raises(ValueError, match="from_prev is"):
+        call(blocks, x, halo.float(), halo, bandwidth=1)
+    with pytest.raises(ValueError, match="K == 2"):
+        call(blocks, x, torch.zeros((2 * BS, 2), dtype=torch.float64),
+             torch.zeros((2 * BS, 2), dtype=torch.float64), bandwidth=2)
+    with pytest.raises(ValueError, match="out must be"):
+        call(blocks, x, halo, halo, bandwidth=1, out=torch.zeros((8 * BS, 2)))
+    with pytest.raises(ValueError, match="rows must be"):
+        call(blocks, x, halo, halo, bandwidth=1, rows="middle")
+    with pytest.raises(ValueError, match="rows must be"):
+        kernels.remote_row_ranges(8, 1, "all")
+    for rows in ("interior", "edge"):
+        # One launch writes part of Y: the output it shares is required.
+        with pytest.raises(ValueError, match="pass the output"):
+            call(blocks, x, halo, halo, bandwidth=1, rows=rows)

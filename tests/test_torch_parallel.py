@@ -5,16 +5,24 @@ World sizes 1, 2 and 4 run as gloo process groups: one spawn per world
 size (``tests/torch_dist_worker.py``) runs every check on its ranks, and
 the tests here compare the ranks' rows, put back together, with:
 
-- the JAX halo operators on ``default_mesh(world)`` (kernel 6's and 7's
-  Pallas kernels in interpret mode): the applies within 1e-12 of max|Y|
-  in float64 and rtol = atol = 2e-5 for int8 storage (bf16-class, as
+- the JAX halo operators on ``default_mesh(world)`` with the same
+  backend (kernels 6-8's Pallas kernels in interpret mode; kernel 8's
+  remote copies go to the ring neighbours of the CPU mesh, at world size
+  1 to the device itself): the applies within 1e-12 of max|Y| in
+  float64, rtol = atol = 2e-5 in float32 (as JAX's
+  ``TestRemoteHaloPallas``) and for int8 storage (bf16-class, as
   ``tests/test_quantized.py`` holds the JAX halo operator); diagonals
   exactly; the off-diagonal splits through A x = offdiag(A) x + d ∘ x;
 - the JAX package's single-device solve and the port's own, on the cases
   of ``tests/test_parallel.py``: equal iteration counts and converged
   flags, eigenvalues within atol 1e-10 in float64 and rtol 1e-5 in
   float32, true residuals of the gathered eigenvectors within the
-  solve's tolerance.
+  solve's tolerance; the ``"pallas-remote"`` solves also against the JAX
+  package's sharded solve through its remote kernel at the same world
+  size;
+- the ring exchange of ``"pallas-remote"``: the halos equal the
+  all-gather's bit for bit, and an apply makes two sends and two
+  receives at world sizes 2 and 4 (none at 1) and no collective.
 
 The argument checks and ``convert.halo`` need no process group: they use
 a :class:`RowMesh` whose group is never called.
@@ -37,6 +45,7 @@ from fortran_davidson_tpu.ops import sparse as jsparse
 from fortran_davidson_tpu_torch import config as tconfig
 from fortran_davidson_tpu_torch import convert
 from fortran_davidson_tpu_torch import parallel as tpar
+from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.parallel import multihost
 from fortran_davidson_tpu_torch.utils.errors import (InvalidOptionsError,
                                                      OperatorError)
@@ -76,6 +85,17 @@ def jax_ops():
     ops["solve_int8"] = jsparse.quantize_banded_int8(
         jsparse.generate_banded_bsr(32, 8, bandwidth=1, coupling=1e-3,
                                     dtype=f32))
+    # The cases of TestRemoteHaloPallas, and 8 block rows at bw=2: at world
+    # sizes 2 and 4 every row is an edge row, at 4 the halo is the whole
+    # neighbour slab (JAX takes its "xla" path below 16 block rows).
+    ops["remote32"] = jsparse.generate_banded_bsr(128, 8, bandwidth=2,
+                                                  coupling=1e-3, seed=31,
+                                                  dtype=f32)
+    ops["solve_remote"] = jsparse.generate_banded_bsr(128, 8, bandwidth=1,
+                                                      coupling=1e-3, seed=32,
+                                                      dtype=f32)
+    ops["tiny2"] = jsparse.generate_banded_bsr(8, 8, bandwidth=2,
+                                               coupling=1e-3, seed=23)
     return ops
 
 
@@ -88,6 +108,8 @@ def inputs(jax_ops, tmp_path_factory):
              X0=rng.standard_normal((64, 2)),
              X=rng.standard_normal((512, 6)),
              Xq=rng.standard_normal((256, 4)).astype(np.float32))
+    d.update(X32=rng.standard_normal((1024, 5)).astype(np.float32),
+             Xs=rng.standard_normal((64, 3)))
     for tag, op in jax_ops.items():
         if hasattr(op, "qblocks"):
             d.update({f"{tag}_q": np.asarray(op.qblocks),
@@ -121,33 +143,37 @@ def _gathered(results: list, key: str) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def jax_halo(inputs, jax_ops):
-    """(tag, world) -> the JAX halo operator's apply and diagonal on
-    default_mesh(world), through its Pallas kernel (interpret mode)."""
+    """(tag, world, backend, X) -> the JAX halo operator's apply of
+    inputs[X] and its diagonal on default_mesh(world), through its Pallas
+    kernel (interpret mode)."""
     d, _ = inputs
 
     @functools.cache
-    def run(tag: str, world: int):
+    def run(tag: str, world: int, backend: str = "pallas", x: str = "X"):
         mesh, op = jpar.default_mesh(world), jax_ops[tag]
         if hasattr(op, "qblocks"):
             h = jpar.HaloQuantizedOperator.from_quantized(op, mesh,
-                                                          backend="pallas")
-            X = d["Xq"]
+                                                          backend=backend)
         else:
             h = jpar.HaloBSROperator.from_bsr(op, op.bandwidth, mesh,
-                                              backend="pallas")
-            X = d["X"]
-        return np.asarray(h.matmat(jnp.asarray(X))), np.asarray(h.diagonal())
+                                              backend=backend)
+        return (np.asarray(h.matmat(jnp.asarray(d[x]))),
+                np.asarray(h.diagonal()))
 
     return run
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", list(worker.HALO_BACKENDS))
 @pytest.mark.parametrize("bw", worker.HALO_BANDS)
 @pytest.mark.parametrize("world", WORLDS)
 def test_halo_bsr_matches_jax(ranks, inputs, jax_halo, world, bw, backend):
+    # The port's "xla" and "pallas" against JAX's "pallas", and
+    # "pallas-remote" against JAX's "pallas-remote".
     d, _ = inputs
     res = ranks(world)
-    y_j, diag_j = jax_halo(f"halo{bw}", world)
+    y_j, diag_j = jax_halo(f"halo{bw}", world,
+                           "pallas-remote" if backend == "pallas-remote"
+                           else "pallas")
     y = _gathered(res, f"halo{bw}_{backend}_y")
     scale = np.max(np.abs(y_j))
     assert np.max(np.abs(y - y_j)) <= 1e-12 * scale
@@ -158,12 +184,53 @@ def test_halo_bsr_matches_jax(ranks, inputs, jax_halo, world, bw, backend):
         <= 1e-12 * scale
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_remote_halo_float32_matches_jax(ranks, jax_halo, world):
+    y_j, _ = jax_halo("remote32", world, "pallas-remote", "X32")
+    y = _gathered(ranks(world), "remote32_y")
+    assert y.dtype == np.float32
+    np.testing.assert_allclose(y, y_j, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_remote_halo_on_edge_only_slabs_matches_jax(ranks, jax_halo, world):
+    # 8 block rows at bw=2: 2 per rank at world size 4, fewer than 2·bw,
+    # and the halo is the whole neighbour slab.
+    y_j, _ = jax_halo("tiny2", world, "pallas-remote", "Xs")
+    y = _gathered(ranks(world), "tiny2_y")
+    assert np.max(np.abs(y - y_j)) <= 1e-12 * np.max(np.abs(y_j))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ring_exchange_equals_the_all_gather(ranks, world):
+    for r in ranks(world):
+        for halo in worker.RING_HALOS:
+            np.testing.assert_array_equal(r[f"ring{halo}"], r[f"slabs{halo}"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_remote_apply_is_ring_point_to_point_only(ranks, world):
+    # Per rank and apply: two sends and two receives to the ring
+    # neighbours (none at world size 1, where the halos are the rank's own
+    # rows) and no collective; "pallas" makes one all-gather.
+    for r in ranks(world):
+        for bw in worker.HALO_BANDS:
+            calls = dict(zip(worker.COUNTED,
+                             r[f"halo{bw}_pallas-remote_calls"].tolist()))
+            p2p = 2 if world > 1 else 0
+            assert calls == {**dict.fromkeys(worker.COUNTED, 0),
+                             "isend": p2p, "irecv": p2p}, calls
+            gathers = dict(zip(worker.COUNTED,
+                               r[f"halo{bw}_pallas_calls"].tolist()))
+            assert sum(gathers[n] for n in worker.GATHERS) == 1
+
+
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 @pytest.mark.parametrize("bw", worker.INT8_BANDS)
 @pytest.mark.parametrize("world", WORLDS)
 def test_halo_int8_matches_jax(ranks, jax_halo, world, bw, backend):
     res = ranks(world)
-    y_j, diag_j = jax_halo(f"int8_{bw}", world)
+    y_j, diag_j = jax_halo(f"int8_{bw}", world, x="Xq")
     np.testing.assert_allclose(_gathered(res, f"int8_{bw}_{backend}_y"), y_j,
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(_gathered(res, f"int8_{bw}_diag"), diag_j)
@@ -181,6 +248,8 @@ def single_device(inputs, jax_ops):
     def run(name: str):
         lowest, opts = worker.SOLVES[name]
         jA = {"halo_pallas": jax_ops["solve_halo"],
+              "halo_remote": jax_ops["solve_halo"],
+              "remote_f32": jax_ops["solve_remote"],
               "bsr": jax_ops["solve_bsr"],
               "int8": jax_ops["solve_int8"]}.get(name, d["A"])
         rj = fdt.eigensolve(jA, lowest,
@@ -224,6 +293,26 @@ def test_sharded_solve_matches_single_device(ranks, inputs, single_device,
         r = r / np.maximum(np.abs(lam), 1.0)
     # int8 in float32: the loop's residual floor plus float32 roundoff of X.
     assert np.all(r <= opts["tolerance"] * (2.0 if "dtype" in opts else 1.0))
+
+
+@pytest.mark.parametrize("name", ["halo_remote", "remote_f32"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_remote_solve_matches_jax_sharded(ranks, jax_ops, world, name):
+    # The JAX package's sharded solve through its remote kernel (interpret
+    # mode) at the same world size: the same iterations and eigenvalues.
+    lowest, opts = worker.SOLVES[name]
+    jA = jax_ops["solve_halo" if name == "halo_remote" else "solve_remote"]
+    mesh = jpar.default_mesh(world)
+    rj = jpar.eigensolve_sharded(
+        jpar.HaloBSROperator.from_bsr(jA, jA.bandwidth, mesh,
+                                      backend="pallas-remote"),
+        lowest, mesh, **opts)
+    res = ranks(world)
+    assert {int(r[f"{name}_iterations"]) for r in res} == {int(rj.iterations)}
+    tol = (dict(rtol=1e-5, atol=0) if opts.get("dtype") == "float32"
+           else dict(rtol=0, atol=1e-10))
+    np.testing.assert_allclose(res[0][f"{name}_evals"],
+                               np.asarray(rj.eigenvalues), **tol)
 
 
 # -- argument checks (no process group) --------------------------------
@@ -271,10 +360,27 @@ def test_halo_constructor_checks():
                                    _fake_mesh(1))
 
 
-def test_pallas_remote_names_kernel_8():
+def test_pallas_remote_names_kernel_8(monkeypatch):
+    # "pallas-remote" applies through kernel 8 in two launches, interior
+    # then edge; at world size 1 the exchange needs no process group.
     bsr = fdtt.generate_banded_bsr(16, 8, bandwidth=1, seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel 8"):
-        tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2),
+    h = tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(1),
+                                      backend="pallas-remote")
+    assert h.backend == "pallas-remote"
+    launches = []
+    kernel8 = kernels.banded_remote_halo_spmm
+
+    def spy(*args, rows, **kw):
+        launches.append(rows)
+        return kernel8(*args, rows=rows, **kw)
+    monkeypatch.setattr(kernels, "banded_remote_halo_spmm", spy)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((128, 3)))
+    torch.testing.assert_close(h.matmat(x), bsr.matmat(x), rtol=0,
+                               atol=1e-12)
+    assert launches == ["interior", "edge"]
+    # DIA-aligned storage only (K == 2*bw+1), as "pallas".
+    with pytest.raises(OperatorError, match="K == 2"):
+        tpar.HaloBSROperator.from_bsr(bsr, 2, _fake_mesh(1),
                                       backend="pallas-remote")
     with pytest.raises(OperatorError, match="unknown halo backend"):
         tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2), backend="mosaic")
@@ -314,7 +420,7 @@ def test_world_size_one_shard_is_a_view():
     assert h1.shape == bsr.shape
 
 
-@pytest.mark.parametrize("kind", ["bsr", "int8"])
+@pytest.mark.parametrize("kind", ["bsr", "int8", "remote"])
 def test_convert_halo_reads_the_jax_tables(jax_ops, kind):
     jmesh = jpar.default_mesh(2)
     if kind == "int8":
@@ -322,8 +428,9 @@ def test_convert_halo_reads_the_jax_tables(jax_ops, kind):
                                                       jmesh, backend="xla")
         names = ("qblocks", "scale_rows", "diag")
     else:
-        j = jpar.HaloBSROperator.from_bsr(jax_ops["halo1"], 1, jmesh,
-                                          backend="pallas")
+        j = jpar.HaloBSROperator.from_bsr(
+            jax_ops["halo1"], 1, jmesh,
+            backend="pallas-remote" if kind == "remote" else "pallas")
         names = ("block_cols", "blocks")
     t = convert.halo(j, _fake_mesh(2, 1))
     assert type(t).__name__ == type(j).__name__ and t.backend == j.backend

@@ -15,15 +15,27 @@ numpy, torch and the port.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 # Bandwidths of the banded (f64) and int8 tables of the halo checks.
 HALO_BANDS = (1, 2)
 INT8_BANDS = (1, 2)
+HALO_BACKENDS = ("xla", "pallas", "pallas-remote")
+# Halo heights (rows) of the exchange checks on the small table's X: at
+# world size 4 a rank holds 16 rows, so 16 is the whole neighbour slab.
+RING_HALOS = (8, 16)
+# The collectives counted around one apply (those that this build of
+# torch.distributed has); the point-to-point operations are counted inside
+# batch_isend_irecv by kind.
+GATHERS = ("all_gather_single", "all_gather_into_tensor", "all_gather")
+COUNTED = (*GATHERS, "all_reduce", "reduce_scatter_tensor", "broadcast",
+           "send", "recv", "isend", "irecv")
 # The sharded solves: name -> (lowest, options).
 F64 = dict(tolerance=1e-8)
 INT8 = dict(tolerance=1e-3, dtype="float32", relative_tolerance=True)
@@ -34,6 +46,8 @@ SOLVES = {
     "bsr": (3, F64),
     "int8": (3, INT8),
     "warm": (3, F64),
+    "halo_remote": (3, F64),
+    "remote_f32": (3, dict(tolerance=1e-5, dtype="float32")),
 }
 
 
@@ -63,24 +77,58 @@ def quantized(inputs, tag: str):
 
 
 def solve_cases(inputs, mesh=None) -> dict:
-    """name -> (A, B, X0) of every solve case. With ``mesh``, the halo case
-    is the ``HaloBSROperator`` on it; without, the global operator."""
+    """name -> (A, B, X0) of every solve case. With ``mesh``, the halo cases
+    are ``HaloBSROperator``s on it; without, the global operators."""
     from fortran_davidson_tpu_torch import convert
     from fortran_davidson_tpu_torch.parallel import HaloBSROperator
 
+    def halo(tag, backend):
+        op = banded(inputs, tag)
+        return op if mesh is None else HaloBSROperator.from_bsr(
+            op, op.bandwidth, mesh, backend=backend)
+
     A = convert.dense(inputs["A"], device="cpu")
-    halo = banded(inputs, "solve_halo")
-    if mesh is not None:
-        halo = HaloBSROperator.from_bsr(halo, halo.bandwidth, mesh,
-                                        backend="pallas")
     return {
         "dense": (A, None, None),
         "pencil": (A, convert.dense(inputs["B"], device="cpu"), None),
-        "halo_pallas": (halo, None, None),
+        "halo_pallas": (halo("solve_halo", "pallas"), None, None),
         "bsr": (banded(inputs, "solve_bsr"), None, None),
         "int8": (quantized(inputs, "solve_int8"), None, None),
         "warm": (A, None, torch.from_numpy(inputs["X0"])),
+        "halo_remote": (halo("solve_halo", "pallas-remote"), None, None),
+        "remote_f32": (halo("solve_remote", "pallas-remote"), None, None),
     }
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the calls of ``torch.distributed``'s collectives (COUNTED) in
+    the ``with`` block, and the operations that go through
+    ``batch_isend_irecv`` by kind (``isend``, ``irecv``)."""
+    counts = dict.fromkeys(COUNTED, 0)
+    names = [n for n in COUNTED
+             if n not in ("isend", "irecv") and hasattr(dist, n)]
+    saved = {n: getattr(dist, n) for n in names + ["batch_isend_irecv"]}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def batch(ops):
+        for op in ops:
+            counts[op.op.__name__] += 1
+        return saved["batch_isend_irecv"](ops)
+
+    for n in names:
+        setattr(dist, n, counted(n, saved[n]))
+    dist.batch_isend_irecv = batch
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
 
 
 def _rank_main(rank: int, world: int, run_dir: str) -> None:
@@ -89,6 +137,7 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
                                                      HaloQuantizedOperator,
                                                      eigensolve_sharded,
                                                      multihost, shard_operator)
+    from fortran_davidson_tpu_torch.parallel.halo import halo_slabs
 
     init = "file://" + os.path.join(run_dir, "rendezvous")
     mesh = multihost.initialize(init_method=init, world_size=world, rank=rank,
@@ -98,15 +147,37 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
     with np.load(os.path.join(run_dir, "inputs.npz")) as f:
         inputs = dict(f)
     out = {}
-    X = torch.from_numpy(inputs["X"][mesh.rows(inputs["X"].shape[0])])
+    def local(name):
+        return torch.from_numpy(inputs[name][mesh.rows(inputs[name].shape[0])])
+
+    X = local("X")
     for bw in HALO_BANDS:
         op = banded(inputs, f"halo{bw}")
-        for backend in ("xla", "pallas"):
+        for backend in HALO_BACKENDS:
             h = HaloBSROperator.from_bsr(op, bw, mesh, backend=backend)
-            out[f"halo{bw}_{backend}_y"] = h.matmat(X).numpy()
+            with counting_collectives() as calls:
+                out[f"halo{bw}_{backend}_y"] = h.matmat(X).numpy()
+            out[f"halo{bw}_{backend}_calls"] = np.array(
+                [calls[n] for n in COUNTED])
             out[f"halo{bw}_{backend}_diag"] = h.diagonal().numpy()
             out[f"halo{bw}_{backend}_offdiag_y"] = \
                 h.offdiag().matmat(X).numpy()
+    # Kernel 8 in float32, and on slabs of 2·bw block rows or fewer (every
+    # row an edge row; at world size 4 the halo is the whole neighbour
+    # slab).
+    for tag, name in (("remote32", "X32"), ("tiny2", "Xs")):
+        h = HaloBSROperator.from_bsr(banded(inputs, tag),
+                                     int(inputs[f"{tag}_bw"]), mesh,
+                                     backend="pallas-remote")
+        out[f"{tag}_y"] = h.matmat(local(name)).numpy()
+    Xs = local("Xs")
+    for halo in RING_HALOS:
+        from_prev, from_next, works = mesh.ring_exchange(Xs, halo)
+        for work in works:
+            work.wait()
+        slabs = halo_slabs(mesh, Xs, halo)
+        out[f"ring{halo}"] = torch.cat([from_prev, from_next]).numpy()
+        out[f"slabs{halo}"] = torch.cat(slabs).numpy()
     Xq = torch.from_numpy(inputs["Xq"][mesh.rows(inputs["Xq"].shape[0])])
     for bw in INT8_BANDS:
         q = quantized(inputs, f"int8_{bw}")
