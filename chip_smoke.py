@@ -20,7 +20,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      and on the 1,048,576-row matrix in float32 (3): Y within 1e-5 of
      max|Y|, and G elementwise within 1e-5 * (|V|ᵀ|Y|) (G sums ~10⁶
      products with cancellation, so max|G| is the wrong yardstick); the
-     G reduction must give the same bits twice.
+     G reduction must give the same bits twice. Float32 kernel 3 and
+     kernel 5 are the tensor-core kernels of ``csrc/fused_gram.cu``; at
+     their main cases (f32 m=128 mv=1408, int8 m=20 mv=220) they are
+     also timed beside their measurement variants ``nov`` (no V) and
+     ``nogram`` (V streamed, no gram product), which split their time
+     into apply, V stream and gram, and beside the unfused yardstick
+     (kernel 1 or 4, then ``torch.matmul(v.T, y)`` in full float32).
    - the halo kernels (6: banded SpMM over a shard's halo-extended rows,
      7: its int8 form), ragged and at full size (f64 m = 6-160, int8
      m = 20, 40), and four shards on one card: both matrices cut into
@@ -83,9 +89,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. Prints the solves' and kernels' JSON lines (launch counts of the solve
    phases 4-8, each counted from 0 over its own phase; for kernels 3 and
    5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
-   |G_k - G_p| / (|V|ᵀ|Y|); each kernel's ``bound_ms``, the larger of its
-   bytes over 3.35 TB/s and its operations over the H100's peak for their
-   type, and ``library_ms``, one ``torch.sparse_bsr_tensor`` product where
+   |G_k - G_p| / (|V|ᵀ|Y|), and ``unfused_ms``, ``nov_ms`` and
+   ``nogram_ms`` the split above; each kernel's ``bound_ms``, the larger
+   of its bytes over 3.35 TB/s and its operations over the H100's peak
+   for their type at that type's accuracy (float32: 3xTF32, 165 TFLOP/s),
+   and ``library_ms``, one ``torch.sparse_bsr_tensor`` product where
    one computes the same function), the card's name and power limit, and
    as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -105,10 +113,12 @@ import time
 SOURCES = {
     "banded_bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
     "bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
-    "banded_bsr_spmm_gram": "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+    # The float32 entry (the main case's); f64 and bf16 storage stay on
+    # csrc/banded_gram.cu.
+    "banded_bsr_spmm_gram": "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
     "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
     "banded_q_bsr_spmm_gram":
-        "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+        "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
     "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
     "banded_remote_halo_spmm":
@@ -144,11 +154,14 @@ EXT_WIDTHS = (6, 12, 24, 40, 80, 160)
 EXT_WIDTHS_Q = (20, 40)
 SLABS = 4
 # The least time the card could take (H100 SXM data sheet, dense, at
-# 700 W): HBM bytes/s, and FLOP/s by the type the
-# operations run in (float64 at the FP64 tensor-core rate; int8 storage
-# is dequantized into float32 operations).
+# 700 W): HBM bytes/s, and FLOP/s by the type the operations run in, at
+# that type's accuracy: float64 at the FP64 tensor-core rate (67
+# TFLOP/s); float32 at 3xTF32 on the tensor cores, a third of the 495
+# TFLOP/s TF32 rate (three TF32 products keep float32 accuracy), which is
+# above the 67 TFLOP/s of the CUDA cores; bf16 at its tensor-core rate.
+# int8 storage runs float32 operations.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOP_S = {"float64": 67e12, "float32": 495e12 / 3, "bfloat16": 989e12}
 TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5}
 GRAM_TOL = 1e-5
 SOLVE_TOL = 1e-8
@@ -193,9 +206,10 @@ def _dname(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def phase_kernels(A, A32, q, dev, record, slab_checks):
-    """Phase 3: every kernel against its plain version on the card, and
-    the four-slab check of kernels 6 and 7 (into ``slab_checks``)."""
+def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
+    """Phase 3: every kernel against its plain version on the card, the
+    time split of kernels 3 and 5 (into ``gram_splits``), and the
+    four-slab check of kernels 6 and 7 (into ``slab_checks``)."""
     import numpy as np
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
@@ -381,6 +395,7 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
                 gram_case(name, kernel, plain, lead, op.shape[0], m, mv,
                           write_out, note, op.bandwidth, timed)
     del rag32
+    gram_splits.update(gram_split(A32, q, randn))
 
     # -- kernels 6, 7: a shard's halo-extended input ((nbr + 2bw) * bs
     #    rows), ragged first, then the full-size matrices at world size 1
@@ -469,6 +484,66 @@ def phase_kernels(A, A32, q, dev, record, slab_checks):
         print(f"  {ext} / {base} ms: {pairs}", flush=True)
 
     slab_checks.update(four_slab_check(A, q, randn))
+
+
+def gram_split(A32, q, randn) -> dict:
+    """Kernels 3 and 5 at their main cases beside their measurement
+    variants and the unfused yardstick, each timed twice in turns (full,
+    nov, nogram, unfused, then back), the mean of the two medians:
+    ``nov`` reads no V and ``nogram`` streams V without the gram product
+    (both reduce Y to its column sums, held here to the plain Y's), so
+    full - nogram is the gram, nogram - nov the V stream, nov the apply.
+    ``unfused`` is kernel 1 (kernel 4) then one float32 cuBLAS product
+    ``torch.matmul(v.T, y)``: the work the recomputed engine does instead.
+    Returns name -> {variant: ms}."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    out = {}
+    for name, op, lead, apply in (
+            ("banded_bsr_spmm_gram", A32, (A32.blocks,),
+             kernels.banded_bsr_spmm),
+            ("banded_q_bsr_spmm_gram", q, (q.qblocks, q.scale_rows, q.diag),
+             kernels.banded_q_bsr_spmm)):
+        _, m, mv, _, _ = MAIN_CASE[name]
+        bw = op.bandwidth
+        x, v = randn(op.shape[0], m), randn(op.shape[0], mv)
+        kernel = getattr(kernels, name)
+        y = getattr(kernels, f"{name}_plain")(*lead, x, v, bandwidth=bw)[0]
+        want = y.double().sum(0)
+        bound = 1e-5 * y.double().abs().sum(0)
+        for variant in ("nov", "nogram"):
+            g = kernels.fused_gram_variant(name, lead, x, v, bandwidth=bw,
+                                           variant=variant)
+            err = float(torch.max((g[0].double() - want).abs() - bound))
+            _check(err <= 0.0 and not bool(torch.any(g[1:])),
+                   f"{name} {variant}: G row 0 is not Y's column sums")
+        del y, want, bound, g
+        fns = {
+            "full": lambda: kernel(*lead, x, v, bandwidth=bw),
+            "nov": lambda: kernels.fused_gram_variant(
+                name, lead, x, v, bandwidth=bw, variant="nov"),
+            "nogram": lambda: kernels.fused_gram_variant(
+                name, lead, x, v, bandwidth=bw, variant="nogram"),
+            "unfused": lambda: torch.matmul(v.T, apply(*lead, x, bw)),
+        }
+        order = list(fns) + list(fns)[::-1]
+        times = {key: [] for key in fns}
+        for key in order:
+            times[key].append(_time_ms(fns[key]))
+        row = {key: statistics.mean(t) for key, t in times.items()}
+        print(f"  {name} m={m} mv={mv} split (ms, mean of two turns): "
+              f"full {row['full']:.4f}, nov (apply) {row['nov']:.4f}, "
+              f"nogram (apply + V stream) {row['nogram']:.4f}, unfused "
+              f"({apply.__name__} + cuBLAS vᵀy) {row['unfused']:.4f}; "
+              f"turns {times}", flush=True)
+        plan = kernels.fused_gram_plan(
+            x.device.index or 0, int(name == "banded_q_bsr_spmm_gram"), 0,
+            op.n_block_rows, op.block_size, 2 * bw + 1, m, mv)
+        print(f"    layout: {plan} (one block an SM, 256 threads)", flush=True)
+        out[name] = dict(row, plan=plan)
+        del x, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def _apart(t, pad: int):
@@ -1260,6 +1335,26 @@ def _tile_registers(log: str) -> dict:
     return regs
 
 
+def _fused_registers(log: str) -> dict:
+    """ptxas's register count of each fused kernel instantiation of
+    ``csrc/fused_gram.cu`` ("f32 TN=128 full", "int8 TN=24 nov", ...), from
+    the build's report."""
+    import re
+    regs, key = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"fused_gram_kernelINS_\d+(DenseF32|Int8)ELi(\d+)"
+                          r"ELi(\d)E", line)
+            key = (f"{'f32' if m.group(1) == 'DenseF32' else 'int8'} "
+                   f"TN={m.group(2)} "
+                   f"{('full', 'nov', 'nogram')[int(m.group(3))]}"
+                   if m else None)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            regs[key] = int(m.group(1))
+    return regs
+
+
 def main() -> int:
     import torch
     import torch.distributed as dist
@@ -1271,6 +1366,9 @@ def main() -> int:
     from fortran_davidson_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
+    # Float32 products in full float32 (PyTorch's default, stated): the
+    # plain versions and the unfused yardstick are float32-accurate.
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = _smi()
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1286,6 +1384,8 @@ def main() -> int:
     if log:
         print(f"    ptxas registers of the f64 64x64 SpMM tile by x source "
               f"(kernels 1, 8 edge, 6 and 8 interior): {_tile_registers(log)}")
+        print(f"    ptxas registers of the fused float32 kernels (3, 5) by "
+              f"loader, column tile and variant: {_fused_registers(log)}")
     sys.stdout.flush()
 
     t0 = time.perf_counter()
@@ -1305,8 +1405,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] kernels vs plain versions", flush=True)
-    record, slab_checks = [], {}
-    phase_kernels(A, A32, q, dev, record, slab_checks)
+    record, slab_checks, gram_splits = [], {}, {}
+    phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits)
     library = library_times(A)
 
     solves, refs = [], {}
@@ -1380,6 +1480,10 @@ def main() -> int:
                 max_abs_err_G=max(r["g_abs_err"] for r in rows),
                 max_gram_err_rel=max(r["gram_ratio"] for r in rows),
                 gram_tol=GRAM_TOL)
+        if name in gram_splits:
+            split = gram_splits[name]
+            entry.update(unfused_ms=split["unfused"], nov_ms=split["nov"],
+                         nogram_ms=split["nogram"], layout=split["plan"])
         if name in slab_checks:
             entry["four_slab_max_abs_err"] = slab_checks[name]
         summary.append(entry)

@@ -10,9 +10,9 @@
 //       diagonal; x and y are f32.
 //   fdt_banded_bsr_spmm_gram_*     replaces banded_bsr_spmm_gram
 //       (pallas_kernels.py:592, body :513): Y = A @ X and G = V^T Y in one
-//       sweep over the blocks (f64, f32, or bf16 storage with f32 sums).
-//   fdt_banded_q_bsr_spmm_gram_f32 replaces banded_q_bsr_spmm_gram
-//       (pallas_kernels.py:886, body :834): the int8 apply with the gram.
+//       sweep over the blocks, for f64 and for bf16 storage with f32 sums.
+//       The float32 entry, and the int8 form of banded_q_bsr_spmm_gram
+//       (pallas_kernels.py:886), are fused_gram.cu's tensor-core kernels.
 //
 // In the gram kernels v may be null: G = X^T A X, with the window's
 // centre rows of x (the rows of Y's tile) as the gram operand, read
@@ -47,9 +47,10 @@
 // rows at TN = 32 in f32), so mv_tiles is 1 up to that width; a wider v
 // recomputes the apply once per mv tile.
 //
-// Not tuned yet: no tensor cores, a gram inner loop fed from shared
-// memory with little register reuse, one resident block per SM at the
-// widest mv. Those are later work.
+// Not tuned: no tensor cores, a gram inner loop fed from shared memory
+// with little register reuse, one resident block per SM at the widest mv.
+// The fused engine never reaches these entries (its gate is float32 only);
+// fused_gram.cu is the redesign of the float32 ones.
 
 #include "spmm_tile.cuh"
 
@@ -297,15 +298,6 @@ int fdt_banded_bsr_spmm_gram_f64(const double* blocks, const double* x,
                     n_groups, stream);
 }
 
-int fdt_banded_bsr_spmm_gram_f32(const float* blocks, const float* x,
-                                 const float* v, long long ldv, float* y,
-                                 float* partial, float* g, int nbr, int bs,
-                                 int K, int bw, int m, int mv, int n_groups,
-                                 void* stream) {
-  return dense_gram(blocks, x, v, ldv, y, partial, g, nbr, bs, K, bw, m, mv,
-                    n_groups, stream);
-}
-
 int fdt_banded_bsr_spmm_gram_bf16(const Bf16* blocks, const Bf16* x,
                                   const Bf16* v, long long ldv, float* y,
                                   float* partial, float* g, int nbr, int bs,
@@ -313,16 +305,6 @@ int fdt_banded_bsr_spmm_gram_bf16(const Bf16* blocks, const Bf16* x,
                                   void* stream) {
   return dense_gram(blocks, x, v, ldv, y, partial, g, nbr, bs, K, bw, m, mv,
                     n_groups, stream);
-}
-
-int fdt_banded_q_bsr_spmm_gram_f32(const int8_t* q, const float* scale,
-                                   const float* diag, const float* x,
-                                   const float* v, long long ldv, float* y,
-                                   float* partial, float* g, int nbr, int bs,
-                                   int K, int bw, int m, int mv, int n_groups,
-                                   void* stream) {
-  return gram(Int8Blocks{q, scale}, x, diag, v, ldv, y, partial, g, nbr, bs,
-              K, bw, m, mv, n_groups, stream);
 }
 
 }  // extern "C"

@@ -12,14 +12,16 @@ Eight kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
   general block-ELL, where a block row reads its own K column indices
   (``csrc/bsr_spmm.cu``).
 - :func:`banded_bsr_spmm_gram` replaces ``banded_bsr_spmm_gram``
-  (``pallas_kernels.py:592``): Y = A X and G = Vᵀ Y in one sweep
-  (``csrc/banded_gram.cu``).
+  (``pallas_kernels.py:592``): Y = A X and G = Vᵀ Y in one sweep; float32
+  on tensor cores (3xTF32) with G in registers across a thread-block
+  cluster (``csrc/fused_gram.cu``), float64 and bf16 storage on the
+  shared SIMT tile (``csrc/banded_gram.cu``).
 - :func:`banded_q_bsr_spmm` replaces ``banded_q_bsr_spmm``
   (``pallas_kernels.py:755``): int8 off-diagonal blocks with per-slot
   scales plus the exact diagonal (``csrc/banded_gram.cu``).
 - :func:`banded_q_bsr_spmm_gram` replaces ``banded_q_bsr_spmm_gram``
-  (``pallas_kernels.py:886``): the int8 apply fused with the gram
-  (``csrc/banded_gram.cu``).
+  (``pallas_kernels.py:886``): the int8 apply, slot by slot on tensor
+  cores, fused with the gram (``csrc/fused_gram.cu``).
 - :func:`banded_ext_bsr_spmm` replaces ``banded_ext_bsr_spmm``
   (``pallas_kernels.py:1190``): kernel 1 over a shard's halo-extended
   rows, every window valid (``csrc/halo_spmm.cu``).
@@ -30,8 +32,9 @@ Eight kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
   received halos through three pointers, no halo-extended copy, in an
   interior and an edge launch (``csrc/remote_halo.cu``).
 
-What bounds them on the H100, and what the simple designs do about it,
-is written at the top of each source. They are not tuned yet.
+What bounds them on the H100, and what the designs do about it, is
+written at the top of each source. Kernels 3 (float32) and 5 run on
+tensor cores; the others on the shared SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
 summed in float32, as the TPU kernels do); int8 storage takes float32 x.
@@ -80,14 +83,20 @@ _BANDED = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 _GENERAL = [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P]
 # blocks, x, v, ldv, y, partial, g, nbr, bs, K, bw, m, mv, n_groups, stream
 _GRAM = [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# The same with the variant before the stream (csrc/fused_gram.cu).
+_FUSED = [*_GRAM[:-1], _I, _P]
 _ARGTYPES = {
     **{f"fdt_banded_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
     **{f"fdt_bsr_spmm_{s}": _GENERAL for s in _SUFFIX.values()},
-    **{f"fdt_banded_bsr_spmm_gram_{s}": _GRAM for s in _SUFFIX.values()},
+    **{f"fdt_banded_bsr_spmm_gram_{s}": _GRAM for s in ("f64", "bf16")},
     # q, scale_rows, diag, x, y, nbr, bs, K, bw, m, stream
     "fdt_banded_q_bsr_spmm_f32": [_P, _P, *_BANDED],
-    # q, scale_rows, diag, then the dense gram's arguments
-    "fdt_banded_q_bsr_spmm_gram_f32": [_P, _P, *_GRAM],
+    "fdt_fused_gram_f32": _FUSED,
+    # q, scale_rows, diag, then the dense entry's arguments from x on
+    "fdt_fused_q_gram_f32": [_P, _P, _P, *_FUSED[1:]],
+    # quant, variant, nbr, bs, K, m, mv, out[6]
+    "fdt_fused_gram_plan": [_I, _I, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_int)],
     # blocks, x_ext, y, nbr, bs, K, bw, m, stream
     **{f"fdt_banded_ext_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
     # q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
@@ -263,10 +272,39 @@ def _gram_plain(vv, y):
     return (vv.to(acc).T @ y.to(vv.dtype).to(acc)).to(torch.float32)
 
 
-def _gram_launch(name: str, entry: str, lead_ptrs: tuple, x, v,
-                 write_out: bool, acc, nbr: int, bs: int, K: int, bw: int):
+# The fused float32 kernels (csrc/fused_gram.cu): the entry and its
+# loader (0: float32 blocks, 1: int8), by wrapper name.
+_FUSED_ENTRY = {"banded_bsr_spmm_gram": ("fdt_fused_gram_f32", 0),
+                "banded_q_bsr_spmm_gram": ("fdt_fused_q_gram_f32", 1)}
+# The full kernel, then its measurement variants (:func:`fused_gram_variant`).
+GRAM_VARIANTS = ("full", "nov", "nogram")
+FUSED_PLAN_KEYS = ("n_groups", "TN", "C", "MB", "smem_bytes",
+                   "clusters_resident")
+
+
+@functools.lru_cache(maxsize=256)
+def fused_gram_plan(device_index: int, quant: int, variant: int, nbr: int,
+                    bs: int, K: int, m: int, mv: int) -> dict:
+    """The layout of a fused float32 call (``csrc/fused_gram.cu``): row
+    groups (one partial of G each: as many clusters as the card holds at
+    once, from the occupancy API), column tile TN, cluster size C, G rows
+    a block MB, dynamic shared memory a block, clusters resident."""
+    out = (ctypes.c_int * len(FUSED_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = _library().fdt_fused_gram_plan(quant, variant, nbr, bs, K, m,
+                                             mv, out)
+    if err != 0:
+        raise RuntimeError(f"fdt_fused_gram_plan: CUDA error {err} (nbr="
+                           f"{nbr}, bs={bs}, K={K}, m={m}, mv={mv})")
+    return dict(zip(FUSED_PLAN_KEYS, out))
+
+
+def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
+                 write_out: bool, acc, nbr: int, bs: int, K: int, bw: int,
+                 variant: str = "full"):
     """Allocate Y (optional), G and the partials' scratch, and launch a
-    fused SpMM+Gram entry (see ``csrc/banded_gram.cu``)."""
+    fused SpMM+Gram entry: float32 to ``csrc/fused_gram.cu``, float64 and
+    bf16 storage to ``csrc/banded_gram.cu``."""
     if v is not None and v.dtype != x.dtype:
         raise NotImplementedError(
             f"{name}: v {v.dtype} with x {x.dtype} has no CUDA kernel; "
@@ -280,16 +318,66 @@ def _gram_launch(name: str, entry: str, lead_ptrs: tuple, x, v,
     y = torch.empty((n, m), dtype=acc, device=dev) if write_out else None
     g = torch.empty((mv, m), dtype=torch.float32, device=dev)
     launched = g.numel() > 0 and n > 0
-    if launched:
+    if not launched:
+        return y, g, launched
+    vp = None if v is None or variant == "nov" else v.data_ptr()
+    ldv = m if v is None else v.stride(0)
+    yp = None if y is None else y.data_ptr()
+    if x.dtype == torch.float32:
+        entry, quant = _FUSED_ENTRY[name]
+        var = GRAM_VARIANTS.index(variant)
+        n_groups = fused_gram_plan(dev.index if dev.index is not None
+                                   else torch.cuda.current_device(), quant,
+                                   var, nbr, bs, K, m, mv)["n_groups"]
+        scratch = torch.empty((n_groups, mv, m), dtype=torch.float32,
+                              device=dev)
+        _run(entry, dev, *lead_ptrs, x.data_ptr(), vp, ldv, yp,
+             scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
+             n_groups, var)
+    else:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         n_groups = min(nbr, 2 * sms)
         scratch = torch.empty((n_groups, mv, m), dtype=acc, device=dev)
-        _run(entry, dev, *lead_ptrs, x.data_ptr(),
-             None if v is None else v.data_ptr(),
-             m if v is None else v.stride(0),
-             None if y is None else y.data_ptr(), scratch.data_ptr(),
-             g.data_ptr(), nbr, bs, K, bw, m, mv, n_groups)
+        _run(f"fdt_{name}_{sfx}", dev, *lead_ptrs, x.data_ptr(), vp, ldv, yp,
+             scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
+             n_groups)
     return y, g, launched
+
+
+def fused_gram_variant(name: str, lead: tuple, x, v, *, bandwidth: int,
+                       variant: str):
+    """One launch of a measurement variant of the float32 kernel 3
+    (``name="banded_bsr_spmm_gram"``, ``lead=(blocks,)``) or kernel 5
+    (``"banded_q_bsr_spmm_gram"``, ``lead=(qblocks, scale_rows, diag)``)
+    on CUDA tensors, at the main cases' column tile (m in (64, 128] for
+    kernel 3, (16, 24] for kernel 5); returns G, (mv, m).
+
+    ``"nov"`` reads no V; ``"nogram"`` streams V as the full kernel does
+    and skips the gram product; both reduce Y to its column sums, which
+    they return in G's row 0 (the other rows are zero). With the full
+    kernel they split its time into apply, V stream and gram (the
+    counterparts of ``experiments/fused_probe.py``'s ``nov`` and
+    ``nogram``). Not counted in the wrappers' launches; the port's paths
+    never call it."""
+    if variant not in GRAM_VARIANTS[1:]:
+        raise ValueError(f"variant must be one of {GRAM_VARIANTS[1:]}, got "
+                         f"{variant!r}")
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise NotImplementedError(f"{name} {variant}: float32 CUDA tensors "
+                                  "only")
+    _check_v(v, x)
+    if name == "banded_q_bsr_spmm_gram":
+        K = _check_quantized(*lead, x, bandwidth)
+        ptrs = _quantized_args(name, *lead, x)
+    else:
+        K = _check_banded(lead[0], x, bandwidth)
+        _dense_suffix(name, lead[0], x)
+        _require_contiguous(name, lead[0], x)
+        ptrs = (lead[0].data_ptr(),)
+    nbr, bs, _ = lead[0].shape
+    _, g, _ = _gram_launch(name, "f32", ptrs, x, v, False, torch.float32,
+                           nbr, bs, K, int(bandwidth), variant)
+    return g
 
 
 # -- kernel 1: DIA-banded SpMM ------------------------------------------
@@ -435,9 +523,8 @@ def banded_bsr_spmm_gram(blocks, x, v=None, *, bandwidth: int,
     sfx = _dense_suffix(name, blocks, x)
     _require_contiguous(name, blocks, x)
     nbr, bs, _ = blocks.shape
-    y, g, launched = _gram_launch(name, f"fdt_{name}_{sfx}",
-                                  (blocks.data_ptr(),), x, v, write_out,
-                                  acc_dtype(x.dtype), nbr, bs, K,
+    y, g, launched = _gram_launch(name, sfx, (blocks.data_ptr(),), x, v,
+                                  write_out, acc_dtype(x.dtype), nbr, bs, K,
                                   int(bandwidth))
     if launched:
         banded_bsr_spmm_gram.launches += 1
@@ -553,9 +640,8 @@ def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
             write_out=write_out, out_dtype=out_dtype)
     lead = _quantized_args(name, qblocks, scale_rows, diag, x)
     nbr, bs, _ = qblocks.shape
-    y, g, launched = _gram_launch(name, f"fdt_{name}_f32", lead, x, v,
-                                  write_out, torch.float32, nbr, bs, K,
-                                  int(bandwidth))
+    y, g, launched = _gram_launch(name, "f32", lead, x, v, write_out,
+                                  torch.float32, nbr, bs, K, int(bandwidth))
     if launched:
         banded_q_bsr_spmm_gram.launches += 1
     return (_out(y, out_dtype), g) if write_out else g

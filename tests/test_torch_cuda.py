@@ -76,37 +76,125 @@ def test_bf16_storage_writes_f32_sums(cuda_device, m):
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("m,mv", [(4, None), (20, 40), (33, 70)])
-@pytest.mark.parametrize("write_out", [True, False])
-def test_gram_kernels_match_plain(cuda_device, m, mv, write_out):
-    dev = cuda_device
-    op = fdtt.generate_banded_bsr(17, 24, bandwidth=2, seed=4,
+def _gram_cases(dev, nbr, bs, bw, seed):
+    """(kernel, plain, lead) of the float32 kernel 3 and kernel 5 on one
+    random banded matrix and its int8 form."""
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=seed,
                                   dtype=torch.float32, device=dev)
-    q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=2, seed=4,
+    q = fdtt.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw, seed=seed,
                                            device=dev)
-    n = op.shape[0]
-    x = torch.randn((n, m), device=dev)
-    v = None if mv is None else torch.randn((n, mv + 5), device=dev)[:, :mv]
-    vv = x if v is None else v
-    cases = [
+    return [
         (kernels.banded_bsr_spmm_gram, kernels.banded_bsr_spmm_gram_plain,
          (op.blocks,)),
         (kernels.banded_q_bsr_spmm_gram, kernels.banded_q_bsr_spmm_gram_plain,
          (q.qblocks, q.scale_rows, q.diag)),
     ]
-    for kernel, plain, lead in cases:
-        before = kernel.launches
-        out = kernel(*lead, x, v, bandwidth=2, write_out=write_out)
-        assert kernel.launches == before + 1
-        ref = plain(*lead, x, v, bandwidth=2, write_out=True)
-        g = out[1] if write_out else out
-        assert g.dtype == torch.float32 and g.shape == (vv.shape[1], m)
-        if write_out:
-            torch.testing.assert_close(out[0], ref[0], **_tol(torch.float32))
-        _assert_gram_close(g, ref[1], vv, ref[0])
-        again = kernel(*lead, x, v, bandwidth=2, write_out=write_out)
-        g2 = again[1] if write_out else again
-        assert torch.equal(g, g2), "the gram reduction is not deterministic"
+
+
+def _check_gram(kernel, plain, lead, x, v, bw, write_out):
+    """One launch against the plain version: Y within 1e-5 of max|Y|, G
+    elementwise within 1e-5 of |V|ᵀ|Y|, the same bits on a second launch."""
+    vv = x if v is None else v
+    before = kernel.launches
+    out = kernel(*lead, x, v, bandwidth=bw, write_out=write_out)
+    assert kernel.launches == before + 1
+    ref = plain(*lead, x, v, bandwidth=bw, write_out=True)
+    g = out[1] if write_out else out
+    assert g.dtype == torch.float32 and g.shape == (vv.shape[1], x.shape[1])
+    if write_out:
+        err = float((out[0] - ref[0]).abs().max())
+        assert err <= 1e-5 * float(ref[0].abs().max())
+    _assert_gram_close(g, ref[1], vv, ref[0])
+    again = kernel(*lead, x, v, bandwidth=bw, write_out=write_out)
+    assert torch.equal(g, again[1] if write_out else again), \
+        "the gram reduction is not deterministic"
+    return g
+
+
+@pytest.mark.parametrize("bs", [8, 24, 128])
+@pytest.mark.parametrize("m,mv", [(m, mv) for m in (1, 20, 33, 128, 130)
+                                  for mv in (None, 7, 40, 220, 1408, 1500)]
+                         + [(256, 1408)])
+@pytest.mark.parametrize("write_out", [True, False])
+def test_gram_kernels_match_plain(cuda_device, bs, m, mv, write_out):
+    # Ragged against every tile: bs of 8 and 24 leave the 16-row tiles
+    # partly empty, 17 block rows, mv not a multiple of 8 (and below the
+    # cluster size), m not a multiple of 8 or wider than one column tile;
+    # v is the leading mv columns of a wider buffer (ldv = mv + 5).
+    dev = cuda_device
+    nbr, bw = 17, 2
+    n = nbr * bs
+    x = torch.randn((n, m), device=dev)
+    v = None if mv is None else torch.randn((n, mv + 5), device=dev)[:, :mv]
+    for kernel, plain, lead in _gram_cases(dev, nbr, bs, bw, seed=4):
+        _check_gram(kernel, plain, lead, x, v, bw, write_out)
+
+
+def _framed(t, pad: int, cols: int = 0):
+    """``t`` inside a buffer of NaNs: ``pad`` rows above and below and
+    ``cols`` columns to the right (a view with row stride t.shape[1] +
+    cols)."""
+    buf = torch.full((t.shape[0] + 2 * pad, t.shape[1] + cols), float("nan"),
+                     dtype=t.dtype, device=t.device)
+    buf[pad:pad + t.shape[0], :t.shape[1]] = t
+    return buf[pad:pad + t.shape[0], :t.shape[1]]
+
+
+@pytest.mark.parametrize("m,mv", [(20, None), (20, 220), (128, 1408),
+                                  (33, 40)])
+def test_gram_kernels_edge_windows_read_no_frame(cuda_device, m, mv):
+    # x and V are views into buffers framed by NaN rows (and V by NaN
+    # columns past mv): a load outside the edge windows, past n or past
+    # mv brings a NaN into Y or G.
+    dev = cuda_device
+    nbr, bs, bw = 9, 24, 2
+    pad = bw * bs
+    x = _framed(torch.randn((nbr * bs, m), device=dev), pad)
+    v = None if mv is None else _framed(
+        torch.randn((nbr * bs, mv), device=dev), pad, cols=3)
+    for kernel, plain, lead in _gram_cases(dev, nbr, bs, bw, seed=12):
+        y, g = kernel(*lead, x, v, bandwidth=bw)
+        assert bool(torch.all(torch.isfinite(y)))
+        assert bool(torch.all(torch.isfinite(g)))
+        clean_v = None if v is None else v.clone()
+        yp, gp = plain(*lead, x.clone(), clean_v, bandwidth=bw)
+        assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+        _assert_gram_close(g, gp, x if v is None else v, yp)
+
+
+def test_gram_cluster_and_single_block_launches_agree(cuda_device):
+    # mv = 1408 at m = 128 runs clusters of 8 blocks sharing each Y tile
+    # through distributed shared memory; mv = 40 one block a group. Both
+    # match the plain version on the same matrix, and G's leading rows
+    # agree.
+    dev = cuda_device
+    nbr, bs, bw = 33, 128, 1
+    x = torch.randn((nbr * bs, 128), device=dev)
+    v = torch.randn((nbr * bs, 1408), device=dev)
+    for kernel, plain, lead in _gram_cases(dev, nbr, bs, bw, seed=13):
+        wide = _check_gram(kernel, plain, lead, x, v, bw, True)
+        narrow = _check_gram(kernel, plain, lead, x, v[:, :40], bw, True)
+        yp = plain(*lead, x, v[:, :40], bandwidth=bw)[0]
+        _assert_gram_close(wide[:40], narrow, v[:, :40], yp, rel=2e-5)
+
+
+def test_gram_variants_reduce_y(cuda_device):
+    # The measurement variants (no V; V streamed, no gram) return Y's
+    # column sums in G's row 0 at the main cases' widths.
+    dev = cuda_device
+    nbr, bs, bw = 17, 128, 1
+    for (kernel, plain, lead), m, mv in zip(_gram_cases(dev, nbr, bs, bw, 14),
+                                            (128, 20), (1408, 220)):
+        x = torch.randn((nbr * bs, m), device=dev)
+        v = torch.randn((nbr * bs, mv), device=dev)
+        y = plain(*lead, x, v, bandwidth=bw)[0]
+        for variant in ("nov", "nogram"):
+            g = kernels.fused_gram_variant(kernel.__name__, lead, x, v,
+                                           bandwidth=bw, variant=variant)
+            assert g.shape == (mv, m) and not bool(torch.any(g[1:]))
+            want = y.double().sum(0)
+            bound = 1e-5 * y.double().abs().sum(0) + 1e-30
+            assert bool(torch.all((g[0].double() - want).abs() <= bound))
 
 
 def test_gram_kernel_f64_and_bf16(cuda_device):

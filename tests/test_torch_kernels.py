@@ -317,3 +317,21 @@ def test_new_wrappers_take_the_plain_version_on_the_cpu():
     with pytest.raises(ValueError):
         kernels.banded_bsr_spmm_gram(torch.zeros((16, 8, 24)), X,
                                      torch.zeros((5, 2)), bandwidth=1)
+
+
+@pytest.mark.parametrize("variant", ["nov", "nogram", "full", "rowgram"])
+def test_gram_variants_refuse_what_no_kernel_takes(variant):
+    # The measurement variants of kernels 3 and 5 exist only as CUDA
+    # kernels: a CPU tensor, or a name that is not a variant, raises
+    # before anything launches (there is no plain version to fall back on).
+    q = _quantized(16, 1, seed=3)
+    lead = _q_torch(q)
+    X = torch.from_numpy(_x(q.shape[0], 4, jnp.float32))
+    counts = [fn.launches for fn in kernels.KERNELS]
+    err = NotImplementedError if variant in ("nov", "nogram") else ValueError
+    for name, args in (("banded_q_bsr_spmm_gram", lead),
+                       ("banded_bsr_spmm_gram", (torch.zeros((16, 8, 24)),))):
+        with pytest.raises(err):
+            kernels.fused_gram_variant(name, args, X, None, bandwidth=1,
+                                       variant=variant)
+    assert [fn.launches for fn in kernels.KERNELS] == counts
