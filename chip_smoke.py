@@ -9,11 +9,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: requires CUDA (exit 1 without it); prints torch, CUDA and the
    card's name and power limit.
 2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
-   nvcc per source, started together).
+   nvcc per source, started together); prints ptxas's registers of every
+   instantiation of the shared SIMT tile, and of kernel 1 and its
+   variants (with their static shared memory and their ring's bytes).
 3. Kernels against their plain PyTorch versions on the same tensors on
    the card, with CUDA-event times (median of 7) of both:
    - the SpMM kernels (1, 2): max relative error <= 1e-12 in float64 and
      <= 1e-5 in float32 and with bf16 storage (summed in float32 by both);
+     kernel 1 (``csrc/banded_spmm.cu``) also on ragged shapes (bs 24, bw
+     3, m 1-320), on x framed by NaN rows, and giving the same bits twice;
+   - kernel 1's variants (``kernels.banded_spmm_variant``) against their
+     plain versions, then its split timed in turns at the main case (f64
+     m=48) and at the probes' shape (``PROBE``, bf16): kernel 1, ``noy``,
+     ``copy``, ``writeonly`` (fresh and into x's own buffer),
+     ``torch.Tensor.fill_``, ``rows_per_cta`` 2/4, ``stages`` 2/3/6,
+     ``store="tma"``, ``block_policy="evict_first"``, and at the probes'
+     shape kernel 4 on its int8 quantization; the copy variant (kernel 9,
+     ``bench.py:85``) with its GB/s against 3.35 TB/s at f64 m=48 and 320,
+     bench.py's f32 shape and the probes' bf16; kernel 5 with v=None,
+     full against ``nogram`` (``r4_visx_probe2.py``'s modes);
+   - kernels 4, 5 and 7 with float64 x, ragged and at full size, within
+     ``Q64_TOL`` of their plain versions;
    - the new kernels (3: banded SpMM+Gram, 4: int8 banded SpMM, 5: int8
      SpMM+Gram) in every variant (``v`` given or None, ``write_out``),
      on a ragged small matrix, on the 2,097,152-row int8 matrix (4, 5)
@@ -46,7 +62,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3, seed=0)``
    in float64. Each converges at 1e-8 with a true residual (taken with the
    plain SpMM) <= 1e-8, and matches the same solve run through the plain
-   versions: same iteration count, eigenvalues to 1e-9.
+   versions: same iteration count, eigenvalues to 1e-9; prints the warm
+   walls of both paths (the median of ``WARM_SOLVES`` each, in turns)
+   beside those of kernel 1 on the shared SIMT tile, before its rebuild
+   (``TILE_K1_WALLS_MS``), and one more kernel-path solve under
+   ``torch.profiler``: the device's busy time, its idle share of the
+   wall, and the device ops that took the most time. Every solve prints
+   the host events inside it (cudaMalloc / cudaFree, allocator retries,
+   garbage collections).
 5. Collapse and generalized legs at the same size: coupling 0.1 with
    ``max_dim_sub=12`` (must collapse), a pencil with a diagonal B, and a
    BSR without a declared bandwidth (the general kernel); plus a small
@@ -58,7 +81,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative tolerance 1e-3. It converges through kernel 4, with a true
    relative residual (float64, dequantized blocks plus the diagonal)
    <= 1e-3, and the same solve through the plain version takes the same
-   iterations, eigenvalues to 1e-4 relative.
+   iterations, eigenvalues to 1e-4 relative. Then the float64 leg: the
+   default float64 type at relative 1e-6 through kernel 4's float64
+   entry, the plain path's iterations, a true relative residual <= 1e-6.
 7. The fused SpMM+Gram engine, on the 1M-row matrix at coupling 3 in
    float32 (at coupling 1e-3 lowest-128 converges on its initial basis,
    with no expansion to fuse): (a) ``fused_gram="auto"`` engages at
@@ -87,8 +112,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``"pallas"`` path at m = 20, 40, 160: the same bits; CUDA-event and
    host-clock times of both, in turns, and of each exchange alone.
 10. Prints the solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-8, each counted from 0 over its own phase; for kernels 3 and
-   5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
+   phases 4-8, each counted from 0 over its own phase; kernel 9, the copy
+   variant, is listed with the nine and no phase launches it; for
+   kernels 3 and 5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
    |G_k - G_p| / (|V|ᵀ|Y|), and ``unfused_ms``, ``nov_ms`` and
    ``nogram_ms`` the split above; each kernel's ``bound_ms``, the larger
    of its bytes over 3.35 TB/s and its operations over the H100's peak
@@ -103,6 +129,7 @@ Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -111,7 +138,7 @@ import tempfile
 import time
 
 SOURCES = {
-    "banded_bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
+    "banded_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_spmm.cu",
     "bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
     # The float32 entry (the main case's); f64 and bf16 storage stay on
     # csrc/banded_gram.cu.
@@ -123,6 +150,9 @@ SOURCES = {
     "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu_torch/csrc/remote_halo.cu",
+    # Kernel 9: kernel 1's template (csrc/banded_spmm.cuh) as its "copy"
+    # variant, instantiated in csrc/banded_spmm_var_{f64,f32,bf16}.cu.
+    "banded_spmm_copy": "fortran_davidson_tpu_torch/csrc/banded_spmm.cuh",
 }
 REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
@@ -136,6 +166,7 @@ REPLACES = {
         "fortran_davidson_tpu/ops/pallas_kernels.py:1059",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu/ops/pallas_kernels.py:1416",
+    "banded_spmm_copy": "bench.py:85",
 }
 # The case whose times stand in the kernels line: the main path's shape.
 MAIN_CASE = {
@@ -147,7 +178,19 @@ MAIN_CASE = {
     "banded_ext_bsr_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_remote_halo_spmm": ("float64", 40, None, True, "nbr=8192"),
+    "banded_spmm_copy": ("float64", 48, None, True, "nbr=8192"),
 }
+# bench.py's bench_bsr_spmm shape (bench.py:178-198), the shape of the
+# experiments/spmm_probe*.py probes: nbr 4096, bs 128, bw 2, m 256.
+PROBE = dict(nbr=4096, bs=128, bw=2, m=256)
+# The f64 widths of kernel 1 at full size (the solver's: lowest-3 6-12,
+# lowest-20 40-80, up to m_max 320).
+K1_WIDTHS = (6, 12, 24, 40, 48, 80, 160, 320)
+# Phase 4's warm walls with kernel 1 on the shared SIMT tile, before its
+# rebuild (PERF.md §6), printed beside this run's.
+TILE_K1_WALLS_MS = {3: 16, 20: 67}
+# Warm solves of each path a phase-4 case, timed in turns.
+WARM_SOLVES = 6
 # The live widths of the sharded solves: f64 lowest-3 and lowest-20 (the
 # same as phase 4's), the int8 lowest-20 loose stage.
 EXT_WIDTHS = (6, 12, 24, 40, 80, 160)
@@ -206,10 +249,12 @@ def _dname(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
+def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
+                  k1_info):
     """Phase 3: every kernel against its plain version on the card, the
-    time split of kernels 3 and 5 (into ``gram_splits``), and the
-    four-slab check of kernels 6 and 7 (into ``slab_checks``)."""
+    time split of kernels 3 and 5 (into ``gram_splits``), kernel 1's
+    variants and split (into ``k1_info``), and the four-slab check of
+    kernels 6 and 7 (into ``slab_checks``)."""
     import numpy as np
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
@@ -238,13 +283,18 @@ def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
               f"{y}{g} {t}", flush=True)
         record.append(row)
 
-    def spmm_case(name, kernel, plain, dtype, m, note, timed, twin=None):
-        """``twin``: (name, fn), a kernel that must give the same bits."""
+    def spmm_case(name, kernel, plain, dtype, m, note, timed, twin=None,
+                  frame=0):
+        """``twin``: (name, fn), a kernel that must give the same bits
+        (the kernel itself: the same bits on a second call). ``frame``: the
+        kernel reads x from a buffer of its own between that many NaN rows
+        on each side (:func:`_apart`)."""
         n = kernel_rows
         x = randn(n, m, dtype)
-        y_k = kernel(x)
+        xk = _apart(x, frame) if frame else x
+        y_k = kernel(xk)
         y_p = plain(x)
-        same = None if twin is None else torch.equal(y_k, twin[1](x))
+        same = None if twin is None else torch.equal(y_k, twin[1](xk))
         torch.cuda.synchronize()
         _check(y_k.dtype == y_p.dtype, f"{name}: output type {y_k.dtype}")
         err = float(torch.max(torch.abs(y_k.double() - y_p.double())))
@@ -255,7 +305,7 @@ def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
                    ms=None, plain_ms=None, twin=twin and twin[0],
                    twin_equal=same)
         if timed:
-            row["ms"] = _time_ms(lambda: kernel(x))
+            row["ms"] = _time_ms(lambda: kernel(xk))
             row["plain_ms"] = _time_ms(lambda: plain(x))
         emit(row, timed)
         _check(rel <= TOL[dn], f"{name} {dn} m={m} {note}: rel err "
@@ -318,14 +368,16 @@ def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
         brows, bcols, rng.standard_normal((len(brows), bs_s, bs_s)), nbr_s,
         pad_width=12, device=dev)
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
+    rag24 = generate_banded_bsr(13, 24, bandwidth=3, seed=11, device=dev)
     cases = [
         ("banded_bsr_spmm", rag, "nbr=17 bs=8 bw=2", (f64, f32, bf16), (3,)),
+        ("banded_bsr_spmm", rag24, "nbr=13 bs=24 bw=3", (f64, f32, bf16),
+         (1, 20, 44, 130, 320)),
         ("bsr_spmm", rag, "nbr=17 bs=8 K=5 clipped cols", (f64, f32, bf16),
          (3,)),
         ("bsr_spmm", scr, "nbr=61 bs=16 K=12 scrambled", (f64, f32, bf16),
          (3, 48)),
-        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (f64,),
-         (6, 12, 24, 40, 48, 80, 160, 320)),
+        ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (f64,), K1_WIDTHS),
         ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (f32,), (6, 48, 320)),
         ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (bf16,), (48, 320)),
         ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)", (f64,),
@@ -354,10 +406,17 @@ def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
                           kernels.bsr_spmm(c, b, x, out_dtype=o))
                 plain = (lambda x, b=blocks, c=cols, o=out:
                          kernels.bsr_spmm_plain(c, b, x, out_dtype=o))
+            # Kernel 1: x framed by NaN rows, and the same bits twice.
+            extra = (dict(twin=("itself", kernel),
+                          frame=op.bandwidth * op.block_size)
+                     if name == "banded_bsr_spmm" else {})
             for m in widths:
-                spmm_case(name, kernel, plain, dtype, m, note, timed)
+                spmm_case(name, kernel, plain, dtype, m, note, timed,
+                          **extra)
             del blocks
+    del rag24
     torch.cuda.empty_cache()
+    k1_info.update(kernel1_variants(A, probe, q, dev, randn, record))
 
     # -- kernels 3-5: ragged first, then the full-size matrices ---------
     rag32 = generate_banded_bsr(17, 24, bandwidth=2, seed=9,
@@ -429,6 +488,8 @@ def phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits):
                                                            out_dtype=o))
             for m in widths:
                 spmm_case(name, kernel, plain, dtype, m, note, timed)
+    for op, note in ((ragq, "nbr=17 bs=24 bw=2"), (q, "nbr=16384 bs=128 bw=1")):
+        int8_float64_x(op, note, randn, op is q)
     del ragq
     torch.cuda.empty_cache()
 
@@ -546,6 +607,266 @@ def gram_split(A32, q, randn) -> dict:
     return out
 
 
+# Float64 x on int8 storage: the band is summed in float64 and rounded to
+# float32 as the plain version rounds it, so the two part by one float32
+# ulp where their float64 sums straddle a rounding boundary.
+Q64_TOL = 2.0 ** -22
+
+
+def int8_float64_x(op, note, randn, timed):
+    """Kernels 4, 5 and 7 with float64 x (and v) against their plain
+    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    lead = (op.qblocks, op.scale_rows, op.diag)
+    bw, halo = op.bandwidth, op.bandwidth * op.block_size
+    n = op.shape[0]
+    f64 = torch.float64
+
+    def close(label, y, yp):
+        err = float(torch.max(torch.abs(y - yp)))
+        rel = err / float(torch.max(torch.abs(yp)))
+        _check(y.dtype == yp.dtype == f64 and rel <= Q64_TOL,
+               f"{label} {note}: {y.dtype} rel err {rel:.3e} > {Q64_TOL}")
+        return rel
+
+    for m in (20, 40):
+        x = randn(n, m, f64)
+        k4 = lambda: kernels.banded_q_bsr_spmm(*lead, x, bw)  # noqa: E731
+        p4 = lambda: kernels.banded_q_bsr_spmm_plain(  # noqa: E731
+            *lead, x, bw)
+        r4 = close("banded_q_bsr_spmm f64", k4(), p4())
+        x_ext = _ring_ext(x, 0, n, halo)
+        r7 = close("banded_q_ext_bsr_spmm f64",
+                   kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw),
+                   kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext,
+                                                       bandwidth=bw))
+        r5 = g5 = 0.0
+        for v in (None, randn(n, 220, f64)):
+            y, g = kernels.banded_q_bsr_spmm_gram(*lead, x, v, bandwidth=bw)
+            yp, gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, x, v,
+                                                          bandwidth=bw)
+            r5 = max(r5, close("banded_q_bsr_spmm_gram f64", y, yp))
+            vv = x if v is None else v
+            g5 = max(g5, float(torch.max(torch.abs(g - gp) / (
+                (torch.abs(vv).T @ torch.abs(yp)).float() + 1e-30))))
+            _check(g5 <= GRAM_TOL, f"kernel 5 f64 {note} m={m}: G error "
+                   f"{g5:.3e}")
+            del y, g, yp, gp, v, vv
+        t = ""
+        if timed:
+            t = (f" kernel 4 {_time_ms(k4):.4f} ms, plain "
+                 f"{_time_ms(p4):.4f} ms")
+        print(f"  float64 x on int8 storage, {note} m={m}: kernel 4 rel "
+              f"{r4:.3e}, kernel 7 rel {r7:.3e}, kernel 5 Y rel {r5:.3e} "
+              f"G |dG|/(|V|ᵀ|Y|) {g5:.3e};{t}", flush=True)
+        del x, x_ext
+        torch.cuda.empty_cache()
+
+
+def _copy_bytes(op, m, dtype) -> int:
+    """The bytes kernel 1 and its copy variant move: every block once, x
+    once, Y (the accumulation type) once."""
+    isz = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
+    n = op.n_block_rows * op.block_size
+    return (op.blocks.numel() * isz + n * m * isz
+            + n * m * max(isz, 4))
+
+
+def _probe_operator(dev):
+    """bench.py's bench_bsr_spmm matrix (bench.py:182-192: float32, scaled
+    to spectral radius < 1), the probes' shape."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    op = fdtt.generate_banded_bsr(PROBE["nbr"], PROBE["bs"],
+                                  bandwidth=PROBE["bw"], coupling=1e-3,
+                                  seed=0, dtype=torch.float32, device=dev)
+    scale = 1.0 / (PROBE["nbr"] * PROBE["bs"] * 2.0)
+    return fdtt.BSROperator(op.block_cols, op.blocks * scale,
+                            bandwidth=PROBE["bw"])
+
+
+# The split of kernel 1: each entry one launch of a variant (or of kernel
+# 1, or a PyTorch call) on the same blocks and x.
+K1_SPLIT = (
+    ("full", dict(variant="full")),
+    ("noy", dict(variant="noy")),
+    ("copy", dict(variant="copy")),
+    ("writeonly", dict(variant="writeonly")),
+    ("writeonly_into_x", None),
+    ("fill_", None),
+    ("rows_per_cta=2", dict(variant="full", rows_per_cta=2)),
+    ("rows_per_cta=4", dict(variant="full", rows_per_cta=4)),
+    ("stages=2", dict(variant="full", stages=2)),
+    ("stages=3", dict(variant="full", stages=3)),
+    ("stages=6", dict(variant="full", stages=6)),
+    ("store=tma", dict(variant="full", store="tma")),
+    ("block_policy=evict_first", dict(variant="full",
+                                      block_policy="evict_first")),
+)
+
+
+def kernel1_variants(A, probe, q, dev, randn, record) -> dict:
+    """Phase 3, kernel 1's variants (``kernels.banded_spmm_variant``):
+    each against its plain version, then the split, timed in turns (the
+    list, then back) at the main case (f64 m=48, the 1M-row matrix) and at
+    the probes' shape in bf16 (m=256): kernel 1 itself, every variant, and
+    ``torch.Tensor.fill_`` on a Y-sized tensor (writeonly's library call);
+    at the probes' shape also kernel 4 on ``quantize_banded_int8`` of the
+    probe matrix (``spmm_probe2.py``'s int8, ``spmm_probe3.py``'s
+    manwrite-int8). Then the copy variant (kernel 9) at its shapes, with
+    its GB/s against 3.35 TB/s; and kernel 5's v=None modes
+    (``r4_visx_probe2.py``). Returns the numbers for the summary."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    variant = kernels.banded_spmm_variant
+    out = {"split": {}, "copy": []}
+
+    def check(label, dtype, y, yp):
+        tol = TOL[_dname(dtype)]
+        err = float(torch.max(torch.abs(y.double() - yp.double())))
+        rel = err / max(float(torch.max(torch.abs(yp.double()))), 1e-300)
+        print(f"  {label}: max_abs_err={err:.3e} rel={rel:.3e}", flush=True)
+        _check(tuple(y.shape) == tuple(yp.shape) and rel <= tol,
+               f"{label}: rel err {rel:.3e} > {tol}")
+        return err
+
+    copy_errs = []
+    for op, dtype, m, tag in ((A, torch.float64, 48, "main"),
+                              (probe, torch.bfloat16, PROBE["m"], "probe")):
+        bw = op.bandwidth
+        blocks = op.blocks.to(dtype)
+        x = _apart(randn(op.shape[0], m, dtype), bw * op.block_size)
+        shape = (f"{_dname(dtype)} m={m} nbr={op.n_block_rows} "
+                 f"bw={bw}")
+        for key, kw in K1_SPLIT:
+            if kw is None:
+                continue
+            y = variant(blocks, x, bw, **kw)
+            again = variant(blocks, x, bw, **kw)
+            _check(torch.equal(y, again), f"{key} {shape}: other bits on a "
+                   "second call")
+            tm = kernels.banded_spmm_plan(0, dtype, op.block_size, m,
+                                          kw["variant"])["TM"]
+            err = check(f"banded_spmm_variant {key} {shape}", dtype, y,
+                        kernels.banded_spmm_variant_plain(
+                            blocks, x, bw, variant=kw["variant"],
+                            row_tile=tm))
+            if key == "copy":
+                copy_errs.append(err)
+            del y, again
+        acc = kernels.acc_dtype(dtype)
+        fresh = torch.empty((op.shape[0], m), dtype=acc, device=dev)
+        own = x.clone() if dtype == acc else None
+        fns = {"full": lambda: kernels.banded_bsr_spmm(blocks, x, bw,
+                                                       out_dtype=acc)}
+        for key, kw in K1_SPLIT[1:]:
+            if kw is not None:
+                fns[key] = lambda kw=kw: variant(blocks, x, bw, **kw)
+        # writeonly allocates its Y (a fresh buffer from the caching
+        # allocator each call); writeonly_into_x writes into x's own.
+        if own is not None:
+            fns["writeonly_into_x"] = lambda: variant(
+                blocks, own, bw, variant="writeonly", out=own)
+        fns["fill_"] = lambda: fresh.fill_(1.0)
+        if tag == "probe":
+            qp = fdtt.quantize_banded_int8(op)
+            xq = randn(op.shape[0], m)
+            lead = (qp.qblocks, qp.scale_rows, qp.diag)
+            fns["kernel 4 (int8)"] = lambda: kernels.banded_q_bsr_spmm(
+                *lead, xq, bw)
+            check(f"banded_q_bsr_spmm {shape} int8", torch.float32,
+                  kernels.banded_q_bsr_spmm(*lead, xq, bw),
+                  kernels.banded_q_bsr_spmm_plain(*lead, xq, bw))
+        order = list(fns) + list(fns)[::-1]
+        times = {key: [] for key in fns}
+        for key in order:
+            times[key].append(_time_ms(fns[key]))
+        row = {key: statistics.mean(t) for key, t in times.items()}
+        nbytes = _copy_bytes(op, m, _dname(dtype))
+        plan = kernels.banded_spmm_plan(0, dtype, op.block_size, m)
+        print(f"  kernel 1 split, {shape} (ms, mean of two turns; "
+              f"{nbytes / 1e9:.3f} GB moved by kernel 1, bound "
+              f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms; kernel 1's launch "
+              f"{plan}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              + f"; turns {times}", flush=True)
+        out["split"][tag] = dict(row, shape=shape, gb=nbytes / 1e9)
+        del blocks, x, fresh, own, fns
+        if tag == "probe":
+            del qp, xq, lead
+        torch.cuda.empty_cache()
+
+    # The copy variant (kernel 9) at its shapes: kernel 1's main case at
+    # m = 48 and 320, bench.py's shape in f32, the probes' shape in bf16.
+    for op, dtype, m in ((A, torch.float64, 48), (A, torch.float64, 320),
+                         (probe, torch.float32, PROBE["m"]),
+                         (probe, torch.bfloat16, PROBE["m"])):
+        bw = op.bandwidth
+        blocks = op.blocks.to(dtype)
+        x = randn(op.shape[0], m, dtype)
+        shape = f"{_dname(dtype)} m={m} nbr={op.n_block_rows} bw={bw}"
+
+        def plain(blocks=blocks, x=x, bw=bw):
+            return kernels.banded_spmm_variant_plain(blocks, x, bw,
+                                                     variant="copy")
+        copy_errs.append(check(f"copy {shape}", dtype,
+                               variant(blocks, x, bw, variant="copy"),
+                               plain()))
+        acc = kernels.acc_dtype(dtype)
+        ms = _time_ms(lambda: variant(blocks, x, bw, variant="copy"))
+        k1 = _time_ms(lambda: kernels.banded_bsr_spmm(blocks, x, bw,
+                                                      out_dtype=acc))
+        plain_ms = _time_ms(plain)
+        nbytes = _copy_bytes(op, m, _dname(dtype))
+        gbs = nbytes / ms / 1e6
+        print(f"  copy (kernel 9) {shape}: {ms:.4f} ms, {gbs:.1f} GB/s "
+              f"({gbs / (HBM_BYTES_S / 1e9):.1%} of 3.35 TB/s); kernel 1 "
+              f"{k1:.4f} ms ({nbytes / k1 / 1e6:.1f} GB/s); plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        out["copy"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                                kernel1_ms=k1, gb=nbytes / 1e9, gb_s=gbs))
+        del blocks, x
+        torch.cuda.empty_cache()
+    main = out["copy"][0]
+    record.append(dict(name="banded_spmm_copy", dtype="float64", m=48,
+                       mv=None, write_out=True, shape="nbr=8192",
+                       max_abs_err=max(copy_errs), rel_err=None,
+                       gram_ratio=None, ms=main["ms"],
+                       plain_ms=main["plain_ms"]))
+
+    # Kernel 5 with v = None at the int8 main case (m = 20): the modes of
+    # experiments/r4_visx_probe2.py. visx: the full kernel, G = Xᵀ A X;
+    # nogram: the sweep without the gram (fused_gram_variant); visx_f32acc
+    # (the gram from float32 sums) is what the port's kernel 5 always does.
+    x = randn(q.shape[0], 20)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    visx = {
+        "visx": lambda: kernels.banded_q_bsr_spmm_gram(
+            *lead, x, None, bandwidth=q.bandwidth, write_out=False),
+        "nogram": lambda: kernels.fused_gram_variant(
+            "banded_q_bsr_spmm_gram", lead, x, None, bandwidth=q.bandwidth,
+            variant="nogram"),
+    }
+    g = visx["visx"]()
+    gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, x, None,
+                                              bandwidth=q.bandwidth,
+                                              write_out=False)
+    yp = kernels.banded_q_bsr_spmm_plain(*lead, x, q.bandwidth)
+    ratio = float(torch.max(torch.abs(g - gp)
+                            / (torch.abs(x).T @ torch.abs(yp) + 1e-30)))
+    _check(ratio <= GRAM_TOL, f"kernel 5 v=None: G error {ratio:.3e}")
+    row = {k: _time_ms(f) for k, f in visx.items()}
+    print(f"  kernel 5 v=None int8 m=20 (r4_visx_probe2 modes): visx "
+          f"{row['visx']:.4f} ms, nogram {row['nogram']:.4f} ms; G within "
+          f"{ratio:.3e} of |X|ᵀ|Y|", flush=True)
+    out["visx"] = row
+    del x, g, gp, yp
+    torch.cuda.empty_cache()
+    return out
+
+
 def _apart(t, pad: int):
     """``t`` copied into a buffer of its own between ``pad`` NaN rows on
     each side, as a received halo lies apart from the shard's rows: a load
@@ -651,22 +972,49 @@ def _true_residual(op_blocks, bw, cols, X, lam, b_diag=None):
                                                     dim=0)))
 
 
+# Host events that stall a solve: the caching allocator's device
+# allocations and frees (cudaMalloc / cudaFree, which synchronise), its
+# retries after a failed allocation (which free every cached block), and
+# Python's garbage collections (their time, from ``gc.callbacks``).
+_GC = {"start": 0.0, "ms": 0.0, "runs": 0}
+
+
+def _gc_timer(phase, info) -> None:
+    if phase == "start":
+        _GC["start"] = time.perf_counter()
+    else:
+        _GC["ms"] += (time.perf_counter() - _GC["start"]) * 1e3
+        _GC["runs"] += 1
+
+
+def _host_events() -> tuple:
+    import torch
+    s = torch.cuda.memory_stats()
+    return (s.get("segment.all.allocated", 0), s.get("segment.all.freed", 0),
+            s.get("num_alloc_retries", 0), _GC["runs"], _GC["ms"])
+
+
 def _solve(label, A, k, B=None, solver=None, **kw):
     """One solve (``fdtt.eigensolve``, or ``solver`` with its signature)
-    timed on the host clock, synchronised on both ends."""
+    timed on the host clock, synchronised on both ends; prints the host
+    events (``_host_events``) that fell inside it."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     solver = fdtt.eigensolve if solver is None else solver
     torch.cuda.synchronize()
+    before = _host_events()
     t0 = time.perf_counter()
     res = solver(A, k, second_matrix=B, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    mallocs, frees, retries, gcs, gc_ms = (
+        b - a for a, b in zip(before, _host_events()))
     dims = res.subspace_dims[:res.iterations].tolist()
     print(f"  {label}: converged={res.converged} iterations={res.iterations} "
-          f"wall={wall:.3f} s dims={dims} "
-          f"max_loop_residual={float(res.residual_norms.max()):.3e}",
-          flush=True)
+          f"wall={wall * 1e3:.1f} ms dims={dims} "
+          f"max_loop_residual={float(res.residual_norms.max()):.3e}; "
+          f"cudaMalloc {mallocs}, cudaFree {frees}, alloc retries {retries}, "
+          f"gc {gcs} ({gc_ms:.1f} ms)", flush=True)
     _check(bool(torch.all(torch.isfinite(res.eigenvalues)))
            and tuple(res.eigenvectors.shape) == (A.shape[0], k),
            f"{label}: bad output")
@@ -690,17 +1038,23 @@ def phase_main(A, dev, solves, refs):
         lambda X: kernels.banded_bsr_spmm_plain(A.blocks, X.contiguous(), 1),
         A.shape[0], dtype=A.dtype, diag=A.diagonal(), device=dev)
     for k in (3, 20):
-        # In turns (kernel, plain, plain, kernel): the first solve of a
-        # shape pays one-time costs (allocator growth, solver handles), so
-        # the pair order must not decide the comparison.
+        # The first solve of each path pays one-time costs (allocator
+        # growth, solver handles) and is left out of the walls; then
+        # WARM_SOLVES of each in turns (kernel, plain, plain, kernel, ...),
+        # so that order does not decide the comparison. A path's wall is
+        # the median of its warm solves.
         walls = {"kernels": [], "plain": []}
-        for path in ("kernels", "plain", "plain", "kernels"):
+        order = (("kernels", "plain")
+                 + ("kernels", "plain", "plain", "kernels")
+                 * (WARM_SOLVES // 2))
+        for i, path in enumerate(order):
             before = kernels.banded_bsr_spmm.launches
             torch.cuda.reset_peak_memory_stats()
             res, wall = _solve_converged(f"eigensolve(A, {k}) [{path}]",
                                          A if path == "kernels" else plain_A,
                                          k)
-            walls[path].append(wall)
+            if i >= 2:
+                walls[path].append(wall)
             launches = kernels.banded_bsr_spmm.launches - before
             if path == "plain":
                 _check(launches == 0, "the plain path launched a kernel")
@@ -715,22 +1069,64 @@ def phase_main(A, dev, solves, refs):
             out = res
         dev_eval = float(torch.max(torch.abs(out.eigenvalues
                                              - ref.eigenvalues)))
+        med = {p: statistics.median(w) * 1e3 for p, w in walls.items()}
         print(f"  k={k}: kernel launches per solve={launches} true_residual="
               f"{true_res:.3e} |eig - eig_plain|={dev_eval:.3e} "
-              f"peak_mem={peak:.2f} GB", flush=True)
+              f"peak_mem={peak:.2f} GB; warm wall, median of "
+              f"{WARM_SOLVES}: {med['kernels']:.1f} ms (min "
+              f"{min(walls['kernels']) * 1e3:.1f}; SIMT-tile kernel 1: "
+              f"{TILE_K1_WALLS_MS[k]} ms), plain path "
+              f"{med['plain']:.1f} ms (min "
+              f"{min(walls['plain']) * 1e3:.1f})", flush=True)
         _check(out.iterations == ref.iterations,
                f"k={k}: {out.iterations} iterations vs {ref.iterations} plain")
         _check(dev_eval <= 1e-9, f"k={k}: eigenvalues differ by {dev_eval:.3e}")
+        busy = _device_busy(f"eigensolve(A, {k}) [kernels]",
+                            lambda: fdtt.eigensolve(A, k))
         refs[k] = dict(iterations=out.iterations,
                        eigenvalues=out.eigenvalues.clone(),
-                       wall=walls["kernels"][-1])
+                       wall=med["kernels"] / 1e3)
         solves.append(dict(solve=f"banded f64 lowest-{k}", n=A.shape[0],
                            iterations=out.iterations, wall_s=walls["kernels"],
                            plain_wall_s=walls["plain"],
                            true_residual=true_res, launches=launches,
-                           peak_mem_gb=peak))
+                           peak_mem_gb=peak, **busy))
         del res, ref, out
         torch.cuda.empty_cache()
+
+
+def _device_busy(label, run) -> dict:
+    """``run()`` once under ``torch.profiler``: its host wall (profiled),
+    the device's busy time (the union of its kernels' and copies'
+    intervals), the idle share of the wall, and the device ops that took
+    the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        s, f = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, f - max(s, end))
+        end = max(end, f)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (f - s)
+    busy_ms = busy_us / 1e3
+    idle = 1.0 - busy_ms / wall_ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms over {len(events)} device ops, idle share "
+          f"{idle:.1%}; most device time: "
+          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top),
+          flush=True)
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=idle)
 
 
 def phase_legs(A, dev, solves):
@@ -864,6 +1260,60 @@ def phase_int8(q, dev, solves, refs):
                        true_residual_rel=true_res, launches=launches,
                        peak_mem_gb=peak))
     del res, ref, out
+    torch.cuda.empty_cache()
+    int8_float64_solve(q, dev, solves)
+
+
+# The float64 leg of phase 6: the default float64 type on int8 storage,
+# at 1e-6 (the apply's sums round to float32, as the reference's do, so
+# 1e-8 is out of reach).
+F64_INT8 = dict(tolerance=1e-6, relative_tolerance=True)
+
+
+def int8_float64_solve(q, dev, solves):
+    """Phase 6, float64 leg: lowest-20 on the int8 matrix in float64
+    through the float64 kernel 4, against the same solve through the plain
+    version: the same iterations, eigenvalues within the tolerance, a true
+    relative residual (as the float32 leg takes it) within it."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    plain_q = fdtt.MatrixFreeOperator(
+        lambda X: kernels.banded_q_bsr_spmm_plain(
+            q.qblocks, q.scale_rows, q.diag, X.contiguous(), q.bandwidth),
+        q.shape[0], dtype=torch.float64, diag=q.diagonal().double(),
+        device=dev)
+    runs = {}
+    for path in ("kernels", "plain"):
+        before = kernels.banded_q_bsr_spmm.launches
+        res, wall = _solve_converged(
+            f"int8 n={q.shape[0]} lowest-20 float64 [{path}]",
+            q if path == "kernels" else plain_q, 20, **F64_INT8)
+        runs[path] = (res, wall, kernels.banded_q_bsr_spmm.launches - before)
+    (out, wall, launches), (ref, _, plain_launches) = (runs["kernels"],
+                                                       runs["plain"])
+    _check(launches > 0 and plain_launches == 0,
+           f"float64 int8: launches {launches} (plain {plain_launches})")
+    _check(out.eigenvalues.dtype == torch.float64, "float64 int8: "
+           f"eigenvalues are {out.eigenvalues.dtype}")
+    true_res = _int8_true_residual(q, out.eigenvectors, out.eigenvalues)
+    diff = float(torch.max(torch.abs(out.eigenvalues - ref.eigenvalues)
+                           / torch.clamp(torch.abs(ref.eigenvalues), min=1)))
+    print(f"  int8 float64: launches {launches} iterations {out.iterations} "
+          f"vs plain {ref.iterations}; true relative residual "
+          f"{true_res:.3e}; max |eig - eig_plain| / max(|eig|, 1) = "
+          f"{diff:.3e}; wall {wall:.3f} s", flush=True)
+    _check(out.iterations == ref.iterations, f"float64 int8: "
+           f"{out.iterations} iterations vs {ref.iterations} plain")
+    _check(true_res <= F64_INT8["tolerance"],
+           f"float64 int8: true relative residual {true_res:.3e}")
+    _check(diff <= F64_INT8["tolerance"],
+           f"float64 int8: eigenvalues differ by {diff:.3e}")
+    solves.append(dict(solve="int8 banded float64 lowest-20 (1e-6 rel)",
+                       n=q.shape[0], iterations=out.iterations, wall_s=wall,
+                       true_residual_rel=true_res, launches=launches,
+                       eig_diff_plain=diff))
+    del runs, out, ref
     torch.cuda.empty_cache()
 
 
@@ -1246,6 +1696,14 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
         moved += nbr * K * 4                          # block_cols
     moved += x_rows * m * isz + n * m * max(isz, 4)   # x in, Y out
     ops = 2 * nnz_blocks * bs * bs * m + (2 * n * m if quant else 0)
+    if name == "banded_spmm_copy":
+        # Adds only, on the CUDA cores (f64 34 TFLOP/s, f32 67): every
+        # stored entry once, every window row of x once.
+        adds = nbr * bs * K * bs + n * K * m
+        t_ops = adds / (34e12 if dtype == "float64" else 67e12) * 1e3
+        t_bytes = moved / HBM_BYTES_S * 1e3
+        return ((t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
     if name.endswith("_gram"):
         width = m if mv is None else mv
         moved += (0 if mv is None else n * mv * isz) + width * m * 4
@@ -1318,21 +1776,78 @@ def library_times(A) -> dict:
     return out
 
 
-def _tile_registers(log: str) -> dict:
-    """ptxas's register count of the f64 64x64 SpMM tile, the main cases of
-    kernels 1, 6 and 8, for each x source (``XRows`` in spmm_tile.cuh),
-    from the build's report."""
+def _ptxas_entries(log: str):
+    """(mangled entry name, registers, spill store bytes, static shared
+    bytes) of every kernel in ptxas's report of a build."""
     import re
-    regs, src = {}, None
+    name, spill = None, 0
     for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"spmm_kernelINS_11DenseBlocksIddEELi64ELi64ELi(\d)E",
-                          line)
-            src = ("masked", "split", "inside")[int(m.group(1))] if m else None
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and src:
-            regs[src] = int(m.group(1))
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield name, int(m.group(1)), spill, int(smem.group(1)) if smem else 0
+            name = None
+
+
+def _tile_registers(log: str) -> dict:
+    """ptxas's registers of every instantiation of the shared SIMT tile
+    (``spmm_kernel`` and ``gram_kernel`` of spmm_tile.cuh and
+    banded_gram.cu: kernels 2, 4, 6, 7, 8 and the f64/bf16 kernel 3 and
+    f64 kernel 5), keyed by the template arguments as mangled."""
+    import re
+    regs = {}
+    for name, n, _, _ in _ptxas_entries(log):
+        m = re.search(r"(spmm_kernel|gram_kernel)I(.+?)EEvT_", name)
+        if m:
+            regs[f"{m.group(1)}<{m.group(2)}>"] = n
     return regs
+
+
+_K1_TYPES = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
+
+
+def _k1_entries(log: str) -> dict:
+    """Kernel 1 and its variants (``banded_spmm_kernel`` of
+    csrc/banded_spmm.cuh): "f64 TM=128 TN=48 RPC=1 full direct normal" ->
+    (registers, spill store bytes, static shared bytes), from the build's
+    report. The ring is dynamic shared memory (``_k1_plan``)."""
+    import re
+    out = {}
+    for name, n, spill, smem in _ptxas_entries(log):
+        m = re.search(r"banded_spmm_kernelI(d|f|13__nv_bfloat16)Li(\d+)ELi"
+                      r"(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)E", name)
+        if m:
+            t, tm, tn, rpc, var, store, ev = m.groups()
+            key = (f"{_K1_TYPES[t]} TM={tm} TN={tn} RPC={rpc} "
+                   f"{('full', 'noy', 'copy', 'writeonly')[int(var)]} "
+                   f"{('direct', 'tma')[int(store)]} "
+                   f"{('normal', 'evict_first')[int(ev)]}")
+            out[key] = (n, spill, smem)
+    return out
+
+
+def _k1_plan(key: str) -> dict:
+    """The launch layout (``kernels.banded_spmm_plan``, the header's own
+    choice) of one kernel-1 instantiation, at bs = TM and m = TN, with the
+    default ring; checks that the launch picks that instantiation's tiles."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    f = key.split()
+    tm, tn, rpc = (int(v.split("=")[1]) for v in f[1:4])
+    dtype = {"f64": torch.float64, "f32": torch.float32,
+             "bf16": torch.bfloat16}[f[0]]
+    plain = f[4:] == ["full", "direct", "normal"] and rpc == 1
+    plan = kernels.banded_spmm_plan(0, dtype, tm, tn,
+                                    None if plain else f[4], rpc, f[5])
+    _check((plan["TM"], plan["TN"]) == (tm, tn),
+           f"{key}: the launch at bs={tm}, m={tn} takes {plan}")
+    return plan
 
 
 def _fused_registers(log: str) -> dict:
@@ -1369,6 +1884,7 @@ def main() -> int:
     # Float32 products in full float32 (PyTorch's default, stated): the
     # plain versions and the unfused yardstick are float32-accurate.
     torch.backends.cuda.matmul.allow_tf32 = False
+    gc.callbacks.append(_gc_timer)
     smi = _smi()
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1382,8 +1898,16 @@ def main() -> int:
         if "error" in line.lower():
             print("   ", line.strip())
     if log:
-        print(f"    ptxas registers of the f64 64x64 SpMM tile by x source "
-              f"(kernels 1, 8 edge, 6 and 8 interior): {_tile_registers(log)}")
+        print(f"    ptxas registers of the shared SIMT tile's "
+              f"instantiations: {_tile_registers(log)}")
+        print("    kernel 1 and its variants (csrc/banded_spmm.cuh): ptxas "
+              "registers, spill stores, static smem; the default ring "
+              "(kernels.banded_spmm_plan)")
+        for key, (regs, spill, smem) in _k1_entries(log).items():
+            plan = _k1_plan(key)
+            print(f"      {key}: {regs} registers, {spill} B spill, "
+                  f"{smem} B static smem, {plan['smem_bytes']} B ring of "
+                  f"{plan['stages']} stages")
         print(f"    ptxas registers of the fused float32 kernels (3, 5) by "
               f"loader, column tile and variant: {_fused_registers(log)}")
     sys.stdout.flush()
@@ -1404,13 +1928,20 @@ def main() -> int:
           f"{tuple(q.qblocks.shape)} ({q.qblocks.numel() / 1e6:.0f} MB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    probe = _probe_operator(dev)
+    print(f"    built the probes' matrix: n={probe.shape[0]}, blocks "
+          f"{tuple(probe.blocks.shape)} float32", flush=True)
+
     print("[3] kernels vs plain versions", flush=True)
-    record, slab_checks, gram_splits = [], {}, {}
-    phase_kernels(A, A32, q, dev, record, slab_checks, gram_splits)
+    record, slab_checks, gram_splits, k1_info = [], {}, {}, {}
+    phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
+                  k1_info)
+    del probe
     library = library_times(A)
 
     solves, refs = [], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
+    counts["banded_spmm_copy"] = 0  # kernel 9: no path launches it
     # The one-rank NCCL group of phases 8-9 meets at a file in here.
     tmp = tempfile.TemporaryDirectory()
     rendezvous = f"file://{tmp.name}/rendezvous"
@@ -1438,6 +1969,8 @@ def main() -> int:
             run()
             phase_counts = {fn.__name__: fn.launches
                             for fn in kernels.KERNELS}
+            phase_counts["banded_spmm_copy"] = (
+                kernels.banded_spmm_variant.copy_launches)
             print(f"    phase launches {phase_counts} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             for name in expected:
@@ -1445,8 +1978,9 @@ def main() -> int:
                        f"{name} was never launched on the path of {title}")
             for name, count in phase_counts.items():
                 counts[name] += count
-        for name, count in counts.items():
-            _check(count > 0, f"{name} was never launched on a solve path")
+        for fn in kernels.KERNELS:
+            _check(counts[fn.__name__] > 0,
+                   f"{fn.__name__} was never launched on a solve path")
         print("[9] one halo apply: pallas-remote against pallas", flush=True)
         remote_vs_pallas_apply(A, dev, rendezvous, solves)
     finally:
@@ -1486,6 +2020,11 @@ def main() -> int:
                          nogram_ms=split["nogram"], layout=split["plan"])
         if name in slab_checks:
             entry["four_slab_max_abs_err"] = slab_checks[name]
+        if name == "banded_bsr_spmm":
+            entry.update(split_ms=k1_info["split"])
+        if name == "banded_spmm_copy":
+            entry.update(variant="banded_spmm_variant(variant='copy')",
+                         shapes=k1_info["copy"])
         summary.append(entry)
     print(json.dumps({"solves": solves}))
     print(json.dumps({"kernels": summary}))

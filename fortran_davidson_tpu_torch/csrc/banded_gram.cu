@@ -8,6 +8,13 @@
 //       y = (Q o s) @ x_window + d o x_centre. Q is the int8 off-diagonal
 //       part, s one f32 scale per (block row, slot), d the exact f32
 //       diagonal; x and y are f32.
+//   fdt_banded_q_bsr_spmm_f64      the same with f64 x: q o s formed in
+//       f32, the band product summed in f64 and rounded to f32, d o x added
+//       in f32, Y returned in f64 (the plain version's arithmetic; the
+//       reference takes x of any type, pallas_kernels.py:766,772).
+//   fdt_banded_q_bsr_spmm_gram_f64 kernel 5 (banded_q_bsr_spmm_gram,
+//       pallas_kernels.py:886) with f64 x and v: that apply, then the
+//       gram of the f64 kernel 3 below.
 //   fdt_banded_bsr_spmm_gram_*     replaces banded_bsr_spmm_gram
 //       (pallas_kernels.py:592, body :513): Y = A @ X and G = V^T Y in one
 //       sweep over the blocks, for f64 and for bf16 storage with f32 sums.
@@ -58,6 +65,7 @@ namespace {
 
 using fdt::DenseBlocks;
 using fdt::Int8Blocks;
+using fdt::Int8F64Blocks;
 using fdt::Tile;
 using fdt::kThreadsM;
 using Bf16 = __nv_bfloat16;
@@ -285,6 +293,30 @@ int fdt_banded_q_bsr_spmm_f32(const int8_t* q, const float* scale,
                               void* stream) {
   return fdt::spmm(Int8Blocks{q, scale}, x, nullptr, diag, y, nbr, bs, K, bw,
                    static_cast<long long>(nbr) * bs, m, stream);
+}
+
+// float64 x (Int8F64Blocks in spmm_tile.cuh): Y in f64, holding the f32
+// values of the plain version.
+int fdt_banded_q_bsr_spmm_f64(const int8_t* q, const float* scale,
+                              const float* diag, const double* x, double* y,
+                              int nbr, int bs, int K, int bw, int m,
+                              void* stream) {
+  return fdt::spmm(Int8F64Blocks{q, scale}, x, nullptr, diag, y, nbr, bs, K,
+                   bw, static_cast<long long>(nbr) * bs, m, stream);
+}
+
+// q, scale_rows, diag, x, v (nullable), ldv, y (nullable), partial, g, nbr,
+// bs, K, bw, m, mv, n_groups, stream: kernel 5 with float64 x and v on the
+// SIMT gram of the f64 kernel 3 (the tensor-core kernel 5 of fused_gram.cu
+// is float32): the f64 int8 apply above, then G = V^T Y summed in f64.
+int fdt_banded_q_bsr_spmm_gram_f64(const int8_t* q, const float* scale,
+                                   const float* diag, const double* x,
+                                   const double* v, long long ldv, double* y,
+                                   double* partial, float* g, int nbr, int bs,
+                                   int K, int bw, int m, int mv, int n_groups,
+                                   void* stream) {
+  return gram(Int8F64Blocks{q, scale}, x, diag, v, ldv, y, partial, g, nbr,
+              bs, K, bw, m, mv, n_groups, stream);
 }
 
 // blocks, x, v (nullable), ldv, y (nullable), partial, g, nbr, bs, K, bw, m,

@@ -1,5 +1,6 @@
 // Tile machinery shared by the block-sparse SpMM kernels of the port
-// (bsr_spmm.cu, banded_gram.cu, halo_spmm.cu), for Hopper (sm_90a).
+// (bsr_spmm.cu, banded_gram.cu, halo_spmm.cu, remote_halo.cu), for Hopper
+// (sm_90a). Kernel 1 has its own template (banded_spmm.cuh).
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
 // block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
@@ -15,7 +16,8 @@
 //
 // - the block loader: dense stored blocks of type T (f64, f32, or bf16
 //   widened to f32 when staged), or int8 blocks times the (block row,
-//   slot) f32 scale, dequantized when staged;
+//   slot) f32 scale, dequantized when staged, with f32 x (Int8Blocks) or
+//   f64 x (Int8F64Blocks);
 // - the epilogue, chosen by the kernel: store Y, add the exactly stored
 //   diagonal d[r, i] * x[r*bs + i, c] (int8 storage), and/or feed the
 //   gram G = V^T Y (banded_gram.cu).
@@ -109,6 +111,38 @@ struct Int8Blocks {
   }
 };
 
+// int8 blocks with float64 x (kernels 4, 5 and 7 on a float64 solve), as
+// the plain version computes it (ops/kernels.py banded_q_bsr_spmm_plain):
+// q * s formed in f32 and widened, the band product summed in f64, and the
+// diagonal epilogue (add_diag) rounding that sum to f32 and adding d * x
+// in f32; Y holds those f32 values widened to f64.
+struct Int8F64Blocks {
+  using X = double;
+  using Acc = double;
+  const int8_t* q;
+  const float* scale;
+  __device__ __forceinline__ double at(long long r, int i, int bs, int L,
+                                       int l) const {
+    return static_cast<double>(
+        static_cast<float>(q[(r * bs + i) * static_cast<long long>(L) + l]) *
+        scale[r * L + l]);
+  }
+};
+
+// The diagonal epilogue acc + d * x, in Acc.
+template <typename Load>
+__device__ __forceinline__ typename Load::Acc add_diag(
+    typename Load::Acc acc, float d, typename Load::X x) {
+  using Acc = typename Load::Acc;
+  return acc + static_cast<Acc>(d) * cvt<Acc>(x);
+}
+template <>
+__device__ __forceinline__ double add_diag<Int8F64Blocks>(double acc, float d,
+                                                          double x) {
+  return static_cast<double>(
+      __fadd_rn(static_cast<float>(acc), __fmul_rn(d, static_cast<float>(x))));
+}
+
 // acc = slab(r)[i0:i0+TM, :] @ x_rows(r)[:, c0:c0+TN] (+ d * x_centre when
 // diag is given). cols == nullptr selects the banded rule; kRows where the
 // rows come from (top and bot for kSplit only).
@@ -195,8 +229,8 @@ __device__ __forceinline__ void tile_product(
       for (int j = 0; j < P::RN; ++j) {
         const int gc = c0 + tn + j * P::kThreadsN;
         if (gi < bs && gc < m) {
-          acc[i][j] += static_cast<Acc>(diag[r * bs + gi]) *
-                       cvt<Acc>(x[(ctr0 + gi) * m + gc]);
+          acc[i][j] = add_diag<Load>(acc[i][j], diag[r * bs + gi],
+                                     x[(ctr0 + gi) * m + gc]);
         }
       }
     }

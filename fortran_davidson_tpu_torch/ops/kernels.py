@@ -2,12 +2,14 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
+Eight kernels, in ``csrc/`` (kernels 2, 4 and 6-8 on the shared tile of
+``csrc/spmm_tile.cuh``), and the TPU measurement kernels as variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
   block-ELL, where a block row reads one contiguous window of x
-  (``csrc/bsr_spmm.cu``).
+  (``csrc/banded_spmm.cu``: the slab streamed once through a cp.async
+  ring, f64 on DMMA, bf16 storage on mma.sync, f32 on FFMA).
 - :func:`bsr_spmm` replaces ``bsr_spmm`` (``pallas_kernels.py:101``):
   general block-ELL, where a block row reads its own K column indices
   (``csrc/bsr_spmm.cu``).
@@ -32,20 +34,30 @@ Eight kernels, in ``csrc/`` (the shared tile in ``csrc/spmm_tile.cuh``):
   received halos through three pointers, no halo-extended copy, in an
   interior and an edge launch (``csrc/remote_halo.cu``).
 
+Measurement variants, never called by a path of the port:
+:func:`banded_spmm_variant` (kernel 1's: ``"copy"``, the counterpart of
+``bench.py:85`` ``_copy_roofline_kernel``, and the ``experiments/``
+SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
+:func:`banded_spmm_plan`) and :func:`fused_gram_variant` (kernels 3 and 5).
+
 What bounds them on the H100, and what the designs do about it, is
-written at the top of each source. Kernels 3 (float32) and 5 run on
-tensor cores; the others on the shared SIMT tile, not tuned yet.
+written at the top of each source. Kernels 1, 3 (float32) and 5 run on
+tensor cores (kernel 1 in float32 on FFMA); the others on the shared
+SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
-summed in float32, as the TPU kernels do); int8 storage takes float32 x.
+summed in float32, as the TPU kernels do); int8 storage takes float32 or
+float64 x (float64: the band summed in float64 and rounded to float32,
+as the plain version does).
 A kernel writes Y in its accumulation type; an ``out_dtype`` other than
 that is one conversion of those sums, so bf16 storage never rounds Y
 through bf16. G is float32, shape (mv, m).
 
 Dispatch follows the tensors' device: CPU tensors take the plain version;
 CUDA tensors launch the kernel, or raise for what it does not take
-(mixed types, float64 x on int8 storage). There is no fallback from one
-to the other. Each wrapper counts its launches in ``wrapper.launches``.
+(mixed types, int8 storage with x other than float32 or float64). There
+is no fallback from one to the other. Each wrapper counts its launches in
+``wrapper.launches``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` per source, all started together, then linked into one library
@@ -90,7 +102,10 @@ _ARGTYPES = {
     **{f"fdt_bsr_spmm_{s}": _GENERAL for s in _SUFFIX.values()},
     **{f"fdt_banded_bsr_spmm_gram_{s}": _GRAM for s in ("f64", "bf16")},
     # q, scale_rows, diag, x, y, nbr, bs, K, bw, m, stream
-    "fdt_banded_q_bsr_spmm_f32": [_P, _P, *_BANDED],
+    **{f"fdt_banded_q_bsr_spmm_{s}": [_P, _P, *_BANDED]
+       for s in ("f32", "f64")},
+    # q, scale_rows, diag, then the dense gram entry's arguments from x on
+    "fdt_banded_q_bsr_spmm_gram_f64": [_P, _P, *_GRAM],
     "fdt_fused_gram_f32": _FUSED,
     # q, scale_rows, diag, then the dense entry's arguments from x on
     "fdt_fused_q_gram_f32": [_P, _P, _P, *_FUSED[1:]],
@@ -100,7 +115,16 @@ _ARGTYPES = {
     # blocks, x_ext, y, nbr, bs, K, bw, m, stream
     **{f"fdt_banded_ext_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
     # q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
-    "fdt_banded_q_ext_bsr_spmm_f32": [_P, _P, *_BANDED],
+    **{f"fdt_banded_q_ext_bsr_spmm_{s}": [_P, _P, *_BANDED]
+       for s in ("f32", "f64")},
+    # blocks, x, y, colsum, nbr, bs, K, bw, m, variant, rows_per_cta,
+    # stages, store, evict_first, stream
+    **{f"fdt_banded_spmm_variant_{s}": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _P]
+       for s in _SUFFIX.values()},
+    # dtype, kernel1, bs, m, variant, rows_per_cta, store, stages, out[4]
+    "fdt_banded_spmm_plan": [_I, _I, _I, _I, _I, _I, _I, _I,
+                             ctypes.POINTER(ctypes.c_int)],
     # blocks, x, top, bot, y, nbr, bs, K, bw, m, a0, na, b0, nb, stream
     **{f"fdt_banded_remote_halo_spmm_{s}": [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _I, _I, _I, _I, _P]
@@ -304,7 +328,8 @@ def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
                  variant: str = "full"):
     """Allocate Y (optional), G and the partials' scratch, and launch a
     fused SpMM+Gram entry: float32 to ``csrc/fused_gram.cu``, float64 and
-    bf16 storage to ``csrc/banded_gram.cu``."""
+    bf16 storage (and int8 storage with float64 x) to
+    ``csrc/banded_gram.cu``."""
     if v is not None and v.dtype != x.dtype:
         raise NotImplementedError(
             f"{name}: v {v.dtype} with x {x.dtype} has no CUDA kernel; "
@@ -425,6 +450,180 @@ def banded_bsr_spmm(blocks, x, bandwidth: int, out_dtype=None):
 
 
 banded_bsr_spmm.launches = 0
+
+
+# Kernel 1's measurement variants, in the order of the C enum
+# (csrc/banded_spmm.cuh), and the options of the full kernel.
+SPMM_VARIANTS = ("full", "noy", "copy", "writeonly")
+SPMM_STORES = ("direct", "tma")
+SPMM_BLOCK_POLICIES = ("normal", "evict_first")
+SPMM_ROWS_PER_CTA = (1, 2, 4)
+SPMM_MAX_STAGES = 8
+SPMM_PLAN_KEYS = ("TM", "TN", "stages", "smem_bytes")
+
+
+@functools.lru_cache(maxsize=256)
+def banded_spmm_plan(device_index: int, dtype: torch.dtype, bs: int, m: int,
+                     variant=None, rows_per_cta: int = 1, store: str = "direct",
+                     stages=None) -> dict:
+    """The layout of a launch of kernel 1 (``variant=None``) or of one of
+    its variants (``csrc/banded_spmm.cuh``, as the launch takes it): the
+    row tile TM (rows of a block row one CTA covers), the column tile TN,
+    the ring's depth and the dynamic shared memory a CTA."""
+    out = (ctypes.c_int * len(SPMM_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = _library().fdt_banded_spmm_plan(
+            list(_SUFFIX).index(dtype), int(variant is None), bs, m,
+            SPMM_VARIANTS.index(variant or "full"), rows_per_cta,
+            SPMM_STORES.index(store), 0 if stages is None else int(stages),
+            out)
+    if err != 0:
+        raise RuntimeError(f"fdt_banded_spmm_plan: CUDA error {err} ({dtype}, "
+                           f"bs={bs}, m={m}, variant={variant}, rows_per_cta="
+                           f"{rows_per_cta}, store={store}, stages={stages})")
+    return dict(zip(SPMM_PLAN_KEYS, out))
+
+
+def banded_spmm_variant_plain(blocks, x, bandwidth: int, *, variant: str,
+                              row_tile=None):
+    """Plain PyTorch version of each variant's function, in the
+    accumulation type:
+
+    - ``"full"``: Y = A @ X (:func:`banded_bsr_spmm_plain`);
+    - ``"noy"``: each CTA's column sums of Y, one row per (block row, row
+      tile of ``row_tile`` rows): ((nbr * tiles), m); on the card the row
+      tile is the launch's, ``banded_spmm_plan(...)["TM"]``;
+    - ``"copy"``: Y[r*bs + i, c] = sum_k xwin_r[k*bs + i, c] +
+      sum_l blocks[r, i, l], x rows outside [0, n) zero (adds only);
+    - ``"writeonly"``: Y[i, c] = i.
+    """
+    if variant not in SPMM_VARIANTS:
+        raise ValueError(f"variant must be one of {SPMM_VARIANTS}, got "
+                         f"{variant!r}")
+    if variant == "noy" and row_tile is None:
+        raise ValueError("variant 'noy' needs the row tile of its launch")
+    nbr, bs, kbs = blocks.shape
+    K = kbs // bs
+    m = x.shape[1]
+    acc = acc_dtype(x.dtype)
+    if variant == "writeonly":
+        rows = torch.arange(nbr * bs, dtype=acc, device=x.device)
+        return rows[:, None].expand(nbr * bs, m).contiguous()
+    if variant == "copy":
+        xb = x.to(acc).reshape(nbr, bs, m)
+        xp = torch.nn.functional.pad(xb, (0, 0, 0, 0, bandwidth, bandwidth))
+        xsum = sum(xp[k:k + nbr] for k in range(K))
+        out = xsum + blocks.to(acc).sum(dim=2)[:, :, None]
+        return out.reshape(nbr * bs, m)
+    y = banded_bsr_spmm_plain(blocks, x, bandwidth, out_dtype=acc)
+    if variant == "full":
+        return y
+    tm = int(row_tile)
+    tiles = -(-bs // tm)
+    yb = torch.nn.functional.pad(y.reshape(nbr, bs, m),
+                                 (0, 0, 0, tiles * tm - bs))
+    return yb.reshape(nbr, tiles, tm, m).sum(dim=2).reshape(nbr * tiles, m)
+
+
+def banded_spmm_variant(blocks, x, bandwidth: int, *, variant: str,
+                        rows_per_cta: int = 1, stages=None,
+                        store: str = "direct", block_policy: str = "normal",
+                        out=None):
+    """One launch of a measurement variant of kernel 1 on CUDA tensors
+    (``csrc/banded_spmm_var_*.cu``); returns what
+    :func:`banded_spmm_variant_plain` computes.
+
+    Args:
+      variant: ``"full"`` (the kernel, with the options below),
+        ``"noy"`` (every read and product, no Y: one column-sum row a
+        CTA), ``"copy"`` (the counterpart of ``bench.py:85``
+        ``_copy_roofline_kernel``: the same reads as the kernel, adds
+        only, Y written once), ``"writeonly"`` (Y's bytes written, nothing
+        read).
+      rows_per_cta: block rows a CTA (1, 2, 4); above 1 the schedule is
+        x-stationary (each window chunk staged once for every block row of
+        the CTA that reads it).
+      stages: depth of the cp.async ring (2 to 8; default: 4, fewer where
+        shared memory runs out).
+      store: ``"direct"`` (Y from registers) or ``"tma"`` (Y staged in
+        shared memory and written by bulk copies; m * itemsize of Y a
+        multiple of 16 bytes).
+      block_policy: ``"normal"`` or ``"evict_first"`` (an L2 eviction hint
+        on the slab stream, so that x, read 2*bw + 1 times, stays in L2).
+      out: for ``"full"``, ``"copy"`` and ``"writeonly"``, a contiguous
+        (n, m) tensor of the accumulation type to write Y into (x's own
+        buffer, for one); default a new one.
+
+    ``rows_per_cta``, ``store`` and ``block_policy`` go to the full kernel
+    one at a time. ``"copy"`` takes float64, float32 and bf16 storage and
+    any bs; the others float64 and bf16 with bs > 16. Not counted in
+    ``banded_bsr_spmm.launches``: every variant's launch counts in
+    ``banded_spmm_variant.launches``, and the copy's (kernel 9's) also in
+    ``banded_spmm_variant.copy_launches``; the port's paths never call it.
+    """
+    name = "banded_spmm_variant"
+    if variant not in SPMM_VARIANTS:
+        raise ValueError(f"variant must be one of {SPMM_VARIANTS}, got "
+                         f"{variant!r}")
+    if rows_per_cta not in SPMM_ROWS_PER_CTA:
+        raise ValueError(f"rows_per_cta must be one of {SPMM_ROWS_PER_CTA}")
+    if store not in SPMM_STORES or block_policy not in SPMM_BLOCK_POLICIES:
+        raise ValueError(f"store must be one of {SPMM_STORES} and "
+                         f"block_policy one of {SPMM_BLOCK_POLICIES}")
+    options = ((rows_per_cta != 1) + (store != "direct")
+               + (block_policy != "normal"))
+    if options > (1 if variant == "full" else 0):
+        raise ValueError("rows_per_cta, store and block_policy vary the full "
+                         "kernel, one at a time")
+    if stages is not None and not 2 <= int(stages) <= SPMM_MAX_STAGES:
+        raise ValueError(f"stages must be in [2, {SPMM_MAX_STAGES}]")
+    if x.device.type != "cuda":
+        raise NotImplementedError(
+            f"{name}: CUDA tensors only (the plain version is "
+            "banded_spmm_variant_plain)")
+    K = _check_banded(blocks, x, bandwidth)
+    sfx = _dense_suffix(name, blocks, x)
+    nbr, bs, _ = blocks.shape
+    if variant != "copy" and (sfx == "f32" or bs <= 16):
+        raise NotImplementedError(
+            f"{name} {variant!r}: float64 and bf16 storage with bs > 16 only "
+            "(\"copy\" takes every type and bs)")
+    _require_contiguous(name, blocks, x)
+    n, m = x.shape
+    acc = acc_dtype(x.dtype)
+    if store == "tma" and (m * acc.itemsize) % 16:
+        raise ValueError(f"{name}: store='tma' needs Y rows of a multiple of "
+                         f"16 bytes, got m={m} in {acc}")
+    colsum = y = None
+    if variant == "noy":
+        dev = x.device.index
+        tm = banded_spmm_plan(torch.cuda.current_device() if dev is None
+                              else dev, x.dtype, bs, m, variant)["TM"]
+        colsum = torch.empty((nbr * -(-bs // tm), m), dtype=acc,
+                             device=x.device)
+    elif out is None:
+        y = torch.empty((n, m), dtype=acc, device=x.device)
+    else:
+        if (tuple(out.shape) != (n, m) or out.dtype != acc
+                or out.device != x.device or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous {(n, m)} {acc} tensor "
+                             f"on {x.device}")
+        y = out
+    if n and m:
+        _run(f"fdt_{name}_{sfx}", x.device, blocks.data_ptr(), x.data_ptr(),
+             None if y is None else y.data_ptr(),
+             None if colsum is None else colsum.data_ptr(), nbr, bs, K,
+             int(bandwidth), m, SPMM_VARIANTS.index(variant), rows_per_cta,
+             0 if stages is None else int(stages), SPMM_STORES.index(store),
+             SPMM_BLOCK_POLICIES.index(block_policy))
+        banded_spmm_variant.launches += 1
+        if variant == "copy":
+            banded_spmm_variant.copy_launches += 1
+    return colsum if variant == "noy" else y
+
+
+banded_spmm_variant.launches = 0
+banded_spmm_variant.copy_launches = 0
 
 
 # -- kernel 2: general block-ELL SpMM -----------------------------------
@@ -553,11 +752,11 @@ def _check_quantized(qblocks, scale_rows, diag, x, bandwidth: int,
 
 
 def _quantized_args(name: str, qblocks, scale_rows, diag, x) -> tuple:
-    """Type and layout checks of the int8 kernels; their leading pointers."""
-    if x.dtype != torch.float32:
+    """Type and layout checks of the int8 kernels; their leading pointers.
+    x is float32 or float64 (an entry each), never cast."""
+    if x.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"{name}: {x.dtype} x has no CUDA kernel (float32 x only; the "
-            "solver's int8 path is float32)")
+            f"{name}: {x.dtype} x has no CUDA kernel (float32 or float64 x)")
     if (qblocks.dtype != torch.int8 or scale_rows.dtype != torch.float32
             or diag.dtype != torch.float32):
         raise ValueError(f"{name}: need int8 qblocks with float32 scale_rows "
@@ -586,7 +785,9 @@ def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, bandwidth: int,
       qblocks: (nbr, bs, K*bs) int8, the quantized off-diagonal blocks.
       scale_rows: (nbr, K*bs) float32, each slot's scale over its lanes.
       diag: (nbr, bs) float32, the exact diagonal.
-      x: (nbr*bs, m); float32 on a GPU.
+      x: (nbr*bs, m); float32 or float64 on a GPU (float64: the band
+        summed in float64 and rounded to float32, d ∘ x added in float32,
+        as the plain version does).
       out_dtype: output type (default ``x.dtype``).
     """
     K = _check_quantized(qblocks, scale_rows, diag, x, bandwidth)
@@ -597,10 +798,10 @@ def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, bandwidth: int,
                                        bandwidth, out_dtype)
     lead = _quantized_args(name, qblocks, scale_rows, diag, x)
     nbr, bs, _ = qblocks.shape
-    y = torch.empty((nbr * bs, x.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    y = torch.empty((nbr * bs, x.shape[1]), dtype=x.dtype, device=x.device)
     if y.numel():
-        _run(f"fdt_{name}_f32", x.device, *lead, x.data_ptr(), y.data_ptr(),
+        _run(f"fdt_{name}_{_SUFFIX[x.dtype]}", x.device, *lead, x.data_ptr(),
+             y.data_ptr(),
              nbr, bs, K, int(bandwidth), x.shape[1])
         banded_q_bsr_spmm.launches += 1
     return _out(y, out_dtype)
@@ -628,8 +829,9 @@ def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
                            out_dtype=None):
     """int8 fused banded SpMM + Gram (see :func:`banded_bsr_spmm_gram` for
     ``v``, ``write_out`` and the return contract, and
-    :func:`banded_q_bsr_spmm` for the storage); x and v float32 on a
-    GPU."""
+    :func:`banded_q_bsr_spmm` for the storage); x and v float32 (the
+    tensor-core kernel) or float64 (the f64 apply, then the gram summed in
+    float64) on a GPU."""
     K = _check_quantized(qblocks, scale_rows, diag, x, bandwidth)
     _check_v(v, x)
     out_dtype = x.dtype if out_dtype is None else out_dtype
@@ -640,8 +842,9 @@ def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
             write_out=write_out, out_dtype=out_dtype)
     lead = _quantized_args(name, qblocks, scale_rows, diag, x)
     nbr, bs, _ = qblocks.shape
-    y, g, launched = _gram_launch(name, "f32", lead, x, v, write_out,
-                                  torch.float32, nbr, bs, K, int(bandwidth))
+    y, g, launched = _gram_launch(name, _SUFFIX[x.dtype], lead, x, v,
+                                  write_out, x.dtype, nbr, bs, K,
+                                  int(bandwidth))
     if launched:
         banded_q_bsr_spmm_gram.launches += 1
     return (_out(y, out_dtype), g) if write_out else g
@@ -726,7 +929,7 @@ def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
     """y = (Q ∘ s) @ x_ext[window] + d ∘ x_ext[centre] on a shard's int8
     DIA-banded rows (``fortran_davidson_tpu/ops/pallas_kernels.py:1059``;
     storage as :func:`banded_q_bsr_spmm`, input as
-    :func:`banded_ext_bsr_spmm`); x_ext float32 on a GPU."""
+    :func:`banded_ext_bsr_spmm`); x_ext float32 or float64 on a GPU."""
     K = _check_quantized(qblocks, scale_rows, diag, x_ext, bandwidth,
                          ext=True)
     nbr, bs, _ = qblocks.shape
@@ -737,10 +940,11 @@ def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
                                            bandwidth=bandwidth,
                                            out_dtype=out_dtype)
     lead = _quantized_args(name, qblocks, scale_rows, diag, x_ext)
-    y = torch.empty((nbr * bs, x_ext.shape[1]), dtype=torch.float32,
+    y = torch.empty((nbr * bs, x_ext.shape[1]), dtype=x_ext.dtype,
                     device=x_ext.device)
     if y.numel():
-        _run(f"fdt_{name}_f32", x_ext.device, *lead, x_ext.data_ptr(),
+        _run(f"fdt_{name}_{_SUFFIX[x_ext.dtype]}", x_ext.device, *lead,
+             x_ext.data_ptr(),
              y.data_ptr(), nbr, bs, K, int(bandwidth), x_ext.shape[1])
         banded_q_ext_bsr_spmm.launches += 1
     return _out(y, out_dtype)
@@ -881,5 +1085,6 @@ KERNELS = (banded_bsr_spmm, bsr_spmm, banded_bsr_spmm_gram,
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in (*KERNELS, banded_spmm_variant):
         fn.launches = 0
+    banded_spmm_variant.copy_launches = 0

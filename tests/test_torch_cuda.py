@@ -251,12 +251,13 @@ def test_types_without_a_kernel_raise(cuda_device):
     with pytest.raises(NotImplementedError):
         kernels.banded_bsr_spmm_gram(blocks.float(), x.float(),
                                      x.double(), bandwidth=1)
+    # int8 storage takes float32 and float64 x; float16 x raises.
     q = fdtt.generate_banded_bsr_quantized(4, 2, bandwidth=1, device=dev)
     before = kernels.banded_q_bsr_spmm.launches
     with pytest.raises(NotImplementedError):
-        q.matmat(x.double())
+        q.matmat(x)
     with pytest.raises(NotImplementedError):
-        q.matmat_with_gram(x.double())
+        q.matmat_with_gram(x)
     assert kernels.banded_q_bsr_spmm.launches == before
 
 
@@ -602,3 +603,209 @@ def test_remote_solve_world_size_one_over_nccl(cuda_device, tmp_path):
     assert res.converged and res.iterations == single.iterations
     torch.testing.assert_close(res.eigenvalues, single.eigenvalues, rtol=0,
                                atol=1e-10)
+
+
+# -- float64 x on int8 storage (kernels 4, 5, 7) --------------------------
+
+def _q_f64_close(y, yp):
+    # The band is summed in float64 in another order, then rounded to
+    # float32 as the plain version rounds it: where the two float64 sums
+    # straddle a float32 rounding boundary they part by one float32 ulp.
+    assert y.dtype == yp.dtype == torch.float64
+    assert float((y - yp).abs().max()) <= 2.0 ** -22 * float(yp.abs().max())
+
+
+def test_float64_solve_on_int8_storage(cuda_device):
+    # The default float64 solve on int8 storage runs through the float64
+    # int8 kernel (it raised NotImplementedError before that entry), and
+    # agrees with the same solve on the CPU. 1e-6: the apply's sums round
+    # to float32, as the reference's do, so 1e-8 is out of reach.
+    q = fdtt.generate_banded_bsr_quantized(32, 8, bandwidth=1, seed=0,
+                                           device=cuda_device)
+    before = kernels.banded_q_bsr_spmm.launches
+    res = fdtt.eigensolve(q, 3, tolerance=1e-6)
+    assert res.converged and res.eigenvalues.dtype == torch.float64
+    assert kernels.banded_q_bsr_spmm.launches > before
+    q_cpu = fdtt.generate_banded_bsr_quantized(32, 8, bandwidth=1, seed=0,
+                                               device="cpu")
+    ref = fdtt.eigensolve(q_cpu, 3, tolerance=1e-6)
+    assert abs(res.iterations - ref.iterations) <= 1
+    torch.testing.assert_close(res.eigenvalues.cpu(), ref.eigenvalues,
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 20, 130])
+@pytest.mark.parametrize("bw", [1, 2])
+def test_int8_kernels_take_float64_x(cuda_device, m, bw):
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=bw, seed=7,
+                                           device=dev)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    halo = bw * 24
+    x = _framed(torch.randn((q.shape[0], m), dtype=torch.float64,
+                            device=dev), halo)
+    _q_f64_close(kernels.banded_q_bsr_spmm(*lead, x, bw),
+                 kernels.banded_q_bsr_spmm_plain(*lead, x.clone(), bw))
+    for v in (None, torch.randn((q.shape[0], 40), dtype=torch.float64,
+                                device=dev)):
+        y, g = kernels.banded_q_bsr_spmm_gram(*lead, x, v, bandwidth=bw)
+        yp, gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, x.clone(), v,
+                                                      bandwidth=bw)
+        _q_f64_close(y, yp)
+        # G sums the float32-valued Y in float64 in another order.
+        _assert_gram_close(g, gp, x if v is None else v, yp, rel=1e-6)
+    x_ext = _ring_ext(x.clone(), 0, q.shape[0], halo)
+    _q_f64_close(kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw),
+                 kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext,
+                                                     bandwidth=bw))
+
+
+# -- kernel 1 (csrc/banded_spmm.cu) and its variants --------------------
+
+def _k1_tol(dtype):
+    return 1e-12 if dtype == torch.float64 else 1e-5
+
+
+def _k1_close(y, yp, dtype):
+    assert y.dtype == yp.dtype
+    err = float((y.double() - yp.double()).abs().max())
+    assert err <= _k1_tol(dtype) * max(float(yp.abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 20, 44, 64, 256, 320])
+@pytest.mark.parametrize("bw", [1, 2, 3])
+@pytest.mark.parametrize("bs", [8, 24, 128])
+def test_banded_kernel_matches_plain(cuda_device, dtype, m, bw, bs):
+    # nbr = 7: no multiple of any tile; x framed by NaN rows, so a load
+    # outside [0, n) brings a NaN into Y.
+    dev = cuda_device
+    op = fdtt.generate_banded_bsr(7, bs, bandwidth=bw, seed=bs + bw,
+                                  device=dev)
+    blocks = op.blocks.to(dtype)
+    x = _framed(torch.randn((op.shape[0], m), dtype=torch.float64,
+                            device=dev).to(dtype), bw * bs)
+    acc = kernels.acc_dtype(dtype)
+    before = kernels.banded_bsr_spmm.launches
+    y = kernels.banded_bsr_spmm(blocks, x, bw, out_dtype=acc)
+    assert kernels.banded_bsr_spmm.launches == before + 1
+    assert bool(torch.all(torch.isfinite(y)))
+    _k1_close(y, kernels.banded_bsr_spmm_plain(blocks, x.clone(), bw,
+                                               out_dtype=acc), dtype)
+    assert torch.equal(y, kernels.banded_bsr_spmm(blocks, x, bw,
+                                                  out_dtype=acc))
+
+
+_VARIANT_CASES = [
+    dict(variant="noy"), dict(variant="copy"), dict(variant="writeonly"),
+    dict(variant="full", rows_per_cta=2), dict(variant="full", rows_per_cta=4),
+    dict(variant="full", stages=2), dict(variant="full", stages=3),
+    dict(variant="full", stages=6), dict(variant="full", store="tma"),
+    dict(variant="full", block_policy="evict_first"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 20, 48, 256])
+@pytest.mark.parametrize("case", _VARIANT_CASES,
+                         ids=lambda c: "-".join(str(v) for v in c.values()))
+def test_banded_variants_match_plain(cuda_device, dtype, m, case):
+    dev = cuda_device
+    bs, bw = 128, 2
+    op = fdtt.generate_banded_bsr(11, bs, bandwidth=bw, seed=4, device=dev)
+    blocks = op.blocks.to(dtype)
+    x = _framed(torch.randn((op.shape[0], m), dtype=torch.float64,
+                            device=dev).to(dtype), bw * bs)
+    if (case.get("store") == "tma"
+            and m * kernels.acc_dtype(dtype).itemsize % 16):
+        with pytest.raises(ValueError):
+            kernels.banded_spmm_variant(blocks, x, bw, **case)
+        return
+    before = (kernels.banded_bsr_spmm.launches,
+              kernels.banded_spmm_variant.launches,
+              kernels.banded_spmm_variant.copy_launches)
+    y = kernels.banded_spmm_variant(blocks, x, bw, **case)
+    copy = int(case["variant"] == "copy")
+    assert (kernels.banded_bsr_spmm.launches,
+            kernels.banded_spmm_variant.launches,
+            kernels.banded_spmm_variant.copy_launches) == (
+                before[0], before[1] + 1, before[2] + copy)
+    plan = kernels.banded_spmm_plan(
+        dev.index or 0, dtype, bs, m, case["variant"],
+        case.get("rows_per_cta", 1), case.get("store", "direct"),
+        case.get("stages"))
+    yp = kernels.banded_spmm_variant_plain(blocks, x.clone(), bw,
+                                           variant=case["variant"],
+                                           row_tile=plan["TM"])
+    assert y.shape == yp.shape
+    _k1_close(y, yp, dtype)
+    assert torch.equal(y, kernels.banded_spmm_variant(blocks, x, bw, **case))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("bs,bw", [(8, 1), (24, 3), (128, 1)])
+@pytest.mark.parametrize("m", [1, 20, 256])
+def test_copy_variant_every_type(cuda_device, dtype, bs, bw, m):
+    dev = cuda_device
+    op = fdtt.generate_banded_bsr(9, bs, bandwidth=bw, seed=8, device=dev)
+    blocks = op.blocks.to(dtype)
+    x = _framed(torch.randn((op.shape[0], m), dtype=torch.float64,
+                            device=dev).to(dtype), bw * bs)
+    y = kernels.banded_spmm_variant(blocks, x, bw, variant="copy")
+    _k1_close(y, kernels.banded_spmm_variant_plain(blocks, x.clone(), bw,
+                                                   variant="copy"), dtype)
+
+
+def test_writeonly_into_x(cuda_device):
+    dev = cuda_device
+    op = fdtt.generate_banded_bsr(6, 128, bandwidth=1, seed=1, device=dev)
+    x = torch.randn((op.shape[0], 48), dtype=torch.float64, device=dev)
+    want = kernels.banded_spmm_variant_plain(op.blocks, x, 1,
+                                             variant="writeonly")
+    out = kernels.banded_spmm_variant(op.blocks, x, 1, variant="writeonly",
+                                      out=x)
+    assert out is x and torch.equal(x, want)
+
+
+def test_banded_variant_refusals(cuda_device):
+    dev = cuda_device
+    op = fdtt.generate_banded_bsr(6, 128, bandwidth=1, seed=1, device=dev)
+    x = torch.randn((op.shape[0], 8), dtype=torch.float64, device=dev)
+    for kw, err in ((dict(variant="noy", rows_per_cta=2), ValueError),
+                    (dict(variant="full", rows_per_cta=2, store="tma"),
+                     ValueError),
+                    (dict(variant="full", stages=9), ValueError),
+                    (dict(variant="bogus"), ValueError)):
+        with pytest.raises(err):
+            kernels.banded_spmm_variant(op.blocks, x, 1, **kw)
+    with pytest.raises(NotImplementedError):
+        kernels.banded_spmm_variant(op.blocks.float(), x.float(), 1,
+                                    variant="noy")
+    small = fdtt.generate_banded_bsr(6, 8, bandwidth=1, seed=1, device=dev)
+    with pytest.raises(NotImplementedError):
+        kernels.banded_spmm_variant(small.blocks, x[:48], 1, variant="noy")
+
+
+def test_banded_plan(cuda_device):
+    # The layout the launches take, as the header decides it: a row tile of
+    # 16 or 128, kernel 1's column tile covering m, a default ring of 2-4
+    # stages, and a deeper ring asking for more shared memory.
+    idx = cuda_device.index or 0
+    for bs, tm in ((8, 16), (16, 16), (24, 128), (128, 128)):
+        for m, tn in ((1, 8), (6, 8), (12, 16), (24, 32), (48, 48), (64, 64),
+                      (320, 64)):
+            plan = kernels.banded_spmm_plan(idx, torch.float64, bs, m)
+            assert (plan["TM"], plan["TN"]) == (tm, tn)
+            assert 2 <= plan["stages"] <= 4 and plan["smem_bytes"] > 0
+    four = kernels.banded_spmm_plan(idx, torch.float64, 128, 48, "full",
+                                    stages=4)
+    six = kernels.banded_spmm_plan(idx, torch.float64, 128, 48, "full",
+                                   stages=6)
+    assert six["stages"] == 6 and six["smem_bytes"] == four["smem_bytes"] * 6 / 4
+    assert kernels.banded_spmm_plan(idx, torch.bfloat16, 128, 256,
+                                    "writeonly")["smem_bytes"] == 0
+    with pytest.raises(RuntimeError):
+        kernels.banded_spmm_plan(idx, torch.float64, 128, 48, "full",
+                                 stages=9)

@@ -335,3 +335,138 @@ def test_gram_variants_refuse_what_no_kernel_takes(variant):
             kernels.fused_gram_variant(name, args, X, None, bandwidth=1,
                                        variant=variant)
     assert [fn.launches for fn in kernels.KERNELS] == counts
+
+
+# -- float64 x on int8 storage (kernels 4, 5, 7) --------------------------
+
+def _x64(n, m, seed):
+    return np.random.default_rng(seed).standard_normal((n, m))
+
+
+def _assert_f64_int8_close(out, ref):
+    # Both sum float32-dequantized blocks against float64 x into float32
+    # (the JAX package: preferred_element_type=float32): the same float32
+    # values up to the order of the sums, one float32 ulp where the two
+    # sums straddle a rounding boundary.
+    ref = np.asarray(ref, np.float64)
+    assert out.dtype == torch.float64
+    np.testing.assert_allclose(to_numpy(out), ref, rtol=0,
+                               atol=2.0 ** -22 * np.max(np.abs(ref)))
+
+
+@pytest.mark.parametrize("nbr,bw,m", [(16, 1, 4), (24, 2, 20)])
+def test_int8_float64_x_plain_matches_pallas_and_fallback(nbr, bw, m):
+    q = _quantized(nbr, bw, seed=nbr + 5)
+    X = _x64(q.shape[0], m, seed=12)
+    out = kernels.banded_q_bsr_spmm(*_q_torch(q), torch.from_numpy(X), bw)
+    _assert_f64_int8_close(out, pk.banded_q_bsr_spmm(
+        q.qblocks, q.scale_rows, q.diag, jnp.asarray(X), bandwidth=bw,
+        interpret=True))
+    _assert_f64_int8_close(out, q.with_backend("xla").matmat(jnp.asarray(X)))
+
+
+@pytest.mark.parametrize("mv,write_out", [(None, True), (12, True),
+                                          (12, False)])
+def test_int8_float64_x_gram_plain_matches_pallas(mv, write_out):
+    q = _quantized(16, 1, seed=21)
+    n = q.shape[0]
+    X = _x64(n, 6, seed=13)
+    V = None if mv is None else _x64(n, mv, seed=14)
+    ref = pk.banded_q_bsr_spmm_gram(
+        q.qblocks, q.scale_rows, q.diag, jnp.asarray(X),
+        None if V is None else jnp.asarray(V), bandwidth=1,
+        write_out=write_out, interpret=True)
+    out = kernels.banded_q_bsr_spmm_gram(
+        *_q_torch(q), torch.from_numpy(X),
+        None if V is None else torch.from_numpy(V), bandwidth=1,
+        write_out=write_out)
+    if write_out:
+        _assert_f64_int8_close(out[0], ref[0])
+    g, g_ref = (out[1], ref[1]) if write_out else (out, ref)
+    Y = to_numpy(kernels.banded_q_bsr_spmm_plain(*_q_torch(q),
+                                                 torch.from_numpy(X), 1))
+    # G of the same float32-valued Y, summed in another order and type.
+    assert np.all(np.abs(to_numpy(g) - np.asarray(g_ref, np.float64))
+                  <= _gram_bound(X if V is None else V, Y, 1e-5))
+
+
+def test_int8_float64_x_ext_plain_matches_pallas():
+    q = _quantized(16, 2, seed=22)
+    bs, bw = 8, 2
+    X_ext = _x64(q.shape[0] + 2 * bw * bs, 5, seed=15)
+    out = kernels.banded_q_ext_bsr_spmm(*_q_torch(q), torch.from_numpy(X_ext),
+                                        bandwidth=bw)
+    _assert_f64_int8_close(out, pk.banded_q_ext_bsr_spmm(
+        q.qblocks, q.scale_rows, q.diag, jnp.asarray(X_ext), bandwidth=bw,
+        interpret=True))
+
+
+# -- kernel 1's measurement variants: plain versions -----------------------
+
+def _variant_numpy(blocks, X, bw, variant, tm):
+    """numpy transcriptions of the variants' definitions, row by row
+    (``noy``: column sums over row tiles of ``tm`` rows)."""
+    nbr, bs, kbs = blocks.shape
+    K = kbs // bs
+    n, m = X.shape
+    if variant == "writeonly":
+        return np.repeat(np.arange(n, dtype=np.float64)[:, None], m, axis=1)
+    Y = np.zeros((n, m))
+    for r in range(nbr):
+        for k in range(K):
+            c = r - bw + k
+            if not 0 <= c < nbr:
+                continue  # an edge window's masked rows are zero
+            xk = X[c * bs:(c + 1) * bs]
+            if variant == "copy":
+                Y[r * bs:(r + 1) * bs] += xk
+            else:
+                Y[r * bs:(r + 1) * bs] += blocks[r, :, k * bs:(k + 1) * bs] @ xk
+        if variant == "copy":
+            Y[r * bs:(r + 1) * bs] += blocks[r].sum(axis=1)[:, None]
+    if variant == "noy":
+        tiles = -(-bs // tm)
+        Y = np.stack([Y[r * bs + t * tm:min((r + 1) * bs, r * bs + (t + 1) * tm)]
+                      .sum(axis=0) for r in range(nbr) for t in range(tiles)])
+    return Y
+
+
+@pytest.mark.parametrize("variant", ["full", "noy", "copy", "writeonly"])
+@pytest.mark.parametrize("nbr,bs,bw,m", [(5, 8, 1, 3), (7, 24, 3, 20),
+                                         (3, 140, 1, 2)])
+def test_variant_plain_versions_match_numpy(variant, nbr, bs, bw, m):
+    rng = np.random.default_rng(nbr * bs)
+    # Nonzero blocks in the out-of-range slots too: copy sums every stored
+    # entry, the products see only masked (zero) x rows there.
+    blocks = rng.standard_normal((nbr, bs, (2 * bw + 1) * bs))
+    X = rng.standard_normal((nbr * bs, m))
+    # A row tile that divides no bs here: the last tile of a block row is
+    # ragged.
+    tm = 16
+    out = kernels.banded_spmm_variant_plain(
+        torch.from_numpy(blocks), torch.from_numpy(X), bw, variant=variant,
+        row_tile=tm)
+    np.testing.assert_allclose(to_numpy(out),
+                               _variant_numpy(blocks, X, bw, variant, tm),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("variant", ["full", "noy", "copy", "writeonly",
+                                     "dma"])
+def test_banded_variant_refuses_cpu_tensors_and_unknown_variants(variant):
+    # The variants exist only as CUDA kernels: a CPU tensor raises (there
+    # is no fallback), and so does a name that is no variant; nothing is
+    # counted as launched.
+    blocks = torch.zeros((4, 8, 24))
+    X = torch.zeros((32, 4))
+    before = (kernels.banded_spmm_variant.launches,
+              kernels.banded_bsr_spmm.launches)
+    err = ValueError if variant == "dma" else NotImplementedError
+    with pytest.raises(err):
+        kernels.banded_spmm_variant(blocks, X, 1, variant=variant)
+    with pytest.raises(ValueError):
+        kernels.banded_spmm_variant_plain(blocks, X, 1, variant="dma")
+    with pytest.raises(ValueError):  # noy's sums need the launch's row tile
+        kernels.banded_spmm_variant_plain(blocks, X, 1, variant="noy")
+    assert (kernels.banded_spmm_variant.launches,
+            kernels.banded_bsr_spmm.launches) == before

@@ -270,3 +270,24 @@ def test_int8_solve_matches_jax(fused):
     lam = to_numpy(rt.eigenvalues).astype(np.float64)
     res = np.linalg.norm(dense @ X - X * lam, axis=0)
     assert np.all(res <= 1e-3 * np.maximum(np.abs(lam), 1.0))
+
+
+def test_float64_solve_on_int8_storage_matches_jax():
+    # The default float64 solve on int8 storage: the apply sums the band
+    # into float32 in both packages (the JAX fallback's
+    # preferred_element_type=float32), so the solve runs at 1e-6, not
+    # 1e-8. Iterations within ±1, eigenvalues within the tolerance.
+    q = jsparse.quantize_banded_int8(jsparse.generate_banded_bsr(
+        32, 8, bandwidth=1, coupling=1e-3, dtype=jnp.float32))
+    rj = fdt.eigensolve(q, 3, tolerance=1e-6)
+    qt = convert.operator(q, device="cpu")
+    rt = fdtt.eigensolve(qt, 3, tolerance=1e-6)
+    assert rt.converged and bool(rj.converged)
+    assert rt.eigenvalues.dtype == torch.float64
+    assert abs(int(rt.iterations) - int(rj.iterations)) <= 1
+    np.testing.assert_allclose(to_numpy(rt.eigenvalues),
+                               np.asarray(rj.eigenvalues), rtol=0, atol=1e-6)
+    dense = to_numpy(qt.to_dense()).astype(np.float64)
+    X = to_numpy(rt.eigenvectors)
+    lam = to_numpy(rt.eigenvalues)
+    assert np.all(np.linalg.norm(dense @ X - X * lam, axis=0) <= 1e-5)
