@@ -10,8 +10,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    card's name and power limit.
 2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
    nvcc per source, started together); prints ptxas's registers of every
-   instantiation of the shared SIMT tile, and of kernel 1 and its
-   variants (with their static shared memory and their ring's bytes).
+   instantiation of the shared SIMT tile, of kernel 1, its variants and
+   kernel 8 on kernel 1's template (with their static shared memory and
+   their ring's bytes), of the fused kernels 3 and 5, and of kernel 4's
+   float32 entry and kernel 5's bf16-dequant variants (with kernel 4's
+   layout).
 3. Kernels against their plain PyTorch versions on the same tensors on
    the card, with CUDA-event times (median of 7) of both:
    - the SpMM kernels (1, 2): max relative error <= 1e-12 in float64 and
@@ -43,20 +46,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``nogram`` (V streamed, no gram product), which split their time
      into apply, V stream and gram, and beside the unfused yardstick
      (kernel 1 or 4, then ``torch.matmul(v.T, y)`` in full float32).
+     Kernel 4's float32 entry is kernel 5's apply (``csrc/q_spmm.cu``);
+     it is also held on the int8 band alone (the diagonal zeroed: with it,
+     the band is ~1e-6 of max|Y|, under the limit), ragged and at full
+     size, within 1e-5 of max|Y_band|, a limit that outputs with a fault in
+     the band (dropped, a slot dropped, the slots reversed, one scale a
+     block row; made by the plain version) must exceed;
+   - kernel 5's bf16-dequant variants (``experiments/fused_probe.py``'s
+     ``bf16deq``, ``tg_bf16deq``, ``nov_bf16``) against their plain
+     versions, on the operator and on its band alone, G within 1e-5 of
+     |V|ᵀ|Y| (a limit that a G of zeros, a G over half the rows and, on
+     the band alone, the band faults above must exceed), the same bits
+     twice, and timed in turns beside kernel 5, ``nov`` and ``nogram`` at
+     the probe's shape (``PROBE``, m = mv = 256) and at kernel 5's main
+     case (int8 m=20 mv=220);
    - the halo kernels (6: banded SpMM over a shard's halo-extended rows,
      7: its int8 form), ragged and at full size (f64 m = 6-160, int8
      m = 20, 40), and four shards on one card: both matrices cut into
      four row slabs, each applied by kernel 6/7 to its ring-wrapped
      x_ext; put together they must equal kernel 1 on the whole matrix
      bit for bit (f64) and kernel 4 within 1e-7 of max|Y|.
-   - kernel 8 (a shard's rows and its two halos through three pointers,
-     in the halo operator's interior and edge launches, each part in a
-     buffer of its own framed by NaN rows), ragged and at full size
-     (m = 6-160) in f64, f32 and bf16 storage, against its plain version
-     and bit for bit against kernel 6 on the same rows; and in the
-     four-slab check, each slab's rows in a buffer of its own and its
-     halos pointing into its ring neighbours' buffers (no x_ext), equal to
-     kernel 1 bit for bit.
+   - kernel 8 (kernel 1's template over a shard's rows and its two halos
+     through three pointers, in the halo operator's interior and edge
+     launches, each part in a buffer of its own framed by NaN rows), ragged
+     and at full size (m = 6-160) in f64, f32 and bf16 storage, against its
+     plain version and bit for bit against kernel 1 on the same rows (and
+     kernel 6 in f64 and f32); and in the four-slab check, each slab's rows
+     in a buffer of its own and its halos pointing into its ring
+     neighbours' buffers (no x_ext), equal to kernel 1 bit for bit in f64,
+     f32 and bf16.
 4. Main path: ``eigensolve(A, 3)`` and ``eigensolve(A, 20)`` with default
    options on the 1,048,576-row banded BSR matrix
    ``generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3, seed=0)``
@@ -81,7 +99,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative tolerance 1e-3. It converges through kernel 4, with a true
    relative residual (float64, dequantized blocks plus the diagonal)
    <= 1e-3, and the same solve through the plain version takes the same
-   iterations, eigenvalues to 1e-4 relative. Then the float64 leg: the
+   iterations, eigenvalues to 1e-4 relative; prints the warm walls beside
+   the iterations. Then the float64 leg: the
    default float64 type at relative 1e-6 through kernel 4's float64
    entry, the plain path's iterations, a true relative residual <= 1e-6.
 7. The fused SpMM+Gram engine, on the 1M-row matrix at coupling 3 in
@@ -113,7 +132,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    host-clock times of both, in turns, and of each exchange alone.
 10. Prints the solves' and kernels' JSON lines (launch counts of the solve
    phases 4-8, each counted from 0 over its own phase; kernel 9, the copy
-   variant, is listed with the nine and no phase launches it; for
+   variant, and kernel 5's three bf16-dequant variants are listed with
+   the rest and no phase launches them; for
    kernels 3 and 5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
    |G_k - G_p| / (|V|ᵀ|Y|), and ``unfused_ms``, ``nov_ms`` and
    ``nogram_ms`` the split above; each kernel's ``bound_ms``, the larger
@@ -143,7 +163,9 @@ SOURCES = {
     # The float32 entry (the main case's); f64 and bf16 storage stay on
     # csrc/banded_gram.cu.
     "banded_bsr_spmm_gram": "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
-    "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_gram.cu",
+    # The float32-x entry (the main case's, kernel 5's apply); float64 x
+    # stays on csrc/banded_gram.cu.
+    "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
@@ -153,6 +175,10 @@ SOURCES = {
     # Kernel 9: kernel 1's template (csrc/banded_spmm.cuh) as its "copy"
     # variant, instantiated in csrc/banded_spmm_var_{f64,f32,bf16}.cu.
     "banded_spmm_copy": "fortran_davidson_tpu_torch/csrc/banded_spmm.cuh",
+    # Kernel 5's bf16-dequant variants (experiments/fused_probe.py's modes).
+    **{f"fused_probe_{v}": "fortran_davidson_tpu_torch/csrc/"
+       "fused_gram_var_bf16.cu" for v in ("bf16deq", "tg_bf16deq",
+                                          "nov_bf16")},
 }
 REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
@@ -167,6 +193,9 @@ REPLACES = {
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu/ops/pallas_kernels.py:1416",
     "banded_spmm_copy": "bench.py:85",
+    "fused_probe_bf16deq": "experiments/fused_probe.py:191",
+    "fused_probe_tg_bf16deq": "experiments/fused_probe.py:191",
+    "fused_probe_nov_bf16": "experiments/fused_probe.py:170",
 }
 # The case whose times stand in the kernels line: the main path's shape.
 MAIN_CASE = {
@@ -179,6 +208,10 @@ MAIN_CASE = {
     "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_remote_halo_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_spmm_copy": ("float64", 48, None, True, "nbr=8192"),
+    # The probe's own shape (PROBE, m = mv = 256; fused_probe.py:206-219).
+    "fused_probe_bf16deq": ("bfloat16", 256, 256, False, "nbr=4096"),
+    "fused_probe_tg_bf16deq": ("bfloat16", 256, 256, False, "nbr=4096"),
+    "fused_probe_nov_bf16": ("bfloat16", 256, None, False, "nbr=4096"),
 }
 # bench.py's bench_bsr_spmm shape (bench.py:178-198), the shape of the
 # experiments/spmm_probe*.py probes: nbr 4096, bs 128, bw 2, m 256.
@@ -250,11 +283,13 @@ def _dname(dtype) -> str:
 
 
 def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
-                  k1_info):
+                  k1_info, variant_info, band_checks):
     """Phase 3: every kernel against its plain version on the card, the
-    time split of kernels 3 and 5 (into ``gram_splits``), kernel 1's
-    variants and split (into ``k1_info``), and the four-slab check of
-    kernels 6 and 7 (into ``slab_checks``)."""
+    time split of kernels 3 and 5 (into ``gram_splits``), kernel 5's
+    bf16-dequant variants beside it (into ``variant_info``), kernel 4 and
+    those variants on the int8 band alone (into ``band_checks``), kernel
+    1's variants and split (into ``k1_info``), and the four-slab check of
+    kernels 6-8 (into ``slab_checks``)."""
     import numpy as np
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
@@ -270,8 +305,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     def emit(row, timed):
         t = (f"kernel={row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms"
              if timed else "(not timed)")
-        if row.get("twin") is not None:
-            t = f"bits == {row['twin']}: {row['twin_equal']} {t}"
+        for name, equal in row.get("twins", {}).items():
+            t = f"bits == {name}: {equal} {t}"
         mv = "-" if row["mv"] is None else row["mv"]
         y = ("Y -" if row["max_abs_err"] is None else
              f"max_abs_err={row['max_abs_err']:.3e} rel={row['rel_err']:.3e}")
@@ -283,18 +318,18 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
               f"{y}{g} {t}", flush=True)
         record.append(row)
 
-    def spmm_case(name, kernel, plain, dtype, m, note, timed, twin=None,
+    def spmm_case(name, kernel, plain, dtype, m, note, timed, twins=(),
                   frame=0):
-        """``twin``: (name, fn), a kernel that must give the same bits
-        (the kernel itself: the same bits on a second call). ``frame``: the
-        kernel reads x from a buffer of its own between that many NaN rows
-        on each side (:func:`_apart`)."""
+        """``twins``: (name, fn) pairs, kernels that must give the same
+        bits (the kernel itself: the same bits on a second call).
+        ``frame``: the kernel reads x from a buffer of its own between that
+        many NaN rows on each side (:func:`_apart`)."""
         n = kernel_rows
         x = randn(n, m, dtype)
         xk = _apart(x, frame) if frame else x
         y_k = kernel(xk)
         y_p = plain(x)
-        same = None if twin is None else torch.equal(y_k, twin[1](xk))
+        same = {tn: torch.equal(y_k, fn(xk)) for tn, fn in twins}
         torch.cuda.synchronize()
         _check(y_k.dtype == y_p.dtype, f"{name}: output type {y_k.dtype}")
         err = float(torch.max(torch.abs(y_k.double() - y_p.double())))
@@ -302,16 +337,16 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
         dn = _dname(dtype)
         row = dict(name=name, dtype=dn, m=m, mv=None, write_out=True,
                    shape=note, max_abs_err=err, rel_err=rel, gram_ratio=None,
-                   ms=None, plain_ms=None, twin=twin and twin[0],
-                   twin_equal=same)
+                   ms=None, plain_ms=None, twins=same)
         if timed:
             row["ms"] = _time_ms(lambda: kernel(xk))
             row["plain_ms"] = _time_ms(lambda: plain(x))
         emit(row, timed)
         _check(rel <= TOL[dn], f"{name} {dn} m={m} {note}: rel err "
                f"{rel:.3e} > {TOL[dn]}")
-        _check(same is not False, f"{name} {dn} m={m} {note}: other bits "
-               f"than {twin and twin[0]} on the same rows")
+        for tn, equal in same.items():
+            _check(equal, f"{name} {dn} m={m} {note}: other bits than {tn} "
+                   "on the same rows")
 
     def gram_case(name, kernel, plain, lead, n, m, mv, write_out, note, bw,
                   timed):
@@ -407,7 +442,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                 plain = (lambda x, b=blocks, c=cols, o=out:
                          kernels.bsr_spmm_plain(c, b, x, out_dtype=o))
             # Kernel 1: x framed by NaN rows, and the same bits twice.
-            extra = (dict(twin=("itself", kernel),
+            extra = (dict(twins=[("itself", kernel)],
                           frame=op.bandwidth * op.block_size)
                      if name == "banded_bsr_spmm" else {})
             for m in widths:
@@ -447,6 +482,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                     lambda x, ql=lead, bw=op.bandwidth:
                         kernels.banded_q_bsr_spmm_plain(*ql, x, bw),
                     f32, m, note, timed)
+            int8_band_only(op, note, randn, sorted({m for m, _ in widths}),
+                           band_checks)
         kernel = getattr(kernels, name)
         plain = getattr(kernels, f"{name}_plain")
         for m, mv in widths:
@@ -455,6 +492,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                           write_out, note, op.bandwidth, timed)
     del rag32
     gram_splits.update(gram_split(A32, q, randn))
+    variant_info.update(bf16_variant_split(q, probe, randn, record,
+                                           band_checks))
 
     # -- kernels 6, 7: a shard's halo-extended input ((nbr + 2bw) * bs
     #    rows), ragged first, then the full-size matrices at world size 1
@@ -493,11 +532,14 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     del ragq
     torch.cuda.empty_cache()
 
-    # -- kernel 8: the shard's rows and its two halos through three
-    #    pointers, each part of an x_ext of (nbr + 2bw) * bs rows in a buffer
-    #    of its own, in the interior and edge launches of the halo operator;
-    #    held to its plain version and, bit for bit, to kernel 6 on that
-    #    x_ext
+    # -- kernel 8 (kernel 1's template): the shard's rows and its two halos
+    #    through three pointers, each part of an x_ext of (nbr + 2bw) * bs
+    #    rows in a buffer of its own, in the interior and edge launches of
+    #    the halo operator; held to its plain version and, bit for bit, to
+    #    kernel 1 on the same rows (the slab framed by bw zero block rows on
+    #    each side, over x_ext) in every type, and to kernel 6 on that x_ext
+    #    in f64 and f32 (kernel 6's SIMT FMAs sum in kernel 1's order there;
+    #    bf16 storage on mma.sync sums otherwise)
     remote_sets = [
         (rag, "nbr=17 bs=8 bw=2", (1, 3, 20, 130)),
         (A, "nbr=8192 bs=128 bw=1", EXT_WIDTHS),
@@ -515,19 +557,26 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                      kernels.banded_remote_halo_spmm_plain(
                          b, x[h:-h], x[:h], x[-h:], bandwidth=bw,
                          out_dtype=o))
-            twin = ("banded_ext_bsr_spmm",
-                    lambda x, b=blocks, bw=bw, o=acc:
-                        kernels.banded_ext_bsr_spmm(b, x, bandwidth=bw,
-                                                    out_dtype=o))
+            pad = torch.zeros((bw, *blocks.shape[1:]), dtype=dtype,
+                              device=dev)
+            framed = torch.cat([pad, blocks, pad])
+            twins = [("banded_bsr_spmm on the same rows",
+                      lambda x, b=framed, bw=bw, h=halo, o=acc:
+                          kernels.banded_bsr_spmm(b, x, bw, out_dtype=o)[h:-h])]
+            if dtype != bf16:
+                twins.append(("banded_ext_bsr_spmm",
+                              lambda x, b=blocks, bw=bw, o=acc:
+                                  kernels.banded_ext_bsr_spmm(
+                                      b, x, bandwidth=bw, out_dtype=o)))
             timed = op.n_block_rows >= 8192 and dtype == f64
             for m in widths:
-                spmm_case(name, kernel, plain, dtype, m, note, timed, twin)
-            del blocks
+                spmm_case(name, kernel, plain, dtype, m, note, timed, twins)
+            del blocks, pad, framed
     del rag
     torch.cuda.empty_cache()
 
     # Kernels 6 and 7 side by side with kernels 1 and 4, and kernel 8 with
-    # kernel 6, at the same widths.
+    # kernels 6 and 1, at the same widths.
     def ms_of(name, dtype, m, shape):
         return next(r["ms"] for r in record if r["name"] == name
                     and r["dtype"] == dtype and r["m"] == m and r["mv"] is None
@@ -538,6 +587,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
             ("banded_q_ext_bsr_spmm", "banded_q_bsr_spmm", "float32",
              "nbr=16384", EXT_WIDTHS_Q),
             ("banded_remote_halo_spmm", "banded_ext_bsr_spmm", "float64",
+             "nbr=8192", EXT_WIDTHS),
+            ("banded_remote_halo_spmm", "banded_bsr_spmm", "float64",
              "nbr=8192", EXT_WIDTHS)):
         pairs = ", ".join(f"m={m}: {ms_of(ext, dtype, m, shape):.4f} / "
                           f"{ms_of(base, dtype, m, shape):.4f}"
@@ -598,12 +649,213 @@ def gram_split(A32, q, randn) -> dict:
               f"({apply.__name__} + cuBLAS vᵀy) {row['unfused']:.4f}; "
               f"turns {times}", flush=True)
         plan = kernels.fused_gram_plan(
-            x.device.index or 0, int(name == "banded_q_bsr_spmm_gram"), 0,
-            op.n_block_rows, op.block_size, 2 * bw + 1, m, mv)
+            x.device.index or 0, int(name == "banded_q_bsr_spmm_gram"),
+            "full", op.n_block_rows, op.block_size, 2 * bw + 1, m, mv)
         print(f"    layout: {plan} (one block an SM, 256 threads)", flush=True)
         out[name] = dict(row, plan=plan)
         del x, v
         torch.cuda.empty_cache()
+    return out
+
+
+def _int8_faults(qblocks, scale_rows, diag) -> dict:
+    """Int8 operands with a fault put in, for the plain versions: the band
+    dropped, slot 0 dropped, the slots in reverse order, every slot scaled
+    by the diagonal slot's scale (one scale a block row). A kernel with
+    such a fault would give what the plain version gives on these."""
+    import torch
+    nbr, bs, kbs = qblocks.shape
+    K = kbs // bs
+    q4 = qblocks.reshape(nbr, bs, K, bs)
+    s3 = scale_rows.reshape(nbr, K, bs)
+    drop0 = q4.clone()
+    drop0[:, :, 0] = 0
+    return {
+        "band dropped": (torch.zeros_like(qblocks), scale_rows, diag),
+        "slot 0 dropped": (drop0.reshape(nbr, bs, kbs), scale_rows, diag),
+        "slots reversed": (q4.flip(2).reshape(nbr, bs, kbs).contiguous(),
+                           s3.flip(1).reshape(nbr, kbs).contiguous(), diag),
+        "one scale a row": (qblocks, s3[:, K // 2:K // 2 + 1].expand(
+            nbr, K, bs).reshape(nbr, kbs).contiguous(), diag),
+    }
+
+
+def _note_band(band_checks, name, reading, faults) -> None:
+    """Keep a kernel's worst sound reading on the band alone and its
+    smallest reading with a fault, for the kernels line."""
+    entry = band_checks.setdefault(name, dict(
+        band_only_max_err_rel=0.0, band_fault_min_rel=float("inf")))
+    entry["band_only_max_err_rel"] = max(entry["band_only_max_err_rel"],
+                                         reading)
+    entry["band_fault_min_rel"] = min(entry["band_fault_min_rel"],
+                                      *faults.values())
+
+
+def int8_band_only(op, note, randn, widths, band_checks) -> None:
+    """Kernel 4 (float32 x) on the band alone: the operator's diagonal
+    zeroed, so Y is the int8 band's product and nothing else (with the
+    diagonal in, the band is ~1e-6 of max|Y|, under the limit). Y within
+    TOL["float32"] of max|Y_band| of its plain version; and each of
+    :func:`_int8_faults`, given to the plain version, must read above that
+    limit, or the check could not see it."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    lead = (op.qblocks, op.scale_rows, torch.zeros_like(op.diag))
+    bw, n = op.bandwidth, op.shape[0]
+    faults = _int8_faults(*lead)
+    limit = TOL["float32"]
+    plain = kernels.banded_q_bsr_spmm_plain
+    for m in widths:
+        x = randn(n, m)
+        y = kernels.banded_q_bsr_spmm(*lead, x, bw)
+        yp = plain(*lead, x, bw)
+        top = float(torch.max(torch.abs(yp)))
+        rel = float(torch.max(torch.abs(y - yp))) / top
+        read = {f: float(torch.max(torch.abs(plain(*fl, x, bw) - yp))) / top
+                for f, fl in faults.items()}
+        # What the band dropped reads with the diagonal in: Y = d ∘ x.
+        y_all = plain(op.qblocks, op.scale_rows, op.diag, x, bw)
+        hidden = float(torch.max(torch.abs(
+            op.diag.reshape(-1, 1) * x - y_all))) / float(
+                torch.max(torch.abs(y_all)))
+        print(f"  banded_q_bsr_spmm      band only {note:24s} m={m:<4d} "
+              f"|dY|/max|Y_band|={rel:.3e} (limit {limit:.0e}); with a "
+              "fault: " + ", ".join(f"{f} {r:.3e}" for f, r in read.items())
+              + f" (band dropped, diagonal in: {hidden:.3e} of max|Y|)",
+              flush=True)
+        _check(rel <= limit, f"kernel 4 band only {note} m={m}: {rel:.3e}")
+        _check(min(read.values()) > limit, f"kernel 4 band only {note} "
+               f"m={m}: a fault reads {read}, within the limit")
+        _note_band(band_checks, "banded_q_bsr_spmm", rel, read)
+        del x, y, yp, y_all
+    del faults
+    torch.cuda.empty_cache()
+
+
+def bf16_variant_split(q, probe, randn, record, band_checks) -> dict:
+    """Kernel 5's bf16-dequant variants (``kernels.fused_gram_variant``,
+    csrc/fused_gram_var_bf16.cu) at two shapes: the probe's
+    (``quantize_banded_int8`` of the probe matrix, m = mv = 256) and kernel
+    5's main case (the 2M-row int8 matrix, m = 20, mv = 220). Each variant
+    against its plain version, on the operator and on its band alone (the
+    diagonal zeroed): G within GRAM_TOL of |V|ᵀ|Y| elementwise (nov_bf16:
+    row 0 within GRAM_TOL of the column sums of |Y|, the rest zeros), the
+    same bits twice. The same limit must see a G of zeros and a G over half
+    the rows, and on the band alone each of :func:`_int8_faults`. Then
+    timed in turns (the list, then back) beside kernel 5 on float32 x and
+    v and its nov and nogram: does the one-product bf16 apply beat the two
+    TF32 products, and how much of the sweep is the gram. Records the
+    operator's rows (the probe's shape is the variants' main case); returns
+    {shape: {mode: ms}} and the operators' sizes for the bounds."""
+    import types
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    qp = fdtt.quantize_banded_int8(probe)
+    out = {"ops": {"nbr=4096": (types.SimpleNamespace(
+        n_block_rows=qp.n_block_rows, block_size=qp.block_size,
+        bandwidth=qp.bandwidth), _nonzero_blocks(qp.qblocks, 2 * qp.bandwidth
+                                                 + 1))}}
+    name5 = "banded_q_bsr_spmm_gram"
+    for tag, op, m, mv, shape in (
+            ("probe", qp, PROBE["m"], PROBE["m"], "nbr=4096 bs=128 bw=2"),
+            ("main", q, 20, 220, "nbr=16384 bs=128 bw=1")):
+        bw, n, h = op.bandwidth, op.shape[0], op.shape[0] // 2
+        x32, v32 = randn(n, m), randn(n, mv)
+        xb, vb = x32.to(torch.bfloat16), v32.to(torch.bfloat16)
+        full = (op.qblocks, op.scale_rows, op.diag)
+        band = (op.qblocks, op.scale_rows, torch.zeros_like(op.diag))
+        fns = {}
+        for lead, label in ((full, ""), (band, "band only")):
+            y = kernels.q_bf16_apply_plain(*lead, xb, bw)
+            scale = torch.abs(vb.float()).T @ torch.abs(y)
+            colsum = torch.abs(y.double()).sum(0)
+            faults = _int8_faults(*lead) if label else {}
+            for variant in kernels.BF16_VARIANTS:
+                nov = variant == "nov_bf16"
+                v = None if nov else vb
+                kernel = (lambda ld=lead, v=v, var=variant:
+                          kernels.fused_gram_variant(
+                              name5, ld, xb, v, bandwidth=bw, variant=var))
+                plain = (lambda ld=lead, x=xb, v=v, var=variant:
+                         kernels.fused_gram_variant_plain(
+                             name5, ld, x, v, bandwidth=bw, variant=var))
+
+                def ratio(g, gp):
+                    err = torch.abs(g - gp)
+                    if nov:
+                        return float(torch.max(err[0].double()
+                                               / (colsum + 1e-30)))
+                    return float(torch.max(err / (scale + 1e-30)))
+                g, gp = kernel(), plain()
+                again = kernel()
+                torch.cuda.synchronize()
+                _check(torch.equal(g, again), f"{variant} {shape} {label}: "
+                       "the G reduction gave other bits on a second run")
+                r = ratio(g, gp)
+                ok = r <= GRAM_TOL and not (nov and bool(torch.any(g[1:])))
+                half = plain(tuple(t[:op.n_block_rows // 2] for t in lead),
+                             xb[:h], None if nov else vb[:h])
+                read = {"G zeros": ratio(torch.zeros_like(gp), gp),
+                        "half the rows": ratio(half, gp),
+                        **{f: ratio(plain(fl), gp)
+                           for f, fl in faults.items()}}
+                del half
+                row = dict(name=f"fused_probe_{variant}", dtype="bfloat16",
+                           m=m, mv=None if nov else mv, write_out=False,
+                           shape=shape, max_abs_err=float(torch.max(
+                               torch.abs(g - gp))), rel_err=0.0,
+                           gram_ratio=r, ms=None, plain_ms=None)
+                row["g_abs_err"] = row["max_abs_err"]
+                t = ""
+                if not label:
+                    fns[variant] = kernel
+                    row["ms"], row["plain_ms"] = (_time_ms(kernel),
+                                                  _time_ms(plain))
+                    record.append(row)
+                    t = (f" kernel={row['ms']:.4f} ms "
+                         f"plain={row['plain_ms']:.4f} ms")
+                else:
+                    _note_band(band_checks, row["name"], r, read)
+                print(f"  {row['name']:22s} bfloat16 {shape:24s} {label:9s} "
+                      f"m={m:<4d} mv={row['mv']!s:<5s} G abs="
+                      f"{row['g_abs_err']:.3e} ratio={r:.3e} (limit "
+                      f"{GRAM_TOL:.0e}); with a fault: "
+                      + ", ".join(f"{f} {r_:.3e}" for f, r_ in read.items())
+                      + t, flush=True)
+                _check(ok, f"{variant} {shape} {label}: G error {r:.3e}")
+                _check(min(read.values()) > GRAM_TOL, f"{variant} {shape} "
+                       f"{label}: a fault reads {read}, within the limit")
+                del g, gp, again
+            del y, scale, colsum, faults
+        del band
+        split = {
+            "kernel 5": lambda: kernels.banded_q_bsr_spmm_gram(
+                *full, x32, v32, bandwidth=bw, write_out=False),
+            "nov": lambda: kernels.fused_gram_variant(
+                name5, full, x32, v32, bandwidth=bw, variant="nov"),
+            "nogram": lambda: kernels.fused_gram_variant(
+                name5, full, x32, v32, bandwidth=bw, variant="nogram"),
+            **fns}
+        order = list(split) + list(split)[::-1]
+        times = {key: [] for key in split}
+        for key in order:
+            times[key].append(_time_ms(split[key]))
+        row = {key: statistics.mean(t) for key, t in times.items()}
+        print(f"  kernel 5 and its variants, int8 {shape} m={m} mv={mv} (ms, "
+              f"mean of two turns; kernel 5, nov, nogram on float32 x and v, "
+              f"the bf16-dequant variants on bf16): "
+              + ", ".join(f"{k} {t:.4f}" for k, t in row.items())
+              + f"; turns {times}", flush=True)
+        plans = {var: kernels.fused_bf16_plan(
+            x32.device.index or 0, var, op.n_block_rows, op.block_size,
+            2 * bw + 1, m, m if var == "nov_bf16" else mv)
+            for var in kernels.BF16_VARIANTS}
+        print(f"    layouts: {plans}", flush=True)
+        out[tag] = dict(row, shape=shape)
+        del x32, v32, xb, vb, fns, split
+        torch.cuda.empty_cache()
+    del qp
     return out
 
 
@@ -957,6 +1209,29 @@ def four_slab_check(A, q, randn) -> dict:
                        f"by {err:.3e} (rel {rel:.3e}) at m={m}")
                 worst[key] = max(worst.get(key, 0.0), err)
             del x, whole, parts
+    # Kernel 8 in float32 and bf16 storage too: kernel 1's template in
+    # every type, so its slabs give kernel 1's bits there as well.
+    bs, bw = A.block_size, A.bandwidth
+    nl, halo = A.n_block_rows // SLABS, A.bandwidth * A.block_size
+    key = "banded_remote_halo_spmm"
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks = A.blocks.to(dtype)
+        acc = kernels.acc_dtype(dtype)
+        x = randn(A.shape[0], 20, dtype)
+        whole = kernels.banded_bsr_spmm(blocks, x, bw, out_dtype=acc)
+        rows = [_apart(t, halo) for t in x.split(nl * bs)]
+        parts = [kernels.banded_remote_halo_spmm(
+            blocks[s * nl:(s + 1) * nl], rows[s], rows[s - 1][-halo:],
+            rows[(s + 1) % SLABS][:halo], bandwidth=bw, out_dtype=acc)
+            for s in range(SLABS)]
+        err = float(torch.max(torch.abs(torch.cat(parts) - whole)))
+        print(f"  {SLABS} slabs of {key} {_dname(dtype)} vs the whole matrix, "
+              f"{A.n_block_rows} block rows, m=20: max_abs_err={err:.3e}",
+              flush=True)
+        _check(err == 0.0, f"{key} {_dname(dtype)}: {SLABS} slabs differ "
+               f"from kernel 1 on the whole matrix by {err:.3e}")
+        worst[key] = max(worst.get(key, 0.0), err)
+        del blocks, x, whole, rows, parts
     torch.cuda.empty_cache()
     return worst
 
@@ -1244,8 +1519,10 @@ def phase_int8(q, dev, solves, refs):
                           / torch.abs(ref.eigenvalues)))
     print(f"  int8: launches per solve={launches} true relative residual="
           f"{true_res:.3e} max |eig - eig_plain| / |eig_plain|={rel:.3e} "
-          f"iterations {out.iterations} vs plain {ref.iterations} "
-          f"warm wall={walls['kernels'][-1]:.3f} s peak_mem={peak:.2f} GB",
+          f"iterations {out.iterations} vs plain {ref.iterations}; warm "
+          f"wall {walls['kernels'][-1]:.4f} s (plain path "
+          f"{walls['plain'][-1]:.4f} s, first kernel-path solve "
+          f"{walls['kernels'][0]:.4f} s) peak_mem={peak:.2f} GB",
           flush=True)
     _check(true_res <= 1e-3, f"int8: true relative residual {true_res:.3e}")
     _check(out.iterations == ref.iterations,
@@ -1685,6 +1962,19 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
     nbr, bs, bw = op.n_block_rows, op.block_size, op.bandwidth
     K = 2 * bw + 1
     n = nbr * bs
+    if name.startswith("fused_probe_"):
+        # Kernel 5's bf16-dequant variants: int8 blocks, scales and diagonal,
+        # bf16 x and v (none for nov_bf16) in, G out; the apply's and the
+        # gram's products on the bf16 tensor cores, plus d∘x (and nov_bf16's
+        # column sums).
+        moved = (nbr * bs * K * bs + nbr * K * bs * 4 + n * 4 + n * m * 2
+                 + (n * mv * 2 if mv else 0) + (mv or m) * m * 4)
+        ops = (2 * nnz_blocks * bs * bs * m + 2 * n * m
+               + (2 * n * mv * m if mv else n * m))
+        t_bytes = moved / HBM_BYTES_S * 1e3
+        t_ops = ops / PEAK_FLOP_S["bfloat16"] * 1e3
+        return ((t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
     quant = "_q_" in name
     isz = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
     # The halo kernels read 2*bw*bs more x rows (kernel 8: the two halos).
@@ -1813,21 +2103,23 @@ _K1_TYPES = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
 
 
 def _k1_entries(log: str) -> dict:
-    """Kernel 1 and its variants (``banded_spmm_kernel`` of
-    csrc/banded_spmm.cuh): "f64 TM=128 TN=48 RPC=1 full direct normal" ->
-    (registers, spill store bytes, static shared bytes), from the build's
-    report. The ring is dynamic shared memory (``_k1_plan``)."""
+    """Kernel 1, its variants and kernel 8 (``banded_spmm_kernel`` of
+    csrc/banded_spmm.cuh, by x-row source: kernel 1's masked one, kernel
+    8's inside and split ones): "f64 TM=128 TN=48 RPC=1 full direct normal
+    Masked" -> (registers, spill store bytes, static shared bytes), from the
+    build's report. The ring is dynamic shared memory (``_k1_plan``)."""
     import re
     out = {}
     for name, n, spill, smem in _ptxas_entries(log):
         m = re.search(r"banded_spmm_kernelI(d|f|13__nv_bfloat16)Li(\d+)ELi"
-                      r"(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)E", name)
+                      r"(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)ENS_\d+"
+                      r"(Masked|Inside|Split)", name)
         if m:
-            t, tm, tn, rpc, var, store, ev = m.groups()
+            t, tm, tn, rpc, var, store, ev, src = m.groups()
             key = (f"{_K1_TYPES[t]} TM={tm} TN={tn} RPC={rpc} "
                    f"{('full', 'noy', 'copy', 'writeonly')[int(var)]} "
                    f"{('direct', 'tma')[int(store)]} "
-                   f"{('normal', 'evict_first')[int(ev)]}")
+                   f"{('normal', 'evict_first')[int(ev)]} {src}")
             out[key] = (n, spill, smem)
     return out
 
@@ -1842,12 +2134,32 @@ def _k1_plan(key: str) -> dict:
     tm, tn, rpc = (int(v.split("=")[1]) for v in f[1:4])
     dtype = {"f64": torch.float64, "f32": torch.float32,
              "bf16": torch.bfloat16}[f[0]]
-    plain = f[4:] == ["full", "direct", "normal"] and rpc == 1
+    plain = f[4:7] == ["full", "direct", "normal"] and rpc == 1
     plan = kernels.banded_spmm_plan(0, dtype, tm, tn,
                                     None if plain else f[4], rpc, f[5])
     _check((plan["TM"], plan["TN"]) == (tm, tn),
            f"{key}: the launch at bs={tm}, m={tn} takes {plan}")
     return plan
+
+
+def _new_entries(log: str) -> dict:
+    """Kernel 4's float32 entry (``q_spmm_kernel`` of csrc/q_spmm.cu) and
+    kernel 5's bf16-dequant variants (``bf16_gram_kernel`` of
+    csrc/fused_gram_var_bf16.cu): "kernel 4 TN=24" / "bf16deq TN=128" ->
+    (registers, spill store bytes, static shared bytes)."""
+    import re
+    from fortran_davidson_tpu_torch.ops import kernels
+    out = {}
+    for name, n, spill, smem in _ptxas_entries(log):
+        m = re.search(r"q_spmm_kernelILi(\d+)E", name)
+        if m:
+            out[f"kernel 4 TN={m.group(1)}"] = (n, spill, smem)
+        m = re.search(r"bf16_gram_kernelILi(\d+)ELi(\d)E", name)
+        if m:
+            out[f"{kernels.BF16_VARIANTS[int(m.group(2))]} "
+                f"TN={m.group(1)}"] = (
+                n, spill, smem)
+    return out
 
 
 def _fused_registers(log: str) -> dict:
@@ -1900,7 +2212,8 @@ def main() -> int:
     if log:
         print(f"    ptxas registers of the shared SIMT tile's "
               f"instantiations: {_tile_registers(log)}")
-        print("    kernel 1 and its variants (csrc/banded_spmm.cuh): ptxas "
+        print("    kernel 1, its variants (source Masked) and kernel 8 "
+              "(sources Inside and Split) on csrc/banded_spmm.cuh: ptxas "
               "registers, spill stores, static smem; the default ring "
               "(kernels.banded_spmm_plan)")
         for key, (regs, spill, smem) in _k1_entries(log).items():
@@ -1910,6 +2223,15 @@ def main() -> int:
                   f"{plan['stages']} stages")
         print(f"    ptxas registers of the fused float32 kernels (3, 5) by "
               f"loader, column tile and variant: {_fused_registers(log)}")
+        print("    kernel 4's float32 entry (csrc/q_spmm.cu) and kernel 5's "
+              "bf16-dequant variants (csrc/fused_gram_var_bf16.cu): ptxas "
+              "registers, spill stores, static smem")
+        for key, (regs, spill, smem) in _new_entries(log).items():
+            print(f"      {key}: {regs} registers, {spill} B spill, {smem} B "
+                  "static smem")
+        for m in (1, 20, 44, 256):
+            print(f"      kernel 4 layout at m={m}: "
+                  f"{kernels.q_spmm_plan(0, 16384, m)}")
     sys.stdout.flush()
 
     t0 = time.perf_counter()
@@ -1933,15 +2255,20 @@ def main() -> int:
           f"{tuple(probe.blocks.shape)} float32", flush=True)
 
     print("[3] kernels vs plain versions", flush=True)
-    record, slab_checks, gram_splits, k1_info = [], {}, {}, {}
+    record, slab_checks, gram_splits, k1_info, variant_info = [], {}, {}, {}, {}
+    band_checks = {}
     phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
-                  k1_info)
+                  k1_info, variant_info, band_checks)
     del probe
     library = library_times(A)
 
     solves, refs = [], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
-    counts["banded_spmm_copy"] = 0  # kernel 9: no path launches it
+    # Kernel 9 and kernel 5's bf16-dequant variants: no path launches them.
+    counts.update(dict.fromkeys(
+        ("banded_spmm_copy",
+         *(f"fused_probe_{v}" for v in kernels.BF16_VARIANTS)),
+        0))
     # The one-rank NCCL group of phases 8-9 meets at a file in here.
     tmp = tempfile.TemporaryDirectory()
     rendezvous = f"file://{tmp.name}/rendezvous"
@@ -1990,7 +2317,8 @@ def main() -> int:
 
     summary = []
     nnz = {"nbr=8192": (A, _nonzero_blocks(A.blocks, 3)),
-           "nbr=16384": (q, _nonzero_blocks(q.qblocks, 3))}
+           "nbr=16384": (q, _nonzero_blocks(q.qblocks, 3)),
+           **variant_info["ops"]}
     for name in REPLACES:
         rows = [r for r in record if r["name"] == name]
         dtype, m, mv, write_out, shape = MAIN_CASE[name]
@@ -2020,11 +2348,24 @@ def main() -> int:
                          nogram_ms=split["nogram"], layout=split["plan"])
         if name in slab_checks:
             entry["four_slab_max_abs_err"] = slab_checks[name]
+        if name in band_checks:
+            # The band alone (the diagonal zeroed), to the same limit.
+            entry.update(band_checks[name])
         if name == "banded_bsr_spmm":
             entry.update(split_ms=k1_info["split"])
         if name == "banded_spmm_copy":
             entry.update(variant="banded_spmm_variant(variant='copy')",
                          shapes=k1_info["copy"])
+        if name.startswith("fused_probe_"):
+            # max_abs_err is G's; the split at both shapes beside kernel 5.
+            variant = name.removeprefix("fused_probe_")
+            entry.update(
+                variant=f"fused_gram_variant(variant={variant!r})",
+                max_gram_err_rel=max(r["gram_ratio"] for r in rows),
+                gram_tol=GRAM_TOL,
+                split_ms={tag: variant_info[tag] for tag in ("probe", "main")},
+                main_case_ms=next(r["ms"] for r in rows
+                                  if "nbr=16384" in r["shape"]))
         summary.append(entry)
     print(json.dumps({"solves": solves}))
     print(json.dumps({"kernels": summary}))

@@ -1,17 +1,15 @@
-// Banded int8 SpMM and the fused banded SpMM + Gram kernels, for Hopper
-// (sm_90a), in plain CUDA C++ with a C interface (loaded with ctypes by
-// fortran_davidson_tpu_torch/ops/kernels.py). Storage and the shared tile
-// are described in spmm_tile.cuh.
+// The float64-x int8 SpMM and the fused banded SpMM + Gram kernels on the
+// shared SIMT tile, for Hopper (sm_90a), in plain CUDA C++ with a C
+// interface (loaded with ctypes by fortran_davidson_tpu_torch/ops/kernels.py).
+// Storage and the shared tile are described in spmm_tile.cuh.
 //
-//   fdt_banded_q_bsr_spmm_f32      replaces banded_q_bsr_spmm
-//       (fortran_davidson_tpu/ops/pallas_kernels.py:755, body :721):
-//       y = (Q o s) @ x_window + d o x_centre. Q is the int8 off-diagonal
-//       part, s one f32 scale per (block row, slot), d the exact f32
-//       diagonal; x and y are f32.
-//   fdt_banded_q_bsr_spmm_f64      the same with f64 x: q o s formed in
-//       f32, the band product summed in f64 and rounded to f32, d o x added
-//       in f32, Y returned in f64 (the plain version's arithmetic; the
-//       reference takes x of any type, pallas_kernels.py:766,772).
+//   fdt_banded_q_bsr_spmm_f64      kernel 4 (banded_q_bsr_spmm,
+//       fortran_davidson_tpu/ops/pallas_kernels.py:755, body :721) with f64
+//       x: y = (Q o s) @ x_window + d o x_centre with q o s formed in f32,
+//       the band product summed in f64 and rounded to f32, d o x added in
+//       f32, Y returned in f64 (the plain version's arithmetic; the
+//       reference takes x of any type, pallas_kernels.py:766,772). The
+//       float32-x entry is q_spmm.cu's tensor-core kernel.
 //   fdt_banded_q_bsr_spmm_gram_f64 kernel 5 (banded_q_bsr_spmm_gram,
 //       pallas_kernels.py:886) with f64 x and v: that apply, then the
 //       gram of the f64 kernel 3 below.
@@ -29,13 +27,11 @@
 // f64 storage). As in the TPU kernel, Y is rounded to the gram operand's
 // type before the gram (a no-op except for bf16 storage).
 //
-// What bounds them on the H100. int8 apply: 1 byte per stored entry and
-// 2*m flops on it; at m=20 that is ~40 flop/B, so f32 FMA on the CUDA
-// cores is the limit, not HBM (the int8 table of the 2M-row north star,
-// 805 MB, streams in ~0.25 ms; its 3.2e10 flops at m=20 take ~0.5 ms at
-// the 67 TFLOP/s f32 peak). Tensor cores would need x in a narrower type,
-// which is later work. Gram: 2*mv*m flops per row of Y on top of the
-// apply's 2*K*bs*m; at mv >= K*bs the gram's FMAs dominate.
+// What bounds them on the H100. int8 apply with f64 x: 1 byte per stored
+// entry and 2*m f64 flops on it; at m=20 that is ~40 flop/B, so f64 FMA
+// on the CUDA cores is the limit, not HBM. Gram: 2*mv*m flops per row of
+// Y on top of the apply's 2*K*bs*m; at mv >= K*bs the gram's FMAs
+// dominate.
 //
 // The design, simple and deterministic. Grid: n_groups x mv_tiles x
 // col_tiles thread blocks (column tiles fastest). Thread block (g, vt, ct)
@@ -64,7 +60,6 @@
 namespace {
 
 using fdt::DenseBlocks;
-using fdt::Int8Blocks;
 using fdt::Int8F64Blocks;
 using fdt::Tile;
 using fdt::kThreadsM;
@@ -286,14 +281,6 @@ int dense_gram(const T* blocks, const T* x, const T* v, long long ldv, Acc* y,
 }  // namespace
 
 extern "C" {
-
-int fdt_banded_q_bsr_spmm_f32(const int8_t* q, const float* scale,
-                              const float* diag, const float* x, float* y,
-                              int nbr, int bs, int K, int bw, int m,
-                              void* stream) {
-  return fdt::spmm(Int8Blocks{q, scale}, x, nullptr, diag, y, nbr, bs, K, bw,
-                   static_cast<long long>(nbr) * bs, m, stream);
-}
 
 // float64 x (Int8F64Blocks in spmm_tile.cuh): Y in f64, holding the f32
 // values of the plain version.

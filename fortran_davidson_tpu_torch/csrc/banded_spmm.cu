@@ -54,34 +54,14 @@ namespace {
 using fdt1::Bf16;
 using fdt1::Math;
 
-template <typename T, int TM>
-cudaError_t by_width(const T* blocks, const T* x, typename Math<T>::Acc* y,
-                     int nbr, int bs, int K, int bw, int m, cudaStream_t s) {
-  using namespace fdt1;
-  switch (column_tile(m)) {
-    case 8:
-      return launch<T, TM, 8, 1, kFull, kDirect, false>(blocks, x, y, nullptr, nbr, bs, K, bw, m, 0, s);
-    case 16:
-      return launch<T, TM, 16, 1, kFull, kDirect, false>(blocks, x, y, nullptr, nbr, bs, K, bw, m, 0, s);
-    case 32:
-      return launch<T, TM, 32, 1, kFull, kDirect, false>(blocks, x, y, nullptr, nbr, bs, K, bw, m, 0, s);
-    case 48:
-      return launch<T, TM, 48, 1, kFull, kDirect, false>(blocks, x, y, nullptr, nbr, bs, K, bw, m, 0, s);
-    default:
-      return launch<T, TM, 64, 1, kFull, kDirect, false>(blocks, x, y, nullptr, nbr, bs, K, bw, m, 0, s);
-  }
-}
-
 template <typename T>
 int banded(const T* blocks, const T* x, typename Math<T>::Acc* y, int nbr,
            int bs, int K, int bw, int m, void* stream) {
   if (nbr <= 0 || bs <= 0 || m <= 0) return 0;
   if (K != 2 * bw + 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      fdt1::small_rows(bs) ? by_width<T, 16>(blocks, x, y, nbr, bs, K, bw, m, s)
-                           : by_width<T, 128>(blocks, x, y, nbr, bs, K, bw, m, s);
-  return static_cast<int>(err);
+  return static_cast<int>(fdt1::launch_full(
+      blocks, x, fdt1::Masked<T>{}, y, nbr, nbr, bs, K, bw, m,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace

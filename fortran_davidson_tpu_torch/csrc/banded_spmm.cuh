@@ -1,9 +1,10 @@
 // Kernel 1, the DIA-banded SpMM, as one template for Hopper (sm_90a): the
-// kernel of banded_spmm.cu and its measurement variants
-// (banded_spmm_var_{f64,f32,bf16}.cu). The design and what bounds it are
-// written at the top of banded_spmm.cu. The tiling and shared memory a
-// launch takes are decided here alone; plan_entry() reports them
-// (kernels.banded_spmm_plan).
+// kernel of banded_spmm.cu, its measurement variants
+// (banded_spmm_var_{f64,f32,bf16}.cu), and kernel 8 (remote_halo.cu), the
+// same product over a shard's rows and its two received halos. The design
+// and what bounds it are written at the top of banded_spmm.cu. The tiling
+// and shared memory a launch takes are decided here alone; plan_entry()
+// reports them (kernels.banded_spmm_plan).
 //
 // Storage: (nbr, bs, K*bs) row-major block slabs, K = 2*bw + 1, slot k of
 // block row r holding block column r - bw + k; x is (nbr*bs, m) row-major.
@@ -31,6 +32,11 @@
 //   - f32: FFMA on the CUDA cores in the same layout.
 // Each output element is summed by one thread in a fixed order: the same
 // inputs give the same bits.
+//
+// Where a window chunk's x rows come from is the kernel's source (Src,
+// below): kernel 1's zero-fills rows outside [0, n); kernel 8's read a
+// shard's rows unmasked (Inside) or split them between the shard's rows
+// and its halos (Split). A source also maps the grid's rows to block rows.
 //
 // Variants (template parameters, measurement only):
 //   kVar    kFull | kNoY (products, no Y: one column-sum row a CTA into
@@ -165,6 +171,88 @@ __device__ __forceinline__ void stage_tile(T* dst, int dst_ld, const T* src,
   }
 }
 
+// The launch's block rows: grid row j is block row a0 + j for j < na, else
+// b0 + (j - na) (kernel 8's two edges in one grid).
+struct RowRange {
+  long long a0, na, b0;
+  __device__ __forceinline__ long long operator()(long long j) const {
+    return j < na ? a0 + j : b0 + (j - na);
+  }
+};
+
+// The x rows of a window chunk: rows xr0 .. xr0 + KC of the block column
+// that the chunk lies in (its first vk rows valid, the rest zero-filled),
+// columns c0 .. c0 + TN, staged into dst (row stride sx).
+//
+// Masked (kernel 1): x itself, rows outside [0, n) zero-filled and never
+// read; grid row g is block row g.
+template <typename T>
+struct Masked {
+  __device__ __forceinline__ long long block_row(long long g) const {
+    return g;
+  }
+  template <int KC, int TN>
+  __device__ __forceinline__ void stage_x(T* dst, int sx, const T* x,
+                                          long long xr0, int vk, long long n,
+                                          int m, int c0, int vcols,
+                                          bool vec) const {
+    const long long lo = xr0 < 0 ? -xr0 : 0;
+    const long long hi = min(static_cast<long long>(vk), n - xr0);
+    stage_tile<T, false>(dst, sx, x + (lo < hi ? xr0 * m + c0 : 0), x, m, KC,
+                         TN, static_cast<int>(lo),
+                         static_cast<int>(max(lo, hi)), vcols, vec, 0);
+  }
+  bool aligned() const { return true; }
+};
+
+// Inside (kernel 8's interior launch): x itself, unmasked; every window of
+// the range's block rows lies in x's rows.
+template <typename T>
+struct Inside {
+  RowRange rows;
+  __device__ __forceinline__ long long block_row(long long g) const {
+    return rows(g);
+  }
+  template <int KC, int TN>
+  __device__ __forceinline__ void stage_x(T* dst, int sx, const T* x,
+                                          long long xr0, int vk, long long,
+                                          int m, int c0, int vcols,
+                                          bool vec) const {
+    stage_tile<T, false>(dst, sx, x + xr0 * m + c0, x, m, KC, TN, 0, vk,
+                         vcols, vec, 0);
+  }
+  bool aligned() const { return true; }
+};
+
+// Split (kernel 8's edge launch): the shard's n rows x and its halos, no
+// halo-extended copy: rows below 0 from top (halo rows, at row + halo),
+// rows at n or above from bot (at row - n), the rest from x, unmasked. A
+// chunk lies in one block column, so in one of the three.
+template <typename T>
+struct Split {
+  RowRange rows;
+  const T* top;
+  const T* bot;
+  long long halo;
+  __device__ __forceinline__ long long block_row(long long g) const {
+    return rows(g);
+  }
+  template <int KC, int TN>
+  __device__ __forceinline__ void stage_x(T* dst, int sx, const T* x,
+                                          long long xr0, int vk, long long n,
+                                          int m, int c0, int vcols,
+                                          bool vec) const {
+    const T* p = xr0 < 0 ? top : xr0 >= n ? bot : x;
+    const long long row = xr0 < 0 ? xr0 + halo : xr0 >= n ? xr0 - n : xr0;
+    stage_tile<T, false>(dst, sx, p + row * m + c0, p, m, KC, TN, 0, vk,
+                         vcols, vec, 0);
+  }
+  bool aligned() const {
+    return ((reinterpret_cast<uintptr_t>(top) | reinterpret_cast<uintptr_t>(bot))
+            & 15) == 0;
+  }
+};
+
 __device__ __forceinline__ void dmma(double& c0, double& c1, double a,
                                      double b) {
   asm volatile(
@@ -181,6 +269,17 @@ __device__ __forceinline__ void bmma(float (&c)[4], const uint32_t (&a)[4],
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The B fragment (k 0-15, n 0-7) of mma m16n8k16 from a row-major bf16
+// [k][n] tile in shared memory, by ldmatrix.trans: lane l (< 16) points at
+// row l of the tile, column n 0 (rows 16-byte aligned).
+__device__ __forceinline__ void b_frag(const Bf16* row, uint32_t& b0,
+                                       uint32_t& b1) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_u32(row)));
 }
 
 // acc += As[wr:wr+16, :KC] @ Xs[:KC, :TN] (one block row, one stage).
@@ -251,10 +350,7 @@ __device__ __forceinline__ void stage_product(const Bf16* As, const Bf16* Xs,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       uint32_t b0, b1;
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-          : "=r"(b0), "=r"(b1)
-          : "r"(smem_u32(xrow + nt * 8)));
+      b_frag(xrow + nt * 8, b0, b1);
       bmma(acc[nt], a, b0, b1);
     }
   }
@@ -315,10 +411,10 @@ __device__ __forceinline__ void stage_copy(
 }
 
 template <typename T, int TM, int TN, int RPC, int kVar, int kStore,
-          bool kEvict>
+          bool kEvict, class Src>
 __global__ void __launch_bounds__(TM * 2)
 banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
-                   typename Math<T>::Acc* __restrict__ y,
+                   Src src, typename Math<T>::Acc* __restrict__ y,
                    typename Math<T>::Acc* __restrict__ colsum, int nbr,
                    int bs, int K, int bw, int m, int col_tiles, int row_tiles,
                    int stages, int vec_a, int vec_x) {
@@ -335,7 +431,7 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
   const int ct = static_cast<int>(bid % col_tiles);
   const long long rest = bid / col_tiles;
   const int rt = static_cast<int>(rest % row_tiles);
-  const long long r0 = (rest / row_tiles) * RPC;
+  const long long r0 = src.block_row((rest / row_tiles) * RPC);
   const int i0 = rt * TM;
   const int c0 = ct * TN;
   const int warp = threadIdx.x >> 5;
@@ -379,14 +475,10 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
       const int j = it / chunks;
       const int kc0 = (it % chunks) * KC;
       const int vk = min(KC, bs - kc0);
-      // x rows (r0 - bw + j) * bs + kc0 + [0, KC), valid inside [0, n).
-      const long long xr0 = (r0 - bw + j) * bs + kc0;
-      const long long lo = xr0 < 0 ? -xr0 : 0;
-      const long long hi = min(static_cast<long long>(vk), n - xr0);
-      stage_tile<T, false>(st + RPC * TM * SA, SX,
-                           x + (lo < hi ? xr0 * m + c0 : 0), x, m, KC, TN,
-                           static_cast<int>(lo), static_cast<int>(max(lo, hi)),
-                           vcols_x, vec_x != 0, 0);
+      // x rows (r0 - bw + j) * bs + kc0 + [0, KC), from the source.
+      src.template stage_x<KC, TN>(st + RPC * TM * SA, SX, x,
+                                   (r0 - bw + j) * bs + kc0, vk, n, m, c0,
+                                   vcols_x, vec_x != 0);
 #pragma unroll
       for (int i = 0; i < RPC; ++i) {
         const int k = j - i;
@@ -565,14 +657,16 @@ cudaError_t plan_ring(int tm, int tn, int rpc, int var, int store,
   return smem > optin ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
-// One launch over all nbr block rows, with the ring of plan_ring().
+// One launch over `groups` grid rows of RPC block rows each (the source
+// maps them to block rows), with the ring of plan_ring().
 template <typename T, int TM, int TN, int RPC, int kVar, int kStore,
-          bool kEvict>
-cudaError_t launch(const T* blocks, const T* x, typename Math<T>::Acc* y,
-                   typename Math<T>::Acc* colsum, int nbr, int bs, int K,
-                   int bw, int m, int stages, cudaStream_t stream) {
+          bool kEvict, class Src>
+cudaError_t launch_src(const T* blocks, const T* x, Src src,
+                       typename Math<T>::Acc* y, typename Math<T>::Acc* colsum,
+                       int nbr, long long groups, int bs, int K, int bw, int m,
+                       int stages, cudaStream_t stream) {
   using Acc = typename Math<T>::Acc;
-  auto kernel = banded_spmm_kernel<T, TM, TN, RPC, kVar, kStore, kEvict>;
+  auto kernel = banded_spmm_kernel<T, TM, TN, RPC, kVar, kStore, kEvict, Src>;
   int smem = 0;
   cudaError_t err = plan_ring<T>(TM, TN, RPC, kVar, kStore, stages, smem);
   if (err != cudaSuccess) return err;
@@ -581,19 +675,29 @@ cudaError_t launch(const T* blocks, const T* x, typename Math<T>::Acc* y,
     return cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
   const int vec_a = aligned16(blocks) && bs % V == 0;
-  const int vec_x = aligned16(x) && m % V == 0;
+  const int vec_x = aligned16(x) && src.aligned() && m % V == 0;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
   const int col_tiles = (m + TN - 1) / TN;
   const int row_tiles = (bs + TM - 1) / TM;
-  const long long groups = (nbr + RPC - 1) / RPC;
   const long long grid = groups * row_tiles * col_tiles;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(grid), TM * 2, smem, stream>>>(
-      blocks, x, y, colsum, nbr, bs, K, bw, m, col_tiles, row_tiles, stages,
-      vec_a, vec_x);
+      blocks, x, src, y, colsum, nbr, bs, K, bw, m, col_tiles, row_tiles,
+      stages, vec_a, vec_x);
   return cudaGetLastError();
+}
+
+// One launch over all nbr block rows with kernel 1's masked source.
+template <typename T, int TM, int TN, int RPC, int kVar, int kStore,
+          bool kEvict>
+cudaError_t launch(const T* blocks, const T* x, typename Math<T>::Acc* y,
+                   typename Math<T>::Acc* colsum, int nbr, int bs, int K,
+                   int bw, int m, int stages, cudaStream_t stream) {
+  return launch_src<T, TM, TN, RPC, kVar, kStore, kEvict>(
+      blocks, x, Masked<T>{}, y, colsum, nbr, (nbr + RPC - 1) / RPC, bs, K, bw,
+      m, stages, stream);
 }
 
 // The column tile of the full kernel at width m: the narrowest of 8, 16,
@@ -611,6 +715,35 @@ inline int column_tile(int m) {
 
 // Row tile: 16 rows (one warp) for bs <= 16, else 128 (eight warps).
 inline bool small_rows(int bs) { return bs <= 16; }
+
+// The full kernel over `groups` block rows from the source (kernel 1 and
+// kernel 8), at the row tile and column tile above.
+template <typename T, int TM, class Src>
+cudaError_t launch_full_tm(const T* blocks, const T* x, Src src,
+                           typename Math<T>::Acc* y, int nbr, long long groups,
+                           int bs, int K, int bw, int m, cudaStream_t s) {
+  switch (column_tile(m)) {
+    case 8:
+      return launch_src<T, TM, 8, 1, kFull, kDirect, false>(blocks, x, src, y, nullptr, nbr, groups, bs, K, bw, m, 0, s);
+    case 16:
+      return launch_src<T, TM, 16, 1, kFull, kDirect, false>(blocks, x, src, y, nullptr, nbr, groups, bs, K, bw, m, 0, s);
+    case 32:
+      return launch_src<T, TM, 32, 1, kFull, kDirect, false>(blocks, x, src, y, nullptr, nbr, groups, bs, K, bw, m, 0, s);
+    case 48:
+      return launch_src<T, TM, 48, 1, kFull, kDirect, false>(blocks, x, src, y, nullptr, nbr, groups, bs, K, bw, m, 0, s);
+    default:
+      return launch_src<T, TM, 64, 1, kFull, kDirect, false>(blocks, x, src, y, nullptr, nbr, groups, bs, K, bw, m, 0, s);
+  }
+}
+
+template <typename T, class Src>
+cudaError_t launch_full(const T* blocks, const T* x, Src src,
+                        typename Math<T>::Acc* y, int nbr, long long groups,
+                        int bs, int K, int bw, int m, cudaStream_t s) {
+  return small_rows(bs)
+             ? launch_full_tm<T, 16>(blocks, x, src, y, nbr, groups, bs, K, bw, m, s)
+             : launch_full_tm<T, 128>(blocks, x, src, y, nbr, groups, bs, K, bw, m, s);
+}
 
 // -- measurement variants (banded_spmm_var_*.cu) ---------------------------
 

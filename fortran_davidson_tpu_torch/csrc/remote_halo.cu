@@ -1,22 +1,22 @@
 // The shard-local SpMM of the row-sharded solve's "pallas-remote" backend,
 // for Hopper (sm_90a), in plain CUDA C++ with a C interface (loaded with
-// ctypes by fortran_davidson_tpu_torch/ops/kernels.py). Storage and the
-// shared tile are described in spmm_tile.cuh.
+// ctypes by fortran_davidson_tpu_torch/ops/kernels.py), on kernel 1's
+// template (banded_spmm.cuh).
 //
 //   fdt_banded_remote_halo_spmm_*    replaces banded_remote_halo_spmm
 //       (fortran_davidson_tpu/ops/pallas_kernels.py:1416, body
-//       _banded_remote_kernel :1260): kernel 6's DIA-banded SpMM over a
-//       shard's rows, with the predecessor's last bw*bs rows (top) and
-//       the successor's first bw*bs rows (bot) spliced into the edge
-//       windows.
+//       _banded_remote_kernel :1260): the DIA-banded SpMM over a shard's
+//       rows, with the predecessor's last bw*bs rows (top) and the
+//       successor's first bw*bs rows (bot) spliced into the edge windows.
 //
-// The shard's rows x, top and bot come through three pointers (the tile's
-// kSplit source), so no halo-extended copy x_ext is built. Block row r
-// reads rows [(r - bw) * bs, (r + bw + 1) * bs) of the shard, rows below
-// 0 from top and rows at nbr*bs or above from bot. The loads are unmasked:
-// at the ring's two ends the wrapped halos meet the zero blocks of
-// out-of-range slots, as in the TPU kernel. Values and summation order are
-// kernel 6's, so on the same rows the two give the same bits.
+// It is kernel 1 over other x rows: block row r reads rows
+// [(r - bw) * bs, (r + bw + 1) * bs) of the shard, rows below 0 from top
+// and rows at nbr*bs or above from bot, through three pointers (the
+// template's Split source), so no halo-extended copy x_ext is built. The
+// loads are unmasked: at the ring's two ends the wrapped halos meet the
+// zero blocks of out-of-range slots, as in the TPU kernel. The products and
+// the order of the sums are kernel 1's, so a shard's rows put together give
+// kernel 1's bits on the whole matrix.
 //
 // The TPU kernel pushes its boundary rows to its ring neighbours with
 // remote DMAs from inside the kernel, lets the interior tiles run while
@@ -33,45 +33,44 @@
 // streams is not something CUDA promises; the stream wait between two
 // launches is. Each launch covers a RowRange: [a0, a0 + na) then
 // [b0, b0 + nb), so the two edges are one grid. A range whose windows all
-// lie in the shard (the interior) loads through x alone (the tile's
-// kInside source): the same loads as kernel 6's, without the choice of
-// pointer per element that the edge rows need.
+// lie in the shard (the interior) loads through x alone (the Inside
+// source), without the choice of pointer per chunk that the edge rows need.
 //
-// Types as kernel 6: f64, f32, or bf16 storage summed in f32 (Y written in
-// the accumulation type).
+// Types as kernel 1: f64 on DMMA, f32 on FFMA, bf16 storage on mma.sync
+// summed in f32 (Y written in the accumulation type).
 //
-// What bounds it on the H100: kernel 6's bytes less the x_ext copy: the
-// block table once, x once and the 2*bw*bs*m halo rows, Y written once;
-// HBM at small m, f64/f32 FMA on the CUDA cores from m of about 64 in
-// f64. The design is the shared tile's, not tuned (no tensor cores, no
-// TMA), like the kernels it extends.
+// What bounds it on the H100: kernel 1's bytes plus the 2*bw*bs*m halo
+// rows: the block table once, x and the halos once, Y written once; HBM at
+// the solver's widths, as kernel 1 (banded_spmm.cu). Its design is kernel
+// 1's: the slab streamed once through a cp.async ring, products on tensor
+// cores (f64, bf16).
 
-#include "spmm_tile.cuh"
+#include "banded_spmm.cuh"
 
 namespace {
 
-using fdt::DenseBlocks;
-using Bf16 = __nv_bfloat16;
+using fdt1::Bf16;
+using fdt1::Math;
+using fdt1::RowRange;
 
-template <int kRows, typename T, typename Acc>
-int launch(const T* blocks, const T* x, const T* top, const T* bot, Acc* y,
-           int nbr, int bs, int K, int bw, int m, int a0, int na, int b0,
-           int nb, void* stream) {
-  return fdt::spmm_rows<DenseBlocks<T, Acc>, kRows>(
-      DenseBlocks<T, Acc>{blocks}, {x, top, bot}, nullptr, nullptr, y,
-      fdt::RowRange{a0, na, b0}, static_cast<long long>(na) + nb, bs, K, bw,
-      static_cast<long long>(nbr) * bs, m, stream);
-}
-
-template <typename T, typename Acc>
-int remote(const T* blocks, const T* x, const T* top, const T* bot, Acc* y,
-           int nbr, int bs, int K, int bw, int m, int a0, int na, int b0,
-           int nb, void* stream) {
+template <typename T>
+int remote(const T* blocks, const T* x, const T* top, const T* bot,
+           typename Math<T>::Acc* y, int nbr, int bs, int K, int bw, int m,
+           int a0, int na, int b0, int nb, void* stream) {
+  const long long count = static_cast<long long>(na) + nb;
+  if (count <= 0 || bs <= 0 || m <= 0) return 0;
+  if (K != 2 * bw + 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RowRange rows{a0, na, b0};
   const bool inside = nb == 0 && a0 >= bw && a0 + na <= nbr - bw;
-  return inside ? launch<fdt::kInside>(blocks, x, top, bot, y, nbr, bs, K, bw,
-                                       m, a0, na, b0, nb, stream)
-                : launch<fdt::kSplit>(blocks, x, top, bot, y, nbr, bs, K, bw,
-                                      m, a0, na, b0, nb, stream);
+  const cudaError_t err =
+      inside ? fdt1::launch_full(blocks, x, fdt1::Inside<T>{rows}, y, nbr,
+                                 count, bs, K, bw, m, s)
+             : fdt1::launch_full(blocks, x,
+                                 fdt1::Split<T>{rows, top, bot,
+                                                static_cast<long long>(bw) * bs},
+                                 y, nbr, count, bs, K, bw, m, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace

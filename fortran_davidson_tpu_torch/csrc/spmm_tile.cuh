@@ -1,6 +1,7 @@
 // Tile machinery shared by the block-sparse SpMM kernels of the port
-// (bsr_spmm.cu, banded_gram.cu, halo_spmm.cu, remote_halo.cu), for Hopper
-// (sm_90a). Kernel 1 has its own template (banded_spmm.cuh).
+// (bsr_spmm.cu, banded_gram.cu, halo_spmm.cu), for Hopper (sm_90a).
+// Kernels 1 and 8 have their own template (banded_spmm.cuh), and the
+// float32 int8 apply of kernels 4 and 5 is fused_apply.cuh's.
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
 // block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
@@ -26,23 +27,13 @@
 // multiplies zero blocks there, and 0 * Inf must not enter the sum
 // (the counterpart of fortran_davidson_tpu/ops/pallas_kernels.py:233-244).
 //
-// Three sources of x rows (XRows):
+// Two sources of x rows (XRows):
 // - kMasked: x itself, rows outside [0, x_rows) load as zeros (above);
 // - kInside: x itself where every window lies inside the rows that x
 //   points into, loaded unmasked. halo_spmm.cu points x at the centre of
 //   a halo-extended x_ext (a shard's rows framed by bw block rows of its
 //   ring neighbours' rows on each side), so that every block row's window
-//   is valid: masking there would zero the halo. remote_halo.cu takes a
-//   shard's interior block rows [bw, nbr - bw) this way;
-// - kSplit (remote_halo.cu): a shard's x_rows rows and its halos through
-//   three pointers, no x_ext: rows below 0 come from top (bw * bs rows, at
-//   row + bw * bs), rows at x_rows or above from bot (at row - x_rows), the
-//   rest from x. Unmasked, as kInside; the values and the order of the sums
-//   are those of kInside over the extended rows, so the two give the same
-//   bits.
-//
-// A launch covers the block rows of a RowRange: [a0, a0 + na) and then
-// [b0, b0 + count - na), so one grid can take a shard's two edges.
+//   is valid: masking there would zero the halo.
 
 #pragma once
 
@@ -56,16 +47,7 @@ namespace fdt {
 constexpr int kTK = 16;        // contraction chunk staged per step
 constexpr int kThreadsM = 16;  // threads along the tile's rows
 
-enum XRows { kMasked = 0, kSplit = 1, kInside = 2 };
-
-// The launch's block rows: grid row j is block row a0 + j for j < na,
-// else b0 + (j - na).
-struct RowRange {
-  long long a0, na, b0;
-  __device__ __forceinline__ long long operator()(long long j) const {
-    return j < na ? a0 + j : b0 + (j - na);
-  }
-};
+enum XRows { kMasked = 0, kInside = 1 };
 
 template <int TM, int TN>
 struct Tile {
@@ -145,15 +127,13 @@ __device__ __forceinline__ double add_diag<Int8F64Blocks>(double acc, float d,
 
 // acc = slab(r)[i0:i0+TM, :] @ x_rows(r)[:, c0:c0+TN] (+ d * x_centre when
 // diag is given). cols == nullptr selects the banded rule; kRows where the
-// rows come from (top and bot for kSplit only).
+// rows come from.
 template <typename Load, int TM, int TN, int kRows = kMasked>
 __device__ __forceinline__ void tile_product(
     const Load& ld, const typename Load::X* __restrict__ x,
     const int* __restrict__ cols, const float* __restrict__ diag,
     long long r, int i0, int c0, int bs, int K, int bw, long long x_rows,
-    int m, typename Load::Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN],
-    const typename Load::X* __restrict__ top = nullptr,
-    const typename Load::X* __restrict__ bot = nullptr) {
+    int m, typename Load::Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN]) {
   using Acc = typename Load::Acc;
   using P = Tile<TM, TN>;
   __shared__ Acc As[kTK][TM + 1];  // slab chunk, transposed; +1 avoids bank conflicts
@@ -193,12 +173,7 @@ __device__ __forceinline__ void tile_product(
         } else {
           xr = win0 + gl;
         }
-        if (kRows == kSplit) {
-          const long long halo = static_cast<long long>(bw) * bs;
-          v = cvt<Acc>(xr < 0         ? top[(xr + halo) * m + gc]
-                       : xr >= x_rows ? bot[(xr - x_rows) * m + gc]
-                                      : x[xr * m + gc]);
-        } else if (kRows == kInside || (xr >= 0 && xr < x_rows)) {
+        if (kRows == kInside || (xr >= 0 && xr < x_rows)) {
           v = cvt<Acc>(x[xr * m + gc]);
         }
       }
@@ -256,92 +231,69 @@ __device__ __forceinline__ void store_tile(
   }
 }
 
-// The x rows of a launch: x, and for kSplit the two halos.
-template <typename X>
-struct XSource {
-  const X* x;
-  const X* top;
-  const X* bot;
-};
-
 // Y = A @ X (+ d * x): one thread block per (block row, row tile, column
 // tile); column tiles are the fastest grid index, so the tiles of one
 // block row run together and read its slab from L2 after the first.
 template <typename Load, int TM, int TN, int kRows>
 __global__ void __launch_bounds__(Tile<TM, TN>::kThreads)
-spmm_kernel(Load ld, XSource<typename Load::X> src,
+spmm_kernel(Load ld, const typename Load::X* __restrict__ x,
             const int* __restrict__ cols, const float* __restrict__ diag,
-            typename Load::Acc* __restrict__ y, RowRange rows, int bs, int K,
-            int bw, long long x_rows, int m, int col_tiles, int row_tiles) {
+            typename Load::Acc* __restrict__ y, int bs, int K, int bw,
+            long long x_rows, int m, int col_tiles, int row_tiles) {
   const long long bid = blockIdx.x;
   const int ct = static_cast<int>(bid % col_tiles);
   const long long rt = bid / col_tiles;
-  const long long r = rows(rt / row_tiles);
+  const long long r = rt / row_tiles;
   const int i0 = static_cast<int>(rt % row_tiles) * TM;
   const int c0 = ct * TN;
   typename Load::Acc acc[Tile<TM, TN>::RM][Tile<TM, TN>::RN];
-  tile_product<Load, TM, TN, kRows>(ld, src.x, cols, diag, r, i0, c0, bs, K,
-                                    bw, x_rows, m, acc, src.top, src.bot);
+  tile_product<Load, TM, TN, kRows>(ld, x, cols, diag, r, i0, c0, bs, K, bw,
+                                    x_rows, m, acc);
   store_tile<typename Load::Acc, TM, TN>(y, acc, r, i0, c0, bs, m);
 }
 
 template <typename Load, int TM, int TN, int kRows>
-cudaError_t launch_spmm(const Load& ld, XSource<typename Load::X> src,
+cudaError_t launch_spmm(const Load& ld, const typename Load::X* x,
                         const int* cols, const float* diag,
-                        typename Load::Acc* y, RowRange rows, long long count,
-                        int bs, int K, int bw, long long x_rows, int m,
-                        cudaStream_t stream) {
+                        typename Load::Acc* y, long long nbr, int bs, int K,
+                        int bw, long long x_rows, int m, cudaStream_t stream) {
   const int col_tiles = (m + TN - 1) / TN;
   const int row_tiles = (bs + TM - 1) / TM;
-  const long long grid = count * row_tiles * col_tiles;
+  const long long grid = nbr * row_tiles * col_tiles;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   spmm_kernel<Load, TM, TN, kRows><<<static_cast<unsigned>(grid),
                                      Tile<TM, TN>::kThreads, 0, stream>>>(
-      ld, src, cols, diag, y, rows, bs, K, bw, x_rows, m, col_tiles,
-      row_tiles);
+      ld, x, cols, diag, y, bs, K, bw, x_rows, m, col_tiles, row_tiles);
   return cudaGetLastError();
 }
 
 template <typename Load, int TM, int kRows>
-cudaError_t spmm_by_width(const Load& ld, XSource<typename Load::X> src,
+cudaError_t spmm_by_width(const Load& ld, const typename Load::X* x,
                           const int* cols, const float* diag,
-                          typename Load::Acc* y, RowRange rows,
-                          long long count, int bs, int K, int bw,
-                          long long x_rows, int m, cudaStream_t s) {
+                          typename Load::Acc* y, long long nbr, int bs, int K,
+                          int bw, long long x_rows, int m, cudaStream_t s) {
   if (m <= 8)
-    return launch_spmm<Load, TM, 8, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 8, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
   if (m <= 16)
-    return launch_spmm<Load, TM, 16, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 16, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
   if (m <= 32)
-    return launch_spmm<Load, TM, 32, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
-  return launch_spmm<Load, TM, 64, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
+    return launch_spmm<Load, TM, 32, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  return launch_spmm<Load, TM, 64, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
 }
 
-// Y = A @ X on the current stream for the block rows of ``rows`` (count
-// of them); returns a cudaError_t as int. kSplit and kInside:
-// banded rule only (cols == nullptr).
-template <typename Load, int kRows = kMasked>
-int spmm_rows(const Load& ld, XSource<typename Load::X> src, const int* cols,
-              const float* diag, typename Load::Acc* y, RowRange rows,
-              long long count, int bs, int K, int bw, long long x_rows, int m,
-              void* stream) {
-  if (count <= 0 || bs <= 0 || K <= 0 || m <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bs <= 16
-          ? spmm_by_width<Load, 16, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s)
-          : spmm_by_width<Load, 64, kRows>(ld, src, cols, diag, y, rows, count, bs, K, bw, x_rows, m, s);
-  return static_cast<int>(err);
-}
-
-// Y = A @ X over all nbr block rows.
+// Y = A @ X over all nbr block rows, on the current stream; returns a
+// cudaError_t as int. kInside: banded rule only (cols == nullptr).
 template <typename Load, int kRows = kMasked>
 int spmm(const Load& ld, const typename Load::X* x, const int* cols,
          const float* diag, typename Load::Acc* y, int nbr, int bs, int K,
          int bw, long long x_rows, int m, void* stream) {
-  return spmm_rows<Load, kRows>(ld, {x, nullptr, nullptr}, cols, diag, y,
-                                RowRange{0, nbr, 0}, nbr, bs, K, bw, x_rows,
-                                m, stream);
+  if (nbr <= 0 || bs <= 0 || K <= 0 || m <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bs <= 16
+          ? spmm_by_width<Load, 16, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s)
+          : spmm_by_width<Load, 64, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace fdt

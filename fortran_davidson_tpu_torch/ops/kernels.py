@@ -2,8 +2,9 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (kernels 2, 4 and 6-8 on the shared tile of
-``csrc/spmm_tile.cuh``), and the TPU measurement kernels as variants:
+Eight kernels, in ``csrc/`` (kernels 2, 6 and 7, and the float64-x
+entries of 4 and 5, on the shared SIMT tile of ``csrc/spmm_tile.cuh``),
+and the TPU measurement kernels as variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -20,7 +21,9 @@ Eight kernels, in ``csrc/`` (kernels 2, 4 and 6-8 on the shared tile of
   shared SIMT tile (``csrc/banded_gram.cu``).
 - :func:`banded_q_bsr_spmm` replaces ``banded_q_bsr_spmm``
   (``pallas_kernels.py:755``): int8 off-diagonal blocks with per-slot
-  scales plus the exact diagonal (``csrc/banded_gram.cu``).
+  scales plus the exact diagonal; float32 x on kernel 5's slot-by-slot
+  tensor-core apply (``csrc/q_spmm.cu`` on ``csrc/fused_apply.cuh``),
+  float64 x on the shared tile (``csrc/banded_gram.cu``).
 - :func:`banded_q_bsr_spmm_gram` replaces ``banded_q_bsr_spmm_gram``
   (``pallas_kernels.py:886``): the int8 apply, slot by slot on tensor
   cores, fused with the gram (``csrc/fused_gram.cu``).
@@ -30,20 +33,22 @@ Eight kernels, in ``csrc/`` (kernels 2, 4 and 6-8 on the shared tile of
 - :func:`banded_q_ext_bsr_spmm` replaces ``banded_q_ext_bsr_spmm``
   (``pallas_kernels.py:1059``): the int8 form (``csrc/halo_spmm.cu``).
 - :func:`banded_remote_halo_spmm` replaces ``banded_remote_halo_spmm``
-  (``pallas_kernels.py:1416``): kernel 6 over a shard's rows and its two
-  received halos through three pointers, no halo-extended copy, in an
-  interior and an edge launch (``csrc/remote_halo.cu``).
+  (``pallas_kernels.py:1416``): kernel 1's template over a shard's rows
+  and its two received halos through three pointers, no halo-extended
+  copy, in an interior and an edge launch (``csrc/remote_halo.cu``).
 
 Measurement variants, never called by a path of the port:
 :func:`banded_spmm_variant` (kernel 1's: ``"copy"``, the counterpart of
 ``bench.py:85`` ``_copy_roofline_kernel``, and the ``experiments/``
 SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
-:func:`banded_spmm_plan`) and :func:`fused_gram_variant` (kernels 3 and 5).
+:func:`banded_spmm_plan`) and :func:`fused_gram_variant` (kernels 3 and
+5; kernel 5's bf16-dequant variants in ``csrc/fused_gram_var_bf16.cu``,
+their plain versions :func:`fused_gram_variant_plain`).
 
 What bounds them on the H100, and what the designs do about it, is
-written at the top of each source. Kernels 1, 3 (float32) and 5 run on
-tensor cores (kernel 1 in float32 on FFMA); the others on the shared
-SIMT tile, not tuned yet.
+written at the top of each source. Kernels 1, 3 (float32), 4 (float32 x),
+5 and 8 run on tensor cores (kernels 1 and 8 in float32 on FFMA); the
+others on the shared SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
 summed in float32, as the TPU kernels do); int8 storage takes float32 or
@@ -112,6 +117,15 @@ _ARGTYPES = {
     # quant, variant, nbr, bs, K, m, mv, out[6]
     "fdt_fused_gram_plan": [_I, _I, _I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int)],
+    # q, scale_rows, diag, x, v, ldv, partial, g, nbr, bs, K, bw, m, mv,
+    # n_groups, variant, stream
+    "fdt_fused_q_gram_bf16": [_P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
+    # variant, nbr, bs, K, m, mv, out[6]
+    "fdt_fused_bf16_plan": [_I, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_int)],
+    # nbr, m, out[5]
+    "fdt_q_spmm_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     # blocks, x_ext, y, nbr, bs, K, bw, m, stream
     **{f"fdt_banded_ext_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
     # q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
@@ -300,27 +314,51 @@ def _gram_plain(vv, y):
 # loader (0: float32 blocks, 1: int8), by wrapper name.
 _FUSED_ENTRY = {"banded_bsr_spmm_gram": ("fdt_fused_gram_f32", 0),
                 "banded_q_bsr_spmm_gram": ("fdt_fused_q_gram_f32", 1)}
-# The full kernel, then its measurement variants (:func:`fused_gram_variant`).
-GRAM_VARIANTS = ("full", "nov", "nogram")
+# The fused float32 kernels' variants (csrc/fused_gram.cu): the full
+# kernel, then its measurement variants (:func:`fused_gram_variant`), in
+# the order of their C enum.
+F32_VARIANTS = ("full", "nov", "nogram")
+# Kernel 5's bf16-dequant variants (csrc/fused_gram_var_bf16.cu), in the
+# order of their C enum.
+BF16_VARIANTS = ("bf16deq", "tg_bf16deq", "nov_bf16")
+GRAM_VARIANTS = F32_VARIANTS + BF16_VARIANTS
 FUSED_PLAN_KEYS = ("n_groups", "TN", "C", "MB", "smem_bytes",
                    "clusters_resident")
 
 
-@functools.lru_cache(maxsize=256)
-def fused_gram_plan(device_index: int, quant: int, variant: int, nbr: int,
-                    bs: int, K: int, m: int, mv: int) -> dict:
-    """The layout of a fused float32 call (``csrc/fused_gram.cu``): row
-    groups (one partial of G each: as many clusters as the card holds at
-    once, from the occupancy API), column tile TN, cluster size C, G rows
-    a block MB, dynamic shared memory a block, clusters resident."""
+def _plan(entry: str, device_index: int, what: str, *args) -> dict:
     out = (ctypes.c_int * len(FUSED_PLAN_KEYS))()
     with torch.cuda.device(device_index):
-        err = _library().fdt_fused_gram_plan(quant, variant, nbr, bs, K, m,
-                                             mv, out)
+        err = getattr(_library(), entry)(*args, out)
     if err != 0:
-        raise RuntimeError(f"fdt_fused_gram_plan: CUDA error {err} (nbr="
-                           f"{nbr}, bs={bs}, K={K}, m={m}, mv={mv})")
+        raise RuntimeError(f"{entry}: CUDA error {err} ({what})")
     return dict(zip(FUSED_PLAN_KEYS, out))
+
+
+@functools.lru_cache(maxsize=256)
+def fused_gram_plan(device_index: int, quant: int, variant: str, nbr: int,
+                    bs: int, K: int, m: int, mv: int) -> dict:
+    """The layout of a call of the float32 kernels of ``csrc/fused_gram.cu``
+    (quant 0: float32 blocks, 1: int8; ``variant`` one of
+    :data:`F32_VARIANTS`): row groups (one partial of G each: as many
+    clusters as the card holds at once, from the occupancy API), column
+    tile TN, cluster size C, G rows a block MB, dynamic shared memory a
+    block, clusters resident."""
+    return _plan("fdt_fused_gram_plan", device_index,
+                 f"quant={quant} {variant} nbr={nbr} bs={bs} K={K} m={m} "
+                 f"mv={mv}", quant, F32_VARIANTS.index(variant), nbr, bs, K,
+                 m, mv)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_bf16_plan(device_index: int, variant: str, nbr: int, bs: int,
+                    K: int, m: int, mv: int) -> dict:
+    """The layout of a call of kernel 5's bf16-dequant variants
+    (``csrc/fused_gram_var_bf16.cu``; ``variant`` one of
+    :data:`BF16_VARIANTS`), as :func:`fused_gram_plan` reports it."""
+    return _plan("fdt_fused_bf16_plan", device_index,
+                 f"{variant} nbr={nbr} bs={bs} K={K} m={m} mv={mv}",
+                 BF16_VARIANTS.index(variant), nbr, bs, K, m, mv)
 
 
 def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
@@ -350,15 +388,14 @@ def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
     yp = None if y is None else y.data_ptr()
     if x.dtype == torch.float32:
         entry, quant = _FUSED_ENTRY[name]
-        var = GRAM_VARIANTS.index(variant)
         n_groups = fused_gram_plan(dev.index if dev.index is not None
                                    else torch.cuda.current_device(), quant,
-                                   var, nbr, bs, K, m, mv)["n_groups"]
+                                   variant, nbr, bs, K, m, mv)["n_groups"]
         scratch = torch.empty((n_groups, mv, m), dtype=torch.float32,
                               device=dev)
         _run(entry, dev, *lead_ptrs, x.data_ptr(), vp, ldv, yp,
              scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
-             n_groups, var)
+             n_groups, F32_VARIANTS.index(variant))
     else:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         n_groups = min(nbr, 2 * sms)
@@ -374,35 +411,114 @@ def fused_gram_variant(name: str, lead: tuple, x, v, *, bandwidth: int,
     """One launch of a measurement variant of the float32 kernel 3
     (``name="banded_bsr_spmm_gram"``, ``lead=(blocks,)``) or kernel 5
     (``"banded_q_bsr_spmm_gram"``, ``lead=(qblocks, scale_rows, diag)``)
-    on CUDA tensors, at the main cases' column tile (m in (64, 128] for
-    kernel 3, (16, 24] for kernel 5); returns G, (mv, m).
+    on CUDA tensors; returns G, (mv, m) float32.
 
     ``"nov"`` reads no V; ``"nogram"`` streams V as the full kernel does
     and skips the gram product; both reduce Y to its column sums, which
-    they return in G's row 0 (the other rows are zero). With the full
-    kernel they split its time into apply, V stream and gram (the
-    counterparts of ``experiments/fused_probe.py``'s ``nov`` and
-    ``nogram``). Not counted in the wrappers' launches; the port's paths
-    never call it."""
+    they return in G's row 0 (the other rows are zero), at the main cases'
+    column tile (128 for kernel 3; 24 or 128 for kernel 5, as at m = 20
+    and at the probe's m = 256), on float32 x and v. With the full kernel
+    they split its time into apply, V stream and gram (the counterparts of
+    ``experiments/fused_probe.py``'s ``nov`` and ``nogram``).
+
+    Kernel 5 only, on bf16 x (n, m) and bf16 v (n, mv), any m and mv:
+    ``"bf16deq"``, ``"tg_bf16deq"`` and ``"nov_bf16"`` (v None), the
+    probe's bf16-dequant modes: the blocks dequantized and rounded to bf16,
+    bf16 products with float32 sums, d ∘ x in float32; G = vᵀ bf16(Y) one
+    block row at a time, or after several rows' bf16(Y) are staged, or
+    (``"nov_bf16"``) Y's float32 column sums in G's row 0
+    (:func:`fused_gram_variant_plain`).
+
+    Not counted in the wrappers' launches; the port's paths never call it.
+    What no kernel takes raises before anything launches."""
     if variant not in GRAM_VARIANTS[1:]:
         raise ValueError(f"variant must be one of {GRAM_VARIANTS[1:]}, got "
                          f"{variant!r}")
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise NotImplementedError(f"{name} {variant}: float32 CUDA tensors "
+    bf16 = variant in BF16_VARIANTS
+    if bf16:
+        if name != "banded_q_bsr_spmm_gram":
+            raise ValueError(f"{variant} is a variant of "
+                             "banded_q_bsr_spmm_gram only")
+        if (v is None) != (variant == "nov_bf16"):
+            raise ValueError(f"{variant}: v must be "
+                             + ("None" if variant == "nov_bf16" else "given"))
+    want = torch.bfloat16 if bf16 else torch.float32
+    if x.device.type != "cuda" or x.dtype != want or (
+            v is not None and v.dtype != want):
+        raise NotImplementedError(f"{name} {variant}: {want} CUDA tensors "
                                   "only")
     _check_v(v, x)
     if name == "banded_q_bsr_spmm_gram":
         K = _check_quantized(*lead, x, bandwidth)
-        ptrs = _quantized_args(name, *lead, x)
+        ptrs = _quantized_args(name, *lead, x, (want,) if bf16 else None)
     else:
         K = _check_banded(lead[0], x, bandwidth)
         _dense_suffix(name, lead[0], x)
         _require_contiguous(name, lead[0], x)
         ptrs = (lead[0].data_ptr(),)
     nbr, bs, _ = lead[0].shape
-    _, g, _ = _gram_launch(name, "f32", ptrs, x, v, False, torch.float32,
-                           nbr, bs, K, int(bandwidth), variant)
+    if not bf16:
+        _, g, _ = _gram_launch(name, "f32", ptrs, x, v, False, torch.float32,
+                               nbr, bs, K, int(bandwidth), variant)
+        return g
+    if v is not None and v.shape[1] > 1 and v.stride(1) != 1:
+        raise ValueError(f"{name}: v's rows must be contiguous (any row "
+                         "stride)")
+    n, m = x.shape
+    mv = m if v is None else v.shape[1]
+    g = torch.empty((mv, m), dtype=torch.float32, device=x.device)
+    if g.numel() and n:
+        dev = x.device.index
+        n_groups = fused_bf16_plan(torch.cuda.current_device() if dev is None
+                                   else dev, variant, nbr, bs, K, m,
+                                   mv)["n_groups"]
+        scratch = torch.empty((n_groups, mv, m), dtype=torch.float32,
+                              device=x.device)
+        _run("fdt_fused_q_gram_bf16", x.device, *ptrs, x.data_ptr(),
+             None if v is None else v.data_ptr(),
+             m if v is None else v.stride(0), scratch.data_ptr(),
+             g.data_ptr(), nbr, bs, K, int(bandwidth), m, mv, n_groups,
+             BF16_VARIANTS.index(variant))
     return g
+
+
+def q_dequant_bf16(qblocks, scale_rows):
+    """The blocks of the bf16-dequant variants: bf16(bf16(q) · bf16(s))
+    (``experiments/fused_probe.py:67-69``): q exact in bf16, the product
+    of two bf16 values exact in float32, one rounding to bf16."""
+    return (qblocks.to(torch.bfloat16)
+            * scale_rows[:, None, :].to(torch.bfloat16))
+
+
+def q_bf16_apply_plain(qblocks, scale_rows, diag, x, bandwidth: int):
+    """Y of the bf16-dequant variants (``fused_probe.py:44-77``, dequant
+    ``"bf16"``): :func:`q_dequant_bf16` blocks times the bf16 window of x
+    (exact products, float32 sums), plus d ∘ x in float32."""
+    y = banded_bsr_spmm_plain(q_dequant_bf16(qblocks, scale_rows), x,
+                              bandwidth, out_dtype=torch.float32)
+    return y + diag.reshape(-1, 1) * x.to(torch.float32)
+
+
+def fused_gram_variant_plain(name: str, lead: tuple, x, v, *,
+                             bandwidth: int, variant: str):
+    """Plain PyTorch version of kernel 5's bf16-dequant variants
+    (:func:`fused_gram_variant`; ``experiments/fused_probe.py:44-130``):
+    Y = :func:`q_dequant_bf16` blocks times the bf16 window of x, summed in
+    float32, plus d ∘ x in float32; then G = vᵀ bf16(Y) in float32 for
+    ``"bf16deq"`` and ``"tg_bf16deq"`` (one function, two summation orders
+    on the card), or for ``"nov_bf16"`` an (m, m) G whose row 0 is Y's
+    column sums and the rest zeros. Only the tests and ``chip_smoke.py``
+    call it."""
+    if variant not in BF16_VARIANTS or name != "banded_q_bsr_spmm_gram":
+        raise ValueError(f"plain versions exist for banded_q_bsr_spmm_gram's "
+                         f"{BF16_VARIANTS}, not {name} {variant!r}")
+    y = q_bf16_apply_plain(*lead, x, bandwidth)
+    if variant == "nov_bf16":
+        g = torch.zeros((x.shape[1], x.shape[1]), dtype=torch.float32,
+                        device=x.device)
+        g[0] = y.sum(dim=0)
+        return g
+    return v.to(torch.float32).T @ y.to(torch.bfloat16).to(torch.float32)
 
 
 # -- kernel 1: DIA-banded SpMM ------------------------------------------
@@ -751,12 +867,15 @@ def _check_quantized(qblocks, scale_rows, diag, x, bandwidth: int,
     return K
 
 
-def _quantized_args(name: str, qblocks, scale_rows, diag, x) -> tuple:
+def _quantized_args(name: str, qblocks, scale_rows, diag, x,
+                    x_types=None) -> tuple:
     """Type and layout checks of the int8 kernels; their leading pointers.
-    x is float32 or float64 (an entry each), never cast."""
-    if x.dtype not in (torch.float32, torch.float64):
+    x is float32 or float64 (an entry each; ``x_types`` for another
+    entry's), never cast."""
+    x_types = x_types or (torch.float32, torch.float64)
+    if x.dtype not in x_types:
         raise NotImplementedError(
-            f"{name}: {x.dtype} x has no CUDA kernel (float32 or float64 x)")
+            f"{name}: {x.dtype} x has no CUDA kernel (x of {x_types})")
     if (qblocks.dtype != torch.int8 or scale_rows.dtype != torch.float32
             or diag.dtype != torch.float32):
         raise ValueError(f"{name}: need int8 qblocks with float32 scale_rows "
@@ -808,6 +927,24 @@ def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, bandwidth: int,
 
 
 banded_q_bsr_spmm.launches = 0
+
+Q_SPMM_PLAN_KEYS = ("TN", "smem_bytes", "blocks_per_sm", "col_tiles",
+                    "n_groups")
+
+
+@functools.lru_cache(maxsize=256)
+def q_spmm_plan(device_index: int, nbr: int, m: int) -> dict:
+    """The layout of a float32-x launch of kernel 4 (``csrc/q_spmm.cu``):
+    column tile, dynamic shared memory a block, blocks an SM, column tiles,
+    row groups (blocks a column tile, each walking a range of block
+    rows)."""
+    out = (ctypes.c_int * len(Q_SPMM_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = _library().fdt_q_spmm_plan(nbr, m, out)
+    if err != 0:
+        raise RuntimeError(f"fdt_q_spmm_plan: CUDA error {err} (nbr={nbr}, "
+                           f"m={m})")
+    return dict(zip(Q_SPMM_PLAN_KEYS, out))
 
 
 # -- kernel 5: int8 DIA-banded SpMM + Gram ------------------------------

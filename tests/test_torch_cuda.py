@@ -183,8 +183,11 @@ def test_gram_variants_reduce_y(cuda_device):
     # column sums in G's row 0 at the main cases' widths.
     dev = cuda_device
     nbr, bs, bw = 17, 128, 1
-    for (kernel, plain, lead), m, mv in zip(_gram_cases(dev, nbr, bs, bw, 14),
-                                            (128, 20), (1408, 220)):
+    cases = list(zip(_gram_cases(dev, nbr, bs, bw, 14), (128, 20),
+                     (1408, 220)))
+    # Kernel 5 at the probe's width too (m = mv = 256, a column tile of 128).
+    cases.append((cases[1][0], 256, 256))
+    for (kernel, plain, lead), m, mv in cases:
         x = torch.randn((nbr * bs, m), device=dev)
         v = torch.randn((nbr * bs, mv), device=dev)
         y = plain(*lead, x, v, bandwidth=bw)[0]
@@ -226,6 +229,167 @@ def test_int8_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(
         y, kernels.banded_q_bsr_spmm_plain(q.qblocks, q.scale_rows, q.diag,
                                            x, 2), **_tol(torch.float32))
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 44, 64, 256])
+@pytest.mark.parametrize("bs,bw", [(24, 1), (24, 2), (128, 1)])
+def test_int8_tensor_core_kernel(cuda_device, m, bs, bw):
+    # Kernel 4's float32 entry (csrc/q_spmm.cu, kernel 5's slot-by-slot
+    # apply): 17 block rows, ragged against the 16-row tiles and the column
+    # tiles; x framed by NaN rows, so a read outside [0, n) brings a NaN
+    # into Y. Within 1e-5 of max|Y| of the plain version (TF32 products of
+    # x hi and lo, another order of sums), the same bits twice, and Y of
+    # kernel 5 on the same inputs bit for bit (one apply, one epilogue).
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(17, bs, bandwidth=bw, seed=m + bs,
+                                           device=dev)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    x = _framed(torch.randn((q.shape[0], m), device=dev), bw * bs)
+    before = kernels.banded_q_bsr_spmm.launches
+    y = kernels.banded_q_bsr_spmm(*lead, x, bw)
+    assert kernels.banded_q_bsr_spmm.launches == before + 1
+    assert y.dtype == torch.float32 and bool(torch.all(torch.isfinite(y)))
+    yp = kernels.banded_q_bsr_spmm_plain(*lead, x.clone(), bw)
+    assert float((y - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert torch.equal(y, kernels.banded_q_bsr_spmm(*lead, x, bw))
+    y5, _ = kernels.banded_q_bsr_spmm_gram(*lead, x, None, bandwidth=bw)
+    assert torch.equal(y, y5)
+    # The band alone (the diagonal zeroed): with the diagonal in, the
+    # coupling-1e-3 band is ~1e-6 of max|Y|, under the limit above.
+    band = (q.qblocks, q.scale_rows, torch.zeros_like(q.diag))
+    yb = kernels.banded_q_bsr_spmm(*band, x, bw)
+    ybp = kernels.banded_q_bsr_spmm_plain(*band, x.clone(), bw)
+    assert float((yb - ybp).abs().max()) <= 1e-5 * float(ybp.abs().max())
+
+
+def _exact_int8(dev, nbr, bs, bw, m, mv, seed):
+    """Int8 operands and inputs on which every product and every sum of
+    kernel 4, kernel 5's bf16-dequant variants and their plain versions is
+    exact in float32 (and bf16(q) * bf16(s) exact in bf16), whatever the
+    order: q in [-15, 15] (zero in the slots past the matrix's ends), one
+    scale of 2^-4 or 2^-5 a (block row, slot), an integer diagonal in
+    [-2, 2], x and v in {-1, 0, 1}. Y and G are multiples of 2^-5 below
+    2^15, so a kernel matches its plain version bit for bit, and a dropped
+    slot, a wrong scale or a wrong window changes the bits."""
+    gen = torch.Generator().manual_seed(seed)
+    K = 2 * bw + 1
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi + 1, shape, generator=gen)
+    q = ints(-15, 15, nbr, bs, K, bs)
+    for k in range(K):                    # slot k holds block (i, i + k - bw)
+        for i in range(nbr):
+            if not 0 <= i + k - bw < nbr:
+                q[i, :, k] = 0
+    scale = torch.pow(2.0, -4.0 - ints(0, 1, nbr, K, 1).float())
+    lead = (q.reshape(nbr, bs, K * bs).to(torch.int8).to(dev),
+            scale.expand(nbr, K, bs).reshape(nbr, K * bs).contiguous().to(dev),
+            ints(-2, 2, nbr, bs).float().to(dev))
+    return (lead, ints(-1, 1, nbr * bs, m).float().to(dev),
+            ints(-1, 1, nbr * bs, mv).float().to(dev))
+
+
+@pytest.mark.parametrize("m", [1, 20, 64, 256])
+@pytest.mark.parametrize("bs,bw", [(24, 1), (24, 2), (128, 1)])
+def test_int8_kernels_exact_on_exact_inputs(cuda_device, m, bs, bw):
+    # Kernel 4 (float32 x) and kernel 5's bf16-dequant variants, bit for
+    # bit against their plain versions, on and off the diagonal, where no
+    # rounding can hide a fault in the band (see _exact_int8).
+    lead, x, v = _exact_int8(cuda_device, 17, bs, bw, m, 40, m + bs + bw)
+    band = (*lead[:2], torch.zeros_like(lead[2]))
+    for ld in (lead, band):
+        y = kernels.banded_q_bsr_spmm(*ld, x, bw)
+        assert torch.equal(y, kernels.banded_q_bsr_spmm_plain(*ld, x, bw))
+        xb, vb = x.to(torch.bfloat16), v.to(torch.bfloat16)
+        for variant in kernels.BF16_VARIANTS:
+            vv = None if variant == "nov_bf16" else vb
+            g = kernels.fused_gram_variant(
+                "banded_q_bsr_spmm_gram", ld, xb, vv, bandwidth=bw,
+                variant=variant)
+            assert torch.equal(g, kernels.fused_gram_variant_plain(
+                "banded_q_bsr_spmm_gram", ld, xb, vv, bandwidth=bw,
+                variant=variant)), variant
+
+
+def _bf16_variant_check(lead, x, v, bw, variant):
+    """One launch of a bf16-dequant variant of kernel 5 against
+    fused_gram_variant_plain, and a second launch's bits. G within 2^-7 of
+    |V|ᵀ|Y| elementwise (a Y sum in another order can round to the
+    neighbouring bf16 value before the gram); nov_bf16's row 0 within 1e-5
+    of Y's column sums of |Y|, the other rows 0."""
+    g = kernels.fused_gram_variant("banded_q_bsr_spmm_gram", lead, x, v,
+                                   bandwidth=bw, variant=variant)
+    gp = kernels.fused_gram_variant_plain(
+        "banded_q_bsr_spmm_gram", lead, x.clone(),
+        None if v is None else v.clone(), bandwidth=bw, variant=variant)
+    assert g.dtype == torch.float32 and g.shape == gp.shape
+    assert bool(torch.all(torch.isfinite(g)))
+    y = kernels.q_bf16_apply_plain(*lead, x.clone(), bw)
+    if v is None:
+        assert not bool(torch.any(g[1:]))
+        bound = 1e-5 * y.double().abs().sum(0)
+        assert bool(torch.all((g[0].double() - gp[0].double()).abs() <= bound))
+    else:
+        _assert_gram_close(g, gp, v.float(), y, rel=2.0 ** -7)
+    again = kernels.fused_gram_variant("banded_q_bsr_spmm_gram", lead, x, v,
+                                       bandwidth=bw, variant=variant)
+    assert torch.equal(g, again), "the G reduction is not deterministic"
+
+
+@pytest.mark.parametrize("variant,mv", [("bf16deq", 40), ("bf16deq", 220),
+                                        ("tg_bf16deq", 40),
+                                        ("tg_bf16deq", 220),
+                                        ("nov_bf16", None)])
+@pytest.mark.parametrize("m", [1, 20, 64, 256])
+@pytest.mark.parametrize("bw", [1, 2])
+def test_bf16_dequant_variants_match_plain(cuda_device, variant, mv, m, bw):
+    # Kernel 5's bf16-dequant variants (csrc/fused_gram_var_bf16.cu): 17
+    # block rows of bs 24 (ragged against the 16-row tiles, an odd count
+    # for tg_bf16deq's tiles of two block rows); x and v bf16, framed by NaN
+    # rows (v also by NaN columns past mv, ldv = mv + 3). nov_bf16 reads no
+    # v.
+    dev = cuda_device
+    bs = 24
+    q = fdtt.generate_banded_bsr_quantized(17, bs, bandwidth=bw, seed=m + bw,
+                                           device=dev)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    x = _framed(torch.randn((q.shape[0], m), device=dev).to(torch.bfloat16),
+                bw * bs)
+    v = None if variant == "nov_bf16" else _framed(
+        torch.randn((q.shape[0], mv), device=dev).to(torch.bfloat16), bw * bs,
+        cols=3)
+    _bf16_variant_check(lead, x, v, bw, variant)
+
+
+def test_bf16_dequant_variants_at_the_probe_widths(cuda_device):
+    # The probe's shape cut to 64 block rows (bs 128, bw 2, m = mv = 256:
+    # two column tiles, a cluster of two blocks), contiguous x and v.
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(64, 128, bandwidth=2, seed=3,
+                                           device=dev)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    x = torch.randn((q.shape[0], 256), device=dev).to(torch.bfloat16)
+    v = torch.randn((q.shape[0], 256), device=dev).to(torch.bfloat16)
+    for variant in kernels.BF16_VARIANTS:
+        _bf16_variant_check(lead, x, None if variant == "nov_bf16" else v, 2,
+                            variant)
+
+
+def test_bf16_dequant_variants_refuse(cuda_device):
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(8, 16, bandwidth=1, device=dev)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    x = torch.zeros((q.shape[0], 8), dtype=torch.bfloat16, device=dev)
+    call = kernels.fused_gram_variant
+    with pytest.raises(NotImplementedError):      # float32 x
+        call("banded_q_bsr_spmm_gram", lead, x.float(), x.float(),
+             bandwidth=1, variant="bf16deq")
+    with pytest.raises(ValueError):               # kernel 3's name
+        call("banded_bsr_spmm_gram", (q.qblocks,), x, x, bandwidth=1,
+             variant="bf16deq")
+    with pytest.raises(ValueError):               # nov_bf16 takes no v
+        call("banded_q_bsr_spmm_gram", lead, x, x, bandwidth=1,
+             variant="nov_bf16")
 
 
 def test_edge_rows_never_read_past_the_window(cuda_device):
@@ -512,8 +676,22 @@ def test_remote_kernel_matches_plain_and_kernel_6(cuda_device, dtype, m, bw):
                                         out_dtype=acc)
     assert kernels.banded_remote_halo_spmm.launches == before + 2
     assert y.dtype == acc and y.shape == (nbr * bs, m)
-    assert torch.equal(y, kernels.banded_ext_bsr_spmm(
-        blocks, torch.cat([prev, x, nxt]), bandwidth=bw, out_dtype=acc))
+    ext = torch.cat([prev, x, nxt])
+    # Kernel 1 on the same rows: the slab framed by bw zero block rows on
+    # each side, over x_ext, reads every shard row's window unmasked from
+    # the same values and sums it in the same order (kernel 8 is kernel 1's
+    # template): the same bits in every type.
+    frame = torch.zeros((bw, bs, blocks.shape[2]), dtype=dtype,
+                        device=cuda_device)
+    assert torch.equal(y, kernels.banded_bsr_spmm(
+        torch.cat([frame, blocks, frame]), ext, bw,
+        out_dtype=acc)[halo:-halo])
+    if dtype != torch.bfloat16:
+        # Kernel 6's SIMT FMAs take the same order in f64 and f32; bf16
+        # storage on mma.sync sums otherwise (checked against kernel 1 and
+        # the plain version instead).
+        assert torch.equal(y, kernels.banded_ext_bsr_spmm(
+            blocks, ext, bandwidth=bw, out_dtype=acc))
     torch.testing.assert_close(
         y, kernels.banded_remote_halo_spmm_plain(blocks, x, prev, nxt,
                                                  bandwidth=bw, out_dtype=acc),
@@ -539,22 +717,29 @@ def test_remote_kernel_all_edge_rows(cuda_device, nbr, bw):
         blocks, torch.cat([prev, x, nxt]), bandwidth=bw))
 
 
-def test_four_slabs_through_their_neighbours_rows(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_four_slabs_through_their_neighbours_rows(cuda_device, dtype, bs):
     # Four shards on one card, each slab's rows in a buffer of its own and
     # its kernel 8 reading its ring neighbours' rows there (no x_ext): put
-    # together, kernel 1 on the whole matrix, bit for bit.
-    slabs, nbr, bs, bw = 4, 64, 16, 2
+    # together, kernel 1 on the whole matrix, bit for bit, in every storage
+    # type (at the ring's ends the wrapped rows meet zero blocks).
+    slabs, nbr, bw = 4, 64, 2
     op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=9,
                                   device=cuda_device)
     nl, halo = nbr // slabs, bw * bs
+    blocks = op.blocks.to(dtype)
+    acc = kernels.acc_dtype(dtype)
     x = torch.randn((op.shape[0], 20), dtype=torch.float64,
-                    device=cuda_device)
+                    device=cuda_device).to(dtype)
     rows = [_apart(t, halo) for t in x.split(nl * bs)]
     parts = [kernels.banded_remote_halo_spmm(
-        op.blocks[s * nl:(s + 1) * nl], rows[s], rows[s - 1][-halo:],
-        rows[(s + 1) % slabs][:halo], bandwidth=bw) for s in range(slabs)]
+        blocks[s * nl:(s + 1) * nl], rows[s], rows[s - 1][-halo:],
+        rows[(s + 1) % slabs][:halo], bandwidth=bw, out_dtype=acc)
+        for s in range(slabs)]
     assert torch.equal(torch.cat(parts),
-                       kernels.banded_bsr_spmm(op.blocks, x, bw))
+                       kernels.banded_bsr_spmm(blocks, x, bw, out_dtype=acc))
 
 
 def test_remote_kernel_refuses_what_it_does_not_take(cuda_device):

@@ -319,22 +319,140 @@ def test_new_wrappers_take_the_plain_version_on_the_cpu():
                                      torch.zeros((5, 2)), bandwidth=1)
 
 
-@pytest.mark.parametrize("variant", ["nov", "nogram", "full", "rowgram"])
+@pytest.mark.parametrize("variant", ["nov", "nogram", "full", "rowgram",
+                                     "bf16deq", "tg_bf16deq", "nov_bf16"])
 def test_gram_variants_refuse_what_no_kernel_takes(variant):
     # The measurement variants of kernels 3 and 5 exist only as CUDA
     # kernels: a CPU tensor, or a name that is not a variant, raises
     # before anything launches (there is no plain version to fall back on).
+    # The bf16-dequant ones are kernel 5's alone and take v only where the
+    # probe's mode has one: kernel 3's name, or v missing, is a ValueError.
     q = _quantized(16, 1, seed=3)
     lead = _q_torch(q)
     X = torch.from_numpy(_x(q.shape[0], 4, jnp.float32))
     counts = [fn.launches for fn in kernels.KERNELS]
-    err = NotImplementedError if variant in ("nov", "nogram") else ValueError
     for name, args in (("banded_q_bsr_spmm_gram", lead),
                        ("banded_bsr_spmm_gram", (torch.zeros((16, 8, 24)),))):
+        kernel5 = name == "banded_q_bsr_spmm_gram"
+        err = (NotImplementedError
+               if variant in ("nov", "nogram")
+               or (variant == "nov_bf16" and kernel5) else ValueError)
         with pytest.raises(err):
             kernels.fused_gram_variant(name, args, X, None, bandwidth=1,
                                        variant=variant)
+        if variant in kernels.BF16_VARIANTS and kernel5:
+            # bf16 x and v on the CPU: no kernel, no fallback.
+            xb = X.to(torch.bfloat16)
+            with pytest.raises(NotImplementedError):
+                kernels.fused_gram_variant(
+                    name, args, xb, None if variant == "nov_bf16" else xb,
+                    bandwidth=1, variant=variant)
     assert [fn.launches for fn in kernels.KERNELS] == counts
+
+
+# -- kernel 5's bf16-dequant variants: plain versions against the probe ---
+
+def _probe_module():
+    """``experiments/fused_probe.py``, loaded as a module (its row function
+    runs on jnp arrays on the CPU)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "experiments" / \
+        "fused_probe.py"
+    spec = importlib.util.spec_from_file_location("fused_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _probe_quantized(nbr, bs, bw):
+    """The probe's operator (``fused_probe.py:208-214``) at a small size:
+    coupling 1e-3, scaled by 1 / (nbr * bs * 2), int8-quantized."""
+    base = generate_banded_bsr(nbr, bs, bandwidth=bw, coupling=1e-3,
+                               dtype=jnp.float32)
+    scale = 1.0 / (nbr * bs * 2.0)
+    base = type(base)(base.block_cols, base.blocks * scale,
+                      backend=base.backend, bandwidth=base.bandwidth)
+    return quantize_banded_int8(base)
+
+
+def _bf16_values(n, m, seed):
+    """bf16 values as float32 numpy (exact in both packages' bf16)."""
+    x = np.random.default_rng(seed).standard_normal((n, m)).astype(np.float32)
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16), np.float32)
+
+
+@pytest.mark.parametrize("nbr,bw", [(16, 1), (24, 2)])
+def test_bf16_dequant_blocks_match_the_probe(nbr, bw):
+    # bf16(q) * bf16(s), rounded to bf16 (fused_probe.py:67-69), bit for bit.
+    q = _probe_quantized(nbr, 16, bw)
+    ref = (q.qblocks.astype(jnp.bfloat16)
+           * q.scale_rows[:, None, :].astype(jnp.bfloat16))
+    out = kernels.q_dequant_bf16(*_q_torch(q)[:2])
+    assert out.dtype == torch.bfloat16
+    ref_bits = np.asarray(ref).view(np.uint16)
+    assert np.array_equal(out.view(torch.int16).numpy().view(np.uint16),
+                          ref_bits)
+
+
+@pytest.mark.parametrize("variant", ["bf16deq", "tg_bf16deq", "nov_bf16"])
+@pytest.mark.parametrize("nbr,bw,m", [(16, 1, 20), (24, 2, 7)])
+def test_bf16_variant_plain_matches_the_probe(variant, nbr, bw, m):
+    # fused_gram_variant_plain against fused_probe._spmm_row(...,
+    # dequant="bf16") on the zero-padded x as a one-slot window buffer, and
+    # the probe's gram: per block row (bf16deq, :92-95), per tile of two
+    # block rows (tg_bf16deq, :109-112), or Y's column sums (nov_bf16,
+    # :161-165). Y within 1e-6 of max|Y| (float32 sums in another order).
+    # G within 2^-7 of |V|ᵀ|Y| elementwise: a Y sum in another order can
+    # round to the neighbouring bf16 value before the gram.
+    import jax
+    probe = _probe_module()
+    bs = 16
+    q = _probe_quantized(nbr, bs, bw)
+    K = 2 * bw + 1
+    n = nbr * bs
+    X = _bf16_values(n, m, seed=nbr + m)
+    V = _bf16_values(n, 12, seed=nbr + m + 1)
+    xb, vb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (X, V))
+    xbuf = jnp.pad(xb, ((bw * bs, bw * bs), (0, 0)))[None]
+    rows = [probe._spmm_row(q.qblocks, q.scale_rows, q.diag, xbuf, i, 0, K=K,
+                            bw=bw, dequant="bf16") for i in range(nbr)]
+    y_ref = np.concatenate([np.asarray(r) for r in rows])
+
+    def vty(v, y):
+        return jax.lax.dot_general(
+            v, y.astype(jnp.bfloat16), (((0,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)
+
+    if variant == "bf16deq":
+        g_ref = sum(vty(vb[i * bs:(i + 1) * bs], rows[i]) for i in range(nbr))
+    elif variant == "tg_bf16deq":
+        g_ref = sum(vty(vb[i * bs:(i + 2) * bs],
+                        jnp.concatenate(rows[i:i + 2]))
+                    for i in range(0, nbr, 2))
+    else:
+        g_ref = jnp.zeros((m, m), jnp.float32).at[0].set(
+            sum(jnp.sum(r, axis=0) for r in rows))
+    g_ref = np.asarray(g_ref, np.float64)
+
+    lead = _q_torch(q)
+    xt = torch.from_numpy(X).to(torch.bfloat16)
+    vt = torch.from_numpy(V).to(torch.bfloat16)
+    y = to_numpy(kernels.q_bf16_apply_plain(*lead, xt, bw))
+    np.testing.assert_allclose(y, y_ref, rtol=0,
+                               atol=1e-6 * np.max(np.abs(y_ref)))
+    g = kernels.fused_gram_variant_plain(
+        "banded_q_bsr_spmm_gram", lead, xt,
+        None if variant == "nov_bf16" else vt, bandwidth=bw, variant=variant)
+    assert g.dtype == torch.float32
+    g = to_numpy(g)
+    if variant == "nov_bf16":
+        assert g.shape == (m, m) and not np.any(g[1:])
+        bound = 1e-6 * np.sum(np.abs(y_ref), axis=0)
+        assert np.all(np.abs(g[0] - g_ref[0]) <= bound)
+    else:
+        assert g.shape == (12, m)
+        assert np.all(np.abs(g - g_ref) <= _gram_bound(V, y_ref, 2.0 ** -7))
 
 
 # -- float64 x on int8 storage (kernels 4, 5, 7) --------------------------
