@@ -61,17 +61,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      the probe's shape (``PROBE``, m = mv = 256) and at kernel 5's main
      case (int8 m=20 mv=220);
    - the halo kernels (6: banded SpMM over a shard's halo-extended rows,
-     7: its int8 form), ragged and at full size (f64 m = 6-160, int8
-     m = 20, 40), and four shards on one card: both matrices cut into
-     four row slabs, each applied by kernel 6/7 to its ring-wrapped
-     x_ext; put together they must equal kernel 1 on the whole matrix
-     bit for bit (f64) and kernel 4 within 1e-7 of max|Y|.
+     on kernel 1's design, its TMA route where ``kernels.ext_spmm_route``
+     allows, else kernel 1's cp.async template; 7: its int8 form, float32
+     x on kernel 4's apply), ragged and at full size (f64 m = 6-160 beside
+     kernels 1 and 8 at the same widths, with each width's route; int8
+     m = 20, 40), x_ext framed by NaN rows; kernel 6's two routes timed in
+     turns at its main case (f64 m=40), each call alone and 10 calls back
+     to back, beside the one-call bmm yardstick, with the host time of a
+     call on each route; both kernels on the band alone (kernel 6's centre
+     slot zeroed, kernel 7's diagonal zeroed, the tables rolled by half
+     the shard so that its edge rows read the halos), ragged and at the
+     main case, within TOL of max|Y_band|, a limit that outputs with a
+     fault (band dropped, slot 0 dropped, slots reversed, halo rows
+     zeroed; made by the plain version) must exceed; and four shards on
+     one card: both matrices cut into four row slabs, each applied by
+     kernel 6/7 to its ring-wrapped x_ext; put together they must equal
+     kernel 1 on the whole matrix bit for bit in f64, f32 and bf16
+     storage, and kernel 4's Y exactly.
    - kernel 8 (kernel 1's template over a shard's rows and its two halos
      through three pointers, in the halo operator's interior and edge
      launches, each part in a buffer of its own framed by NaN rows), ragged
      and at full size (m = 6-160) in f64, f32 and bf16 storage, against its
-     plain version and bit for bit against kernel 1 on the same rows (and
-     kernel 6 in f64 and f32); and in the four-slab check, each slab's rows
+     plain version and bit for bit against kernel 1 on the same rows and
+     kernel 6; and in the four-slab check, each slab's rows
      in a buffer of its own and its halos pointing into its ring
      neighbours' buffers (no x_ext), equal to kernel 1 bit for bit in f64,
      f32 and bf16.
@@ -129,7 +141,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    x_ext); kernels 1 and 6 never launch.
 9. One halo apply of the ``"pallas-remote"`` path against the
    ``"pallas"`` path at m = 20, 40, 160: the same bits; CUDA-event and
-   host-clock times of both, in turns, and of each exchange alone.
+   host-clock times of both, in turns, of each exchange alone, and of the
+   ``"pallas"`` path's two other parts alone: the ``torch.cat`` into
+   x_ext and kernel 6.
 10. Prints the solves' and kernels' JSON lines (launch counts of the solve
    phases 4-8, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
@@ -139,9 +153,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nogram_ms`` the split above; each kernel's ``bound_ms``, the larger
    of its bytes over 3.35 TB/s and its operations over the H100's peak
    for their type at that type's accuracy (float32: 3xTF32, 165 TFLOP/s),
-   and ``library_ms``, one ``torch.sparse_bsr_tensor`` product where
-   one computes the same function), the card's name and power limit, and
-   as the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   and ``library_ms``, one PyTorch call that computes the same function:
+   ``torch.sparse_bsr_tensor @ x`` (cuSPARSE) for kernels 1 and 2, and
+   for kernel 6 ``torch.bmm`` over the window view of x_ext (cuSPARSE
+   beside it); the bounds of the probes' rows at their shapes), the
+   card's name and power limit, and as the last line
+   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
 """
@@ -156,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 SOURCES = {
     "banded_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_spmm.cu",
@@ -168,8 +186,10 @@ SOURCES = {
     "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
-    "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
-    "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/halo_spmm.cu",
+    "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/ext_spmm.cu",
+    # The float32-x entry (the main case's, kernel 4's apply); float64 x
+    # stays on csrc/halo_spmm.cu.
+    "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu_torch/csrc/remote_halo.cu",
     # Kernel 9: kernel 1's template (csrc/banded_spmm.cuh) as its "copy"
@@ -283,13 +303,14 @@ def _dname(dtype) -> str:
 
 
 def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
-                  k1_info, variant_info, band_checks):
+                  k1_info, variant_info, band_checks, ext_info):
     """Phase 3: every kernel against its plain version on the card, the
     time split of kernels 3 and 5 (into ``gram_splits``), kernel 5's
-    bf16-dequant variants beside it (into ``variant_info``), kernel 4 and
-    those variants on the int8 band alone (into ``band_checks``), kernel
-    1's variants and split (into ``k1_info``), and the four-slab check of
-    kernels 6-8 (into ``slab_checks``)."""
+    bf16-dequant variants beside it (into ``variant_info``), kernels 4, 6
+    and 7 and those variants on the band alone (into ``band_checks``),
+    kernel 1's variants and split (into ``k1_info``), kernel 6's two routes
+    (into ``ext_info``), and the four-slab check of kernels 6-8 (into
+    ``slab_checks``)."""
     import numpy as np
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
@@ -496,7 +517,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                                            band_checks))
 
     # -- kernels 6, 7: a shard's halo-extended input ((nbr + 2bw) * bs
-    #    rows), ragged first, then the full-size matrices at world size 1
+    #    rows), ragged first, then the full-size matrices at world size 1;
+    #    x_ext in a buffer framed by NaN rows, the same bits twice
     ext_sets = [
         (rag, "nbr=17 bs=8 bw=2", (f64, f32, bf16), (1, 3, 20, 130), False),
         (A, "nbr=8192 bs=128 bw=1", (f64,), EXT_WIDTHS, True),
@@ -526,9 +548,21 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                          kernels.banded_ext_bsr_spmm_plain(b, x, bandwidth=bw,
                                                            out_dtype=o))
             for m in widths:
-                spmm_case(name, kernel, plain, dtype, m, note, timed)
+                spmm_case(name, kernel, plain, dtype, m, note, timed,
+                          twins=[("itself", kernel)],
+                          frame=bw * op.block_size)
     for op, note in ((ragq, "nbr=17 bs=24 bw=2"), (q, "nbr=16384 bs=128 bw=1")):
         int8_float64_x(op, note, randn, op is q)
+    ext_band_only([(rag, "nbr=17 bs=8 bw=2", dtype, 20)
+                   for dtype in (f64, f32, bf16)]
+                  + [(A, "nbr=8192 bs=128 bw=1", f64, 40),
+                     (ragq, "nbr=17 bs=24 bw=2", f32, 20),
+                     (q, "nbr=16384 bs=128 bw=1", f32, 20)],
+                  randn, band_checks)
+    ext_info.update(ext_route_split(A, randn))
+    print("  kernel 6's TMA route under repetition, bit for bit against its "
+          "cp.async route", flush=True)
+    ext_info["tma_stress"] = tma_stress(A, randn)
     del ragq
     torch.cuda.empty_cache()
 
@@ -537,9 +571,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     #    rows in a buffer of its own, in the interior and edge launches of
     #    the halo operator; held to its plain version and, bit for bit, to
     #    kernel 1 on the same rows (the slab framed by bw zero block rows on
-    #    each side, over x_ext) in every type, and to kernel 6 on that x_ext
-    #    in f64 and f32 (kernel 6's SIMT FMAs sum in kernel 1's order there;
-    #    bf16 storage on mma.sync sums otherwise)
+    #    each side, over x_ext) and to kernel 6 on that x_ext, in every type
+    #    (kernel 1's products in kernel 1's order, all three)
     remote_sets = [
         (rag, "nbr=17 bs=8 bw=2", (1, 3, 20, 130)),
         (A, "nbr=8192 bs=128 bw=1", EXT_WIDTHS),
@@ -562,12 +595,11 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
             framed = torch.cat([pad, blocks, pad])
             twins = [("banded_bsr_spmm on the same rows",
                       lambda x, b=framed, bw=bw, h=halo, o=acc:
-                          kernels.banded_bsr_spmm(b, x, bw, out_dtype=o)[h:-h])]
-            if dtype != bf16:
-                twins.append(("banded_ext_bsr_spmm",
-                              lambda x, b=blocks, bw=bw, o=acc:
-                                  kernels.banded_ext_bsr_spmm(
-                                      b, x, bandwidth=bw, out_dtype=o)))
+                          kernels.banded_bsr_spmm(b, x, bw, out_dtype=o)[h:-h]),
+                     ("banded_ext_bsr_spmm",
+                      lambda x, b=blocks, bw=bw, o=acc:
+                          kernels.banded_ext_bsr_spmm(b, x, bandwidth=bw,
+                                                      out_dtype=o))]
             timed = op.n_block_rows >= 8192 and dtype == f64
             for m in widths:
                 spmm_case(name, kernel, plain, dtype, m, note, timed, twins)
@@ -594,6 +626,10 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                           f"{ms_of(base, dtype, m, shape):.4f}"
                           for m in widths)
         print(f"  {ext} / {base} ms: {pairs}", flush=True)
+    routes = {m: kernels.ext_spmm_route(torch.float64, A.block_size, m)
+              for m in EXT_WIDTHS}
+    print(f"  banded_ext_bsr_spmm f64 routes by width (bs=128, aligned): "
+          f"{routes}", flush=True)
 
     slab_checks.update(four_slab_check(A, q, randn))
 
@@ -730,6 +766,209 @@ def int8_band_only(op, note, randn, widths, band_checks) -> None:
         del x, y, yp, y_all
     del faults
     torch.cuda.empty_cache()
+
+
+def _dense_faults(blocks) -> dict:
+    """Dense banded blocks with a fault put in, for the plain version: the
+    band dropped, slot 0 dropped, the slots in reverse order."""
+    import torch
+    nbr, bs, kbs = blocks.shape
+    b4 = blocks.reshape(nbr, bs, kbs // bs, bs)
+    drop0 = b4.clone()
+    drop0[:, :, 0] = 0
+    return {"band dropped": (torch.zeros_like(blocks),),
+            "slot 0 dropped": (drop0.reshape(nbr, bs, kbs),),
+            "slots reversed": (b4.flip(2).reshape(nbr, bs, kbs).contiguous(),)}
+
+
+def _halo_band(op, dtype):
+    """A shard's tables whose Y is the band's product alone and whose edge
+    rows read their halos: ``op``'s tables rolled by half its block rows
+    (so the shard's first and last block rows hold blocks in their outer
+    slots), with the centre slot's blocks zeroed (dense, in ``dtype``) or
+    the diagonal zeroed (int8)."""
+    import torch
+    nbr, bs, bw = op.n_block_rows, op.block_size, op.bandwidth
+    if hasattr(op, "qblocks"):
+        return (torch.roll(op.qblocks, nbr // 2, 0),
+                torch.roll(op.scale_rows, nbr // 2, 0),
+                torch.zeros_like(op.diag))
+    b = torch.roll(op.blocks, nbr // 2, 0).to(dtype)
+    b.reshape(nbr, bs, 2 * bw + 1, bs)[:, :, bw] = 0
+    return (b,)
+
+
+def ext_band_only(cases, randn, band_checks) -> None:
+    """Kernels 6 and 7 on the band alone (:func:`_halo_band`), each case
+    (op, note, dtype, m) on x_ext framed by NaN rows: Y within TOL of
+    max|Y_band| of the plain version. With the diagonal blocks in, the
+    coupling-1e-3 band is ~1e-9-1e-5 of max|Y|, under every limit. Each
+    fault, given to the plain version (:func:`_dense_faults` or
+    :func:`_int8_faults`, and the halo rows zeroed), must read above the
+    limit, or the check could not see it."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    for op, note, dtype, m in cases:
+        quant = hasattr(op, "qblocks")
+        name = "banded_q_ext_bsr_spmm" if quant else "banded_ext_bsr_spmm"
+        kernel = getattr(kernels, name)
+        plain = getattr(kernels, f"{name}_plain")
+        bw, halo = op.bandwidth, op.bandwidth * op.block_size
+        kw = dict(bandwidth=bw, out_dtype=kernels.acc_dtype(dtype))
+        lead = _halo_band(op, dtype)
+        x_ext = randn(op.shape[0] + 2 * halo, m, dtype)
+        y = kernel(*lead, _apart(x_ext, halo), **kw)
+        yp = plain(*lead, x_ext, **kw)
+        top = float(torch.max(torch.abs(yp)))
+        rel = float(torch.max(torch.abs(y - yp))) / top
+        del y
+        read = {}
+        for f, fl in (_int8_faults(*lead) if quant
+                      else _dense_faults(lead[0])).items():
+            read[f] = float(torch.max(torch.abs(plain(*fl, x_ext, **kw)
+                                                - yp))) / top
+            del fl
+        cut = x_ext.clone()
+        cut[:halo] = 0
+        cut[-halo:] = 0
+        read["halo rows zeroed"] = float(torch.max(torch.abs(
+            plain(*lead, cut, **kw) - yp))) / top
+        limit = TOL[_dname(dtype)]
+        print(f"  {name:22s} band only {note:24s} {_dname(dtype)} m={m:<4d} "
+              f"|dY|/max|Y_band|={rel:.3e} (limit {limit:.0e}); with a "
+              "fault: " + ", ".join(f"{f} {r:.3e}" for f, r in read.items()),
+              flush=True)
+        _check(rel <= limit, f"{name} band only {note} {_dname(dtype)} "
+               f"m={m}: {rel:.3e}")
+        _check(min(read.values()) > limit, f"{name} band only {note} "
+               f"m={m}: a fault reads {read}, within the limit")
+        _note_band(band_checks, name, rel, read)
+        del lead, x_ext, yp, cut
+        torch.cuda.empty_cache()
+
+
+def _time_queued_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Median CUDA-event time of ``calls`` calls of ``fn`` back to back,
+    over ``calls``: the host's work between launches stays hidden behind
+    the queue, where :func:`_time_ms` (one call between the events) counts
+    it whenever the card finishes first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def ext_route_split(A, randn) -> dict:
+    """Kernel 6 at its main case (f64 m=40, the 1M-row matrix) on its two
+    routes (``kernels.banded_ext_bsr_spmm_at``), the TMA stream and kernel
+    1's cp.async template (the same bits: :func:`tma_stress`), beside the
+    one-call bmm yardstick (``torch.bmm`` over the window view
+    of x_ext), timed in turns (tma, cp.async, bmm, then back), each call
+    alone (:func:`_time_ms`, as every kernel here) and 10 calls back to
+    back (:func:`_time_queued_ms`); and the host time of one call of each
+    route (checks, the route, on the TMA route the tensor maps' encoding,
+    the launch), over 50 calls on the host clock. Returns the numbers."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    _, m, _, _, _ = MAIN_CASE["banded_ext_bsr_spmm"]
+    nbr, bs, bw = A.n_block_rows, A.block_size, A.bandwidth
+    K = 2 * bw + 1
+    x_ext = randn(A.shape[0] + 2 * bw * bs, m, torch.float64)
+    window = x_ext.as_strided((nbr, K * bs, m), (bs * m, m, 1))
+    fns = {route: (lambda route=route: kernels.banded_ext_bsr_spmm_at(
+        route, A.blocks, x_ext, bandwidth=bw))
+        for route in ("tma", "cp.async")}
+    fns["bmm"] = lambda: torch.bmm(A.blocks, window)
+    _check(kernels.ext_spmm_route(torch.float64, bs, m, A.blocks.data_ptr(),
+                                  x_ext.data_ptr()) == "tma",
+           "kernel 6's main case does not take the TMA route")
+    order = list(fns) + list(fns)[::-1]
+    single = {key: [] for key in fns}
+    queued = {key: [] for key in fns}
+    for key in order:
+        single[key].append(_time_ms(fns[key]))
+        queued[key].append(_time_queued_ms(fns[key]))
+    host_us = {}
+    for route in ("tma", "cp.async"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fns[route]()
+        host_us[route] = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+    out = {f"{key}_ms": statistics.mean(single[key]) for key in fns}
+    out.update({f"{key}_queued_ms": statistics.mean(queued[key])
+                for key in fns})
+    out.update({f"{route}_host_us": us for route, us in host_us.items()})
+    out["plans"] = {route: kernels.ext_spmm_plan(0, torch.float64, bs, m,
+                                                 route)
+                    for route in ("tma", "cp.async")}
+    print(f"  banded_ext_bsr_spmm f64 m={m} nbr={nbr} by route (ms, mean of "
+          f"two turns; one call / 10 back to back): " + ", ".join(
+              f"{key} {out[key + '_ms']:.4f} / {out[key + '_queued_ms']:.4f}"
+              for key in fns)
+          + f"; host per call: tma {host_us['tma']:.1f} us, cp.async "
+          f"{host_us['cp.async']:.1f} us; turns {single} / {queued}; "
+          f"layouts {out['plans']}", flush=True)
+    del x_ext, window
+    torch.cuda.empty_cache()
+    return out
+
+
+# Kernel 6's TMA route under repetition: (dtype, m, calls) on the 1M-row
+# matrix, the main case first.
+TMA_STRESS = [("float64", 40, 600),
+              *(("float64", m, 120) for m in (6, 12, 24, 80, 160)),
+              *(("float32", m, 120) for m in (12, 40, 160)),
+              *(("bfloat16", m, 120) for m in (24, 40, 160))]
+
+
+def tma_stress(A, randn) -> dict:
+    """Kernel 6's TMA route called again and again (:data:`TMA_STRESS`),
+    every output held bit for bit to the cp.async route's on the same
+    operands (the same products in the same order). A fault of the TMA
+    pipeline (a stage freed while a lane's loads of it are in flight, so
+    that the next TMA write lands under them: csrc/ext_spmm.cu's proxy
+    fence, scripts/tma_stress.py) shows as a few wrong rows or columns of
+    one warp tile now and then, not on every call. Fails on any differing
+    output; returns the calls and the seconds."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    bw, bs = A.bandwidth, A.block_size
+    calls, t0 = 0, time.perf_counter()
+    for dname, m, n in TMA_STRESS:
+        dtype = getattr(torch, dname)
+        blocks = A.blocks.to(dtype)
+        x_ext = randn(A.shape[0] + 2 * bw * bs, m, dtype)
+        _check(kernels.ext_spmm_route(dtype, bs, m, blocks.data_ptr(),
+                                      x_ext.data_ptr()) == "tma",
+               f"kernel 6 {dname} m={m} does not take the TMA route")
+        acc = kernels.acc_dtype(dtype)   # bf16: compare the float32 sums
+        want = kernels.banded_ext_bsr_spmm_at("cp.async", blocks, x_ext,
+                                              bandwidth=bw, out_dtype=acc)
+        bad = [i for i in range(n) if not torch.equal(
+            kernels.banded_ext_bsr_spmm_at("tma", blocks, x_ext,
+                                           bandwidth=bw, out_dtype=acc),
+            want)]
+        calls += n
+        tail = f" {bad[:10]}" if bad else ""
+        print(f"  kernel 6 TMA route {dname} m={m}: {n} calls, {len(bad)} "
+              f"with other bits than the cp.async route{tail}", flush=True)
+        _check(not bad, f"kernel 6's TMA route gave other bits than its "
+               f"cp.async route on {len(bad)} of {n} calls ({dname} m={m})")
+        del blocks, x_ext, want
+    torch.cuda.empty_cache()
+    return {"calls": calls, "s": time.perf_counter() - t0}
 
 
 def bf16_variant_split(q, probe, randn, record, band_checks) -> dict:
@@ -1155,83 +1394,61 @@ def _ring_ext(x, lo: int, hi: int, halo: int):
 
 
 def four_slab_check(A, q, randn) -> dict:
-    """Four shards on one card: cut A's and q's tables into SLABS row slabs,
-    apply kernels 6 and 7 slab by slab to each slab's ring-wrapped x_ext,
-    and kernel 8 to each slab's rows, each slab in a buffer of its own, with
-    its halos pointing into the ring neighbours' buffers (no x_ext), and
-    hold the rows put together against
-    kernels 1 and 4 on the whole matrix. The kernels share one tile and
-    differ only in where the x rows come from (at the ring's ends the
-    wrapped rows meet zero blocks), so f64 must agree bit for bit and f32
-    within 1e-7 of max|Y|. Returns name -> worst error."""
+    """Four shards on one card: cut A's and q's tables into SLABS row slabs
+    and hold the rows put together against kernels 1 and 4 on the whole
+    matrix. Kernels 6 and 8 compute kernel 1's products in kernel 1's
+    order, whatever the source of the x rows (kernel 6 on each slab's
+    ring-wrapped x_ext, by the route the width takes; kernel 8 on each
+    slab's rows in a buffer of its own, its halos pointing into the ring
+    neighbours' buffers, no x_ext): the same bits in f64, f32 and bf16
+    storage (at the ring's ends the wrapped rows meet zero blocks). Kernel
+    7 is kernel 4's apply with the out-of-range slots' +0 added: the same
+    Y. Returns name -> worst error."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     worst = {}
-    for op in (A, q):
-        bs, bw = op.block_size, op.bandwidth
-        nl = op.n_block_rows // SLABS
-        quant = hasattr(op, "qblocks")
-        tables = ((op.qblocks, op.scale_rows, op.diag) if quant
-                  else (op.blocks,))
-        for m in (20, 40):
-            x = randn(op.shape[0], m, torch.float32 if quant
-                      else torch.float64)
-            if quant:
-                whole = kernels.banded_q_bsr_spmm(*tables, x, bw)
-                apply = kernels.banded_q_ext_bsr_spmm
-                name = "banded_q_ext_bsr_spmm"
-            else:
-                whole = kernels.banded_bsr_spmm(*tables, x, bw)
-                apply = kernels.banded_ext_bsr_spmm
-                name = "banded_ext_bsr_spmm"
-            parts = {name: [apply(*(t[s * nl:(s + 1) * nl] for t in tables),
-                                  _ring_ext(x, s * nl * bs, (s + 1) * nl * bs,
-                                            bw * bs), bandwidth=bw)
-                            for s in range(SLABS)]}
-            if not quant:
-                halo = bw * bs
-                rows = [_apart(t, halo) for t in x.split(nl * bs)]
-                parts["banded_remote_halo_spmm"] = [
-                    kernels.banded_remote_halo_spmm(
-                        op.blocks[s * nl:(s + 1) * nl], rows[s],
-                        rows[s - 1][-halo:], rows[(s + 1) % SLABS][:halo],
-                        bandwidth=bw)
-                    for s in range(SLABS)]
-                del rows
-            for key, rows in parts.items():
-                err = float(torch.max(torch.abs(torch.cat(rows) - whole)))
-                rel = err / float(torch.max(torch.abs(whole)))
-                print(f"  {SLABS} slabs of {key} vs the whole matrix, "
-                      f"{op.n_block_rows} block rows, m={m}: max_abs_err="
-                      f"{err:.3e} rel={rel:.3e}", flush=True)
-                _check(err == 0.0 if not quant else rel <= 1e-7,
-                       f"{key}: {SLABS} slabs differ from the whole matrix "
-                       f"by {err:.3e} (rel {rel:.3e}) at m={m}")
-                worst[key] = max(worst.get(key, 0.0), err)
-            del x, whole, parts
-    # Kernel 8 in float32 and bf16 storage too: kernel 1's template in
-    # every type, so its slabs give kernel 1's bits there as well.
+
+    def hold(key, parts, whole, label):
+        err = float(torch.max(torch.abs(torch.cat(parts) - whole)))
+        print(f"  {SLABS} slabs of {key} vs the whole matrix, {label}: "
+              f"max_abs_err={err:.3e}", flush=True)
+        _check(err == 0.0, f"{key} {label}: {SLABS} slabs differ from the "
+               f"whole matrix by {err:.3e}")
+        worst[key] = max(worst.get(key, 0.0), err)
+
     bs, bw = A.block_size, A.bandwidth
     nl, halo = A.n_block_rows // SLABS, A.bandwidth * A.block_size
-    key = "banded_remote_halo_spmm"
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
         blocks = A.blocks.to(dtype)
         acc = kernels.acc_dtype(dtype)
-        x = randn(A.shape[0], 20, dtype)
-        whole = kernels.banded_bsr_spmm(blocks, x, bw, out_dtype=acc)
-        rows = [_apart(t, halo) for t in x.split(nl * bs)]
-        parts = [kernels.banded_remote_halo_spmm(
-            blocks[s * nl:(s + 1) * nl], rows[s], rows[s - 1][-halo:],
-            rows[(s + 1) % SLABS][:halo], bandwidth=bw, out_dtype=acc)
-            for s in range(SLABS)]
-        err = float(torch.max(torch.abs(torch.cat(parts) - whole)))
-        print(f"  {SLABS} slabs of {key} {_dname(dtype)} vs the whole matrix, "
-              f"{A.n_block_rows} block rows, m=20: max_abs_err={err:.3e}",
-              flush=True)
-        _check(err == 0.0, f"{key} {_dname(dtype)}: {SLABS} slabs differ "
-               f"from kernel 1 on the whole matrix by {err:.3e}")
-        worst[key] = max(worst.get(key, 0.0), err)
-        del blocks, x, whole, rows, parts
+        for m in (20, 40):
+            x = randn(A.shape[0], m, dtype)
+            whole = kernels.banded_bsr_spmm(blocks, x, bw, out_dtype=acc)
+            route = kernels.ext_spmm_route(dtype, bs, m)
+            hold("banded_ext_bsr_spmm", [kernels.banded_ext_bsr_spmm(
+                blocks[s * nl:(s + 1) * nl],
+                _ring_ext(x, s * nl * bs, (s + 1) * nl * bs, halo),
+                bandwidth=bw, out_dtype=acc) for s in range(SLABS)], whole,
+                f"{_dname(dtype)} m={m} ({route} route)")
+            rows = [_apart(t, halo) for t in x.split(nl * bs)]
+            hold("banded_remote_halo_spmm", [kernels.banded_remote_halo_spmm(
+                blocks[s * nl:(s + 1) * nl], rows[s], rows[s - 1][-halo:],
+                rows[(s + 1) % SLABS][:halo], bandwidth=bw, out_dtype=acc)
+                for s in range(SLABS)], whole, f"{_dname(dtype)} m={m}")
+            del x, whole, rows
+        del blocks
+        torch.cuda.empty_cache()
+    tables = (q.qblocks, q.scale_rows, q.diag)
+    bs, bw = q.block_size, q.bandwidth
+    nl, halo = q.n_block_rows // SLABS, q.bandwidth * q.block_size
+    for m in (20, 40):
+        x = randn(q.shape[0], m)
+        hold("banded_q_ext_bsr_spmm", [kernels.banded_q_ext_bsr_spmm(
+            *(t[s * nl:(s + 1) * nl] for t in tables),
+            _ring_ext(x, s * nl * bs, (s + 1) * nl * bs, halo), bandwidth=bw)
+            for s in range(SLABS)], kernels.banded_q_bsr_spmm(*tables, x, bw),
+            f"int8 f32 m={m}")
+        del x
     torch.cuda.empty_cache()
     return worst
 
@@ -1888,8 +2105,10 @@ def remote_vs_pallas_apply(A, dev, rendezvous, solves):
     ``"pallas"`` path (the all-gather exchange, the x_ext concatenation,
     kernel 6), f64 on the 1M-row matrix at world size 1: the same bits,
     and the CUDA-event and host-clock times of each path, in turns
-    (pallas, remote, remote, pallas), and of each exchange alone."""
+    (pallas, remote, remote, pallas), of each exchange alone, and of the
+    ``"pallas"`` path's copy into x_ext and its kernel 6 alone."""
     import torch
+    from fortran_davidson_tpu_torch.ops import kernels
     from fortran_davidson_tpu_torch.parallel import HaloBSROperator
     from fortran_davidson_tpu_torch.parallel.halo import halo_slabs
 
@@ -1908,10 +2127,17 @@ def remote_vs_pallas_apply(A, dev, rendezvous, solves):
             key = f"{backend}_apply_{turn}"
             row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(
                 lambda op=ops[backend]: op.matmat(x))
+        prev, nxt = halo_slabs(mesh, x, halo)
+        x_ext = torch.cat([prev, x, nxt])
+        blocks = ops["pallas"].blocks
         for key, fn in (("ring_exchange",
                          lambda: mesh.ring_exchange(x, halo)),
                         ("all_gather_exchange",
-                         lambda: halo_slabs(mesh, x, halo))):
+                         lambda: halo_slabs(mesh, x, halo)),
+                        ("x_ext_cat", lambda: torch.cat([prev, x, nxt])),
+                        ("kernel6", lambda: kernels.banded_ext_bsr_spmm(
+                            blocks, x_ext, bandwidth=A.bandwidth,
+                            out_dtype=x.dtype))):
             row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(fn)
         print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
                                else f"{k_}={v}" for k_, v in row.items()),
@@ -1919,7 +2145,7 @@ def remote_vs_pallas_apply(A, dev, rendezvous, solves):
         _check(same, f"m={m}: the pallas-remote apply gave other bits than "
                "the pallas apply")
         solves.append(row)
-        del x
+        del x, prev, nxt, x_ext
     del ops
     torch.cuda.empty_cache()
 
@@ -2003,6 +2229,21 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _split_bounds(op, nnz_blocks, m, mv) -> dict:
+    """Bounds (ms) of kernel 5's measurement variants at (m, mv), as
+    :func:`_bound` counts: ``nov`` reads the int8 tables, the diagonal and
+    x and writes one row of column sums; ``nogram`` also reads V; both do
+    the apply's operations and the column sums (float32)."""
+    nbr, bs, bw = op.n_block_rows, op.block_size, op.bandwidth
+    K, n = 2 * bw + 1, op.n_block_rows * op.block_size
+    moved = nbr * bs * K * bs + nbr * K * bs * 4 + n * 4 + n * m * 4 + m * 4
+    t_ops = ((2 * nnz_blocks * bs * bs * m + 3 * n * m)
+             / PEAK_FLOP_S["float32"] * 1e3)
+    return {f"{variant}_bound_ms": max((moved + extra) / HBM_BYTES_S * 1e3,
+                                       t_ops)
+            for variant, extra in (("nov", 0), ("nogram", n * mv * 4))}
+
+
 def _library_bsr(op, ext: bool):
     """``op``'s in-range blocks as a ``torch.sparse_bsr_tensor``: the whole
     matrix, or with ``ext`` a shard's rows over its halo-extended columns
@@ -2023,46 +2264,64 @@ def _library_bsr(op, ext: bool):
 
 
 def library_times(A) -> dict:
-    """Kernel name -> (ms, max relative error against the plain version) of
-    one ``torch.sparse_bsr_tensor @ x`` call (cuSPARSE) that computes the
-    kernel's function at its main case, or (None, reason). It is a
-    yardstick; the port never calls it. Kernels 6 and 8 share one: the
-    shard as a BSR over [from_prev; x; from_next] (one tensor, as the
-    library needs). Kernels 3, 4, 5 and 7 have no such call (a fused gram,
-    int8 blocks with scales)."""
+    """Kernel name -> {"ms", "rel", "call"}: one PyTorch call that computes
+    the kernel's function at its main case, its time and its max relative
+    error against the plain version; "ms" None with the reason where the
+    call fails. A yardstick; the port never calls it.
+    - Kernels 1 and 2: ``torch.sparse_bsr_tensor(...) @ x`` (cuSPARSE).
+    - Kernel 6: ``torch.bmm(blocks, window)``, window the (nbr, K*bs, m)
+      view of x_ext at strides (bs*m, m, 1) (no copy), one cuBLAS batched
+      GEMM; beside it ("cusparse_ms") the shard as a BSR over x_ext's
+      block columns, ``@ x_ext``.
+    - Kernel 8: none, its x comes from three buffers; kernels 3, 4, 5 and
+      7: none (a fused gram, int8 blocks with scales)."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     out = {}
+
+    def measure(fn, plain, dtype):
+        try:
+            y = fn().reshape(plain.shape)
+            rel = float(torch.max(torch.abs(y - plain))
+                        / torch.max(torch.abs(plain)))
+            del y
+            return _time_ms(fn), rel
+        except (RuntimeError, NotImplementedError) as exc:
+            return None, f"{type(exc).__name__}: {exc}"[:200]
+
+    bw, bs, nbr = A.bandwidth, A.block_size, A.n_block_rows
     for names, ext in ((("banded_bsr_spmm", "bsr_spmm"), False),
-                       (("banded_ext_bsr_spmm", "banded_remote_halo_spmm"),
-                        True)):
+                       (("banded_ext_bsr_spmm",), True)):
         dtype, m = MAIN_CASE[names[0]][:2]
-        bw, bs = A.bandwidth, A.block_size
         rows = A.shape[0] + (2 * bw * bs if ext else 0)
         x = torch.randn((rows, m), dtype=getattr(torch, dtype),
                         device=A.blocks.device)
         plain = (kernels.banded_ext_bsr_spmm_plain(A.blocks, x, bandwidth=bw)
                  if ext else kernels.banded_bsr_spmm_plain(A.blocks, x, bw))
-        try:
-            S = _library_bsr(A, ext)
-            y = S @ x
-            rel = float(torch.max(torch.abs(y - plain))
-                        / torch.max(torch.abs(plain)))
-            ms = _time_ms(lambda: S @ x)
-            result = (ms, rel)
-            del S, y
-        except (RuntimeError, NotImplementedError) as exc:
-            result = (None, f"{type(exc).__name__}: {exc}"[:200])
-        print(f"  torch.sparse_bsr_tensor @ x ({'shard, ext' if ext else 'whole'}"
-              f", {dtype} m={m}): {result}", flush=True)
-        if result[0] is not None:
-            _check(result[1] <= TOL[dtype],
-                   f"the library call differs from the plain version by "
-                   f"{result[1]:.3e}")
+        S = _library_bsr(A, ext)
+        sparse = measure(lambda: S @ x, plain, dtype)
+        entry = dict(ms=sparse[0], rel=sparse[1],
+                     call="torch.sparse_bsr_tensor(...) @ x (cuSPARSE)")
+        if ext:
+            window = x.as_strided((nbr, (2 * bw + 1) * bs, m), (bs * m, m, 1))
+            bmm = measure(lambda: torch.bmm(A.blocks, window), plain, dtype)
+            entry = dict(ms=bmm[0], rel=bmm[1],
+                         call="torch.bmm(blocks, window view of x_ext)",
+                         cusparse_ms=sparse[0], cusparse_rel=sparse[1])
+        print(f"  one-call yardstick ({'shard, x_ext' if ext else 'whole'}, "
+              f"{dtype} m={m}): {entry}", flush=True)
+        for key in ("rel", "cusparse_rel"):
+            if isinstance(entry.get(key), float):
+                _check(entry[key] <= TOL[dtype],
+                       f"the library call differs from the plain version by "
+                       f"{entry[key]:.3e}")
         for name in names:
-            out[name] = result
-        del x, plain
+            out[name] = entry
+        del x, plain, S
         torch.cuda.empty_cache()
+    out["banded_remote_halo_spmm"] = dict(
+        ms=None, rel=None, call="none: x comes from three buffers (the "
+        "shard's rows and two received halos); no PyTorch call takes them")
     return out
 
 
@@ -2088,8 +2347,9 @@ def _ptxas_entries(log: str):
 def _tile_registers(log: str) -> dict:
     """ptxas's registers of every instantiation of the shared SIMT tile
     (``spmm_kernel`` and ``gram_kernel`` of spmm_tile.cuh and
-    banded_gram.cu: kernels 2, 4, 6, 7, 8 and the f64/bf16 kernel 3 and
-    f64 kernel 5), keyed by the template arguments as mangled."""
+    banded_gram.cu: kernel 2, the f64/bf16 kernel 3 and the float64-x
+    entries of kernels 4, 5 and 7), keyed by the template arguments as
+    mangled."""
     import re
     regs = {}
     for name, n, _, _ in _ptxas_entries(log):
@@ -2143,17 +2403,25 @@ def _k1_plan(key: str) -> dict:
 
 
 def _new_entries(log: str) -> dict:
-    """Kernel 4's float32 entry (``q_spmm_kernel`` of csrc/q_spmm.cu) and
-    kernel 5's bf16-dequant variants (``bf16_gram_kernel`` of
-    csrc/fused_gram_var_bf16.cu): "kernel 4 TN=24" / "bf16deq TN=128" ->
+    """The float32-x entries of kernels 4 and 7 (``q_spmm_kernel`` of
+    csrc/q_spmm.cu, kAll 0 and 1), kernel 6's TMA route (``ext_tma_kernel``
+    of csrc/ext_spmm.cu) and kernel 5's bf16-dequant variants
+    (``bf16_gram_kernel`` of csrc/fused_gram_var_bf16.cu): "kernel 4
+    TN=24" / "kernel 6 tma f64 TM=128 TN=48" / "bf16deq TN=128" ->
     (registers, spill store bytes, static shared bytes)."""
     import re
     from fortran_davidson_tpu_torch.ops import kernels
     out = {}
     for name, n, spill, smem in _ptxas_entries(log):
-        m = re.search(r"q_spmm_kernelILi(\d+)E", name)
+        m = re.search(r"q_spmm_kernelILi(\d+)ELb(\d)E", name)
         if m:
-            out[f"kernel 4 TN={m.group(1)}"] = (n, spill, smem)
+            kernel = 7 if m.group(2) == "1" else 4
+            out[f"kernel {kernel} TN={m.group(1)}"] = (n, spill, smem)
+        m = re.search(r"ext_tma_kernelI(d|f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                      name)
+        if m:
+            out[f"kernel 6 tma {_K1_TYPES[m.group(1)]} TM={m.group(2)} "
+                f"TN={m.group(3)}"] = (n, spill, smem)
         m = re.search(r"bf16_gram_kernelILi(\d+)ELi(\d)E", name)
         if m:
             out[f"{kernels.BF16_VARIANTS[int(m.group(2))]} "
@@ -2212,8 +2480,9 @@ def main() -> int:
     if log:
         print(f"    ptxas registers of the shared SIMT tile's "
               f"instantiations: {_tile_registers(log)}")
-        print("    kernel 1, its variants (source Masked) and kernel 8 "
-              "(sources Inside and Split) on csrc/banded_spmm.cuh: ptxas "
+        print("    kernel 1, its variants (source Masked), kernel 8 (sources "
+              "Inside and Split) and kernel 6's cp.async route (Inside) on "
+              "csrc/banded_spmm.cuh: ptxas "
               "registers, spill stores, static smem; the default ring "
               "(kernels.banded_spmm_plan)")
         for key, (regs, spill, smem) in _k1_entries(log).items():
@@ -2223,7 +2492,8 @@ def main() -> int:
                   f"{plan['stages']} stages")
         print(f"    ptxas registers of the fused float32 kernels (3, 5) by "
               f"loader, column tile and variant: {_fused_registers(log)}")
-        print("    kernel 4's float32 entry (csrc/q_spmm.cu) and kernel 5's "
+        print("    the float32-x entries of kernels 4 and 7 (csrc/q_spmm.cu), "
+              "kernel 6's TMA route (csrc/ext_spmm.cu) and kernel 5's "
               "bf16-dequant variants (csrc/fused_gram_var_bf16.cu): ptxas "
               "registers, spill stores, static smem")
         for key, (regs, spill, smem) in _new_entries(log).items():
@@ -2232,6 +2502,9 @@ def main() -> int:
         for m in (1, 20, 44, 256):
             print(f"      kernel 4 layout at m={m}: "
                   f"{kernels.q_spmm_plan(0, 16384, m)}")
+        for m in EXT_WIDTHS:
+            print(f"      kernel 6 TMA layout, f64 bs=128 m={m}: "
+                  f"{kernels.ext_spmm_plan(0, torch.float64, 128, m, 'tma')}")
     sys.stdout.flush()
 
     t0 = time.perf_counter()
@@ -2256,9 +2529,14 @@ def main() -> int:
 
     print("[3] kernels vs plain versions", flush=True)
     record, slab_checks, gram_splits, k1_info, variant_info = [], {}, {}, {}, {}
-    band_checks = {}
+    band_checks, ext_info = {}, {}
     phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
-                  k1_info, variant_info, band_checks)
+                  k1_info, variant_info, band_checks, ext_info)
+    # Kernel 1's variants at the probes' shape (row 10 of PERF.md's table).
+    probe_case = (types.SimpleNamespace(n_block_rows=probe.n_block_rows,
+                                        block_size=probe.block_size,
+                                        bandwidth=probe.bandwidth),
+                  _nonzero_blocks(probe.blocks, 2 * probe.bandwidth + 1))
     del probe
     library = library_times(A)
 
@@ -2334,8 +2612,15 @@ def main() -> int:
                             if r["max_abs_err"] is not None),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library.get(name, (None,))[0],
+            library_ms=library.get(name, {}).get("ms"),
             main_case=f"{dtype} m={m} mv={mv} {shape}")
+        if name in library:
+            entry.update(library_call=library[name]["call"],
+                         library_rel_err=library[name]["rel"])
+            if "cusparse_ms" in library[name]:
+                entry["library_cusparse_ms"] = library[name]["cusparse_ms"]
+        if name == "banded_ext_bsr_spmm":
+            entry["routes"] = ext_info
         if name.endswith("_gram"):
             # max_abs_err is Y's; G is held elementwise to its bound.
             entry.update(
@@ -2352,7 +2637,10 @@ def main() -> int:
             # The band alone (the diagonal zeroed), to the same limit.
             entry.update(band_checks[name])
         if name == "banded_bsr_spmm":
-            entry.update(split_ms=k1_info["split"])
+            entry.update(split_ms=k1_info["split"], probe_bound_ms=_bound(
+                name, "bfloat16", PROBE["m"], None, *probe_case)[0])
+        if name == "banded_q_bsr_spmm_gram":
+            entry.update(_split_bounds(q, nnz["nbr=16384"][1], m, mv))
         if name == "banded_spmm_copy":
             entry.update(variant="banded_spmm_variant(variant='copy')",
                          shapes=k1_info["copy"])

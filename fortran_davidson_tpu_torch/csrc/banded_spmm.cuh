@@ -1,7 +1,8 @@
 // Kernel 1, the DIA-banded SpMM, as one template for Hopper (sm_90a): the
 // kernel of banded_spmm.cu, its measurement variants
-// (banded_spmm_var_{f64,f32,bf16}.cu), and kernel 8 (remote_halo.cu), the
-// same product over a shard's rows and its two received halos. The design
+// (banded_spmm_var_{f64,f32,bf16}.cu), kernel 8 (remote_halo.cu), the
+// same product over a shard's rows and its two received halos, and kernel
+// 6's cp.async route (ext_spmm.cu), over a halo-extended input. The design
 // and what bounds it are written at the top of banded_spmm.cu. The tiling
 // and shared memory a launch takes are decided here alone; plan_entry()
 // reports them (kernels.banded_spmm_plan).
@@ -205,8 +206,9 @@ struct Masked {
   bool aligned() const { return true; }
 };
 
-// Inside (kernel 8's interior launch): x itself, unmasked; every window of
-// the range's block rows lies in x's rows.
+// Inside (kernel 8's interior launch, kernel 6's cp.async route): x
+// itself, unmasked; every window of the range's block rows lies in x's
+// rows.
 template <typename T>
 struct Inside {
   RowRange rows;

@@ -1,11 +1,11 @@
 // The tensor-core banded apply for Hopper (sm_90a), shared by the float32
 // fused SpMM + Gram kernels (fused_gram.cu: kernel 3's float32 entry and
-// kernel 5), kernel 4's float32 entry (q_spmm.cu) and the bf16-dequant
-// variants of kernel 5 (fused_gram_var_bf16.cu): the layouts, the cp.async
-// staging of slab and x chunks, the slab loaders (DenseF32, Int8) and one
-// pass of the apply. Storage as in spmm_tile.cuh: (nbr, bs, K*bs)
-// row-major block slabs, slot k of block row r holding block column
-// r - bw + k. What bounds each kernel and what its design does about it are
+// kernel 5), the float32 entries of kernels 4 and 7 (q_spmm.cu) and the
+// bf16-dequant variants of kernel 5 (fused_gram_var_bf16.cu): the layouts,
+// the cp.async staging of slab and x chunks, the slab loaders (DenseF32,
+// Int8) and one pass of the apply. Storage as in spmm_tile.cuh:
+// (nbr, bs, K*bs) row-major block slabs, slot k of block row r holding
+// block column r - bw + k. What bounds each kernel and what its design does about it are
 // written at the top of its translation unit.
 //
 // The apply (apply_pass): one 256-thread block computes ntile 16-row tiles
@@ -21,9 +21,11 @@
 // - int8 blocks slot by slot: |q| <= 127 is exact in TF32, so Q_k @ x_k is
 //   two TF32 products (x hi and lo) into the slot's f32 partial, which the
 //   slot's f32 scale multiplies into the sum.
-// A slot whose block column lies outside [0, nbr) is skipped (its block is
-// zero), so x rows outside [0, n) are never read and 0 * Inf never enters
-// the sum; columns past m and rows past bs are staged as zeros and never
+// The slots a pass applies are the caller's (klo and n_chunks): kernel 4
+// skips those whose block column lies outside [0, nbr) (their blocks are
+// zero), so it reads no x row outside [0, n) and 0 * Inf never enters the
+// sum; kernel 7 applies all K over its halo-extended x, whose every window
+// is valid. Columns past m and rows past bs are staged as zeros and never
 // loaded. Each output element is summed in a fixed order, whatever the
 // column tile or the depth of a chunk: the same inputs give the same bits,
 // and kernels 4 and 5 give the same Y.
@@ -273,10 +275,10 @@ struct Int8 {
 // One pass of the apply: acc = the units of this warp (row tile lt_w of the
 // pass, n-tiles nt_w .. nt_w + AU - 1) at block row rr and column tile c0.
 // The pass's ntile row tiles are staged from slab row i0 on, 16-row tiles
-// tstride rows apart; the chunks are those of the in-range slots klo,
-// klo + 1, ... (n_chunks of them, cps = ceil(bs / KC) a slot) through the
-// ring (as: kNA stages of a_bytes; xs: kNA stages of KC rows of YP floats).
-// Returns with every copy landed; d o x is the caller's.
+// tstride rows apart; the chunks are those of the slots klo, klo + 1, ...
+// that the caller applies (n_chunks of them, cps = ceil(bs / KC) a slot)
+// through the ring (as: kNA stages of a_bytes; xs: kNA stages of KC rows
+// of YP floats). Returns with every copy landed; d o x is the caller's.
 template <class Ld, int TN>
 __device__ __forceinline__ void apply_pass(
     const Ld& ld, const float* x, long long rr, int i0, int tstride,

@@ -1,6 +1,7 @@
-// Kernel 4's float32 entry, the int8 DIA-banded SpMM, on tensor cores for
-// Hopper (sm_90a), in plain CUDA C++ with a C interface (loaded with ctypes
-// by fortran_davidson_tpu_torch/ops/kernels.py).
+// Kernel 4's float32 entry, the int8 DIA-banded SpMM, and kernel 7's, the
+// same over a shard's halo-extended input, on tensor cores for Hopper
+// (sm_90a), in plain CUDA C++ with a C interface (loaded with ctypes by
+// fortran_davidson_tpu_torch/ops/kernels.py).
 //
 //   fdt_banded_q_bsr_spmm_f32   replaces banded_q_bsr_spmm
 //       (fortran_davidson_tpu/ops/pallas_kernels.py:755, body :721):
@@ -8,6 +9,11 @@
 //       part, s one f32 scale per (block row, slot), d the exact f32
 //       diagonal; x and y are f32. (The float64-x entry stays on the shared
 //       tile, banded_gram.cu: it is bit-equal to the plain version.)
+//   fdt_banded_q_ext_bsr_spmm_f32  replaces banded_q_ext_bsr_spmm
+//       (pallas_kernels.py:1059, body :997): the same over x_ext, the
+//       shard's rows framed by bw*bs rows of each ring neighbour
+//       (parallel/halo.py), f32 x. (The float64-x entry stays on the
+//       shared tile, halo_spmm.cu.)
 //   fdt_q_spmm_plan             the layout of a launch (kernels.q_spmm_plan).
 //
 // What bounds it on the H100. One byte a stored entry and 2*m flops on it.
@@ -39,6 +45,14 @@
 //   side by side, so the slab a second tile reads comes from L2;
 // - the sums and their order are kernel 5's: the same Y bits as kernel 5
 //   on the same inputs, and the same bits on every call.
+//
+// Kernel 7 is this kernel with x pointed at the centre of x_ext and every
+// one of the K slots applied (kAll): a shard does not know where it lies
+// in the ring, and at the ring's two ends the wrapped halo rows meet the
+// zero blocks of out-of-range slots (scale 1, q 0), as in the TPU kernel.
+// Such a slot adds +0 to the sum, so a shard's rows put together are
+// kernel 4's Y on the whole matrix exactly. Kernel 4 applies the in-range
+// slots only, and never reads x rows outside [0, n).
 
 #include <cuda_runtime.h>
 
@@ -52,7 +66,7 @@ namespace {
 // memory of the widest tile allow two.
 constexpr int kBlocksPerSM = 2;
 
-template <int TN>
+template <int TN, bool kAll>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 q_spmm_kernel(Int8 ld, const float* __restrict__ x, float* __restrict__ y,
               int nbr, int bs, int K, int bw, int m, int n_groups, int a_bytes,
@@ -79,9 +93,10 @@ q_spmm_kernel(Int8 ld, const float* __restrict__ x, float* __restrict__ y,
   const long long r1 = static_cast<long long>(grp + 1) * nbr / n_groups;
 
   for (long long rr = r0; rr < r1; ++rr) {
-    const int klo = static_cast<int>(max(0LL, bw - rr));
-    const int khi = static_cast<int>(min(static_cast<long long>(K),
-                                         nbr + bw - rr));
+    const int klo = kAll ? 0 : static_cast<int>(max(0LL, bw - rr));
+    const int khi = kAll ? K
+                         : static_cast<int>(min(static_cast<long long>(K),
+                                                nbr + bw - rr));
     const int n_chunks = (khi - klo) * cps;
     for (int j0 = 0; j0 < RT; j0 += PR) {
       const int ntile = min(PR, RT - j0);
@@ -124,7 +139,7 @@ struct Layout {
   int TN, a_bytes, YP, off_x, smem, blocks_per_sm, col_tiles, n_groups;
 };
 
-template <int TN>
+template <int TN, bool kAll>
 cudaError_t layout_at(int nbr, int m, Layout* out) {
   constexpr int KC = Int8::kc<TN>();
   constexpr int PR = kWarps * Warps<TN>::AU / (TN / 8);
@@ -134,7 +149,7 @@ cudaError_t layout_at(int nbr, int m, Layout* out) {
   l.YP = frag_stride(TN);
   l.off_x = kNA * l.a_bytes;
   l.smem = l.off_x + kNA * KC * l.YP * 4;
-  auto kernel = q_spmm_kernel<TN>;
+  auto kernel = q_spmm_kernel<TN, kAll>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
   if (err != cudaSuccess) return err;
@@ -151,23 +166,46 @@ cudaError_t layout_at(int nbr, int m, Layout* out) {
   return cudaSuccess;
 }
 
+template <bool kAll>
 cudaError_t make_layout(int nbr, int m, Layout* l) {
   switch (column_tile(m)) {
-    case 8: return layout_at<8>(nbr, m, l);
-    case 16: return layout_at<16>(nbr, m, l);
-    case 24: return layout_at<24>(nbr, m, l);
-    default: return layout_at<32>(nbr, m, l);
+    case 8: return layout_at<8, kAll>(nbr, m, l);
+    case 16: return layout_at<16, kAll>(nbr, m, l);
+    case 24: return layout_at<24, kAll>(nbr, m, l);
+    default: return layout_at<32, kAll>(nbr, m, l);
   }
 }
 
-template <int TN>
+template <int TN, bool kAll>
 cudaError_t run(const Int8& ld, const float* x, float* y, int nbr, int bs,
                 int K, int bw, int m, const Layout& l, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(l.n_groups),
                   static_cast<unsigned>(l.col_tiles), 1);
-  q_spmm_kernel<TN><<<grid, kThreads, l.smem, s>>>(
+  q_spmm_kernel<TN, kAll><<<grid, kThreads, l.smem, s>>>(
       ld, x, y, nbr, bs, K, bw, m, l.n_groups, l.a_bytes, l.YP, l.off_x);
   return cudaGetLastError();
+}
+
+// One launch; x holds the rows of every window the K slots read (kAll)
+// or of the in-range ones.
+template <bool kAll>
+int apply(const int8_t* q, const float* scale, const float* diag,
+          const float* x, float* y, int nbr, int bs, int K, int bw, int m,
+          void* stream) {
+  if (nbr <= 0 || bs <= 0 || m <= 0) return 0;
+  if (K != 2 * bw + 1) return static_cast<int>(cudaErrorInvalidValue);
+  Layout l;
+  cudaError_t err = make_layout<kAll>(nbr, m, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Int8 ld{q, scale, diag};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (l.TN) {
+    case 8: err = run<8, kAll>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
+    case 16: err = run<16, kAll>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
+    case 24: err = run<24, kAll>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
+    default: err = run<32, kAll>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -179,20 +217,18 @@ int fdt_banded_q_bsr_spmm_f32(const int8_t* q, const float* scale,
                               const float* diag, const float* x, float* y,
                               int nbr, int bs, int K, int bw, int m,
                               void* stream) {
-  if (nbr <= 0 || bs <= 0 || m <= 0) return 0;
-  if (K != 2 * bw + 1) return static_cast<int>(cudaErrorInvalidValue);
-  Layout l;
-  cudaError_t err = make_layout(nbr, m, &l);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Int8 ld{q, scale, diag};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (l.TN) {
-    case 8: err = run<8>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
-    case 16: err = run<16>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
-    case 24: err = run<24>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
-    default: err = run<32>(ld, x, y, nbr, bs, K, bw, m, l, s); break;
-  }
-  return static_cast<int>(err);
+  return apply<false>(q, scale, diag, x, y, nbr, bs, K, bw, m, stream);
+}
+
+// q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream: x at the
+// shard's first row, x_ext + bw*bs*m.
+int fdt_banded_q_ext_bsr_spmm_f32(const int8_t* q, const float* scale,
+                                  const float* diag, const float* x_ext,
+                                  float* y, int nbr, int bs, int K, int bw,
+                                  int m, void* stream) {
+  return apply<true>(q, scale, diag,
+                     x_ext + static_cast<long long>(bw) * bs * m, y, nbr, bs,
+                     K, bw, m, stream);
 }
 
 // The layout of a launch at (nbr, m) on the current device, into out[5]:
@@ -200,7 +236,7 @@ int fdt_banded_q_bsr_spmm_f32(const int8_t* q, const float* scale,
 // row groups (blocks a column tile).
 int fdt_q_spmm_plan(int nbr, int m, int* out) {
   Layout l;
-  const cudaError_t err = make_layout(max(nbr, 1), max(m, 1), &l);
+  const cudaError_t err = make_layout<false>(max(nbr, 1), max(m, 1), &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = l.TN;
   out[1] = l.smem;

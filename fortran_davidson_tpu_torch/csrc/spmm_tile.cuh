@@ -1,7 +1,11 @@
 // Tile machinery shared by the block-sparse SpMM kernels of the port
-// (bsr_spmm.cu, banded_gram.cu, halo_spmm.cu), for Hopper (sm_90a).
-// Kernels 1 and 8 have their own template (banded_spmm.cuh), and the
-// float32 int8 apply of kernels 4 and 5 is fused_apply.cuh's.
+// that have not been redesigned for Hopper (sm_90a): kernel 2 (bsr_spmm.cu,
+// the column table), kernel 3's float64 and bf16 gram entries and the
+// float64-x int8 entries of kernels 4 and 5 (banded_gram.cu), and kernel
+// 7's float64-x entry (halo_spmm.cu). Kernels 1, 6 and 8 are on kernel 1's
+// template (banded_spmm.cuh; kernel 6 also on its own TMA stream,
+// ext_spmm.cu), and the float32 int8 apply of kernels 4, 5 and 7 is
+// fused_apply.cuh's.
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
 // block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
@@ -17,8 +21,8 @@
 //
 // - the block loader: dense stored blocks of type T (f64, f32, or bf16
 //   widened to f32 when staged), or int8 blocks times the (block row,
-//   slot) f32 scale, dequantized when staged, with f32 x (Int8Blocks) or
-//   f64 x (Int8F64Blocks);
+//   slot) f32 scale, dequantized when staged, with f64 x (Int8F64Blocks;
+//   the float32-x int8 entries are fused_apply.cuh's);
 // - the epilogue, chosen by the kernel: store Y, add the exactly stored
 //   diagonal d[r, i] * x[r*bs + i, c] (int8 storage), and/or feed the
 //   gram G = V^T Y (banded_gram.cu).
@@ -30,10 +34,11 @@
 // Two sources of x rows (XRows):
 // - kMasked: x itself, rows outside [0, x_rows) load as zeros (above);
 // - kInside: x itself where every window lies inside the rows that x
-//   points into, loaded unmasked. halo_spmm.cu points x at the centre of
-//   a halo-extended x_ext (a shard's rows framed by bw block rows of its
-//   ring neighbours' rows on each side), so that every block row's window
-//   is valid: masking there would zero the halo.
+//   points into, loaded unmasked; only kernel 7's float64-x entry
+//   (halo_spmm.cu) takes it. It points x at the centre of a halo-extended
+//   x_ext (a shard's rows framed by bw block rows of its ring neighbours'
+//   rows on each side), so that every block row's window is valid:
+//   masking there would zero the halo.
 
 #pragma once
 
@@ -80,21 +85,9 @@ struct DenseBlocks {
 };
 
 // int8 off-diagonal blocks times one f32 scale per (block row, slot),
-// stored broadcast over the slot's lanes as scale[r, l]; x is f32.
-struct Int8Blocks {
-  using X = float;
-  using Acc = float;
-  const int8_t* q;
-  const float* scale;
-  __device__ __forceinline__ float at(long long r, int i, int bs, int L,
-                                      int l) const {
-    return static_cast<float>(q[(r * bs + i) * static_cast<long long>(L) + l])
-           * scale[r * L + l];
-  }
-};
-
-// int8 blocks with float64 x (kernels 4, 5 and 7 on a float64 solve), as
-// the plain version computes it (ops/kernels.py banded_q_bsr_spmm_plain):
+// stored broadcast over the slot's lanes as scale[r, l], with float64 x
+// (kernels 4, 5 and 7 on a float64 solve), as the plain version computes
+// it (ops/kernels.py banded_q_bsr_spmm_plain):
 // q * s formed in f32 and widened, the band product summed in f64, and the
 // diagonal epilogue (add_diag) rounding that sum to f32 and adding d * x
 // in f32; Y holds those f32 values widened to f64.

@@ -2,9 +2,9 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (kernels 2, 6 and 7, and the float64-x
-entries of 4 and 5, on the shared SIMT tile of ``csrc/spmm_tile.cuh``),
-and the TPU measurement kernels as variants:
+Eight kernels, in ``csrc/`` (kernel 2, and the float64-x entries of 4, 5
+and 7, on the shared SIMT tile of ``csrc/spmm_tile.cuh``), and the TPU
+measurement kernels as variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -29,9 +29,14 @@ and the TPU measurement kernels as variants:
   cores, fused with the gram (``csrc/fused_gram.cu``).
 - :func:`banded_ext_bsr_spmm` replaces ``banded_ext_bsr_spmm``
   (``pallas_kernels.py:1190``): kernel 1 over a shard's halo-extended
-  rows, every window valid (``csrc/halo_spmm.cu``).
+  rows, every window valid, on kernel 1's design (``csrc/ext_spmm.cu``):
+  the stream by TMA boxes into a ring fed by a producer warp where the
+  shape and alignment allow (:func:`ext_spmm_route`), else kernel 1's
+  cp.async template.
 - :func:`banded_q_ext_bsr_spmm` replaces ``banded_q_ext_bsr_spmm``
-  (``pallas_kernels.py:1059``): the int8 form (``csrc/halo_spmm.cu``).
+  (``pallas_kernels.py:1059``): the int8 form; float32 x on kernel 4's
+  tensor-core apply with all K slots (``csrc/q_spmm.cu``), float64 x on
+  the shared tile (``csrc/halo_spmm.cu``).
 - :func:`banded_remote_halo_spmm` replaces ``banded_remote_halo_spmm``
   (``pallas_kernels.py:1416``): kernel 1's template over a shard's rows
   and its two received halos through three pointers, no halo-extended
@@ -46,9 +51,9 @@ SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
 their plain versions :func:`fused_gram_variant_plain`).
 
 What bounds them on the H100, and what the designs do about it, is
-written at the top of each source. Kernels 1, 3 (float32), 4 (float32 x),
-5 and 8 run on tensor cores (kernels 1 and 8 in float32 on FFMA); the
-others on the shared SIMT tile, not tuned yet.
+written at the top of each source. Kernels 1, 3 (float32), 4 and 7
+(float32 x), 5, 6 and 8 run on tensor cores (kernels 1, 6 and 8 in
+float32 on FFMA); the others on the shared SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
 summed in float32, as the TPU kernels do); int8 storage takes float32 or
@@ -126,8 +131,11 @@ _ARGTYPES = {
                             ctypes.POINTER(ctypes.c_int)],
     # nbr, m, out[5]
     "fdt_q_spmm_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
-    # blocks, x_ext, y, nbr, bs, K, bw, m, stream
-    **{f"fdt_banded_ext_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
+    # blocks, x_ext, y, nbr, bs, K, bw, m, route, stream
+    **{f"fdt_banded_ext_bsr_spmm_{s}": [*_BANDED[:-1], _I, _P]
+       for s in _SUFFIX.values()},
+    # dtype, route, bs, m, out[5]
+    "fdt_ext_spmm_plan": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # q, scale_rows, diag, x_ext, y, nbr, bs, K, bw, m, stream
     **{f"fdt_banded_q_ext_bsr_spmm_{s}": [_P, _P, *_BANDED]
        for s in ("f32", "f64")},
@@ -992,6 +1000,44 @@ banded_q_bsr_spmm_gram.launches = 0
 
 # -- kernel 6: DIA-banded SpMM over a halo-extended input --------------
 
+# Kernel 6's routes, in the order of the C enum (csrc/ext_spmm.cu).
+EXT_ROUTES = ("cp.async", "tma")
+EXT_PLAN_KEYS = ("TM", "TN", "stages", "smem_bytes", "threads")
+
+
+def ext_spmm_route(dtype: torch.dtype, bs: int, m: int, blocks_ptr: int = 0,
+                   x_ext_ptr: int = 0) -> str:
+    """Kernel 6's route for these operands, decided before the launch
+    (``csrc/ext_spmm.cu`` refuses a ``"tma"`` launch that breaks it):
+    ``"tma"`` where the tensor maps can describe them, namely bs a multiple
+    of the row tile (16 for bs <= 16, else 128) and of the chunk depth (16
+    elements, 32 for bf16), the x_ext row of m elements a multiple of 16
+    bytes, and both bases 16-byte aligned; ``"cp.async"`` (kernel 1's
+    template) for every other shape."""
+    tm = 16 if bs <= 16 else 128
+    kc = 32 if dtype == torch.bfloat16 else 16
+    fits = (bs % tm == 0 and bs % kc == 0 and (m * dtype.itemsize) % 16 == 0
+            and blocks_ptr % 16 == 0 and x_ext_ptr % 16 == 0)
+    return "tma" if fits else "cp.async"
+
+
+@functools.lru_cache(maxsize=256)
+def ext_spmm_plan(device_index: int, dtype: torch.dtype, bs: int, m: int,
+                  route: str) -> dict:
+    """The layout of a kernel-6 launch by ``route`` (``csrc/ext_spmm.cu``):
+    row tile, column tile, ring depth, dynamic shared memory a block and
+    threads a block (the TMA route's include its producer warp)."""
+    out = (ctypes.c_int * len(EXT_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = _library().fdt_ext_spmm_plan(list(_SUFFIX).index(dtype),
+                                           EXT_ROUTES.index(route), bs, m,
+                                           out)
+    if err != 0:
+        raise RuntimeError(f"fdt_ext_spmm_plan: CUDA error {err} ({dtype}, "
+                           f"bs={bs}, m={m}, route={route})")
+    return dict(zip(EXT_PLAN_KEYS, out))
+
+
 def _ext_windows(x_ext, nbr: int, bs: int, K: int, acc):
     """The (nbr, K*bs, m) windows x_ext[r*bs : (r+K)*bs], in ``acc``."""
     m = x_ext.shape[1]
@@ -1012,9 +1058,34 @@ def banded_ext_bsr_spmm_plain(blocks, x_ext, *, bandwidth: int,
     return out.to(x_ext.dtype if out_dtype is None else out_dtype)
 
 
+def _ext_launch(name, route, blocks, x_ext, bandwidth, out_dtype):
+    """Kernel 6 on CUDA tensors, on ``route`` (None: the rule's); raises
+    if the TMA route is asked of operands that break the rule. Returns Y
+    and whether the kernel was launched."""
+    K = _check_banded(blocks, x_ext, bandwidth, ext=True)
+    sfx = _dense_suffix(name, blocks, x_ext)
+    _require_contiguous(name, blocks, x_ext)
+    nbr, bs, _ = blocks.shape
+    m = x_ext.shape[1]
+    rule = ext_spmm_route(x_ext.dtype, bs, m, blocks.data_ptr(),
+                          x_ext.data_ptr())
+    route = rule if route is None else route
+    if route == "tma" and rule != "tma":
+        raise ValueError(f"{name}: the TMA route does not take bs={bs}, "
+                         f"m={m} {x_ext.dtype} at these addresses")
+    y = torch.empty((nbr * bs, m), dtype=acc_dtype(x_ext.dtype),
+                    device=x_ext.device)
+    if y.numel():
+        _run(f"fdt_banded_ext_bsr_spmm_{sfx}", x_ext.device,
+             blocks.data_ptr(), x_ext.data_ptr(), y.data_ptr(), nbr, bs, K,
+             int(bandwidth), m, EXT_ROUTES.index(route))
+    return _out(y, out_dtype), bool(y.numel())
+
+
 def banded_ext_bsr_spmm(blocks, x_ext, *, bandwidth: int, out_dtype=None):
     """Y = A_local @ X for a shard's DIA-banded rows, over the halo-extended
-    input (``fortran_davidson_tpu/ops/pallas_kernels.py:1190``).
+    input (``fortran_davidson_tpu/ops/pallas_kernels.py:1190``), on the
+    route :func:`ext_spmm_route` gives these operands.
 
     Args:
       blocks: (nbr, bs, K*bs), K = 2*bandwidth + 1, the shard's block rows.
@@ -1022,26 +1093,34 @@ def banded_ext_bsr_spmm(blocks, x_ext, *, bandwidth: int, out_dtype=None):
         rows framed by ``bandwidth`` block rows of halo on each side.
       out_dtype: output type (default ``x_ext.dtype``).
     """
-    K = _check_banded(blocks, x_ext, bandwidth, ext=True)
-    out_dtype = x_ext.dtype if out_dtype is None else out_dtype
     name = "banded_ext_bsr_spmm"
+    out_dtype = x_ext.dtype if out_dtype is None else out_dtype
     if _on_cpu(name, x_ext):
+        _check_banded(blocks, x_ext, bandwidth, ext=True)
         return banded_ext_bsr_spmm_plain(blocks, x_ext, bandwidth=bandwidth,
                                          out_dtype=out_dtype)
-    sfx = _dense_suffix(name, blocks, x_ext)
-    _require_contiguous(name, blocks, x_ext)
-    nbr, bs, _ = blocks.shape
-    y = torch.empty((nbr * bs, x_ext.shape[1]),
-                    dtype=acc_dtype(x_ext.dtype), device=x_ext.device)
-    if y.numel():
-        _run(f"fdt_{name}_{sfx}", x_ext.device, blocks.data_ptr(),
-             x_ext.data_ptr(), y.data_ptr(), nbr, bs, K, int(bandwidth),
-             x_ext.shape[1])
-        banded_ext_bsr_spmm.launches += 1
-    return _out(y, out_dtype)
+    y, launched = _ext_launch(name, None, blocks, x_ext, bandwidth,
+                              out_dtype)
+    banded_ext_bsr_spmm.launches += launched
+    return y
 
 
 banded_ext_bsr_spmm.launches = 0
+
+
+def banded_ext_bsr_spmm_at(route: str, blocks, x_ext, *, bandwidth: int,
+                           out_dtype=None):
+    """Kernel 6 on a route of the caller's choice, for measurement (CUDA
+    tensors only; not counted in ``banded_ext_bsr_spmm.launches``):
+    ``"cp.async"`` takes any operands, ``"tma"`` those that
+    :func:`ext_spmm_route` sends there (else it raises)."""
+    if route not in EXT_ROUTES:
+        raise ValueError(f"route must be one of {EXT_ROUTES}, got {route!r}")
+    name = "banded_ext_bsr_spmm_at"
+    if _on_cpu(name, x_ext):
+        raise NotImplementedError(f"{name}: CUDA tensors only")
+    return _ext_launch(name, route, blocks, x_ext, bandwidth,
+                       x_ext.dtype if out_dtype is None else out_dtype)[0]
 
 
 # -- kernel 7: int8 DIA-banded SpMM over a halo-extended input ---------
@@ -1066,7 +1145,9 @@ def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
     """y = (Q ∘ s) @ x_ext[window] + d ∘ x_ext[centre] on a shard's int8
     DIA-banded rows (``fortran_davidson_tpu/ops/pallas_kernels.py:1059``;
     storage as :func:`banded_q_bsr_spmm`, input as
-    :func:`banded_ext_bsr_spmm`); x_ext float32 or float64 on a GPU."""
+    :func:`banded_ext_bsr_spmm`); x_ext float32 (kernel 4's apply over all
+    K slots: a shard's rows put together give kernel 4's Y) or float64 on
+    a GPU."""
     K = _check_quantized(qblocks, scale_rows, diag, x_ext, bandwidth,
                          ext=True)
     nbr, bs, _ = qblocks.shape

@@ -508,18 +508,43 @@ def _ring_ext(x, lo, hi, halo):
     return x[idx]
 
 
+# The widths of kernels 6 and 7's checks: each side of kernel 6's TMA rule
+# (m * itemsize a multiple of 16 bytes) in every type.
+EXT_WIDTHS = [1, 4, 20, 44, 64, 256]
+
+
+# The (dtype, bs) -> widths of EXT_WIDTHS that kernel 6 sends down its TMA
+# route at 16-byte aligned addresses; every other case takes the cp.async
+# route (bs = 24 is no multiple of the row tile, bf16 at bs = 16 none of
+# its 32-element chunk).
+EXT_TMA = {(torch.float64, 16): {4, 20, 44, 64, 256},
+           (torch.float64, 128): {4, 20, 44, 64, 256},
+           (torch.float32, 16): {4, 20, 44, 64, 256},
+           (torch.float32, 128): {4, 20, 44, 64, 256},
+           (torch.bfloat16, 128): {64, 256}}
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
                                    torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 20, 64, 130])
-@pytest.mark.parametrize("bw", [1, 3])
-def test_ext_kernel_matches_plain(cuda_device, dtype, m, bw):
-    nbr, bs = 37, 16
+@pytest.mark.parametrize("m", EXT_WIDTHS)
+@pytest.mark.parametrize("bw", [1, 2, 3])
+@pytest.mark.parametrize("bs", [16, 24, 128])
+def test_ext_kernel_matches_plain(cuda_device, dtype, m, bw, bs):
+    # 37 block rows (ragged against every tile); x_ext in a buffer framed by
+    # NaN rows, so that a read outside it changes the result.
+    nbr = 37
     store = torch.float32 if dtype == torch.bfloat16 else dtype
     op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=7, dtype=store,
                                   device=cuda_device)
     blocks = op.blocks.to(dtype)
-    x_ext = torch.randn(((nbr + 2 * bw) * bs, m),
-                        device=cuda_device).to(dtype)
+    x_ext = _apart(torch.randn(((nbr + 2 * bw) * bs, m),
+                               device=cuda_device).to(dtype), bw * bs)
+    route = kernels.ext_spmm_route(dtype, bs, m, blocks.data_ptr(),
+                                   x_ext.data_ptr())
+    assert route == ("tma" if m in EXT_TMA.get((dtype, bs), ()) else
+                     "cp.async")
+    plan = kernels.ext_spmm_plan(0, dtype, bs, m, route)
+    assert plan["threads"] == plan["TM"] * 2 + (32 if route == "tma" else 0)
     # bf16 storage returns the float32 sums (the halo operator's use).
     out = torch.float32 if dtype == torch.bfloat16 else None
     before = kernels.banded_ext_bsr_spmm.launches
@@ -531,14 +556,57 @@ def test_ext_kernel_matches_plain(cuda_device, dtype, m, bw):
         y, kernels.banded_ext_bsr_spmm_plain(blocks, x_ext, bandwidth=bw,
                                              out_dtype=out),
         **_tol(store))
+    # Both routes compute kernel 1's products in kernel 1's order; the TMA
+    # route refuses the operands its rule sends elsewhere.
+    assert torch.equal(y, kernels.banded_ext_bsr_spmm_at(
+        "cp.async", blocks, x_ext, bandwidth=bw, out_dtype=out))
+    if route == "tma":
+        assert torch.equal(y, kernels.banded_ext_bsr_spmm_at(
+            "tma", blocks, x_ext, bandwidth=bw, out_dtype=out))
+    else:
+        with pytest.raises(ValueError, match="TMA route"):
+            kernels.banded_ext_bsr_spmm_at("tma", blocks, x_ext,
+                                           bandwidth=bw)
+    assert kernels.banded_ext_bsr_spmm.launches == before + 1
 
 
-@pytest.mark.parametrize("m", [1, 20, 130])
-@pytest.mark.parametrize("bw", [1, 2])
-def test_q_ext_kernel_matches_plain(cuda_device, m, bw):
-    q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=bw, seed=8,
+@pytest.mark.parametrize("dtype,m", [(torch.float64, 6), (torch.float64, 40),
+                                     (torch.float64, 160),
+                                     (torch.float32, 40),
+                                     (torch.bfloat16, 40),
+                                     (torch.bfloat16, 160)])
+def test_ext_tma_route_repeats_the_cp_async_bits(cuda_device, dtype, m):
+    # A fault of the TMA pipeline (a stage freed while a lane's loads of it
+    # are in flight, so that the next TMA write lands under them) shows as
+    # a few wrong rows or columns of one warp tile now and then, not on
+    # every call: 200 TMA calls, each bit for bit the cp.async route's.
+    nbr, bs, bw = 2048, 128, 1
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=3,
+                                  device=cuda_device)
+    blocks = op.blocks.to(dtype)
+    x_ext = torch.randn(((nbr + 2 * bw) * bs, m),
+                        device=cuda_device).to(dtype)
+    assert kernels.ext_spmm_route(dtype, bs, m, blocks.data_ptr(),
+                                  x_ext.data_ptr()) == "tma"
+    acc = kernels.acc_dtype(dtype)   # bf16: compare the float32 sums
+    want = kernels.banded_ext_bsr_spmm_at("cp.async", blocks, x_ext,
+                                          bandwidth=bw, out_dtype=acc)
+    bad = sum(not torch.equal(kernels.banded_ext_bsr_spmm_at(
+        "tma", blocks, x_ext, bandwidth=bw, out_dtype=acc), want)
+        for _ in range(200))
+    assert bad == 0
+
+
+@pytest.mark.parametrize("m", EXT_WIDTHS)
+@pytest.mark.parametrize("bw", [1, 2, 3])
+@pytest.mark.parametrize("bs", [16, 24, 128])
+def test_q_ext_kernel_matches_plain(cuda_device, m, bw, bs):
+    nbr = 17
+    q = fdtt.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw, seed=8,
                                            device=cuda_device)
-    x_ext = torch.randn((q.shape[0] + 2 * bw * 24, m), device=cuda_device)
+    halo = bw * bs
+    x_ext = _apart(torch.randn((q.shape[0] + 2 * halo, m),
+                               device=cuda_device), halo)
     lead = (q.qblocks, q.scale_rows, q.diag)
     before = kernels.banded_q_ext_bsr_spmm.launches
     y = kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw)
@@ -546,6 +614,15 @@ def test_q_ext_kernel_matches_plain(cuda_device, m, bw):
     torch.testing.assert_close(
         y, kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext, bandwidth=bw),
         **_tol(torch.float32))
+    # Kernel 4 on the same rows: the tables framed by bw zero block rows
+    # (scale 1, diagonal 0) over x_ext applies every slot of the shard's
+    # rows, in the same order: the same Y.
+    frames = [torch.zeros((bw, *t.shape[1:]), dtype=t.dtype,
+                          device=cuda_device) for t in lead]
+    frames[1] += 1
+    framed = [torch.cat([f, t, f]) for f, t in zip(frames, lead)]
+    assert torch.equal(y, kernels.banded_q_bsr_spmm(*framed, x_ext,
+                                                    bw)[halo:-halo])
 
 
 @pytest.mark.parametrize("kind", ["float64", "int8"])
@@ -573,35 +650,40 @@ def test_ext_kernels_at_full_size(cuda_device, kind):
     assert float((y - want).abs().max()) <= rel * float(want.abs().max())
 
 
+@pytest.mark.parametrize("bs", [16, 128])
 @pytest.mark.parametrize("bw", [1, 2])
-def test_four_slabs_match_the_whole_matrix(cuda_device, bw):
+def test_four_slabs_match_the_whole_matrix(cuda_device, bw, bs):
     # Four shards on one card: each slab's kernel 6/7 apply on its
-    # ring-wrapped x_ext, put together, is kernel 1/4 on the whole matrix.
-    # One tile, masking apart: bit for bit in f64, 1e-7 of max|Y| in f32.
-    slabs, nbr, bs = 4, 64, 16
+    # ring-wrapped x_ext, put together, is kernel 1/4 on the whole matrix,
+    # bit for bit: kernel 6 computes kernel 1's products in kernel 1's
+    # order (in f64, f32 and bf16 storage, on either route), kernel 7 is
+    # kernel 4's apply with the out-of-range slots' +0 added.
+    slabs, nbr = 4, 64
     op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=9,
                                   device=cuda_device)
     q = fdtt.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw, seed=9,
                                            device=cuda_device)
     nl, halo = nbr // slabs, bw * bs
     for m in (20, 40):
-        x = torch.randn((op.shape[0], m), dtype=torch.float64,
-                        device=cuda_device)
-        parts = [kernels.banded_ext_bsr_spmm(
-            op.blocks[s * nl:(s + 1) * nl],
-            _ring_ext(x, s * nl * bs, (s + 1) * nl * bs, halo), bandwidth=bw)
-            for s in range(slabs)]
-        assert torch.equal(torch.cat(parts),
-                           kernels.banded_bsr_spmm(op.blocks, x, bw))
-        xf = x.float()
+        x64 = torch.randn((op.shape[0], m), dtype=torch.float64,
+                          device=cuda_device)
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            blocks, x = op.blocks.to(dtype), x64.to(dtype)
+            acc = kernels.acc_dtype(dtype)
+            parts = [kernels.banded_ext_bsr_spmm(
+                blocks[s * nl:(s + 1) * nl],
+                _ring_ext(x, s * nl * bs, (s + 1) * nl * bs, halo),
+                bandwidth=bw, out_dtype=acc) for s in range(slabs)]
+            assert torch.equal(torch.cat(parts), kernels.banded_bsr_spmm(
+                blocks, x, bw, out_dtype=acc)), (dtype, m)
+        xf = x64.float()
         tables = (q.qblocks, q.scale_rows, q.diag)
         parts = [kernels.banded_q_ext_bsr_spmm(
             *(t[s * nl:(s + 1) * nl] for t in tables),
             _ring_ext(xf, s * nl * bs, (s + 1) * nl * bs, halo), bandwidth=bw)
             for s in range(slabs)]
-        whole = kernels.banded_q_bsr_spmm(*tables, xf, bw)
-        err = float((torch.cat(parts) - whole).abs().max())
-        assert err <= 1e-7 * float(whole.abs().max())
+        assert torch.equal(torch.cat(parts),
+                           kernels.banded_q_bsr_spmm(*tables, xf, bw))
 
 
 def test_sharded_solve_world_size_one_over_nccl(cuda_device, tmp_path):
@@ -686,12 +768,9 @@ def test_remote_kernel_matches_plain_and_kernel_6(cuda_device, dtype, m, bw):
     assert torch.equal(y, kernels.banded_bsr_spmm(
         torch.cat([frame, blocks, frame]), ext, bw,
         out_dtype=acc)[halo:-halo])
-    if dtype != torch.bfloat16:
-        # Kernel 6's SIMT FMAs take the same order in f64 and f32; bf16
-        # storage on mma.sync sums otherwise (checked against kernel 1 and
-        # the plain version instead).
-        assert torch.equal(y, kernels.banded_ext_bsr_spmm(
-            blocks, ext, bandwidth=bw, out_dtype=acc))
+    # Kernel 6 is kernel 1's products in kernel 1's order too.
+    assert torch.equal(y, kernels.banded_ext_bsr_spmm(
+        blocks, ext, bandwidth=bw, out_dtype=acc))
     torch.testing.assert_close(
         y, kernels.banded_remote_halo_spmm_plain(blocks, x, prev, nxt,
                                                  bandwidth=bw, out_dtype=acc),

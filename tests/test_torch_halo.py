@@ -75,6 +75,120 @@ def test_banded_q_ext_plain_matches_jax(bw, m):
     np.testing.assert_allclose(to_numpy(yt), yj, rtol=2e-5, atol=2e-5)
 
 
+def _slab_case(kind, bw, m, nbr):
+    """Seeded numpy tables of a whole banded matrix (out-of-range slots hold
+    zero blocks, as the generators emit) and its x: dense blocks, or int8
+    blocks with per-slot scales and an exact diagonal."""
+    rng = np.random.default_rng(1000 * bw + m)
+    K = 2 * bw + 1
+    col = np.arange(nbr)[:, None] - bw + np.arange(K)[None, :]
+    keep = np.repeat((col >= 0) & (col < nbr), BS, axis=1)[:, None, :]
+    x = rng.standard_normal((nbr * BS, m))
+    if kind == "int8":
+        q = (rng.integers(-127, 128, (nbr, BS, K * BS)) * keep).astype(np.int8)
+        scales = rng.random((nbr, K)) * 1e-3 + 1e-4
+        scale_rows = np.repeat(scales, BS, axis=1).astype(np.float32)
+        diag = (1.0 + rng.random((nbr, BS))).astype(np.float32)
+        return (q, scale_rows, diag), x.astype(np.float32)
+    return (rng.standard_normal((nbr, BS, K * BS)) * keep,), x
+
+
+@pytest.mark.parametrize("kind", ["float64", "float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m", [1, 5, 20])
+@pytest.mark.parametrize("bw", [1, 2, 3])
+def test_four_slabs_of_ext_plain_are_the_whole_matrix(kind, bw, m):
+    # Four shards: each slab's kernel 6/7 (plain on the CPU) over its
+    # ring-wrapped x_ext, put together, is kernel 1/4 over the whole matrix
+    # exactly (the wrapped rows meet zero blocks at the ring's ends), and
+    # that is the JAX package's Pallas kernel (interpret mode) on the whole
+    # matrix. The card holds the kernels to the same identity
+    # (tests/test_torch_cuda.py, chip_smoke.py).
+    nbr, slabs = 16, 4
+    tables_np, x_np = _slab_case(kind, bw, m, nbr)
+    quant = kind == "int8"
+    tdt = torch.float32 if quant else getattr(torch, kind)
+    tables = [torch.from_numpy(t) for t in tables_np]
+    if not quant:
+        tables = [tables[0].to(tdt)]
+    x = torch.from_numpy(x_np).to(tdt)
+    # bf16 storage returns the float32 sums (the halo operator's use).
+    out = torch.float32 if kind == "bfloat16" else None
+    nl, halo = nbr // slabs, bw * BS
+
+    def x_ext(s):
+        rows = torch.arange(s * nl * BS - halo, (s + 1) * nl * BS + halo)
+        return x[rows % x.shape[0]]
+
+    if quant:
+        whole = kernels.banded_q_bsr_spmm(*tables, x, bw)
+        parts = [kernels.banded_q_ext_bsr_spmm(
+            *(t[s * nl:(s + 1) * nl] for t in tables), x_ext(s),
+            bandwidth=bw) for s in range(slabs)]
+    else:
+        whole = kernels.banded_bsr_spmm(tables[0], x, bw, out_dtype=out)
+        parts = [kernels.banded_ext_bsr_spmm(
+            tables[0][s * nl:(s + 1) * nl], x_ext(s), bandwidth=bw,
+            out_dtype=out) for s in range(slabs)]
+    assert torch.equal(torch.cat(parts), whole)
+    if quant:
+        yj = np.asarray(jk.banded_q_bsr_spmm(
+            *(jnp.asarray(t) for t in tables_np), jnp.asarray(x_np),
+            bandwidth=bw))
+        np.testing.assert_allclose(to_numpy(whole), yj, rtol=2e-5, atol=2e-5)
+        return
+    jdt = getattr(jnp, kind)
+    yj = np.asarray(jk.banded_bsr_spmm(
+        jnp.asarray(tables_np[0], jdt), jnp.asarray(x_np, jdt), bandwidth=bw,
+        out_dtype=None if out is None else jnp.float32), np.float64)
+    err = np.max(np.abs(to_numpy(whole.double()) - yj)) / np.max(np.abs(yj))
+    assert err <= TOL[kind], err
+
+
+# (dtype, bs, m, blocks_ptr, x_ext_ptr) -> kernel 6's route: the TMA route
+# where bs is a multiple of the row tile (16 up to bs = 16, else 128) and
+# of the chunk depth (16 elements, 32 in bf16), m * itemsize a multiple of
+# 16 bytes, and both bases 16-byte aligned.
+ROUTES = [
+    (torch.float64, 128, 40, 0, 0, "tma"),
+    (torch.float64, 128, 1, 0, 0, "cp.async"),
+    (torch.float64, 128, 2, 0, 0, "tma"),
+    (torch.float64, 16, 6, 0, 0, "tma"),
+    (torch.float64, 24, 40, 0, 0, "cp.async"),
+    (torch.float64, 32, 40, 0, 0, "cp.async"),
+    (torch.float64, 256, 40, 0, 0, "tma"),
+    (torch.float64, 128, 40, 8, 0, "cp.async"),
+    (torch.float64, 128, 40, 0, 8, "cp.async"),
+    (torch.float32, 128, 4, 0, 0, "tma"),
+    (torch.float32, 128, 6, 0, 0, "cp.async"),
+    (torch.float32, 16, 20, 0, 0, "tma"),
+    (torch.bfloat16, 128, 64, 0, 0, "tma"),
+    (torch.bfloat16, 128, 20, 0, 0, "cp.async"),
+    (torch.bfloat16, 16, 64, 0, 0, "cp.async"),
+    (torch.bfloat16, 128, 256, 48, 1024, "tma"),
+]
+
+
+@pytest.mark.parametrize("dtype,bs,m,bptr,xptr,route", ROUTES)
+def test_ext_route_rule(dtype, bs, m, bptr, xptr, route):
+    assert kernels.ext_spmm_route(dtype, bs, m, bptr, xptr) == route
+
+
+def test_ext_route_is_chosen_before_any_launch():
+    # On the CPU the wrapper takes the plain version (the route is the
+    # rule's, decided inside it on the card). The measurement launcher
+    # takes a route by name: one that does not exist raises before
+    # anything runs, and it has no CPU form.
+    blocks = torch.zeros((8, BS, 3 * BS), dtype=torch.float64)
+    x_ext = torch.zeros((10 * BS, 2), dtype=torch.float64)
+    y = kernels.banded_ext_bsr_spmm(blocks, x_ext, bandwidth=1)
+    assert y.shape == (8 * BS, 2)
+    with pytest.raises(ValueError, match="route must be"):
+        kernels.banded_ext_bsr_spmm_at("dma", blocks, x_ext, bandwidth=1)
+    for route in kernels.EXT_ROUTES:
+        with pytest.raises(NotImplementedError, match="CUDA tensors only"):
+            kernels.banded_ext_bsr_spmm_at(route, blocks, x_ext, bandwidth=1)
+
+
 def test_ext_kernels_check_shapes():
     blocks = torch.zeros((8, BS, 3 * BS), dtype=torch.float64)
     with pytest.raises(ValueError, match="rows"):
