@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
    nvcc per source, started together); prints ptxas's registers of every
    instantiation of the shared SIMT tile, of kernel 1, its variants and
-   kernel 8 on kernel 1's template (with their static shared memory and
-   their ring's bytes), of the fused kernels 3 and 5, and of kernel 4's
+   kernels 8 and 2 on kernel 1's template (with their static shared memory
+   and their ring's bytes), of the fused kernels 3 and 5, and of kernel 4's
    float32 entry and kernel 5's bf16-dequant variants (with kernel 4's
    layout).
 3. Kernels against their plain PyTorch versions on the same tensors on
@@ -21,6 +21,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      <= 1e-5 in float32 and with bf16 storage (summed in float32 by both);
      kernel 1 (``csrc/banded_spmm.cu``) also on ragged shapes (bs 24, bw
      3, m 1-320), on x framed by NaN rows, and giving the same bits twice;
+     kernel 2 (``csrc/bsr_spmm.cu``, kernel 1's template with a column
+     table) giving the same bits twice and, on the DIA table (out-of-range
+     columns included), kernel 1's bits in every type; and on the
+     block-permuted 1M-row matrix P A Pᵀ (``PERM_SEED``, the tables
+     permuted on the card), whose columns have no band, at f64 m = 6, 24,
+     48, 320: against its plain version, bit for bit against P (kernel 2
+     on A) Pᵀ, timed beside the plain version and cuSPARSE (the permuted
+     matrix as a ``torch.sparse_bsr_tensor``), with its bound for x read
+     once and for x gathered K times;
    - kernel 1's variants (``kernels.banded_spmm_variant``) against their
      plain versions, then its split timed in turns at the main case (f64
      m=48) and at the probes' shape (``PROBE``, bf16): kernel 1, ``noy``,
@@ -32,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      bench.py's f32 shape and the probes' bf16; kernel 5 with v=None,
      full against ``nogram`` (``r4_visx_probe2.py``'s modes);
    - kernels 4, 5 and 7 with float64 x, ragged and at full size, within
-     ``Q64_TOL`` of their plain versions;
+     ``Q64_TOL`` of their plain versions, each timed at full size (int8
+     m = 20, 40; kernel 5 at mv = 220) beside its plain version;
    - the new kernels (3: banded SpMM+Gram, 4: int8 banded SpMM, 5: int8
      SpMM+Gram) in every variant (``v`` given or None, ``write_out``),
      on a ragged small matrix, on the 2,097,152-row int8 matrix (4, 5)
@@ -102,8 +112,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    garbage collections).
 5. Collapse and generalized legs at the same size: coupling 0.1 with
    ``max_dim_sub=12`` (must collapse), a pencil with a diagonal B, and a
-   BSR without a declared bandwidth (the general kernel); plus a small
-   solve checked against a dense ``eigvalsh``.
+   BSR without a declared bandwidth (the general kernel); the
+   block-permuted matrix P A Pᵀ of phase 3 through the general kernel,
+   lowest-3, which must take phase 4's iterations to phase 4's
+   eigenvalues within 1e-9 with a true residual <= 1e-8 (its warm wall,
+   the median of ``WARM_SOLVES``, beside phase 4's); plus a small solve
+   checked against a dense ``eigvalsh``.
 6. The int8 loose stage of the JAX package's sparse north star
    (``bench.py:615-672``): lowest-20 of
    ``generate_banded_bsr_quantized(16384, 128, bandwidth=1,
@@ -114,7 +128,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    iterations, eigenvalues to 1e-4 relative; prints the warm walls beside
    the iterations. Then the float64 leg: the
    default float64 type at relative 1e-6 through kernel 4's float64
-   entry, the plain path's iterations, a true relative residual <= 1e-6.
+   entry, the plain path's iterations, a true relative residual <= 1e-6;
+   the launches of kernels 4, 5 and 7 on it.
 7. The fused SpMM+Gram engine, on the 1M-row matrix at coupling 3 in
    float32 (at coupling 1e-3 lowest-128 converges on its initial basis,
    with no expansion to fuse): (a) ``fused_gram="auto"`` engages at
@@ -156,7 +171,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``library_ms``, one PyTorch call that computes the same function:
    ``torch.sparse_bsr_tensor @ x`` (cuSPARSE) for kernels 1 and 2, and
    for kernel 6 ``torch.bmm`` over the window view of x_ext (cuSPARSE
-   beside it); the bounds of the probes' rows at their shapes), the
+   beside it); the bounds of the probes' rows at their shapes; kernel 2's
+   P A Pᵀ times and bounds by width; for kernels 4, 5 and 7 their float64-x
+   entries' times, bounds and launches in phase 6's float64 leg), the
    card's name and power limit, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -249,6 +266,11 @@ WARM_SOLVES = 6
 EXT_WIDTHS = (6, 12, 24, 40, 80, 160)
 EXT_WIDTHS_Q = (20, 40)
 SLABS = 4
+# Phase 3's scattered case and phase 5's permuted leg: P A Pᵀ of the 1M-row
+# matrix for the permutation of its 8192 block indices seeded here, kernel
+# 2 timed at the lowest-3, lowest-20 and m_max widths.
+PERM_SEED = 2024
+PERM_WIDTHS = (6, 24, 48, 320)
 # The least time the card could take (H100 SXM data sheet, dense, at
 # 700 W): HBM bytes/s, and FLOP/s by the type the operations run in, at
 # that type's accuracy: float64 at the FP64 tensor-core rate (67
@@ -303,13 +325,16 @@ def _dname(dtype) -> str:
 
 
 def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
-                  k1_info, variant_info, band_checks, ext_info):
+                  k1_info, variant_info, band_checks, ext_info, permuted_info,
+                  q64_info):
     """Phase 3: every kernel against its plain version on the card, the
     time split of kernels 3 and 5 (into ``gram_splits``), kernel 5's
     bf16-dequant variants beside it (into ``variant_info``), kernels 4, 6
     and 7 and those variants on the band alone (into ``band_checks``),
     kernel 1's variants and split (into ``k1_info``), kernel 6's two routes
-    (into ``ext_info``), and the four-slab check of kernels 6-8 (into
+    (into ``ext_info``), kernel 2 on the block-permuted matrix (into
+    ``permuted_info``), the float64-x entries of kernels 4, 5 and 7 (into
+    ``q64_info``), and the four-slab check of kernels 6-8 (into
     ``slab_checks``)."""
     import numpy as np
     import torch
@@ -368,6 +393,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
         for tn, equal in same.items():
             _check(equal, f"{name} {dn} m={m} {note}: other bits than {tn} "
                    "on the same rows")
+        return row, x
 
     def gram_case(name, kernel, plain, lead, n, m, mv, write_out, note, bw,
                   timed):
@@ -425,12 +451,21 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
         pad_width=12, device=dev)
     f64, f32, bf16 = torch.float64, torch.float32, torch.bfloat16
     rag24 = generate_banded_bsr(13, 24, bandwidth=3, seed=11, device=dev)
+    # Kernel 2 on the DIA table, out-of-range columns included
+    # (cols[r, k] = r - bw + k): kernel 1's bits in every type.
+    dia = "DIA table (kernel 1's bits)"
+    # The band-dropped case stands in the kernels line (MAIN_CASE): its f64
+    # m=48 row comes first among kernel 2's nbr=8192 rows.
     cases = [
         ("banded_bsr_spmm", rag, "nbr=17 bs=8 bw=2", (f64, f32, bf16), (3,)),
         ("banded_bsr_spmm", rag24, "nbr=13 bs=24 bw=3", (f64, f32, bf16),
          (1, 20, 44, 130, 320)),
         ("bsr_spmm", rag, "nbr=17 bs=8 K=5 clipped cols", (f64, f32, bf16),
          (3,)),
+        ("bsr_spmm", rag, f"nbr=17 bs=8 K=5 {dia}", (f64, f32, bf16),
+         (3, 20)),
+        ("bsr_spmm", rag24, f"nbr=13 bs=24 K=7 {dia}", (f64, f32, bf16),
+         (1, 44, 320)),
         ("bsr_spmm", scr, "nbr=61 bs=16 K=12 scrambled", (f64, f32, bf16),
          (3, 48)),
         ("banded_bsr_spmm", A, "nbr=8192 bs=128 bw=1", (f64,), K1_WIDTHS),
@@ -442,36 +477,49 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
          (6, 48, 320)),
         ("bsr_spmm", A, "nbr=8192 bs=128 K=3 (band dropped)", (bf16,),
          (48, 320)),
+        ("bsr_spmm", A, f"nbr=8192 bs=128 K=3 {dia}", (f64, f32, bf16),
+         (6, 40)),
     ]
     for name, op, note, dtypes, widths in cases:
         kernel_rows = op.shape[0]
-        timed = op.n_block_rows >= 8192  # the full-size matrix
+        # The full-size matrix; the DIA-table cases are checks only.
+        timed = op.n_block_rows >= 8192 and dia not in note
         for dtype in dtypes:
             blocks = op.blocks.to(dtype)
             # bf16 storage returns the float32 sums (the solver's use).
             out = torch.float32 if dtype == bf16 else dtype
+            bw = op.bandwidth
+            k1 = (lambda x, b=blocks, bw=bw, o=out:
+                  kernels.banded_bsr_spmm(b, x, bw, out_dtype=o))
             if name == "banded_bsr_spmm":
-                bw = op.bandwidth
-                kernel = (lambda x, b=blocks, bw=bw, o=out:
-                          kernels.banded_bsr_spmm(b, x, bw, out_dtype=o))
+                kernel = k1
                 plain = (lambda x, b=blocks, bw=bw, o=out:
                          kernels.banded_bsr_spmm_plain(b, x, bw, out_dtype=o))
+                # Kernel 1: x framed by NaN rows, and the same bits twice.
+                extra = dict(twins=[("itself", kernel)],
+                             frame=bw * op.block_size)
             else:
-                cols = op.block_cols
+                cols = (_dia_table(op.n_block_rows, bw, dev) if dia in note
+                        else op.block_cols)
                 kernel = (lambda x, b=blocks, c=cols, o=out:
                           kernels.bsr_spmm(c, b, x, out_dtype=o))
-                plain = (lambda x, b=blocks, c=cols, o=out:
+                # The plain version takes columns in range (the clipped
+                # table; the out-of-range slots hold zero blocks).
+                plain = (lambda x, b=blocks, c=op.block_cols, o=out:
                          kernels.bsr_spmm_plain(c, b, x, out_dtype=o))
-            # Kernel 1: x framed by NaN rows, and the same bits twice.
-            extra = (dict(twins=[("itself", kernel)],
-                          frame=op.bandwidth * op.block_size)
-                     if name == "banded_bsr_spmm" else {})
+                # Kernel 2: the same bits twice; on the DIA table kernel
+                # 1's.
+                extra = dict(twins=[("itself", kernel)]
+                             + ([("banded_bsr_spmm", k1)] if dia in note
+                                else []))
             for m in widths:
                 spmm_case(name, kernel, plain, dtype, m, note, timed,
                           **extra)
             del blocks
     del rag24
     torch.cuda.empty_cache()
+    kernel_rows = A.shape[0]
+    permuted_info.update(permuted_case(A, spmm_case))
     k1_info.update(kernel1_variants(A, probe, q, dev, randn, record))
 
     # -- kernels 3-5: ragged first, then the full-size matrices ---------
@@ -552,7 +600,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                           twins=[("itself", kernel)],
                           frame=bw * op.block_size)
     for op, note in ((ragq, "nbr=17 bs=24 bw=2"), (q, "nbr=16384 bs=128 bw=1")):
-        int8_float64_x(op, note, randn, op is q)
+        int8_float64_x(op, note, randn, op is q, q64_info)
     ext_band_only([(rag, "nbr=17 bs=8 bw=2", dtype, 20)
                    for dtype in (f64, f32, bf16)]
                   + [(A, "nbr=8192 bs=128 bw=1", f64, 40),
@@ -632,6 +680,102 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
           f"{routes}", flush=True)
 
     slab_checks.update(four_slab_check(A, q, randn))
+
+
+def _dia_table(nbr: int, bw: int, dev):
+    """cols[r, k] = r - bw + k, out-of-range columns included: the block
+    columns of DIA-aligned storage, unclipped."""
+    import torch
+    r = torch.arange(nbr, device=dev)[:, None]
+    return (r - bw + torch.arange(2 * bw + 1, device=dev)[None, :]).to(
+        torch.int32)
+
+
+def _permuted(op, seed: int):
+    """P A Pᵀ of a BSR operator, built on its device, for a permutation p
+    of the block indices seeded by ``seed``: block row p[r] takes row r's
+    slabs, and its columns become p[cols[r, k]]. Returns (p, cols,
+    blocks)."""
+    import torch
+    dev = op.blocks.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randperm(op.n_block_rows, generator=gen, device=dev)
+    cols = torch.empty_like(op.block_cols)
+    cols[p] = p[op.block_cols.long()].to(torch.int32)
+    blocks = torch.empty_like(op.blocks)
+    blocks[p] = op.blocks
+    return p, cols, blocks
+
+
+def _gathered_bound_ms(op, m: int, nnz_blocks: int) -> float:
+    """Kernel 2's bound where x does not stay in L2: every slot's x slice
+    read from HBM (K times in all, as the TPU kernel's cost estimate counts
+    it, pallas_kernels.py:158-161), the blocks and cols once, Y once; the
+    operations on DMMA (float64)."""
+    nbr, bs, kbs = op.blocks.shape
+    moved = (nbr * bs * kbs * 8 + nbr * (kbs // bs) * 4   # blocks, cols
+             + nbr * kbs * m * 8 + nbr * bs * m * 8)      # x K times, Y
+    ops = 2 * nnz_blocks * bs * bs * m
+    return max(moved / HBM_BYTES_S, ops / PEAK_FLOP_S["float64"]) * 1e3
+
+
+def permuted_case(A, spmm_case) -> dict:
+    """Kernel 2 on P A Pᵀ, the 1M-row matrix permuted blockwise
+    (:func:`_permuted`, ``PERM_SEED``), so that a block row's x slices lie
+    far apart and x (400 MB at m = 48) cannot stay in L2: against its
+    plain version and bit for bit against P (kernel 2 on A) Pᵀ, timed at
+    ``PERM_WIDTHS`` beside the plain version and cuSPARSE (the same
+    permuted matrix, columns sorted in each row), with both bounds."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    nbr, bs = A.n_block_rows, A.block_size
+    p, cols, blocks = _permuted(A, PERM_SEED)
+    S = _library_bsr(A, False, p)
+    nnz = _nonzero_blocks(A.blocks, 3)
+
+    def kernel(x):
+        return kernels.bsr_spmm(cols, blocks, x)
+
+    def plain(x):
+        return kernels.bsr_spmm_plain(cols, blocks, x)
+
+    def unpermuted(x):
+        # P (A (Pᵀ x)): (Pᵀ x)[r] = x[p[r]], (P y)[p[r]] = y[r].
+        m = x.shape[1]
+        xa = x.view(nbr, bs, m)[p].reshape(-1, m)
+        ya = kernels.bsr_spmm(A.block_cols, A.blocks, xa)
+        y = torch.empty_like(ya)
+        y.view(nbr, bs, m)[p] = ya.view(nbr, bs, m)
+        return y
+
+    out = {}
+    for m in PERM_WIDTHS:
+        row, x = spmm_case("bsr_spmm", kernel, plain, torch.float64, m,
+                           "nbr=8192 bs=128 K=3 block-permuted", True,
+                           twins=[("itself", kernel),
+                                  ("P (kernel 2 on A) Pᵀ", unpermuted)])
+        yp = plain(x)
+        lib = float(torch.max(torch.abs((S @ x) - yp))
+                    / torch.max(torch.abs(yp)))
+        _check(lib <= TOL["float64"], f"cuSPARSE on P A Pᵀ differs by "
+               f"{lib:.3e}")
+        del yp
+        once = _bound("bsr_spmm", "float64", m, None, A, nnz)[0]
+        out[f"m={m}"] = dict(
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            library_ms=_time_ms(lambda: S @ x), bound_ms=once,
+            bound_gathered_ms=_gathered_bound_ms(A, m, nnz),
+            max_abs_err=row["max_abs_err"], rel_err=row["rel_err"])
+        e = out[f"m={m}"]
+        print(f"    P A Pᵀ f64 m={m}: kernel 2 {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f}, cuSPARSE {e['library_ms']:.4f}; bound "
+              f"{e['bound_ms']:.4f} (x once) / {e['bound_gathered_ms']:.4f} "
+              f"(x gathered K times): {e['bound_ms'] / e['ms']:.1%} / "
+              f"{e['bound_gathered_ms'] / e['ms']:.1%}", flush=True)
+        del x
+    del S, cols, blocks
+    torch.cuda.empty_cache()
+    return out
 
 
 def gram_split(A32, q, randn) -> dict:
@@ -1104,9 +1248,11 @@ def bf16_variant_split(q, probe, randn, record, band_checks) -> dict:
 Q64_TOL = 2.0 ** -22
 
 
-def int8_float64_x(op, note, randn, timed):
+def int8_float64_x(op, note, randn, timed, info):
     """Kernels 4, 5 and 7 with float64 x (and v) against their plain
-    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|."""
+    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|;
+    ``timed``: each entry and its plain version timed (kernel 5 at
+    mv = 220), into ``info[name][m]``."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     lead = (op.qblocks, op.scale_rows, op.diag)
@@ -1133,7 +1279,8 @@ def int8_float64_x(op, note, randn, timed):
                    kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext,
                                                        bandwidth=bw))
         r5 = g5 = 0.0
-        for v in (None, randn(n, 220, f64)):
+        v220 = randn(n, 220, f64)
+        for v in (None, v220):
             y, g = kernels.banded_q_bsr_spmm_gram(*lead, x, v, bandwidth=bw)
             yp, gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, x, v,
                                                           bandwidth=bw)
@@ -1146,12 +1293,27 @@ def int8_float64_x(op, note, randn, timed):
             del y, g, yp, gp, v, vv
         t = ""
         if timed:
-            t = (f" kernel 4 {_time_ms(k4):.4f} ms, plain "
-                 f"{_time_ms(p4):.4f} ms")
+            pairs = {
+                "banded_q_bsr_spmm": (k4, p4),
+                "banded_q_bsr_spmm_gram": (
+                    lambda: kernels.banded_q_bsr_spmm_gram(
+                        *lead, x, v220, bandwidth=bw),
+                    lambda: kernels.banded_q_bsr_spmm_gram_plain(
+                        *lead, x, v220, bandwidth=bw)),
+                "banded_q_ext_bsr_spmm": (
+                    lambda: kernels.banded_q_ext_bsr_spmm(*lead, x_ext,
+                                                          bandwidth=bw),
+                    lambda: kernels.banded_q_ext_bsr_spmm_plain(
+                        *lead, x_ext, bandwidth=bw)),
+            }
+            for name, (kern, plain) in pairs.items():
+                ms, plain_ms = _time_ms(kern), _time_ms(plain)
+                info.setdefault(name, {})[m] = dict(ms=ms, plain_ms=plain_ms)
+                t += f" {name} {ms:.4f} ms (plain {plain_ms:.4f});"
         print(f"  float64 x on int8 storage, {note} m={m}: kernel 4 rel "
               f"{r4:.3e}, kernel 7 rel {r7:.3e}, kernel 5 Y rel {r5:.3e} "
               f"G |dG|/(|V|ᵀ|Y|) {g5:.3e};{t}", flush=True)
-        del x, x_ext
+        del x, x_ext, v220
         torch.cuda.empty_cache()
 
 
@@ -1621,9 +1783,10 @@ def _device_busy(label, run) -> dict:
                 device_idle_share=idle)
 
 
-def phase_legs(A, dev, solves):
-    """Phase 5: collapse, generalized and general-kernel legs, and a small
-    solve against a dense reference."""
+def phase_legs(A, dev, solves, refs):
+    """Phase 5: collapse, generalized and general-kernel legs (the general
+    kernel also on the block-permuted matrix, held to phase 4's lowest-3
+    in ``refs``), and a small solve against a dense reference."""
     import numpy as np
     import torch
     import fortran_davidson_tpu_torch as fdtt
@@ -1671,7 +1834,43 @@ def phase_legs(A, dev, solves):
                        iterations=res.iterations, wall_s=wall,
                        true_residual=tr,
                        launches=kernels.bsr_spmm.launches - before))
-    del res
+    del res, general
+
+    # P A Pᵀ has A's spectrum: phase 4's lowest-3 in phase 4's iterations,
+    # through the general kernel on a table whose columns have no band.
+    _, cols, blocks = _permuted(A, PERM_SEED)
+    permuted = fdtt.BSROperator(cols, blocks)
+    ref = refs[3]
+    walls = []
+    for i in range(1 + WARM_SOLVES):
+        before = kernels.bsr_spmm.launches
+        res, wall = _solve_converged(
+            f"P A Pᵀ (block-permuted, general kernel), k=3 "
+            f"[{'warm' if i else 'cold'}]", permuted, 3)
+        launches = kernels.bsr_spmm.launches - before
+        _check(launches > 0, "bsr_spmm never launched on P A Pᵀ")
+        if i:
+            walls.append(wall)
+    tr = _true_residual(blocks, None, cols, res.eigenvectors,
+                        res.eigenvalues)
+    diff = float(torch.max(torch.abs(res.eigenvalues - ref["eigenvalues"])))
+    warm = statistics.median(walls)
+    print(f"  P A Pᵀ lowest-3: iterations {res.iterations} (phase 4: "
+          f"{ref['iterations']}), |eig - eig_phase4| = {diff:.3e}, true "
+          f"residual {tr:.3e}, launches per solve {launches}; warm wall, "
+          f"median of {WARM_SOLVES}: {warm * 1e3:.1f} ms (min "
+          f"{min(walls) * 1e3:.1f}; phase 4 through kernel 1: "
+          f"{ref['wall'] * 1e3:.1f} ms)", flush=True)
+    _check(res.iterations == ref["iterations"],
+           f"P A Pᵀ: {res.iterations} iterations vs {ref['iterations']}")
+    _check(diff <= 1e-9, f"P A Pᵀ: eigenvalues differ by {diff:.3e}")
+    _check(tr <= SOLVE_TOL, f"P A Pᵀ leg: true residual {tr:.3e}")
+    solves.append(dict(solve="block-permuted general BSR f64 lowest-3", n=n,
+                       iterations=res.iterations, wall_s=walls,
+                       phase4_wall_s=ref["wall"], true_residual=tr,
+                       eig_diff_phase4=diff, launches=launches))
+    del res, permuted, cols, blocks
+    torch.cuda.empty_cache()
 
     small = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1,
                                      seed=0, device=dev)
@@ -1778,14 +1977,20 @@ def int8_float64_solve(q, dev, solves):
         q.shape[0], dtype=torch.float64, diag=q.diagonal().double(),
         device=dev)
     runs = {}
+    # The int8 kernels' launches on the kernel path (PERF.md rows 4d, 5d,
+    # 7d): kernel 4's float64 entry; kernels 5 and 7 are not on this path.
+    int8_kernels = (kernels.banded_q_bsr_spmm, kernels.banded_q_bsr_spmm_gram,
+                    kernels.banded_q_ext_bsr_spmm)
     for path in ("kernels", "plain"):
-        before = kernels.banded_q_bsr_spmm.launches
+        before = [fn.launches for fn in int8_kernels]
         res, wall = _solve_converged(
             f"int8 n={q.shape[0]} lowest-20 float64 [{path}]",
             q if path == "kernels" else plain_q, 20, **F64_INT8)
-        runs[path] = (res, wall, kernels.banded_q_bsr_spmm.launches - before)
-    (out, wall, launches), (ref, _, plain_launches) = (runs["kernels"],
-                                                       runs["plain"])
+        counts = {fn.__name__: fn.launches - b
+                  for fn, b in zip(int8_kernels, before)}
+        runs[path] = (res, wall, counts.pop("banded_q_bsr_spmm"), counts)
+    (out, wall, launches, others), (ref, _, plain_launches, _) = (
+        runs["kernels"], runs["plain"])
     _check(launches > 0 and plain_launches == 0,
            f"float64 int8: launches {launches} (plain {plain_launches})")
     _check(out.eigenvalues.dtype == torch.float64, "float64 int8: "
@@ -1806,7 +2011,7 @@ def int8_float64_solve(q, dev, solves):
     solves.append(dict(solve="int8 banded float64 lowest-20 (1e-6 rel)",
                        n=q.shape[0], iterations=out.iterations, wall_s=wall,
                        true_residual_rel=true_res, launches=launches,
-                       eig_diff_plain=diff))
+                       other_int8_launches=others, eig_diff_plain=diff))
     del runs, out, ref
     torch.cuda.empty_cache()
 
@@ -2225,7 +2430,9 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
         moved += (0 if mv is None else n * mv * isz) + width * m * 4
         ops += 2 * n * width * m
     t_bytes = moved / HBM_BYTES_S * 1e3
-    t_ops = ops / PEAK_FLOP_S["float32" if quant else dtype] * 1e3
+    # int8 storage with float32 x runs float32 operations; with float64 x
+    # float64 ones.
+    t_ops = ops / PEAK_FLOP_S["float32" if quant and isz == 4 else dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2244,10 +2451,12 @@ def _split_bounds(op, nnz_blocks, m, mv) -> dict:
             for variant, extra in (("nov", 0), ("nogram", n * mv * 4))}
 
 
-def _library_bsr(op, ext: bool):
+def _library_bsr(op, ext: bool, p=None):
     """``op``'s in-range blocks as a ``torch.sparse_bsr_tensor``: the whole
     matrix, or with ``ext`` a shard's rows over its halo-extended columns
-    (slot k of block row r at block column r + k)."""
+    (slot k of block row r at block column r + k); with a permutation
+    ``p`` of the block indices, P A Pᵀ (:func:`_permuted`), columns sorted
+    in each row."""
     import torch
     nbr, bs, kbs = op.blocks.shape
     K, bw, dev = kbs // bs, op.bandwidth, op.blocks.device
@@ -2257,9 +2466,14 @@ def _library_bsr(op, ext: bool):
     ncols = nbr + 2 * bw if ext else nbr
     keep = (col >= 0) & (col < ncols)
     values = op.blocks.reshape(nbr, bs, K, bs).permute(0, 2, 1, 3)[keep]
+    rows, col = r.expand(nbr, K)[keep], col[keep]
+    if p is not None:
+        rows, col = p[rows], p[col]
+        order = torch.argsort(rows * nbr + col)
+        rows, col, values = rows[order], col[order], values[order]
     crow = torch.zeros(nbr + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(torch.sum(keep, dim=1), 0)
-    return torch.sparse_bsr_tensor(crow, col[keep], values,
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nbr), 0)
+    return torch.sparse_bsr_tensor(crow, col, values,
                                    size=(nbr * bs, ncols * bs))
 
 
@@ -2363,17 +2577,17 @@ _K1_TYPES = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
 
 
 def _k1_entries(log: str) -> dict:
-    """Kernel 1, its variants and kernel 8 (``banded_spmm_kernel`` of
-    csrc/banded_spmm.cuh, by x-row source: kernel 1's masked one, kernel
-    8's inside and split ones): "f64 TM=128 TN=48 RPC=1 full direct normal
-    Masked" -> (registers, spill store bytes, static shared bytes), from the
-    build's report. The ring is dynamic shared memory (``_k1_plan``)."""
+    """Kernel 1, its variants, kernel 8 and kernel 2 (``banded_spmm_kernel``
+    of csrc/banded_spmm.cuh, by x-row source: kernel 1's masked one, kernel
+    8's inside and split ones, kernel 2's column table): "f64 TM=128 TN=48
+    RPC=1 full direct normal Masked" -> (registers, spill store bytes,
+    static shared bytes), from the build's report. The ring is dynamic shared memory (``_k1_plan``)."""
     import re
     out = {}
     for name, n, spill, smem in _ptxas_entries(log):
         m = re.search(r"banded_spmm_kernelI(d|f|13__nv_bfloat16)Li(\d+)ELi"
                       r"(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)ENS_\d+"
-                      r"(Masked|Inside|Split)", name)
+                      r"(Masked|Inside|Split|Table)", name)
         if m:
             t, tm, tn, rpc, var, store, ev, src = m.groups()
             key = (f"{_K1_TYPES[t]} TM={tm} TN={tn} RPC={rpc} "
@@ -2481,8 +2695,8 @@ def main() -> int:
         print(f"    ptxas registers of the shared SIMT tile's "
               f"instantiations: {_tile_registers(log)}")
         print("    kernel 1, its variants (source Masked), kernel 8 (sources "
-              "Inside and Split) and kernel 6's cp.async route (Inside) on "
-              "csrc/banded_spmm.cuh: ptxas "
+              "Inside and Split), kernel 6's cp.async route (Inside) and "
+              "kernel 2 (Table) on csrc/banded_spmm.cuh: ptxas "
               "registers, spill stores, static smem; the default ring "
               "(kernels.banded_spmm_plan)")
         for key, (regs, spill, smem) in _k1_entries(log).items():
@@ -2529,9 +2743,10 @@ def main() -> int:
 
     print("[3] kernels vs plain versions", flush=True)
     record, slab_checks, gram_splits, k1_info, variant_info = [], {}, {}, {}, {}
-    band_checks, ext_info = {}, {}
+    band_checks, ext_info, permuted_info, q64_info = {}, {}, {}, {}
     phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
-                  k1_info, variant_info, band_checks, ext_info)
+                  k1_info, variant_info, band_checks, ext_info, permuted_info,
+                  q64_info)
     # Kernel 1's variants at the probes' shape (row 10 of PERF.md's table).
     probe_case = (types.SimpleNamespace(n_block_rows=probe.n_block_rows,
                                         block_size=probe.block_size,
@@ -2554,7 +2769,8 @@ def main() -> int:
         ("[4] main path", lambda: phase_main(A, dev, solves, refs),
          ("banded_bsr_spmm",)),
         ("[5] collapse and generalized legs",
-         lambda: phase_legs(A, dev, solves), ("banded_bsr_spmm", "bsr_spmm")),
+         lambda: phase_legs(A, dev, solves, refs),
+         ("banded_bsr_spmm", "bsr_spmm")),
         ("[6] int8 loose stage, n=2,097,152, lowest-20",
          lambda: phase_int8(q, dev, solves, refs), ("banded_q_bsr_spmm",)),
         ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
@@ -2636,6 +2852,23 @@ def main() -> int:
         if name in band_checks:
             # The band alone (the diagonal zeroed), to the same limit.
             entry.update(band_checks[name])
+        if name == "bsr_spmm":
+            # P A Pᵀ, by width (phase 3).
+            entry["permuted"] = permuted_info
+        if name in q64_info:
+            # The float64-x entry at int8 m = 20 and 40 (kernel 5 at
+            # mv = 220), with its launches in phase 6's float64 leg.
+            leg = next(r for r in solves
+                       if r["solve"].startswith("int8 banded float64"))
+            launches = ({"banded_q_bsr_spmm": leg["launches"]}
+                        | leg["other_int8_launches"])[name]
+            entry["float64_x"] = {
+                f"m={m_x}": dict(
+                    t, **dict(zip(("bound_ms", "bound_by"), _bound(
+                        name, "float64", m_x,
+                        220 if name.endswith("_gram") else None,
+                        *nnz["nbr=16384"]))), launches=launches)
+                for m_x, t in q64_info[name].items()}
         if name == "banded_bsr_spmm":
             entry.update(split_ms=k1_info["split"], probe_bound_ms=_bound(
                 name, "bfloat16", PROBE["m"], None, *probe_case)[0])

@@ -1,8 +1,9 @@
 // Kernel 1, the DIA-banded SpMM, as one template for Hopper (sm_90a): the
 // kernel of banded_spmm.cu, its measurement variants
 // (banded_spmm_var_{f64,f32,bf16}.cu), kernel 8 (remote_halo.cu), the
-// same product over a shard's rows and its two received halos, and kernel
-// 6's cp.async route (ext_spmm.cu), over a halo-extended input. The design
+// same product over a shard's rows and its two received halos, kernel 6's
+// cp.async route (ext_spmm.cu), over a halo-extended input, and kernel 2
+// (bsr_spmm.cu), the block-ELL product over a column table. The design
 // and what bounds it are written at the top of banded_spmm.cu. The tiling
 // and shared memory a launch takes are decided here alone; plan_entry()
 // reports them (kernels.banded_spmm_plan).
@@ -37,7 +38,9 @@
 // Where a window chunk's x rows come from is the kernel's source (Src,
 // below): kernel 1's zero-fills rows outside [0, n); kernel 8's read a
 // shard's rows unmasked (Inside) or split them between the shard's rows
-// and its halos (Split). A source also maps the grid's rows to block rows.
+// and its halos (Split); kernel 2's walks its row's K table entries
+// instead of the band (Table, at RPC = 1: window j is slot j, in block
+// column cols[r, j]). A source also maps the grid's rows to block rows.
 //
 // Variants (template parameters, measurement only):
 //   kVar    kFull | kNoY (products, no Y: one column-sum row a CTA into
@@ -255,6 +258,52 @@ struct Split {
   }
 };
 
+// Table (kernel 2, bsr_spmm.cu): block-ELL, slot j of block row r holding
+// block column cols[r * K + j], launched at RPC = 1 with bw = 0. x has
+// x_rows rows (a multiple of bs), so a chunk's rows lie all inside or all
+// outside them: a block column outside [0, x_rows / bs) zero-fills the
+// chunk, unread (Masked's rule over x_rows).
+template <typename T>
+struct Table {
+  const int* cols;
+  int K;
+  long long x_rows;
+  __device__ __forceinline__ long long block_row(long long g) const {
+    return g;
+  }
+  template <int KC, int TN>
+  __device__ __forceinline__ void stage_x(T* dst, int sx, const T* x,
+                                          long long xr0, int vk, long long,
+                                          int m, int c0, int vcols,
+                                          bool vec) const {
+    Masked<T>{}.template stage_x<KC, TN>(dst, sx, x, xr0, vk, x_rows, m, c0,
+                                         vcols, vec);
+  }
+  bool aligned() const { return true; }
+};
+
+// The window a CTA walks: Kw block columns, and the first x row of chunk
+// kc0 of window column j. The banded sources read RPC + 2*bw contiguous
+// block columns from r0 - bw; the table reads its row's K entries.
+template <class Src>
+__device__ __forceinline__ int window(const Src&, int rpc, int, int bw) {
+  return rpc + 2 * bw;
+}
+template <class Src>
+__device__ __forceinline__ long long x_row(const Src&, long long r0, int j,
+                                           int bw, int bs, int kc0) {
+  return (r0 - bw + j) * bs + kc0;
+}
+template <typename T>
+__device__ __forceinline__ int window(const Table<T>& src, int, int, int) {
+  return src.K;
+}
+template <typename T>
+__device__ __forceinline__ long long x_row(const Table<T>& src, long long r0,
+                                           int j, int, int bs, int kc0) {
+  return static_cast<long long>(__ldg(src.cols + r0 * src.K + j)) * bs + kc0;
+}
+
 __device__ __forceinline__ void dmma(double& c0, double& c1, double a,
                                      double b) {
   asm volatile(
@@ -467,7 +516,7 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
       asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
                    : "=l"(policy));
     const int chunks = (bs + KC - 1) / KC;
-    const int Kw = RPC + 2 * bw;
+    const int Kw = window(src, RPC, K, bw);
     const int iters = Kw * chunks;
     const int rows_a = min(TM, bs - i0);
     const int vcols_x = min(TN, m - c0);
@@ -477,10 +526,10 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
       const int j = it / chunks;
       const int kc0 = (it % chunks) * KC;
       const int vk = min(KC, bs - kc0);
-      // x rows (r0 - bw + j) * bs + kc0 + [0, KC), from the source.
+      // x rows x_row(...) + [0, KC), from the source.
       src.template stage_x<KC, TN>(st + RPC * TM * SA, SX, x,
-                                   (r0 - bw + j) * bs + kc0, vk, n, m, c0,
-                                   vcols_x, vec_x != 0);
+                                   x_row(src, r0, j, bw, bs, kc0), vk, n, m,
+                                   c0, vcols_x, vec_x != 0);
 #pragma unroll
       for (int i = 0; i < RPC; ++i) {
         const int k = j - i;
@@ -718,8 +767,8 @@ inline int column_tile(int m) {
 // Row tile: 16 rows (one warp) for bs <= 16, else 128 (eight warps).
 inline bool small_rows(int bs) { return bs <= 16; }
 
-// The full kernel over `groups` block rows from the source (kernel 1 and
-// kernel 8), at the row tile and column tile above.
+// The full kernel over `groups` block rows from the source (kernels 1, 2,
+// 8 and kernel 6's cp.async route), at the row tile and column tile above.
 template <typename T, int TM, class Src>
 cudaError_t launch_full_tm(const T* blocks, const T* x, Src src,
                            typename Math<T>::Acc* y, int nbr, long long groups,

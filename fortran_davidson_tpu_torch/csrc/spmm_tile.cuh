@@ -1,17 +1,22 @@
 // Tile machinery shared by the block-sparse SpMM kernels of the port
-// that have not been redesigned for Hopper (sm_90a): kernel 2 (bsr_spmm.cu,
-// the column table), kernel 3's float64 and bf16 gram entries and the
-// float64-x int8 entries of kernels 4 and 5 (banded_gram.cu), and kernel
-// 7's float64-x entry (halo_spmm.cu). Kernels 1, 6 and 8 are on kernel 1's
-// template (banded_spmm.cuh; kernel 6 also on its own TMA stream,
-// ext_spmm.cu), and the float32 int8 apply of kernels 4, 5 and 7 is
-// fused_apply.cuh's.
+// that have not been redesigned for Hopper (sm_90a): kernel 3's float64
+// and bf16 gram entries and the float64-x int8 entries of kernels 4 and 5
+// (banded_gram.cu), and kernel 7's float64-x entry (halo_spmm.cu).
+// Kernels 1, 2, 6 and 8 are on kernel 1's template (banded_spmm.cuh;
+// kernel 2 through its column-table source; kernel 6 also on its own TMA
+// stream, ext_spmm.cu), and the float32 int8 apply of kernels 4, 5 and 7
+// is fused_apply.cuh's.
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
 // block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
-// found either by the banded rule (slot k of block row r holds block
-// column r - bw + k, so the slab contracts the contiguous x window
-// [(r - bw) * bs, (r + bw + 1) * bs)) or by a (nbr, K) column table.
+// found by the banded rule (slot k of block row r holds block column
+// r - bw + k, so the slab contracts the contiguous x window
+// [(r - bw) * bs, (r + bw + 1) * bs)) or by a (nbr, K) column table,
+// which no kernel passes any more (every caller gives cols == nullptr).
+// The table's branch stays: without it ptxas gave spmm_kernel, the
+// float64-x kernels 4 and 7, other registers (32-74 against 38-78 in
+// parent-against-change builds on an H100), and the tile is held at its
+// code generation until it is redesigned.
 //
 // One thread block computes a TM x TN tile of one block row's (bs, m)
 // output: it walks the contraction dimension K*bs in chunks of kTK,

@@ -2,9 +2,9 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (kernel 2, and the float64-x entries of 4, 5
-and 7, on the shared SIMT tile of ``csrc/spmm_tile.cuh``), and the TPU
-measurement kernels as variants:
+Eight kernels, in ``csrc/`` (kernel 3's float64 and bf16 entries and the
+float64-x entries of 4, 5 and 7 on the shared SIMT tile of
+``csrc/spmm_tile.cuh``), and the TPU measurement kernels as variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -13,7 +13,8 @@ measurement kernels as variants:
   ring, f64 on DMMA, bf16 storage on mma.sync, f32 on FFMA).
 - :func:`bsr_spmm` replaces ``bsr_spmm`` (``pallas_kernels.py:101``):
   general block-ELL, where a block row reads its own K column indices
-  (``csrc/bsr_spmm.cu``).
+  (``csrc/bsr_spmm.cu``: kernel 1's template with a column-table source,
+  each chunk's x rows staged from its slot's block column).
 - :func:`banded_bsr_spmm_gram` replaces ``banded_bsr_spmm_gram``
   (``pallas_kernels.py:592``): Y = A X and G = Vᵀ Y in one sweep; float32
   on tensor cores (3xTF32) with G in registers across a thread-block
@@ -51,8 +52,8 @@ SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
 their plain versions :func:`fused_gram_variant_plain`).
 
 What bounds them on the H100, and what the designs do about it, is
-written at the top of each source. Kernels 1, 3 (float32), 4 and 7
-(float32 x), 5, 6 and 8 run on tensor cores (kernels 1, 6 and 8 in
+written at the top of each source. Kernels 1, 2, 3 (float32), 4 and 7
+(float32 x), 5, 6 and 8 run on tensor cores (kernels 1, 2, 6 and 8 in
 float32 on FFMA); the others on the shared SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
@@ -770,7 +771,9 @@ def bsr_spmm(block_cols, blocks, x, out_dtype=None):
 
     Args:
       block_cols: (nbr, K) int32 block-column index of each slot (padded
-        slots may point anywhere in range; their blocks must be zero).
+        slots may point anywhere in range; their blocks must be zero). On
+        the card a column outside [0, nbc) reads zeros; the plain version
+        takes columns in range only.
       blocks: (nbr, bs, K*bs).
       x: (nbc*bs, m), the blocks' type.
       out_dtype: output type (default ``x.dtype``).

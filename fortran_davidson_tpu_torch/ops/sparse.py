@@ -182,9 +182,11 @@ class BSROperator(LinearOperator):
             bw = self.bandwidth
             diag_blocks = self.blocks[:, :, bw * bs:(bw + 1) * bs]
         else:
-            own = self._own_slots()
-            diag_blocks = torch.sum(torch.where(
-                own[:, None, :, None], self._blocks4(), 0), dim=2)
+            # The diagonal entries of every slot's block, summed over the
+            # row's own slots: reads nbr*K*bs entries, not the whole table.
+            entries = torch.diagonal(self._blocks4(), dim1=1, dim2=3)
+            return torch.sum(torch.where(self._own_slots()[:, :, None],
+                                         entries, 0), dim=1).reshape(-1)
         return torch.diagonal(diag_blocks, dim1=1, dim2=2).reshape(-1)
 
     def to_dense(self):

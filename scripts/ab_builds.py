@@ -12,6 +12,7 @@ Each tree is built and run in a process of its own (``--worker``), with
 that tree first on ``sys.path``, so each imports its own
 ``fortran_davidson_tpu_torch``; the ptxas reports go to
 ``chiprun_out/ab/``, the outputs to ``_archive/ab/`` (gitignored).
+Each tree is built afresh, into ``_archive/ab/<tag>_build``.
 
 An instantiation's key is its demangled name without the parameter list
 (``cu++filt`` or ``c++filt``; without either, the mangled name with the
@@ -43,11 +44,36 @@ OUT = HERE / "chiprun_out" / "ab"
 BULK = HERE / "_archive" / "ab"
 
 
+# Kernel 1's measurement variants (kernels.banded_spmm_variant): "copy" in
+# every type and bs, the rest in float64 and bf16 at bs > 16.
+_K1_VARIANTS = (
+    ("copy", {}), ("noy", {}), ("writeonly", {}),
+    ("full", {"rows_per_cta": 2}), ("full", {"rows_per_cta": 4}),
+    ("full", {"store": "tma"}), ("full", {"block_policy": "evict_first"}),
+    ("full", {"stages": 3}),
+)
+
+
+def _permuted(cols, blocks, seed):
+    """P A Pᵀ of a block-ELL table, for a permutation p of the block rows
+    seeded by ``seed``: block row p[r] takes row r's slabs, its columns
+    p[cols[r, k]]. Returns (p, columns, blocks)."""
+    import torch
+    gen = torch.Generator(device=blocks.device).manual_seed(seed)
+    nbr = blocks.shape[0]
+    p = torch.randperm(nbr, generator=gen, device=blocks.device)
+    pcols = torch.empty_like(cols)
+    pcols[p] = p[cols.long()].to(cols.dtype)
+    pblocks = torch.empty_like(blocks)
+    pblocks[p] = blocks
+    return p, pcols, pblocks
+
+
 def _cases():
-    """(label, fn) pairs over the public wrappers of kernels 1-8 and kernel
-    5's measurement variants; each fn returns the outputs to compare (a
-    tensor or a tuple of them). Inputs are made on the card from fixed
-    seeds."""
+    """(label, fn) pairs over the public wrappers of kernels 1-8 (kernel 2
+    also on a block-permuted table) and the measurement variants of kernels
+    1 and 5; each fn returns the outputs to compare (a tensor or a tuple of
+    them). Inputs are made on the card from fixed seeds."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     from fortran_davidson_tpu_torch.ops import kernels as k
@@ -92,6 +118,19 @@ def _cases():
                 out.append((f"k2 {tag} {dtype} m={m}",
                             lambda b=b, x=x, acc=acc, c=op.block_cols:
                             k.bsr_spmm(c, b, x, out_dtype=acc)))
+                perm, pcols, pblocks = _permuted(op.block_cols, b, m)
+                xp = x.reshape(-1, bs, m)[perm.argsort()].reshape(n, m)
+                out.append((f"k2 permuted {tag} {dtype} m={m}",
+                            lambda b=pblocks, x=xp, acc=acc, c=pcols:
+                            k.bsr_spmm(c, b, x, out_dtype=acc)))
+                for variant, opts in _K1_VARIANTS:
+                    if variant != "copy" and (dtype == torch.float32
+                                              or bs <= 16):
+                        continue
+                    out.append((f"k1v {variant} {opts} {tag} {dtype} m={m}",
+                                lambda b=b, x=x, bw=bw, v=variant, o=opts:
+                                k.banded_spmm_variant(b, x, bw, variant=v,
+                                                      **o)))
     A32 = A.blocks.float()
     for m, mv in ((20, 220), (128, 1408), (40, None)):
         x = randn(q.shape[0], m, torch.float32, 100 + m)
@@ -125,6 +164,24 @@ def _cases():
         out.append((f"k7 f32 m={m}",
                     lambda xe=xe: k.banded_q_ext_bsr_spmm(*ql, xe,
                                                           bandwidth=1)))
+        # The shared SIMT tile's entries: float64 x on kernels 5 and 7,
+        # kernel 3 in float64 and bf16.
+        xe = xe.double()
+        out.append((f"k7 f64 m={m}",
+                    lambda xe=xe: k.banded_q_ext_bsr_spmm(*ql, xe,
+                                                          bandwidth=1)))
+        x = randn(q.shape[0], m, torch.float64, 500 + m)
+        v = randn(q.shape[0], 220, torch.float64, 600 + m)
+        out.append((f"k5 f64 m={m} mv=220",
+                    lambda x=x, v=v: k.banded_q_bsr_spmm_gram(*ql, x, v,
+                                                              bandwidth=1)))
+        for dtype in (torch.float64, torch.bfloat16):
+            x = randn(A.shape[0], m, dtype, 700 + m)
+            v = randn(A.shape[0], 220, dtype, 800 + m)
+            for mv, vv in ((None, None), (220, v)):
+                out.append((f"k3 {dtype} m={m} mv={mv}",
+                            lambda b=A.blocks.to(dtype), x=x, vv=vv:
+                            k.banded_bsr_spmm_gram(b, x, vv, bandwidth=1)))
     return out
 
 
@@ -135,6 +192,9 @@ def worker(tag: str) -> int:
     from fortran_davidson_tpu_torch.ops import kernels as k
     OUT.mkdir(parents=True, exist_ok=True)
     BULK.mkdir(parents=True, exist_ok=True)
+    # A fresh build, so that ptxas reports every instantiation.
+    k.BUILD_DIR = BULK / f"{tag}_build"
+    shutil.rmtree(k.BUILD_DIR, ignore_errors=True)
     _, log = k.build()
     (OUT / f"{tag}.ptxas.log").write_text(log)
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1073,3 +1073,180 @@ def test_banded_plan(cuda_device):
     with pytest.raises(RuntimeError):
         kernels.banded_spmm_plan(idx, torch.float64, 128, 48, "full",
                                  stages=9)
+
+
+# -- kernel 2, the general block-ELL SpMM, on kernel 1's template ---------
+
+_GENERAL_WIDTHS = (1, 4, 20, 44, 64, 256)
+
+
+def _general_table(kind, nbr, bs, K, seed):
+    """(cols, blocks, nbc) in numpy float64, with K slots a block row:
+    "banded", the clipped DIA table of bandwidth (K - 1) // 2 padded with
+    zero-block slots at column r (as ``from_block_coo`` pads); "scrambled",
+    random columns of nbr + 3 block columns and random blocks; "coo",
+    ``BSROperator.from_block_coo`` of 1 to K random distinct columns a
+    row."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "banded":
+        bw = (K - 1) // 2
+        op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=seed,
+                                      device="cpu")
+        pad = K - (2 * bw + 1)
+        cols = np.concatenate([op.block_cols.numpy(), np.tile(
+            np.arange(nbr, dtype=np.int32)[:, None], (1, pad))], axis=1)
+        blocks = np.concatenate([op.blocks.numpy(),
+                                 np.zeros((nbr, bs, pad * bs))], axis=2)
+        return cols, blocks, nbr
+    if kind == "scrambled":
+        nbc = nbr + 3
+        return (rng.integers(0, nbc, (nbr, K)).astype(np.int32),
+                rng.standard_normal((nbr, bs, K * bs)), nbc)
+    brows, bcols = [], []
+    for r in range(nbr):
+        c = rng.choice(nbr, int(rng.integers(1, K + 1)), replace=False)
+        brows += [r] * len(c)
+        bcols += c.tolist()
+    op = fdtt.BSROperator.from_block_coo(
+        brows, bcols, rng.standard_normal((len(brows), bs, bs)), nbr,
+        pad_width=K, device="cpu")
+    return op.block_cols.numpy(), op.blocks.numpy(), nbr
+
+
+def _general_on(dev, cols, blocks, dtype):
+    return (torch.from_numpy(cols).to(dev),
+            torch.from_numpy(blocks).to(device=dev, dtype=dtype))
+
+
+def _general_rel(y, yp):
+    assert y.dtype == yp.dtype
+    err = float((y.double() - yp.double()).abs().max())
+    return err / max(float(yp.double().abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 24, 128])
+@pytest.mark.parametrize("K", [1, 3, 4, 12])
+@pytest.mark.parametrize("kind", ["banded", "scrambled", "coo"])
+def test_general_kernel_matches_plain(cuda_device, dtype, bs, K, kind):
+    # 13 block rows: no row count a multiple of the 128-row tile. Limits
+    # as chip_smoke.py's: 1e-12 of max|Y| in float64 (the same products
+    # summed in another order), 1e-5 in float32 and with bf16 storage
+    # (summed in float32 by both).
+    cols, blocks, nbc = _general_table(kind, 13, bs, K, seed=bs + K)
+    c, b = _general_on(cuda_device, cols, blocks, dtype)
+    acc = kernels.acc_dtype(dtype)
+    limit = 1e-12 if dtype == torch.float64 else 1e-5
+    for m in _GENERAL_WIDTHS:
+        x = torch.randn((nbc * bs, m), dtype=torch.float64,
+                        device=cuda_device).to(dtype)
+        before = kernels.bsr_spmm.launches
+        y = kernels.bsr_spmm(c, b, x, out_dtype=acc)
+        assert kernels.bsr_spmm.launches == before + 1
+        assert _general_rel(y, kernels.bsr_spmm_plain(c, b, x, acc)) <= limit
+        assert torch.equal(y, kernels.bsr_spmm(c, b, x, out_dtype=acc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("bw", [0, 1, 2, 3])
+@pytest.mark.parametrize("bs", [8, 24, 128])
+def test_general_kernel_on_the_dia_table_gives_kernel_1s_bits(
+        cuda_device, dtype, bw, bs):
+    # cols[r, k] = r - bw + k, out-of-range columns included: every stage
+    # holds kernel 1's bytes, so Y is kernel 1's bit for bit.
+    op = fdtt.generate_banded_bsr(11, bs, bandwidth=bw, seed=bs + bw,
+                                  device=cuda_device)
+    K = 2 * bw + 1
+    dia = (torch.arange(11, device=cuda_device)[:, None] - bw
+           + torch.arange(K, device=cuda_device)[None, :]).to(torch.int32)
+    blocks = op.blocks.to(dtype)
+    acc = kernels.acc_dtype(dtype)
+    for m in (1, 20, 48, 256):
+        x = torch.randn((op.shape[0], m), dtype=torch.float64,
+                        device=cuda_device).to(dtype)
+        assert torch.equal(
+            kernels.bsr_spmm(dia, blocks, x, out_dtype=acc),
+            kernels.banded_bsr_spmm(blocks, x, bw, out_dtype=acc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+def test_general_kernel_reads_zeros_outside_the_columns(cuda_device, dtype):
+    # Slots whose column lies outside [0, nbc) add nothing: the same Y as
+    # those slots with zero blocks at column 0, bit for bit (0 * x and
+    # a * 0 are both zeros), and the plain version's within the limit.
+    import numpy as np
+    cols, blocks, nbc = _general_table("scrambled", 13, 24, 4, seed=5)
+    bad = [-1, -(nbc + 5), nbc, nbc + 9, 2**31 - 1, -2**31]
+    where = [(r, r % 4) for r in range(0, 13, 2)]
+    for i, (r, k) in enumerate(where):
+        cols[r, k] = bad[i % len(bad)]
+    safe_cols, zeroed = cols.copy(), blocks.copy()
+    for r, k in where:
+        safe_cols[r, k] = 0
+        zeroed[r, :, k * 24:(k + 1) * 24] = 0.0
+    c, b = _general_on(cuda_device, cols, blocks, dtype)
+    cs, bz = _general_on(cuda_device, safe_cols, zeroed, dtype)
+    assert np.all(safe_cols >= 0)
+    acc = kernels.acc_dtype(dtype)
+    for m in (1, 20, 256):
+        x = torch.randn((nbc * 24, m), dtype=torch.float64,
+                        device=cuda_device).to(dtype)
+        y = kernels.bsr_spmm(c, b, x, out_dtype=acc)
+        assert torch.equal(y, kernels.bsr_spmm(cs, bz, x, out_dtype=acc))
+        assert _general_rel(y, kernels.bsr_spmm_plain(cs, bz, x, acc)) <= (
+            1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 128])
+def test_general_kernel_never_reads_unnamed_rows(cuda_device, dtype, bs):
+    # NaN in every x row of a block column that no slot names (inside the
+    # table's range and past it): Y is finite and equal to the kernel's on
+    # x with those rows zeroed.
+    import numpy as np
+    rng = np.random.default_rng(bs)
+    nbr, K, nbc = 13, 3, 20
+    cols = rng.choice(np.arange(0, nbc, 2), (nbr, K)).astype(np.int32)
+    c, b = _general_on(cuda_device, cols,
+                       rng.standard_normal((nbr, bs, K * bs)), dtype)
+    unnamed = torch.ones(nbc, dtype=torch.bool, device=cuda_device)
+    unnamed[c.long().flatten()] = False
+    rows = unnamed.repeat_interleave(bs)
+    acc = kernels.acc_dtype(dtype)
+    for m in (1, 20, 256):
+        x = torch.randn((nbc * bs, m), dtype=torch.float64,
+                        device=cuda_device).to(dtype)
+        x[rows] = 0
+        want = kernels.bsr_spmm(c, b, x, out_dtype=acc)
+        x[rows] = float("nan")
+        y = kernels.bsr_spmm(c, b, x, out_dtype=acc)
+        assert bool(torch.isfinite(y).all()) and torch.equal(y, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("kind", ["banded", "coo"])
+def test_general_kernel_on_a_block_permuted_table(cuda_device, dtype, kind):
+    # P A Pᵀ applied to P x is P (A x), bit for bit: block row p[r] stages
+    # row r's slabs and the same x slices in the same order.
+    cols, blocks, nbc = _general_table(kind, 13, 24, 4, seed=7)
+    c, b = _general_on(cuda_device, cols, blocks, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    p = torch.randperm(13, generator=gen, device=cuda_device)
+    pc, pb = torch.empty_like(c), torch.empty_like(b)
+    pc[p] = p[c.long()].to(torch.int32)
+    pb[p] = b
+    acc = kernels.acc_dtype(dtype)
+    for m in (1, 20, 256):
+        x = torch.randn((nbc * 24, m), dtype=torch.float64,
+                        device=cuda_device).to(dtype)
+        px = torch.empty_like(x).reshape(13, 24, m)
+        px[p] = x.reshape(13, 24, m)
+        y = kernels.bsr_spmm(c, b, x, out_dtype=acc).reshape(13, 24, m)
+        py = kernels.bsr_spmm(pc, pb, px.reshape(-1, m), out_dtype=acc)
+        assert torch.equal(py.reshape(13, 24, m)[p], y)
