@@ -10,11 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    card's name and power limit.
 2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
    nvcc per source, started together); prints ptxas's registers of every
-   instantiation of the shared SIMT tile, of kernel 1, its variants and
-   kernels 8 and 2 on kernel 1's template (with their static shared memory
-   and their ring's bytes), of the fused kernels 3 and 5, and of kernel 4's
-   float32 entry and kernel 5's bf16-dequant variants (with kernel 4's
-   layout).
+   instantiation of the shared SIMT tile (``gram_kernel``), of kernel 1,
+   its variants and kernels 8 and 2 on kernel 1's template (with their
+   static shared memory and their ring's bytes), of the float64-x entries
+   of kernels 4 and 7 on the same template (int8 slab; with their ring),
+   of the fused kernels 3 and 5, and of kernel 4's float32 entry and
+   kernel 5's bf16-dequant variants (with kernel 4's layout).
 3. Kernels against their plain PyTorch versions on the same tensors on
    the card, with CUDA-event times (median of 7) of both:
    - the SpMM kernels (1, 2): max relative error <= 1e-12 in float64 and
@@ -42,7 +43,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      full against ``nogram`` (``r4_visx_probe2.py``'s modes);
    - kernels 4, 5 and 7 with float64 x, ragged and at full size, within
      ``Q64_TOL`` of their plain versions, each timed at full size (int8
-     m = 20, 40; kernel 5 at mv = 220) beside its plain version;
+     m = 20, 40; kernel 5 at mv = 220, also beside its unfused yardstick,
+     kernel 4 then ``torch.matmul(v.T, y)``) beside its plain version;
+     kernels 4 and 7 (``csrc/q_spmm_f64.cu``, ``csrc/q_ext_spmm_f64.cu``)
+     also on x framed by NaN
+     rows (kernel 4's Y finite), the same bits twice, kernel 7 over the
+     one slab's x_ext equal to kernel 4 bit for bit, and on the band alone
+     within ``Q64_TOL`` of max|Y_band|, a limit the band faults exceed;
+   - kernel 3's float64 and bf16 entries (the SIMT tile) at its main
+     case's shape (m=128, mv=1408) against the plain version, timed
+     beside it and the unfused yardstick (kernel 1 + matmul);
    - the new kernels (3: banded SpMM+Gram, 4: int8 banded SpMM, 5: int8
      SpMM+Gram) in every variant (``v`` given or None, ``write_out``),
      on a ragged small matrix, on the 2,097,152-row int8 matrix (4, 5)
@@ -127,9 +137,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    <= 1e-3, and the same solve through the plain version takes the same
    iterations, eigenvalues to 1e-4 relative; prints the warm walls beside
    the iterations. Then the float64 leg: the
-   default float64 type at relative 1e-6 through kernel 4's float64
-   entry, the plain path's iterations, a true relative residual <= 1e-6;
-   the launches of kernels 4, 5 and 7 on it.
+   default float64 type at relative 1e-6 through kernel 4's float64-x
+   entry (``banded_q_bsr_spmm_f64``), the plain path's iterations, a true
+   relative residual <= 1e-6; the launches of kernels 4, 5 and 7 on it.
 7. The fused SpMM+Gram engine, on the 1M-row matrix at coupling 3 in
    float32 (at coupling 1e-3 lowest-128 converges on its initial basis,
    with no expansion to fuse): (a) ``fused_gram="auto"`` engages at
@@ -149,9 +159,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    single-device solve (same iterations, eigenvalues to 1e-10 / 1e-5
    relative, true residuals); the shards are views of the global tables.
    (a) Lowest-3 and lowest-20 on the 1M-row matrix as a
-   ``HaloBSROperator(backend="pallas")`` (kernel 6), and the int8 loose
-   stage through ``shard_operator`` (kernel 7); kernels 1 and 4 never
-   launch; times the all-gather exchange. (b) Lowest-3 and lowest-20
+   ``HaloBSROperator(backend="pallas")`` (kernel 6), the int8 loose
+   stage through ``shard_operator`` (kernel 7), and phase 6's float64
+   leg sharded (kernel 7's float64-x entry, ``banded_q_ext_bsr_spmm_f64``,
+   which must launch; phase 6's float64 iterations, eigenvalues and true
+   relative residual within 1e-6); kernels 1 and 4 never launch; times the
+   all-gather exchange. (b) Lowest-3 and lowest-20
    through ``backend="pallas-remote"`` (kernel 8, ring exchange, no
    x_ext); kernels 1 and 6 never launch.
 9. One halo apply of the ``"pallas-remote"`` path against the
@@ -172,9 +185,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.sparse_bsr_tensor @ x`` (cuSPARSE) for kernels 1 and 2, and
    for kernel 6 ``torch.bmm`` over the window view of x_ext (cuSPARSE
    beside it); the bounds of the probes' rows at their shapes; kernel 2's
-   P A Pᵀ times and bounds by width; for kernels 4, 5 and 7 their float64-x
-   entries' times, bounds and launches in phase 6's float64 leg), the
-   card's name and power limit, and as the last line
+   P A Pᵀ times and bounds by width; the float64-x entries of kernels 4
+   and 7 as kernels of their own, ``banded_q_bsr_spmm_f64`` and
+   ``banded_q_ext_bsr_spmm_f64``, launched in phases 6 and 8a, with their
+   times at m = 20 and 40; kernel 5's float64-x entry's times, unfused
+   yardstick, bounds and launches in phase 6's float64 leg; kernel 3's
+   float64 and bf16 entries at its main case's shape), the card's name and
+   power limit, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
@@ -198,14 +215,16 @@ SOURCES = {
     # The float32 entry (the main case's); f64 and bf16 storage stay on
     # csrc/banded_gram.cu.
     "banded_bsr_spmm_gram": "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
-    # The float32-x entry (the main case's, kernel 5's apply); float64 x
-    # stays on csrc/banded_gram.cu.
+    # The float32-x entry (the main case's, kernel 5's apply).
     "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
+    # The float64-x entries of kernels 4 and 7, on kernel 1's template.
+    "banded_q_bsr_spmm_f64": "fortran_davidson_tpu_torch/csrc/q_spmm_f64.cu",
+    "banded_q_ext_bsr_spmm_f64":
+        "fortran_davidson_tpu_torch/csrc/q_ext_spmm_f64.cu",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/ext_spmm.cu",
-    # The float32-x entry (the main case's, kernel 4's apply); float64 x
-    # stays on csrc/halo_spmm.cu.
+    # The float32-x entry (the main case's, kernel 4's apply).
     "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu_torch/csrc/remote_halo.cu",
@@ -222,10 +241,13 @@ REPLACES = {
     "bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:101",
     "banded_bsr_spmm_gram": "fortran_davidson_tpu/ops/pallas_kernels.py:592",
     "banded_q_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
+    "banded_q_bsr_spmm_f64": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu/ops/pallas_kernels.py:886",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:1190",
     "banded_q_ext_bsr_spmm":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:1059",
+    "banded_q_ext_bsr_spmm_f64":
         "fortran_davidson_tpu/ops/pallas_kernels.py:1059",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu/ops/pallas_kernels.py:1416",
@@ -240,9 +262,11 @@ MAIN_CASE = {
     "bsr_spmm": ("float64", 48, None, True, "nbr=8192"),
     "banded_bsr_spmm_gram": ("float32", 128, 1408, True, "nbr=8192"),
     "banded_q_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
+    "banded_q_bsr_spmm_f64": ("float64", 20, None, True, "nbr=16384"),
     "banded_q_bsr_spmm_gram": ("float32", 20, 220, True, "nbr=16384"),
     "banded_ext_bsr_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
+    "banded_q_ext_bsr_spmm_f64": ("float64", 20, None, True, "nbr=16384"),
     "banded_remote_halo_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_spmm_copy": ("float64", 48, None, True, "nbr=8192"),
     # The probe's own shape (PROBE, m = mv = 256; fused_probe.py:206-219).
@@ -343,6 +367,14 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
         BSROperator, generate_banded_bsr, generate_banded_bsr_quantized)
 
     gen = torch.Generator(device=dev).manual_seed(1)
+    clock = [time.perf_counter()]
+
+    def lap(section):
+        """Print the host time since the last lap: where phase 3 spends
+        the smoke run's time limit."""
+        now = time.perf_counter()
+        print(f"  ({section}: {now - clock[0]:.1f} s)", flush=True)
+        clock[0] = now
 
     def randn(rows, cols, dtype=torch.float32):
         return torch.randn((rows, cols), generator=gen, dtype=torch.float32,
@@ -519,7 +551,9 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     del rag24
     torch.cuda.empty_cache()
     kernel_rows = A.shape[0]
+    lap("kernels 1, 2")
     permuted_info.update(permuted_case(A, spmm_case))
+    lap("kernel 2 on P A Pᵀ")
     k1_info.update(kernel1_variants(A, probe, q, dev, randn, record))
 
     # -- kernels 3-5: ragged first, then the full-size matrices ---------
@@ -540,6 +574,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
         ("banded_q_bsr_spmm_gram", q, (q.qblocks, q.scale_rows, q.diag),
          "nbr=16384 bs=128 bw=1", GRAM_WIDTHS, True),
     ]
+    lap("kernel 1's variants and split")
     for name, op, lead, note, widths, timed in gram_sets:
         if name == "banded_q_bsr_spmm_gram":
             kernel_rows = op.shape[0]
@@ -560,9 +595,14 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                 gram_case(name, kernel, plain, lead, op.shape[0], m, mv,
                           write_out, note, op.bandwidth, timed)
     del rag32
+    lap("kernels 3-5 against their plain versions")
     gram_splits.update(gram_split(A32, q, randn))
+    lap("kernels 3, 5 split")
+    gram_splits["tile"] = tile_gram_rows(A, randn)
+    lap("kernel 3's tile entries")
     variant_info.update(bf16_variant_split(q, probe, randn, record,
                                            band_checks))
+    lap("kernel 5's bf16-dequant variants")
 
     # -- kernels 6, 7: a shard's halo-extended input ((nbr + 2bw) * bs
     #    rows), ragged first, then the full-size matrices at world size 1;
@@ -599,15 +639,20 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
                 spmm_case(name, kernel, plain, dtype, m, note, timed,
                           twins=[("itself", kernel)],
                           frame=bw * op.block_size)
+    lap("kernels 6, 7")
     for op, note in ((ragq, "nbr=17 bs=24 bw=2"), (q, "nbr=16384 bs=128 bw=1")):
-        int8_float64_x(op, note, randn, op is q, q64_info)
+        int8_float64_x(op, note, randn, op is q, record, q64_info,
+                       band_checks)
+    lap("float64 x on int8 storage")
     ext_band_only([(rag, "nbr=17 bs=8 bw=2", dtype, 20)
                    for dtype in (f64, f32, bf16)]
                   + [(A, "nbr=8192 bs=128 bw=1", f64, 40),
                      (ragq, "nbr=17 bs=24 bw=2", f32, 20),
                      (q, "nbr=16384 bs=128 bw=1", f32, 20)],
                   randn, band_checks)
+    lap("kernels 6, 7 on the band alone")
     ext_info.update(ext_route_split(A, randn))
+    lap("kernel 6's routes")
     print("  kernel 6's TMA route under repetition, bit for bit against its "
           "cp.async route", flush=True)
     ext_info["tma_stress"] = tma_stress(A, randn)
@@ -626,6 +671,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
         (A, "nbr=8192 bs=128 bw=1", EXT_WIDTHS),
     ]
     name = "banded_remote_halo_spmm"
+    lap("kernel 6's TMA stress")
     for op, note, widths in remote_sets:
         bw = op.bandwidth
         halo = bw * op.block_size
@@ -679,7 +725,9 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     print(f"  banded_ext_bsr_spmm f64 routes by width (bs=128, aligned): "
           f"{routes}", flush=True)
 
+    lap("kernel 8 and the side-by-side widths")
     slab_checks.update(four_slab_check(A, q, randn))
+    lap("the four-slab check")
 
 
 def _dia_table(nbr: int, bw: int, dev):
@@ -1248,36 +1296,90 @@ def bf16_variant_split(q, probe, randn, record, band_checks) -> dict:
 Q64_TOL = 2.0 ** -22
 
 
-def int8_float64_x(op, note, randn, timed, info):
+def int8_float64_x(op, note, randn, timed, record, info, band_checks):
     """Kernels 4, 5 and 7 with float64 x (and v) against their plain
-    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|;
-    ``timed``: each entry and its plain version timed (kernel 5 at
-    mv = 220), into ``info[name][m]``."""
+    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|.
+    Kernels 4 and 7 (``csrc/q_spmm_f64.cu``, rows ``banded_q_bsr_spmm_f64``
+    and ``banded_q_ext_bsr_spmm_f64`` of ``record``) also: x framed by NaN
+    rows (kernel 4's Y finite), the same bits twice, kernel 7 over the one
+    slab's ring-wrapped x_ext equal to kernel 4 bit for bit, and on the
+    band alone (the diagonal zeroed) within Q64_TOL of max|Y_band|, a limit
+    that each fault of :func:`_int8_faults` must exceed (into
+    ``band_checks``); the share of Y's bits equal to the plain version's is
+    printed and not held. ``timed``: each timed beside its plain version,
+    and kernel 5 (mv = 220) also beside its unfused yardstick (kernel 4,
+    then ``torch.matmul(v.T, y)`` in float64), into
+    ``info["banded_q_bsr_spmm_gram"][m]``."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     lead = (op.qblocks, op.scale_rows, op.diag)
+    band = (op.qblocks, op.scale_rows, torch.zeros_like(op.diag))
+    faults = _int8_faults(*band)
     bw, halo = op.bandwidth, op.bandwidth * op.block_size
     n = op.shape[0]
     f64 = torch.float64
 
+    def rel_err(y, yp):
+        return (float(torch.max(torch.abs(y - yp)))
+                / float(torch.max(torch.abs(yp))))
+
     def close(label, y, yp):
-        err = float(torch.max(torch.abs(y - yp)))
-        rel = err / float(torch.max(torch.abs(yp)))
+        rel = rel_err(y, yp)
         _check(y.dtype == yp.dtype == f64 and rel <= Q64_TOL,
                f"{label} {note}: {y.dtype} rel err {rel:.3e} > {Q64_TOL}")
         return rel
 
     for m in (20, 40):
         x = randn(n, m, f64)
-        k4 = lambda: kernels.banded_q_bsr_spmm(*lead, x, bw)  # noqa: E731
-        p4 = lambda: kernels.banded_q_bsr_spmm_plain(  # noqa: E731
-            *lead, x, bw)
-        r4 = close("banded_q_bsr_spmm f64", k4(), p4())
-        x_ext = _ring_ext(x, 0, n, halo)
-        r7 = close("banded_q_ext_bsr_spmm f64",
-                   kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw),
-                   kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext,
-                                                       bandwidth=bw))
+        xf = _apart(x, halo)
+        x_ext = _apart(_ring_ext(x, 0, n, halo), halo)
+        pairs = {
+            "banded_q_bsr_spmm_f64": (
+                lambda t=lead: kernels.banded_q_bsr_spmm(*t, xf, bw),
+                lambda t=lead: kernels.banded_q_bsr_spmm_plain(*t, x, bw)),
+            "banded_q_ext_bsr_spmm_f64": (
+                lambda t=lead: kernels.banded_q_ext_bsr_spmm(
+                    *t, x_ext, bandwidth=bw),
+                lambda t=lead: kernels.banded_q_ext_bsr_spmm_plain(
+                    *t, x_ext, bandwidth=bw)),
+        }
+        ys, line = {}, []
+        for name, (kern, plain) in pairs.items():
+            y, yp = kern(), plain()
+            _check(bool(torch.all(torch.isfinite(y))),
+                   f"{name} {note} m={m}: Y not finite on NaN-framed x")
+            _check(torch.equal(y, kern()),
+                   f"{name} {note} m={m}: other bits on a second call")
+            rel = close(name, y, yp)
+            same = float(torch.mean((y == yp).double()))
+            yb = plain(band)
+            top = float(torch.max(torch.abs(yb)))
+            rb = float(torch.max(torch.abs(kern(band) - yb))) / top
+            read = {f: float(torch.max(torch.abs(plain(t) - yb))) / top
+                    for f, t in faults.items()}
+            _check(rb <= Q64_TOL, f"{name} band only {note} m={m}: {rb:.3e}")
+            _check(min(read.values()) > Q64_TOL, f"{name} band only {note} "
+                   f"m={m}: a fault reads {read}, within the limit")
+            _note_band(band_checks, name, rb, read)
+            row = dict(name=name, dtype="float64", m=m, mv=None,
+                       write_out=True, shape=note,
+                       max_abs_err=float(torch.max(torch.abs(y - yp))),
+                       rel_err=rel, gram_ratio=None, same_bits_share=same,
+                       ms=None, plain_ms=None)
+            if timed:
+                row["ms"], row["plain_ms"] = _time_ms(kern), _time_ms(plain)
+            record.append(row)
+            ys[name] = y
+            t = (f" {row['ms']:.4f} ms (plain {row['plain_ms']:.4f})"
+                 if timed else "")
+            line.append(f"{name} rel {rel:.3e}, band only {rb:.3e} (faults "
+                        f">= {min(read.values()):.3e}), {same:.4f} of Y's "
+                        f"bits the plain version's;{t}")
+            del y, yp, yb
+        _check(torch.equal(ys["banded_q_ext_bsr_spmm_f64"],
+                           ys["banded_q_bsr_spmm_f64"]),
+               f"kernel 7 f64 {note} m={m}: one slab is not kernel 4's Y")
+        del ys
         r5 = g5 = 0.0
         v220 = randn(n, 220, f64)
         for v in (None, v220):
@@ -1291,30 +1393,78 @@ def int8_float64_x(op, note, randn, timed, info):
             _check(g5 <= GRAM_TOL, f"kernel 5 f64 {note} m={m}: G error "
                    f"{g5:.3e}")
             del y, g, yp, gp, v, vv
-        t = ""
+        t5 = ""
         if timed:
-            pairs = {
-                "banded_q_bsr_spmm": (k4, p4),
-                "banded_q_bsr_spmm_gram": (
-                    lambda: kernels.banded_q_bsr_spmm_gram(
-                        *lead, x, v220, bandwidth=bw),
-                    lambda: kernels.banded_q_bsr_spmm_gram_plain(
-                        *lead, x, v220, bandwidth=bw)),
-                "banded_q_ext_bsr_spmm": (
-                    lambda: kernels.banded_q_ext_bsr_spmm(*lead, x_ext,
-                                                          bandwidth=bw),
-                    lambda: kernels.banded_q_ext_bsr_spmm_plain(
-                        *lead, x_ext, bandwidth=bw)),
+            fns = {
+                "ms": lambda: kernels.banded_q_bsr_spmm_gram(
+                    *lead, x, v220, bandwidth=bw),
+                "plain_ms": lambda: kernels.banded_q_bsr_spmm_gram_plain(
+                    *lead, x, v220, bandwidth=bw),
+                "unfused_ms": lambda: torch.matmul(
+                    v220.T, kernels.banded_q_bsr_spmm(*lead, x, bw)),
             }
-            for name, (kern, plain) in pairs.items():
-                ms, plain_ms = _time_ms(kern), _time_ms(plain)
-                info.setdefault(name, {})[m] = dict(ms=ms, plain_ms=plain_ms)
-                t += f" {name} {ms:.4f} ms (plain {plain_ms:.4f});"
-        print(f"  float64 x on int8 storage, {note} m={m}: kernel 4 rel "
-              f"{r4:.3e}, kernel 7 rel {r7:.3e}, kernel 5 Y rel {r5:.3e} "
-              f"G |dG|/(|V|ᵀ|Y|) {g5:.3e};{t}", flush=True)
-        del x, x_ext, v220
+            row5 = {key: _time_ms(fn) for key, fn in fns.items()}
+            info.setdefault("banded_q_bsr_spmm_gram", {})[m] = row5
+            t5 = (f" {row5['ms']:.4f} ms (plain {row5['plain_ms']:.4f}, "
+                  f"unfused: kernel 4 + matmul(v.T, y) "
+                  f"{row5['unfused_ms']:.4f})")
+        print(f"  float64 x on int8 storage, {note} m={m}: "
+              + " ".join(line) + f" kernel 5 Y rel {r5:.3e} G |dG|/(|V|ᵀ|Y|) "
+              f"{g5:.3e};{t5}", flush=True)
+        del x, xf, x_ext, v220
         torch.cuda.empty_cache()
+    del faults, band
+
+
+def tile_gram_rows(A, randn) -> dict:
+    """Kernel 3's float64 and bf16 entries (the SIMT tile of
+    ``csrc/banded_gram.cu``) at row 3's shape, the 1M-row matrix at m = 128,
+    mv = 1408: Y and G against the plain version (Y within TOL of max|Y|,
+    G within GRAM_TOL of |V|ᵀ|Y|), each timed beside the plain version and
+    the unfused yardstick (kernel 1 in the same type, then
+    ``torch.matmul(v.T, y)``). Returns dtype -> {ms, plain_ms, unfused_ms,
+    errors}."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    _, m, mv, _, _ = MAIN_CASE["banded_bsr_spmm_gram"]
+    bw, n = A.bandwidth, A.shape[0]
+    out = {}
+    for dtype in (torch.float64, torch.bfloat16):
+        dn = _dname(dtype)
+        blocks = A.blocks.to(dtype)
+        x, v = randn(n, m, dtype), randn(n, mv, dtype)
+        # Y in the sums' type (bf16 storage: the float32 sums).
+        acc = kernels.acc_dtype(dtype)
+        y, g = kernels.banded_bsr_spmm_gram(blocks, x, v, bandwidth=bw,
+                                            out_dtype=acc)
+        yp, gp = kernels.banded_bsr_spmm_gram_plain(blocks, x, v,
+                                                    bandwidth=bw,
+                                                    out_dtype=acc)
+        rel = float(torch.max(torch.abs(y.double() - yp.double()))
+                    / torch.max(torch.abs(yp.double())))
+        ratio = float(torch.max(torch.abs(g - gp) / (
+            (torch.abs(v).T.to(acc) @ torch.abs(yp)).float() + 1e-30)))
+        _check(rel <= TOL[dn] and ratio <= GRAM_TOL,
+               f"kernel 3 {dn} m={m} mv={mv}: Y rel {rel:.3e}, G {ratio:.3e}")
+        del y, g, yp, gp
+        fns = {
+            "ms": lambda: kernels.banded_bsr_spmm_gram(blocks, x, v,
+                                                       bandwidth=bw),
+            "plain_ms": lambda: kernels.banded_bsr_spmm_gram_plain(
+                blocks, x, v, bandwidth=bw),
+            "unfused_ms": lambda: torch.matmul(
+                v.T, kernels.banded_bsr_spmm(blocks, x, bw)),
+        }
+        row = {key: _time_ms(fn) for key, fn in fns.items()}
+        row.update(max_err_rel=rel, max_gram_err_rel=ratio)
+        print(f"  banded_bsr_spmm_gram {dn} (SIMT tile) m={m} mv={mv}: "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, unfused "
+              f"(kernel 1 + matmul(v.T, y)) {row['unfused_ms']:.4f}; Y rel "
+              f"{rel:.3e} G |dG|/(|V|ᵀ|Y|) {ratio:.3e}", flush=True)
+        out[dn] = row
+        del blocks, x, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def _copy_bytes(op, m, dtype) -> int:
@@ -1954,7 +2104,7 @@ def phase_int8(q, dev, solves, refs):
                        peak_mem_gb=peak))
     del res, ref, out
     torch.cuda.empty_cache()
-    int8_float64_solve(q, dev, solves)
+    int8_float64_solve(q, dev, solves, refs)
 
 
 # The float64 leg of phase 6: the default float64 type on int8 storage,
@@ -1963,11 +2113,13 @@ def phase_int8(q, dev, solves, refs):
 F64_INT8 = dict(tolerance=1e-6, relative_tolerance=True)
 
 
-def int8_float64_solve(q, dev, solves):
+def int8_float64_solve(q, dev, solves, refs):
     """Phase 6, float64 leg: lowest-20 on the int8 matrix in float64
-    through the float64 kernel 4, against the same solve through the plain
-    version: the same iterations, eigenvalues within the tolerance, a true
-    relative residual (as the float32 leg takes it) within it."""
+    through kernel 4's float64-x entry (a cold solve, then a warm one after
+    the plain path's), against the same solve through the plain version:
+    the same iterations, eigenvalues within the tolerance, a true relative
+    residual (as the float32 leg takes it) within it. ``refs["int8_f64"]``
+    keeps the kernel-path result and its warm wall for phase 8a."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     from fortran_davidson_tpu_torch.ops import kernels
@@ -1976,21 +2128,27 @@ def int8_float64_solve(q, dev, solves):
             q.qblocks, q.scale_rows, q.diag, X.contiguous(), q.bandwidth),
         q.shape[0], dtype=torch.float64, diag=q.diagonal().double(),
         device=dev)
-    runs = {}
-    # The int8 kernels' launches on the kernel path (PERF.md rows 4d, 5d,
-    # 7d): kernel 4's float64 entry; kernels 5 and 7 are not on this path.
+    runs, walls = {}, {"kernels": [], "plain": []}
+    # The int8 kernels' launches a solve on the kernel path (PERF.md rows
+    # 4d, 5d, 7d): kernel 4's float64-x entry; kernels 5 and 7 are not on
+    # this path.
     int8_kernels = (kernels.banded_q_bsr_spmm, kernels.banded_q_bsr_spmm_gram,
                     kernels.banded_q_ext_bsr_spmm)
-    for path in ("kernels", "plain"):
+    for path in ("kernels", "plain", "kernels"):
         before = [fn.launches for fn in int8_kernels]
+        f64_before = kernels.banded_q_bsr_spmm.f64_launches
         res, wall = _solve_converged(
             f"int8 n={q.shape[0]} lowest-20 float64 [{path}]",
             q if path == "kernels" else plain_q, 20, **F64_INT8)
         counts = {fn.__name__: fn.launches - b
                   for fn, b in zip(int8_kernels, before)}
-        runs[path] = (res, wall, counts.pop("banded_q_bsr_spmm"), counts)
-    (out, wall, launches, others), (ref, _, plain_launches, _) = (
+        counts.pop("banded_q_bsr_spmm")
+        walls[path].append(wall)
+        runs[path] = (res, kernels.banded_q_bsr_spmm.f64_launches - f64_before,
+                      counts)
+    (out, launches, others), (ref, plain_launches, _) = (
         runs["kernels"], runs["plain"])
+    wall = walls["kernels"][-1]
     _check(launches > 0 and plain_launches == 0,
            f"float64 int8: launches {launches} (plain {plain_launches})")
     _check(out.eigenvalues.dtype == torch.float64, "float64 int8: "
@@ -2001,7 +2159,9 @@ def int8_float64_solve(q, dev, solves):
     print(f"  int8 float64: launches {launches} iterations {out.iterations} "
           f"vs plain {ref.iterations}; true relative residual "
           f"{true_res:.3e}; max |eig - eig_plain| / max(|eig|, 1) = "
-          f"{diff:.3e}; wall {wall:.3f} s", flush=True)
+          f"{diff:.3e}; warm wall {wall:.4f} s (first solve "
+          f"{walls['kernels'][0]:.4f} s, plain path "
+          f"{walls['plain'][0]:.4f} s)", flush=True)
     _check(out.iterations == ref.iterations, f"float64 int8: "
            f"{out.iterations} iterations vs {ref.iterations} plain")
     _check(true_res <= F64_INT8["tolerance"],
@@ -2009,9 +2169,12 @@ def int8_float64_solve(q, dev, solves):
     _check(diff <= F64_INT8["tolerance"],
            f"float64 int8: eigenvalues differ by {diff:.3e}")
     solves.append(dict(solve="int8 banded float64 lowest-20 (1e-6 rel)",
-                       n=q.shape[0], iterations=out.iterations, wall_s=wall,
+                       n=q.shape[0], iterations=out.iterations,
+                       wall_s=walls["kernels"], plain_wall_s=walls["plain"],
                        true_residual_rel=true_res, launches=launches,
                        other_int8_launches=others, eig_diff_plain=diff))
+    refs["int8_f64"] = dict(iterations=out.iterations,
+                            eigenvalues=out.eigenvalues.clone(), wall=wall)
     del runs, out, ref
     torch.cuda.empty_cache()
 
@@ -2179,7 +2342,8 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
     """Each case (k, op, options, label): a cold and two warm sharded
     solves, the collectives of the last counted by kind, held to the
     single-device solve ``refs[k]`` of phase 4 or 6: the same iterations,
-    eigenvalues to 1e-10 (int8: 1e-5 relative), true residuals."""
+    eigenvalues to 1e-10 (int8: 1e-5 relative; int8 in float64: F64_INT8's
+    tolerance relative), true residuals."""
     import torch
     from fortran_davidson_tpu_torch.parallel import RowMesh, eigensolve_sharded
 
@@ -2194,15 +2358,17 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
             with _counting_collectives(RowMesh) as calls:
                 res, wall = _solve_converged(
                     f"eigensolve_sharded({label}, {k}) [{turn}]", op,
-                    20 if k == "int8" else k, solver=sharded, **kw)
+                    20 if k in ("int8", "int8_f64") else k, solver=sharded,
+                    **kw)
             walls.append(wall)
-        if k == "int8":
+        if k in ("int8", "int8_f64"):
             true_res = _int8_true_residual(q, res.eigenvectors,
                                            res.eigenvalues)
             diff = float(torch.max(torch.abs(res.eigenvalues
                                              - ref["eigenvalues"])
                                    / torch.abs(ref["eigenvalues"])))
-            limits = (1e-5, 1e-3)
+            limits = ((1e-5, 1e-3) if k == "int8"
+                      else (F64_INT8["tolerance"],) * 2)
         else:
             true_res = _true_residual(A.blocks, 1, None, res.eigenvectors,
                                       res.eigenvalues)
@@ -2223,8 +2389,9 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
                f"sharded {label} {k}: true residual {true_res:.3e}")
         solves.append(dict(
             solve=(f"sharded (world 1, nccl) {label} "
-                   + ("int8 f32 lowest-20 loose" if k == "int8"
-                      else f"f64 lowest-{k}")),
+                   + {"int8": "int8 f32 lowest-20 loose",
+                      "int8_f64": "int8 float64 lowest-20 (1e-6 rel)"}.get(
+                          k, f"f64 lowest-{k}")),
             n=op.shape[0], iterations=res.iterations, wall_s=walls,
             single_device_wall_s=ref["wall"], true_residual=true_res,
             eig_diff_single=diff, collectives=calls))
@@ -2233,8 +2400,9 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
 
 def phase_sharded(A, q, dev, rendezvous, solves, refs):
     """Phase 8a: the row-sharded solve at world size 1 over a one-rank NCCL
-    group through kernels 6 and 7, held to phases 4 and 6; then the
-    all-gather halo exchange's time."""
+    group through kernels 6 and 7 (float32 x, and float64 x in phase 6's
+    float64 leg), held to phases 4 and 6; then the all-gather halo
+    exchange's time."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
@@ -2255,6 +2423,15 @@ def phase_sharded(A, q, dev, rendezvous, solves, refs):
     _sharded_solves(A, q, mesh, [(3, H, f64, "Halo(A, pallas)"),
                                  (20, H, f64, "Halo(A, pallas)"),
                                  ("int8", q, LOOSE, "q loose")], refs, solves)
+    # The float64 leg of phase 6, sharded: kernel 7's float64-x entry.
+    before = kernels.banded_q_ext_bsr_spmm.f64_launches
+    _sharded_solves(A, q, mesh, [("int8_f64", q, F64_INT8, "q")],
+                    refs, solves)
+    launches = kernels.banded_q_ext_bsr_spmm.f64_launches - before
+    print(f"  sharded q float64: kernel 7 float64-x launches {launches}",
+          flush=True)
+    _check(launches > 0, "the sharded float64 int8 solve never launched "
+           "kernel 7's float64-x entry")
 
     # The exchange alone (one all_gather of the 2*bw*bs boundary rows),
     # with the concatenation into x_ext, which copies x, and one all_reduce
@@ -2560,17 +2737,34 @@ def _ptxas_entries(log: str):
 
 def _tile_registers(log: str) -> dict:
     """ptxas's registers of every instantiation of the shared SIMT tile
-    (``spmm_kernel`` and ``gram_kernel`` of spmm_tile.cuh and
-    banded_gram.cu: kernel 2, the f64/bf16 kernel 3 and the float64-x
-    entries of kernels 4, 5 and 7), keyed by the template arguments as
-    mangled."""
+    (``gram_kernel`` of banded_gram.cu on spmm_tile.cuh: the f64/bf16
+    kernel 3 and kernel 5's float64-x entry), keyed by the template
+    arguments as mangled."""
     import re
     regs = {}
     for name, n, _, _ in _ptxas_entries(log):
-        m = re.search(r"(spmm_kernel|gram_kernel)I(.+?)EEvT_", name)
+        m = re.search(r"11gram_kernelI(.+?)EEvT_", name)
         if m:
-            regs[f"{m.group(1)}<{m.group(2)}>"] = n
+            regs[f"gram_kernel<{m.group(1)}>"] = n
     return regs
+
+
+def _q_f64_entries(log: str) -> dict:
+    """The float64-x entries of kernels 4 and 7 (``banded_spmm_kernel`` of
+    csrc/banded_spmm.cuh on the int8 slab QInt8, sources Quant<Masked> and
+    Quant<Inside>, instantiated in csrc/q_spmm_f64.cu and
+    csrc/q_ext_spmm_f64.cu): "kernel 4 TM=128
+    TN=24" -> (registers, spill store bytes, static shared bytes)."""
+    import re
+    out = {}
+    for name, n, spill, smem in _ptxas_entries(log):
+        m = re.search(r"banded_spmm_kernelINS_5QInt8ELi(\d+)ELi(\d+)E.*?"
+                      r"NS_5QuantINS_\d+(Masked|Inside)", name)
+        if m:
+            kernel = 4 if m.group(3) == "Masked" else 7
+            out[f"kernel {kernel} TM={m.group(1)} TN={m.group(2)}"] = (
+                n, spill, smem)
+    return out
 
 
 _K1_TYPES = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
@@ -2675,6 +2869,7 @@ def main() -> int:
     from fortran_davidson_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
     # Float32 products in full float32 (PyTorch's default, stated): the
     # plain versions and the unfused yardstick are float32-accurate.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2686,12 +2881,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     path, log = kernels.build()
+    build_s = time.perf_counter() - t0
     print(f"[2] built {path.name} from {len(kernels.sources())} sources in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{build_s:.1f} s")
     for line in log.splitlines():
         if "error" in line.lower():
             print("   ", line.strip())
     if log:
+        import re
+        secs = sorted(((float(m.group(2)), m.group(1)) for m in re.finditer(
+            r"^nvcc (\S+): ([0-9.]+) s$", log, re.M)), reverse=True)
+        print("    compile time by source (s from the common start): "
+              + ", ".join(f"{name} {t:.1f}" for t, name in secs))
         print(f"    ptxas registers of the shared SIMT tile's "
               f"instantiations: {_tile_registers(log)}")
         print("    kernel 1, its variants (source Masked), kernel 8 (sources "
@@ -2701,6 +2902,19 @@ def main() -> int:
               "(kernels.banded_spmm_plan)")
         for key, (regs, spill, smem) in _k1_entries(log).items():
             plan = _k1_plan(key)
+            print(f"      {key}: {regs} registers, {spill} B spill, "
+                  f"{smem} B static smem, {plan['smem_bytes']} B ring of "
+                  f"{plan['stages']} stages")
+        print("    the float64-x entries of kernels 4 and 7 "
+              "(csrc/q_spmm_f64.cu, csrc/q_ext_spmm_f64.cu, int8 slab on "
+              "csrc/banded_spmm.cuh): "
+              "ptxas registers, spill stores, static smem; the default ring "
+              "(kernels.q_spmm_f64_plan)")
+        for key, (regs, spill, smem) in _q_f64_entries(log).items():
+            tm, tn = (int(f.split("=")[1]) for f in key.split()[2:4])
+            plan = kernels.q_spmm_f64_plan(0, 8 if tm == 16 else 128, tn)
+            _check((plan["TM"], plan["TN"]) == (tm, tn),
+                   f"{key}: the launch at m={tn} takes {plan}")
             print(f"      {key}: {regs} registers, {spill} B spill, "
                   f"{smem} B static smem, {plan['smem_bytes']} B ring of "
                   f"{plan['stages']} stages")
@@ -2757,6 +2971,9 @@ def main() -> int:
 
     solves, refs = [], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
+    # Kernels 4 and 7 with float64 x: their own kernel, counted apart.
+    f64_names = {f"{fn.__name__}_f64": fn for fn in kernels.F64_X_KERNELS}
+    counts.update(dict.fromkeys(f64_names, 0))
     # Kernel 9 and kernel 5's bf16-dequant variants: no path launches them.
     counts.update(dict.fromkeys(
         ("banded_spmm_copy",
@@ -2765,6 +2982,7 @@ def main() -> int:
     # The one-rank NCCL group of phases 8-9 meets at a file in here.
     tmp = tempfile.TemporaryDirectory()
     rendezvous = f"file://{tmp.name}/rendezvous"
+    tile_launches = 0
     paths = [
         ("[4] main path", lambda: phase_main(A, dev, solves, refs),
          ("banded_bsr_spmm",)),
@@ -2772,12 +2990,14 @@ def main() -> int:
          lambda: phase_legs(A, dev, solves, refs),
          ("banded_bsr_spmm", "bsr_spmm")),
         ("[6] int8 loose stage, n=2,097,152, lowest-20",
-         lambda: phase_int8(q, dev, solves, refs), ("banded_q_bsr_spmm",)),
+         lambda: phase_int8(q, dev, solves, refs),
+         ("banded_q_bsr_spmm", "banded_q_bsr_spmm_f64")),
         ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
          ("banded_bsr_spmm_gram", "banded_q_bsr_spmm_gram")),
         ("[8a] sharded path, world size 1 (NCCL), pallas",
          lambda: phase_sharded(A, q, dev, rendezvous, solves, refs),
-         ("banded_ext_bsr_spmm", "banded_q_ext_bsr_spmm")),
+         ("banded_ext_bsr_spmm", "banded_q_ext_bsr_spmm",
+          "banded_q_ext_bsr_spmm_f64")),
         ("[8b] sharded path, world size 1 (NCCL), pallas-remote",
          lambda: phase_remote(A, dev, rendezvous, solves, refs),
          ("banded_remote_halo_spmm",)),
@@ -2792,6 +3012,12 @@ def main() -> int:
                             for fn in kernels.KERNELS}
             phase_counts["banded_spmm_copy"] = (
                 kernels.banded_spmm_variant.copy_launches)
+            phase_counts.update({name: fn.f64_launches
+                                 for name, fn in f64_names.items()})
+            if not title.startswith("[7]"):
+                # Kernel 3 outside the one phase with a float32 fused
+                # engine: its float64 and bf16 (SIMT tile) entries.
+                tile_launches += phase_counts["banded_bsr_spmm_gram"]
             print(f"    phase launches {phase_counts} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             for name in expected:
@@ -2799,9 +3025,9 @@ def main() -> int:
                        f"{name} was never launched on the path of {title}")
             for name, count in phase_counts.items():
                 counts[name] += count
-        for fn in kernels.KERNELS:
-            _check(counts[fn.__name__] > 0,
-                   f"{fn.__name__} was never launched on a solve path")
+        for name in (*(fn.__name__ for fn in kernels.KERNELS), *f64_names):
+            _check(counts[name] > 0,
+                   f"{name} was never launched on a solve path")
         print("[9] one halo apply: pallas-remote against pallas", flush=True)
         remote_vs_pallas_apply(A, dev, rendezvous, solves)
     finally:
@@ -2855,20 +3081,36 @@ def main() -> int:
         if name == "bsr_spmm":
             # P A Pᵀ, by width (phase 3).
             entry["permuted"] = permuted_info
+        if name.endswith("_f64"):
+            # The float64-x entries of kernels 4 and 7 at int8 m = 20 and
+            # 40; the share of Y's bits equal to the plain version's.
+            entry["widths"] = {
+                f"m={r['m']}": dict(
+                    ms=r["ms"], plain_ms=r["plain_ms"],
+                    same_bits_share=r["same_bits_share"],
+                    **dict(zip(("bound_ms", "bound_by"), _bound(
+                        name, "float64", r["m"], None, *nnz["nbr=16384"]))))
+                for r in rows if r["ms"] is not None}
         if name in q64_info:
-            # The float64-x entry at int8 m = 20 and 40 (kernel 5 at
-            # mv = 220), with its launches in phase 6's float64 leg.
+            # Kernel 5's float64-x entry at int8 m = 20 and 40, mv = 220,
+            # with its unfused yardstick (kernel 4 + matmul) and its
+            # launches in phase 6's float64 leg.
             leg = next(r for r in solves
                        if r["solve"].startswith("int8 banded float64"))
-            launches = ({"banded_q_bsr_spmm": leg["launches"]}
-                        | leg["other_int8_launches"])[name]
             entry["float64_x"] = {
                 f"m={m_x}": dict(
                     t, **dict(zip(("bound_ms", "bound_by"), _bound(
-                        name, "float64", m_x,
-                        220 if name.endswith("_gram") else None,
-                        *nnz["nbr=16384"]))), launches=launches)
+                        name, "float64", m_x, 220, *nnz["nbr=16384"]))),
+                    launches=leg["other_int8_launches"][name])
                 for m_x, t in q64_info[name].items()}
+        if name == "banded_bsr_spmm_gram":
+            # Kernel 3's float64 and bf16 entries (the SIMT tile) at the
+            # main case's shape; launched outside phase 7 only.
+            entry["tile_entries"] = {
+                dn: dict(t, **dict(zip(("bound_ms", "bound_by"), _bound(
+                    name, dn, m, mv, *nnz["nbr=8192"]))),
+                    launches=tile_launches)
+                for dn, t in gram_splits["tile"].items()}
         if name == "banded_bsr_spmm":
             entry.update(split_ms=k1_info["split"], probe_bound_ms=_bound(
                 name, "bfloat16", PROBE["m"], None, *probe_case)[0])
@@ -2888,6 +3130,8 @@ def main() -> int:
                 main_case_ms=next(r["ms"] for r in rows
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
+    print(f"[10] ran {time.perf_counter() - t_run:.1f} s, the build "
+          f"{build_s:.1f} s of it", flush=True)
     print(json.dumps({"solves": solves}))
     print(json.dumps({"kernels": summary}))
     print(smi)

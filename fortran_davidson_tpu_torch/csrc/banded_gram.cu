@@ -1,18 +1,16 @@
-// The float64-x int8 SpMM and the fused banded SpMM + Gram kernels on the
-// shared SIMT tile, for Hopper (sm_90a), in plain CUDA C++ with a C
-// interface (loaded with ctypes by fortran_davidson_tpu_torch/ops/kernels.py).
-// Storage and the shared tile are described in spmm_tile.cuh.
+// The fused banded SpMM + Gram kernels that stay on the shared SIMT tile,
+// for Hopper (sm_90a), in plain CUDA C++ with a C interface (loaded with
+// ctypes by fortran_davidson_tpu_torch/ops/kernels.py): kernel 3 with f64
+// and bf16 storage, and kernel 5 with f64 x. Storage and the shared tile
+// are described in spmm_tile.cuh.
 //
-//   fdt_banded_q_bsr_spmm_f64      kernel 4 (banded_q_bsr_spmm,
-//       fortran_davidson_tpu/ops/pallas_kernels.py:755, body :721) with f64
-//       x: y = (Q o s) @ x_window + d o x_centre with q o s formed in f32,
-//       the band product summed in f64 and rounded to f32, d o x added in
-//       f32, Y returned in f64 (the plain version's arithmetic; the
-//       reference takes x of any type, pallas_kernels.py:766,772). The
-//       float32-x entry is q_spmm.cu's tensor-core kernel.
 //   fdt_banded_q_bsr_spmm_gram_f64 kernel 5 (banded_q_bsr_spmm_gram,
-//       pallas_kernels.py:886) with f64 x and v: that apply, then the
-//       gram of the f64 kernel 3 below.
+//       fortran_davidson_tpu/ops/pallas_kernels.py:886) with f64 x and v:
+//       y = (Q o s) @ x_window + d o x_centre with q o s formed in f32, the
+//       band product summed in f64 and rounded to f32, d o x added in f32,
+//       Y in f64 (the plain version's arithmetic, that of kernel 4's
+//       float64-x entry, q_spmm_f64.cu), then the gram of the f64 kernel 3
+//       below.
 //   fdt_banded_bsr_spmm_gram_*     replaces banded_bsr_spmm_gram
 //       (pallas_kernels.py:592, body :513): Y = A @ X and G = V^T Y in one
 //       sweep over the blocks, for f64 and for bf16 storage with f32 sums.
@@ -28,10 +26,9 @@
 // type before the gram (a no-op except for bf16 storage).
 //
 // What bounds them on the H100. int8 apply with f64 x: 1 byte per stored
-// entry and 2*m f64 flops on it; at m=20 that is ~40 flop/B, so f64 FMA
-// on the CUDA cores is the limit, not HBM. Gram: 2*mv*m flops per row of
-// Y on top of the apply's 2*K*bs*m; at mv >= K*bs the gram's FMAs
-// dominate.
+// entry and 2*m f64 flops on it; at m=20 that is ~40 flop/B, so the f64
+// operations are the limit, not HBM. Gram: 2*mv*m flops per row of Y on
+// top of the apply's 2*K*bs*m; at mv >= K*bs the gram's FMAs dominate.
 //
 // The design, simple and deterministic. Grid: n_groups x mv_tiles x
 // col_tiles thread blocks (column tiles fastest). Thread block (g, vt, ct)
@@ -115,8 +112,8 @@ gram_kernel(Load ld, const typename Load::X* __restrict__ x,
     const long long r = u / row_tiles;
     const int i0 = static_cast<int>(u % row_tiles) * TM;
     Acc acc[P::RM][P::RN];
-    fdt::tile_product<Load, TM, TN>(ld, x, nullptr, diag, r, i0, c0, bs, K,
-                                    bw, x_rows, m, acc);
+    fdt::tile_product<Load, TM, TN>(ld, x, diag, r, i0, c0, bs, K, bw,
+                                    x_rows, m, acc);
     if (y != nullptr && vt == 0)
       fdt::store_tile<Acc, TM, TN>(y, acc, r, i0, c0, bs, m);
 #pragma unroll
@@ -282,20 +279,11 @@ int dense_gram(const T* blocks, const T* x, const T* v, long long ldv, Acc* y,
 
 extern "C" {
 
-// float64 x (Int8F64Blocks in spmm_tile.cuh): Y in f64, holding the f32
-// values of the plain version.
-int fdt_banded_q_bsr_spmm_f64(const int8_t* q, const float* scale,
-                              const float* diag, const double* x, double* y,
-                              int nbr, int bs, int K, int bw, int m,
-                              void* stream) {
-  return fdt::spmm(Int8F64Blocks{q, scale}, x, nullptr, diag, y, nbr, bs, K,
-                   bw, static_cast<long long>(nbr) * bs, m, stream);
-}
-
 // q, scale_rows, diag, x, v (nullable), ldv, y (nullable), partial, g, nbr,
 // bs, K, bw, m, mv, n_groups, stream: kernel 5 with float64 x and v on the
 // SIMT gram of the f64 kernel 3 (the tensor-core kernel 5 of fused_gram.cu
-// is float32): the f64 int8 apply above, then G = V^T Y summed in f64.
+// is float32): the f64 int8 apply (Int8F64Blocks in spmm_tile.cuh), then
+// G = V^T Y summed in f64.
 int fdt_banded_q_bsr_spmm_gram_f64(const int8_t* q, const float* scale,
                                    const float* diag, const double* x,
                                    const double* v, long long ldv, double* y,

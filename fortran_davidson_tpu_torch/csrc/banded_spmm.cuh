@@ -3,10 +3,12 @@
 // (banded_spmm_var_{f64,f32,bf16}.cu), kernel 8 (remote_halo.cu), the
 // same product over a shard's rows and its two received halos, kernel 6's
 // cp.async route (ext_spmm.cu), over a halo-extended input, and kernel 2
-// (bsr_spmm.cu), the block-ELL product over a column table. The design
-// and what bounds it are written at the top of banded_spmm.cu. The tiling
-// and shared memory a launch takes are decided here alone; plan_entry()
-// reports them (kernels.banded_spmm_plan).
+// (bsr_spmm.cu), the block-ELL product over a column table, and kernels 4
+// and 7 with float64 x (q_spmm_f64.cu, q_ext_spmm_f64.cu), over int8 slabs
+// (QInt8, below).
+// The design and what bounds it are written at the top of banded_spmm.cu.
+// The tiling and shared memory a launch takes are decided here alone;
+// plan_entry() reports them (kernels.banded_spmm_plan).
 //
 // Storage: (nbr, bs, K*bs) row-major block slabs, K = 2*bw + 1, slot k of
 // block row r holding block column r - bw + k; x is (nbr*bs, m) row-major.
@@ -31,7 +33,9 @@
 // g = lane / 4, t = lane % 4, the accumulator layout of mma m16n8. Math:
 //   - f64: mma.sync m8n8k4 (DMMA), two m8 tiles a warp;
 //   - bf16: mma.sync m16n8k16 with f32 sums, B fragments by ldmatrix.trans;
-//   - f32: FFMA on the CUDA cores in the same layout.
+//   - f32: FFMA on the CUDA cores in the same layout;
+//   - QInt8 (int8 slab, f64 x): each entry times its lane's f32 scale in
+//     f32, widened to f64, on DMMA as f64.
 // Each output element is summed by one thread in a fixed order: the same
 // inputs give the same bits.
 //
@@ -41,6 +45,8 @@
 // and its halos (Split); kernel 2's walks its row's K table entries
 // instead of the band (Table, at RPC = 1: window j is slot j, in block
 // column cols[r, j]). A source also maps the grid's rows to block rows.
+// The int8 entries wrap kernel 1's or kernel 8's source in Quant, which
+// also carries the slab's scales and the exact diagonal.
 //
 // Variants (template parameters, measurement only):
 //   kVar    kFull | kNoY (products, no Y: one column-sum row a CTA into
@@ -65,6 +71,21 @@ enum Store { kDirect = 0, kTma = 1 };
 
 using Bf16 = __nv_bfloat16;
 
+// The int8 slab of kernels 4 and 7 with float64 x, as a tag: a QInt8 ring
+// is a ring of bytes (sizeof 1). Its entries are int8, each times its
+// lane's f32 scale; x, the sums and Y are f64.
+struct QInt8 {};
+
+// The slab's and x's element types: T itself, but for QInt8.
+template <typename T> struct Elems {
+  using Slab = T;
+  using X = T;
+};
+template <> struct Elems<QInt8> {
+  using Slab = int8_t;
+  using X = double;
+};
+
 template <typename T> struct Math;
 template <> struct Math<double> {
   using Acc = double;
@@ -78,19 +99,31 @@ template <> struct Math<Bf16> {
   using Acc = float;
   static constexpr int KC = 32;
 };
+template <> struct Math<QInt8> {
+  using Acc = double;
+  static constexpr int KC = 16;
+};
 
-// Shared-memory row strides (elements): slab chunk, x chunk.
+// Shared-memory row strides (elements): slab chunk, x chunk. A QInt8 slab
+// row is one unpadded 16-byte chunk: the eight rows that a warp's lanes
+// read at once lie in one 128-byte line.
 template <typename T>
 __host__ __device__ constexpr int a_stride() {
-  return Math<T>::KC + (sizeof(T) == 2 ? 8 : 4);
+  return sizeof(T) == 1 ? Math<T>::KC
+                        : Math<T>::KC + (sizeof(T) == 2 ? 8 : 4);
 }
 template <typename T>
 __host__ __device__ constexpr int x_stride(int tn) {
   return sizeof(T) == 8 ? (tn % 16 == 0 ? tn + 8 : tn) : tn + 8;
 }
+// One ring stage in T: the slab chunks, then the x chunk; for QInt8 (in
+// bytes) the slab chunk, the f64 x chunk, then the chunk's KC f32 scales.
 template <typename T>
 __host__ __device__ constexpr int stage_elems(int tm, int tn, int rpc) {
-  return rpc * tm * a_stride<T>() + Math<T>::KC * x_stride<T>(tn);
+  return std::is_same<T, QInt8>::value
+             ? rpc * tm * a_stride<T>() +
+                   Math<T>::KC * (x_stride<double>(tn) * 8 + 4)
+             : rpc * tm * a_stride<T>() + Math<T>::KC * x_stride<T>(tn);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -137,7 +170,8 @@ __device__ __forceinline__ void cp_wait(int n) {
 // Stage a (rows, cols) tile: element (i, c) is src[i * ld + c] for i in
 // [lo, hi) and c < vcols, else zero (not read; the zero-filling copy is
 // given the valid address `safe`). vec: every row start is 16-byte aligned
-// and vcols a multiple of the vector.
+// and vcols a multiple of the vector. Elements of fewer than 4 bytes
+// (bf16, int8) are copied synchronously where vec does not hold.
 template <typename T, bool kHint>
 __device__ __forceinline__ void stage_tile(T* dst, int dst_ld, const T* src,
                                            const T* safe,
@@ -166,7 +200,7 @@ __device__ __forceinline__ void stage_tile(T* dst, int dst_ld, const T* src,
     const int i = e / cols;
     const int c = e % cols;
     const bool ok = i >= lo && i < hi && c < vcols;
-    if constexpr (sizeof(T) == 2) {
+    if constexpr (sizeof(T) <= 2) {
       dst[i * dst_ld + c] = ok ? src[i * ld + c] : T(0.0f);
     } else {
       cp_async<sizeof(T)>(dst + i * dst_ld + c, ok ? src + i * ld + c : safe,
@@ -281,6 +315,55 @@ struct Table {
   }
   bool aligned() const { return true; }
 };
+
+// Quant (kernels 4 and 7 with float64 x, QInt8 slabs): a source of x rows,
+// Masked for kernel 4 and Inside for kernel 7, that also carries the slab's
+// scales, scale[r, l] the f32 scale of block row r's slot over lane l (its
+// (nbr, K*bs) scale_rows), and the exact diagonal diag[r, i] ((nbr, bs)).
+// vec_scale: scale is 16-byte aligned.
+template <class Base>
+struct Quant : Base {
+  const float* scale;
+  const float* diag;
+  bool vec_scale;
+};
+
+// The KC scales of a slab chunk, staged after its x chunk: lanes
+// [off, off + KC) of the scale rows, the first vk valid. Only Quant sources
+// have scales; for the others the call is empty.
+template <int KC, class Src>
+__device__ __forceinline__ void stage_scales(const Src&, float*, long long,
+                                             int, bool) {}
+template <int KC, class Base>
+__device__ __forceinline__ void stage_scales(const Quant<Base>& src,
+                                             float* dst, long long off,
+                                             int vk, bool vec) {
+  stage_tile<float, false>(dst, KC, src.scale + off, src.scale, 0, 1, KC, 0,
+                           1, vk, vec && src.vec_scale, 0);
+}
+
+// The last step of output elements (row, c) and (row, c + 1) of a block
+// row, before Y is written. Only Quant sources take one: the band's f64 sum
+// rounded to f32, plus d * x_centre in f32, widened (the plain version's
+// arithmetic, ops/kernels.py banded_q_bsr_spmm_plain); x's row `row` is the
+// centre row.
+template <class Src, typename X, typename Acc>
+__device__ __forceinline__ void finish(const Src&, const X*, long long, int,
+                                       int, Acc&, Acc&) {}
+template <class Base>
+__device__ __forceinline__ void finish(const Quant<Base>& src,
+                                       const double* x, long long row, int m,
+                                       int c, double& v0, double& v1) {
+  const float d = __ldg(src.diag + row);
+  const double* xr = x + row * m + c;
+  if (c < m)
+    v0 = static_cast<double>(__fadd_rn(
+        static_cast<float>(v0), __fmul_rn(d, static_cast<float>(__ldg(xr)))));
+  if (c + 1 < m)
+    v1 = static_cast<double>(
+        __fadd_rn(static_cast<float>(v1),
+                  __fmul_rn(d, static_cast<float>(__ldg(xr + 1)))));
+}
 
 // The window a CTA walks: Kw block columns, and the first x row of chunk
 // kc0 of window column j. The banded sources read RPC + 2*bw contiguous
@@ -407,6 +490,57 @@ __device__ __forceinline__ void stage_product(const Bf16* As, const Bf16* Xs,
   }
 }
 
+// Byte t of w, a signed int8 stored with 128 added (w ^ 0x80808080), as a
+// float: the bits 0x4B0000bb are 2^23 + bb exactly, less 2^23 + 128. Integer
+// and f32 adds, where the conversion instruction issues at a quarter of
+// their rate. sel = 0x7440 | t.
+__device__ __forceinline__ float biased_s8(uint32_t w, uint32_t sel) {
+  return __int_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.0f;
+}
+
+// acc += (Q o s)[wr:wr+16, :KC] @ Xs[:KC, :TN] for an int8 slab chunk: each
+// entry times its lane's scale in f32 (the plain version's products, bit
+// for bit), widened to f64, on DMMA with kernel 1's f64 fragments and
+// order. A lane reads its row of the chunk as one 16-byte load and builds
+// its 8 A values of the chunk once; the KC scales follow the x chunk.
+template <int NT>
+__device__ __forceinline__ void stage_product(const QInt8* As,
+                                              const double* Xs, int sx,
+                                              int wr, double (&acc)[NT][4]) {
+  constexpr int KC = Math<QInt8>::KC;
+  constexpr int sa = a_stride<QInt8>();
+  static_assert(KC == 16 && sa == 16, "one 16-byte slab row a chunk");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* Ss = reinterpret_cast<const float*>(Xs + KC * sx);
+  const uint32_t sel = 0x7440u | static_cast<uint32_t>(t);
+  double a[2][KC / 4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const uint4 w = *reinterpret_cast<const uint4*>(
+        reinterpret_cast<const unsigned char*>(As) + (wr + mt * 8 + g) * sa);
+    const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                               w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+    for (int ks = 0; ks < KC / 4; ++ks)
+      a[mt][ks] = static_cast<double>(
+          __fmul_rn(biased_s8(words[ks], sel), Ss[ks * 4 + t]));
+  }
+#pragma unroll
+  for (int ks = 0; ks < KC / 4; ++ks) {
+    double b[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) b[nt] = Xs[(ks * 4 + t) * sx + nt * 8 + g];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        dmma(acc[nt][2 * mt], acc[nt][2 * mt + 1], a[mt][ks], b[nt]);
+    }
+  }
+}
+
 // Two neighbouring elements p[0], p[1] in the sum type, in one load.
 __device__ __forceinline__ double2 pair(const double* p) {
   return *reinterpret_cast<const double2*>(p);
@@ -464,17 +598,24 @@ __device__ __forceinline__ void stage_copy(
 template <typename T, int TM, int TN, int RPC, int kVar, int kStore,
           bool kEvict, class Src>
 __global__ void __launch_bounds__(TM * 2)
-banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
-                   Src src, typename Math<T>::Acc* __restrict__ y,
+banded_spmm_kernel(const typename Elems<T>::Slab* __restrict__ blocks,
+                   const typename Elems<T>::X* __restrict__ x, Src src,
+                   typename Math<T>::Acc* __restrict__ y,
                    typename Math<T>::Acc* __restrict__ colsum, int nbr,
                    int bs, int K, int bw, int m, int col_tiles, int row_tiles,
                    int stages, int vec_a, int vec_x) {
   using Acc = typename Math<T>::Acc;
+  using S = typename Elems<T>::Slab;
+  using X = typename Elems<T>::X;
   constexpr int KC = Math<T>::KC;
   constexpr int NT = TN / 8;
   constexpr int SA = a_stride<T>();
-  constexpr int SX = x_stride<T>(TN);
+  constexpr int SX = x_stride<X>(TN);
   constexpr int STAGE = stage_elems<T>(TM, TN, RPC);
+  // A stage holds one block row's scales (the int8 slab).
+  static_assert(!std::is_same<T, QInt8>::value ||
+                    (RPC == 1 && kVar == kFull && kStore == kDirect),
+                "int8 slabs: the full kernel at one block row a CTA");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
 
@@ -523,21 +664,24 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
 
     auto load = [&](int it) {
       T* st = ring + static_cast<long long>(it % stages) * STAGE;
+      X* xs = reinterpret_cast<X*>(st + RPC * TM * SA);
       const int j = it / chunks;
       const int kc0 = (it % chunks) * KC;
       const int vk = min(KC, bs - kc0);
       // x rows x_row(...) + [0, KC), from the source.
-      src.template stage_x<KC, TN>(st + RPC * TM * SA, SX, x,
+      src.template stage_x<KC, TN>(xs, SX, x,
                                    x_row(src, r0, j, bw, bs, kc0), vk, n, m,
                                    c0, vcols_x, vec_x != 0);
 #pragma unroll
       for (int i = 0; i < RPC; ++i) {
         const int k = j - i;
         if (k < 0 || k >= K || r0 + i >= nbr) continue;
-        const T* src = blocks + ((r0 + i) * bs + i0) * L + k * bs + kc0;
-        stage_tile<T, kEvict>(st + i * TM * SA, SA, src, src, L, TM, KC, 0,
-                              rows_a,
+        const S* a_src = blocks + ((r0 + i) * bs + i0) * L + k * bs + kc0;
+        stage_tile<S, kEvict>(reinterpret_cast<S*>(st + i * TM * SA), SA,
+                              a_src, a_src, L, TM, KC, 0, rows_a,
                               vk, vec_a != 0, policy);
+        stage_scales<KC>(src, reinterpret_cast<float*>(xs + KC * SX),
+                         (r0 + i) * L + k * bs + kc0, vk, vec_a != 0);
       }
     };
 
@@ -551,7 +695,7 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
       if (it + stages - 1 < iters) load(it + stages - 1);
       cp_commit();
       const T* st = ring + static_cast<long long>(it % stages) * STAGE;
-      const T* Xs = st + RPC * TM * SA;
+      const X* Xs = reinterpret_cast<const X*>(st + RPC * TM * SA);
       const int j = it / chunks;
       const int kc0 = (it % chunks) * KC;
 #pragma unroll
@@ -636,6 +780,8 @@ banded_spmm_kernel(const T* __restrict__ blocks, const T* __restrict__ x,
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int c = c0 + nt * 8 + 2 * t;
+        finish(src, x, (r0 + i) * bs + row, m, c, acc[i][nt][2 * h],
+               acc[i][nt][2 * h + 1]);
         if (pair && c + 1 < m) {
           if constexpr (sizeof(Acc) == 8) {
             *reinterpret_cast<double2*>(out + c) =
@@ -712,7 +858,8 @@ cudaError_t plan_ring(int tm, int tn, int rpc, int var, int store,
 // maps them to block rows), with the ring of plan_ring().
 template <typename T, int TM, int TN, int RPC, int kVar, int kStore,
           bool kEvict, class Src>
-cudaError_t launch_src(const T* blocks, const T* x, Src src,
+cudaError_t launch_src(const typename Elems<T>::Slab* blocks,
+                       const typename Elems<T>::X* x, Src src,
                        typename Math<T>::Acc* y, typename Math<T>::Acc* colsum,
                        int nbr, long long groups, int bs, int K, int bw, int m,
                        int stages, cudaStream_t stream) {
@@ -724,9 +871,10 @@ cudaError_t launch_src(const T* blocks, const T* x, Src src,
   if (kStore == kTma &&
       ((static_cast<long long>(m) * sizeof(Acc)) % 16 != 0 || !aligned16(y)))
     return cudaErrorInvalidValue;
-  constexpr int V = 16 / sizeof(T);
-  const int vec_a = aligned16(blocks) && bs % V == 0;
-  const int vec_x = aligned16(x) && src.aligned() && m % V == 0;
+  constexpr int VA = 16 / sizeof(typename Elems<T>::Slab);
+  constexpr int VX = 16 / sizeof(typename Elems<T>::X);
+  const int vec_a = aligned16(blocks) && bs % VA == 0;
+  const int vec_x = aligned16(x) && src.aligned() && m % VX == 0;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
@@ -794,6 +942,53 @@ cudaError_t launch_full(const T* blocks, const T* x, Src src,
   return small_rows(bs)
              ? launch_full_tm<T, 16>(blocks, x, src, y, nbr, groups, bs, K, bw, m, s)
              : launch_full_tm<T, 128>(blocks, x, src, y, nbr, groups, bs, K, bw, m, s);
+}
+
+// -- the int8 entries (q_spmm_f64.cu, q_ext_spmm_f64.cu) -------------------
+
+// The column tile of the int8 entries at width m: 8, 16, 24 or 40, the
+// narrowest that covers m (the lowest-20 solve's m = 20 and 40 in 3 and 5
+// n8 tiles, none padded); above 40, 40 or 64, whichever pads m less.
+inline int q8_column_tile(int m) {
+  if (m <= 8) return 8;
+  if (m <= 16) return 16;
+  if (m <= 24) return 24;
+  if (m <= 40) return 40;
+  const int p40 = (m + 39) / 40 * 40;
+  const int p64 = (m + 63) / 64 * 64;
+  return p40 < p64 ? 40 : 64;
+}
+
+template <int TM, class Src>
+cudaError_t launch_q8_tm(const int8_t* q, const double* x, Src src,
+                         double* y, int nbr, int bs, int K, int bw, int m,
+                         cudaStream_t s) {
+  switch (q8_column_tile(m)) {
+    case 8:
+      return launch_src<QInt8, TM, 8, 1, kFull, kDirect, false>(q, x, src, y, nullptr, nbr, nbr, bs, K, bw, m, 0, s);
+    case 16:
+      return launch_src<QInt8, TM, 16, 1, kFull, kDirect, false>(q, x, src, y, nullptr, nbr, nbr, bs, K, bw, m, 0, s);
+    case 24:
+      return launch_src<QInt8, TM, 24, 1, kFull, kDirect, false>(q, x, src, y, nullptr, nbr, nbr, bs, K, bw, m, 0, s);
+    case 40:
+      return launch_src<QInt8, TM, 40, 1, kFull, kDirect, false>(q, x, src, y, nullptr, nbr, nbr, bs, K, bw, m, 0, s);
+    default:
+      return launch_src<QInt8, TM, 64, 1, kFull, kDirect, false>(q, x, src, y, nullptr, nbr, nbr, bs, K, bw, m, 0, s);
+  }
+}
+
+// One launch of an int8 entry over all nbr block rows (grid row g is block
+// row g of the source), at kernel 1's row tile; returns a cudaError_t as
+// int.
+template <class Src>
+int launch_q8(const int8_t* q, const double* x, Src src, double* y, int nbr,
+              int bs, int K, int bw, int m, void* stream) {
+  if (nbr <= 0 || bs <= 0 || m <= 0) return 0;
+  if (K != 2 * bw + 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      small_rows(bs) ? launch_q8_tm<16>(q, x, src, y, nbr, bs, K, bw, m, s)
+                     : launch_q8_tm<128>(q, x, src, y, nbr, bs, K, bw, m, s));
 }
 
 // -- measurement variants (banded_spmm_var_*.cu) ---------------------------

@@ -7,13 +7,13 @@
 //       (fortran_davidson_tpu/ops/pallas_kernels.py:755, body :721):
 //       y = (Q o s) @ x_window + d o x_centre. Q is the int8 off-diagonal
 //       part, s one f32 scale per (block row, slot), d the exact f32
-//       diagonal; x and y are f32. (The float64-x entry stays on the shared
-//       tile, banded_gram.cu: it is bit-equal to the plain version.)
+//       diagonal; x and y are f32. (The float64-x entry is q_spmm_f64.cu's,
+//       on kernel 1's template with products on DMMA.)
 //   fdt_banded_q_ext_bsr_spmm_f32  replaces banded_q_ext_bsr_spmm
 //       (pallas_kernels.py:1059, body :997): the same over x_ext, the
 //       shard's rows framed by bw*bs rows of each ring neighbour
-//       (parallel/halo.py), f32 x. (The float64-x entry stays on the
-//       shared tile, halo_spmm.cu.)
+//       (parallel/halo.py), f32 x. (The float64-x entry is
+//       q_ext_spmm_f64.cu's, kernel 4's float64-x kernel over x_ext.)
 //   fdt_q_spmm_plan             the layout of a launch (kernels.q_spmm_plan).
 //
 // What bounds it on the H100. One byte a stored entry and 2*m flops on it.
@@ -21,10 +21,9 @@
 // apply moves 805 MB of blocks and 336 MB of x and Y: 0.35 ms at 3.35
 // TB/s. Its 3.2e10 flops, as two TF32 products each (x hi and lo), are
 // 1.3e11 TF32 flops: 0.26 ms at 495 TFLOP/s (data-sheet rates). As f32
-// FMAs on the CUDA cores (the shared SIMT tile, this kernel until its
-// redesign) the apply took 4.010 ms on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md, chip_smoke.py). Bytes bound it, the tensor-core products
-// close behind.
+// FMAs on the CUDA cores (the SIMT tile that this kernel replaced) the
+// apply took 4.010 ms on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+// chip_smoke.py). Bytes bound it, the tensor-core products close behind.
 //
 // The design is kernel 5's int8 apply (fused_apply.cuh: the Int8 loader,
 // the staging, the slot loop), with no V, no gram and no cluster:

@@ -1,22 +1,15 @@
-// Tile machinery shared by the block-sparse SpMM kernels of the port
-// that have not been redesigned for Hopper (sm_90a): kernel 3's float64
-// and bf16 gram entries and the float64-x int8 entries of kernels 4 and 5
-// (banded_gram.cu), and kernel 7's float64-x entry (halo_spmm.cu).
-// Kernels 1, 2, 6 and 8 are on kernel 1's template (banded_spmm.cuh;
-// kernel 2 through its column-table source; kernel 6 also on its own TMA
-// stream, ext_spmm.cu), and the float32 int8 apply of kernels 4, 5 and 7
-// is fused_apply.cuh's.
+// The SIMT tile of the fused SpMM + Gram kernels that have not been
+// redesigned for Hopper (sm_90a): kernel 3's float64 and bf16 entries and
+// kernel 5's float64-x entry, all in banded_gram.cu (gram_kernel). Every
+// other kernel is on kernel 1's template (banded_spmm.cuh: kernels 1, 2,
+// 8, kernel 6's cp.async route and the float64-x entries of kernels 4 and
+// 7) or on the tensor-core apply of fused_apply.cuh (float32 kernels 3-5
+// and 7), kernel 6 also on its TMA stream (ext_spmm.cu).
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
-// block row r is the contiguous run slab(r)[i, 0:K*bs], and x rows are
-// found by the banded rule (slot k of block row r holds block column
-// r - bw + k, so the slab contracts the contiguous x window
-// [(r - bw) * bs, (r + bw + 1) * bs)) or by a (nbr, K) column table,
-// which no kernel passes any more (every caller gives cols == nullptr).
-// The table's branch stays: without it ptxas gave spmm_kernel, the
-// float64-x kernels 4 and 7, other registers (32-74 against 38-78 in
-// parent-against-change builds on an H100), and the tile is held at its
-// code generation until it is redesigned.
+// block row r is the contiguous run slab(r)[i, 0:K*bs], and slot k of
+// block row r holds block column r - bw + k, so the slab contracts the
+// contiguous x window [(r - bw) * bs, (r + bw + 1) * bs).
 //
 // One thread block computes a TM x TN tile of one block row's (bs, m)
 // output: it walks the contraction dimension K*bs in chunks of kTK,
@@ -24,26 +17,16 @@
 // memory, converted to the accumulation type, and accumulates a small
 // register tile per thread with plain FMAs. Two policies vary:
 //
-// - the block loader: dense stored blocks of type T (f64, f32, or bf16
-//   widened to f32 when staged), or int8 blocks times the (block row,
-//   slot) f32 scale, dequantized when staged, with f64 x (Int8F64Blocks;
-//   the float32-x int8 entries are fused_apply.cuh's);
-// - the epilogue, chosen by the kernel: store Y, add the exactly stored
-//   diagonal d[r, i] * x[r*bs + i, c] (int8 storage), and/or feed the
-//   gram G = V^T Y (banded_gram.cu).
+// - the block loader: dense stored blocks of type T (f64, or bf16 widened
+//   to f32 when staged), or int8 blocks times the (block row, slot) f32
+//   scale, dequantized when staged, with f64 x (Int8F64Blocks);
+// - the epilogue, chosen by the kernel: add the exactly stored diagonal
+//   d[r, i] * x[r*bs + i, c] (int8 storage), store Y, and feed the gram
+//   G = V^T Y (banded_gram.cu).
 //
 // x rows outside [0, x_rows) load as zeros: a banded edge window
 // multiplies zero blocks there, and 0 * Inf must not enter the sum
 // (the counterpart of fortran_davidson_tpu/ops/pallas_kernels.py:233-244).
-//
-// Two sources of x rows (XRows):
-// - kMasked: x itself, rows outside [0, x_rows) load as zeros (above);
-// - kInside: x itself where every window lies inside the rows that x
-//   points into, loaded unmasked; only kernel 7's float64-x entry
-//   (halo_spmm.cu) takes it. It points x at the centre of a halo-extended
-//   x_ext (a shard's rows framed by bw block rows of its ring neighbours'
-//   rows on each side), so that every block row's window is valid:
-//   masking there would zero the halo.
 
 #pragma once
 
@@ -56,8 +39,6 @@ namespace fdt {
 
 constexpr int kTK = 16;        // contraction chunk staged per step
 constexpr int kThreadsM = 16;  // threads along the tile's rows
-
-enum XRows { kMasked = 0, kInside = 1 };
 
 template <int TM, int TN>
 struct Tile {
@@ -91,8 +72,8 @@ struct DenseBlocks {
 
 // int8 off-diagonal blocks times one f32 scale per (block row, slot),
 // stored broadcast over the slot's lanes as scale[r, l], with float64 x
-// (kernels 4, 5 and 7 on a float64 solve), as the plain version computes
-// it (ops/kernels.py banded_q_bsr_spmm_plain):
+// (kernel 5 on a float64 solve), as the plain version computes it
+// (ops/kernels.py banded_q_bsr_spmm_plain):
 // q * s formed in f32 and widened, the band product summed in f64, and the
 // diagonal epilogue (add_diag) rounding that sum to f32 and adding d * x
 // in f32; Y holds those f32 values widened to f64.
@@ -123,13 +104,12 @@ __device__ __forceinline__ double add_diag<Int8F64Blocks>(double acc, float d,
       __fadd_rn(static_cast<float>(acc), __fmul_rn(d, static_cast<float>(x))));
 }
 
-// acc = slab(r)[i0:i0+TM, :] @ x_rows(r)[:, c0:c0+TN] (+ d * x_centre when
-// diag is given). cols == nullptr selects the banded rule; kRows where the
-// rows come from.
-template <typename Load, int TM, int TN, int kRows = kMasked>
+// acc = slab(r)[i0:i0+TM, :] @ x_window(r)[:, c0:c0+TN] (+ d * x_centre
+// when diag is given).
+template <typename Load, int TM, int TN>
 __device__ __forceinline__ void tile_product(
     const Load& ld, const typename Load::X* __restrict__ x,
-    const int* __restrict__ cols, const float* __restrict__ diag,
+    const float* __restrict__ diag,
     long long r, int i0, int c0, int bs, int K, int bw, long long x_rows,
     int m, typename Load::Acc (&acc)[Tile<TM, TN>::RM][Tile<TM, TN>::RN]) {
   using Acc = typename Load::Acc;
@@ -164,14 +144,8 @@ __device__ __forceinline__ void tile_product(
       const int gc = c0 + c;
       Acc v = Acc(0);
       if (gl < L && gc < m) {
-        long long xr;
-        if (cols != nullptr) {
-          const int k = gl / bs;
-          xr = static_cast<long long>(cols[r * K + k]) * bs + (gl - k * bs);
-        } else {
-          xr = win0 + gl;
-        }
-        if (kRows == kInside || (xr >= 0 && xr < x_rows)) {
+        const long long xr = win0 + gl;
+        if (xr >= 0 && xr < x_rows) {
           v = cvt<Acc>(x[xr * m + gc]);
         }
       }
@@ -227,71 +201,6 @@ __device__ __forceinline__ void store_tile(
       if (gi < bs && gc < m) out[static_cast<long long>(gi) * m + gc] = acc[i][j];
     }
   }
-}
-
-// Y = A @ X (+ d * x): one thread block per (block row, row tile, column
-// tile); column tiles are the fastest grid index, so the tiles of one
-// block row run together and read its slab from L2 after the first.
-template <typename Load, int TM, int TN, int kRows>
-__global__ void __launch_bounds__(Tile<TM, TN>::kThreads)
-spmm_kernel(Load ld, const typename Load::X* __restrict__ x,
-            const int* __restrict__ cols, const float* __restrict__ diag,
-            typename Load::Acc* __restrict__ y, int bs, int K, int bw,
-            long long x_rows, int m, int col_tiles, int row_tiles) {
-  const long long bid = blockIdx.x;
-  const int ct = static_cast<int>(bid % col_tiles);
-  const long long rt = bid / col_tiles;
-  const long long r = rt / row_tiles;
-  const int i0 = static_cast<int>(rt % row_tiles) * TM;
-  const int c0 = ct * TN;
-  typename Load::Acc acc[Tile<TM, TN>::RM][Tile<TM, TN>::RN];
-  tile_product<Load, TM, TN, kRows>(ld, x, cols, diag, r, i0, c0, bs, K, bw,
-                                    x_rows, m, acc);
-  store_tile<typename Load::Acc, TM, TN>(y, acc, r, i0, c0, bs, m);
-}
-
-template <typename Load, int TM, int TN, int kRows>
-cudaError_t launch_spmm(const Load& ld, const typename Load::X* x,
-                        const int* cols, const float* diag,
-                        typename Load::Acc* y, long long nbr, int bs, int K,
-                        int bw, long long x_rows, int m, cudaStream_t stream) {
-  const int col_tiles = (m + TN - 1) / TN;
-  const int row_tiles = (bs + TM - 1) / TM;
-  const long long grid = nbr * row_tiles * col_tiles;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  spmm_kernel<Load, TM, TN, kRows><<<static_cast<unsigned>(grid),
-                                     Tile<TM, TN>::kThreads, 0, stream>>>(
-      ld, x, cols, diag, y, bs, K, bw, x_rows, m, col_tiles, row_tiles);
-  return cudaGetLastError();
-}
-
-template <typename Load, int TM, int kRows>
-cudaError_t spmm_by_width(const Load& ld, const typename Load::X* x,
-                          const int* cols, const float* diag,
-                          typename Load::Acc* y, long long nbr, int bs, int K,
-                          int bw, long long x_rows, int m, cudaStream_t s) {
-  if (m <= 8)
-    return launch_spmm<Load, TM, 8, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-  if (m <= 16)
-    return launch_spmm<Load, TM, 16, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-  if (m <= 32)
-    return launch_spmm<Load, TM, 32, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-  return launch_spmm<Load, TM, 64, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-}
-
-// Y = A @ X over all nbr block rows, on the current stream; returns a
-// cudaError_t as int. kInside: banded rule only (cols == nullptr).
-template <typename Load, int kRows = kMasked>
-int spmm(const Load& ld, const typename Load::X* x, const int* cols,
-         const float* diag, typename Load::Acc* y, int nbr, int bs, int K,
-         int bw, long long x_rows, int m, void* stream) {
-  if (nbr <= 0 || bs <= 0 || K <= 0 || m <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bs <= 16
-          ? spmm_by_width<Load, 16, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s)
-          : spmm_by_width<Load, 64, kRows>(ld, x, cols, diag, y, nbr, bs, K, bw, x_rows, m, s);
-  return static_cast<int>(err);
 }
 
 }  // namespace fdt

@@ -2,8 +2,8 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (kernel 3's float64 and bf16 entries and the
-float64-x entries of 4, 5 and 7 on the shared SIMT tile of
+Eight kernels, in ``csrc/`` (kernel 3's float64 and bf16 entries and
+kernel 5's float64-x entry on the shared SIMT tile of
 ``csrc/spmm_tile.cuh``), and the TPU measurement kernels as variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
@@ -24,7 +24,8 @@ float64-x entries of 4, 5 and 7 on the shared SIMT tile of
   (``pallas_kernels.py:755``): int8 off-diagonal blocks with per-slot
   scales plus the exact diagonal; float32 x on kernel 5's slot-by-slot
   tensor-core apply (``csrc/q_spmm.cu`` on ``csrc/fused_apply.cuh``),
-  float64 x on the shared tile (``csrc/banded_gram.cu``).
+  float64 x on kernel 1's template with an int8 slab, products on DMMA
+  (``csrc/q_spmm_f64.cu``; its layout by :func:`q_spmm_f64_plan`).
 - :func:`banded_q_bsr_spmm_gram` replaces ``banded_q_bsr_spmm_gram``
   (``pallas_kernels.py:886``): the int8 apply, slot by slot on tensor
   cores, fused with the gram (``csrc/fused_gram.cu``).
@@ -37,7 +38,8 @@ float64-x entries of 4, 5 and 7 on the shared SIMT tile of
 - :func:`banded_q_ext_bsr_spmm` replaces ``banded_q_ext_bsr_spmm``
   (``pallas_kernels.py:1059``): the int8 form; float32 x on kernel 4's
   tensor-core apply with all K slots (``csrc/q_spmm.cu``), float64 x on
-  the shared tile (``csrc/halo_spmm.cu``).
+  kernel 4's float64-x kernel with kernel 8's unmasked source
+  (``csrc/q_ext_spmm_f64.cu``).
 - :func:`banded_remote_halo_spmm` replaces ``banded_remote_halo_spmm``
   (``pallas_kernels.py:1416``): kernel 1's template over a shard's rows
   and its two received halos through three pointers, no halo-extended
@@ -52,9 +54,10 @@ SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
 their plain versions :func:`fused_gram_variant_plain`).
 
 What bounds them on the H100, and what the designs do about it, is
-written at the top of each source. Kernels 1, 2, 3 (float32), 4 and 7
-(float32 x), 5, 6 and 8 run on tensor cores (kernels 1, 2, 6 and 8 in
-float32 on FFMA); the others on the shared SIMT tile, not tuned yet.
+written at the top of each source. Kernels 1, 2, 4, 6, 7 and 8, and
+kernels 3 and 5 in float32, run on tensor cores (kernels 1, 2, 6 and 8 in
+float32 on FFMA); kernel 3 in float64 and bf16 and kernel 5 with float64
+x on the shared SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
 summed in float32, as the TPU kernels do); int8 storage takes float32 or
@@ -68,7 +71,8 @@ Dispatch follows the tensors' device: CPU tensors take the plain version;
 CUDA tensors launch the kernel, or raise for what it does not take
 (mixed types, int8 storage with x other than float32 or float64). There
 is no fallback from one to the other. Each wrapper counts its launches in
-``wrapper.launches``.
+``wrapper.launches``; those of kernels 4 and 7 with float64 x also in
+``wrapper.f64_launches``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` per source, all started together, then linked into one library
@@ -78,12 +82,14 @@ under ``csrc/`` (so an edited source is rebuilt), loaded with ``ctypes``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -132,6 +138,8 @@ _ARGTYPES = {
                             ctypes.POINTER(ctypes.c_int)],
     # nbr, m, out[5]
     "fdt_q_spmm_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    # bs, m, out[4]
+    "fdt_q_spmm_f64_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     # blocks, x_ext, y, nbr, bs, K, bw, m, route, stream
     **{f"fdt_banded_ext_bsr_spmm_{s}": [*_BANDED[:-1], _I, _P]
        for s in _SUFFIX.values()},
@@ -182,8 +190,10 @@ def build() -> tuple:
     """Compile ``csrc/*.cu`` unless the library is built already: one
     ``nvcc`` per source, all started together, then one link.
 
-    Returns ``(path, log)``; ``log`` holds ptxas's register/shared-memory
-    report of a fresh build and is empty when the library already existed.
+    Returns ``(path, log)``; ``log`` holds each source's compile time
+    (a line ``nvcc <source>: <seconds> s``, from the common start) and
+    ptxas's register/shared-memory report of a fresh build, and is empty
+    when the library already existed.
     """
     out = library_path()
     if out.exists():
@@ -197,10 +207,20 @@ def build() -> tuple:
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    start = time.monotonic()
+
+    def finish(job):
+        # Each process's pipes drained on a thread of its own, so that its
+        # end is seen when it comes.
+        stdout, stderr = job[2].communicate()
+        return stdout, stderr, time.monotonic() - start
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        ends = list(pool.map(finish, jobs))
     logs, failed = [], []
-    for cmd, _, proc in jobs:
-        stdout, stderr = proc.communicate()
-        logs.append(stdout + stderr)
+    for (cmd, _, proc), (stdout, stderr, secs) in zip(jobs, ends):
+        logs.append(f"nvcc {Path(cmd[-1]).name}: {secs:.1f} s\n"
+                    + stdout + stderr)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({' '.join(cmd)}):\n{stderr}")
     tmp = out.with_name(f"{tag}.tmp")
@@ -917,7 +937,7 @@ def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, bandwidth: int,
       diag: (nbr, bs) float32, the exact diagonal.
       x: (nbr*bs, m); float32 or float64 on a GPU (float64: the band
         summed in float64 and rounded to float32, d ∘ x added in float32,
-        as the plain version does).
+        as the plain version does; counted also in ``f64_launches``).
       out_dtype: output type (default ``x.dtype``).
     """
     K = _check_quantized(qblocks, scale_rows, diag, x, bandwidth)
@@ -934,10 +954,12 @@ def banded_q_bsr_spmm(qblocks, scale_rows, diag, x, bandwidth: int,
              y.data_ptr(),
              nbr, bs, K, int(bandwidth), x.shape[1])
         banded_q_bsr_spmm.launches += 1
+        banded_q_bsr_spmm.f64_launches += x.dtype == torch.float64
     return _out(y, out_dtype)
 
 
 banded_q_bsr_spmm.launches = 0
+banded_q_bsr_spmm.f64_launches = 0
 
 Q_SPMM_PLAN_KEYS = ("TN", "smem_bytes", "blocks_per_sm", "col_tiles",
                     "n_groups")
@@ -956,6 +978,21 @@ def q_spmm_plan(device_index: int, nbr: int, m: int) -> dict:
         raise RuntimeError(f"fdt_q_spmm_plan: CUDA error {err} (nbr={nbr}, "
                            f"m={m})")
     return dict(zip(Q_SPMM_PLAN_KEYS, out))
+
+
+@functools.lru_cache(maxsize=256)
+def q_spmm_f64_plan(device_index: int, bs: int, m: int) -> dict:
+    """The layout of a float64-x launch of kernels 4 and 7
+    (``csrc/q_spmm_f64.cu``, kernel 1's template): row tile, column tile,
+    ring depth and dynamic shared memory a CTA, as :func:`banded_spmm_plan`
+    reports kernel 1's."""
+    out = (ctypes.c_int * len(SPMM_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = _library().fdt_q_spmm_f64_plan(bs, m, out)
+    if err != 0:
+        raise RuntimeError(f"fdt_q_spmm_f64_plan: CUDA error {err} (bs={bs}, "
+                           f"m={m})")
+    return dict(zip(SPMM_PLAN_KEYS, out))
 
 
 # -- kernel 5: int8 DIA-banded SpMM + Gram ------------------------------
@@ -1149,8 +1186,9 @@ def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
     DIA-banded rows (``fortran_davidson_tpu/ops/pallas_kernels.py:1059``;
     storage as :func:`banded_q_bsr_spmm`, input as
     :func:`banded_ext_bsr_spmm`); x_ext float32 (kernel 4's apply over all
-    K slots: a shard's rows put together give kernel 4's Y) or float64 on
-    a GPU."""
+    K slots) or float64 (kernel 4's float64-x kernel over all K slots,
+    counted also in ``f64_launches``) on a GPU: either way a shard's rows
+    put together give kernel 4's Y bit for bit."""
     K = _check_quantized(qblocks, scale_rows, diag, x_ext, bandwidth,
                          ext=True)
     nbr, bs, _ = qblocks.shape
@@ -1168,10 +1206,12 @@ def banded_q_ext_bsr_spmm(qblocks, scale_rows, diag, x_ext, *,
              x_ext.data_ptr(),
              y.data_ptr(), nbr, bs, K, int(bandwidth), x_ext.shape[1])
         banded_q_ext_bsr_spmm.launches += 1
+        banded_q_ext_bsr_spmm.f64_launches += x_ext.dtype == torch.float64
     return _out(y, out_dtype)
 
 
 banded_q_ext_bsr_spmm.launches = 0
+banded_q_ext_bsr_spmm.f64_launches = 0
 
 
 # -- kernel 8: DIA-banded SpMM over a shard and its received halos ------
@@ -1305,7 +1345,14 @@ KERNELS = (banded_bsr_spmm, bsr_spmm, banded_bsr_spmm_gram,
            banded_q_ext_bsr_spmm, banded_remote_halo_spmm)
 
 
+# The wrappers whose float64-x launches are also counted apart
+# (``f64_launches``): kernels 4 and 7.
+F64_X_KERNELS = (banded_q_bsr_spmm, banded_q_ext_bsr_spmm)
+
+
 def reset_launch_counts() -> None:
     for fn in (*KERNELS, banded_spmm_variant):
         fn.launches = 0
+    for fn in F64_X_KERNELS:
+        fn.f64_launches = 0
     banded_spmm_variant.copy_launches = 0

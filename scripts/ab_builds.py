@@ -6,7 +6,7 @@ kernel wrappers give on the same seeded inputs.
     git archive <parent> | tar -x -C _archive/parent
     python3 scripts/ab_builds.py --parent _archive/parent \\
         [--rename 'REGEX=>REPLACEMENT' ...] [--hold REGEX ...] \\
-        [--hold-bits PREFIX ...]
+        [--hold-bits PREFIX ...] [--time]
 
 Each tree is built and run in a process of its own (``--worker``), with
 that tree first on ``sys.path``, so each imports its own
@@ -20,6 +20,11 @@ anonymous namespaces' hashes blanked). Keys are matched by equality. When
 a change renames instantiations (a new template argument, an enum value
 that moved), each ``--rename`` is a ``re.sub`` applied in order to the
 parent's keys: the mapping belongs to the run, not to this script.
+
+With ``--time``, the full-size cases of :func:`_timed_cases` are then
+timed in both trees in turns (parent, change, change, parent; each a
+process of its own on the build above; CUDA events, median of 7 after a
+warm-up), and the times join the summary.
 
 Prints each instantiation whose registers differ or that one build lacks,
 each output whose bits differ or that one tree cannot make, and a JSON
@@ -185,6 +190,58 @@ def _cases():
     return out
 
 
+def _timed_cases():
+    """(label, fn) pairs timed with ``--time``: the float64-x entries of
+    kernels 4 and 7 on the 2M-row int8 matrix of the solves at the
+    lowest-20 widths (kernel 7 over the one shard's ring-wrapped x_ext)."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels as k
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(900)
+    q = fdtt.generate_banded_bsr_quantized(16384, 128, bandwidth=1, seed=0,
+                                           device=dev)
+    ql = (q.qblocks, q.scale_rows, q.diag)
+    out = []
+    for m in (20, 40):
+        x = torch.randn((q.shape[0], m), generator=gen, device=dev,
+                        dtype=torch.float64)
+        xe = torch.cat([x[-128:], x, x[:128]])
+        out.append((f"k4 f64 m={m} nbr=16384",
+                    lambda x=x: k.banded_q_bsr_spmm(*ql, x, 1)))
+        out.append((f"k7 f64 m={m} nbr=16384",
+                    lambda xe=xe: k.banded_q_ext_bsr_spmm(*ql, xe,
+                                                          bandwidth=1)))
+    return out
+
+
+def time_worker(tag: str, turn: int) -> int:
+    """Time :func:`_timed_cases` on this tree's build (made by
+    :func:`worker`); saves label -> ms."""
+    import statistics
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels as k
+    k.BUILD_DIR = BULK / f"{tag}_build"
+    times = {}
+    for label, fn in _timed_cases():
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        times[label] = statistics.median(runs)
+    (BULK / f"{tag}.time{turn}.json").write_text(json.dumps(times))
+    print(f"{tag} turn {turn}: {times}", flush=True)
+    return 0
+
+
 def worker(tag: str) -> int:
     """Build this process's tree, save its ptxas report and its outputs
     (an output this tree cannot make is saved as None)."""
@@ -263,16 +320,31 @@ def registers(log: str) -> dict:
     return {key: regs for key, (_, regs) in zip(keys, pairs)}
 
 
-def compare(parent: Path, renames, hold, hold_bits) -> int:
+def compare(parent: Path, renames, hold, hold_bits, timed) -> int:
     import torch
     env = dict(os.environ)
-    for tag, tree in (("parent", parent.resolve()), ("change", HERE)):
+    trees = {"parent": parent.resolve(), "change": HERE}
+    for tag, tree in trees.items():
         env["PYTHONPATH"] = str(tree)
         res = subprocess.run([sys.executable, __file__, "--worker", tag],
                              env=env, cwd=tree, check=False)
         if res.returncode != 0:
             print(f"{tag} worker failed ({res.returncode})", flush=True)
             return 2
+    times = {}
+    if timed:
+        for turn, tag in enumerate(("parent", "change", "change", "parent")):
+            env["PYTHONPATH"] = str(trees[tag])
+            res = subprocess.run([sys.executable, __file__, "--time-worker",
+                                  f"{tag}:{turn}"], env=env, cwd=trees[tag],
+                                 check=False)
+            if res.returncode != 0:
+                print(f"{tag} time worker failed ({res.returncode})",
+                      flush=True)
+                return 2
+            got = json.loads((BULK / f"{tag}.time{turn}.json").read_text())
+            for label, ms in got.items():
+                times.setdefault(label, {}).setdefault(tag, []).append(ms)
     change = registers((OUT / "change.ptxas.log").read_text())
     parent_regs = {}
     for key, n in registers((OUT / "parent.ptxas.log").read_text()).items():
@@ -308,7 +380,8 @@ def compare(parent: Path, renames, hold, hold_bits) -> int:
     print(json.dumps(dict(registers_same=same_regs, held_registers_moved=moved,
                           outputs_same_bits=same_bits, outputs_differ=diff,
                           held_outputs_differ=held,
-                          outputs_in_one_tree=one_side)), flush=True)
+                          outputs_in_one_tree=one_side,
+                          times_ms_in_turns=times)), flush=True)
     return 1 if moved or held else 0
 
 
@@ -324,11 +397,17 @@ def main() -> int:
     ap.add_argument("--hold-bits", action="append", default=[],
                     metavar="PREFIX",
                     help="output labels whose bits must not move")
+    ap.add_argument("--time", action="store_true",
+                    help="also time the full-size cases in turns")
     ap.add_argument("--worker", choices=("parent", "change"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--time-worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         return worker(args.worker)
+    if args.time_worker:
+        tag, turn = args.time_worker.split(":")
+        return time_worker(tag, int(turn))
     if args.parent is None:
         ap.error("--parent is required")
     renames = []
@@ -337,7 +416,8 @@ def main() -> int:
         if not sep:
             ap.error(f"--rename {spec!r}: expected REGEX=>REPLACEMENT")
         renames.append((pattern, repl))
-    return compare(args.parent, renames, args.hold, args.hold_bits)
+    return compare(args.parent, renames, args.hold, args.hold_bits,
+                   args.time)
 
 
 if __name__ == "__main__":

@@ -924,6 +924,89 @@ def test_int8_kernels_take_float64_x(cuda_device, m, bw):
                                                      bandwidth=bw))
 
 
+# Kernels 4 and 7 with float64 x on kernel 1's template
+# (csrc/q_spmm_f64.cu, csrc/q_ext_spmm_f64.cu): column tiles 8 (m 1, 4),
+# 24 (m 20, the lowest-20 solve's), 64 (m 44, 64, 256) and 40 (m 130, four
+# tiles), on row tiles of 16 (bs 8) and 128 rows (bs 24, 128); 13 block
+# rows fill no multiple of a tile.
+Q_F64_WIDTHS = [1, 4, 20, 44, 64, 130, 256]
+
+
+@pytest.mark.parametrize("m", Q_F64_WIDTHS)
+@pytest.mark.parametrize("bw", [1, 2, 3])
+@pytest.mark.parametrize("bs", [8, 24, 128])
+def test_q_f64_kernels_match_plain(cuda_device, bs, bw, m):
+    # Against the plain versions within 2**-22 of max|Y| (_q_f64_close), on
+    # the operator and on its band alone (the diagonal zeroed, so that a
+    # fault in the band is not hidden under d * x). x framed by NaN rows:
+    # kernel 4 reads no row outside [0, n), so Y is finite; kernel 7 reads
+    # all of x_ext and no row past it. The same bits twice; four slabs of
+    # kernel 7, each on its ring-wrapped x_ext, put together give kernel
+    # 4's Y bit for bit (its out-of-range slots add +0).
+    dev, nbr = cuda_device, 13
+    q = fdtt.generate_banded_bsr_quantized(nbr, bs, bandwidth=bw, seed=11,
+                                           device=dev)
+    n, halo = q.shape[0], bw * bs
+    x = _framed(torch.randn((n, m), dtype=torch.float64, device=dev), halo)
+    x_ext = _apart(_ring_ext(x, 0, n, halo), halo)
+    for diag in (q.diag, torch.zeros_like(q.diag)):
+        lead = (q.qblocks, q.scale_rows, diag)
+        before = (kernels.banded_q_bsr_spmm.f64_launches,
+                  kernels.banded_q_ext_bsr_spmm.f64_launches)
+        y4 = kernels.banded_q_bsr_spmm(*lead, x, bw)
+        y7 = kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw)
+        assert (kernels.banded_q_bsr_spmm.f64_launches,
+                kernels.banded_q_ext_bsr_spmm.f64_launches) == (
+                    before[0] + 1, before[1] + 1)
+        assert bool(torch.isfinite(y4).all())
+        yp = kernels.banded_q_bsr_spmm_plain(*lead, x.clone(), bw)
+        _q_f64_close(y4, yp)
+        _q_f64_close(y7, kernels.banded_q_ext_bsr_spmm_plain(
+            *lead, x_ext.clone(), bandwidth=bw))
+        assert torch.equal(y4, kernels.banded_q_bsr_spmm(*lead, x, bw))
+        assert torch.equal(y7, kernels.banded_q_ext_bsr_spmm(
+            *lead, x_ext, bandwidth=bw))
+        cuts = [0, 3, 6, 9, nbr]
+        parts = [kernels.banded_q_ext_bsr_spmm(
+            *(t[lo:hi] for t in lead),
+            _apart(_ring_ext(x, lo * bs, hi * bs, halo), halo), bandwidth=bw)
+            for lo, hi in zip(cuts, cuts[1:])]
+        assert torch.equal(torch.cat(parts), y4)
+        assert torch.equal(y7, y4)
+        # Where the two float64 sums round to the same float32 (not held).
+        tag = "d" if diag is q.diag else "zero"
+        share = float((y4 == yp).double().mean())
+        print(f"bs={bs} bw={bw} m={m} diag={tag}: {share:.4f} of Y's bits "
+              "equal to the plain version's")
+
+
+@pytest.mark.parametrize("m", [20, 40])
+def test_q_f64_kernels_at_full_size(cuda_device, m):
+    # The 2M-row int8 matrix of the solves (chip_smoke.py phases 6 and 8a)
+    # at the lowest-20 widths: kernel 4 and kernel 7 (x_ext of one shard at
+    # world size 1) against the plain version, and each other bit for bit.
+    q = fdtt.generate_banded_bsr_quantized(16384, 128, bandwidth=1, seed=0,
+                                           device=cuda_device)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    x = torch.randn((q.shape[0], m), dtype=torch.float64, device=cuda_device)
+    y4 = kernels.banded_q_bsr_spmm(*lead, x, 1)
+    _q_f64_close(y4, kernels.banded_q_bsr_spmm_plain(*lead, x, 1))
+    y7 = kernels.banded_q_ext_bsr_spmm(*lead, _ring_ext(x, 0, q.shape[0],
+                                                        128), bandwidth=1)
+    assert torch.equal(y7, y4)
+
+
+def test_q_f64_plan(cuda_device):
+    # The column tile covers the lowest-20 widths unpadded; the row tile is
+    # kernel 1's; two CTAs an SM keep four ring stages at every tile.
+    for bs, m, tm, tn in ((8, 1, 16, 8), (128, 20, 128, 24),
+                          (128, 40, 128, 40), (24, 44, 128, 64),
+                          (128, 130, 128, 40), (128, 256, 128, 64)):
+        plan = kernels.q_spmm_f64_plan(0, bs, m)
+        assert (plan["TM"], plan["TN"]) == (tm, tn), (bs, m, plan)
+        assert plan["stages"] == 4 and plan["smem_bytes"] > 0
+
+
 # -- kernel 1 (csrc/banded_spmm.cu) and its variants --------------------
 
 def _k1_tol(dtype):

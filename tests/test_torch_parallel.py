@@ -251,7 +251,8 @@ def single_device(inputs, jax_ops):
               "halo_remote": jax_ops["solve_halo"],
               "remote_f32": jax_ops["solve_remote"],
               "bsr": jax_ops["solve_bsr"],
-              "int8": jax_ops["solve_int8"]}.get(name, d["A"])
+              "int8": jax_ops["solve_int8"],
+              "int8_f64": jax_ops["solve_int8"]}.get(name, d["A"])
         rj = fdt.eigensolve(jA, lowest,
                             second_matrix=d["B"] if name == "pencil" else None,
                             initial_vectors=d["X0"] if name == "warm" else None,
@@ -282,6 +283,12 @@ def test_sharded_solve_matches_single_device(ranks, inputs, single_device,
     lam = res[0][f"{name}_evals"]
     tol = (dict(rtol=1e-5, atol=0) if opts.get("dtype") == "float32"
            else dict(rtol=0, atol=1e-10))
+    if name == "int8_f64":
+        # float64 on int8 storage: the apply's sums round to float32 in
+        # both packages, in another order, so the solves agree to the
+        # solve's 1e-6, as test_float64_solve_on_int8_storage_matches_jax
+        # holds the single-device solves.
+        tol = dict(rtol=0, atol=1e-6)
     np.testing.assert_allclose(lam, np.asarray(rj.eigenvalues), **tol)
     np.testing.assert_allclose(lam, to_numpy(rt.eigenvalues), **tol)
     X = _gathered(res, f"{name}_evecs").astype(np.float64)
