@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    card's name and power limit.
 2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
    nvcc per source, started together); prints ptxas's registers of every
-   instantiation of the shared SIMT tile (``gram_kernel``), of kernel 1,
+   instantiation of the shared SIMT tile (``gram_kernel``, row 5d), of
+   kernel 3's bf16 and float64 entries (``typed_gram_kernel``), of kernel 1,
    its variants and kernels 8 and 2 on kernel 1's template (with their
    static shared memory and their ring's bytes), of the float64-x entries
    of kernels 4 and 7 on the same template (int8 slab; with their ring),
@@ -50,9 +51,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      rows (kernel 4's Y finite), the same bits twice, kernel 7 over the
      one slab's x_ext equal to kernel 4 bit for bit, and on the band alone
      within ``Q64_TOL`` of max|Y_band|, a limit the band faults exceed;
-   - kernel 3's float64 and bf16 entries (the SIMT tile) at its main
-     case's shape (m=128, mv=1408) against the plain version, timed
-     beside it and the unfused yardstick (kernel 1 + matmul);
+   - kernel 3's bf16 and float64 entries (rows 3b, 3d:
+     ``csrc/fused_gram_typed.cuh``) at its main case's shape (m=128,
+     mv=1408) against the plain version (Y within TOL; G within GRAM_TOL
+     of |V|ᵀ|Y|; the same bits twice), timed beside it, the unfused
+     yardstick (kernel 1 + matmul) and their measurement variants
+     (``nov``, ``nogram``), with the plan the wrapper takes;
    - the new kernels (3: banded SpMM+Gram, 4: int8 banded SpMM, 5: int8
      SpMM+Gram) in every variant (``v`` given or None, ``write_out``),
      on a ragged small matrix, on the 2,097,152-row int8 matrix (4, 5)
@@ -153,6 +157,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    k=128 on the same matrix (``"auto"``, four iterations) and, as
    ``bench.py:701-716`` runs it, k=20 on the int8 matrix (``"on"``,
    kernel 5, eight iterations, eigenvalues to 1e-5 relative).
+7c. The solve that ``fused_gram="auto"`` sends to row 3b: phase 7's
+   lowest-128 on ``A3.astype(torch.bfloat16)``. ``"off"`` at phase 7's
+   relative 1e-3 decides the tolerance (1e-3 if its true residual reaches
+   it, else ``BF16_SOLVE_TOL`` = 1e-2); ``"auto"`` at 1e-3 must stall
+   (ROADMAP Queue 3's open fault, shown); those were the cold solves;
+   then ``"auto"`` and ``"off"`` in turns at that tolerance, two warm
+   solves each: both converge
+   with true residuals (float64, the bf16 blocks) within it, iterations
+   ±2, eigenvalues within the sum of the residuals, row 3b launched under
+   "auto" only; every wall and one profiled split (kernel 3's share, the V
+   casts' share) printed.
 8. The row-sharded solve at world size 1 over a one-rank NCCL group
    (``parallel.multihost.initialize``, ``file://`` store), a cold and
    two warm solves of each case, each held to phase 4's or 6's
@@ -175,7 +190,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. Prints the solves' and kernels' JSON lines (launch counts of the solve
    phases 4-8, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
-   the rest and no phase launches them; for
+   the rest and no phase launches them (nor kernel 3's float64 entry); for
    kernels 3 and 5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
    |G_k - G_p| / (|V|ᵀ|Y|), and ``unfused_ms``, ``nov_ms`` and
    ``nogram_ms`` the split above; each kernel's ``bound_ms``, the larger
@@ -190,8 +205,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``banded_q_ext_bsr_spmm_f64``, launched in phases 6 and 8a, with their
    times at m = 20 and 40; kernel 5's float64-x entry's times, unfused
    yardstick, bounds and launches in phase 6's float64 leg; kernel 3's
-   float64 and bf16 entries at its main case's shape), the card's name and
-   power limit, and as the last line
+   bf16 and float64 entries as kernels of their own,
+   ``banded_bsr_spmm_gram_bf16`` (launched in phase 7c) and
+   ``banded_bsr_spmm_gram_f64`` (no path: the fused engine is float32),
+   with their plans, unfused yardsticks, splits and the SIMT tile's
+   times), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
@@ -212,9 +230,13 @@ import types
 SOURCES = {
     "banded_bsr_spmm": "fortran_davidson_tpu_torch/csrc/banded_spmm.cu",
     "bsr_spmm": "fortran_davidson_tpu_torch/csrc/bsr_spmm.cu",
-    # The float32 entry (the main case's); f64 and bf16 storage stay on
-    # csrc/banded_gram.cu.
+    # The float32 entry (the main case's); bf16 and float64 storage are
+    # rows of their own, on csrc/fused_gram_typed.cuh.
     "banded_bsr_spmm_gram": "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
+    "banded_bsr_spmm_gram_bf16":
+        "fortran_davidson_tpu_torch/csrc/fused_gram_bf16.cu",
+    "banded_bsr_spmm_gram_f64":
+        "fortran_davidson_tpu_torch/csrc/fused_gram_f64.cu",
     # The float32-x entry (the main case's, kernel 5's apply).
     "banded_q_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
     # The float64-x entries of kernels 4 and 7, on kernel 1's template.
@@ -240,6 +262,10 @@ REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
     "bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:101",
     "banded_bsr_spmm_gram": "fortran_davidson_tpu/ops/pallas_kernels.py:592",
+    "banded_bsr_spmm_gram_bf16":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:592",
+    "banded_bsr_spmm_gram_f64":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:592",
     "banded_q_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
     "banded_q_bsr_spmm_f64": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
     "banded_q_bsr_spmm_gram":
@@ -261,6 +287,8 @@ MAIN_CASE = {
     "banded_bsr_spmm": ("float64", 48, None, True, "nbr=8192"),
     "bsr_spmm": ("float64", 48, None, True, "nbr=8192"),
     "banded_bsr_spmm_gram": ("float32", 128, 1408, True, "nbr=8192"),
+    "banded_bsr_spmm_gram_bf16": ("bfloat16", 128, 1408, True, "nbr=8192"),
+    "banded_bsr_spmm_gram_f64": ("float64", 128, 1408, True, "nbr=8192"),
     "banded_q_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_q_bsr_spmm_f64": ("float64", 20, None, True, "nbr=16384"),
     "banded_q_bsr_spmm_gram": ("float32", 20, 220, True, "nbr=16384"),
@@ -598,8 +626,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     lap("kernels 3-5 against their plain versions")
     gram_splits.update(gram_split(A32, q, randn))
     lap("kernels 3, 5 split")
-    gram_splits["tile"] = tile_gram_rows(A, randn)
-    lap("kernel 3's tile entries")
+    gram_splits["typed"] = typed_gram_rows(A, randn, record)
+    lap("kernel 3's bf16 and float64 entries")
     variant_info.update(bf16_variant_split(q, probe, randn, record,
                                            band_checks))
     lap("kernel 5's bf16-dequant variants")
@@ -1416,37 +1444,54 @@ def int8_float64_x(op, note, randn, timed, record, info, band_checks):
     del faults, band
 
 
-def tile_gram_rows(A, randn) -> dict:
-    """Kernel 3's float64 and bf16 entries (the SIMT tile of
-    ``csrc/banded_gram.cu``) at row 3's shape, the 1M-row matrix at m = 128,
-    mv = 1408: Y and G against the plain version (Y within TOL of max|Y|,
-    G within GRAM_TOL of |V|ᵀ|Y|), each timed beside the plain version and
-    the unfused yardstick (kernel 1 in the same type, then
-    ``torch.matmul(v.T, y)``). Returns dtype -> {ms, plain_ms, unfused_ms,
-    errors}."""
+def typed_gram_rows(A, randn, record) -> dict:
+    """Kernel 3's bf16 and float64 entries (rows 3b, 3d:
+    ``csrc/fused_gram_typed.cuh``) at row 3's shape, the 1M-row matrix at
+    m = 128, mv = 1408: Y and G against the plain version (Y within TOL of
+    max|Y|; G within GRAM_TOL of |V|ᵀ|Y| in both types: where a Y sum in
+    another order rounds to the neighbouring bf16 value, that one term of
+    G's million moves it by ~2^-8 / n of |V|ᵀ|Y|), the same bits twice,
+    each timed beside the plain version and the unfused yardstick (kernel
+    1 in the same type, then ``torch.matmul(v.T, y)``), with the plan the
+    wrapper takes (``kernels.fused_typed_plan``) and its time split into
+    the measurement variants (``kernels.typed_gram_variant``: ``nov`` no
+    V, ``nogram`` V streamed without the gram's products). Appends each
+    row to ``record`` (as
+    ``banded_bsr_spmm_gram_bf16`` / ``_f64``). Returns dtype -> the row."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     _, m, mv, _, _ = MAIN_CASE["banded_bsr_spmm_gram"]
-    bw, n = A.bandwidth, A.shape[0]
+    bw, n, nbr = A.bandwidth, A.shape[0], A.n_block_rows
     out = {}
-    for dtype in (torch.float64, torch.bfloat16):
+    for dtype in (torch.bfloat16, torch.float64):
         dn = _dname(dtype)
+        name = f"banded_bsr_spmm_gram_{'bf16' if dn == 'bfloat16' else 'f64'}"
         blocks = A.blocks.to(dtype)
         x, v = randn(n, m, dtype), randn(n, mv, dtype)
         # Y in the sums' type (bf16 storage: the float32 sums).
         acc = kernels.acc_dtype(dtype)
         y, g = kernels.banded_bsr_spmm_gram(blocks, x, v, bandwidth=bw,
                                             out_dtype=acc)
+        again = kernels.banded_bsr_spmm_gram(blocks, x, v, bandwidth=bw,
+                                             out_dtype=acc)
+        same = torch.equal(y, again[0]) and torch.equal(g, again[1])
+        del again
         yp, gp = kernels.banded_bsr_spmm_gram_plain(blocks, x, v,
                                                     bandwidth=bw,
                                                     out_dtype=acc)
-        rel = float(torch.max(torch.abs(y.double() - yp.double()))
-                    / torch.max(torch.abs(yp.double())))
-        ratio = float(torch.max(torch.abs(g - gp) / (
-            (torch.abs(v).T.to(acc) @ torch.abs(yp)).float() + 1e-30)))
-        _check(rel <= TOL[dn] and ratio <= GRAM_TOL,
-               f"kernel 3 {dn} m={m} mv={mv}: Y rel {rel:.3e}, G {ratio:.3e}")
-        del y, g, yp, gp
+        err = float(torch.max(torch.abs(y.double() - yp.double())))
+        rel = err / float(torch.max(torch.abs(yp.double())))
+        g_err = torch.abs(g.double() - gp.double())
+        ratio = float(torch.max(g_err / (
+            torch.abs(v).double().T @ torch.abs(yp).double() + 1e-30)))
+        _check(rel <= TOL[dn] and ratio <= GRAM_TOL and same,
+               f"kernel 3 {dn} m={m} mv={mv}: Y rel {rel:.3e}, G {ratio:.3e} "
+               f"(limit {GRAM_TOL:.0e}), same bits twice {same}")
+        g_abs = float(torch.max(g_err))
+        del y, g, yp, gp, g_err
+        dev = x.device.index or 0
+        plan = kernels.fused_typed_plan(dev, dtype, nbr, A.block_size,
+                                        2 * bw + 1, m, mv)
         fns = {
             "ms": lambda: kernels.banded_bsr_spmm_gram(blocks, x, v,
                                                        bandwidth=bw),
@@ -1454,13 +1499,22 @@ def tile_gram_rows(A, randn) -> dict:
                 blocks, x, v, bandwidth=bw),
             "unfused_ms": lambda: torch.matmul(
                 v.T, kernels.banded_bsr_spmm(blocks, x, bw)),
+            **{f"{var}_ms": (lambda var=var: kernels.typed_gram_variant(
+                blocks, x, v, bandwidth=bw, variant=var))
+               for var in ("nov", "nogram")},
         }
         row = {key: _time_ms(fn) for key, fn in fns.items()}
-        row.update(max_err_rel=rel, max_gram_err_rel=ratio)
-        print(f"  banded_bsr_spmm_gram {dn} (SIMT tile) m={m} mv={mv}: "
+        row.update(plan=plan, max_err_rel=rel, max_gram_err_rel=ratio)
+        print(f"  {name} (fused_gram_typed.cuh) m={m} mv={mv}, plan {plan}: "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, unfused "
-              f"(kernel 1 + matmul(v.T, y)) {row['unfused_ms']:.4f}; Y rel "
+              f"(kernel 1 + matmul(v.T, y)) {row['unfused_ms']:.4f}; split "
+              f"nov {row['nov_ms']:.4f} nogram {row['nogram_ms']:.4f}; Y rel "
               f"{rel:.3e} G |dG|/(|V|ᵀ|Y|) {ratio:.3e}", flush=True)
+        record.append(dict(name=name, dtype=dn, m=m, mv=mv, write_out=True,
+                           shape=f"nbr={nbr} bs={A.block_size} bw={bw}",
+                           max_abs_err=err, rel_err=rel, g_abs_err=g_abs,
+                           gram_ratio=ratio, ms=row["ms"],
+                           plain_ms=row["plain_ms"]))
         out[dn] = row
         del blocks, x, v
         torch.cuda.empty_cache()
@@ -1899,22 +1953,26 @@ def phase_main(A, dev, solves, refs):
         torch.cuda.empty_cache()
 
 
-def _device_busy(label, run) -> dict:
+def _device_busy(label, run, shapes: bool = False) -> dict:
     """``run()`` once under ``torch.profiler``: its host wall (profiled),
     the device's busy time (the union of its kernels' and copies'
     intervals), the idle share of the wall, and the device ops that took
-    the most time."""
+    the most time. With ``shapes``, the input shapes are recorded, and the
+    result also holds ``by_name_ms`` (device time by kernel name) and
+    ``prof``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_us, end, by_name = 0.0, float("-inf"), {}
     for e in sorted(events, key=lambda e: e.time_range.start):
         s, f = e.time_range.start, e.time_range.end
@@ -1929,8 +1987,30 @@ def _device_busy(label, run) -> dict:
           f"{idle:.1%}; most device time: "
           + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top),
           flush=True)
-    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=idle)
+    out = dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_idle_share=idle)
+    if shapes:
+        out.update(by_name_ms={k: v / 1e3 for k, v in by_name.items()},
+                   prof=prof)
+    return out
+
+
+def _cast_ms(prof, inside: str, min_cols: int) -> float:
+    """Device time (ms) of the ``aten::_to_copy`` ops run inside a
+    ``record_function(inside)`` range whose input is 2-D and wider than
+    ``min_cols`` columns."""
+    total = 0.0
+    for e in prof.events():
+        dims = e.input_shapes[0] if e.input_shapes else []
+        if e.name != "aten::_to_copy" or len(dims) != 2 or dims[1] <= min_cols:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and parent.name != inside:
+            parent = parent.cpu_parent
+        if parent is not None:
+            total += (e.device_time_total if hasattr(e, "device_time_total")
+                      else e.cuda_time_total)
+    return total / 1e3
 
 
 def phase_legs(A, dev, solves, refs):
@@ -2312,6 +2392,168 @@ def phase_fused(q, dev, solves):
     torch.cuda.empty_cache()
 
 
+# Phase 7c's tolerances (relative): phase 7's 1e-3, which the "off" engine
+# must reach with a true residual within it for the engines to be compared
+# there; else BF16_SOLVE_TOL. BF16_STALL_ITERS caps the "auto" solve at
+# 1e-3 (Queue 3: it stalls there; "off" stops in 3-4 iterations).
+STRICT_TOL = 1e-3
+BF16_SOLVE_TOL = 1e-2
+BF16_STALL_ITERS = 20
+
+
+def phase_bf16_storage(dev, solves) -> dict:
+    """Phase 7c: the solve that ``fused_gram="auto"`` sends to kernel 3's
+    bf16 entry (row 3b): phase 7's float32 lowest-128 (lowest-k, relative
+    tolerance, m_max 1408) on bf16 storage of phase 7's coupling-3 matrix,
+    ``A3.astype(torch.bfloat16)``.
+
+    The tolerance, by the rule of the phase: first ``"off"`` at phase 7's
+    relative ``STRICT_TOL`` = 1e-3. If it converges there with a true
+    relative residual (float64, the bf16 blocks, which are exact in
+    float64) within 1e-3, both engines are compared at 1e-3; else at
+    ``BF16_SOLVE_TOL`` = 1e-2. Bf16 storage rounds x to bf16 on every
+    apply (2^-9), so the loop's residual is not the true one: on a
+    16-block-row CPU solve of the same matrix "off" stops at 1e-3 with a
+    true residual of 1.18e-3 (the JAX package's default operator 1.11e-3);
+    at this size it admits no new direction after 5 iterations and stops
+    unconverged, at 1.13e-3 (H100). Then ``"auto"`` at 1e-3, capped at
+    ``BF16_STALL_ITERS``: checked not to converge, the open fault of ROADMAP
+    Queue 3 (its fused bf16 gram rounds V and Y to bf16, as the TPU kernel
+    does, and the carried H stalls, at a worse true residual than "off");
+    a run where it converges means that entry is out of date.
+
+    At the chosen tolerance, ``"auto"`` and ``"off"`` in turns, two warm
+    solves each (the solves at 1e-3 were their cold ones). Checks: every
+    solve at that tolerance converges; the true relative
+    residual within the tolerance; iterations within ±2; each eigenvalue
+    pair within the sum of the two solves' true residuals; row 3b launched
+    under "auto", never under "off". Prints every wall and one
+    ``torch.profiler`` split of a warm "auto" solve: kernel 3's share, and
+    the share of the float32 -> bf16 casts of V (n, mv) that
+    ``matmat_with_gram`` makes every call."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    A3 = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=3.0,
+                                  seed=0, dtype=torch.float32, device=dev)
+    Ab = A3.astype(torch.bfloat16)
+    del A3
+    torch.cuda.empty_cache()
+    n = Ab.shape[0]
+    label = f"f32 on bf16 storage n={n} coupling 3 lowest-128"
+    gram = kernels.banded_bsr_spmm_gram
+
+    def rel_residual(res):
+        r = _banded_residuals(Ab, res.eigenvectors, res.eigenvalues)
+        return float(torch.max(r / torch.clamp(
+            torch.abs(res.eigenvalues.double()), min=1.0)))
+
+    strict = dict(dtype="float32", expansion="lowest-k",
+                  relative_tolerance=True, tolerance=STRICT_TOL)
+    off3, off3_wall = _solve(f"{label} fused_gram='off' at "
+                             f"{STRICT_TOL:.0e} (cold)", Ab, 128,
+                             fused_gram="off", **strict)
+    off3_rel = rel_residual(off3)
+    tol = (STRICT_TOL if off3.converged and off3_rel <= STRICT_TOL
+           else BF16_SOLVE_TOL)
+    before = gram.bf16_launches
+    auto3, auto3_wall = _solve(f"{label} fused_gram='auto' at "
+                               f"{STRICT_TOL:.0e} (cold), at most "
+                               f"{BF16_STALL_ITERS} iterations", Ab, 128,
+                               fused_gram="auto",
+                               max_iterations=BF16_STALL_ITERS, **strict)
+    auto3_launches = gram.bf16_launches - before
+    auto3_rel = rel_residual(auto3)
+    print(f"  at {STRICT_TOL:.0e}: 'off' converged={off3.converged} "
+          f"stalled={off3.stalled} in {off3.iterations} iterations, true "
+          f"relative residual {off3_rel:.3e}; 'auto' converged="
+          f"{auto3.converged} stalled={auto3.stalled} in {auto3.iterations} "
+          f"iterations, true relative residual {auto3_rel:.3e}, row 3b "
+          f"launches {auto3_launches}; the engines are compared at "
+          f"{tol:.0e}", flush=True)
+    _check(not auto3.converged, f"bf16 storage 'auto' converged at "
+           f"{STRICT_TOL:.0e}: ROADMAP Queue 3's open stall is out of date")
+    _check(auto3_launches > 0, "bf16 storage 'auto' at 1e-3: row 3b never "
+           "launched")
+    off3_conv, auto3_conv = bool(off3.converged), bool(auto3.converged)
+    off3_iters, auto3_iters = int(off3.iterations), int(auto3.iterations)
+    del off3, auto3
+    kw = dict(strict, tolerance=tol)
+    # The solves at 1e-3 were each engine's cold one; two warm each here.
+    runs = {"auto": [], "off": []}
+    for option in ("auto", "off") * 2:
+        before = gram.bf16_launches
+        res, wall = _solve_converged(
+            f"{label} fused_gram={option!r} at {tol:.0e}", Ab, 128,
+            fused_gram=option, **kw)
+        runs[option].append((res, wall, gram.bf16_launches - before))
+    for option, launched in (("auto", True), ("off", False)):
+        counts = [r[2] for r in runs[option]]
+        _check(all((c > 0) == launched for c in counts),
+               f"bf16 storage fused_gram={option!r}: row 3b launches {counts}")
+    on, off = runs["auto"][-1][0], runs["off"][-1][0]
+    ratio, true_rel = _certified_agreement(on, off, Ab)
+    walls = {o: [r[1] for r in runs[o]] for o in runs}
+    print(f"  bf16 storage lowest-128: row 3b launches "
+          f"{[r[2] for r in runs['auto']]} (off: "
+          f"{[r[2] for r in runs['off']]}), iterations {on.iterations} "
+          f"(off: {off.iterations}), true relative residual {true_rel:.3e}; "
+          f"|eig diff| / (r_auto + r_off) = {ratio:.3e}; walls (s) cold (at "
+          f"{STRICT_TOL:.0e}) auto {auto3_wall}, off {off3_wall}; warm auto "
+          f"{walls['auto']}, off {walls['off']}", flush=True)
+    _check(abs(on.iterations - off.iterations) <= 2,
+           f"bf16 storage: fused {on.iterations} vs {off.iterations} "
+           "iterations")
+    _check(true_rel <= tol,
+           f"bf16 storage: true relative residual {true_rel:.3e}")
+    _check(ratio <= 1.0, f"bf16 storage: fused and off eigenvalues differ by "
+           f"{ratio:.3f} x the sum of their residuals")
+
+    # One warm "auto" solve under the profiler: kernel 3's bf16 entry, and
+    # the casts of V to bf16 inside matmat_with_gram (those whose input is
+    # wider than the block: (n, mv), mv > 128).
+    real = Ab.matmat_with_gram
+
+    def labelled(*args, **kwargs):
+        with torch.profiler.record_function("matmat_with_gram"):
+            return real(*args, **kwargs)
+
+    Ab.matmat_with_gram = labelled
+    split = _device_busy("bf16 storage lowest-128 'auto' (warm)",
+                         lambda: fdtt.eigensolve(Ab, 128, fused_gram="auto",
+                                                 **kw),
+                         shapes=True)
+    del Ab.matmat_with_gram
+    busy = max(split["device_busy_ms"], 1e-9)
+    kernel_ms = sum(t for name, t in split["by_name_ms"].items()
+                    if "typed_gram_kernel" in name)
+    cast_ms = _cast_ms(split.pop("prof"), "matmat_with_gram", 128)
+    print(f"  profiled split: kernel 3 (bf16) {kernel_ms:.3f} ms "
+          f"({kernel_ms / busy:.1%} of {busy:.1f} busy ms), the V casts "
+          f"{cast_ms:.3f} ms ({cast_ms / busy:.1%})", flush=True)
+    row = dict(solve="f32 on bf16 storage coupling 3 lowest-128, fused auto "
+               "vs off", n=n, tolerance=tol,
+               strict=dict(tolerance=STRICT_TOL, off_converged=off3_conv,
+                           off_iterations=off3_iters,
+                           off_true_residual_rel=off3_rel,
+                           auto_converged=auto3_conv,
+                           auto_iterations=auto3_iters,
+                           auto_true_residual_rel=auto3_rel),
+               iterations=[on.iterations, off.iterations],
+               wall_s=walls, cold_wall_s=dict(auto=auto3_wall,
+                                              off=off3_wall),
+               launches=[r[2] for r in runs["auto"]],
+               true_residual_rel=true_rel, eig_diff_over_residuals=ratio,
+               profile=dict(device_busy_ms=busy,
+                            device_idle_share=split["device_idle_share"],
+                            kernel_ms=kernel_ms, v_cast_ms=cast_ms))
+    solves.append(row)
+    del runs, on, off, Ab
+    torch.cuda.empty_cache()
+    return row
+
+
 def _one_rank_mesh(rendezvous: str, dev):
     """The one-rank NCCL group of phases 8-9 (started by the first call;
     later calls return the same mesh)."""
@@ -2602,7 +2844,7 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
         t_bytes = moved / HBM_BYTES_S * 1e3
         return ((t_bytes, "bytes") if t_bytes >= t_ops
                 else (t_ops, "operations"))
-    if name.endswith("_gram"):
+    if "_gram" in name:
         width = m if mv is None else mv
         moved += (0 if mv is None else n * mv * isz) + width * m * 4
         ops += 2 * n * width * m
@@ -2737,9 +2979,8 @@ def _ptxas_entries(log: str):
 
 def _tile_registers(log: str) -> dict:
     """ptxas's registers of every instantiation of the shared SIMT tile
-    (``gram_kernel`` of banded_gram.cu on spmm_tile.cuh: the f64/bf16
-    kernel 3 and kernel 5's float64-x entry), keyed by the template
-    arguments as mangled."""
+    (``gram_kernel`` of banded_gram.cu on spmm_tile.cuh: kernel 5's
+    float64-x entry, row 5d), keyed by the template arguments as mangled."""
     import re
     regs = {}
     for name, n, _, _ in _ptxas_entries(log):
@@ -2747,6 +2988,20 @@ def _tile_registers(log: str) -> dict:
         if m:
             regs[f"gram_kernel<{m.group(1)}>"] = n
     return regs
+
+
+def _typed_entries(log: str) -> dict:
+    """Kernel 3's bf16 and float64 entries (``typed_gram_kernel`` of
+    csrc/fused_gram_typed.cuh, in csrc/fused_gram_bf16.cu and
+    csrc/fused_gram_f64.cu): "bf16 TN=128" -> (registers, spill store
+    bytes, static shared bytes)."""
+    import re
+    out = {}
+    for name, n, spill, smem in _ptxas_entries(log):
+        m = re.search(r"typed_gram_kernelINS_\d+T(Bf16|F64)ELi(\d+)E", name)
+        if m:
+            out[f"{m.group(1).lower()} TN={m.group(2)}"] = (n, spill, smem)
+    return out
 
 
 def _q_f64_entries(log: str) -> dict:
@@ -2894,7 +3149,13 @@ def main() -> int:
         print("    compile time by source (s from the common start): "
               + ", ".join(f"{name} {t:.1f}" for t, name in secs))
         print(f"    ptxas registers of the shared SIMT tile's "
-              f"instantiations: {_tile_registers(log)}")
+              f"instantiations (row 5d): {_tile_registers(log)}")
+        print("    kernel 3's bf16 and float64 entries "
+              "(csrc/fused_gram_typed.cuh): ptxas registers, spill stores, "
+              "static smem")
+        for key, (regs, spill, smem) in _typed_entries(log).items():
+            print(f"      {key}: {regs} registers, {spill} B spill, {smem} B "
+                  "static smem")
         print("    kernel 1, its variants (source Masked), kernel 8 (sources "
               "Inside and Split), kernel 6's cp.async route (Inside) and "
               "kernel 2 (Table) on csrc/banded_spmm.cuh: ptxas "
@@ -2974,15 +3235,18 @@ def main() -> int:
     # Kernels 4 and 7 with float64 x: their own kernel, counted apart.
     f64_names = {f"{fn.__name__}_f64": fn for fn in kernels.F64_X_KERNELS}
     counts.update(dict.fromkeys(f64_names, 0))
-    # Kernel 9 and kernel 5's bf16-dequant variants: no path launches them.
+    # Kernel 3's bf16 and float64 entries: kernels of their own, counted
+    # apart (the wrapper's launches less theirs are the float32 kernel's).
+    typed_names = ("banded_bsr_spmm_gram_bf16", "banded_bsr_spmm_gram_f64")
+    # Kernel 9 and kernel 5's bf16-dequant variants: no path launches them;
+    # nor kernel 3's float64 entry (the fused engine is float32 only).
     counts.update(dict.fromkeys(
-        ("banded_spmm_copy",
+        ("banded_spmm_copy", *typed_names,
          *(f"fused_probe_{v}" for v in kernels.BF16_VARIANTS)),
         0))
     # The one-rank NCCL group of phases 8-9 meets at a file in here.
     tmp = tempfile.TemporaryDirectory()
     rendezvous = f"file://{tmp.name}/rendezvous"
-    tile_launches = 0
     paths = [
         ("[4] main path", lambda: phase_main(A, dev, solves, refs),
          ("banded_bsr_spmm",)),
@@ -2994,6 +3258,9 @@ def main() -> int:
          ("banded_q_bsr_spmm", "banded_q_bsr_spmm_f64")),
         ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
          ("banded_bsr_spmm_gram", "banded_q_bsr_spmm_gram")),
+        ("[7c] the fused engine on bf16 storage (row 3b)",
+         lambda: phase_bf16_storage(dev, solves),
+         ("banded_bsr_spmm_gram_bf16",)),
         ("[8a] sharded path, world size 1 (NCCL), pallas",
          lambda: phase_sharded(A, q, dev, rendezvous, solves, refs),
          ("banded_ext_bsr_spmm", "banded_q_ext_bsr_spmm",
@@ -3014,10 +3281,11 @@ def main() -> int:
                 kernels.banded_spmm_variant.copy_launches)
             phase_counts.update({name: fn.f64_launches
                                  for name, fn in f64_names.items()})
-            if not title.startswith("[7]"):
-                # Kernel 3 outside the one phase with a float32 fused
-                # engine: its float64 and bf16 (SIMT tile) entries.
-                tile_launches += phase_counts["banded_bsr_spmm_gram"]
+            gram = kernels.banded_bsr_spmm_gram
+            phase_counts.update(zip(typed_names, (gram.bf16_launches,
+                                                  gram.f64_launches)))
+            phase_counts["banded_bsr_spmm_gram"] -= (gram.bf16_launches
+                                                     + gram.f64_launches)
             print(f"    phase launches {phase_counts} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             for name in expected:
@@ -3025,7 +3293,8 @@ def main() -> int:
                        f"{name} was never launched on the path of {title}")
             for name, count in phase_counts.items():
                 counts[name] += count
-        for name in (*(fn.__name__ for fn in kernels.KERNELS), *f64_names):
+        for name in (*(fn.__name__ for fn in kernels.KERNELS), *f64_names,
+                     "banded_bsr_spmm_gram_bf16"):
             _check(counts[name] > 0,
                    f"{name} was never launched on a solve path")
         print("[9] one halo apply: pallas-remote against pallas", flush=True)
@@ -3063,7 +3332,7 @@ def main() -> int:
                 entry["library_cusparse_ms"] = library[name]["cusparse_ms"]
         if name == "banded_ext_bsr_spmm":
             entry["routes"] = ext_info
-        if name.endswith("_gram"):
+        if "_gram" in name:
             # max_abs_err is Y's; G is held elementwise to its bound.
             entry.update(
                 max_abs_err_G=max(r["g_abs_err"] for r in rows),
@@ -3081,7 +3350,7 @@ def main() -> int:
         if name == "bsr_spmm":
             # P A Pᵀ, by width (phase 3).
             entry["permuted"] = permuted_info
-        if name.endswith("_f64"):
+        if name in f64_names:
             # The float64-x entries of kernels 4 and 7 at int8 m = 20 and
             # 40; the share of Y's bits equal to the plain version's.
             entry["widths"] = {
@@ -3103,14 +3372,11 @@ def main() -> int:
                         name, "float64", m_x, 220, *nnz["nbr=16384"]))),
                     launches=leg["other_int8_launches"][name])
                 for m_x, t in q64_info[name].items()}
-        if name == "banded_bsr_spmm_gram":
-            # Kernel 3's float64 and bf16 entries (the SIMT tile) at the
-            # main case's shape; launched outside phase 7 only.
-            entry["tile_entries"] = {
-                dn: dict(t, **dict(zip(("bound_ms", "bound_by"), _bound(
-                    name, dn, m, mv, *nnz["nbr=8192"]))),
-                    launches=tile_launches)
-                for dn, t in gram_splits["tile"].items()}
+        if name in typed_names:
+            # Rows 3b, 3d: the plan, the unfused yardstick and the split.
+            typed = gram_splits["typed"][dtype]
+            entry.update({k: typed[k] for k in typed if k not in (
+                "ms", "plain_ms", "max_err_rel", "max_gram_err_rel")})
         if name == "banded_bsr_spmm":
             entry.update(split_ms=k1_info["split"], probe_bound_ms=_bound(
                 name, "bfloat16", PROBE["m"], None, *probe_case)[0])

@@ -1,7 +1,7 @@
-// The fused banded SpMM + Gram kernels that stay on the shared SIMT tile,
-// for Hopper (sm_90a), in plain CUDA C++ with a C interface (loaded with
-// ctypes by fortran_davidson_tpu_torch/ops/kernels.py): kernel 3 with f64
-// and bf16 storage, and kernel 5 with f64 x. Storage and the shared tile
+// Kernel 5 with float64 x, the one fused banded SpMM + Gram kernel that
+// stays on the shared SIMT tile, for Hopper (sm_90a), in plain CUDA C++
+// with a C interface (loaded with ctypes by
+// fortran_davidson_tpu_torch/ops/kernels.py). Storage and the shared tile
 // are described in spmm_tile.cuh.
 //
 //   fdt_banded_q_bsr_spmm_gram_f64 kernel 5 (banded_q_bsr_spmm_gram,
@@ -9,23 +9,19 @@
 //       y = (Q o s) @ x_window + d o x_centre with q o s formed in f32, the
 //       band product summed in f64 and rounded to f32, d o x added in f32,
 //       Y in f64 (the plain version's arithmetic, that of kernel 4's
-//       float64-x entry, q_spmm_f64.cu), then the gram of the f64 kernel 3
-//       below.
-//   fdt_banded_bsr_spmm_gram_*     replaces banded_bsr_spmm_gram
-//       (pallas_kernels.py:592, body :513): Y = A @ X and G = V^T Y in one
-//       sweep over the blocks, for f64 and for bf16 storage with f32 sums.
-//       The float32 entry, and the int8 form of banded_q_bsr_spmm_gram
-//       (pallas_kernels.py:886), are fused_gram.cu's tensor-core kernels.
+//       float64-x entry, q_spmm_f64.cu), then G = V^T Y summed in f64.
 //
-// In the gram kernels v may be null: G = X^T A X, with the window's
-// centre rows of x (the rows of Y's tile) as the gram operand, read
-// through the same pointer right after the window load, so from L2. y may
-// be null (write_out=False): Y is never stored, only G returns. G is
-// (mv, m) and float32; it accumulates in the accumulation type (f64 for
-// f64 storage). As in the TPU kernel, Y is rounded to the gram operand's
-// type before the gram (a no-op except for bf16 storage).
+// Kernel 3 (banded_bsr_spmm_gram, pallas_kernels.py:592) in every type and
+// kernel 5 with float32 x are the tensor-core kernels of fused_gram.cu
+// (float32, int8) and fused_gram_typed.cuh (bf16, float64).
 //
-// What bounds them on the H100. int8 apply with f64 x: 1 byte per stored
+// v may be null: G = X^T A X, with the window's centre rows of x (the
+// rows of Y's tile) as the gram operand, read through the same pointer
+// right after the window load, so from L2. y may be null (write_out=False):
+// Y is never stored, only G returns. G is (mv, m) and float32; it
+// accumulates in f64.
+//
+// What bounds it on the H100. int8 apply with f64 x: 1 byte per stored
 // entry and 2*m f64 flops on it; at m=20 that is ~40 flop/B, so the f64
 // operations are the limit, not HBM. Gram: 2*mv*m flops per row of Y on
 // top of the apply's 2*K*bs*m; at mv >= K*bs the gram's FMAs dominate.
@@ -40,38 +36,31 @@
 // memory for the whole walk. The partial is written once to a scratch
 // buffer; a second kernel sums the n_groups partials in group order. No
 // atomics: two runs give the same bits. The scratch that the wrapper
-// allocates is n_groups * mv * m * sizeof(acc) bytes, with n_groups =
-// min(nbr, 2 * SMs); at the engine's widest call (mv = 1408, m = 128,
-// f32, 132 SMs) that is 264 * 1408 * 128 * 4 B = 190 MB. mv_tile is the
-// most rows the shared memory left beside the static tiles holds (1536
-// rows at TN = 32 in f32), so mv_tiles is 1 up to that width; a wider v
+// allocates is n_groups * mv * m * 8 bytes, with n_groups = min(nbr,
+// 2 * SMs). mv_tile is the most rows the shared memory left beside the
+// static tiles holds, so mv_tiles is 1 up to that width; a wider v
 // recomputes the apply once per mv tile.
 //
 // Not tuned: no tensor cores, a gram inner loop fed from shared memory
 // with little register reuse, one resident block per SM at the widest mv.
-// The fused engine never reaches these entries (its gate is float32 only);
-// fused_gram.cu is the redesign of the float32 ones.
+// No solve reaches it (the fused engine is float32 only).
 
+#include "reduce_partials.cuh"
 #include "spmm_tile.cuh"
 
 namespace {
 
-using fdt::DenseBlocks;
 using fdt::Int8F64Blocks;
 using fdt::Tile;
 using fdt::kThreadsM;
-using Bf16 = __nv_bfloat16;
 
 constexpr int kGramTA = 64;  // granule of the mv tile width
 
-// Y rounded to the gram operand's type (the TPU kernel's ybuf dtype).
+// Y rounded to the gram operand's type (the TPU kernel's ybuf dtype): a
+// no-op for the f64 entry.
 template <typename V, typename Acc>
 __device__ __forceinline__ Acc round_to(Acc v) {
   return v;
-}
-template <>
-__device__ __forceinline__ float round_to<Bf16, float>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
 }
 
 template <typename Load, typename V, int TM, int TN>
@@ -176,18 +165,6 @@ gram_kernel(Load ld, const typename Load::X* __restrict__ x,
   }
 }
 
-// G[e] = sum over groups p, in order, of partial[p][e].
-template <typename Acc>
-__global__ void reduce_partials(const Acc* __restrict__ partial,
-                                float* __restrict__ g, int n_groups,
-                                long long count) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= count) return;
-  Acc s = Acc(0);
-  for (int p = 0; p < n_groups; ++p) s += partial[p * count + e];
-  g[e] = static_cast<float>(s);
-}
-
 template <typename Load, typename V, int TM, int TN>
 cudaError_t launch_gram(const Load& ld, const typename Load::X* x,
                         const float* diag, const V* v, long long ldv,
@@ -267,23 +244,15 @@ int gram(const Load& ld, const typename Load::X* x, const float* diag,
   return static_cast<int>(err);
 }
 
-template <typename T, typename Acc>
-int dense_gram(const T* blocks, const T* x, const T* v, long long ldv, Acc* y,
-               Acc* partial, float* g, int nbr, int bs, int K, int bw, int m,
-               int mv, int n_groups, void* stream) {
-  return gram(DenseBlocks<T, Acc>{blocks}, x, nullptr, v, ldv, y, partial, g,
-              nbr, bs, K, bw, m, mv, n_groups, stream);
-}
-
 }  // namespace
 
 extern "C" {
 
 // q, scale_rows, diag, x, v (nullable), ldv, y (nullable), partial, g, nbr,
 // bs, K, bw, m, mv, n_groups, stream: kernel 5 with float64 x and v on the
-// SIMT gram of the f64 kernel 3 (the tensor-core kernel 5 of fused_gram.cu
-// is float32): the f64 int8 apply (Int8F64Blocks in spmm_tile.cuh), then
-// G = V^T Y summed in f64.
+// SIMT tile (the tensor-core kernel 5 of fused_gram.cu is float32): the f64
+// int8 apply (Int8F64Blocks in spmm_tile.cuh), then G = V^T Y summed in
+// f64.
 int fdt_banded_q_bsr_spmm_gram_f64(const int8_t* q, const float* scale,
                                    const float* diag, const double* x,
                                    const double* v, long long ldv, double* y,
@@ -292,26 +261,6 @@ int fdt_banded_q_bsr_spmm_gram_f64(const int8_t* q, const float* scale,
                                    void* stream) {
   return gram(Int8F64Blocks{q, scale}, x, diag, v, ldv, y, partial, g, nbr,
               bs, K, bw, m, mv, n_groups, stream);
-}
-
-// blocks, x, v (nullable), ldv, y (nullable), partial, g, nbr, bs, K, bw, m,
-// mv, n_groups, stream
-int fdt_banded_bsr_spmm_gram_f64(const double* blocks, const double* x,
-                                 const double* v, long long ldv, double* y,
-                                 double* partial, float* g, int nbr, int bs,
-                                 int K, int bw, int m, int mv, int n_groups,
-                                 void* stream) {
-  return dense_gram(blocks, x, v, ldv, y, partial, g, nbr, bs, K, bw, m, mv,
-                    n_groups, stream);
-}
-
-int fdt_banded_bsr_spmm_gram_bf16(const Bf16* blocks, const Bf16* x,
-                                  const Bf16* v, long long ldv, float* y,
-                                  float* partial, float* g, int nbr, int bs,
-                                  int K, int bw, int m, int mv, int n_groups,
-                                  void* stream) {
-  return dense_gram(blocks, x, v, ldv, y, partial, g, nbr, bs, K, bw, m, mv,
-                    n_groups, stream);
 }
 
 }  // extern "C"

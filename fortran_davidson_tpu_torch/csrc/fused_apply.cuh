@@ -36,6 +36,8 @@
 
 #include <cstdint>
 
+#include "reduce_partials.cuh"
+
 namespace {
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = 8;
@@ -375,17 +377,6 @@ __device__ __forceinline__ void apply_pass(
       for (int e = 0; e < 4; ++e) acc[a][e] += cor[a][e];
   }
   wait_group<0>();
-}
-
-// G[e] = sum over groups p, in order, of partial[p][e].
-__global__ void reduce_partials(const float* __restrict__ partial,
-                                float* __restrict__ g, int n_groups,
-                                long long count) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (e >= count) return;
-  float s = 0.f;
-  for (int q = 0; q < n_groups; ++q) s += partial[q * count + e];
-  g[e] = s;
 }
 
 }  // namespace

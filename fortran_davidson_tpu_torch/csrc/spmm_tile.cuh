@@ -1,10 +1,11 @@
-// The SIMT tile of the fused SpMM + Gram kernels that have not been
-// redesigned for Hopper (sm_90a): kernel 3's float64 and bf16 entries and
-// kernel 5's float64-x entry, all in banded_gram.cu (gram_kernel). Every
-// other kernel is on kernel 1's template (banded_spmm.cuh: kernels 1, 2,
-// 8, kernel 6's cp.async route and the float64-x entries of kernels 4 and
-// 7) or on the tensor-core apply of fused_apply.cuh (float32 kernels 3-5
-// and 7), kernel 6 also on its TMA stream (ext_spmm.cu).
+// The SIMT tile of the one fused SpMM + Gram kernel that has not been
+// redesigned for Hopper (sm_90a): kernel 5's float64-x entry in
+// banded_gram.cu (gram_kernel). Every other kernel is on kernel 1's
+// template (banded_spmm.cuh: kernels 1, 2, 8, kernel 6's cp.async route
+// and the float64-x entries of kernels 4 and 7), on the tensor-core apply
+// of fused_apply.cuh (float32 kernels 3-5 and 7), on fused_gram_typed.cuh
+// (kernel 3's bf16 and float64 entries), kernel 6 also on its TMA stream
+// (ext_spmm.cu).
 //
 // A stored operator is (nbr, bs, K*bs) row-major block slabs: row i of
 // block row r is the contiguous run slab(r)[i, 0:K*bs], and slot k of
@@ -15,14 +16,11 @@
 // output: it walks the contraction dimension K*bs in chunks of kTK,
 // stages the (TM, kTK) slab slice and the (kTK, TN) x slice in shared
 // memory, converted to the accumulation type, and accumulates a small
-// register tile per thread with plain FMAs. Two policies vary:
-//
-// - the block loader: dense stored blocks of type T (f64, or bf16 widened
-//   to f32 when staged), or int8 blocks times the (block row, slot) f32
-//   scale, dequantized when staged, with f64 x (Int8F64Blocks);
-// - the epilogue, chosen by the kernel: add the exactly stored diagonal
-//   d[r, i] * x[r*bs + i, c] (int8 storage), store Y, and feed the gram
-//   G = V^T Y (banded_gram.cu).
+// register tile per thread with plain FMAs. The block loader is int8
+// blocks times the (block row, slot) f32 scale, dequantized when staged,
+// with f64 x (Int8F64Blocks); the kernel's epilogue adds the exactly
+// stored diagonal d[r, i] * x[r*bs + i, c], stores Y, and feeds the gram
+// G = V^T Y (banded_gram.cu).
 //
 // x rows outside [0, x_rows) load as zeros: a banded edge window
 // multiplies zero blocks there, and 0 * Inf must not enter the sum
@@ -30,7 +28,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,22 +50,6 @@ template <typename Acc, typename T>
 __device__ __forceinline__ Acc cvt(T v) {
   return static_cast<Acc>(v);
 }
-template <>
-__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Dense stored blocks of type T with x of type T, accumulated in AccT.
-template <typename T, typename AccT>
-struct DenseBlocks {
-  using X = T;
-  using Acc = AccT;
-  const T* blocks;
-  __device__ __forceinline__ Acc at(long long r, int i, int bs, int L,
-                                    int l) const {
-    return cvt<Acc>(blocks[(r * bs + i) * static_cast<long long>(L) + l]);
-  }
-};
 
 // int8 off-diagonal blocks times one f32 scale per (block row, slot),
 // stored broadcast over the slot's lanes as scale[r, l], with float64 x

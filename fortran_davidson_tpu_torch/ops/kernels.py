@@ -2,9 +2,9 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (kernel 3's float64 and bf16 entries and
-kernel 5's float64-x entry on the shared SIMT tile of
-``csrc/spmm_tile.cuh``), and the TPU measurement kernels as variants:
+Eight kernels, in ``csrc/`` (kernel 5's float64-x entry on the shared
+SIMT tile of ``csrc/spmm_tile.cuh``), and the TPU measurement kernels as
+variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -16,10 +16,13 @@ kernel 5's float64-x entry on the shared SIMT tile of
   (``csrc/bsr_spmm.cu``: kernel 1's template with a column-table source,
   each chunk's x rows staged from its slot's block column).
 - :func:`banded_bsr_spmm_gram` replaces ``banded_bsr_spmm_gram``
-  (``pallas_kernels.py:592``): Y = A X and G = Vᵀ Y in one sweep; float32
-  on tensor cores (3xTF32) with G in registers across a thread-block
-  cluster (``csrc/fused_gram.cu``), float64 and bf16 storage on the
-  shared SIMT tile (``csrc/banded_gram.cu``).
+  (``pallas_kernels.py:592``): Y = A X and G = Vᵀ Y in one sweep, G in
+  registers across a thread-block cluster and V read once: float32 on
+  tensor cores (3xTF32, ``csrc/fused_gram.cu``); bf16 storage on
+  ``mma.sync`` m16n8k16 and float64 on DMMA, one template
+  (``csrc/fused_gram_typed.cuh``, built in ``csrc/fused_gram_bf16.cu`` and
+  ``csrc/fused_gram_f64.cu``; their layout by :func:`fused_typed_plan`,
+  their measurement variants by :func:`typed_gram_variant`).
 - :func:`banded_q_bsr_spmm` replaces ``banded_q_bsr_spmm``
   (``pallas_kernels.py:755``): int8 off-diagonal blocks with per-slot
   scales plus the exact diagonal; float32 x on kernel 5's slot-by-slot
@@ -54,10 +57,9 @@ SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
 their plain versions :func:`fused_gram_variant_plain`).
 
 What bounds them on the H100, and what the designs do about it, is
-written at the top of each source. Kernels 1, 2, 4, 6, 7 and 8, and
-kernels 3 and 5 in float32, run on tensor cores (kernels 1, 2, 6 and 8 in
-float32 on FFMA); kernel 3 in float64 and bf16 and kernel 5 with float64
-x on the shared SIMT tile, not tuned yet.
+written at the top of each source. Every kernel runs on tensor cores
+(kernels 1, 2, 6 and 8 in float32 on FFMA) but kernel 5 with float64 x,
+on the shared SIMT tile, not tuned yet.
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
 summed in float32, as the TPU kernels do); int8 storage takes float32 or
@@ -117,13 +119,18 @@ _FUSED = [*_GRAM[:-1], _I, _P]
 _ARGTYPES = {
     **{f"fdt_banded_bsr_spmm_{s}": _BANDED for s in _SUFFIX.values()},
     **{f"fdt_bsr_spmm_{s}": _GENERAL for s in _SUFFIX.values()},
-    **{f"fdt_banded_bsr_spmm_gram_{s}": _GRAM for s in ("f64", "bf16")},
     # q, scale_rows, diag, x, y, nbr, bs, K, bw, m, stream
     **{f"fdt_banded_q_bsr_spmm_{s}": [_P, _P, *_BANDED]
        for s in ("f32", "f64")},
     # q, scale_rows, diag, then the dense gram entry's arguments from x on
     "fdt_banded_q_bsr_spmm_gram_f64": [_P, _P, *_GRAM],
     "fdt_fused_gram_f32": _FUSED,
+    # Kernel 3's bf16 and float64 entries (csrc/fused_gram_typed.cuh).
+    **{f"fdt_fused_gram_{s}": _FUSED for s in ("bf16", "f64")},
+    # nbr, bs, K, m, mv, out[6]
+    **{f"fdt_fused_gram_{s}_plan": [_I, _I, _I, _I, _I,
+                                    ctypes.POINTER(ctypes.c_int)]
+       for s in ("bf16", "f64")},
     # q, scale_rows, diag, then the dense entry's arguments from x on
     "fdt_fused_q_gram_f32": [_P, _P, _P, *_FUSED[1:]],
     # quant, variant, nbr, bs, K, m, mv, out[6]
@@ -379,6 +386,27 @@ def fused_gram_plan(device_index: int, quant: int, variant: str, nbr: int,
                  m, mv)
 
 
+# Kernel 3's bf16 and float64 entries (csrc/fused_gram_typed.cuh): their
+# storage types, and their measurement variants in the order of the C
+# enum, those of the float32 kernel: the full kernel; V streamed, no gram
+# products; no V.
+TYPED_TYPES = (torch.bfloat16, torch.float64)
+TYPED_VARIANTS = ("full", "nogram", "nov")
+
+
+@functools.lru_cache(maxsize=256)
+def fused_typed_plan(device_index: int, dtype: torch.dtype, nbr: int,
+                     bs: int, K: int, m: int, mv: int) -> dict:
+    """The layout of a call of kernel 3's bf16 or float64 entry
+    (``csrc/fused_gram_typed.cuh``), as :func:`fused_gram_plan` reports the
+    float32 kernels': row groups, column tile TN, cluster size C, G rows a
+    block MB, dynamic shared memory a block, clusters resident. A width
+    that no layout holds raises ``RuntimeError``."""
+    return _plan(f"fdt_fused_gram_{_SUFFIX[dtype]}_plan", device_index,
+                 f"no layout holds {dtype} nbr={nbr} bs={bs} K={K} m={m} "
+                 f"mv={mv}", nbr, bs, K, m, mv)
+
+
 @functools.lru_cache(maxsize=256)
 def fused_bf16_plan(device_index: int, variant: str, nbr: int, bs: int,
                     K: int, m: int, mv: int) -> dict:
@@ -394,9 +422,9 @@ def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
                  write_out: bool, acc, nbr: int, bs: int, K: int, bw: int,
                  variant: str = "full"):
     """Allocate Y (optional), G and the partials' scratch, and launch a
-    fused SpMM+Gram entry: float32 to ``csrc/fused_gram.cu``, float64 and
-    bf16 storage (and int8 storage with float64 x) to
-    ``csrc/banded_gram.cu``."""
+    fused SpMM+Gram entry: float32 to ``csrc/fused_gram.cu``, kernel 3's
+    float64 and bf16 storage to ``csrc/fused_gram_typed.cuh``, int8 storage
+    with float64 x to ``csrc/banded_gram.cu``."""
     if v is not None and v.dtype != x.dtype:
         raise NotImplementedError(
             f"{name}: v {v.dtype} with x {x.dtype} has no CUDA kernel; "
@@ -415,16 +443,25 @@ def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
     vp = None if v is None or variant == "nov" else v.data_ptr()
     ldv = m if v is None else v.stride(0)
     yp = None if y is None else y.data_ptr()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     if x.dtype == torch.float32:
         entry, quant = _FUSED_ENTRY[name]
-        n_groups = fused_gram_plan(dev.index if dev.index is not None
-                                   else torch.cuda.current_device(), quant,
-                                   variant, nbr, bs, K, m, mv)["n_groups"]
+        n_groups = fused_gram_plan(index, quant, variant, nbr, bs, K, m,
+                                   mv)["n_groups"]
         scratch = torch.empty((n_groups, mv, m), dtype=torch.float32,
                               device=dev)
         _run(entry, dev, *lead_ptrs, x.data_ptr(), vp, ldv, yp,
              scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
              n_groups, F32_VARIANTS.index(variant))
+    elif name == "banded_bsr_spmm_gram":
+        vp = None if v is None else v.data_ptr()
+        n_groups = fused_typed_plan(index, x.dtype, nbr, bs, K, m,
+                                    mv)["n_groups"]
+        scratch = torch.empty((n_groups, mv, m), dtype=acc_dtype(x.dtype),
+                              device=dev)
+        _run(f"fdt_fused_gram_{sfx}", dev, *lead_ptrs, x.data_ptr(), vp, ldv,
+             yp, scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
+             n_groups, TYPED_VARIANTS.index(variant))
     else:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         n_groups = min(nbr, 2 * sms)
@@ -874,10 +911,44 @@ def banded_bsr_spmm_gram(blocks, x, v=None, *, bandwidth: int,
                                   int(bandwidth))
     if launched:
         banded_bsr_spmm_gram.launches += 1
+        if x.dtype in TYPED_TYPES:
+            counter = f"{_SUFFIX[x.dtype]}_launches"
+            setattr(banded_bsr_spmm_gram, counter,
+                    getattr(banded_bsr_spmm_gram, counter) + 1)
     return (_out(y, out_dtype), g) if write_out else g
 
 
 banded_bsr_spmm_gram.launches = 0
+# Kernel 3's bf16 and float64 entries (csrc/fused_gram_typed.cuh), counted
+# also apart.
+banded_bsr_spmm_gram.bf16_launches = 0
+banded_bsr_spmm_gram.f64_launches = 0
+
+
+def typed_gram_variant(blocks, x, v=None, *, bandwidth: int, variant: str,
+                       write_out: bool = True):
+    """One launch of a measurement variant of kernel 3's bf16 or float64
+    entry (:data:`TYPED_VARIANTS`: ``"nogram"`` streams V and skips the
+    gram's products, ``"nov"`` reads no V; G is then not Vᵀ Y), which
+    split its time as :func:`fused_gram_variant` splits float32's. CUDA
+    tensors only; Y in the sums' type. Not counted in the wrapper's
+    launches; the port's paths never call it."""
+    K = _check_banded(blocks, x, bandwidth)
+    _check_v(v, x)
+    name = "banded_bsr_spmm_gram"
+    if variant not in TYPED_VARIANTS[1:]:
+        raise ValueError(f"variant must be one of {TYPED_VARIANTS[1:]}, got "
+                         f"{variant!r}")
+    if x.device.type != "cuda" or x.dtype not in TYPED_TYPES:
+        raise NotImplementedError(f"{name} {variant}: bf16 or float64 CUDA "
+                                  "tensors only")
+    sfx = _dense_suffix(name, blocks, x)
+    _require_contiguous(name, blocks, x)
+    nbr, bs, _ = blocks.shape
+    y, g, _ = _gram_launch(name, sfx, (blocks.data_ptr(),), x, v, write_out,
+                           acc_dtype(x.dtype), nbr, bs, K, int(bandwidth),
+                           variant=variant)
+    return (y, g) if write_out else g
 
 
 # -- kernel 4: int8 DIA-banded SpMM -------------------------------------
@@ -1355,4 +1426,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in F64_X_KERNELS:
         fn.f64_launches = 0
+    banded_bsr_spmm_gram.bf16_launches = 0
+    banded_bsr_spmm_gram.f64_launches = 0
     banded_spmm_variant.copy_launches = 0

@@ -193,7 +193,10 @@ def _cases():
 def _timed_cases():
     """(label, fn) pairs timed with ``--time``: the float64-x entries of
     kernels 4 and 7 on the 2M-row int8 matrix of the solves at the
-    lowest-20 widths (kernel 7 over the one shard's ring-wrapped x_ext)."""
+    lowest-20 widths (kernel 7 over the one shard's ring-wrapped x_ext),
+    kernel 5's float64-x entry there at mv = 220, and kernel 3's bf16 and
+    float64 entries at row 3's shape (the 1M-row matrix, m = 128,
+    mv = 1408)."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     from fortran_davidson_tpu_torch.ops import kernels as k
@@ -213,6 +216,22 @@ def _timed_cases():
         out.append((f"k7 f64 m={m} nbr=16384",
                     lambda xe=xe: k.banded_q_ext_bsr_spmm(*ql, xe,
                                                           bandwidth=1)))
+    v = torch.randn((q.shape[0], 220), generator=gen, device=dev,
+                    dtype=torch.float64)
+    x = torch.randn((q.shape[0], 20), generator=gen, device=dev,
+                    dtype=torch.float64)
+    out.append(("k5 f64 m=20 mv=220 nbr=16384",
+                lambda x=x, v=v: k.banded_q_bsr_spmm_gram(*ql, x, v,
+                                                          bandwidth=1)))
+    A = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, seed=0, device=dev)
+    for dtype in (torch.bfloat16, torch.float64):
+        b = A.blocks.to(dtype)
+        x = torch.randn((A.shape[0], 128), generator=gen, device=dev).to(dtype)
+        v = torch.randn((A.shape[0], 1408), generator=gen,
+                        device=dev).to(dtype)
+        out.append((f"k3 {dtype} m=128 mv=1408 nbr=8192",
+                    lambda b=b, x=x, v=v: k.banded_bsr_spmm_gram(
+                        b, x, v, bandwidth=1)))
     return out
 
 

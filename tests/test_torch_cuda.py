@@ -200,23 +200,120 @@ def test_gram_variants_reduce_y(cuda_device):
             assert bool(torch.all((g[0].double() - want).abs() <= bound))
 
 
-def test_gram_kernel_f64_and_bf16(cuda_device):
+# Kernel 3's bf16 and float64 entries (csrc/fused_gram_typed.cuh): Y to
+# 1e-5 (bf16: exact products, f32 sums in another order) or 1e-12 of max|Y|;
+# G elementwise to one bf16 ulp (2^-8) of |V|ᵀ|Y| for bf16 (Y is staged as
+# bf16 for the gram; a sum in another order may round to the neighbouring
+# bf16 value), 1e-6 for float64 (f64 sums, G rounded once to float32).
+TYPED_TOL = {torch.bfloat16: (1e-5, 2.0 ** -8), torch.float64: (1e-12, 1e-6)}
+
+
+def _typed_case(dev, dtype, nbr, bs, bw, seed, band_only=False):
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=seed,
+                                  device=dev)
+    if band_only:
+        op = op.offdiag()
+    return op.blocks.to(dtype)
+
+
+def _check_typed(blocks, x, v, bw, write_out, clean_x, clean_v):
+    """One launch against the plain version on clean copies of x and v,
+    counted apart by type, and the same bits on a second launch."""
+    dtype = x.dtype
+    y_tol, g_tol = TYPED_TOL[dtype]
+    counter = "bf16_launches" if dtype == torch.bfloat16 else "f64_launches"
+    gram = kernels.banded_bsr_spmm_gram
+    before = (gram.launches, getattr(gram, counter))
+    out = gram(blocks, x, v, bandwidth=bw, write_out=write_out,
+               out_dtype=kernels.acc_dtype(dtype))
+    assert (gram.launches, getattr(gram, counter)) == (before[0] + 1,
+                                                       before[1] + 1)
+    yp, gp = kernels.banded_bsr_spmm_gram_plain(
+        blocks, clean_x, clean_v, bandwidth=bw,
+        out_dtype=kernels.acc_dtype(dtype))
+    g = out[1] if write_out else out
+    vv = clean_x if clean_v is None else clean_v
+    assert g.dtype == torch.float32 and g.shape == (vv.shape[1], x.shape[1])
+    assert bool(torch.all(torch.isfinite(g)))
+    if write_out:
+        assert bool(torch.all(torch.isfinite(out[0])))
+        scale = float(yp.abs().max())
+        assert float((out[0].double() - yp.double()).abs().max()) <= (
+            y_tol * scale)
+    _assert_gram_close(g, gp, vv.double(), yp, rel=g_tol)
+    again = gram(blocks, x, v, bandwidth=bw, write_out=write_out,
+                 out_dtype=kernels.acc_dtype(dtype))
+    assert torch.equal(g, again[1] if write_out else again)
+    if write_out:
+        assert torch.equal(out[0], again[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("m", [1, 4, 20, 44, 64, 128, 256])
+@pytest.mark.parametrize("mv", [None, 12, 200, 1408])
+@pytest.mark.parametrize("bs,bw", [(24, 1), (24, 2), (128, 1), (128, 2)])
+def test_gram_kernel_f64_and_bf16(cuda_device, dtype, m, mv, bs, bw):
+    # 17 block rows, ragged against the 16-row tiles (bs = 24) and the
+    # column tiles; x and V inside buffers framed by NaN rows (V also by NaN
+    # columns past mv, so its row stride is mv + 3): a read outside the
+    # edge windows, past n or past mv brings a NaN into Y or G.
     dev = cuda_device
-    op = fdtt.generate_banded_bsr(16, 8, bandwidth=1, seed=5, device=dev)
-    x = torch.randn((op.shape[0], 6), dtype=torch.float64, device=dev)
-    y, g = kernels.banded_bsr_spmm_gram(op.blocks, x, bandwidth=1)
-    yp, gp = kernels.banded_bsr_spmm_gram_plain(op.blocks, x, bandwidth=1)
-    torch.testing.assert_close(y, yp, **_tol(torch.float64))
-    _assert_gram_close(g, gp, x, yp, rel=1e-6)
-    blocks, xb = op.blocks.to(torch.bfloat16), x.to(torch.bfloat16)
-    y, g = kernels.banded_bsr_spmm_gram(blocks, xb, bandwidth=1,
-                                        out_dtype=torch.float32)
-    yp, gp = kernels.banded_bsr_spmm_gram_plain(blocks, xb, bandwidth=1,
-                                                out_dtype=torch.float32)
-    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
-    # Y is staged as bf16 for the gram; a sum in another order may round to
-    # the neighbouring bf16 value: one bf16 ulp (2^-8) of |V|ᵀ|Y|.
-    _assert_gram_close(g, gp, xb.float(), yp, rel=2.0 ** -8)
+    nbr = 17
+    n = nbr * bs
+    blocks = _typed_case(dev, dtype, nbr, bs, bw, seed=m + bs + bw)
+    pad = bw * bs
+    x = torch.randn((n, m), device=dev).to(dtype)
+    v = None if mv is None else torch.randn((n, mv), device=dev).to(dtype)
+    xf = _framed(x, pad)
+    vf = None if v is None else _framed(v, pad, cols=3)
+    for write_out in (True, False):
+        _check_typed(blocks, xf, vf, bw, write_out, x, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("m,mv", [(20, None), (20, 220), (128, 1408)])
+@pytest.mark.parametrize("bs,bw", [(24, 2), (128, 1)])
+def test_gram_kernel_f64_and_bf16_band_alone(cuda_device, dtype, m, mv, bs,
+                                             bw):
+    # The band alone (the diagonal zeroed): with the diagonal the band is a
+    # small share of Y, so a fault in the band's windows would hide under
+    # the limit of max|Y|.
+    dev = cuda_device
+    nbr = 17
+    blocks = _typed_case(dev, dtype, nbr, bs, bw, seed=31, band_only=True)
+    x = torch.randn((nbr * bs, m), device=dev).to(dtype)
+    v = None if mv is None else torch.randn((nbr * bs, mv),
+                                            device=dev).to(dtype)
+    _check_typed(blocks, x, v, bw, True, x, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_gram_kernel_f64_and_bf16_refuse_a_width_past_the_plan(cuda_device,
+                                                             dtype):
+    # No layout holds G of 16 blocks' registers and shared memory past
+    # ~16k rows: the wrapper raises, naming the entry and the shape, and
+    # launches nothing (no fallback to another kernel).
+    dev = cuda_device
+    blocks = _typed_case(dev, dtype, 4, 16, 1, seed=2)
+    x = torch.randn((64, 8), device=dev).to(dtype)
+    v = torch.randn((64, 40000), device=dev).to(dtype)
+    gram = kernels.banded_bsr_spmm_gram
+    before = gram.launches
+    sfx = "bf16" if dtype == torch.bfloat16 else "f64"
+    with pytest.raises(RuntimeError, match=f"fdt_fused_gram_{sfx}_plan.*"
+                       "mv=40000"):
+        gram(blocks, x, v, bandwidth=1)
+    assert gram.launches == before
+
+
+def test_typed_gram_plans_at_the_main_case(cuda_device):
+    # Row 3's shape (1M rows, bs 128, bw 1, m 128, mv 1408): the layouts
+    # the wrapper takes, reported as the float32 kernel's are.
+    for dtype in (torch.bfloat16, torch.float64):
+        plan = kernels.fused_typed_plan(0, dtype, 8192, 128, 3, 128, 1408)
+        assert set(plan) == set(kernels.FUSED_PLAN_KEYS)
+        assert plan["C"] * plan["MB"] >= 1408 and plan["n_groups"] >= 1
+        assert plan["TN"] in (64, 128) and plan["clusters_resident"] >= 1
 
 
 def test_int8_kernel_matches_plain(cuda_device):

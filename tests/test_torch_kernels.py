@@ -227,6 +227,44 @@ def test_gram_plain_matches_pallas(nbr, bw, m, mv, write_out):
                   <= _gram_bound(X if V is None else V, Y, 1e-5))
 
 
+@pytest.mark.parametrize("nbr,bw,m,mv,write_out", GRAM_CASES)
+def test_gram_plain_matches_pallas_f64(nbr, bw, m, mv, write_out):
+    # float64 storage (the plain version of kernel 3's float64 entry). Y to
+    # 1e-12 of max|Y| of the Pallas kernel's. G: the port sums in float64
+    # and rounds once to float32, so it is held to Vᵀ(A X) taken in float64
+    # within 1e-12 of |V|ᵀ|Y| plus one float32 ulp of |G| (the one
+    # rounding). The Pallas kernel adds each grid step's product into a
+    # float32 G, one float32 rounding a block row at most, so the two G
+    # agree within nbr * 2^-24 of |V|ᵀ|Y|.
+    op = generate_banded_bsr(nbr, 8, bandwidth=bw, seed=13, dtype=jnp.float64)
+    n = op.shape[0]
+    X = _x(n, m, jnp.float64, seed=14)
+    V = None if mv is None else _x(n, mv, jnp.float64, seed=15)
+    ref = pk.banded_bsr_spmm_gram(
+        op.blocks, jnp.asarray(X), None if V is None else jnp.asarray(V),
+        bandwidth=bw, write_out=write_out, interpret=True)
+    out = kernels.banded_bsr_spmm_gram(
+        torch.from_numpy(np.array(op.blocks)), torch.from_numpy(X),
+        None if V is None else torch.from_numpy(V), bandwidth=bw,
+        write_out=write_out)
+    Y = np.asarray(op.matmat(jnp.asarray(X)), np.float64)
+    if write_out:
+        y, g = to_numpy(out[0]), to_numpy(out[1])
+        y_ref, g_ref = np.asarray(ref[0]), np.asarray(ref[1])
+        assert y.dtype == np.float64
+        np.testing.assert_allclose(y, y_ref, rtol=1e-12,
+                                   atol=1e-12 * np.max(np.abs(y_ref)))
+    else:
+        g, g_ref = to_numpy(out), np.asarray(ref)
+    VV = X if V is None else V
+    assert g.dtype == np.float32 and g.shape == (VV.shape[1], m)
+    g = g.astype(np.float64)
+    exact = VV.T @ Y
+    assert np.all(np.abs(g - exact) <= _gram_bound(VV, Y, 1e-12)
+                  + np.spacing(np.abs(exact).astype(np.float32)))
+    assert np.all(np.abs(g - g_ref) <= _gram_bound(VV, Y, nbr * 2.0 ** -24))
+
+
 @pytest.mark.parametrize("write_out", [True, False])
 @pytest.mark.parametrize("mv", [None, 12])
 def test_gram_plain_bf16_storage(mv, write_out):

@@ -254,6 +254,60 @@ def test_auto_engine_at_k128_matches_jax(monkeypatch):
     assert np.all(np.abs(lam_t - lam_j) <= r_j + r_t)
 
 
+def test_auto_engine_on_bf16_storage_matches_jax(monkeypatch):
+    # The k128 solve on bf16 storage (the documented mixed-precision mode)
+    # in both packages: "auto" takes the incremental-H engine there too,
+    # and the port's matmat_with_gram runs kernel 3's bf16 entry (its plain
+    # version on the CPU). The true residuals are taken in float64 with the
+    # bf16 blocks, which are exact in float64.
+    #
+    # The tolerance, by the rule chip_smoke.py's phase 7c applies: the
+    # port's "off" engine at the k128 test's relative 1e-3 stops with a
+    # true relative residual above 1e-3 (bf16 storage rounds x to bf16 on
+    # every apply, 2^-9, so the loop's residual is not the true one; the
+    # JAX package's default operator stops there too, at 1.11e-3), so both
+    # engines are compared at 1e-2: iterations within ±1 of JAX's, the
+    # eigenvalues within the sum of the true residuals. At 1e-3 "auto" does
+    # not converge: the fused bf16 gram rounds V and Y to bf16, as the TPU
+    # kernel does, and the carried H stalls (ROADMAP Queue 3's open fault;
+    # this test fails once that is repaired, to bring the entry up to date).
+    op = jsparse.generate_banded_bsr(16, 128, bandwidth=1, coupling=3.0,
+                                     seed=0, dtype=jnp.float32)
+    kw = dict(dtype="float32", expansion="lowest-k", relative_tolerance=True,
+              max_dim_sub=256)
+    rj = fdt.eigensolve(op.astype(jnp.bfloat16), 128, tolerance=1e-2, **kw)
+    op_t = convert.operator(op, device="cpu").astype(torch.bfloat16)
+    assert op_t.dtype == torch.bfloat16
+    exact = fdtt.BSROperator(op_t.block_cols, op_t.blocks.double(),
+                             bandwidth=op_t.bandwidth)
+
+    def true_rel(res):
+        lam = to_numpy(res.eigenvalues).astype(np.float64)
+        r = _true_residuals(exact, to_numpy(res.eigenvectors), lam)
+        return np.max(r / np.maximum(np.abs(lam), 1.0))
+
+    off3 = fdtt.eigensolve(op_t, 128, fused_gram="off", tolerance=1e-3, **kw)
+    assert off3.converged and true_rel(off3) > 1e-3
+    auto3 = fdtt.eigensolve(op_t, 128, fused_gram="auto", tolerance=1e-3,
+                            max_iterations=30, **kw)
+    assert not auto3.converged
+
+    calls = []
+    real = op_t.matmat_with_gram
+    monkeypatch.setattr(op_t, "matmat_with_gram",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    rt = fdtt.eigensolve(op_t, 128, tolerance=1e-2, **kw)
+    assert rt.converged and bool(rj.converged)
+    assert len(calls) >= 2, "'auto' did not run the incremental-H engine"
+    assert abs(int(rt.iterations) - int(rj.iterations)) <= 1
+    lam_j = np.asarray(rj.eigenvalues, np.float64)
+    lam_t = to_numpy(rt.eigenvalues).astype(np.float64)
+    r_j = _true_residuals(exact, rj.eigenvectors, lam_j)
+    r_t = _true_residuals(exact, to_numpy(rt.eigenvectors), lam_t)
+    assert np.all(r_t <= 1e-2 * np.maximum(np.abs(lam_t), 1.0))
+    assert np.all(np.abs(lam_t - lam_j) <= r_j + r_t)
+
+
 @pytest.mark.parametrize("fused", ["off", "on"])
 def test_int8_solve_matches_jax(fused):
     # tests/test_quantized.py's bf16-class solve, through both packages.
