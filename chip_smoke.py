@@ -10,13 +10,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    card's name and power limit.
 2. Build: compiles every source under ``csrc/`` with nvcc for sm_90a (one
    nvcc per source, started together); prints ptxas's registers of every
-   instantiation of the shared SIMT tile (``gram_kernel``, row 5d), of
-   kernel 3's bf16 and float64 entries (``typed_gram_kernel``), of kernel 1,
-   its variants and kernels 8 and 2 on kernel 1's template (with their
+   instantiation of csrc/fused_gram_typed.cuh (``typed_gram_kernel``:
+   kernel 3's bf16 and float64 entries, kernel 5's int8 ones with float64
+   x, row 5d, and bf16 x, the bf16-dequant variants), of kernel 1, its
+   variants and kernels 8 and 2 on kernel 1's template (with their
    static shared memory and their ring's bytes), of the float64-x entries
    of kernels 4 and 7 on the same template (int8 slab; with their ring),
-   of the fused kernels 3 and 5, and of kernel 4's float32 entry and
-   kernel 5's bf16-dequant variants (with kernel 4's layout).
+   of the fused kernels 3 and 5, and of kernel 4's float32 entry (with its
+   layout).
 3. Kernels against their plain PyTorch versions on the same tensors on
    the card, with CUDA-event times (median of 7) of both:
    - the SpMM kernels (1, 2): max relative error <= 1e-12 in float64 and
@@ -190,7 +191,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. Prints the solves' and kernels' JSON lines (launch counts of the solve
    phases 4-8, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
-   the rest and no phase launches them (nor kernel 3's float64 entry); for
+   the rest and no phase launches them (nor kernel 3's and kernel 5's
+   float64 entries); for
    kernels 3 and 5, ``max_abs_err`` is Y's and ``max_gram_err_rel`` the worst
    |G_k - G_p| / (|V|ᵀ|Y|), and ``unfused_ms``, ``nov_ms`` and
    ``nogram_ms`` the split above; each kernel's ``bound_ms``, the larger
@@ -203,13 +205,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    P A Pᵀ times and bounds by width; the float64-x entries of kernels 4
    and 7 as kernels of their own, ``banded_q_bsr_spmm_f64`` and
    ``banded_q_ext_bsr_spmm_f64``, launched in phases 6 and 8a, with their
-   times at m = 20 and 40; kernel 5's float64-x entry's times, unfused
-   yardstick, bounds and launches in phase 6's float64 leg; kernel 3's
+   times at m = 20 and 40; kernel 5's float64-x entry as a kernel of its
+   own, ``banded_q_bsr_spmm_gram_f64`` (no path), with its times, unfused
+   yardstick, split, layout and bounds at m = 20 and 40; kernel 3's
    bf16 and float64 entries as kernels of their own,
    ``banded_bsr_spmm_gram_bf16`` (launched in phase 7c) and
    ``banded_bsr_spmm_gram_f64`` (no path: the fused engine is float32),
-   with their plans, unfused yardsticks, splits and the SIMT tile's
-   times), the card's name and power limit, and as the last line
+   with their plans, unfused yardsticks and splits), the card's name and
+   power limit, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Imports nothing of JAX. Builds into ``fortran_davidson_tpu_torch/_build/``.
@@ -245,6 +248,9 @@ SOURCES = {
         "fortran_davidson_tpu_torch/csrc/q_ext_spmm_f64.cu",
     "banded_q_bsr_spmm_gram":
         "fortran_davidson_tpu_torch/csrc/fused_gram.cu",
+    # The float64-x entry, on csrc/fused_gram_typed.cuh's int8 slab.
+    "banded_q_bsr_spmm_gram_f64":
+        "fortran_davidson_tpu_torch/csrc/fused_gram_q8f64.cu",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/ext_spmm.cu",
     # The float32-x entry (the main case's, kernel 4's apply).
     "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
@@ -253,10 +259,11 @@ SOURCES = {
     # Kernel 9: kernel 1's template (csrc/banded_spmm.cuh) as its "copy"
     # variant, instantiated in csrc/banded_spmm_var_{f64,f32,bf16}.cu.
     "banded_spmm_copy": "fortran_davidson_tpu_torch/csrc/banded_spmm.cuh",
-    # Kernel 5's bf16-dequant variants (experiments/fused_probe.py's modes).
+    # Kernel 5's bf16-dequant variants (experiments/fused_probe.py's
+    # modes), on csrc/fused_gram_typed.cuh's int8 slab.
     **{f"fused_probe_{v}": "fortran_davidson_tpu_torch/csrc/"
-       "fused_gram_var_bf16.cu" for v in ("bf16deq", "tg_bf16deq",
-                                          "nov_bf16")},
+       "fused_gram_q8bf16.cu" for v in ("bf16deq", "tg_bf16deq",
+                                        "nov_bf16")},
 }
 REPLACES = {
     "banded_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:438",
@@ -269,6 +276,8 @@ REPLACES = {
     "banded_q_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
     "banded_q_bsr_spmm_f64": "fortran_davidson_tpu/ops/pallas_kernels.py:755",
     "banded_q_bsr_spmm_gram":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:886",
+    "banded_q_bsr_spmm_gram_f64":
         "fortran_davidson_tpu/ops/pallas_kernels.py:886",
     "banded_ext_bsr_spmm": "fortran_davidson_tpu/ops/pallas_kernels.py:1190",
     "banded_q_ext_bsr_spmm":
@@ -292,6 +301,7 @@ MAIN_CASE = {
     "banded_q_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_q_bsr_spmm_f64": ("float64", 20, None, True, "nbr=16384"),
     "banded_q_bsr_spmm_gram": ("float32", 20, 220, True, "nbr=16384"),
+    "banded_q_bsr_spmm_gram_f64": ("float64", 20, 220, True, "nbr=16384"),
     "banded_ext_bsr_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_q_ext_bsr_spmm_f64": ("float64", 20, None, True, "nbr=16384"),
@@ -1193,7 +1203,7 @@ def tma_stress(A, randn) -> dict:
 
 def bf16_variant_split(q, probe, randn, record, band_checks) -> dict:
     """Kernel 5's bf16-dequant variants (``kernels.fused_gram_variant``,
-    csrc/fused_gram_var_bf16.cu) at two shapes: the probe's
+    csrc/fused_gram_q8bf16.cu) at two shapes: the probe's
     (``quantize_banded_int8`` of the probe matrix, m = mv = 256) and kernel
     5's main case (the 2M-row int8 matrix, m = 20, mv = 220). Each variant
     against its plain version, on the operator and on its band alone (the
@@ -1306,10 +1316,10 @@ def bf16_variant_split(q, probe, randn, record, band_checks) -> dict:
               f"the bf16-dequant variants on bf16): "
               + ", ".join(f"{k} {t:.4f}" for k, t in row.items())
               + f"; turns {times}", flush=True)
-        plans = {var: kernels.fused_bf16_plan(
-            x32.device.index or 0, var, op.n_block_rows, op.block_size,
-            2 * bw + 1, m, m if var == "nov_bf16" else mv)
-            for var in kernels.BF16_VARIANTS}
+        plans = {var: kernels.fused_typed_plan(
+            x32.device.index or 0, torch.bfloat16, op.n_block_rows,
+            op.block_size, 2 * bw + 1, m, m if var == "nov_bf16" else mv,
+            quant=True) for var in ("bf16deq", "nov_bf16")}
         print(f"    layouts: {plans}", flush=True)
         out[tag] = dict(row, shape=shape)
         del x32, v32, xb, vb, fns, split
@@ -1326,7 +1336,10 @@ Q64_TOL = 2.0 ** -22
 
 def int8_float64_x(op, note, randn, timed, record, info, band_checks):
     """Kernels 4, 5 and 7 with float64 x (and v) against their plain
-    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|.
+    versions: Y within Q64_TOL of max|Y|, G within GRAM_TOL of |V|ᵀ|Y|;
+    kernel 5's Y (``csrc/fused_gram_q8f64.cu``, row
+    ``banded_q_bsr_spmm_gram_f64`` of ``record``) kernel 4's bits, the
+    same bits twice, its ``nov`` variant Y's column sums.
     Kernels 4 and 7 (``csrc/q_spmm_f64.cu``, rows ``banded_q_bsr_spmm_f64``
     and ``banded_q_ext_bsr_spmm_f64`` of ``record``) also: x framed by NaN
     rows (kernel 4's Y finite), the same bits twice, kernel 7 over the one
@@ -1335,9 +1348,10 @@ def int8_float64_x(op, note, randn, timed, record, info, band_checks):
     that each fault of :func:`_int8_faults` must exceed (into
     ``band_checks``); the share of Y's bits equal to the plain version's is
     printed and not held. ``timed``: each timed beside its plain version,
-    and kernel 5 (mv = 220) also beside its unfused yardstick (kernel 4,
-    then ``torch.matmul(v.T, y)`` in float64), into
-    ``info["banded_q_bsr_spmm_gram"][m]``."""
+    and kernel 5 (mv = 220) in turns beside its plain version, its unfused
+    yardstick (kernel 4, then ``torch.matmul(v.T, y)`` in float64) and its
+    ``nov`` and ``nogram`` variants, with its layout, into
+    ``info["banded_q_bsr_spmm_gram_f64"][m]``."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     lead = (op.qblocks, op.scale_rows, op.diag)
@@ -1408,37 +1422,82 @@ def int8_float64_x(op, note, randn, timed, record, info, band_checks):
                            ys["banded_q_bsr_spmm_f64"]),
                f"kernel 7 f64 {note} m={m}: one slab is not kernel 4's Y")
         del ys
-        r5 = g5 = 0.0
+        # Kernel 5's float64-x entry (row 5d): Y kernel 4's bits, G
+        # within GRAM_TOL of |V|ᵀ|Y|, the same bits twice.
+        name5 = "banded_q_bsr_spmm_gram_f64"
         v220 = randn(n, 220, f64)
+        y4 = kernels.banded_q_bsr_spmm(*lead, xf, bw)
+        r5 = g5 = 0.0
         for v in (None, v220):
-            y, g = kernels.banded_q_bsr_spmm_gram(*lead, x, v, bandwidth=bw)
+            y, g = kernels.banded_q_bsr_spmm_gram(*lead, xf, v, bandwidth=bw)
             yp, gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, x, v,
                                                           bandwidth=bw)
-            r5 = max(r5, close("banded_q_bsr_spmm_gram f64", y, yp))
+            rel = close("banded_q_bsr_spmm_gram f64", y, yp)
+            r5 = max(r5, rel)
+            _check(torch.equal(y, y4), f"kernel 5 f64 {note} m={m} mv="
+                   f"{None if v is None else 220}: Y is not kernel 4's")
+            again = kernels.banded_q_bsr_spmm_gram(*lead, xf, v, bandwidth=bw)
+            _check(torch.equal(again[0], y) and torch.equal(again[1], g),
+                   f"kernel 5 f64 {note} m={m}: other bits on a second call")
             vv = x if v is None else v
-            g5 = max(g5, float(torch.max(torch.abs(g - gp) / (
-                (torch.abs(vv).T @ torch.abs(yp)).float() + 1e-30))))
-            _check(g5 <= GRAM_TOL, f"kernel 5 f64 {note} m={m}: G error "
-                   f"{g5:.3e}")
-            del y, g, yp, gp, v, vv
+            ratio = float(torch.max(torch.abs(g - gp) / (
+                (torch.abs(vv).T @ torch.abs(yp)).float() + 1e-30)))
+            g5 = max(g5, ratio)
+            _check(ratio <= GRAM_TOL, f"kernel 5 f64 {note} m={m}: G error "
+                   f"{ratio:.3e}")
+            row = dict(name=name5, dtype="float64", m=m,
+                       mv=None if v is None else 220, write_out=True,
+                       shape=note, max_abs_err=float(torch.max(
+                           torch.abs(y - yp))), rel_err=rel,
+                       gram_ratio=ratio, g_abs_err=float(torch.max(
+                           torch.abs(g - gp))), ms=None, plain_ms=None)
+            if timed and v is not None:
+                fns = {
+                    "ms": lambda: kernels.banded_q_bsr_spmm_gram(
+                        *lead, x, v220, bandwidth=bw),
+                    "plain_ms": lambda: kernels.banded_q_bsr_spmm_gram_plain(
+                        *lead, x, v220, bandwidth=bw),
+                    "unfused_ms": lambda: torch.matmul(
+                        v220.T, kernels.banded_q_bsr_spmm(*lead, x, bw)),
+                    **{f"{var}_ms": lambda var=var: kernels.fused_gram_variant(
+                        "banded_q_bsr_spmm_gram", lead, x, v220,
+                        bandwidth=bw, variant=var)
+                       for var in ("nov", "nogram")},
+                }
+                order = list(fns) + list(fns)[::-1]
+                times = {key: [] for key in fns}
+                for key in order:
+                    times[key].append(_time_ms(fns[key]))
+                row5 = {key: statistics.mean(t) for key, t in times.items()}
+                row5["plan"] = kernels.fused_typed_plan(
+                    x.device.index or 0, f64, op.n_block_rows,
+                    op.block_size, 2 * bw + 1, m, 220, quant=True)
+                row.update(ms=row5["ms"], plain_ms=row5["plain_ms"])
+                info.setdefault(name5, {})[m] = row5
+            record.append(row)
+            del y, g, yp, gp, again, vv
+        # Its "nov" variant: G's row 0 the column sums of Y.
+        ysum = y4.sum(0)
+        g = kernels.fused_gram_variant("banded_q_bsr_spmm_gram", lead, xf,
+                                       v220, bandwidth=bw, variant="nov")
+        _check(not bool(torch.any(g[1:])) and bool(torch.all(
+            torch.abs(g[0].double() - ysum) <= GRAM_TOL
+            * torch.abs(y4).sum(0) + 1e-30)),
+               f"kernel 5 f64 nov {note} m={m}: G row 0 is not Y's column "
+               "sums")
+        del y4, ysum, g
         t5 = ""
         if timed:
-            fns = {
-                "ms": lambda: kernels.banded_q_bsr_spmm_gram(
-                    *lead, x, v220, bandwidth=bw),
-                "plain_ms": lambda: kernels.banded_q_bsr_spmm_gram_plain(
-                    *lead, x, v220, bandwidth=bw),
-                "unfused_ms": lambda: torch.matmul(
-                    v220.T, kernels.banded_q_bsr_spmm(*lead, x, bw)),
-            }
-            row5 = {key: _time_ms(fn) for key, fn in fns.items()}
-            info.setdefault("banded_q_bsr_spmm_gram", {})[m] = row5
+            row5 = info[name5][m]
             t5 = (f" {row5['ms']:.4f} ms (plain {row5['plain_ms']:.4f}, "
                   f"unfused: kernel 4 + matmul(v.T, y) "
-                  f"{row5['unfused_ms']:.4f})")
+                  f"{row5['unfused_ms']:.4f}; nov {row5['nov_ms']:.4f}, "
+                  f"nogram {row5['nogram_ms']:.4f}; mean of two turns) "
+                  f"layout {row5['plan']}")
         print(f"  float64 x on int8 storage, {note} m={m}: "
-              + " ".join(line) + f" kernel 5 Y rel {r5:.3e} G |dG|/(|V|ᵀ|Y|) "
-              f"{g5:.3e};{t5}", flush=True)
+              + " ".join(line) + f" kernel 5 (csrc/fused_gram_q8f64.cu) Y "
+              f"kernel 4's bits, rel {r5:.3e}, G |dG|/(|V|ᵀ|Y|) {g5:.3e};"
+              f"{t5}", flush=True)
         del x, xf, x_ext, v220
         torch.cuda.empty_cache()
     del faults, band
@@ -2855,6 +2914,31 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _k1_split_bounds(op, nnz_blocks, m, dtype) -> dict:
+    """Bounds (ms) of kernel 1's split (``K1_SPLIT``) at (m, dtype), as
+    :func:`_bound` counts: the full kernel and its launch options compute
+    kernel 1's function; ``noy`` reads the blocks and x (its column sums
+    are a few bytes); ``copy`` (kernel 9) reads them and writes Y with adds
+    alone; ``writeonly`` and ``fill_`` write Y alone; kernel 4 on the int8
+    form of the same matrix, with float32 x."""
+    isz = {"float64": 8, "float32": 4, "bfloat16": 2}[dtype]
+    nbr, bs, bw = op.n_block_rows, op.block_size, op.bandwidth
+    n = nbr * bs
+    full = _bound("banded_bsr_spmm", dtype, m, None, op, nnz_blocks)[0]
+    read = (nbr * bs * (2 * bw + 1) * bs + n * m) * isz
+    noy = max(read / HBM_BYTES_S * 1e3, 2 * nnz_blocks * bs * bs * m
+              / PEAK_FLOP_S[dtype] * 1e3)
+    write = n * m * max(isz, 4) / HBM_BYTES_S * 1e3
+    out = {key: full for key, _ in K1_SPLIT}
+    out.update({"noy": noy, "writeonly": write, "writeonly_into_x": write,
+                "fill_": write,
+                "copy": _bound("banded_spmm_copy", dtype, m, None, op,
+                               nnz_blocks)[0],
+                "kernel 4 (int8)": _bound("banded_q_bsr_spmm", "float32", m,
+                                          None, op, nnz_blocks)[0]})
+    return out
+
+
 def _split_bounds(op, nnz_blocks, m, mv) -> dict:
     """Bounds (ms) of kernel 5's measurement variants at (m, mv), as
     :func:`_bound` counts: ``nov`` reads the int8 tables, the diagonal and
@@ -2977,28 +3061,18 @@ def _ptxas_entries(log: str):
             name = None
 
 
-def _tile_registers(log: str) -> dict:
-    """ptxas's registers of every instantiation of the shared SIMT tile
-    (``gram_kernel`` of banded_gram.cu on spmm_tile.cuh: kernel 5's
-    float64-x entry, row 5d), keyed by the template arguments as mangled."""
-    import re
-    regs = {}
-    for name, n, _, _ in _ptxas_entries(log):
-        m = re.search(r"11gram_kernelI(.+?)EEvT_", name)
-        if m:
-            regs[f"gram_kernel<{m.group(1)}>"] = n
-    return regs
-
-
 def _typed_entries(log: str) -> dict:
-    """Kernel 3's bf16 and float64 entries (``typed_gram_kernel`` of
-    csrc/fused_gram_typed.cuh, in csrc/fused_gram_bf16.cu and
-    csrc/fused_gram_f64.cu): "bf16 TN=128" -> (registers, spill store
-    bytes, static shared bytes)."""
+    """The entries of csrc/fused_gram_typed.cuh (``typed_gram_kernel``):
+    kernel 3's bf16 and float64 ones (csrc/fused_gram_bf16.cu,
+    csrc/fused_gram_f64.cu) and kernel 5's int8 ones with float64 and bf16
+    x (csrc/fused_gram_q8f64.cu, csrc/fused_gram_q8bf16.cu): "bf16 TN=128",
+    "q8f64 TN=32" -> (registers, spill store bytes, static shared
+    bytes)."""
     import re
     out = {}
     for name, n, spill, smem in _ptxas_entries(log):
-        m = re.search(r"typed_gram_kernelINS_\d+T(Bf16|F64)ELi(\d+)E", name)
+        m = re.search(r"typed_gram_kernelINS_\d+T(Q8Bf16|Q8F64|Bf16|F64)E"
+                      r"Li(\d+)E", name)
         if m:
             out[f"{m.group(1).lower()} TN={m.group(2)}"] = (n, spill, smem)
     return out
@@ -3067,13 +3141,11 @@ def _k1_plan(key: str) -> dict:
 
 def _new_entries(log: str) -> dict:
     """The float32-x entries of kernels 4 and 7 (``q_spmm_kernel`` of
-    csrc/q_spmm.cu, kAll 0 and 1), kernel 6's TMA route (``ext_tma_kernel``
-    of csrc/ext_spmm.cu) and kernel 5's bf16-dequant variants
-    (``bf16_gram_kernel`` of csrc/fused_gram_var_bf16.cu): "kernel 4
-    TN=24" / "kernel 6 tma f64 TM=128 TN=48" / "bf16deq TN=128" ->
-    (registers, spill store bytes, static shared bytes)."""
+    csrc/q_spmm.cu, kAll 0 and 1) and kernel 6's TMA route
+    (``ext_tma_kernel`` of csrc/ext_spmm.cu): "kernel 4 TN=24" / "kernel 6
+    tma f64 TM=128 TN=48" -> (registers, spill store bytes, static shared
+    bytes)."""
     import re
-    from fortran_davidson_tpu_torch.ops import kernels
     out = {}
     for name, n, spill, smem in _ptxas_entries(log):
         m = re.search(r"q_spmm_kernelILi(\d+)ELb(\d)E", name)
@@ -3085,11 +3157,6 @@ def _new_entries(log: str) -> dict:
         if m:
             out[f"kernel 6 tma {_K1_TYPES[m.group(1)]} TM={m.group(2)} "
                 f"TN={m.group(3)}"] = (n, spill, smem)
-        m = re.search(r"bf16_gram_kernelILi(\d+)ELi(\d)E", name)
-        if m:
-            out[f"{kernels.BF16_VARIANTS[int(m.group(2))]} "
-                f"TN={m.group(1)}"] = (
-                n, spill, smem)
     return out
 
 
@@ -3148,11 +3215,10 @@ def main() -> int:
             r"^nvcc (\S+): ([0-9.]+) s$", log, re.M)), reverse=True)
         print("    compile time by source (s from the common start): "
               + ", ".join(f"{name} {t:.1f}" for t, name in secs))
-        print(f"    ptxas registers of the shared SIMT tile's "
-              f"instantiations (row 5d): {_tile_registers(log)}")
-        print("    kernel 3's bf16 and float64 entries "
-              "(csrc/fused_gram_typed.cuh): ptxas registers, spill stores, "
-              "static smem")
+        print("    csrc/fused_gram_typed.cuh: kernel 3's bf16 and float64 "
+              "entries, kernel 5's int8 ones with float64 x (row 5d) and "
+              "bf16 x (rows 10a-c): ptxas registers, spill stores, static "
+              "smem")
         for key, (regs, spill, smem) in _typed_entries(log).items():
             print(f"      {key}: {regs} registers, {spill} B spill, {smem} B "
                   "static smem")
@@ -3181,9 +3247,8 @@ def main() -> int:
                   f"{plan['stages']} stages")
         print(f"    ptxas registers of the fused float32 kernels (3, 5) by "
               f"loader, column tile and variant: {_fused_registers(log)}")
-        print("    the float32-x entries of kernels 4 and 7 (csrc/q_spmm.cu), "
-              "kernel 6's TMA route (csrc/ext_spmm.cu) and kernel 5's "
-              "bf16-dequant variants (csrc/fused_gram_var_bf16.cu): ptxas "
+        print("    the float32-x entries of kernels 4 and 7 (csrc/q_spmm.cu) "
+              "and kernel 6's TMA route (csrc/ext_spmm.cu): ptxas "
               "registers, spill stores, static smem")
         for key, (regs, spill, smem) in _new_entries(log).items():
             print(f"      {key}: {regs} registers, {spill} B spill, {smem} B "
@@ -3235,13 +3300,15 @@ def main() -> int:
     # Kernels 4 and 7 with float64 x: their own kernel, counted apart.
     f64_names = {f"{fn.__name__}_f64": fn for fn in kernels.F64_X_KERNELS}
     counts.update(dict.fromkeys(f64_names, 0))
-    # Kernel 3's bf16 and float64 entries: kernels of their own, counted
-    # apart (the wrapper's launches less theirs are the float32 kernel's).
+    # Kernel 3's bf16 and float64 entries and kernel 5's float64-x entry:
+    # kernels of their own, counted apart (the wrappers' launches less
+    # theirs are the float32 kernels').
     typed_names = ("banded_bsr_spmm_gram_bf16", "banded_bsr_spmm_gram_f64")
     # Kernel 9 and kernel 5's bf16-dequant variants: no path launches them;
-    # nor kernel 3's float64 entry (the fused engine is float32 only).
+    # nor kernel 3's and kernel 5's float64 entries (the fused engine is
+    # float32 only).
     counts.update(dict.fromkeys(
-        ("banded_spmm_copy", *typed_names,
+        ("banded_spmm_copy", *typed_names, "banded_q_bsr_spmm_gram_f64",
          *(f"fused_probe_{v}" for v in kernels.BF16_VARIANTS)),
         0))
     # The one-rank NCCL group of phases 8-9 meets at a file in here.
@@ -3286,6 +3353,9 @@ def main() -> int:
                                                   gram.f64_launches)))
             phase_counts["banded_bsr_spmm_gram"] -= (gram.bf16_launches
                                                      + gram.f64_launches)
+            qgram = kernels.banded_q_bsr_spmm_gram
+            phase_counts["banded_q_bsr_spmm_gram_f64"] = qgram.f64_launches
+            phase_counts["banded_q_bsr_spmm_gram"] -= qgram.f64_launches
             print(f"    phase launches {phase_counts} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             for name in expected:
@@ -3362,16 +3432,18 @@ def main() -> int:
                 for r in rows if r["ms"] is not None}
         if name in q64_info:
             # Kernel 5's float64-x entry at int8 m = 20 and 40, mv = 220,
-            # with its unfused yardstick (kernel 4 + matmul) and its
-            # launches in phase 6's float64 leg.
-            leg = next(r for r in solves
-                       if r["solve"].startswith("int8 banded float64"))
-            entry["float64_x"] = {
-                f"m={m_x}": dict(
-                    t, **dict(zip(("bound_ms", "bound_by"), _bound(
-                        name, "float64", m_x, 220, *nnz["nbr=16384"]))),
-                    launches=leg["other_int8_launches"][name])
+            # with its unfused yardstick (kernel 4 + matmul), its split and
+            # its layout.
+            entry["widths"] = {
+                f"m={m_x}": dict(t, **dict(zip(("bound_ms", "bound_by"),
+                                               _bound(name, "float64", m_x,
+                                                      220,
+                                                      *nnz["nbr=16384"]))))
                 for m_x, t in q64_info[name].items()}
+            entry.update(unfused_ms=q64_info[name][m]["unfused_ms"],
+                         nov_ms=q64_info[name][m]["nov_ms"],
+                         nogram_ms=q64_info[name][m]["nogram_ms"],
+                         layout=q64_info[name][m]["plan"])
         if name in typed_names:
             # Rows 3b, 3d: the plan, the unfused yardstick and the split.
             typed = gram_splits["typed"][dtype]
@@ -3379,7 +3451,9 @@ def main() -> int:
                 "ms", "plain_ms", "max_err_rel", "max_gram_err_rel")})
         if name == "banded_bsr_spmm":
             entry.update(split_ms=k1_info["split"], probe_bound_ms=_bound(
-                name, "bfloat16", PROBE["m"], None, *probe_case)[0])
+                name, "bfloat16", PROBE["m"], None, *probe_case)[0],
+                probe_split_bounds_ms=_k1_split_bounds(
+                    *probe_case, PROBE["m"], "bfloat16"))
         if name == "banded_q_bsr_spmm_gram":
             entry.update(_split_bounds(q, nnz["nbr=16384"][1], m, mv))
         if name == "banded_spmm_copy":

@@ -1,11 +1,10 @@
 // The tensor-core banded apply for Hopper (sm_90a), shared by the float32
 // fused SpMM + Gram kernels (fused_gram.cu: kernel 3's float32 entry and
-// kernel 5), the float32 entries of kernels 4 and 7 (q_spmm.cu) and the
-// bf16-dequant variants of kernel 5 (fused_gram_var_bf16.cu): the layouts,
-// the cp.async staging of slab and x chunks, the slab loaders (DenseF32,
-// Int8) and one pass of the apply. Storage as in spmm_tile.cuh:
-// (nbr, bs, K*bs) row-major block slabs, slot k of block row r holding
-// block column r - bw + k. What bounds each kernel and what its design does about it are
+// kernel 5) and the float32 entries of kernels 4 and 7 (q_spmm.cu): the
+// layouts, the cp.async staging of slab and x chunks, the slab loaders
+// (DenseF32, Int8) and one pass of the apply. Storage: (nbr, bs, K*bs)
+// row-major block slabs, slot k of block row r holding block column
+// r - bw + k. What bounds each kernel and what its design does about it are
 // written at the top of its translation unit.
 //
 // The apply (apply_pass): one 256-thread block computes ntile 16-row tiles

@@ -1,8 +1,8 @@
 // The float32 fused banded SpMM + Gram kernels for Hopper (sm_90a), on
 // tensor cores, in plain CUDA C++ with a C interface (loaded with ctypes by
-// fortran_davidson_tpu_torch/ops/kernels.py). Storage as in spmm_tile.cuh:
-// (nbr, bs, K*bs) row-major block slabs, slot k of block row r holding
-// block column r - bw + k.
+// fortran_davidson_tpu_torch/ops/kernels.py). Storage: (nbr, bs, K*bs)
+// row-major block slabs, slot k of block row r holding block column
+// r - bw + k.
 //
 //   fdt_fused_gram_f32    replaces banded_bsr_spmm_gram for float32
 //       (fortran_davidson_tpu/ops/pallas_kernels.py:592, body :513):

@@ -1,27 +1,55 @@
-// Kernel 3's bf16 and float64 entries for Hopper (sm_90a): the fused banded
-// SpMM + Gram of fused_gram.cu's float32 kernel 3, on bf16 tensor cores and
-// on DMMA, one template instantiated by fused_gram_bf16.cu and
-// fused_gram_f64.cu. Storage as in fused_apply.cuh: (nbr, bs, K*bs)
-// row-major block slabs, slot k of block row r holding block column
-// r - bw + k.
+// The fused banded SpMM + Gram on Hopper (sm_90a) in bf16 and float64, on
+// dense or int8 blocks: one template, instantiated for kernel 3's bf16 and
+// float64 entries (fused_gram_bf16.cu, fused_gram_f64.cu) and for kernel
+// 5's int8 entries with float64 x (fused_gram_q8f64.cu) and with bf16 x
+// (fused_gram_q8bf16.cu, the bf16-dequant variants). Storage as in
+// fused_apply.cuh: (nbr, bs, K*bs) row-major block slabs, slot k of block
+// row r holding block column r - bw + k.
 //
 // They replace banded_bsr_spmm_gram (fortran_davidson_tpu/ops/
 // pallas_kernels.py:592, body _banded_gram_kernel :513) for bf16 and
-// float64 storage: Y = A @ X and G = V^T Y in one sweep over the blocks,
-// with the TPU kernel's types:
-// - bf16: blocks, x and v bf16; Y summed in f32 (written as f32); the gram
-//   on bf16(Y) (the TPU kernel's ybuf has v's type), G summed in f32;
-// - float64: blocks, x, v, Y and G's sums f64; G rounded to f32 once, when
-//   the partials are summed.
+// float64 storage, and banded_q_bsr_spmm_gram (pallas_kernels.py:886) for
+// float64 x and experiments/fused_probe.py's bf16-dequant modes (:170,
+// :191): Y = A @ X and G = V^T Y in one sweep over the blocks, with the
+// TPU kernels' types:
+// - bf16 (TBf16): blocks, x and v bf16; Y summed in f32 (written as f32);
+//   the gram on bf16(Y) (the TPU kernel's ybuf has v's type), G summed in
+//   f32;
+// - float64 (TF64): blocks, x, v, Y and G's sums f64; G rounded to f32
+//   once, when the partials are summed;
+// - int8 with float64 x (TQ8F64): each int8 entry times its lane's f32
+//   scale in f32, widened to f64; the band summed in f64 on DMMA in kernel
+//   4's order, rounded to f32, d o x added in f32, Y in f64 (the plain
+//   version's arithmetic, and kernel 4's float64-x Y bit for bit,
+//   q_spmm_f64.cu); G as for float64;
+// - int8 with bf16 x (TQ8Bf16): the blocks bf16(bf16(q) * bf16(s)), times
+//   the bf16 x window with f32 sums, plus d o x in f32; the gram as for
+//   bf16. Variants: the full kernel (bf16deq); kTileT (tg_bf16deq), the
+//   same function with the gram's pass spanning two ring tiles (depth
+//   2 * bs) before it frees them; kNoVT (nov_bf16), no V, G's row 0 the f32
+//   column sums of Y, the other rows zero.
 // v may be null (G = X^T A X, x itself the gram operand), y may be null
 // (write_out=False). G is (mv, m) float32.
 //
-// What bounds them on the H100, at the fused engine's widest call (n = 2^20,
-// bs = 128, bw = 1, m = 128, mv = 1408):
-// - bf16: 4.6 GB moved (V 2.95 GB of it), 1.36 ms at 3.35 TB/s; the
-//   products, 4.8e11 flops, take 0.5 ms on the bf16 tensor cores. Bytes.
-// - float64: 4.8e11 flops (the gram 3.8e11 of them), 7.2 ms at DMMA's 67
-//   TFLOP/s; V is 11.5 GB, 3.4 ms a read. Operations.
+// What bounds them on the H100:
+// - bf16 at the fused engine's widest call (n = 2^20, bs = 128, bw = 1,
+//   m = 128, mv = 1408): 4.6 GB moved (V 2.95 GB of it), 1.36 ms at 3.35
+//   TB/s; the products, 4.8e11 flops, take 0.5 ms on the bf16 tensor
+//   cores. Bytes.
+// - float64 there: 4.8e11 flops (the gram 3.8e11 of them), 7.2 ms at
+//   DMMA's 67 TFLOP/s; V is 11.5 GB, 3.4 ms a read. Operations.
+// - int8 with float64 x at the lowest-20 solve's call (n = 2,097,152,
+//   bs = 128, bw = 1, m = 20, mv = 220): the slab 0.81 GB, x and Y 0.34 GB
+//   each, V 3.69 GB: 1.55 ms at 3.35 TB/s; ~5e10 f64 flops, 0.75 ms on
+//   DMMA. Bytes, V most of them: V is read once where one column tile
+//   covers m (TN = 24 at m = 20). The slab is a quarter of float32's and
+//   an eighth of float64's bytes; its entries are widened in registers as
+//   the A fragments are formed, never stored wider.
+// - int8 with bf16 x at the probe's shape (n = 524,288, bs = 128, bw = 2,
+//   m = mv = 256): the slab 0.34 GB, x and V 0.27 GB each, ~0.87 GB, 0.26
+//   ms; 2.4e11 bf16 flops, 0.24 ms. Bytes, closely followed by operations;
+//   the dequantization (an integer and an f32 add per byte, a bf16 multiply
+//   per pair) runs on the CUDA cores beside the tensor cores.
 //
 // The design is fused_gram.cu's cluster, with Hopper's copy engine and
 // two roles a block:
@@ -33,8 +61,8 @@
 //   reused across the warp's n-tiles and every Y fragment across its
 //   m-tiles.
 // - A block's apply role (four warps) computes its rows of each block
-//   row's (bs, TN) tile of Y, in units of 16 rows by AU n8-tiles, eight
-//   units a pass (two a warp), the passes dealt round the cluster; it
+//   row's (bs, TN) tile of Y, in units of 16 rows by AU n8-tiles, 4 * UW
+//   units a pass (UW a warp), the passes dealt round the cluster; it
 //   writes them to HBM (when y is given) and into the block's copy of the
 //   tile (bf16(Y) for bf16; rows past bs as zeros), and the copy engine
 //   sends those rows to every other member (bulk shared-to-shared copies
@@ -48,9 +76,25 @@
 //   engine (TMA; the slab as a 3-D map, so columns past its slot load as
 //   zeros), issued by one thread, where the shapes allow; else the role's
 //   threads' cp.async. B fragments of x by ldmatrix.trans (bf16) or by
-//   direct loads (f64), two sets of apply sums (even and odd k-steps); A
-//   fragments of V^T by ldmatrix.trans (bf16) or by direct loads (f64). V
-//   is read once where one column tile covers m.
+//   direct loads (f64), two sets of apply sums (even and odd k-steps; one
+//   for int8 with f64 x, kernel 4's order), A fragments of V^T by
+//   ldmatrix.trans (bf16) or by direct loads (f64). V is read once where
+//   one column tile covers m.
+// - The int8 slab: a stage holds the chunk's bytes (rows of SA bytes) and
+//   its KC f32 scales (a box of the copy engine, or the threads'
+//   cp.async). An int8 type's unit spans up to kMaxAU n8-tiles of the
+//   column tile (16 rows by 32 columns for f64 x, 64 for bf16; TN = 24 at
+//   m = 20), one or two a warp, so that a pass covers 64 or 128 rows and a
+//   lane dequantizes each of its A values once for the unit's columns: for
+//   f64 x kernel 4's (16-byte loads of its row, each byte a float by an
+//   integer and an f32 add, times its column's scale in f32, widened; the
+//   products on DMMA m16n8k4); for bf16 x two bytes a register, times the
+//   bf16-rounded scales by one bf16 multiply (exact products, one
+//   rounding). One chain of sums; the apply role keeps 152 registers (a
+//   unit's sums), the gram role 176. Where the slab, x and the scales all
+//   come by the copy engine, a stage's one arrival is the producer's. The
+//   diagonal's d o x is added as the units are written, d and x's centre
+//   rows read from global memory (L2).
 // - Each ring stage has an mbarrier on which the copies land (the engine's
 //   bytes, the threads' cp.async.mbarrier.arrive); a role frees a stage
 //   with its own named barrier after a proxy fence in every reader.
@@ -59,7 +103,10 @@
 //   partial (a rounded f32 add) and restart, as fused_gram.cu does. DMMA
 //   rounds each step: the f64 registers are written once, at the end.
 // - Partials: one (mv, m) a cluster, summed by reduce_partials in a fixed
-//   order: the same inputs give the same bits.
+//   order: the same inputs give the same bits. The int8 entries' kNoVT
+//   column sums: each thread's running sums of its columns, then the
+//   lanes, the units and the cluster's members in a fixed order, into the
+//   partial's row 0.
 // - Edge windows: a slot whose block column lies outside [0, nbr) is
 //   skipped (its block is zero), so no x row outside [0, n) is read; rows
 //   and columns past the tensors' edges load as zeros; what a box reads
@@ -125,9 +172,10 @@ __host__ __device__ constexpr int f64_stride(int cols) {
   return cols + ((4 - cols % 16) + 16) % 16;
 }
 
-// The two types. kTiles: Y tiles in flight (the apply role runs up to
-// kTiles - 1 block rows ahead of the gram role); KC, NA: apply depth a
-// chunk and the apply ring's stages
+// The types. T: x's, v's and the Y tile's element; S: the slab's; kQ: an
+// int8 slab (scales and the diagonal beside it). kTiles: Y tiles in flight
+// (the apply role runs up to kTiles - 1 block rows ahead of the gram
+// role); KC, NA: apply depth a chunk and the apply ring's stages
 // (deep enough that the chunks in flight cover L2's latency); VS, NS: V
 // rows a ring stage and stages; MTR: rows of a gram m-tile (m16n8k16, DMMA m8n8k4); E: the
 // accumulators a thread holds per gram tile; SA: row stride of a staged slab chunk
@@ -135,6 +183,8 @@ __host__ __device__ constexpr int f64_stride(int cols) {
 // between partial flushes (0: one write at the end).
 struct TBf16 {
   using T = Bf16;
+  using S = Bf16;
+  static constexpr bool kQ = false;
   using Acc = float;
   static constexpr int KC = 64;
   static constexpr int VS = 32;
@@ -151,6 +201,8 @@ struct TBf16 {
 };
 struct TF64 {
   using T = double;
+  using S = double;
+  static constexpr bool kQ = false;
   using Acc = double;
   static constexpr int KC = 16;
   static constexpr int VS = 8;
@@ -165,12 +217,57 @@ struct TF64 {
     return f64_stride(cols);
   }
 };
+// The int8 slabs, on the dense types' gram layouts. Their apply units span
+// up to kMaxAU n8-tiles of the column tile (Lay), so a chunk's A
+// fragments are dequantized once for all of a unit's columns; kAccUnits:
+// the apply sums a thread holds, in units of 16 x 8 tiles (UW * AU at
+// most: 32 doubles or 64 floats). Deeper chunks for f64 x (64: each
+// chunk's fixed cost, its barrier, the named barrier and the issue, over
+// four times the products); for bf16 x a deeper apply ring where shared
+// memory holds it. SA in bytes: for f64 x the unpadded rows (four 16-byte
+// runs of kernel 4's bytes); for bf16 x 80 (20 words: the two-byte loads
+// of rows g = 0..7 fall on distinct banks).
+struct TQ8F64 : TF64 {
+  using S = int8_t;
+  static constexpr bool kQ = true;
+  static constexpr int KC = 64;
+  static constexpr int kMaxAU = 4;
+  static constexpr int kAccUnits = 8;
+  static constexpr int SA = KC;
+};
+struct TQ8Bf16 : TBf16 {
+  using S = int8_t;
+  static constexpr bool kQ = true;
+  static constexpr int kMaxAU = 8;
+  static constexpr int kAccUnits = 16;
+  static constexpr int NA = 8;
+  static constexpr int SA = KC + 16;
+};
 
 // The layout at column tile TN. Gram: WN warps along N with NT n8-tiles
 // each, WM = 8 / WN along M with MT m-tiles each (warp wm takes m-tiles wm,
-// wm + WM, ...). Apply: a unit is 16 rows by AU n8-tiles; NG units a row
-// tile; a pass is eight consecutive units, which span PR row tiles and XW
+// wm + WM, ...). Apply: a unit is 16 rows by AU n8-tiles (the int8
+// types: the whole tile, AU = TN / 8); NG units a row tile; a pass is
+// UP = 4 * UW consecutive units (UW a warp: 2, or for the int8 types as
+// many as kAccUnits allows, at most 2), which span PR row tiles and XW
 // columns of x.
+template <class M, int TN>
+constexpr int unit_tiles() {
+  if constexpr (M::kQ) {
+    return TN / 8 < M::kMaxAU ? TN / 8 : M::kMaxAU;
+  } else {
+    return !(M::MTR == 8) && TN == 128 ? 2 : 1;
+  }
+}
+template <class M>
+constexpr int units_a_warp(int au) {
+  if constexpr (M::kQ) {
+    return M::kAccUnits / au >= 2 ? 2 : 1;
+  } else {
+    return 2;
+  }
+}
+
 template <class M, int TN>
 struct Lay {
   static constexpr bool kF64 = M::MTR == 8;
@@ -180,10 +277,12 @@ struct Lay {
   static constexpr int MT = kF64 ? (TN == 8 ? 16 : TN == 16 ? 12 : 6)
                                  : (TN == 8 ? 12 : TN == 16 ? 8
                                     : TN == 128 ? 6 : 5);
-  static constexpr int AU = !kF64 && TN == 128 ? 2 : 1;
+  static constexpr int AU = unit_tiles<M, TN>();
+  static constexpr int UW = units_a_warp<M>(AU);
   static constexpr int NG = TN / 8 / AU;
-  static constexpr int XW = NG >= kWarps ? kWarps * AU * 8 : TN;
-  static constexpr int PR = NG >= kWarps ? 1 : kWarps / NG;
+  static constexpr int UP = 4 * UW;
+  static constexpr int XW = NG >= UP ? UP * AU * 8 : TN;
+  static constexpr int PR = NG >= UP ? 1 : UP / NG;
   static constexpr int cap = WM * MT * M::MTR;  // G rows a block holds
 };
 
@@ -192,11 +291,27 @@ __device__ __forceinline__ T zero() {
   return T(0.0f);
 }
 
+// The int8 slab's tables: scale[r, l], block row r's f32 scale over lane
+// l ((nbr, K*bs)), and the exact f32 diagonal diag[r*bs + i]; none for a
+// dense slab (an empty base).
+template <bool kQ>
+struct QTables {};
+template <>
+struct QTables<true> {
+  const float* scale;
+  const float* diag;
+  int off_cs;  // kNoVT's column sums: [5][TN] sums (4 warps', the block's)
+  // The scales by the copy engine ((nbr, K*bs), boxes of KC of a row);
+  // with the slab's and x's a stage's one arrival is thread 0's.
+  int tma_s;
+  CUtensorMap map_s;
+};
+
 template <class M>
-struct TParams {
+struct TParams : QTables<M::kQ> {
   using T = typename M::T;
   using Acc = typename M::Acc;
-  const T* blocks;
+  const typename M::S* blocks;
   const T* x;
   const T* v;  // the gram operand (x itself for G = X^T A X)
   long long ldv;
@@ -222,8 +337,10 @@ struct TParams {
 
 // The full kernel and two measurement variants, fused_gram.cu's (a
 // run-time switch): kNoGramT streams V through the ring but skips the
-// gram's products; kNoVT reads no V.
-enum TVariant { kFullT = 0, kNoGramT = 1, kNoVT = 2 };
+// gram's products; kNoVT reads no V (the int8 entries: G's row 0 the
+// column sums of Y). kTileT (int8 entries): the full kernel's function,
+// the gram's pass spanning two ring tiles.
+enum TVariant { kFullT = 0, kNoGramT = 1, kNoVT = 2, kTileT = 3 };
 
 // Copy the 16 bytes at s to d, `valid` elements of them readable (the
 // rest zeros): one 16-byte copy where vec allows and the run is whole,
@@ -434,6 +551,15 @@ __device__ __forceinline__ void dmma(double& c0, double& c1, double a,
       : "+d"(c0), "+d"(c1)
       : "d"(a), "d"(b));
 }
+// d += a b on DMMA m16n8k4 (sm_90): rows g and g + 8 of two m8n8k4 in one
+// instruction, the same products and sums (kernel 4's bits).
+__device__ __forceinline__ void dmma16(double (&c)[4], double a0, double a1,
+                                       double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
 __device__ __forceinline__ void bmma(float (&c)[4], const uint32_t (&a)[4],
                                      uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
@@ -462,6 +588,7 @@ struct Chunks {
   // Chunk it into ring stage b.
   __device__ __forceinline__ void issue(int it, int b) const {
     using T = typename M::T;
+    using S = typename M::S;
     using L = Lay<M, TN>;
     constexpr int KC = M::KC;
     constexpr int XP = M::stride(L::XW);
@@ -473,27 +600,44 @@ struct Chunks {
     const int k = klo + it / cps;
     const int d0 = (it - (it / cps) * cps) * KC;
     const int kc = min(KC, bs - d0);
-    T* ad = reinterpret_cast<T*>(as + b * p.a_bytes);
+    S* ad = reinterpret_cast<S*>(as + b * p.a_bytes);
     const long long xr = (rr - p.bw + k) * bs + d0;
     T* xd = xs + b * KC * XP;
     const uint32_t bar = bars + 8 * b;
+    // The int8 slab's KC scales follow its rows (zeros past its depth).
+    float* sd = reinterpret_cast<float*>(ad + L::PR * 16 * M::SA);
     if (tid == 0) {
       // Rows past kc and columns past XW of x are read and never used: the
       // slab's columns past kc are zeros, and no fragment reads past XW.
       // The slab's rows past bs feed Y's rows past bs, which are zeroed.
-      bar_expect(bar, (p.tma_a ? L::PR * 16 * M::SA * sizeof(T) : 0) +
-                          (p.tma_x ? KC * XP * sizeof(T) : 0));
+      uint32_t bytes = (p.tma_a ? L::PR * 16 * M::SA * sizeof(S) : 0) +
+                       (p.tma_x ? KC * XP * sizeof(T) : 0);
+      if constexpr (M::kQ) bytes += p.tma_s ? KC * 4 : 0;
+      bar_expect(bar, bytes);
       if (p.tma_a)
         tma_box3(ad, &p.map_a, d0, k, static_cast<int>(rr * bs + i0), bar);
       if (p.tma_x) tma_box(xd, &p.map_x, xc0, static_cast<int>(xr), bar);
+      if constexpr (M::kQ) {
+        // Scales past the slot's lanes meet the slab's zeros.
+        if (p.tma_s)
+          tma_box(sd, &p.map_s, k * bs + d0, static_cast<int>(rr), bar);
+      }
     }
     if (!p.tma_a)
-      stage_fixed<T, L::PR * 16, KC, M::SA, kApplyThreads>(
+      stage_fixed<S, L::PR * 16, KC, M::SA, kApplyThreads>(
           ad, p.blocks + (rr * bs + i0) * ldl + k * bs + d0, ldl, bs - i0, kc,
           p.vec_a != 0, tid);
     if (!p.tma_x)
       stage_fixed<T, KC, L::XW, XP, kApplyThreads>(
           xd, p.x + xr * p.m + xc0, p.m, kc, p.m - xc0, p.vec_x != 0, tid);
+    if constexpr (M::kQ) {
+      if (!p.tma_s) {
+        const float* sc = p.scale + rr * ldl + k * bs + d0;
+        for (int e = tid; e < KC; e += kApplyThreads)
+          fdt1::cp_async<4>(sd + e, e < kc ? sc + e : p.scale, e < kc);
+      }
+      if (p.tma_a && p.tma_x && p.tma_s) return;  // no thread's copies
+    }
     bar_arrive_copies(bar);
   }
   // The pass's first NA - 1 chunks (the caller has freed their stages).
@@ -506,16 +650,123 @@ struct Chunks {
   }
 };
 
+// Two int8 entries (the low two bytes of w) as bf16(bf16(q) * s), packed
+// as an mma operand (the first in the low half): q is exact in bf16, the
+// product of two bf16 values is rounded once.
+__device__ __forceinline__ uint32_t deq_pair(uint32_t w,
+                                             __nv_bfloat162 s) {
+  w ^= 0x8080u;
+  const __nv_bfloat162 d = __hmul2(
+      __floats2bfloat162_rn(fdt1::biased_s8(w, 0x7440u),
+                            fdt1::biased_s8(w, 0x7441u)),
+      s);
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// The products of one int8 slab chunk (ab: its rows of SA bytes, then its
+// KC f32 scales; xb: its x chunk) for the units of a pass, as apply_pass
+// takes them. A unit spans the column tile, so a lane forms its A values
+// of the chunk once and applies them to all AU n8-tiles; one chain of sums.
+// - f64 x: kernel 4's A values and order (stage_product<QInt8>,
+//   banded_spmm.cuh): a lane's row of the chunk in 16-byte loads, each
+//   byte times its column's scale in f32, widened; the k-steps in order on
+//   DMMA m16n8k4 (kernel 4's two m8n8k4 in one instruction), so that Y is
+//   kernel 4's bit for bit.
+// - bf16 x: a lane's two-byte pairs (columns 2t, 2t + 1 and 2t + 8, 2t + 9
+//   of a k-step) times the bf16-rounded scales; each B fragment serves
+//   the warp's units.
+template <class M, int TN>
+__device__ __forceinline__ void q_product(
+    const unsigned char* ab, const typename M::T* xb,
+    const int (&lt)[Lay<M, TN>::UW], const int (&nt0)[Lay<M, TN>::UW],
+    int nu, typename M::Acc (&acc)[Lay<M, TN>::UW][Lay<M, TN>::AU][4]) {
+  using L = Lay<M, TN>;
+  constexpr int KC = M::KC;
+  constexpr int SA = M::SA;
+  constexpr int AU = L::AU;
+  constexpr int XP = M::stride(L::XW);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* sc = reinterpret_cast<const float*>(ab + L::PR * 16 * SA);
+  if constexpr (L::kF64) {
+    static_assert(KC % 16 == 0 && SA == KC, "16-byte runs of slab rows");
+    const uint32_t sel = 0x7440u | static_cast<uint32_t>(t);
+    float s[KC / 4];
+#pragma unroll
+    for (int ks = 0; ks < KC / 4; ++ks) s[ks] = sc[ks * 4 + t];
+#pragma unroll
+    for (int i = 0; i < L::UW; ++i) {
+      if (i >= nu) break;
+      double a[2][KC / 4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int q = 0; q < KC / 16; ++q) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              ab + (lt[i] * 16 + mt * 8 + g) * SA + 16 * q);
+          const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                                     w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            a[mt][4 * q + j] = static_cast<double>(
+                __fmul_rn(fdt1::biased_s8(words[j], sel), s[4 * q + j]));
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < KC / 4; ++ks) {
+#pragma unroll
+        for (int u = 0; u < AU; ++u)
+          dmma16(acc[i][u], a[0][ks], a[1][ks],
+                 xb[(ks * 4 + t) * XP + (nt0[i] + u) * 8 + g]);
+      }
+    }
+  } else {
+    static_assert(4 % L::NG == 0, "a warp's units share one column group");
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      const __nv_bfloat162 s_lo = __float22bfloat162_rn(
+          *reinterpret_cast<const float2*>(sc + ks * 16 + 2 * t));
+      const __nv_bfloat162 s_hi = __float22bfloat162_rn(
+          *reinterpret_cast<const float2*>(sc + ks * 16 + 8 + 2 * t));
+      uint32_t af[L::UW][4];
+#pragma unroll
+      for (int i = 0; i < L::UW; ++i) {
+        if (i >= nu) break;
+        const unsigned char* lo = ab + (lt[i] * 16 + g) * SA + ks * 16 + 2 * t;
+        const unsigned char* hi = lo + 8 * SA;
+        af[i][0] = deq_pair(*reinterpret_cast<const uint16_t*>(lo), s_lo);
+        af[i][1] = deq_pair(*reinterpret_cast<const uint16_t*>(hi), s_lo);
+        af[i][2] = deq_pair(*reinterpret_cast<const uint16_t*>(lo + 8), s_hi);
+        af[i][3] = deq_pair(*reinterpret_cast<const uint16_t*>(hi + 8), s_hi);
+      }
+      const Bf16* xrow = xb + (ks * 16 + (lane & 15)) * XP;
+#pragma unroll
+      for (int u = 0; u < AU; ++u) {
+        uint32_t b0, b1;
+        fdt1::b_frag(xrow + (nt0[0] + u) * 8, b0, b1);
+#pragma unroll
+        for (int i = 0; i < L::UW; ++i) {
+          if (i >= nu) break;
+          bmma(acc[i][u], af[i], b0, b1);
+        }
+      }
+    }
+  }
+}
+
 // One pass of the apply over primed chunks, by the apply role: its warp w
-// computes units w and w + 4 of the pass (local row tiles lt[i], local
-// n8-tiles nt0[i] .. nt0[i] + AU - 1; nu of them). acc[i][a] is kernel 1's
-// layout: [0..1] row g, [2..3] row g + 8, columns 2t, 2t + 1 of n8-tile
-// nt0[i] + a. Two sets of sums, even and odd k-steps, so that product
-// chains interleave; added in a fixed order at the end.
+// computes units w, w + 4, ... (UW of them) of the pass (local row tiles
+// lt[i], local n8-tiles nt0[i] .. nt0[i] + AU - 1; nu of them). acc[i][a]
+// is kernel 1's layout: [0..1] row g, [2..3] row g + 8, columns 2t, 2t + 1
+// of n8-tile nt0[i] + a. Dense slabs: two sets of sums, even and odd
+// k-steps, so that product chains interleave; added in a fixed order at
+// the end.
 template <class M, int TN>
 __device__ __forceinline__ void apply_pass(
-    const Chunks<M, TN>& ch, const int (&lt)[2], const int (&nt0)[2], int nu,
-    typename M::Acc (&acc)[2][Lay<M, TN>::AU][4]) {
+    const Chunks<M, TN>& ch, const int (&lt)[Lay<M, TN>::UW],
+    const int (&nt0)[Lay<M, TN>::UW], int nu,
+    typename M::Acc (&acc)[Lay<M, TN>::UW][Lay<M, TN>::AU][4]) {
   using T = typename M::T;
   using Acc = typename M::Acc;
   using L = Lay<M, TN>;
@@ -527,9 +778,9 @@ __device__ __forceinline__ void apply_pass(
   const int g = lane >> 2;
   const int t = lane & 3;
   const int NA = ch.p.NA;
-  Acc odd[2][AU][4];
+  Acc odd[L::UW][AU][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < L::UW; ++i)
 #pragma unroll
     for (int a = 0; a < AU; ++a)
 #pragma unroll
@@ -549,52 +800,59 @@ __device__ __forceinline__ void apply_pass(
       b = 0;
       parity ^= 1;
     }
+    if constexpr (M::kQ) {
+      q_product<M, TN>(reinterpret_cast<const unsigned char*>(ab), xb, lt,
+                       nt0, nu, acc);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (i >= nu) break;
-      if constexpr (L::kF64) {
-        // DMMA m8n8k4: A (rows g, g + 8; k t), B (k t; column g).
+      for (int i = 0; i < L::UW; ++i) {
+        if (i >= nu) break;
+        if constexpr (L::kF64) {
+          // DMMA m8n8k4: A (rows g, g + 8; k t), B (k t; column g).
 #pragma unroll
-        for (int ks = 0; ks < KC / 4; ++ks) {
-          const double a0 = ab[(lt[i] * 16 + g) * SA + ks * 4 + t];
-          const double a1 = ab[(lt[i] * 16 + 8 + g) * SA + ks * 4 + t];
+          for (int ks = 0; ks < KC / 4; ++ks) {
+            const double a0 = ab[(lt[i] * 16 + g) * SA + ks * 4 + t];
+            const double a1 = ab[(lt[i] * 16 + 8 + g) * SA + ks * 4 + t];
 #pragma unroll
-          for (int a = 0; a < AU; ++a) {
-            const double bx = xb[(ks * 4 + t) * XP + (nt0[i] + a) * 8 + g];
-            double (&c)[4] = ks % 2 ? odd[i][a] : acc[i][a];
-            dmma(c[0], c[1], a0, bx);
-            dmma(c[2], c[3], a1, bx);
+            for (int a = 0; a < AU; ++a) {
+              const double bx = xb[(ks * 4 + t) * XP + (nt0[i] + a) * 8 + g];
+              double (&c)[4] = ks % 2 ? odd[i][a] : acc[i][a];
+              dmma(c[0], c[1], a0, bx);
+              dmma(c[2], c[3], a1, bx);
+            }
           }
-        }
-      } else {
-        // mma.sync m16n8k16: A by 32-bit loads (kernel 1's), B by
-        // ldmatrix.trans.
+        } else {
+          // mma.sync m16n8k16: A by 32-bit loads (kernel 1's), B by
+          // ldmatrix.trans.
 #pragma unroll
-        for (int ks = 0; ks < KC / 16; ++ks) {
-          const Bf16* a_lo = ab + (lt[i] * 16 + g) * SA + ks * 16 + 2 * t;
-          const Bf16* a_hi = a_lo + 8 * SA;
-          const uint32_t af[4] = {
-              *reinterpret_cast<const uint32_t*>(a_lo),
-              *reinterpret_cast<const uint32_t*>(a_hi),
-              *reinterpret_cast<const uint32_t*>(a_lo + 8),
-              *reinterpret_cast<const uint32_t*>(a_hi + 8)};
-          const Bf16* xrow = xb + (ks * 16 + (lane & 15)) * XP;
+          for (int ks = 0; ks < KC / 16; ++ks) {
+            const Bf16* a_lo = ab + (lt[i] * 16 + g) * SA + ks * 16 + 2 * t;
+            const Bf16* a_hi = a_lo + 8 * SA;
+            const uint32_t af[4] = {
+                *reinterpret_cast<const uint32_t*>(a_lo),
+                *reinterpret_cast<const uint32_t*>(a_hi),
+                *reinterpret_cast<const uint32_t*>(a_lo + 8),
+                *reinterpret_cast<const uint32_t*>(a_hi + 8)};
+            const Bf16* xrow = xb + (ks * 16 + (lane & 15)) * XP;
 #pragma unroll
-          for (int a = 0; a < AU; ++a) {
-            uint32_t b0, b1;
-            fdt1::b_frag(xrow + (nt0[i] + a) * 8, b0, b1);
-            bmma(ks % 2 ? odd[i][a] : acc[i][a], af, b0, b1);
+            for (int a = 0; a < AU; ++a) {
+              uint32_t b0, b1;
+              fdt1::b_frag(xrow + (nt0[i] + a) * 8, b0, b1);
+              bmma(ks % 2 ? odd[i][a] : acc[i][a], af, b0, b1);
+            }
           }
         }
       }
     }
   }
+  if constexpr (!M::kQ) {  // (q_product: one chain)
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < L::UW; ++i)
 #pragma unroll
-    for (int a = 0; a < AU; ++a)
+      for (int a = 0; a < AU; ++a)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][a][e] += odd[i][a][e];
+        for (int e = 0; e < 4; ++e) acc[i][a][e] += odd[i][a][e];
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(const Bf16* p, uint32_t (&a)[4]) {
@@ -705,6 +963,50 @@ __device__ __forceinline__ void flush(
   }
 }
 
+// The int8 slab's last step of Y's elements (row gr, columns c and
+// c + 1), as the units are written: plus d o x_centre in f32 (d the row's
+// diagonal entry), x read from global memory (L2). f64 x: the band's f64
+// sum rounded to f32 first, the result widened (kernel 4's finish,
+// banded_spmm.cuh); bf16 x: the f32 sum.
+template <class M>
+__device__ __forceinline__ void q_finish(const TParams<M>& p, long long gr,
+                                         int c, float d, typename M::Acc& v0,
+                                         typename M::Acc& v1) {
+  const typename M::T* xr = p.x + gr * p.m + c;
+  if constexpr (sizeof(typename M::T) == 8) {
+    if (c < p.m)
+      v0 = static_cast<double>(__fadd_rn(
+          static_cast<float>(v0), __fmul_rn(d, static_cast<float>(__ldg(xr)))));
+    if (c + 1 < p.m)
+      v1 = static_cast<double>(
+          __fadd_rn(static_cast<float>(v1),
+                    __fmul_rn(d, static_cast<float>(__ldg(xr + 1)))));
+  } else {
+    if (c < p.m) v0 = __fadd_rn(v0, __fmul_rn(d, __bfloat162float(__ldg(xr))));
+    if (c + 1 < p.m)
+      v1 = __fadd_rn(v1, __fmul_rn(d, __bfloat162float(__ldg(xr + 1))));
+  }
+}
+
+// The int8 entries' kNoVT: a warp's column sums of Y, running in its row
+// of shared memory csw[warp][TN]: the two values (columns c, c + 1) a
+// lane holds of a unit's n8-tile, summed over the eight lanes of each
+// column in a fixed order and added by the first lane of each column, pass
+// after pass.
+template <typename Acc>
+__device__ __forceinline__ void q_colsum_add(Acc* csw, int col, Acc c0,
+                                             Acc c1) {
+#pragma unroll
+  for (int o = 4; o < 32; o *= 2) {
+    c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+  }
+  if ((threadIdx.x & 31) < 4) {
+    csw[col] += c0;
+    csw[col + 1] += c1;
+  }
+}
+
 template <class M, int TN>
 __global__ void __launch_bounds__(kRoleThreads, 1)
 typed_gram_kernel(const __grid_constant__ TParams<M> p) {
@@ -742,6 +1044,10 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
   for (int e = p.RT * 16 * p.YP + threadIdx.x; e < tile; e += kRoleThreads)
 #pragma unroll
     for (int k = 0; k < NT; ++k) ys[k * tile + e] = zero<T>();
+  if constexpr (M::kQ) {
+    Acc* csm = reinterpret_cast<Acc*>(smem + p.off_cs);
+    for (int e = threadIdx.x; e < 5 * TN; e += kRoleThreads) csm[e] = Acc(0);
+  }
   T* vs = reinterpret_cast<T*>(smem + p.off_v);  // [NS][VS][VP]
   unsigned char* as = smem + p.off_a;            // [NA][a_bytes]
   T* xs = reinterpret_cast<T*>(smem + p.off_x);  // [NA][KC][XP]
@@ -757,7 +1063,11 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
   const uint32_t ebars = fbars + 8 * NT;
   if (threadIdx.x == 0) {
     for (int i = 0; i < NS; ++i) bar_init(vbars + 8 * i, kGramThreads + 1);
-    for (int i = 0; i < p.NA; ++i) bar_init(abars + 8 * i, kApplyThreads + 1);
+    int arrivals = kApplyThreads + 1;
+    if constexpr (M::kQ) {
+      if (p.tma_a && p.tma_x && p.tma_s) arrivals = 1;
+    }
+    for (int i = 0; i < p.NA; ++i) bar_init(abars + 8 * i, arrivals);
     for (int i = 0; i < NT; ++i) {
       bar_init(fbars + 8 * i, 1);
       bar_init(ebars + 8 * i, p.C);
@@ -770,11 +1080,17 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
   const bool no_v = p.variant == kNoVT;
 
   if (warp < kApplyThreads / 32) {
-    // The apply role needs few registers; the gram role's G holds most.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+    // The apply role needs few registers; the gram role's G holds most
+    // (the int8 types' apply holds wider units' sums: more).
+    if constexpr (M::kQ) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 152;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+    }
     // -- the apply role: units of 16 rows by AU n8-tiles, NG a row tile,
-    //    row tile major; pass q takes units 8q .. 8q + 7 (warp w units w
-    //    and w + 4), and this block the passes rank, rank + C, ... < Q.
+    //    row tile major; pass q takes units UP q .. UP (q + 1) - 1 (warp w
+    //    units w, w + 4, ...), and this block the passes rank, rank + C,
+    //    ... < Q.
     //    The ring's chunks are numbered in the order they are issued
     //    (abase: the next pass's first); a pass's first NA - 1 are issued
     //    ahead of it, the next row's during this row's exchange.
@@ -782,7 +1098,7 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
     const int my_passes = rank < p.Q ? (p.Q - 1 - rank) / p.C + 1 : 0;
     const int cps = (bs + KC - 1) / KC;
     auto chunks = [&](long long rr, int ps, int base) {
-      const int u0 = (rank + ps * p.C) * kWarps;
+      const int u0 = (rank + ps * p.C) * L::UP;
       const int klo = static_cast<int>(max(0LL, p.bw - rr));
       const int khi = static_cast<int>(min(static_cast<long long>(p.K),
                                            p.nbr + p.bw - rr));
@@ -805,7 +1121,7 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
         role_sync(1, kApplyThreads);
       };
       for (int ps = 0; ps < my_passes; ++ps) {
-        const int u0 = (rank + ps * p.C) * kWarps;
+        const int u0 = (rank + ps * p.C) * L::UP;
         const int rt0 = u0 / L::NG;
         const Chunks<M, TN> ch = chunks(rr, ps, abase);
         if (ps > 0) {
@@ -813,9 +1129,9 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
           role_sync(1, kApplyThreads);  // the previous pass's stages are free
           ch.prime();
         }
-        int uu[2], lt[2], nt0[2], nu = 0;
+        int uu[L::UW], lt[L::UW], nt0[L::UW], nu = 0;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < L::UW; ++h) {
           const int u = u0 + warp + 4 * h;
           if (u < units) {
             uu[nu] = u;
@@ -824,7 +1140,7 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
             ++nu;
           }
         }
-        Acc acc[2][AU][4];
+        Acc acc[L::UW][AU][4];
         apply_pass<M, TN>(ch, lt, nt0, nu, acc);
         abase += ch.n_chunks;
         if (ps + 1 == my_passes && rr + 1 < r1) {
@@ -836,18 +1152,32 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
         // The units to HBM and into this block's tile (rows past bs:
         // zeros).
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < L::UW; ++h) {
           if (h >= nu) break;
           const int u = uu[h];
+          float dg[2] = {};  // the int8 slab's diagonal at rows g, g + 8
+          if constexpr (M::kQ) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = (u / L::NG) * 16 + g + 8 * hh;
+              if (row < bs) dg[hh] = __ldg(p.diag + rr * bs + row);
+            }
+          }
 #pragma unroll
           for (int a = 0; a < AU; ++a) {
             const int col = (u % L::NG) * AU * 8 + a * 8 + 2 * t;
+            Acc cs0 = Acc(0), cs1 = Acc(0);  // kNoVT's column sums
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const int row = (u / L::NG) * 16 + g + 8 * hh;
               const bool live = row < bs;
-              const Acc v0 = live ? acc[h][a][2 * hh] : Acc(0);
-              const Acc v1 = live ? acc[h][a][2 * hh + 1] : Acc(0);
+              Acc v0 = live ? acc[h][a][2 * hh] : Acc(0);
+              Acc v1 = live ? acc[h][a][2 * hh + 1] : Acc(0);
+              if constexpr (M::kQ) {
+                if (live) q_finish(p, rr * bs + row, c0 + col, dg[hh], v0, v1);
+                cs0 += v0;
+                cs1 += v1;
+              }
               if (p.y != nullptr && live) {
                 const long long gr = rr * bs + row;
                 if (c0 + col < m) p.y[gr * m + c0 + col] = v0;
@@ -861,6 +1191,12 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
                     __floats2bfloat162_rn(v0, v1);
               }
             }
+            if constexpr (M::kQ) {
+              if (no_v)
+                q_colsum_add(
+                    reinterpret_cast<Acc*>(smem + p.off_cs) + warp * TN, col,
+                    cs0, cs1);
+            }
           }
         }
       }
@@ -873,7 +1209,7 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
       if (threadIdx.x == 0) {
         int mine = 0;
         for (int ps = 0; ps < my_passes; ++ps) {
-          const int rt0 = (rank + ps * p.C) * kWarps / L::NG;
+          const int rt0 = (rank + ps * p.C) * L::UP / L::NG;
           const int rows = min(L::PR * 16, p.RT * 16 - rt0 * 16);
           mine += rows;
           for (int q = 0; q < p.C; ++q)
@@ -886,8 +1222,22 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
       }
     }
     if (threadIdx.x == 0) bulk_wait_read();
+    if constexpr (M::kQ) {
+      if (no_v) {
+        // This block's column sums: its four warps' in order.
+        Acc* csm = reinterpret_cast<Acc*>(smem + p.off_cs);
+        role_sync(1, kApplyThreads);
+        for (int c = threadIdx.x; c < TN; c += kApplyThreads)
+          csm[4 * TN + c] =
+              ((csm[c] + csm[TN + c]) + csm[2 * TN + c]) + csm[3 * TN + c];
+      }
+    }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    if constexpr (M::kQ) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 176;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+    }
     // -- the gram role: G[a_base + i, c0 + c] += sum_k V[rr*bs + k,
     //    a_base + i] Y[k, c]; V item j is stage j % stages of block row
     //    r0 + j / stages, in ring stage j % NS.
@@ -946,10 +1296,21 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
         gram_stage<M, TN>(vs + (j % NS) * VS * p.VP, yt + s * VS * p.YP,
                           p.VP, p.YP, wm, wn, mbv, gacc);
       }
+      if constexpr (M::kQ) {
+        // kTileT: the pass goes on into the next row's tile, and frees
+        // both after it.
+        if (p.variant == kTileT && (i & 1) == 0 && rr + 1 < r1) continue;
+      }
       // This member reads the tile no more: every member may write it.
       fence_proxy();
       role_sync(2, kGramThreads);
-      if (gtid == 0) arrive_members(ebars + 8 * b, p.C);
+      if (gtid == 0) {
+        if constexpr (M::kQ) {
+          if (p.variant == kTileT && (i & 1) == 1)
+            arrive_members(ebars + 8 * ((i - 1) % NT), p.C);
+        }
+        arrive_members(ebars + 8 * b, p.C);
+      }
 
       if constexpr (M::kFlush > 0) {
         // Every kFlush block rows (and at the end), the registers into the
@@ -967,6 +1328,21 @@ typed_gram_kernel(const __grid_constant__ TParams<M> p) {
   // No member leaves while another may still copy into it or arrive on
   // its barriers.
   cluster.sync();
+  if constexpr (M::kQ) {
+    if (no_v) {
+      // G's row 0: the members' column sums in rank order, over the zeros
+      // that member 0's gram role wrote there; no member leaves before
+      // they are read.
+      const Acc* cb = reinterpret_cast<const Acc*>(smem + p.off_cs) + 4 * TN;
+      const int c = static_cast<int>(threadIdx.x);
+      if (rank == 0 && c < TN && c0 + c < m) {
+        Acc sum = Acc(0);
+        for (int q = 0; q < p.C; ++q) sum += cluster.map_shared_rank(cb, q)[c];
+        p.partial[static_cast<long long>(grp) * p.mv * m + c0 + c] = sum;
+      }
+      cluster.sync();
+    }
+  }
 }
 
 // -- host side ---------------------------------------------------------------
@@ -992,6 +1368,15 @@ EncodeTiled tma_encoder() {
   return fn;
 }
 
+// The copy engine's element type of T (int8 slabs as bytes).
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(T) == 8   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+         : sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
+
 // A (rows, cols) tensor of row stride ld elements as a 2-D map with
 // (box_rows, box_cols) boxes, unswizzled; elements past its edges load as
 // zeros. False where the map cannot take it.
@@ -1002,9 +1387,7 @@ bool tma_map(CUtensorMap* map, const T* base, long long rows, long long cols,
   if (fn == nullptr || !fdt1::aligned16(base) || (ld * sizeof(T)) % 16 != 0 ||
       box_rows > 256 || box_cols > 256 || (box_cols * sizeof(T)) % 16 != 0)
     return false;
-  const CUtensorMapDataType type = sizeof(T) == 8
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType type = tma_type<T>();
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * sizeof(T)};
@@ -1035,9 +1418,7 @@ bool tma_slab_map(CUtensorMap* map, const T* base, long long rows, int K,
   if (fn == nullptr || !fdt1::aligned16(base) || (bs * sizeof(T)) % 16 != 0 ||
       box_rows > 256 || box_cols > 256 || (box_cols * sizeof(T)) % 16 != 0)
     return false;
-  const CUtensorMapDataType type = sizeof(T) == 8
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType type = tma_type<T>();
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bs),
                               static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(rows)};
@@ -1064,7 +1445,7 @@ bool plan_at(int bs, int mv, int optin, TPlan<M>* plan) {
   using T = typename M::T;
   using L = Lay<M, TN>;
   const int RT = (bs + 15) / 16;
-  const int Q = (RT * L::NG + kWarps - 1) / kWarps;
+  const int Q = (RT * L::NG + L::UP - 1) / L::UP;
   for (int C = max(1, (mv + L::cap - 1) / L::cap); C <= kMaxCluster; ++C) {
     if (Q > C && Q % C != 0 && Q <= kMaxCluster) continue;
     TParams<M>& p = plan->p;
@@ -1080,7 +1461,14 @@ bool plan_at(int bs, int mv, int optin, TPlan<M>* plan) {
     // kTiles Y tiles.
     const long long ys_bytes = 1LL * M::kTiles * p.ys_rows * p.YP * sz;
     const long long v_bytes = static_cast<long long>(M::NS) * M::VS * p.VP * sz;
-    const long long a_bytes = (L::PR * 16 * M::SA * sz + 15) / 16 * 16;
+    // A slab stage (int8: its rows, then its KC scales; a stage of the
+    // copy engine's starts on 128 bytes).
+    const long long a_bytes =
+        M::kQ ? (L::PR * 16 * M::SA + M::KC * 4 + 127) / 128 * 128
+              : (L::PR * 16 * M::SA * sz + 15) / 16 * 16;
+    // The int8 types' kNoVT column sums, after the barriers.
+    const long long cs_bytes =
+        M::kQ ? 5LL * TN * static_cast<long long>(sizeof(typename M::Acc)) : 0;
     // The deepest apply ring (M::NA down to 3 stages) that fits.
     long long x_bytes = 0, smem = 0;
     int na = M::NA;
@@ -1088,6 +1476,7 @@ bool plan_at(int bs, int mv, int optin, TPlan<M>* plan) {
       x_bytes = static_cast<long long>(na) * M::KC * p.XP * sz;
       smem = (ys_bytes + 127) / 128 * 128 + v_bytes + na * a_bytes + x_bytes +
              8 * (M::NS + na + 2 * M::kTiles);
+      if (cs_bytes > 0) smem = rup(static_cast<int>(smem), 16) + cs_bytes;
       if (smem <= optin) break;
     }
     if (na < 3) continue;
@@ -1097,6 +1486,8 @@ bool plan_at(int bs, int mv, int optin, TPlan<M>* plan) {
     p.off_a = p.off_v + static_cast<int>(v_bytes);
     p.off_x = p.off_a + na * p.a_bytes;
     p.off_bar = p.off_x + static_cast<int>(x_bytes);
+    if constexpr (M::kQ)
+      p.off_cs = static_cast<int>(smem - cs_bytes);
     plan->TN = TN;
     plan->smem = static_cast<int>(smem);
     return true;
@@ -1147,8 +1538,8 @@ bool fits(int bs, int mv, int optin, TPlan<M>* plan,
 }
 
 // The widest column tile TN (m rounded up to 8, at most 128) that has a
-// layout, narrower ones after it; the grid then has ceil(m / TN) column
-// tiles.
+// layout, narrower ones after it (the int8 types also 24); the grid then
+// has ceil(m / TN) column tiles.
 template <class M>
 cudaError_t make_plan(int bs, int m, int mv, TPlan<M>* plan,
                       int* clusters) {
@@ -1163,6 +1554,12 @@ cudaError_t make_plan(int bs, int m, int mv, TPlan<M>* plan,
   if constexpr (Lay<M, 128>::XW == 128)
     if (!ok && want > 64) ok = fits<M, 128>(bs, mv, optin, plan, clusters);
   if (!ok && want > 32) ok = fits<M, 64>(bs, mv, optin, plan, clusters);
+  if constexpr (M::kQ) {
+    // An int8 type's unit spans its tile, so a tile of 24 pads no column
+    // at the lowest-20 solve's m = 20.
+    if (!ok && want > 16 && want <= 24)
+      ok = fits<M, 24>(bs, mv, optin, plan, clusters);
+  }
   if (!ok && want > 16) ok = fits<M, 32>(bs, mv, optin, plan, clusters);
   if (!ok && want > 8) ok = fits<M, 16>(bs, mv, optin, plan, clusters);
   if (!ok) ok = fits<M, 8>(bs, mv, optin, plan, clusters);
@@ -1189,6 +1586,11 @@ cudaError_t run(const TPlan<M>& plan, float* g, cudaStream_t stream) {
   p.tma_a = p.off_a % 128 == 0 && p.a_bytes % 128 == 0 &&
             tma_slab_map(&p.map_a, p.blocks, n, p.K, p.bs,
                          Lay<M, TN>::PR * 16, M::SA);
+  if constexpr (M::kQ) {
+    const long long lanes = static_cast<long long>(p.K) * p.bs;
+    p.tma_s = p.off_a % 128 == 0 && p.a_bytes % 128 == 0 &&
+              tma_map(&p.map_s, p.scale, p.nbr, lanes, lanes, 1, M::KC);
+  }
   if (p.n_groups < 1 || p.n_groups > p.nbr) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -1212,14 +1614,15 @@ cudaError_t run(const TPlan<M>& plan, float* g, cudaStream_t stream) {
 // resident) and launch nothing; else launch with n_groups row groups. v
 // null: G = X^T A X (mv == m).
 template <class M>
-int typed_gram(const typename M::T* blocks, const typename M::T* x,
+int typed_gram(const typename M::S* blocks, const typename M::T* x,
                const typename M::T* v, long long ldv, typename M::Acc* y,
                typename M::Acc* partial, float* g, int nbr, int bs, int K,
                int bw, int m, int mv, int n_groups, int variant,
-               int* out, void* stream) {
+               int* out, void* stream, const float* scale = nullptr,
+               const float* diag = nullptr) {
   using T = typename M::T;
   if (nbr <= 0 || bs <= 0 || K <= 0 || m <= 0 || mv <= 0) return 0;
-  if (variant < kFullT || variant > kNoVT)
+  if (variant < kFullT || variant > (M::kQ ? kTileT : kNoVT))
     return static_cast<int>(cudaErrorInvalidValue);
   if (out == nullptr && v == nullptr) {
     if (mv != m) return static_cast<int>(cudaErrorInvalidValue);
@@ -1255,7 +1658,12 @@ int typed_gram(const typename M::T* blocks, const typename M::T* x,
   p.mv = mv;
   p.n_groups = n_groups;
   p.variant = variant;
-  p.vec_a = fdt1::aligned16(blocks) && bs % V == 0;
+  if constexpr (M::kQ) {
+    p.scale = scale;
+    p.diag = diag;
+  }
+  p.vec_a = fdt1::aligned16(blocks) &&
+            bs % (16 / static_cast<int>(sizeof(typename M::S))) == 0;
   p.vec_x = fdt1::aligned16(x) && m % V == 0;
   p.vec_v = fdt1::aligned16(v) && ldv % V == 0;
 
@@ -1263,6 +1671,12 @@ int typed_gram(const typename M::T* blocks, const typename M::T* x,
   switch (plan.TN) {
     case 8: err = run<M, 8>(plan, g, s); break;
     case 16: err = run<M, 16>(plan, g, s); break;
+    case 24:
+      if constexpr (M::kQ)
+        err = run<M, 24>(plan, g, s);
+      else
+        err = cudaErrorInvalidValue;
+      break;
     case 32: err = run<M, 32>(plan, g, s); break;
     case 64: err = run<M, 64>(plan, g, s); break;
     default:

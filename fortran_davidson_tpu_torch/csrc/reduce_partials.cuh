@@ -1,7 +1,7 @@
 // The fixed-order sum of a fused SpMM + Gram kernel's partials, shared by
-// fused_gram.cu, q_spmm.cu and fused_gram_var_bf16.cu (through
-// fused_apply.cuh), fused_gram_typed.cuh and banded_gram.cu: each cluster
-// or thread-block group writes one (mv, m) partial of G, and this kernel
+// fused_gram.cu and q_spmm.cu (through fused_apply.cuh) and
+// fused_gram_typed.cuh: each cluster or thread-block group writes one
+// (mv, m) partial of G, and this kernel
 // adds them in group order, so the same inputs give the same bits.
 
 #pragma once

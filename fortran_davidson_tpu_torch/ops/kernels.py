@@ -2,8 +2,7 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/`` (kernel 5's float64-x entry on the shared
-SIMT tile of ``csrc/spmm_tile.cuh``), and the TPU measurement kernels as
+Eight kernels, in ``csrc/``, and the TPU measurement kernels as
 variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
@@ -30,8 +29,11 @@ variants:
   float64 x on kernel 1's template with an int8 slab, products on DMMA
   (``csrc/q_spmm_f64.cu``; its layout by :func:`q_spmm_f64_plan`).
 - :func:`banded_q_bsr_spmm_gram` replaces ``banded_q_bsr_spmm_gram``
-  (``pallas_kernels.py:886``): the int8 apply, slot by slot on tensor
-  cores, fused with the gram (``csrc/fused_gram.cu``).
+  (``pallas_kernels.py:886``): the int8 apply fused with the gram; float32
+  x slot by slot on tensor cores (``csrc/fused_gram.cu``), float64 x on
+  kernel 3's typed template with an int8 slab, products on DMMA
+  (``csrc/fused_gram_q8f64.cu`` on ``csrc/fused_gram_typed.cuh``; its
+  layout by :func:`fused_typed_plan` with ``quant=True``).
 - :func:`banded_ext_bsr_spmm` replaces ``banded_ext_bsr_spmm``
   (``pallas_kernels.py:1190``): kernel 1 over a shard's halo-extended
   rows, every window valid, on kernel 1's design (``csrc/ext_spmm.cu``):
@@ -53,13 +55,13 @@ Measurement variants, never called by a path of the port:
 ``bench.py:85`` ``_copy_roofline_kernel``, and the ``experiments/``
 SpMM probes; ``csrc/banded_spmm_var_*.cu``; their layout by
 :func:`banded_spmm_plan`) and :func:`fused_gram_variant` (kernels 3 and
-5; kernel 5's bf16-dequant variants in ``csrc/fused_gram_var_bf16.cu``,
-their plain versions :func:`fused_gram_variant_plain`).
+5; kernel 5's bf16-dequant variants on the typed template's int8 slab,
+``csrc/fused_gram_q8bf16.cu``, their plain versions
+:func:`fused_gram_variant_plain`).
 
 What bounds them on the H100, and what the designs do about it, is
 written at the top of each source. Every kernel runs on tensor cores
-(kernels 1, 2, 6 and 8 in float32 on FFMA) but kernel 5 with float64 x,
-on the shared SIMT tile, not tuned yet.
+(kernels 1, 2, 6 and 8 in float32 on FFMA).
 
 Types: dense storage is float64, float32, or bfloat16 (bf16 blocks and x,
 summed in float32, as the TPU kernels do); int8 storage takes float32 or
@@ -122,26 +124,19 @@ _ARGTYPES = {
     # q, scale_rows, diag, x, y, nbr, bs, K, bw, m, stream
     **{f"fdt_banded_q_bsr_spmm_{s}": [_P, _P, *_BANDED]
        for s in ("f32", "f64")},
-    # q, scale_rows, diag, then the dense gram entry's arguments from x on
-    "fdt_banded_q_bsr_spmm_gram_f64": [_P, _P, *_GRAM],
     "fdt_fused_gram_f32": _FUSED,
-    # Kernel 3's bf16 and float64 entries (csrc/fused_gram_typed.cuh).
+    # Kernel 3's bf16 and float64 entries and kernel 5's int8 entries with
+    # float64 and bf16 x (csrc/fused_gram_typed.cuh).
     **{f"fdt_fused_gram_{s}": _FUSED for s in ("bf16", "f64")},
     # nbr, bs, K, m, mv, out[6]
     **{f"fdt_fused_gram_{s}_plan": [_I, _I, _I, _I, _I,
                                     ctypes.POINTER(ctypes.c_int)]
-       for s in ("bf16", "f64")},
+       for s in ("bf16", "f64", "q8bf16", "q8f64")},
     # q, scale_rows, diag, then the dense entry's arguments from x on
-    "fdt_fused_q_gram_f32": [_P, _P, _P, *_FUSED[1:]],
+    **{f"fdt_fused_{s}": [_P, _P, _P, *_FUSED[1:]]
+       for s in ("q_gram_f32", "gram_q8bf16", "gram_q8f64")},
     # quant, variant, nbr, bs, K, m, mv, out[6]
     "fdt_fused_gram_plan": [_I, _I, _I, _I, _I, _I, _I,
-                            ctypes.POINTER(ctypes.c_int)],
-    # q, scale_rows, diag, x, v, ldv, partial, g, nbr, bs, K, bw, m, mv,
-    # n_groups, variant, stream
-    "fdt_fused_q_gram_bf16": [_P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _P],
-    # variant, nbr, bs, K, m, mv, out[6]
-    "fdt_fused_bf16_plan": [_I, _I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_int)],
     # nbr, m, out[5]
     "fdt_q_spmm_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
@@ -354,8 +349,7 @@ _FUSED_ENTRY = {"banded_bsr_spmm_gram": ("fdt_fused_gram_f32", 0),
 # kernel, then its measurement variants (:func:`fused_gram_variant`), in
 # the order of their C enum.
 F32_VARIANTS = ("full", "nov", "nogram")
-# Kernel 5's bf16-dequant variants (csrc/fused_gram_var_bf16.cu), in the
-# order of their C enum.
+# Kernel 5's bf16-dequant variants (csrc/fused_gram_q8bf16.cu).
 BF16_VARIANTS = ("bf16deq", "tg_bf16deq", "nov_bf16")
 GRAM_VARIANTS = F32_VARIANTS + BF16_VARIANTS
 FUSED_PLAN_KEYS = ("n_groups", "TN", "C", "MB", "smem_bytes",
@@ -386,45 +380,42 @@ def fused_gram_plan(device_index: int, quant: int, variant: str, nbr: int,
                  m, mv)
 
 
-# Kernel 3's bf16 and float64 entries (csrc/fused_gram_typed.cuh): their
-# storage types, and their measurement variants in the order of the C
-# enum, those of the float32 kernel: the full kernel; V streamed, no gram
-# products; no V.
+# The typed template (csrc/fused_gram_typed.cuh): kernel 3's bf16 and
+# float64 entries, and kernel 5's int8 entries with float64 x and with bf16
+# x (the bf16-dequant variants). Their x types, and their variants in the
+# order of the C enum: the full kernel; V streamed, no gram products; no V
+# (the int8 entries: G's row 0 the column sums of Y); the int8 entries'
+# gram pass over two ring tiles.
 TYPED_TYPES = (torch.bfloat16, torch.float64)
-TYPED_VARIANTS = ("full", "nogram", "nov")
+TYPED_VARIANTS = ("full", "nogram", "nov", "tg")
+# The bf16-dequant variants as variants of the int8 bf16 entry.
+_BF16_TYPED = {"bf16deq": "full", "tg_bf16deq": "tg", "nov_bf16": "nov"}
 
 
 @functools.lru_cache(maxsize=256)
 def fused_typed_plan(device_index: int, dtype: torch.dtype, nbr: int,
-                     bs: int, K: int, m: int, mv: int) -> dict:
-    """The layout of a call of kernel 3's bf16 or float64 entry
-    (``csrc/fused_gram_typed.cuh``), as :func:`fused_gram_plan` reports the
-    float32 kernels': row groups, column tile TN, cluster size C, G rows a
-    block MB, dynamic shared memory a block, clusters resident. A width
-    that no layout holds raises ``RuntimeError``."""
-    return _plan(f"fdt_fused_gram_{_SUFFIX[dtype]}_plan", device_index,
-                 f"no layout holds {dtype} nbr={nbr} bs={bs} K={K} m={m} "
-                 f"mv={mv}", nbr, bs, K, m, mv)
-
-
-@functools.lru_cache(maxsize=256)
-def fused_bf16_plan(device_index: int, variant: str, nbr: int, bs: int,
-                    K: int, m: int, mv: int) -> dict:
-    """The layout of a call of kernel 5's bf16-dequant variants
-    (``csrc/fused_gram_var_bf16.cu``; ``variant`` one of
-    :data:`BF16_VARIANTS`), as :func:`fused_gram_plan` reports it."""
-    return _plan("fdt_fused_bf16_plan", device_index,
-                 f"{variant} nbr={nbr} bs={bs} K={K} m={m} mv={mv}",
-                 BF16_VARIANTS.index(variant), nbr, bs, K, m, mv)
+                     bs: int, K: int, m: int, mv: int,
+                     quant: bool = False) -> dict:
+    """The layout of a call of an entry of ``csrc/fused_gram_typed.cuh``
+    (x of ``dtype``; kernel 3's dense entries, or with ``quant`` kernel 5's
+    int8 ones), as :func:`fused_gram_plan` reports the float32 kernels':
+    row groups, column tile TN, cluster size C, G rows a block MB, dynamic
+    shared memory a block, clusters resident. A width that no layout holds
+    raises ``RuntimeError``."""
+    slab = "int8 blocks, " if quant else ""
+    return _plan(f"fdt_fused_gram_{'q8' if quant else ''}{_SUFFIX[dtype]}"
+                 "_plan", device_index,
+                 f"no layout holds {slab}{dtype} x nbr={nbr} bs={bs} K={K} "
+                 f"m={m} mv={mv}", nbr, bs, K, m, mv)
 
 
 def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
                  write_out: bool, acc, nbr: int, bs: int, K: int, bw: int,
                  variant: str = "full"):
     """Allocate Y (optional), G and the partials' scratch, and launch a
-    fused SpMM+Gram entry: float32 to ``csrc/fused_gram.cu``, kernel 3's
-    float64 and bf16 storage to ``csrc/fused_gram_typed.cuh``, int8 storage
-    with float64 x to ``csrc/banded_gram.cu``."""
+    fused SpMM+Gram entry: float32 x to ``csrc/fused_gram.cu``; float64 and
+    bf16 x, dense (kernel 3) or int8 (kernel 5), to
+    ``csrc/fused_gram_typed.cuh``."""
     if v is not None and v.dtype != x.dtype:
         raise NotImplementedError(
             f"{name}: v {v.dtype} with x {x.dtype} has no CUDA kernel; "
@@ -453,22 +444,16 @@ def _gram_launch(name: str, sfx: str, lead_ptrs: tuple, x, v,
         _run(entry, dev, *lead_ptrs, x.data_ptr(), vp, ldv, yp,
              scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
              n_groups, F32_VARIANTS.index(variant))
-    elif name == "banded_bsr_spmm_gram":
+    else:
+        quant = name == "banded_q_bsr_spmm_gram"
         vp = None if v is None else v.data_ptr()
-        n_groups = fused_typed_plan(index, x.dtype, nbr, bs, K, m,
-                                    mv)["n_groups"]
+        n_groups = fused_typed_plan(index, x.dtype, nbr, bs, K, m, mv,
+                                    quant)["n_groups"]
         scratch = torch.empty((n_groups, mv, m), dtype=acc_dtype(x.dtype),
                               device=dev)
-        _run(f"fdt_fused_gram_{sfx}", dev, *lead_ptrs, x.data_ptr(), vp, ldv,
-             yp, scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
-             n_groups, TYPED_VARIANTS.index(variant))
-    else:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_groups = min(nbr, 2 * sms)
-        scratch = torch.empty((n_groups, mv, m), dtype=acc, device=dev)
-        _run(f"fdt_{name}_{sfx}", dev, *lead_ptrs, x.data_ptr(), vp, ldv, yp,
-             scratch.data_ptr(), g.data_ptr(), nbr, bs, K, bw, m, mv,
-             n_groups)
+        _run(f"fdt_fused_gram_{'q8' if quant else ''}{sfx}", dev, *lead_ptrs,
+             x.data_ptr(), vp, ldv, yp, scratch.data_ptr(), g.data_ptr(),
+             nbr, bs, K, bw, m, mv, n_groups, TYPED_VARIANTS.index(variant))
     return y, g, launched
 
 
@@ -480,20 +465,24 @@ def fused_gram_variant(name: str, lead: tuple, x, v, *, bandwidth: int,
     on CUDA tensors; returns G, (mv, m) float32.
 
     ``"nov"`` reads no V; ``"nogram"`` streams V as the full kernel does
-    and skips the gram product; both reduce Y to its column sums, which
-    they return in G's row 0 (the other rows are zero), at the main cases'
-    column tile (128 for kernel 3; 24 or 128 for kernel 5, as at m = 20
-    and at the probe's m = 256), on float32 x and v. With the full kernel
-    they split its time into apply, V stream and gram (the counterparts of
-    ``experiments/fused_probe.py``'s ``nov`` and ``nogram``).
+    and skips the gram product; on float32 x and v both reduce Y to its
+    column sums, which they return in G's row 0 (the other rows are zero),
+    at the main cases' column tile (128 for kernel 3; 24 or 128 for kernel
+    5, as at m = 20 and at the probe's m = 256). With the full kernel they
+    split its time into apply, V stream and gram (the counterparts of
+    ``experiments/fused_probe.py``'s ``nov`` and ``nogram``). Kernel 5
+    also takes them on float64 x and v (its float64-x entry on
+    ``csrc/fused_gram_typed.cuh``: ``"nov"`` returns Y's column sums in G's
+    row 0, ``"nogram"`` a G of zeros).
 
     Kernel 5 only, on bf16 x (n, m) and bf16 v (n, mv), any m and mv:
     ``"bf16deq"``, ``"tg_bf16deq"`` and ``"nov_bf16"`` (v None), the
     probe's bf16-dequant modes: the blocks dequantized and rounded to bf16,
-    bf16 products with float32 sums, d ∘ x in float32; G = vᵀ bf16(Y) one
-    block row at a time, or after several rows' bf16(Y) are staged, or
-    (``"nov_bf16"``) Y's float32 column sums in G's row 0
-    (:func:`fused_gram_variant_plain`).
+    bf16 products with float32 sums, d ∘ x in float32; G = vᵀ bf16(Y), with
+    the gram's pass over one block row's tile or (``"tg_bf16deq"``) over
+    two, or (``"nov_bf16"``) Y's float32 column sums in G's row 0
+    (:func:`fused_gram_variant_plain`), on the typed template's int8 slab
+    (``csrc/fused_gram_q8bf16.cu``).
 
     Not counted in the wrappers' launches; the port's paths never call it.
     What no kernel takes raises before anything launches."""
@@ -501,50 +490,33 @@ def fused_gram_variant(name: str, lead: tuple, x, v, *, bandwidth: int,
         raise ValueError(f"variant must be one of {GRAM_VARIANTS[1:]}, got "
                          f"{variant!r}")
     bf16 = variant in BF16_VARIANTS
+    quant = name == "banded_q_bsr_spmm_gram"
     if bf16:
-        if name != "banded_q_bsr_spmm_gram":
+        if not quant:
             raise ValueError(f"{variant} is a variant of "
                              "banded_q_bsr_spmm_gram only")
         if (v is None) != (variant == "nov_bf16"):
             raise ValueError(f"{variant}: v must be "
                              + ("None" if variant == "nov_bf16" else "given"))
-    want = torch.bfloat16 if bf16 else torch.float32
-    if x.device.type != "cuda" or x.dtype != want or (
-            v is not None and v.dtype != want):
-        raise NotImplementedError(f"{name} {variant}: {want} CUDA tensors "
-                                  "only")
+    want = ((torch.bfloat16,) if bf16 else
+            (torch.float32, torch.float64) if quant else (torch.float32,))
+    if x.device.type != "cuda" or x.dtype not in want or (
+            v is not None and v.dtype != x.dtype):
+        raise NotImplementedError(f"{name} {variant}: CUDA tensors of "
+                                  f"{want} only")
     _check_v(v, x)
-    if name == "banded_q_bsr_spmm_gram":
+    if quant:
         K = _check_quantized(*lead, x, bandwidth)
-        ptrs = _quantized_args(name, *lead, x, (want,) if bf16 else None)
+        ptrs = _quantized_args(name, *lead, x, want)
     else:
         K = _check_banded(lead[0], x, bandwidth)
         _dense_suffix(name, lead[0], x)
         _require_contiguous(name, lead[0], x)
         ptrs = (lead[0].data_ptr(),)
     nbr, bs, _ = lead[0].shape
-    if not bf16:
-        _, g, _ = _gram_launch(name, "f32", ptrs, x, v, False, torch.float32,
-                               nbr, bs, K, int(bandwidth), variant)
-        return g
-    if v is not None and v.shape[1] > 1 and v.stride(1) != 1:
-        raise ValueError(f"{name}: v's rows must be contiguous (any row "
-                         "stride)")
-    n, m = x.shape
-    mv = m if v is None else v.shape[1]
-    g = torch.empty((mv, m), dtype=torch.float32, device=x.device)
-    if g.numel() and n:
-        dev = x.device.index
-        n_groups = fused_bf16_plan(torch.cuda.current_device() if dev is None
-                                   else dev, variant, nbr, bs, K, m,
-                                   mv)["n_groups"]
-        scratch = torch.empty((n_groups, mv, m), dtype=torch.float32,
-                              device=x.device)
-        _run("fdt_fused_q_gram_bf16", x.device, *ptrs, x.data_ptr(),
-             None if v is None else v.data_ptr(),
-             m if v is None else v.stride(0), scratch.data_ptr(),
-             g.data_ptr(), nbr, bs, K, int(bandwidth), m, mv, n_groups,
-             BF16_VARIANTS.index(variant))
+    _, g, _ = _gram_launch(name, _SUFFIX[x.dtype], ptrs, x, v, False,
+                           acc_dtype(x.dtype), nbr, bs, K, int(bandwidth),
+                           _BF16_TYPED.get(variant, variant))
     return g
 
 
@@ -928,16 +900,16 @@ banded_bsr_spmm_gram.f64_launches = 0
 def typed_gram_variant(blocks, x, v=None, *, bandwidth: int, variant: str,
                        write_out: bool = True):
     """One launch of a measurement variant of kernel 3's bf16 or float64
-    entry (:data:`TYPED_VARIANTS`: ``"nogram"`` streams V and skips the
-    gram's products, ``"nov"`` reads no V; G is then not Vᵀ Y), which
+    entry (``"nogram"`` streams V and skips the gram's products, ``"nov"``
+    reads no V; G is then not Vᵀ Y), which
     split its time as :func:`fused_gram_variant` splits float32's. CUDA
     tensors only; Y in the sums' type. Not counted in the wrapper's
     launches; the port's paths never call it."""
     K = _check_banded(blocks, x, bandwidth)
     _check_v(v, x)
     name = "banded_bsr_spmm_gram"
-    if variant not in TYPED_VARIANTS[1:]:
-        raise ValueError(f"variant must be one of {TYPED_VARIANTS[1:]}, got "
+    if variant not in TYPED_VARIANTS[1:3]:
+        raise ValueError(f"variant must be one of {TYPED_VARIANTS[1:3]}, got "
                          f"{variant!r}")
     if x.device.type != "cuda" or x.dtype not in TYPED_TYPES:
         raise NotImplementedError(f"{name} {variant}: bf16 or float64 CUDA "
@@ -1086,8 +1058,9 @@ def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
     """int8 fused banded SpMM + Gram (see :func:`banded_bsr_spmm_gram` for
     ``v``, ``write_out`` and the return contract, and
     :func:`banded_q_bsr_spmm` for the storage); x and v float32 (the
-    tensor-core kernel) or float64 (the f64 apply, then the gram summed in
-    float64) on a GPU."""
+    tensor-core kernel) or float64 (the typed template's int8 slab: kernel
+    4's float64-x Y, then the gram summed in float64; counted also in
+    ``f64_launches``) on a GPU."""
     K = _check_quantized(qblocks, scale_rows, diag, x, bandwidth)
     _check_v(v, x)
     out_dtype = x.dtype if out_dtype is None else out_dtype
@@ -1103,10 +1076,12 @@ def banded_q_bsr_spmm_gram(qblocks, scale_rows, diag, x, v=None, *,
                                   int(bandwidth))
     if launched:
         banded_q_bsr_spmm_gram.launches += 1
+        banded_q_bsr_spmm_gram.f64_launches += x.dtype == torch.float64
     return (_out(y, out_dtype), g) if write_out else g
 
 
 banded_q_bsr_spmm_gram.launches = 0
+banded_q_bsr_spmm_gram.f64_launches = 0
 
 
 # -- kernel 6: DIA-banded SpMM over a halo-extended input --------------
@@ -1428,4 +1403,5 @@ def reset_launch_counts() -> None:
         fn.f64_launches = 0
     banded_bsr_spmm_gram.bf16_launches = 0
     banded_bsr_spmm_gram.f64_launches = 0
+    banded_q_bsr_spmm_gram.f64_launches = 0
     banded_spmm_variant.copy_launches = 0

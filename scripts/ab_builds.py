@@ -169,8 +169,7 @@ def _cases():
         out.append((f"k7 f32 m={m}",
                     lambda xe=xe: k.banded_q_ext_bsr_spmm(*ql, xe,
                                                           bandwidth=1)))
-        # The shared SIMT tile's entries: float64 x on kernels 5 and 7,
-        # kernel 3 in float64 and bf16.
+        # Float64 x on kernels 5 and 7, kernel 3 in float64 and bf16.
         xe = xe.double()
         out.append((f"k7 f64 m={m}",
                     lambda xe=xe: k.banded_q_ext_bsr_spmm(*ql, xe,
@@ -194,9 +193,10 @@ def _timed_cases():
     """(label, fn) pairs timed with ``--time``: the float64-x entries of
     kernels 4 and 7 on the 2M-row int8 matrix of the solves at the
     lowest-20 widths (kernel 7 over the one shard's ring-wrapped x_ext),
-    kernel 5's float64-x entry there at mv = 220, and kernel 3's bf16 and
-    float64 entries at row 3's shape (the 1M-row matrix, m = 128,
-    mv = 1408)."""
+    kernel 5's float64-x entry there at mv = 220 (row 5d), kernel 3's bf16
+    and float64 entries at row 3's shape (the 1M-row matrix, m = 128,
+    mv = 1408), and kernel 5's bf16-dequant variants at the probe's shape
+    (int8, nbr 4096, bs 128, bw 2, m = mv = 256; rows 10a-c)."""
     import torch
     import fortran_davidson_tpu_torch as fdtt
     from fortran_davidson_tpu_torch.ops import kernels as k
@@ -232,6 +232,19 @@ def _timed_cases():
         out.append((f"k3 {dtype} m=128 mv=1408 nbr=8192",
                     lambda b=b, x=x, v=v: k.banded_bsr_spmm_gram(
                         b, x, v, bandwidth=1)))
+    qp = fdtt.generate_banded_bsr_quantized(4096, 128, bandwidth=2, seed=0,
+                                            device=dev)
+    lead = (qp.qblocks, qp.scale_rows, qp.diag)
+    x = torch.randn((qp.shape[0], 256), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((qp.shape[0], 256), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    for variant in ("bf16deq", "tg_bf16deq", "nov_bf16"):
+        out.append((f"k5 {variant} m=256 mv=256 nbr=4096",
+                    lambda var=variant: k.fused_gram_variant(
+                        "banded_q_bsr_spmm_gram", lead, x,
+                        None if var == "nov_bf16" else v, bandwidth=2,
+                        variant=var)))
     return out
 
 

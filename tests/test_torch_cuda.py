@@ -413,7 +413,7 @@ def _bf16_variant_check(lead, x, v, bw, variant):
     fused_gram_variant_plain, and a second launch's bits. G within 2^-7 of
     |V|ᵀ|Y| elementwise (a Y sum in another order can round to the
     neighbouring bf16 value before the gram); nov_bf16's row 0 within 1e-5
-    of Y's column sums of |Y|, the other rows 0."""
+    of Y's column sums of |Y|, the other rows 0. Returns G."""
     g = kernels.fused_gram_variant("banded_q_bsr_spmm_gram", lead, x, v,
                                    bandwidth=bw, variant=variant)
     gp = kernels.fused_gram_variant_plain(
@@ -431,31 +431,53 @@ def _bf16_variant_check(lead, x, v, bw, variant):
     again = kernels.fused_gram_variant("banded_q_bsr_spmm_gram", lead, x, v,
                                        bandwidth=bw, variant=variant)
     assert torch.equal(g, again), "the G reduction is not deterministic"
+    return g
 
 
 @pytest.mark.parametrize("variant,mv", [("bf16deq", 40), ("bf16deq", 220),
                                         ("tg_bf16deq", 40),
                                         ("tg_bf16deq", 220),
                                         ("nov_bf16", None)])
-@pytest.mark.parametrize("m", [1, 20, 64, 256])
-@pytest.mark.parametrize("bw", [1, 2])
+@pytest.mark.parametrize("m", [1, 4, 20, 44, 64, 256])
+@pytest.mark.parametrize("bw", [1, 2, 3])
 def test_bf16_dequant_variants_match_plain(cuda_device, variant, mv, m, bw):
-    # Kernel 5's bf16-dequant variants (csrc/fused_gram_var_bf16.cu): 17
+    # Kernel 5's bf16-dequant variants (csrc/fused_gram_q8bf16.cu): 17
     # block rows of bs 24 (ragged against the 16-row tiles, an odd count
     # for tg_bf16deq's tiles of two block rows); x and v bf16, framed by NaN
     # rows (v also by NaN columns past mv, ldv = mv + 3). nov_bf16 reads no
-    # v.
+    # v. On the operator and on its band alone (the diagonal zeroed).
+    # tg_bf16deq is bf16deq's function summed in the same order: its bits.
     dev = cuda_device
     bs = 24
     q = fdtt.generate_banded_bsr_quantized(17, bs, bandwidth=bw, seed=m + bw,
                                            device=dev)
-    lead = (q.qblocks, q.scale_rows, q.diag)
     x = _framed(torch.randn((q.shape[0], m), device=dev).to(torch.bfloat16),
                 bw * bs)
     v = None if variant == "nov_bf16" else _framed(
         torch.randn((q.shape[0], mv), device=dev).to(torch.bfloat16), bw * bs,
         cols=3)
-    _bf16_variant_check(lead, x, v, bw, variant)
+    for diag in (q.diag, torch.zeros_like(q.diag)):
+        lead = (q.qblocks, q.scale_rows, diag)
+        g = _bf16_variant_check(lead, x, v, bw, variant)
+        if variant == "tg_bf16deq":
+            assert torch.equal(g, kernels.fused_gram_variant(
+                "banded_q_bsr_spmm_gram", lead, x, v, bandwidth=bw,
+                variant="bf16deq"))
+
+
+@pytest.mark.parametrize("variant", ["bf16deq", "tg_bf16deq", "nov_bf16"])
+@pytest.mark.parametrize("m", [20, 64, 130, 256])
+@pytest.mark.parametrize("bw", [1, 2])
+def test_bf16_dequant_variants_at_bs_128(cuda_device, variant, m, bw):
+    # 33 block rows of bs 128: the slab by the copy engine (bs a multiple
+    # of 16), several row tiles a pass, mv = 220.
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(33, 128, bandwidth=bw, seed=m,
+                                           device=dev)
+    x = torch.randn((q.shape[0], m), device=dev).to(torch.bfloat16)
+    v = None if variant == "nov_bf16" else torch.randn(
+        (q.shape[0], 220), device=dev).to(torch.bfloat16)
+    _bf16_variant_check((q.qblocks, q.scale_rows, q.diag), x, v, bw, variant)
 
 
 def test_bf16_dequant_variants_at_the_probe_widths(cuda_device):
@@ -995,8 +1017,8 @@ def test_float64_solve_on_int8_storage(cuda_device):
                                rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("m", [1, 20, 130])
-@pytest.mark.parametrize("bw", [1, 2])
+@pytest.mark.parametrize("m", [1, 4, 20, 44, 64, 130, 256])
+@pytest.mark.parametrize("bw", [1, 2, 3])
 def test_int8_kernels_take_float64_x(cuda_device, m, bw):
     dev = cuda_device
     q = fdtt.generate_banded_bsr_quantized(17, 24, bandwidth=bw, seed=7,
@@ -1005,20 +1027,134 @@ def test_int8_kernels_take_float64_x(cuda_device, m, bw):
     halo = bw * 24
     x = _framed(torch.randn((q.shape[0], m), dtype=torch.float64,
                             device=dev), halo)
-    _q_f64_close(kernels.banded_q_bsr_spmm(*lead, x, bw),
-                 kernels.banded_q_bsr_spmm_plain(*lead, x.clone(), bw))
+    y4 = kernels.banded_q_bsr_spmm(*lead, x, bw)
+    _q_f64_close(y4, kernels.banded_q_bsr_spmm_plain(*lead, x.clone(), bw))
     for v in (None, torch.randn((q.shape[0], 40), dtype=torch.float64,
                                 device=dev)):
         y, g = kernels.banded_q_bsr_spmm_gram(*lead, x, v, bandwidth=bw)
         yp, gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, x.clone(), v,
                                                       bandwidth=bw)
         _q_f64_close(y, yp)
+        # Kernel 5's float64-x Y is kernel 4's (the same arithmetic).
+        assert torch.equal(y, y4)
         # G sums the float32-valued Y in float64 in another order.
         _assert_gram_close(g, gp, x if v is None else v, yp, rel=1e-6)
     x_ext = _ring_ext(x.clone(), 0, q.shape[0], halo)
     _q_f64_close(kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=bw),
                  kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext,
                                                      bandwidth=bw))
+
+
+# Kernel 5 with float64 x (csrc/fused_gram_q8f64.cu, the typed template's
+# int8 slab): column tiles 8 (m 1, 4), 24 (m 20) and 32 (m 44 on, in
+# several tiles: a 64-deep float64 stage at TN = 64 does not fit beside the
+# Y tiles); 17 block rows of bs 24 fill no 16-row tile and take the slab by
+# cp.async, bs 128 by the copy engine.
+Q8_GRAM_WIDTHS = [1, 4, 20, 44, 64, 130, 256]
+
+
+def _check_q8f64(lead, x, v, bw, clean_x, clean_v):
+    """One launch of kernel 5's float64-x entry (counted also in
+    f64_launches) against its plain version on clean copies: Y finite and
+    kernel 4's Y bit for bit on the same inputs, within 2^-22 of max|Y| of
+    the plain version; G within 1e-6 of |V|ᵀ|Y| elementwise; the same bits
+    on a second launch, and G alone (write_out=False) the same bits."""
+    gram = kernels.banded_q_bsr_spmm_gram
+    before = (gram.launches, gram.f64_launches)
+    y, g = gram(*lead, x, v, bandwidth=bw)
+    assert (gram.launches, gram.f64_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert bool(torch.all(torch.isfinite(y)))
+    assert torch.equal(y, kernels.banded_q_bsr_spmm(*lead, x, bw))
+    yp, gp = kernels.banded_q_bsr_spmm_gram_plain(*lead, clean_x, clean_v,
+                                                  bandwidth=bw)
+    _q_f64_close(y, yp)
+    vv = clean_x if clean_v is None else clean_v
+    assert g.dtype == torch.float32 and g.shape == (vv.shape[1],
+                                                    x.shape[1])
+    assert bool(torch.all(torch.isfinite(g)))
+    _assert_gram_close(g, gp, vv, yp, rel=1e-6)
+    again = gram(*lead, x, v, bandwidth=bw)
+    assert torch.equal(again[0], y) and torch.equal(again[1], g)
+    assert torch.equal(gram(*lead, x, v, bandwidth=bw, write_out=False), g)
+
+
+@pytest.mark.parametrize("m", Q8_GRAM_WIDTHS)
+@pytest.mark.parametrize("mv", [None, 40, 220])
+@pytest.mark.parametrize("bs,bw", [(24, 1), (24, 2), (24, 3), (128, 1),
+                                   (128, 2)])
+def test_q8f64_gram_kernel(cuda_device, m, mv, bs, bw):
+    # x and V inside buffers framed by NaN rows (V also by NaN columns past
+    # mv, row stride mv + 3): a read outside the edge windows, past n or
+    # past mv brings a NaN into Y or G. On the operator and on its band
+    # alone (the diagonal zeroed: with it the band is a small share of Y).
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(17, bs, bandwidth=bw,
+                                           seed=m + bs + bw, device=dev)
+    n, pad = q.shape[0], bw * bs
+    x = torch.randn((n, m), dtype=torch.float64, device=dev)
+    v = None if mv is None else torch.randn((n, mv), dtype=torch.float64,
+                                            device=dev)
+    xf = _framed(x, pad)
+    vf = None if v is None else _framed(v, pad, cols=3)
+    for diag in (q.diag, torch.zeros_like(q.diag)):
+        _check_q8f64((q.qblocks, q.scale_rows, diag), xf, vf, bw, x, v)
+
+
+@pytest.mark.parametrize("m,mv", [(128, 1408), (64, 1408), (20, 1408)])
+def test_q8f64_gram_kernel_at_the_engines_widest(cuda_device, m, mv):
+    # The fused engine's widest V (mv = 1408, clusters of 8 blocks) at
+    # m <= 128, 33 block rows of bs 128.
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(33, 128, bandwidth=1, seed=m,
+                                           device=dev)
+    x = torch.randn((q.shape[0], m), dtype=torch.float64, device=dev)
+    v = torch.randn((q.shape[0], mv), dtype=torch.float64, device=dev)
+    _check_q8f64((q.qblocks, q.scale_rows, q.diag), x, v, 1, x, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_q8_gram_kernels_refuse_a_width_past_the_plan(cuda_device, dtype):
+    # No layout holds G of mv = 40000 rows: the wrapper raises, naming the
+    # entry and the shape, and launches nothing (no fallback).
+    dev = cuda_device
+    q = fdtt.generate_banded_bsr_quantized(4, 16, bandwidth=1, seed=2,
+                                           device=dev)
+    lead = (q.qblocks, q.scale_rows, q.diag)
+    x = torch.randn((64, 8), device=dev).to(dtype)
+    v = torch.randn((64, 40000), device=dev).to(dtype)
+    sfx = "bf16" if dtype == torch.bfloat16 else "f64"
+    gram = kernels.banded_q_bsr_spmm_gram
+    before = gram.launches
+    with pytest.raises(RuntimeError, match=f"fdt_fused_gram_q8{sfx}_plan.*"
+                       "mv=40000"):
+        if dtype == torch.float64:
+            gram(*lead, x, v, bandwidth=1)
+        else:
+            kernels.fused_gram_variant("banded_q_bsr_spmm_gram", lead, x, v,
+                                       bandwidth=1, variant="bf16deq")
+    assert gram.launches == before
+
+
+def test_q8_gram_plans_at_the_main_cases(cuda_device):
+    # Row 5d's shape (2M rows, bs 128, bw 1, m 20 and 40, mv 220) and rows
+    # 10a-c's (the probe: bs 128, bw 2, m = mv = 256): the layouts the
+    # wrappers take. At m = 20 one column tile of 24 covers m, so V is read
+    # once and no column is padded; at m = 40 two tiles of 32 (a 64-deep
+    # float64 stage at TN = 64 does not fit beside the Y tiles).
+    plan = kernels.fused_typed_plan(0, torch.float64, 16384, 128, 3, 20, 220,
+                                    quant=True)
+    assert set(plan) == set(kernels.FUSED_PLAN_KEYS)
+    assert plan["TN"] == 24 and plan["C"] * plan["MB"] >= 220
+    assert plan["n_groups"] >= 1 and plan["clusters_resident"] >= 1
+    plan = kernels.fused_typed_plan(0, torch.float64, 16384, 128, 3, 40, 220,
+                                    quant=True)
+    assert plan["TN"] == 32 and plan["C"] * plan["MB"] >= 220
+    for mv in (256, 1408):
+        plan = kernels.fused_typed_plan(0, torch.bfloat16, 4096, 128, 5, 256,
+                                        mv, quant=True)
+        assert plan["TN"] == 128 and plan["C"] * plan["MB"] >= mv
+        assert plan["clusters_resident"] >= 1
 
 
 # Kernels 4 and 7 with float64 x on kernel 1's template

@@ -162,13 +162,13 @@ def test_source_hash_names_the_build(tmp_path, monkeypatch):
     assert path.parent == kernels.BUILD_DIR
     assert path.name.startswith("libfdt_kernels_") and path.suffix == ".so"
     assert {p.name for p in kernels.sources()} >= {"bsr_spmm.cu",
-                                                   "banded_gram.cu"}
+                                                   "fused_gram_q8f64.cu"}
     # Every file under csrc/ names the build, headers included.
     for f in kernels.CSRC.iterdir():
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     assert kernels.library_path() == path
-    for name in ("banded_gram.cu", "spmm_tile.cuh"):
+    for name in ("fused_gram_q8f64.cu", "fused_gram_typed.cuh"):
         with open(tmp_path / name, "a") as fh:
             fh.write("\n")
         changed = kernels.library_path()
@@ -434,7 +434,9 @@ def test_bf16_dequant_blocks_match_the_probe(nbr, bw):
 
 
 @pytest.mark.parametrize("variant", ["bf16deq", "tg_bf16deq", "nov_bf16"])
-@pytest.mark.parametrize("nbr,bw,m", [(16, 1, 20), (24, 2, 7)])
+@pytest.mark.parametrize("nbr,bw,m", [(16, 1, 20), (24, 2, 7), (16, 1, 1),
+                                      (16, 2, 4), (16, 3, 44), (24, 1, 64),
+                                      (16, 3, 256)])
 def test_bf16_variant_plain_matches_the_probe(variant, nbr, bw, m):
     # fused_gram_variant_plain against fused_probe._spmm_row(...,
     # dequant="bf16") on the zero-padded x as a one-slot window buffer, and
@@ -544,6 +546,29 @@ def test_int8_float64_x_gram_plain_matches_pallas(mv, write_out):
     # G of the same float32-valued Y, summed in another order and type.
     assert np.all(np.abs(to_numpy(g) - np.asarray(g_ref, np.float64))
                   <= _gram_bound(X if V is None else V, Y, 1e-5))
+
+
+@pytest.mark.parametrize("m", [1, 4, 20, 44, 64, 256])
+@pytest.mark.parametrize("bw", [1, 3])
+def test_int8_float64_x_gram_plain_matches_pallas_by_width(m, bw):
+    # The widths of kernel 5's float64-x entry on the card, v None and
+    # given, against the JAX package's kernel in interpret mode, as above.
+    q = _quantized(16, bw, seed=m + bw)
+    n = q.shape[0]
+    X = _x64(n, m, seed=m)
+    Y = to_numpy(kernels.banded_q_bsr_spmm_plain(*_q_torch(q),
+                                                 torch.from_numpy(X), bw))
+    for V in (None, _x64(n, 12, seed=m + 1)):
+        y_ref, g_ref = pk.banded_q_bsr_spmm_gram(
+            q.qblocks, q.scale_rows, q.diag, jnp.asarray(X),
+            None if V is None else jnp.asarray(V), bandwidth=bw,
+            interpret=True)
+        y, g = kernels.banded_q_bsr_spmm_gram(
+            *_q_torch(q), torch.from_numpy(X),
+            None if V is None else torch.from_numpy(V), bandwidth=bw)
+        _assert_f64_int8_close(y, y_ref)
+        assert np.all(np.abs(to_numpy(g) - np.asarray(g_ref, np.float64))
+                      <= _gram_bound(X if V is None else V, Y, 1e-5))
 
 
 def test_int8_float64_x_ext_plain_matches_pallas():
