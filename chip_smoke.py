@@ -111,7 +111,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel 6; and in the four-slab check, each slab's rows
      in a buffer of its own and its halos pointing into its ring
      neighbours' buffers (no x_ext), equal to kernel 1 bit for bit in f64,
-     f32 and bf16.
+     f32 and bf16;
+   - double-single on the card: ``two_sum`` and ``two_prod`` on
+     ``DS_PAIRS`` float32 pairs from 2**-100 to 2**100 (two_prod from
+     2**-40, its partial products normal) exact against float64 and
+     equal to the CPU's bits; the int8 ``offdiag().matmat_ds`` at m=20
+     (plain PyTorch, no kernel) within 5e-10 of a float64 oracle on
+     ``DS_ORACLE_ROWS`` (unit columns), timed beside kernel 4's
+     ``matmat``.
 4. Main path: ``eigensolve(A, 3)`` and ``eigensolve(A, 20)`` with default
    options on the 1,048,576-row banded BSR matrix
    ``generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3, seed=0)``
@@ -125,6 +132,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    wall, and the device ops that took the most time. Every solve prints
    the host events inside it (cudaMalloc / cudaFree, allocator retries,
    garbage collections).
+4b. GJD through kernel 1 on phase 4's matrix (``GJD_CASES``): lowest-3
+   with default GJD options and lowest-20 with
+   ``gjd_preconditioner="dpr"``, every outer and MINRES apply a launch of
+   kernel 1. Each converges at 1e-8 with a true residual <= 1e-8,
+   eigenvalues within 1e-9 of phase 4's DPR solve, and the plain path's
+   outer iterations, its inner totals within one step per corrected
+   column per outer iteration; prints cold and warm walls (the median of
+   ``WARM_GJD`` in turns), kernel 1's launches, ``inner_iterations``
+   and the host reads a solve (one an outer iteration plus MINRES's
+   polls), and one profiled solve.
 5. Collapse and generalized legs at the same size: coupling 0.1 with
    ``max_dim_sub=12`` (must collapse), a pencil with a diagonal B, and a
    BSR without a declared bandwidth (the general kernel); the
@@ -145,6 +162,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    default float64 type at relative 1e-6 through kernel 4's float64-x
    entry (``banded_q_bsr_spmm_f64``), the plain path's iterations, a true
    relative residual <= 1e-6; the launches of kernels 4, 5 and 7 on it.
+6b. The refined stage of that north star (``REFINED``, bench.py:663-668:
+   ``refined=True, final_polish=3`` at relative 1e-8, lowest-20) from
+   phase 6's loose eigenvectors: every ``matmat`` through kernel 4 (the
+   true residuals apply ``offdiag()``), the polish through ``matmat_ds``.
+   It converges with an oracle relative residual <= 1e-8 (float64,
+   dequantized blocks plus the diagonal, normalized vectors, eigenvalues
+   ``eigenvalues + eigenvalues_lo``); the same stage on a
+   ``QuantizedBandedOperator`` whose applies take kernel 4's plain
+   version takes iterations within ±2, eigenvalues within the sum of the
+   two residuals; prints the iterations beside the JAX package's TPU
+   run's 8, cold and warm walls, loose + refined, the memory above the
+   operator, one profiled solve.
+6c. The JAX package's ``slow`` noise-gate tests (tests/test_noise_gate.py)
+   on ``surrogate_hamiltonian(1_000_448, float32)``, matrix-free, no
+   kernel: lowest-4 refined with final_polish=3 at absolute 1e-8
+   (converged, max residual < 1e-8, eigenvalues 1-4 within 1e-6), and at
+   relative 1e-7 without the polish the stall exit within 40 iterations.
 7. The fused SpMM+Gram engine, on the 1M-row matrix at coupling 3 in
    float32 (at coupling 1e-3 lowest-128 converges on its initial basis,
    with no expansion to fuse): (a) ``fused_gram="auto"`` engages at
@@ -2235,6 +2269,7 @@ def phase_int8(q, dev, solves, refs):
     _check(rel <= 1e-4, f"int8: eigenvalues differ by {rel:.3e} relative")
     refs["int8"] = dict(iterations=out.iterations,
                         eigenvalues=out.eigenvalues.clone(),
+                        eigenvectors=out.eigenvectors.clone(),
                         wall=walls["kernels"][-1])
     solves.append(dict(solve="int8 banded f32 lowest-20 loose (1e-3 rel)",
                        n=q.shape[0], iterations=out.iterations,
@@ -2316,6 +2351,347 @@ def int8_float64_solve(q, dev, solves, refs):
                             eigenvalues=out.eigenvalues.clone(), wall=wall)
     del runs, out, ref
     torch.cuda.empty_cache()
+
+
+# Phase 4b: GJD on phase 4's matrix. (lowest, options): default GJD
+# options at lowest-3, the DPR-scaled inner solve at lowest-20.
+GJD_CASES = ((3, dict(method="GJD")),
+             (20, dict(method="GJD", gjd_preconditioner="dpr")))
+# Warm GJD solves of each path, in turns (kernel, plain, plain, kernel).
+WARM_GJD = 2
+
+
+def phase_gjd(A, dev, solves, refs):
+    """Phase 4b: GJD through kernel 1 on phase 4's matrix, every outer and
+    inner (MINRES) apply a launch of kernel 1, against the same solve
+    through the plain version: the same outer iterations, inner totals
+    within one step per corrected column per outer iteration, eigenvalues
+    within 1e-9 of phase 4's DPR solve, a true residual <= 1e-8."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.core.krylov import minres_block
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    plain_A = fdtt.MatrixFreeOperator(
+        lambda X: kernels.banded_bsr_spmm_plain(A.blocks, X.contiguous(), 1),
+        A.shape[0], dtype=A.dtype, diag=A.diagonal(), device=dev)
+    for k, opts in GJD_CASES:
+        walls = {"kernels": [], "plain": []}
+        runs = {}
+        order = (("kernels", "plain")
+                 + ("kernels", "plain", "plain", "kernels") * (WARM_GJD // 2))
+        for i, path in enumerate(order):
+            before = kernels.banded_bsr_spmm.launches
+            polls = minres_block.polls
+            torch.cuda.reset_peak_memory_stats()
+            res, wall = _solve_converged(
+                f"eigensolve(A, {k}, {opts}) [{path}]",
+                A if path == "kernels" else plain_A, k, **opts)
+            walls[path].append(wall)
+            launches = kernels.banded_bsr_spmm.launches - before
+            runs[path] = (res, launches, minres_block.polls - polls,
+                          torch.cuda.max_memory_allocated() / 1e9)
+            _check((launches > 0) == (path == "kernels"),
+                   f"GJD k={k} [{path}]: {launches} kernel 1 launches")
+        (out, launches, polls, peak), (ref, _, plain_polls, _) = (
+            runs["kernels"], runs["plain"])
+        true_res = _true_residual(A.blocks, 1, None, out.eigenvectors,
+                                  out.eigenvalues)
+        eig_diff = float(torch.max(torch.abs(out.eigenvalues
+                                             - refs[k]["eigenvalues"])))
+        # One MINRES step per corrected column per outer iteration: the
+        # doubling schedule corrects every column of the basis.
+        corrected = int(out.subspace_dims[:out.iterations].sum())
+        inner_diff = abs(out.inner_iterations - ref.inner_iterations)
+        cold = walls["kernels"].pop(0)
+        walls["plain"].pop(0)
+        med = {p: statistics.median(w) for p, w in walls.items()}
+        print(f"  GJD k={k} {opts}: iterations {out.iterations} (plain "
+              f"{ref.iterations}; phase 4 DPR {refs[k]['iterations']}), "
+              f"inner_iterations {out.inner_iterations} (plain "
+              f"{ref.inner_iterations}), kernel 1 launches a solve "
+              f"{launches}; host reads a solve: {out.iterations} outer + "
+              f"{polls} MINRES polls (plain {plain_polls}); true residual "
+              f"{true_res:.3e}; |eig - eig_phase4| {eig_diff:.3e}; cold "
+              f"wall {cold:.4f} s, warm median of {len(walls['kernels'])} "
+              f"{med['kernels']:.4f} s (plain {med['plain']:.4f} s; phase "
+              f"4 DPR {refs[k]['wall']:.4f} s); peak_mem={peak:.2f} GB",
+              flush=True)
+        _check(out.iterations == ref.iterations,
+               f"GJD k={k}: {out.iterations} iterations vs {ref.iterations}"
+               " plain")
+        _check(inner_diff <= corrected, f"GJD k={k}: inner iterations "
+               f"{out.inner_iterations} vs {ref.inner_iterations} plain")
+        _check(true_res <= SOLVE_TOL, f"GJD k={k}: true residual "
+               f"{true_res:.3e}")
+        _check(eig_diff <= 1e-9, f"GJD k={k}: eigenvalues {eig_diff:.3e} "
+               "from phase 4's")
+        busy = _device_busy(f"eigensolve(A, {k}, {opts}) [kernels]",
+                            lambda: fdtt.eigensolve(A, k, **opts))
+        solves.append(dict(
+            solve=f"banded f64 lowest-{k} GJD {opts}", n=A.shape[0],
+            iterations=out.iterations, inner_iterations=out.inner_iterations,
+            plain_inner_iterations=ref.inner_iterations,
+            launches=launches, minres_polls=polls, cold_wall_s=cold,
+            wall_s=walls["kernels"], plain_wall_s=walls["plain"],
+            true_residual=true_res, eig_diff_phase4=eig_diff,
+            peak_mem_gb=peak, **busy))
+        del runs, out, ref, res
+        torch.cuda.empty_cache()
+
+
+# Phase 6b: the refined stage of the JAX package's sparse north star
+# (bench.py:663-668), from phase 6's loose eigenvectors.
+REFINED = dict(method="DPR", tolerance=1e-8, relative_tolerance=True,
+               dtype="float32", expansion="lowest-k", refined=True,
+               final_polish=3, max_iterations=120)
+# The JAX package's TPU run of the same stage (BENCH_r05.json's tail):
+# iterations only; its times say nothing of the card.
+TPU_REFINED_ITERATIONS = 8
+
+
+def _plain_quantized(q):
+    """``q`` whose ``matmat`` (and its ``offdiag()``'s) takes kernel 4's
+    plain version; ``matmat_ds`` is the same plain PyTorch either way."""
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    class PlainQuantized(fdtt.QuantizedBandedOperator):
+        def matmat(self, block):
+            return kernels.banded_q_bsr_spmm_plain(
+                self.qblocks, self.scale_rows, self.diag,
+                block.contiguous(), self.bandwidth, out_dtype=block.dtype)
+
+        def offdiag(self):
+            return PlainQuantized(self.qblocks, self.scale_rows,
+                                  self.diag * 0, self.bandwidth)
+
+    return PlainQuantized(q.qblocks, q.scale_rows, q.diag, q.bandwidth)
+
+
+def _int8_oracle_residual(q, X, lam) -> float:
+    """The north-star contract's check (tests/test_ds_apply_sparse.py):
+    max_j ||A x_j - lam_j x_j|| / max(|lam_j|, 1) in float64 on the
+    normalized columns, with the dequantized blocks and the diagonal;
+    ``lam`` the float64 eigenvalues (hi + lo words)."""
+    import torch
+    X = X.double()
+    X = X / torch.linalg.vector_norm(X, dim=0)
+    return _int8_true_residual(q, X, lam.double())
+
+
+def phase_refined(q, dev, solves, refs):
+    """Phase 6b: the refined stage (``REFINED``) on the 2M-row int8
+    matrix from phase 6's loose eigenvectors: every ``matmat`` through
+    kernel 4, the polish's applies through ``matmat_ds``; against the
+    same stage through the plain versions (iterations within ±2, kernel
+    4's float32 sums differ from the plain version's by design;
+    eigenvalues within the sum of the two oracle residuals)."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    X0 = refs["int8"]["eigenvectors"]
+    plain_q = _plain_quantized(q)
+    walls, runs = {"kernels": [], "plain": []}, {}
+    for path in ("kernels", "plain", "kernels"):
+        before = kernels.banded_q_bsr_spmm.launches
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        res, wall = _solve_converged(
+            f"int8 n={q.shape[0]} lowest-20 refined [{path}]",
+            q if path == "kernels" else plain_q, 20, initial_vectors=X0,
+            **REFINED)
+        walls[path].append(wall)
+        launches = kernels.banded_q_bsr_spmm.launches - before
+        _check((launches > 0) == (path == "kernels"),
+               f"refined [{path}]: {launches} kernel 4 launches")
+        lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
+        peak_abs = torch.cuda.max_memory_allocated()
+        runs[path] = (res, lam, launches,
+                      ((peak_abs - mem0) / 1e9, peak_abs / 1e9))
+    (out, lam, launches, (peak, peak_abs)), (ref, lam_ref, _, _) = (
+        runs["kernels"], runs["plain"])
+    true_res = _int8_oracle_residual(q, out.eigenvectors, lam)
+    ref_res = _int8_oracle_residual(q, ref.eigenvectors, lam_ref)
+    diff = float(torch.max(torch.abs(lam - lam_ref)
+                           / torch.clamp(torch.abs(lam_ref), min=1.0)))
+    loose = refs["int8"]["wall"]
+    print(f"  refined: iterations {out.iterations} (plain {ref.iterations};"
+          f" the JAX package on a TPU: {TPU_REFINED_ITERATIONS}, iterations "
+          f"only), stalled={out.stalled}, kernel 4 launches {launches}; "
+          f"oracle relative residual {true_res:.3e} (plain {ref_res:.3e}); "
+          f"max |eig - eig_plain| / max(|eig|, 1) {diff:.3e}; cold wall "
+          f"{walls['kernels'][0]:.4f} s, warm {walls['kernels'][1]:.4f} s "
+          f"(plain {walls['plain'][0]:.4f} s); loose + refined (warm) "
+          f"{loose + walls['kernels'][1]:.4f} s; max_memory_allocated "
+          f"{peak_abs:.2f} GB, {peak:.2f} GB above the operator and the "
+          "start", flush=True)
+    _check(true_res <= REFINED["tolerance"],
+           f"refined: oracle relative residual {true_res:.3e}")
+    _check(abs(out.iterations - ref.iterations) <= 2, f"refined: "
+           f"{out.iterations} iterations vs {ref.iterations} plain")
+    _check(diff <= true_res + ref_res, f"refined: eigenvalues differ by "
+           f"{diff:.3e} (residuals {true_res:.3e} + {ref_res:.3e})")
+    busy = _device_busy("int8 lowest-20 refined [kernels]",
+                        lambda: fdtt.eigensolve(q, 20, initial_vectors=X0,
+                                                **REFINED))
+    solves.append(dict(
+        solve="int8 banded f32 lowest-20 refined + final_polish=3 (1e-8 "
+        "rel)", n=q.shape[0], iterations=out.iterations,
+        plain_iterations=ref.iterations, stalled=out.stalled,
+        tpu_iterations=TPU_REFINED_ITERATIONS, wall_s=walls["kernels"],
+        plain_wall_s=walls["plain"], loose_plus_refined_s=(
+            loose + walls["kernels"][1]),
+        oracle_residual_rel=true_res, plain_oracle_residual_rel=ref_res,
+        launches=launches, peak_mem_gb=peak_abs, peak_mem_above_gb=peak,
+        **busy))
+    del runs, out, ref, res
+    torch.cuda.empty_cache()
+
+
+def phase_noise_gate(dev, solves):
+    """Phase 6c: the JAX package's ``slow`` tests of the refined path at
+    scale (tests/test_noise_gate.py), matrix-free, no kernel: on
+    ``surrogate_hamiltonian(1_000_448, float32)``, absolute 1e-8 with
+    final_polish=3 (converged, max residual < 1e-8, eigenvalues 1-4 within
+    1e-6), and the stall exit at relative 1e-7 within 40 iterations."""
+    import torch
+    from fortran_davidson_tpu_torch.models import generators
+
+    op = generators.surrogate_hamiltonian(1_000_448, dtype=torch.float32,
+                                          device=dev)
+    common = dict(method="DPR", dtype="float32", expansion="lowest-k",
+                  refined=True)
+    res, wall = _solve_converged(
+        "surrogate n=1,000,448 lowest-4 refined + final_polish=3 (1e-8 abs)",
+        op, 4, tolerance=1e-8, max_iterations=40, final_polish=3, **common)
+    worst = float(res.residual_norms.max())
+    eig_err = float(torch.max(torch.abs(
+        res.eigenvalues.double()
+        - torch.arange(1, 5, dtype=torch.float64, device=dev))))
+    _check(worst < 1e-8, f"noise gate: residual {worst:.3e}")
+    _check(eig_err <= 1e-6, f"noise gate: eigenvalues {eig_err:.3e} from 1-4")
+    stall, stall_wall = _solve(
+        "surrogate n=1,000,448 lowest-4 refined (1e-7 rel), the stall exit",
+        op, 4, tolerance=1e-7, relative_tolerance=True, max_iterations=60,
+        **common)
+    print(f"  noise gate: converged at 1e-8 in {res.iterations} iterations "
+          f"(stalled={res.stalled}), max residual {worst:.3e}, |eig - "
+          f"(1..4)| {eig_err:.3e}, wall {wall:.3f} s; relative 1e-7: "
+          f"{stall.iterations} iterations, converged={stall.converged}, "
+          f"stalled={stall.stalled}, wall {stall_wall:.3f} s", flush=True)
+    _check(stall.iterations < 40, f"stall exit: {stall.iterations} "
+           "iterations")
+    solves.append(dict(solve="surrogate f32 lowest-4 refined 1e-8 abs",
+                       n=op.shape[0], iterations=res.iterations,
+                       stalled=res.stalled, wall_s=wall,
+                       max_residual=worst))
+    solves.append(dict(solve="surrogate f32 lowest-4 refined 1e-7 rel",
+                       n=op.shape[0], iterations=stall.iterations,
+                       converged=stall.converged, stalled=stall.stalled,
+                       wall_s=stall_wall))
+    del op, res, stall
+    torch.cuda.empty_cache()
+
+
+# Phase 3's DS line: the pairs of the transforms (magnitudes from 2**-100
+# to 2**100 for two_sum, 2**-40 to 2**25 for two_prod, whose partial
+# products must stay normal), and the block rows of the matmat_ds oracle.
+DS_PAIRS = 1_000_000
+DS_ORACLE_ROWS = slice(8000, 8064)
+
+
+def _ds_pairs(n, lo_exp, hi_exp, gen):
+    """float32 pairs with |a| = m 2**e (m in [1, 2)), b within 2**±20 of
+    a: their exact sum and product are float64 values."""
+    import torch
+
+    def draw(e):
+        sign = torch.randint(0, 2, (n,), generator=gen).double() * 2 - 1
+        return (sign * (1 + torch.rand(n, generator=gen, dtype=torch.float64))
+                * torch.exp2(e)).float()
+
+    e = torch.randint(lo_exp, hi_exp, (n,), generator=gen).double()
+    return draw(e), draw(e + torch.randint(-20, 20, (n,), generator=gen))
+
+
+def ds_card_checks(q, dev) -> dict:
+    """Phase 3, double-single on the card: two_sum and two_prod exact on
+    ``DS_PAIRS`` pairs (every error against float64 zero, the CPU's bits),
+    and the int8 ``offdiag().matmat_ds`` at m = 20 against a float64
+    oracle on ``DS_ORACLE_ROWS`` block rows, timed beside ``matmat``."""
+    import torch
+    from fortran_davidson_tpu_torch.utils import ds
+
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for name, fn, (lo_exp, hi_exp), exact in (
+            ("two_sum", ds.two_sum, (-100, 100), lambda a, b: a + b),
+            ("two_prod", ds.two_prod, (-40, 25), lambda a, b: a * b)):
+        a, b = _ds_pairs(DS_PAIRS, lo_exp, hi_exp, gen)
+        hi, lo = fn(a.to(dev), b.to(dev))
+        errors = int(torch.count_nonzero(
+            (hi.double() + lo.double()).cpu() - exact(a.double(),
+                                                      b.double())))
+        hi_cpu, lo_cpu = fn(a, b)
+        same = bool(torch.equal(hi.cpu(), hi_cpu)
+                    and torch.equal(lo.cpu(), lo_cpu))
+        print(f"  DS {name}: {DS_PAIRS} pairs, |a| from "
+              f"{float(a.abs().min()):.2e} to {float(a.abs().max()):.2e}: "
+              f"{errors} errors against float64, CPU's bits {same}",
+              flush=True)
+        _check(errors == 0 and same, f"DS {name} on the card: {errors} "
+               f"errors, CPU bits {same}")
+        out[name] = dict(pairs=DS_PAIRS, errors=errors, cpu_bits=same)
+
+    off = q.offdiag()
+    nbr, bs, kbs = q.qblocks.shape
+    bw = q.bandwidth
+    g = torch.Generator(device=dev).manual_seed(14)
+    xh = torch.randn((q.shape[0], 20), generator=g, device=dev)
+    xh = xh / torch.linalg.vector_norm(xh, dim=0)
+    xl = torch.randn((q.shape[0], 20), generator=g, device=dev) * 1e-8
+    yh, yl = off.matmat_ds(xh, xl)
+    yf = off.matmat(xh).double() + off.matmat(xl).double()
+    # The oracle on the slice's block rows: sum over slots of the
+    # dequantized blocks (float64) times x's neighbour block rows.
+    r = DS_ORACLE_ROWS
+    xb = (xh.double() + xl.double()).reshape(nbr, bs, 20)
+    y64 = torch.zeros((r.stop - r.start, bs, 20), dtype=torch.float64,
+                      device=dev)
+    for k in range(2 * bw + 1):
+        cols = torch.arange(r.start, r.stop, device=dev) - bw + k
+        blk = (q.qblocks[r, :, k * bs:(k + 1) * bs].double()
+               * q.scale_rows[r, None, k * bs:(k + 1) * bs].double())
+        y64 += torch.bmm(blk, xb[cols])
+    rows = slice(r.start * bs, r.stop * bs)
+    y64 = y64.reshape(-1, 20)
+    err_ds = torch.linalg.vector_norm(
+        yh[rows].double() + yl[rows].double() - y64, dim=0)
+    err_f32 = torch.linalg.vector_norm(yf[rows] - y64, dim=0)
+    scale = torch.linalg.vector_norm(y64, dim=0)
+    ds_ms = _time_ms(lambda: off.matmat_ds(xh, xl), reps=5)
+    mm_ms = _time_ms(lambda: off.matmat(xh), reps=5)
+    rel = float(torch.max(err_ds / scale))
+    print(f"  DS int8 offdiag().matmat_ds m=20 on block rows {r.start}-"
+          f"{r.stop - 1}: error (column norm) {float(err_ds.max()):.3e}, "
+          f"{rel:.3e} of |y| (float32 apply of both words "
+          f"{float(err_f32.max()):.3e}); {ds_ms:.3f} ms against kernel 4's "
+          f"matmat {mm_ms:.3f} ms (CUDA events, median of 5)", flush=True)
+    # The bound of tests/test_ds_apply_sparse.py (unit columns). On the
+    # band alone the DS apply's only error is each slot's float32 sum of
+    # integer products, as in kernel 4's float32 apply: the two are the
+    # same order here, and are printed side by side.
+    _check(float(err_ds.max()) <= 5e-10,
+           f"matmat_ds: error {float(err_ds.max()):.3e} (float32 "
+           f"{float(err_f32.max()):.3e})")
+    out["matmat_ds"] = dict(m=20, err=float(err_ds.max()), err_rel=rel,
+                            err_f32=float(err_f32.max()), ms=ds_ms,
+                            matmat_ms=mm_ms)
+    del yh, yl, yf, xh, xl
+    torch.cuda.empty_cache()
+    return out
 
 
 def _banded_residuals(op, X, lam):
@@ -3294,6 +3670,7 @@ def main() -> int:
                   _nonzero_blocks(probe.blocks, 2 * probe.bandwidth + 1))
     del probe
     library = library_times(A)
+    ds_info = ds_card_checks(q, dev)
 
     solves, refs = [], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
@@ -3317,12 +3694,19 @@ def main() -> int:
     paths = [
         ("[4] main path", lambda: phase_main(A, dev, solves, refs),
          ("banded_bsr_spmm",)),
+        ("[4b] GJD through kernel 1", lambda: phase_gjd(A, dev, solves, refs),
+         ("banded_bsr_spmm",)),
         ("[5] collapse and generalized legs",
          lambda: phase_legs(A, dev, solves, refs),
          ("banded_bsr_spmm", "bsr_spmm")),
         ("[6] int8 loose stage, n=2,097,152, lowest-20",
          lambda: phase_int8(q, dev, solves, refs),
          ("banded_q_bsr_spmm", "banded_q_bsr_spmm_f64")),
+        ("[6b] refined stage of the sparse north star, lowest-20",
+         lambda: phase_refined(q, dev, solves, refs),
+         ("banded_q_bsr_spmm",)),
+        ("[6c] noise gate and stall exit at 1,000,448 rows (matrix-free)",
+         lambda: phase_noise_gate(dev, solves), ()),
         ("[7] fused SpMM+Gram engine", lambda: phase_fused(q, dev, solves),
          ("banded_bsr_spmm_gram", "banded_q_bsr_spmm_gram")),
         ("[7c] the fused engine on bf16 storage (row 3b)",
@@ -3472,7 +3856,7 @@ def main() -> int:
         summary.append(entry)
     print(f"[10] ran {time.perf_counter() - t_run:.1f} s, the build "
           f"{build_s:.1f} s of it", flush=True)
-    print(json.dumps({"solves": solves}))
+    print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

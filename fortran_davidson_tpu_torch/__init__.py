@@ -4,7 +4,9 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 A port of ``fortran_davidson_tpu`` (JAX on a TPU), module path for module
 path. It runs the default solve, ``eigensolve(A, k)`` with default
 options (DPR, float64, doubling expansion, CholeskyQR2, sticky
-convergence), plus Olsen, lowest-k expansion, generalized pencils, warm
+convergence), plus Olsen and GJD (block MINRES) corrections, the refined
+double-single path with its final polish (``refined``, ``final_polish``,
+:func:`polish_eigenpairs`), lowest-k expansion, generalized pencils, warm
 starts and the incremental-H engine (``fused_gram``), on dense, diagonal,
 matrix-free, block-sparse (BSR, f64/f32/bf16 storage) and int8 banded
 operators, and the row-sharded solve over ``torch.distributed``
@@ -33,7 +35,9 @@ from fortran_davidson_tpu_torch.ops.sparse import (
     generate_banded_bsr_quantized,
     quantize_banded_int8,
 )
-from fortran_davidson_tpu_torch.solver import eigensolve, generalized_eigensolver
+from fortran_davidson_tpu_torch.solver import (eigensolve,
+                                               generalized_eigensolver,
+                                               polish_eigenpairs)
 from fortran_davidson_tpu_torch.utils.dtypes import default_device
 from fortran_davidson_tpu_torch.utils.errors import (DavidsonError,
                                                      DeviceUnavailableError,
@@ -65,6 +69,7 @@ __all__ = [
     "generalized_eigensolver",
     "generate_banded_bsr",
     "generate_banded_bsr_quantized",
+    "polish_eigenpairs",
     "probe_diagonal",
     "quantize_banded_int8",
     "__version__",

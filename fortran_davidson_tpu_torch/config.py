@@ -7,6 +7,12 @@ for what each knob does. Options whose machinery is not ported yet are
 accepted by the dataclass and rejected with :class:`InvalidOptionsError`,
 naming the option, when a solve is resolved (:func:`resolve_options`):
 they never silently fall back to something else.
+
+``carry_layout``: the port stores the tall carries flat, always.
+``"chunked"`` (and ``"auto"``, which picks it for refined solves in the
+JAX package) resolves to ``"flat"``: the JAX package's chunked layout
+exists to spare the TPU a relayout copy per iteration, and its
+trajectories are bit for bit the flat layout's.
 """
 
 from __future__ import annotations
@@ -89,6 +95,11 @@ class DavidsonOptions:
         require(self.carry_layout != "chunked" or self.refined,
                 InvalidOptionsError,
                 "carry_layout='chunked' requires refined=True")
+        require(self.carry_layout != "chunked"
+                or self.orthonormalization == "cholqr2",
+                InvalidOptionsError,
+                "carry_layout='chunked' requires "
+                "orthonormalization='cholqr2'")
         require(self.final_polish >= 0, InvalidOptionsError,
                 "final_polish must be >= 0")
         require(self.final_polish == 0 or self.refined, InvalidOptionsError,
@@ -104,13 +115,6 @@ class DavidsonOptions:
 def _require_ported(opts: DavidsonOptions) -> None:
     """Reject options whose machinery the torch port does not have yet."""
     not_yet = [
-        (opts.method.upper() == "GJD", "method='GJD'",
-         "ROADMAP slice 2 (core/krylov.py block MINRES)"),
-        (opts.refined, "refined=True",
-         "ROADMAP slice 3 (double-single refined path)"),
-        (opts.final_polish > 0, "final_polish", "ROADMAP slice 3"),
-        (opts.carry_layout == "chunked", "carry_layout='chunked'",
-         "the refined path"),
         (opts.cheb_degree != 0, "cheb_degree",
          "ROADMAP item 18 (Chebyshev restarts)"),
         (opts.locking, "locking=True", "ROADMAP item 18"),
@@ -146,6 +150,14 @@ class ResolvedConfig:
     # Incremental-H engine (fused SpMM+Gram); resolved by the solver entry
     # point, where the operator is known (``solver.py``).
     fused_gram: bool = False
+    gjd_inner_iters: int = 128
+    gjd_inner_tol: float = 1e-12
+    gjd_schedule: str = "adaptive"
+    gjd_precond: str = "none"
+    gjd_warm: bool = False
+    refined: bool = False
+    final_polish: int = 0
+    polish_update: str = "dpr"
 
 
 def merge_options(options: Optional[DavidsonOptions],
@@ -234,6 +246,10 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
     solve (``sharded``, over ``shard_row_divisor`` ranks) sizes the
     memory clamp by the rows one rank holds, as the JAX package does."""
     _require_ported(opts)
+    require(not (sharded and opts.refined), InvalidOptionsError,
+            "refined=True is not ported to the sharded solve: it waits for "
+            "ROADMAP item 19 (shard-local double-single folds, "
+            "fortran_davidson_tpu/utils/ds.py:286)")
     require(not (sharded and opts.orthonormalization == "qr"),
             InvalidOptionsError,
             "orthonormalization='qr' is not ported to the sharded solve "
@@ -268,6 +284,9 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
     require(m_max <= n, InvalidOptionsError,
             f"padded subspace width {m_max} exceeds matrix dimension {n}; "
             "reduce max_dim_sub or init_dim")
+    inner = opts.gjd_inner_iters
+    if inner is None:
+        inner = min(n, 128)
     return ResolvedConfig(
         lowest=lowest,
         method=validate_method(opts.method),
@@ -283,6 +302,14 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
         expansion=str(opts.expansion),
         dtype=str(dtype).removeprefix("torch."),
         generalized=generalized,
+        gjd_inner_iters=int(inner),
+        gjd_inner_tol=float(opts.gjd_inner_tol),
+        gjd_schedule=str(opts.gjd_inner_schedule),
+        gjd_precond=str(opts.gjd_preconditioner),
+        gjd_warm=bool(opts.gjd_warm_start),
+        refined=bool(opts.refined),
+        final_polish=int(opts.final_polish),
+        polish_update=str(opts.polish_update),
     )
 
 
@@ -306,6 +333,12 @@ class DavidsonResult:
     residual_history: torch.Tensor     # (max_iterations, k)
     subspace_dims: torch.Tensor        # (max_iterations,) int32
     operator_columns: int = None       # live columns A was applied to
-    stalled: bool = None               # a lowest-k expansion admitted nothing
-    inner_iterations: int = None       # GJD only (not ported): None
-    eigenvalues_lo: torch.Tensor = None  # refined polish only: None
+    # The loop stopped at a fixed point: a lowest-k expansion admitted no
+    # column, or (refined) the residual plateau or the trial polish's
+    # certification ended it.
+    stalled: bool = None
+    inner_iterations: int = None       # GJD: MINRES steps over the solve
+    # final_polish: low words of the polished eigenvalues;
+    # float64(eigenvalues) + float64(eigenvalues_lo) is what the residual
+    # check used.
+    eigenvalues_lo: torch.Tensor = None

@@ -1,7 +1,7 @@
 """The block-Davidson outer loop as an eager loop over device tensors
-(counterpart of ``fortran_davidson_tpu/core/loop.py``: the branch that is
-not refined and uses flat carries, with or without the incremental-H
-engine of ``fused_gram``).
+(counterpart of ``fortran_davidson_tpu/core/loop.py``, on flat carries:
+DPR, Olsen and GJD corrections, the refined double-single path with its
+final polish, and the incremental-H engine of ``fused_gram``).
 
 The design keeps the JAX package's invariants:
 
@@ -35,6 +35,20 @@ at a collapse (``core/loop.py:119-127,343-344,589-604,682-688``). The
 gram operand is the basis up to the new block's end, ``V[:, :c0+kk]``,
 not all ``m_max`` columns: the columns past it are zero in V and in H.
 
+The refined path (``cfg.refined``, single device) measures the
+projection compensated and refines the k wanted Ritz vectors against it,
+takes true residuals and Rayleigh-refined eigenvalues from
+``refine.refined_pairs`` (one off-diagonal apply of the k columns), gates
+admitted columns by their Rayleigh quotient, and exits at its attainable
+floor: after ``_PLATEAU_ITERS`` iterations without a 1% gain of the worst
+unconverged residual, or, with ``final_polish``, as soon as a trial
+polish at the first short plateau certifies the pairs. The JAX package
+asks for that certification in a ``lax.cond``; here it is a Python branch
+on the iteration's one host read. ``operator_columns`` counts the
+correction blocks the loop applied A to; the JAX package's refined
+standard path also computes (and charges) the block of a collapse or
+converged iteration, which it discards, so its count there is higher.
+
 The tall arrays may be one rank's rows of a row-sharded solve
 (``parallel.sharded``): every reduction over rows goes through the
 ``rows`` hook (``core/rows.py``), so every rank sees the same small
@@ -43,36 +57,28 @@ matrices, flags and counts and takes the same branches.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 
 from fortran_davidson_tpu_torch.config import DavidsonResult, ResolvedConfig
 from fortran_davidson_tpu_torch.core import correction as corr_mod
-from fortran_davidson_tpu_torch.core import orthogonal, subspace
+from fortran_davidson_tpu_torch.core import orthogonal, refine, subspace
 from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
+from fortran_davidson_tpu_torch.utils.ds import DS, two_sum
+from fortran_davidson_tpu_torch.utils.dtypes import \
+    full_precision_matmuls as _precision_ctx
 
+# Refined-path plateau exit: consecutive iterations without a 1% gain of
+# the worst unconverged wanted residual before the loop concludes it has
+# hit the float32-basis floor.
+_PLATEAU_ITERS = 10
 
-@contextlib.contextmanager
-def _precision_ctx():
-    """Full-precision float32 matmuls for everything inside the solver.
-
-    The GPU form of the JAX package's ``_precision_ctx``
-    (``core/loop.py:54-68``): TF32 keeps ~10 mantissa bits, which poisons
-    the projected matrix, Ritz products and residuals of a float32 solve.
-    No effect on float64.
-    """
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+# Trial-polish poll point: when the no-progress counter first reaches
+# this value (and ``final_polish`` is on), the polish is asked whether the
+# k pairs already certify at the user's tolerance.
+_POLISH_POLL_AT = 4
 
 
 def _apply(op: LinearOperator, X, dt):
@@ -80,7 +86,8 @@ def _apply(op: LinearOperator, X, dt):
 
 
 def _check_fused(cfg: ResolvedConfig, gen: bool) -> None:
-    if cfg.fused_gram and (gen or cfg.expansion != "lowest-k"):
+    if cfg.fused_gram and (gen or cfg.refined
+                           or cfg.expansion != "lowest-k"):
         raise ValueError(
             "fused_gram requires a standard, non-refined, lowest-k "
             "configuration (the solver entry point gates this)")
@@ -121,7 +128,7 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
         m = init_dim
     else:
         V, col_ok, m = subspace.initial_subspace_with_guess(
-            diag_a, X0, init_dim, m_max, rows)
+            diag_a, X0, init_dim, m_max, rows, precise=cfg.refined)
         if cfg.expansion == "doubling":
             # Doubling doubles m regardless of the live count
             # (``src/davidson.f90:199``) and its roll-add placement needs m
@@ -156,18 +163,116 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
         state["BV"] = BV
     if cfg.fused_gram:
         state["H"] = H
+    if cfg.method == "GJD":
+        # Cumulative inner MINRES steps over the solve, and (warm start)
+        # the previous raw correction block; zero is a cold start.
+        state["inner_ops"] = torch.zeros((), dtype=torch.int64, device=dev)
+        if cfg.gjd_warm:
+            kk0 = k if cfg.expansion == "lowest-k" else m_max
+            state["corr_prev"] = torch.zeros((n, kk0), dtype=dt, device=dev)
+    if cfg.refined:
+        # Residual-plateau tracking (see the module docstring).
+        state["best_err"] = torch.full((), float("inf"), dtype=dt,
+                                       device=dev)
+        state["no_prog"] = 0
     return state
+
+
+def _refined_ritz(Vw, AVw, BVw, mask, m_max: int, k: int):
+    """Rayleigh-Ritz of the refined path (``core/loop.py:295-335``): the
+    projection(s) measured compensated, the masked (generalized) eigh of
+    their roundings, and the k wanted eigenvectors refined first-order
+    against the DS residual of the same penalized matrices the eigh
+    diagonalized (penalties added with exact two_sum)."""
+    H_ds = subspace.project_ds(Vw, AVw)
+    H = H_ds.hi + H_ds.lo
+    pen = torch.diag(subspace._pad_penalties(H, mask, m_max))
+    ph, pl = two_sum(H_ds.hi, pen)
+    if BVw is None:
+        lam, W = orthogonal.eigh(H + pen)
+        W[:, :k] = refine.refine_ritz(DS(ph, pl + H_ds.lo), lam, W, k)
+        return lam, W
+    S_ds = subspace.project_ds(Vw, BVw)
+    lam, W = subspace.masked_generalized_eigh(H, S_ds.hi + S_ds.lo, mask,
+                                              m_max)
+    sh, sl = two_sum(S_ds.hi, torch.diag(1.0 - mask))
+    W[:, :k] = refine.refine_ritz_pencil(DS(ph, pl + H_ds.lo),
+                                         DS(sh, sl + S_ds.lo), lam, W, k)
+    return lam, W
+
+
+def _rq_gate(Q, AQ, alive_q, lam, pair_mask, k: int, rows: Rows):
+    """The refined path's spectral noise gate (``core/loop.py:553-579``):
+    a whitened junk direction has a Rayleigh quotient at the mean-diagonal
+    scale, far above the wanted pairs', and one admitted junk column
+    inflates ||H|| until the eigh can no longer resolve them. Columns with
+    |rq| > 250·max(max|λ_wanted|, 1) are dropped; survivors are compacted
+    to a prefix."""
+    dt = Q.dtype
+    rq = rows.sum(torch.sum(Q * AQ, dim=0))
+    wmax = torch.max(torch.abs(lam[:k]) * pair_mask[:k])
+    cap = 250.0 * torch.clamp(wmax, min=1.0)
+    keep = alive_q * (torch.abs(rq) <= cap).to(dt)
+    order = torch.argsort((keep <= 0.5).to(torch.int8), stable=True)
+    return ((Q * keep[None, :])[:, order], (AQ * keep[None, :])[:, order],
+            keep[order])
+
+
+def _certify(cfg: ResolvedConfig, A_off, B_off, diag_a, diag_b, evals, X):
+    """The trial polish: does a final polish of these pairs certify at
+    the user's tolerance? (One host read.)"""
+    pol = refine.polish(A_off, diag_a, evals, X,
+                        iterations=cfg.final_polish, B_off=B_off,
+                        diag_b=diag_b, update=cfg.polish_update)
+    return bool(torch.all(_converged(cfg, pol.errors, pol.evals)))
+
+
+def _converged(cfg: ResolvedConfig, errors, evals):
+    if cfg.relative:
+        return errors < cfg.tolerance * torch.clamp(torch.abs(evals), min=1.0)
+    return errors < cfg.tolerance
+
+
+def _gjd(cfg: ResolvedConfig, A, B, dt, lam, X, R, pmk, diag_a, diag_b,
+         warm_t, rows: Rows):
+    """The GJD correction with the loop's inner schedule
+    (``core/loop.py:466-507``). Returns ``(corr, iters)``, ``iters`` the
+    (b,) MINRES steps each column ran."""
+    precond = cfg.gjd_precond in ("dpr", "olsen")
+    if cfg.gjd_schedule == "adaptive":
+        # Outer-target-linked inner forcing (inexact JD): stop at 1% of
+        # the outer tolerance absolute or 1e-2 relative, whichever is
+        # looser, never tighter than gjd_inner_tol.
+        tol_eff = (cfg.tolerance * torch.clamp(torch.abs(lam), min=1.0)
+                   if cfg.relative else cfg.tolerance)
+        rnorm = rows.norms(R)
+        inner_tol = torch.clamp(
+            0.01 * tol_eff / torch.clamp(rnorm, min=1e-30),
+            min=cfg.gjd_inner_tol, max=1e-2)
+    else:
+        inner_tol = cfg.gjd_inner_tol
+    return corr_mod.gjd_correction(
+        lambda T: _apply(A, T, dt),
+        None if B is None else (lambda T: _apply(B, T, dt)),
+        lam, X, R, pmk, cfg.gjd_inner_iters, inner_tol,
+        diag_a=diag_a if precond else None,
+        diag_b=diag_b if (precond and B is not None) else None,
+        olsen_start=cfg.gjd_precond == "olsen",
+        scale=cfg.gjd_precond == "dpr",
+        return_inner_iters=True, warm_t=warm_t, rows=rows)
 
 
 def run_state(cfg: ResolvedConfig, A: LinearOperator,
               B: Optional[LinearOperator], st: dict,
-              rows: Rows = LOCAL) -> dict:
+              rows: Rows = LOCAL, A_off: Optional[LinearOperator] = None,
+              B_off: Optional[LinearOperator] = None) -> dict:
     """Iterate until convergence, a stall, or ``max_iterations``.
 
     ``st`` is updated in place and returned. ``st["m"]`` and
     ``st["stalled"]`` may be 0-d device tensors between iterations; they
     are read at the next iteration's synchronisation (or by
-    :func:`pack_result`).
+    :func:`pack_result`). ``A_off``/``B_off``: the off-diagonal splits
+    the refined path needs (``A.offdiag()``).
     """
     k = cfg.lowest
     m_max = cfg.m_max
@@ -177,6 +282,9 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
     gen = B is not None
     _check_fused(cfg, gen)
     fused = cfg.fused_gram
+    precise = cfg.refined
+    if precise and A_off is None:
+        raise ValueError("cfg.refined requires A_off (= A.offdiag())")
     lowest_k = cfg.expansion == "lowest-k"
     diag_a = A.diagonal().to(dt)
     n = diag_a.shape[0]
@@ -198,9 +306,14 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         # The fused engine reads H from the state: CGS2 never touches
         # admitted columns, so their entries stay valid.
         Vw, AVw = V[:, :w], AV[:, :w]
-        H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw, rows)
-        S = subspace.project(Vw, BV[:, :w], rows) if gen else None
-        lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
+        if precise:
+            lam, W = _refined_ritz(Vw, AVw, BV[:, :w] if gen else None,
+                                   mask, m_max, k)
+        else:
+            H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw,
+                                                               rows)
+            S = subspace.project(Vw, BV[:, :w], rows) if gen else None
+            lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
 
         # Ritz vectors and block residuals from the caches. Lowest-k only
         # ever corrects the k wanted pairs; doubling corrects every pair.
@@ -212,23 +325,40 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         BXW = BV[:, :w] @ Wk if gen else X
         R = (AXW - BXW * lam[:kk][None, :]) * pmk[None, :]
         del AXW, BXW
-        errors = rows.norms(R[:, :k])
-        if cfg.relative:
-            conv_now = errors < cfg.tolerance * torch.clamp(
-                torch.abs(lam[:k]), min=1.0)
+        if precise:
+            # True residuals and Rayleigh-refined eigenvalues of the k
+            # wanted pairs; the compensated residual also feeds the
+            # correction (the cache residual carries ~sqrt(n)*eps*λ
+            # noise). Nonexistent pairs read an infinite error.
+            ref = refine.refined_pairs(A_off, diag_a, X[:, :k], B_off=B_off,
+                                       diag_b=diag_b if gen else None)
+            pm_k = pair_mask[:k] > 0.5
+            errors = torch.where(pm_k, ref.errors.to(dt),
+                                 torch.full_like(ref.errors.to(dt),
+                                                 float("inf")))
+            evals = ref.evals.to(dt)
+            R[:, :k] = torch.where(pm_k[None, :], ref.residual.to(dt),
+                                   torch.zeros_like(R[:, :k]))
         else:
-            conv_now = errors < cfg.tolerance
+            errors = rows.norms(R[:, :k])
+            evals = lam[:k]
+        conv_now = _converged(cfg, errors, evals)
         # A pair can only converge if it exists (rank-deficient starts).
         conv_now = conv_now & (pair_mask[:k] > 0.5)
         has_conv = (st["has_conv"] | conv_now) if cfg.sticky else conv_now
 
         # The iteration's one host synchronisation.
         pending = [torch.all(has_conv)]
+        if precise:
+            worst = torch.max(torch.where(has_conv, torch.zeros_like(errors),
+                                          errors))
+            pending.append(worst < st["best_err"] * (1.0 - 1e-2))
         for key in ("m", "stalled"):
             if isinstance(st[key], torch.Tensor):
                 pending.append(st[key])
         flags = torch.stack([t.to(torch.int64) for t in pending]).tolist()
         all_conv = bool(flags.pop(0))
+        improved = bool(flags.pop(0)) if precise else False
         for key in ("m", "stalled"):
             if isinstance(st[key], torch.Tensor):
                 st[key] = flags.pop(0)
@@ -242,31 +372,50 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         it = st["it"]
         st["history"][it] = errors
         st["dims"][it] = m
-        st.update(has_conv=has_conv, all_conv=all_conv, evals=lam[:k],
+        st.update(has_conv=has_conv, all_conv=all_conv, evals=evals,
                   evecs=X[:, :k], errors=errors, it=it + 1)
+        if precise:
+            st["best_err"] = torch.minimum(st["best_err"], worst)
         if all_conv:
             break
 
-        if m <= cfg.max_dim:
+        collapse = m > cfg.max_dim
+        if not collapse:
             # Expansion iff the current dim <= max_dim
             # (``src/davidson.f90:195``).
             if cfg.method == "DPR":
                 corr = corr_mod.dpr_correction(R, lam[:kk], diag_a, diag_b,
                                                pmk)
-            else:
+            elif cfg.method == "OLSEN":
                 corr = corr_mod.olsen_correction(R, lam[:kk], X, diag_a,
                                                  diag_b, pmk, rows)
+            else:
+                warm_t = None
+                if cfg.gjd_warm:
+                    warm_t = st["corr_prev"][:, :kk]
+                corr, it_in = _gjd(cfg, A, B, dt, lam[:kk], X, R, pmk,
+                                   diag_a, diag_b, warm_t, rows)
+                st["inner_ops"] += torch.max(it_in)
+                if cfg.gjd_warm:
+                    # The raw correction, before orthonormalization, is
+                    # what the next inner solve recycles.
+                    st["corr_prev"][:, :kk] = corr
+                    st["corr_prev"][:, kk:] = 0
             del R, X
             Q, alive_q = orthogonal.orthonormalize_block(
                 V[:, :m], corr, pmk, n_reorth=cfg.n_reorth, method=cfg.ortho,
-                rank_width=k if lowest_k else m_max, rows=rows)
+                rank_width=k if lowest_k else m_max, rows=rows,
+                precise=precise)
             del corr
             # The fused engine applies A after the write of Q: the gram
             # needs the basis that holds it.
             AQ = None if fused else _apply(A, Q, dt)
+            st["op_cols"] += torch.sum(alive_q).to(torch.int64)
+            if precise:
+                Q, AQ, alive_q = _rq_gate(Q, AQ, alive_q, lam, pair_mask, k,
+                                          rows)
             BQ = _apply(B, Q, dt) if gen else None
             live = torch.sum(alive_q).to(torch.int64)
-            st["op_cols"] += live
             if lowest_k:
                 # Survivors are a prefix of the k-column block: write them
                 # at column m; the live count keeps the basis hole-free.
@@ -305,7 +454,7 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             del R, X
             W2 = W[:, :init_dim]
             Qc, Rc = orthogonal.thin_qr_collapse(Vw @ W2, method=cfg.ortho,
-                                                 rows=rows)
+                                                 rows=rows, precise=precise)
             AQc = orthogonal.right_tri_solve(AVw @ W2, Rc)
             BQc = (orthogonal.right_tri_solve(BV[:, :w] @ W2, Rc) if gen
                    else None)
@@ -324,6 +473,24 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             st["col_ok"] = orthogonal.col_mask(init_dim, m_max, dt, dev)
             st["m"] = st["m_hi"] = init_dim
             st["stalled"] = lowest_k and init_dim == m
+
+        if precise:
+            # Plateau tracking (``core/loop.py:732-788``). A collapse is
+            # neutral: it neither counts nor resets (the doubling schedule
+            # collapses more often than the window is long).
+            if improved:
+                st["no_prog"] = 0
+            elif not collapse:
+                st["no_prog"] += 1
+            if st["no_prog"] >= _PLATEAU_ITERS:
+                st["stalled"] = True
+            elif (cfg.final_polish > 0 and st["no_prog"] == _POLISH_POLL_AT
+                  and not collapse
+                  and _certify(cfg, A_off, B_off, diag_a,
+                               diag_b if gen else None, evals, st["evecs"])):
+                st["stalled"] = True
+            if st["stalled"] is True:
+                break
     return st
 
 
@@ -343,12 +510,50 @@ def pack_result(st: dict) -> DavidsonResult:
         subspace_dims=st["dims"],
         operator_columns=int(st["op_cols"]),
         stalled=stalled,
+        inner_iterations=(int(st["inner_ops"]) if "inner_ops" in st
+                          else None),
+    )
+
+
+def _apply_final_polish(cfg: ResolvedConfig, A: LinearOperator,
+                        B: Optional[LinearOperator], A_off, B_off,
+                        res: DavidsonResult) -> DavidsonResult:
+    """Double-single polish of the k returned pairs and the honest
+    re-check (``core/loop.py:837-882``): convergence is evaluated against
+    the polished TRUE residuals."""
+    dt = getattr(torch, cfg.dtype)
+    pol = refine.polish(A_off, A.diagonal().to(dt), res.eigenvalues,
+                        res.eigenvectors, iterations=cfg.final_polish,
+                        B_off=B_off,
+                        diag_b=None if B is None else B.diagonal().to(dt),
+                        update=cfg.polish_update)
+    conv = _converged(cfg, pol.errors, pol.evals)
+    return DavidsonResult(
+        eigenvalues=pol.evals,
+        eigenvectors=pol.evecs_hi,
+        iterations=res.iterations,
+        converged=bool(torch.all(conv)),
+        converged_pairs=conv,
+        residual_norms=pol.errors,
+        residual_history=res.residual_history,
+        subspace_dims=res.subspace_dims,
+        # hi and lo both pass through A_off once per polish iteration.
+        operator_columns=res.operator_columns
+        + 2 * cfg.final_polish * cfg.lowest,
+        stalled=res.stalled,
+        inner_iterations=res.inner_iterations,
+        eigenvalues_lo=pol.evals_lo,
     )
 
 
 def _engine(cfg: ResolvedConfig, A: LinearOperator,
             B: Optional[LinearOperator], X0=None,
-            rows: Rows = LOCAL) -> DavidsonResult:
+            rows: Rows = LOCAL, A_off: Optional[LinearOperator] = None,
+            B_off: Optional[LinearOperator] = None) -> DavidsonResult:
     with _precision_ctx(), torch.no_grad():
         st = init_state(cfg, A, B, X0=X0, rows=rows)
-        return pack_result(run_state(cfg, A, B, st, rows))
+        res = pack_result(run_state(cfg, A, B, st, rows, A_off=A_off,
+                                    B_off=B_off))
+        if cfg.final_polish > 0:
+            res = _apply_final_polish(cfg, A, B, A_off, B_off, res)
+        return res

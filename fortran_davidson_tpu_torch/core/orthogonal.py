@@ -1,5 +1,5 @@
 """Masked block orthonormalization (counterpart of
-``fortran_davidson_tpu/core/orthogonal.py``, non-refined branches).
+``fortran_davidson_tpu/core/orthogonal.py``).
 
 The reference re-orthonormalizes the entire grown basis with a
 Householder QR every expansion (``src/davidson.f90:213``). The port, like
@@ -12,6 +12,11 @@ the span equals the reference's QR span, so iteration counts match.
 Invariants (as in the JAX package): inactive columns are exactly zero,
 active columns need not be a prefix of the basis, and vanished directions
 are dropped, never filled with arbitrary vectors.
+
+``precise=True`` (the refined path, single device) measures every Gram
+compensated (``utils.ds.gram_ds``): a plain float32 Gram at n = 10M
+mismeasures by ~sqrt(n)*eps, and neither CGS nor CholeskyQR can correct
+below what the Gram measures.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 
 from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
+from fortran_davidson_tpu_torch.utils import ds as dsm
 
 
 def col_mask(m, m_max: int, dtype, device=None):
@@ -30,9 +36,25 @@ def col_mask(m, m_max: int, dtype, device=None):
     return (torch.arange(m_max, device=device) < m).to(dtype)
 
 
-def project_out(V, block, rows: Rows = LOCAL):
-    """Remove the component of ``block`` lying in span(V's nonzero columns)."""
+def project_out(V, block, rows: Rows = LOCAL, precise: bool = False):
+    """Remove the component of ``block`` lying in span(V's nonzero columns).
+
+    ``precise``: compensated coefficients Vᵀblock (the plain float32 dot
+    carries ~sqrt(n)*eps relative noise, which caps how small a genuine
+    new direction the projection can leave standing).
+    """
+    if precise:
+        g = dsm.gram_ds(V, block)
+        return block - V @ (g.hi + g.lo)
     return block - V @ rows.sum(V.T @ block)
+
+
+def _gram(X, rows: Rows, precise: bool):
+    """Gram XᵀX, compensated when ``precise``."""
+    if precise:
+        g = dsm.gram_ds(X)
+        return g.hi + g.lo
+    return rows.sum(X.T @ X)
 
 
 def _eye(m: int, like):
@@ -69,7 +91,7 @@ def cholesky_nan(G):
 def orthonormalize_block(V, block, mask, n_reorth: int = 2,
                          method: str = "cholqr2",
                          rank_width: Optional[int] = None,
-                         rows: Rows = LOCAL):
+                         rows: Rows = LOCAL, precise: bool = False):
     """Orthonormalize ``block`` against the basis ``V`` and itself.
 
     Args:
@@ -84,6 +106,10 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         with it which columns survive, is the JAX package's.
       rows: the row-reduction hook (``core/rows.py``); the ``"qr"`` method
         is single-device only.
+      precise: compensated Grams (single device), the survivor floor
+        256·eps instead of sqrt(eps), and SVQB's noise floor: a surviving
+        column carries rounding noise at ~eps·sqrt(n) relative, so a
+        Gram eigenvalue below ``(10·eps)²·n`` is junk, not a direction.
 
     Returns:
       ``(q, alive)``: (n, b) block with orthonormal active columns,
@@ -94,17 +120,24 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
     block = block * mask[None, :]
     norms_before = rows.norms(block)
     for _ in range(n_reorth):
-        block = project_out(V, block, rows)
+        block = project_out(V, block, rows, precise)
     # Drop columns that lost (nearly) all their mass to the projection:
     # what survives is roundoff of the subtraction, not a new direction.
+    # With compensated coefficients the floor is the remaining V @ coeffs
+    # product's, ~sqrt(m)*eps: down to 256*eps is signal.
     norms_after = rows.norms(block)
     finfo = torch.finfo(dt)
-    drop_tol = finfo.eps ** 0.5
+    drop_tol = 256.0 * finfo.eps if precise else finfo.eps ** 0.5
     alive = (norms_after > drop_tol * torch.clamp(norms_before,
                                                   min=finfo.tiny)) \
         & (mask > 0.5)
     block = block * alive[None, :].to(dt)
     mask = mask * alive.to(dt)
+    rank_rtol = None
+    if precise:
+        width = block.shape[1] if rank_width is None else rank_width
+        rank_rtol = max(width * finfo.eps,
+                        (10.0 * finfo.eps) ** 2 * block.shape[0])
     if method == "qr":
         # Compact survivors to a prefix first: with an interior zero
         # column, Householder QR routes components of later columns onto
@@ -121,19 +154,19 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         inv = torch.where(norms > 0, 1.0 / torch.where(norms > 0, norms, 1.0),
                           0.0)
         return q * inv[None, :], (norms > 0.5).to(dt)
-    return svqb(block, mask, return_alive=True, rank_width=rank_width,
-                rows=rows)
+    return svqb(block, mask, rank_rtol=rank_rtol, return_alive=True,
+                rank_width=rank_width, rows=rows, precise=precise)
 
 
 def cholqr_once(X, unit_diag=None, jitter: float = 0.0,
-                rows: Rows = LOCAL):
+                rows: Rows = LOCAL, precise: bool = False):
     """One CholeskyQR pass: X = Q R via R = chol(X^T X)^T, Q = X R^{-1}.
 
     ``unit_diag``: optional (m,) 0/1 mask; positions with 0 get a unit
     Gram diagonal so exactly-zero (padded) columns pass through as zero
     columns instead of breaking the factorization.
     """
-    G = rows.sum(X.T @ X)
+    G = _gram(X, rows, precise)
     if unit_diag is not None:
         G = G + torch.diag(1.0 - unit_diag)
     if jitter:
@@ -143,16 +176,18 @@ def cholqr_once(X, unit_diag=None, jitter: float = 0.0,
     return X @ Linv.T, L.T
 
 
-def cholqr2(X, unit_diag=None, jitter: float = 0.0, rows: Rows = LOCAL):
+def cholqr2(X, unit_diag=None, jitter: float = 0.0, rows: Rows = LOCAL,
+            precise: bool = False):
     """CholeskyQR2 (Yamamoto et al.): two passes give orthogonality at
     working precision for cond(X) up to ~1/sqrt(eps)."""
-    Q1, R1 = cholqr_once(X, unit_diag, jitter, rows)
-    Q2, R2 = cholqr_once(Q1, unit_diag, jitter, rows)
+    Q1, R1 = cholqr_once(X, unit_diag, jitter, rows, precise)
+    Q2, R2 = cholqr_once(Q1, unit_diag, jitter, rows, precise)
     return Q2, R2 @ R1
 
 
 def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
-         rank_width: Optional[int] = None, rows: Rows = LOCAL):
+         rank_width: Optional[int] = None, rows: Rows = LOCAL,
+         precise: bool = False):
     """SVQB (Stathopoulos & Wu 2002): rank-revealing block
     orthonormalization through the eigendecomposition of the Gram matrix.
 
@@ -167,7 +202,7 @@ def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
     inv = torch.where(norms > 0, 1.0 / torch.where(norms > 0, norms, 1.0), 0.0)
     Bh = block * inv[None, :]
     active = (norms > 0).to(dt) * mask
-    G = rows.sum(Bh.T @ Bh) + torch.diag(1.0 - active)
+    G = _gram(Bh, rows, precise) + torch.diag(1.0 - active)
     s, U = eigh(G)
     if rank_rtol is None:
         rank_rtol = width * torch.finfo(dt).eps
@@ -177,7 +212,8 @@ def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
     Q = Bh @ (U * factor[None, :])
     # Refinement pass (the CholQR2 second sweep) on the surviving columns.
     alive = (rows.sum(torch.sum(Q * Q, dim=0)) > 0.5).to(dt)
-    Q, _ = cholqr_once(Q * alive[None, :], unit_diag=alive, rows=rows)
+    Q, _ = cholqr_once(Q * alive[None, :], unit_diag=alive, rows=rows,
+                       precise=precise)
     Q = Q * alive[None, :]
     order = torch.argsort((alive < 0.5).to(torch.int8), stable=True)
     if return_alive:
@@ -185,13 +221,14 @@ def svqb(block, mask, rank_rtol=None, return_alive: bool = False,
     return Q[:, order]
 
 
-def thin_qr_collapse(X, method: str = "cholqr2", rows: Rows = LOCAL):
+def thin_qr_collapse(X, method: str = "cholqr2", rows: Rows = LOCAL,
+                     precise: bool = False):
     """Thin QR of the collapsed Ritz block, returned as (Q, R) so the
     cached A@V / B@V follow by a triangular solve with no operator
     application (see ``fortran_davidson_tpu.core.orthogonal``)."""
     if method == "qr":
         return torch.linalg.qr(X)
-    return cholqr2(X, rows=rows)
+    return cholqr2(X, rows=rows, precise=precise)
 
 
 def right_tri_solve(Y, R):

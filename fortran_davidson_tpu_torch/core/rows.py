@@ -33,6 +33,10 @@ class Rows:
         """Column 2-norms of the tall (rows, w) block."""
         return torch.linalg.vector_norm(X, dim=0)
 
+    def col_mean(self, X):
+        """Column means of the tall (rows, w) block."""
+        return torch.mean(X, dim=0)
+
     def smallest(self, values, count: int):
         """Global indices of the ``count`` smallest entries of the tall
         vector, ascending, ties by index."""

@@ -21,6 +21,7 @@ import torch
 
 from fortran_davidson_tpu_torch.core import orthogonal
 from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
+from fortran_davidson_tpu_torch.utils import ds as dsm
 
 
 def initial_subspace(diag, m_init: int, m_max: int, rows: Rows = LOCAL):
@@ -41,24 +42,29 @@ def initial_subspace(diag, m_init: int, m_max: int, rows: Rows = LOCAL):
 
 
 def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int,
-                                rows: Rows = LOCAL):
+                                rows: Rows = LOCAL, precise: bool = False):
     """Warm-started basis: the (n, j) guess ``X0`` plus the canonical
     preconditioner fill, SVQB-orthonormalized together (rank-deficient
     guesses lose their redundant directions).
 
     Returns ``(V0, col_ok, m0)`` with ``m0`` the live count as a 0-d
-    tensor (no host synchronisation).
+    tensor (no host synchronisation). ``precise`` (the refined path) takes
+    compensated Grams and the expand step's noise-floor rank threshold.
     """
     n = diag.shape[0]
     j = X0.shape[1]
     dt = diag.dtype
+    eps = torch.finfo(dt).eps
+    rank_rtol = (max(m_init * eps, (10.0 * eps) ** 2 * n) if precise
+                 else None)
     C = torch.zeros((n, m_init), dtype=dt, device=diag.device)
     C[:, :j] = X0.to(dt)
     if m_init > j:
         C[:, j:] = initial_subspace(diag, m_init - j, m_init - j, rows)
     Q, alive = orthogonal.svqb(C, torch.ones((m_init,), dtype=dt,
                                              device=diag.device),
-                               return_alive=True, rows=rows)
+                               rank_rtol=rank_rtol, return_alive=True,
+                               rows=rows, precise=precise)
     V0 = torch.zeros((n, m_max), dtype=dt, device=diag.device)
     V0[:, :m_init] = Q
     col_ok = torch.zeros((m_max,), dtype=dt, device=diag.device)
@@ -69,6 +75,13 @@ def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int,
 def project(V, AV, rows: Rows = LOCAL):
     """Projected (Gram) matrix H = V^T (A V)."""
     return rows.sum(V.T @ AV)
+
+
+def project_ds(V, AV) -> "dsm.DS":
+    """The compensated projection H = Vᵀ(AV) as a DS pair
+    (``utils.ds.gram_ds``; single device): the refined Rayleigh-Ritz's
+    H_ds, and S_ds = Vᵀ(BV) for a pencil."""
+    return dsm.gram_ds(V, AV)
 
 
 def _pad_penalties(H, mask, m_max: Optional[int] = None):

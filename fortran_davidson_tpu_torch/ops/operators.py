@@ -54,6 +54,16 @@ class LinearOperator(abc.ABC):
         """The operator minus its diagonal (generic ``matmat - d∘x``)."""
         return SubtractDiagOperator(self)
 
+    def matmat_ds(self, x_hi, x_lo):
+        """Optional double-single block apply: ``(y_hi, y_lo)`` with
+        ``y_hi + y_lo ≈ A @ (x_hi + x_lo)`` to ~eps². A plain float32
+        apply floors any residual measured through it at its own output
+        rounding (~eps/2·‖A_off x‖); operators whose structure admits a
+        compensated apply override this. ``None`` (the default, and the
+        dense and diagonal operators') means unsupported: callers apply
+        each word with ``matmat``."""
+        return None
+
     def matvec(self, vec):
         return self.matmat(vec[:, None])[:, 0]
 
@@ -172,12 +182,16 @@ class MatrixFreeOperator(LinearOperator):
     (``diag=``); without it, it is probed in blocks
     (:func:`probe_diagonal`), ``ceil(n / 128)`` block applications.
     ``offdiag_fn`` is an optional exact off-diagonal apply with the same
-    signature as ``fn``.
+    signature as ``fn``. ``ds_fn(x_hi, x_lo, *captured) -> (y_hi, y_lo)``
+    is an optional double-single apply of this operator
+    (:meth:`LinearOperator.matmat_ds`); ``offdiag_ds_fn`` becomes the
+    ``ds_fn`` of the :meth:`offdiag` operator.
     """
 
     def __init__(self, fn: Callable, n: int, dtype=torch.float64,
                  diag=None, captured=(), offdiag_fn: Optional[Callable] = None,
-                 device=None):
+                 device=None, ds_fn: Optional[Callable] = None,
+                 offdiag_ds_fn: Optional[Callable] = None):
         self.fn = fn
         self._n = int(n)
         self._dtype = as_torch_dtype(dtype)
@@ -190,6 +204,8 @@ class MatrixFreeOperator(LinearOperator):
                      else torch.as_tensor(diag, device=self._device))
         self.captured = tuple(captured)
         self.offdiag_fn = offdiag_fn
+        self.ds_fn = ds_fn
+        self.offdiag_ds_fn = offdiag_ds_fn
 
     @property
     def shape(self):
@@ -211,13 +227,20 @@ class MatrixFreeOperator(LinearOperator):
             return self.diag
         return probe_diagonal(self.matmat, self._n, self._dtype, self._device)
 
+    def matmat_ds(self, x_hi, x_lo):
+        if self.ds_fn is None:
+            return None
+        return self.ds_fn(x_hi, x_lo, *self.captured)
+
     def offdiag(self):
         if self.offdiag_fn is None:
             return super().offdiag()
         return MatrixFreeOperator(self.offdiag_fn, self._n, dtype=self._dtype,
                                   diag=torch.zeros((self._n,), dtype=self._dtype,
                                                    device=self._device),
-                                  captured=self.captured)
+                                  captured=self.captured,
+                                  device=self._device,
+                                  ds_fn=self.offdiag_ds_fn)
 
 
 def probe_diagonal(matmat: Callable, n: int, dtype, device=None,

@@ -23,6 +23,7 @@ import torch
 
 from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
+from fortran_davidson_tpu_torch.utils import ds as dsm
 from fortran_davidson_tpu_torch.utils.dtypes import (as_device_tensor,
                                                      as_torch_dtype,
                                                      default_device,
@@ -166,6 +167,39 @@ class BSROperator(LinearOperator):
             None if v is None else v.to(compute), bandwidth=self.bandwidth,
             write_out=write_out, out_dtype=target)
 
+    def matmat_ds(self, x_hi, x_lo):
+        """Compensated double-single block apply (``ops/sparse.py:736-781``).
+
+        Each slot contracts as its own ``(bs, bs) @ (bs, m)`` batched
+        product in the working dtype (true float32: the caller pins TF32
+        off), the K per-slot partials combine by exact ``two_sum``, and
+        the lo words pass through the same contractions into the error
+        channel. What remains is each slot's own accumulation rounding,
+        ~eps·sqrt(bs)·|entries|·|x|: far below the whole apply's
+        eps·|A x| on the off-diagonal split of a diagonal-dominant
+        operator (the refined solver's ``A_off``). Plain PyTorch: it is
+        no Pallas kernel in the JAX package either.
+        """
+        nbr, bs, kbs = self.blocks.shape
+        K = kbs // bs
+        m = x_hi.shape[1]
+        dt = x_hi.dtype
+        xb_hi = x_hi.reshape(nbr, bs, m)
+        xb_lo = x_lo.reshape(nbr, bs, m)
+        if self.bandwidth is not None:
+            hi_slices = _slot_slices_dia(xb_hi, self.bandwidth, K)
+            lo_slices = _slot_slices_dia(xb_lo, self.bandwidth, K)
+        else:
+            hi_slices = _slot_slices_gather(xb_hi, self.block_cols)
+            lo_slices = _slot_slices_gather(xb_lo, self.block_cols)
+        parts_hi, parts_lo = [], []
+        for k in range(K):
+            blk = self.blocks[:, :, k * bs:(k + 1) * bs].to(dt)
+            parts_hi.append(torch.bmm(blk, hi_slices[k]))
+            parts_lo.append(torch.bmm(blk, lo_slices[k]))
+        y_hi, y_lo = _ds_slot_accumulate(parts_hi, parts_lo)
+        return y_hi.reshape(nbr * bs, m), y_lo.reshape(nbr * bs, m)
+
     def _blocks4(self):
         nbr, bs, kbs = self.blocks.shape
         return self.blocks.reshape(nbr, bs, kbs // bs, bs)
@@ -222,6 +256,30 @@ class BSROperator(LinearOperator):
         return BSROperator(self.block_cols,
                            self.blocks.to(as_torch_dtype(dtype)),
                            bandwidth=self.bandwidth)
+
+
+def _slot_slices_dia(xb, bw: int, K: int):
+    """Per-slot (nbr, bs, m) input slices of DIA-aligned storage: ``bw``
+    zero block rows padded on each side, contiguous slices, no gather
+    (out-of-range slots store zero blocks)."""
+    nbr = xb.shape[0]
+    xp = torch.nn.functional.pad(xb, (0, 0, 0, 0, bw, bw))
+    return [xp[k:k + nbr] for k in range(K)]
+
+
+def _slot_slices_gather(xb, block_cols):
+    """Per-slot input slices through the stored block-column table."""
+    cols = block_cols.long()
+    return [xb[cols[:, k]] for k in range(block_cols.shape[1])]
+
+
+def _ds_slot_accumulate(parts_hi, parts_lo):
+    """Exact two_sum fold of per-slot (hi, lo) contributions."""
+    y_hi, y_lo = parts_hi[0], parts_lo[0]
+    for ph, pl in zip(parts_hi[1:], parts_lo[1:]):
+        y_hi, e = dsm.two_sum(y_hi, ph)
+        y_lo = y_lo + pl + e
+    return dsm.fast_two_sum(y_hi, y_lo)
 
 
 def _two_pass_gram(op, block, vv, write_out: bool):
@@ -349,10 +407,42 @@ class QuantizedBandedOperator(LinearOperator):
             out_dtype=block.dtype)
 
     def matmat_ds(self, x_hi, x_lo):
-        raise NotImplementedError(
-            "QuantizedBandedOperator.matmat_ds is not ported to the torch "
-            "package yet; it waits for ROADMAP item 13 (the double-single "
-            "refined path)")
+        """Compensated double-single apply on int8 storage
+        (``ops/sparse.py:1050-1105``; the combine of
+        :meth:`BSROperator.matmat_ds`).
+
+        Per slot the integer contraction ``Q_k @ x`` runs first (int8
+        values are exact in float32; each slot's blocks are widened to
+        float32 on every call, as the JAX package does), the slot's scale
+        multiplies afterwards by exact ``two_prod``, and the exact
+        diagonal enters as ``two_prod(d, x_hi)`` with ``d * x_lo`` in the
+        error channel. On the ``offdiag()`` instance the diagonal is zero.
+        """
+        nbr, bs, kbs = self.qblocks.shape
+        K = kbs // bs
+        m = x_hi.shape[1]
+        dt = x_hi.dtype
+        xb_hi = x_hi.reshape(nbr, bs, m)
+        xb_lo = x_lo.reshape(nbr, bs, m)
+        hi_slices = _slot_slices_dia(xb_hi, self.bandwidth, K)
+        lo_slices = _slot_slices_dia(xb_lo, self.bandwidth, K)
+        scales = self.scale_rows.reshape(nbr, K, bs)[:, :, 0].to(dt)
+        parts_hi, parts_lo = [], []
+        for k in range(K):
+            qk = self.qblocks[:, :, k * bs:(k + 1) * bs].to(dt)
+            ik_hi = torch.bmm(qk, hi_slices[k])
+            ik_lo = torch.bmm(qk, lo_slices[k])
+            del qk
+            sk = scales[:, k][:, None, None]
+            p, e = dsm.two_prod(ik_hi, sk)
+            parts_hi.append(p)
+            parts_lo.append(e + ik_lo * sk)
+        d = self.diag.to(dt)[:, :, None]
+        p, e = dsm.two_prod(d, xb_hi)
+        parts_hi.append(p)
+        parts_lo.append(e + d * xb_lo)
+        y_hi, y_lo = _ds_slot_accumulate(parts_hi, parts_lo)
+        return y_hi.reshape(nbr * bs, m), y_lo.reshape(nbr * bs, m)
 
     def diagonal(self):
         return self.diag.reshape(-1)

@@ -57,6 +57,7 @@ class RowShardConstraint(Rows):
 
     def __init__(self, mesh: RowMesh, n: int):
         self.mesh = mesh
+        self.n = n
         self.offset = mesh.rows(n).start
 
     def sum(self, t):
@@ -64,6 +65,9 @@ class RowShardConstraint(Rows):
 
     def norms(self, X):
         return torch.sqrt(self.sum(torch.sum(X * X, dim=0)))
+
+    def col_mean(self, X):
+        return self.sum(torch.sum(X, dim=0)) / self.n
 
     def smallest(self, values, count: int):
         # Each rank's own smallest, gathered in rank order and stably
@@ -216,8 +220,9 @@ def eigensolve_sharded(matrix, lowest: int, mesh: RowMesh,
 
     Returns the result on every rank: ``eigenvectors`` holds the rank's
     rows (``mesh.rows(n)``); everything else is global and the same on
-    every rank. ``refined=True`` and ``method="GJD"`` raise
-    ``InvalidOptionsError`` (not ported yet).
+    every rank. GJD's MINRES sums its column norms and dots over the
+    ranks. ``refined=True`` raises ``InvalidOptionsError``: the sharded
+    refined path waits for ROADMAP item 19.
     """
     opts = merge_options(options, overrides)
     dt = canonical_dtype(opts.dtype)

@@ -12,10 +12,13 @@ import dataclasses
 import warnings
 from typing import Optional
 
+import torch
+
 from fortran_davidson_tpu_torch.config import (DavidsonOptions, DavidsonResult,
                                                merge_options, resolve_options,
                                                validate_initial_vectors)
 from fortran_davidson_tpu_torch.core.loop import _engine
+from fortran_davidson_tpu_torch.core.refine import PolishResult, polish
 from fortran_davidson_tpu_torch.ops.operators import as_operator
 from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
@@ -54,13 +57,14 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
                 f"B lives on {B.device}, A on {A.device}")
     cfg = resolve_options(opts, lowest, A.shape[0], generalized=B is not None,
                           device=A.device)
-    if (opts.fused_gram in ("auto", "on") and B is None
+    if (opts.fused_gram in ("auto", "on") and B is None and not cfg.refined
             and cfg.expansion == "lowest-k" and cfg.dtype == "float32"
             and hasattr(A, "matmat_with_gram")
             # "auto" also asks for wide blocks (the JAX package's gate,
             # ``fortran_davidson_tpu/solver.py:69-85``, kept as it is until
             # an H100 A/B decides it anew); "on" forces the engine. The
-            # refined path, which never takes it, raises before this.
+            # refined path never takes it: its float32 gram is far above
+            # the compensated gram's precision.
             and (opts.fused_gram == "on"
                  or (lowest >= 128 and cfg.m_max % 128 == 0))):
         # Incremental-H engine: the expand block's projection columns come
@@ -69,7 +73,39 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
         cfg = dataclasses.replace(cfg, fused_gram=True)
     X0 = validate_initial_vectors(initial_vectors, A.shape[0], cfg.init_dim,
                                   dt, device=A.device)
+    if cfg.refined:
+        # The refined path also takes the off-diagonal splits, for its
+        # compensated true residuals (structural for the sparse formats,
+        # see ``LinearOperator.offdiag``).
+        return _engine(cfg, A, B, X0=X0, A_off=A.offdiag(),
+                       B_off=None if B is None else B.offdiag())
     return _engine(cfg, A, B, X0=X0)
+
+
+def polish_eigenpairs(matrix, result: DavidsonResult, iterations: int = 3,
+                      second_matrix=None, dtype=None,
+                      update: str = "dpr") -> PolishResult:
+    """Double-single post-refinement of a solve's eigenpairs
+    (``fortran_davidson_tpu.solver.polish_eigenpairs``): the k returned
+    pairs re-iterated with the vectors held as hi/lo pairs and every
+    diagonal cancellation exact (:func:`core.refine.polish`, which pins
+    TF32 off), on the operator's device.
+
+    Returns a :class:`~fortran_davidson_tpu_torch.core.refine.PolishResult`;
+    ``evecs_hi + evecs_lo`` is the float64-grade eigenvector.
+    """
+    dt = canonical_dtype(dtype or result.eigenvectors.dtype)
+    A = as_operator(matrix, dtype=dt)
+    B = (None if second_matrix is None
+         else as_operator(second_matrix, dtype=dt, device=A.device))
+    with torch.no_grad():
+        return polish(
+            A.offdiag(), A.diagonal().to(dt),
+            result.eigenvalues.to(dt), result.eigenvectors.to(dt),
+            iterations=iterations,
+            B_off=None if B is None else B.offdiag(),
+            diag_b=None if B is None else B.diagonal().to(dt),
+            update=update)
 
 
 def generalized_eigensolver(matrix, lowest: int, method: str = "DPR",
@@ -86,10 +122,18 @@ def generalized_eigensolver(matrix, lowest: int, method: str = "DPR",
                      tolerance=tolerance, max_dim_sub=max_dim_sub,
                      **overrides)
     if not res.converged:
+        # The hint follows the resolved options: ``refined`` may come in
+        # through ``options=DavidsonOptions(refined=True)``.
+        refined = merge_options(
+            overrides.get("options"),
+            {key: v for key, v in overrides.items()
+             if key != "options"}).refined
         hint = ""
-        if res.eigenvalues.dtype.itemsize == 4 and tolerance < 1e-5:
+        if (res.eigenvalues.dtype.itemsize == 4 and not refined
+                and tolerance < 1e-5):
             hint = (" — float32 residuals floor at ~sqrt(n)*eps*||A||; "
-                    "use relative_tolerance=True or float64")
+                    "for tighter tolerances use refined=True (+"
+                    "final_polish) or relative_tolerance=True")
         warnings.warn("Davidson algorithm did not converge "
                       f"within {max_iterations} iterations "
                       f"(residuals: {res.residual_norms}){hint}",

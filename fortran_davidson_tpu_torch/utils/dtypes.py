@@ -13,6 +13,8 @@ that already lives on a device keeps following it.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -97,3 +99,26 @@ def safe_denominator(d, dtype=None, floor_scale: float = 1e2):
     mag = torch.maximum(torch.abs(d), floor)
     sign = torch.where(d < 0, -1.0, 1.0).to(dt)
     return sign * mag
+
+
+@contextlib.contextmanager
+def full_precision_matmuls():
+    """Full-precision float32 matmuls inside the block: TF32 off.
+
+    The GPU form of the JAX package's ``_precision_ctx``
+    (``fortran_davidson_tpu/core/loop.py:54-68``): TF32 keeps ~10
+    mantissa bits, which poisons the projected matrix, Ritz products and
+    residuals of a float32 solve and the compensated Grams and applies of
+    the refined path. No effect on float64. The solver's loop and the
+    refined functions that can be called outside it
+    (``core/refine.refined_pairs``, ``polish``) run under it.
+    """
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

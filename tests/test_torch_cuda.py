@@ -1566,3 +1566,137 @@ def test_general_kernel_on_a_block_permuted_table(cuda_device, dtype, kind):
         y = kernels.bsr_spmm(c, b, x, out_dtype=acc).reshape(13, 24, m)
         py = kernels.bsr_spmm(pc, pb, px.reshape(-1, m), out_dtype=acc)
         assert torch.equal(py.reshape(13, 24, m)[p], y)
+
+
+# -- the double-single path and GJD on the card --------------------------
+
+def _exact_pairs(n, lo_exp, hi_exp, seed):
+    """float32 pairs (a, b): |a| = m 2**e with m in [1, 2) and e drawn
+    from [lo_exp, hi_exp), b within 2**±20 of a, random signs; a + b and
+    a * b are then exact in float64."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(e):
+        sign = torch.randint(0, 2, (n,), generator=g).double() * 2 - 1
+        return (sign * (1 + torch.rand(n, generator=g, dtype=torch.float64))
+                * torch.exp2(e)).float()
+
+    e = torch.randint(lo_exp, hi_exp, (n,), generator=g).double()
+    return draw(e), draw(e + torch.randint(-20, 20, (n,), generator=g))
+
+
+def test_error_free_transforms_exact_on_the_card(cuda_device):
+    """two_sum and two_prod on the card: exact against float64, and the
+    CPU's bits (eager kernels, one rounding each, no FMA contraction)."""
+    from fortran_davidson_tpu_torch.utils import ds
+    for fn, (lo_exp, hi_exp), exact in (
+            (ds.two_sum, (-100, 100), lambda a, b: a + b),
+            (ds.two_prod, (-40, 25), lambda a, b: a * b)):
+        a, b = _exact_pairs(200_000, lo_exp, hi_exp, seed=1)
+        s, e = fn(a.to(cuda_device), b.to(cuda_device))
+        got = s.double() + e.double()
+        assert bool(torch.all(got.cpu() == exact(a.double(), b.double())))
+        s_cpu, e_cpu = fn(a, b)
+        assert torch.equal(s.cpu(), s_cpu) and torch.equal(e.cpu(), e_cpu)
+
+
+@pytest.mark.parametrize("kind", ["bsr", "general", "int8_offdiag",
+                                  "int8_full"])
+def test_matmat_ds_on_the_card(cuda_device, kind):
+    """The compensated apply on the card against a float64 oracle of the
+    same stored matrix (the bounds of tests/test_ds_apply_sparse.py). With
+    the exact diagonal (int8_full) it stays two orders below the float32
+    apply of both words, whose products of the diagonal round at
+    eps*|d x|. On a band alone the DS apply's only error is each slot's
+    float32 sum, the same order as the kernels' own float32 sums, so
+    there it is held to the bound alone."""
+    base = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=1e-3,
+                                    dtype=torch.float32, device=cuda_device)
+    if kind == "bsr":
+        op = base.offdiag()
+    elif kind == "general":
+        op = fdtt.BSROperator(base.block_cols, base.offdiag().blocks)
+    else:
+        op = fdtt.quantize_banded_int8(base)
+        op = op.offdiag() if kind == "int8_offdiag" else op
+    A64 = op.to_dense().double()
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    xh = torch.randn((op.shape[0], 4), generator=g, device=cuda_device)
+    xh = xh / torch.linalg.vector_norm(xh, dim=0)
+    xl = torch.randn((op.shape[0], 4), generator=g, device=cuda_device) * 1e-8
+    y64 = A64 @ (xh.double() + xl.double())
+    yh, yl = op.matmat_ds(xh, xl)
+    err_ds = torch.linalg.vector_norm(yh.double() + yl.double() - y64, dim=0)
+    yf = op.matmat(xh).double() + op.matmat(xl).double()
+    err_f32 = torch.linalg.vector_norm(yf - y64, dim=0)
+    if kind == "int8_full":
+        assert float(err_ds.max()) < 1e-9
+        assert float(err_ds.max()) < float(err_f32.max()) / 100
+    else:
+        assert float(err_ds.max()) < 5e-10
+
+
+def _card_and_cpu(solve):
+    return solve(torch.device("cuda")), solve(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="GJD"),
+    dict(method="GJD", gjd_preconditioner="dpr", gjd_warm_start=True),
+    dict(method="GJD", gjd_preconditioner="olsen", expansion="lowest-k")])
+def test_gjd_solve_on_the_card_equals_the_cpu(cuda_device, kw):
+    def solve(dev):
+        A = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=1e-3,
+                                     seed=0, device=dev)
+        return fdtt.eigensolve(A, 3, tolerance=1e-9, **kw)
+    card, cpu = _card_and_cpu(solve)
+    assert card.converged and cpu.converged
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert card.inner_iterations > 0
+    torch.testing.assert_close(card.eigenvalues.cpu(), cpu.eigenvalues,
+                               rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("op_kind", ["int8", "surrogate"])
+def test_refined_solve_on_the_card_equals_the_cpu(cuda_device, op_kind):
+    def solve(dev):
+        if op_kind == "int8":
+            A = fdtt.generate_banded_bsr_quantized(256, 16, bandwidth=1,
+                                                   coupling=1e-3, seed=0,
+                                                   device=dev)
+        else:
+            from fortran_davidson_tpu_torch.models import generators
+            A = generators.surrogate_hamiltonian(4096, dtype=torch.float32,
+                                                 device=dev)
+        return fdtt.eigensolve(A, 4, dtype="float32", tolerance=1e-8,
+                               relative_tolerance=True, expansion="lowest-k",
+                               refined=True, final_polish=3,
+                               max_iterations=60)
+    card, cpu = _card_and_cpu(solve)
+    assert card.converged and cpu.converged
+    assert abs(card.iterations - cpu.iterations) <= 1
+    assert float(card.residual_norms.max()) < 1e-8
+    lam_card = card.eigenvalues.double() + card.eigenvalues_lo.double()
+    lam_cpu = cpu.eigenvalues.double() + cpu.eigenvalues_lo.double()
+    tol = float(card.residual_norms.max() + cpu.residual_norms.max())
+    assert float((lam_card.cpu() - lam_cpu).abs().max()) <= max(tol, 1e-12)
+
+
+def test_polish_eigenpairs_on_the_card(cuda_device):
+    A = fdtt.generate_banded_bsr_quantized(256, 16, bandwidth=1,
+                                           coupling=1e-3, seed=0,
+                                           device=cuda_device)
+    res = fdtt.eigensolve(A, 4, dtype="float32", tolerance=1e-4,
+                          relative_tolerance=True, expansion="lowest-k")
+    before = kernels.banded_q_bsr_spmm.launches
+    pol = fdtt.polish_eigenpairs(A, res, iterations=3)
+    assert pol.evecs_hi.is_cuda and pol.evecs_hi.dtype == torch.float32
+    A64 = A.to_dense().double()
+    x = pol.evecs_hi.double() + pol.evecs_lo.double()
+    x = x / torch.linalg.vector_norm(x, dim=0)
+    lam = pol.evals.double() + pol.evals_lo.double()
+    r = torch.linalg.vector_norm(A64 @ x - x * lam[None, :], dim=0)
+    assert float(r.max()) < 1e-8
+    # The polish applies the off-diagonal words through matmat_ds (plain
+    # PyTorch), not kernel 4.
+    assert kernels.banded_q_bsr_spmm.launches == before

@@ -249,6 +249,7 @@ def single_device(inputs, jax_ops):
         lowest, opts = worker.SOLVES[name]
         jA = {"halo_pallas": jax_ops["solve_halo"],
               "halo_remote": jax_ops["solve_halo"],
+              "gjd_halo": jax_ops["solve_halo"],
               "remote_f32": jax_ops["solve_remote"],
               "bsr": jax_ops["solve_bsr"],
               "int8": jax_ops["solve_int8"],
@@ -393,10 +394,10 @@ def test_pallas_remote_names_kernel_8(monkeypatch):
         tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2), backend="mosaic")
 
 
-@pytest.mark.parametrize("option", [dict(refined=True), dict(method="GJD")])
+@pytest.mark.parametrize("option", [dict(refined=True)])
 def test_sharded_solve_rejects_unported_options(option):
     A = np.asarray(jgen.generate_diagonal_dominant(64, 1e-3))
-    with pytest.raises(InvalidOptionsError, match="not ported"):
+    with pytest.raises(InvalidOptionsError, match="not ported.*item 19"):
         tpar.eigensolve_sharded(A, 3, _fake_mesh(1), **option)
 
 

@@ -80,8 +80,22 @@ def test_quantized_operator_matches_jax():
     assert float(torch.max(torch.abs(t.offdiag().diagonal()))) == 0.0
     np.testing.assert_array_equal(to_numpy(t.to_dense()),
                                   np.asarray(j.to_dense()))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t.matmat_ds(torch.from_numpy(X), torch.from_numpy(X))
+    # The compensated apply against the JAX package's on the same hi and
+    # lo words, both held to a float64 oracle of the same stored matrix:
+    # what is left is each slot's float32 sum of integer products times
+    # its scale (~1e-9 at coupling 1e-2), in another order in each.
+    Xl = (_x(t.shape[0], 6, seed=5) * 1e-8).astype(np.float32)
+    X64 = X.astype(np.float64) + Xl
+    for tj, tt in ((j, t), (j.offdiag(), t.offdiag())):
+        oracle = np.asarray(tj.to_dense(), np.float64) @ X64
+        yh, yl = tj.matmat_ds(jnp.asarray(X), jnp.asarray(Xl))
+        th, tl = tt.matmat_ds(torch.from_numpy(X), torch.from_numpy(Xl))
+        assert th.dtype == tl.dtype == torch.float32
+        err_j = np.abs(np.asarray(yh, np.float64) + np.asarray(yl) - oracle)
+        err_t = np.abs(to_numpy(th).astype(np.float64) + to_numpy(tl)
+                       - oracle)
+        assert err_t.max() < 2e-8 and err_j.max() < 2e-8
+        assert err_t.max() <= 2.0 * err_j.max()
 
 
 def test_convert_recognises_the_int8_operator_before_the_diagonal():

@@ -133,7 +133,7 @@ def test_result_layout_and_history():
 
 
 @pytest.mark.parametrize("option", [
-    dict(method="GJD"), dict(refined=True), dict(cheb_degree=4),
+    dict(cheb_degree=4),
     dict(cheb_degree="auto"), dict(locking=True),
     dict(matmul_precision="bfloat16"),
 ])

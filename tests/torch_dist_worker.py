@@ -52,6 +52,11 @@ SOLVES = {
     "warm": (3, F64),
     "halo_remote": (3, F64),
     "remote_f32": (3, dict(tolerance=1e-5, dtype="float32")),
+    # GJD: MINRES's column norms and dots summed over the ranks.
+    "gjd": (3, dict(method="GJD", tolerance=1e-8)),
+    "gjd_warm": (3, dict(method="GJD", tolerance=1e-8, gjd_warm_start=True)),
+    "gjd_halo": (3, dict(method="GJD", tolerance=1e-8,
+                         gjd_preconditioner="dpr")),
 }
 
 
@@ -102,6 +107,9 @@ def solve_cases(inputs, mesh=None) -> dict:
         "warm": (A, None, torch.from_numpy(inputs["X0"])),
         "halo_remote": (halo("solve_halo", "pallas-remote"), None, None),
         "remote_f32": (halo("solve_remote", "pallas-remote"), None, None),
+        "gjd": (A, None, None),
+        "gjd_warm": (A, None, None),
+        "gjd_halo": (halo("solve_halo", "pallas"), None, None),
     }
 
 
