@@ -222,8 +222,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    host-clock times of both, in turns, of each exchange alone, and of the
    ``"pallas"`` path's two other parts alone: the ``torch.cat`` into
    x_ext and kernel 6.
-10. Prints the solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-8, each counted from 0 over its own phase; kernel 9, the copy
+10. The north stars at 10M rows and the entry points, each a solve phase
+   counted as phases 4-8 are, run once A, A32 and q are freed:
+   (a) ROADMAP item 14: lowest-20 of ``surrogate_hamiltonian(10_000_384,
+   float32)`` through ``examples/northstar.py``'s progressive recipe
+   (``NORTHSTAR_ARGV``, bench.py:574-612's), a cold, a warm and (the
+   port's own width) a profiled run, first under the JAX package's 12 GB
+   budget (``FDT_CARRY_BUDGET_BYTES``; the width must resolve to its 44),
+   then at the port's own width; each converges with an oracle relative
+   residual <= 1e-8 (float64 promotion of the stored float32 operator,
+   the polish's hi + lo vectors and eigenvalues; the float32 words alone
+   and the float64 surrogate are printed beside it), and its eigenvalues
+   within 1e-8 relative of a plain float64 DPR solve of the float64
+   surrogate at the 12 GB budget's width (the A/B; cold and warm; at the
+   port's own width that solve stops at a fixed point above 1e-8,
+   ROADMAP Queue 3: shown, not gated). Prints the resolved widths, the
+   refined iterations beside the JAX package's 17, walls, peak memory,
+   the idle share. (b) ROADMAP item 15: lowest-20 of
+   ``generate_banded_bsr_quantized(78_125, 128)`` (n = 10,000,000, int8,
+   built on the host, its time apart) through ``--mode banded --quantize
+   --progressive``: cold, warm and profiled runs through kernel 4, the
+   oracle relative residual of phase 6b (over ``ORACLE_ROWS`` block rows
+   at a time) <= 1e-8. (c) ``python -m fortran_davidson_tpu_torch
+   solve`` on a 200-row .npy in a subprocess (its JSON line within 1e-9
+   of scipy), and ``examples/northstar.py --mode banded`` at 1,048,576
+   rows (bf16 storage, kernel 1), which must exit 0.
+11. Prints the solves' and kernels' JSON lines (launch counts of the solve
+   phases 4-10, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
    the rest and no phase launches them (nor kernel 3's and kernel 5's
    float64 entries); for
@@ -257,6 +282,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2064,21 +2090,27 @@ def _device_busy(label, run, shapes: bool = False) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
+    t_read = time.perf_counter()
+    # The raw events: building the profiler's FunctionEvent list
+    # (``prof.events()``) takes minutes at the 10M-row phases' ~480k
+    # device ops.
+    events = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA
+                    and not e.is_user_annotation())
     busy_us, end, by_name = 0.0, float("-inf"), {}
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        s, f = e.time_range.start, e.time_range.end
+    for s, f, name in events:
         busy_us += max(0.0, f - max(s, end))
         end = max(end, f)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (f - s)
+        by_name[name] = by_name.get(name, 0.0) + (f - s)
     busy_ms = busy_us / 1e3
     idle = 1.0 - busy_ms / wall_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"  profiled {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms over {len(events)} device ops, idle share "
           f"{idle:.1%}; most device time: "
-          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top),
+          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for n, t in top)
+          + f" (the trace read in {time.perf_counter() - t_read:.1f} s)",
           flush=True)
     out = dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=idle)
@@ -2210,18 +2242,34 @@ LOOSE = dict(method="DPR", tolerance=1e-3, relative_tolerance=True,
              dtype="float32", expansion="lowest-k", max_iterations=30)
 
 
+# Block rows of the int8 oracle's chunks: 1.6 GB of float64 blocks each
+# (all 78,125 at 10M rows would take 30.7 GB).
+ORACLE_ROWS = 4096
+
+
 def _int8_true_residual(q, X, lam) -> float:
     """max_j ||A x_j - lam_j x_j|| / max(|lam_j|, 1) in float64, with the
-    dequantized blocks and the exact diagonal."""
+    dequantized blocks and the exact diagonal; ``ORACLE_ROWS`` block rows
+    at a time, each with its x window (``bw`` halo block rows on each
+    side, as ``kernels.banded_bsr_spmm_plain`` pads them)."""
     import torch
-    from fortran_davidson_tpu_torch.ops import kernels
     X = X.double()
     lam = lam.double()
-    deq = (q.qblocks.float() * q.scale_rows[:, None, :]).double()
-    AX = kernels.banded_bsr_spmm_plain(deq, X, q.bandwidth)
-    del deq
-    AX += q.diag.reshape(-1, 1).double() * X
-    res = torch.linalg.vector_norm(AX - X * lam[None, :], dim=0)
+    nbr, bs, kbs = q.qblocks.shape
+    K, bw, m = kbs // bs, q.bandwidth, X.shape[1]
+    xp = torch.nn.functional.pad(X.reshape(nbr, bs, m), (0, 0, 0, 0, bw, bw))
+    sq = torch.zeros(m, dtype=torch.float64, device=X.device)
+    for r0 in range(0, nbr, ORACLE_ROWS):
+        r1 = min(r0 + ORACLE_ROWS, nbr)
+        deq = (q.qblocks[r0:r1].float()
+               * q.scale_rows[r0:r1, None, :]).double()
+        window = torch.cat([xp[r0 + k:r1 + k] for k in range(K)], dim=1)
+        xr = xp[r0 + bw:r1 + bw]
+        R = (torch.bmm(deq, window) + q.diag[r0:r1, :, None].double() * xr
+             - xr * lam)
+        del deq, window
+        sq += torch.sum(R * R, dim=(0, 1))
+    res = torch.sqrt(sq)
     return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
 
 
@@ -3209,6 +3257,316 @@ def remote_vs_pallas_apply(A, dev, rendezvous, solves):
     torch.cuda.empty_cache()
 
 
+# Phases 10a-10c: the north stars at 10M rows and the entry points, run
+# through ``examples/northstar.py`` and ``python -m
+# fortran_davidson_tpu_torch``. The recipe of ``bench.py:574-612``.
+NORTHSTAR_ARGV = ["--lowest", "20", "--progressive", "--tolerance", "1e-8",
+                  "--expansion", "lowest-k"]
+NS_FREE_N = 10_000_384
+# The JAX package's run of the same recipe (docs/BENCHMARKS.md:103-110):
+# its width under its 12 GB budget, and its refined iterations (iterations
+# only: float32 trajectories part by summation order).
+JAX_NS_BUDGET = "12e9"
+JAX_NS_WIDTH = 44
+JAX_NS_ITERATIONS = 17
+# Phase 10a's A/B: plain float64 DPR on the float64 surrogate.
+F64_NORTHSTAR = dict(method="DPR", tolerance=1e-8, relative_tolerance=True,
+                     expansion="lowest-k", dtype="float64")
+# Phase 10b: 78,125 block rows of 128, n = 10,000,000.
+NS_BSR_N = 10_000_000
+
+
+@contextlib.contextmanager
+def _env(name: str, value):
+    """``os.environ[name]`` set to ``value`` (unset for None) inside."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def _resolved_width(op, args) -> tuple:
+    """(max_dim_sub, m_max) the northstar solve's options resolve to on
+    ``op`` now (the budget reads the card's free memory)."""
+    from fortran_davidson_tpu_torch import config
+    from fortran_davidson_tpu_torch.examples import northstar
+    common, _ = northstar.solve_options(args)
+    cfg = config.resolve_options(config.merge_options(None, common),
+                                 args.lowest, op.shape[0], generalized=False,
+                                 device=op.device)
+    return cfg.max_dim, cfg.m_max
+
+
+def _surrogate_oracle(op, X, lam) -> float:
+    """max_j ||A x_j - lam_j x_j|| / max(|lam_j|, 1) in float64 on the
+    normalized columns, A the float64 promotion of the matrix-free
+    surrogate ``op`` (its diagonal, factors and weights)."""
+    import torch
+    from fortran_davidson_tpu_torch.models.generators import \
+        low_rank_plus_diag_apply
+    d, U, w = (t.double() for t in op.captured)
+    X = X.double()
+    X = X / torch.linalg.vector_norm(X, dim=0)
+    R = low_rank_plus_diag_apply(X, d, U, w) - X * lam
+    res = torch.linalg.vector_norm(R, dim=0)
+    return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
+
+
+def _northstar_run(label, op, args, profile: bool = False) -> dict:
+    """A cold and a warm run of the northstar example's recipe
+    (``northstar.solve_timed``), with the peak memory above the start and
+    (``profile``) one more run under the profiler."""
+    import torch
+    from fortran_davidson_tpu_torch.examples import northstar
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    res, cold, warm = northstar.solve_timed(op, args)
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(res=res, cold_s=cold, warm_s=warm, peak_mem_gb=peak / 1e9,
+               peak_mem_above_gb=(peak - mem0) / 1e9,
+               max_subspace_dim=int(res.subspace_dims.max()))
+    print(f"  {label}: iterations {res.iterations} (refined stage), "
+          f"converged={res.converged}, stalled={res.stalled}, cold "
+          f"{cold:.3f} s, warm {warm:.3f} s, largest subspace "
+          f"{out['max_subspace_dim']}, max_memory_allocated "
+          f"{out['peak_mem_gb']:.2f} GB ({out['peak_mem_above_gb']:.2f} "
+          "above the start)", flush=True)
+    _check(bool(res.converged), f"{label}: did not converge")
+    _check(bool(torch.all(torch.isfinite(res.eigenvalues)))
+           and tuple(res.eigenvectors.shape) == (op.shape[0], args.lowest),
+           f"{label}: bad output")
+    if profile:
+        out.update(_device_busy(label, lambda: northstar.run(op, args)))
+    return out
+
+
+def phase_northstar_free(dev, solves):
+    """Phase 10a (ROADMAP item 14): lowest-20 of
+    ``surrogate_hamiltonian(10_000_384, float32)`` to relative 1e-8
+    through ``examples/northstar.py``'s progressive recipe, at the JAX
+    package's width (its 12 GB budget, which must resolve to 44) and at
+    the port's own; then the plain float64 DPR solve of the float64
+    surrogate. Each converges; the refined eigenpairs (hi + lo words of
+    the final polish) hold a float64 oracle of the stored float32
+    operator to 1e-8, and their eigenvalues the float64 solve's (at the
+    12 GB budget's width; at its own width it stalls, shown) to 1e-8
+    relative."""
+    import torch
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.models import generators
+
+    args = northstar.parse_args(["--n", str(NS_FREE_N), *NORTHSTAR_ARGV])
+    op = northstar.build_operator(args, device=dev)
+    op64 = generators.surrogate_hamiltonian(NS_FREE_N, dtype=torch.float64,
+                                            device=dev)
+    runs = {}
+    for leg, budget in (("parity", JAX_NS_BUDGET), ("own", None)):
+        with _env("FDT_CARRY_BUDGET_BYTES", budget):
+            torch.cuda.empty_cache()
+            width, m_max = _resolved_width(op, args)
+            print(f"  [{leg}] FDT_CARRY_BUDGET_BYTES={budget}: max_dim_sub "
+                  f"resolves to {width} (m_max {m_max})", flush=True)
+            if budget is not None:
+                _check(width == JAX_NS_WIDTH, f"the 12 GB budget resolves "
+                       f"width {width}, the JAX package's {JAX_NS_WIDTH}")
+            run = _northstar_run(
+                f"surrogate n={NS_FREE_N} lowest-20 progressive [{leg}]",
+                op, args, profile=leg == "own")
+        res = run["res"]
+        lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
+        X = res.eigenvectors.double() + res.eigenvectors_lo.double()
+        run.update(width=width, m_max=m_max, lam=lam,
+                   oracle=_surrogate_oracle(op, X, lam),
+                   oracle_hi=_surrogate_oracle(op, res.eigenvectors, lam),
+                   oracle_f64_surrogate=_surrogate_oracle(op64, X, lam))
+        print(f"  [{leg}] oracle relative residual (float64 promotion of "
+              f"the stored operator): {run['oracle']:.3e} with the polish's "
+              f"low words, {run['oracle_hi']:.3e} from the float32 words "
+              f"alone; against the float64 surrogate "
+              f"{run['oracle_f64_surrogate']:.3e}; refined iterations "
+              f"{res.iterations} (the JAX package's: {JAX_NS_ITERATIONS}, "
+              "iterations only)", flush=True)
+        _check(run["oracle"] <= SOLVE_TOL,
+               f"[{leg}] oracle residual {run['oracle']:.3e}")
+        runs[leg] = run
+        del res, X
+
+    # The A/B: the same problem in plain float64 (the card has float64),
+    # at the JAX package's width. At the port's own width the solve stops
+    # at a fixed point above the tolerance (ROADMAP Queue 3): shown, and
+    # left out of the gates.
+    torch.cuda.empty_cache()
+    own64, _ = _solve(f"float64 surrogate n={NS_FREE_N} lowest-20 plain DPR "
+                      "[own width, observed]", op64, 20, **F64_NORTHSTAR)
+    own64 = dict(converged=own64.converged, stalled=own64.stalled,
+                 iterations=own64.iterations,
+                 residual_norms=own64.residual_norms.tolist(),
+                 max_subspace_dim=int(own64.subspace_dims.max()))
+    print(f"  float64 plain at its own width: {own64}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    walls64 = []
+    with _env("FDT_CARRY_BUDGET_BYTES", JAX_NS_BUDGET):
+        for tag in ("cold", "warm"):
+            res64, wall = _solve_converged(
+                f"float64 surrogate n={NS_FREE_N} lowest-20 plain DPR "
+                f"[parity width, {tag}]", op64, 20, **F64_NORTHSTAR)
+            walls64.append(wall)
+    peak64 = torch.cuda.max_memory_allocated()
+    lam64 = res64.eigenvalues
+    oracle64 = _surrogate_oracle(op64, res64.eigenvectors, lam64)
+    width64 = int(res64.subspace_dims.max())
+    print(f"  float64 plain: iterations {res64.iterations}, largest "
+          f"subspace {width64}, oracle {oracle64:.3e}, cold "
+          f"{walls64[0]:.3f} s, warm {walls64[1]:.3f} s, "
+          f"max_memory_allocated {peak64 / 1e9:.2f} GB "
+          f"({(peak64 - mem0) / 1e9:.2f} above the start)", flush=True)
+    _check(oracle64 <= SOLVE_TOL, f"float64 oracle residual {oracle64:.3e}")
+    for leg, run in runs.items():
+        run["eig_rel_f64"] = float(torch.max(
+            torch.abs(run.pop("lam") - lam64)
+            / torch.clamp(torch.abs(lam64), min=1.0)))
+        print(f"  [{leg}] max |eig - eig_f64| / max(|eig_f64|, 1) = "
+              f"{run['eig_rel_f64']:.3e}", flush=True)
+        _check(run["eig_rel_f64"] <= SOLVE_TOL,
+               f"[{leg}] eigenvalues {run['eig_rel_f64']:.3e} from float64")
+        res = run.pop("res")
+        solves.append(dict(
+            solve=f"northstar surrogate f32 lowest-20 progressive 1e-8 rel "
+            f"[{leg} width]", n=NS_FREE_N, iterations=res.iterations,
+            jax_iterations=JAX_NS_ITERATIONS, stalled=res.stalled, **run))
+    solves.append(dict(
+        solve="northstar surrogate f64 lowest-20 plain DPR 1e-8 rel [parity "
+        "width]", n=NS_FREE_N, iterations=res64.iterations, wall_s=walls64,
+        max_subspace_dim=width64, oracle=oracle64,
+        peak_mem_gb=peak64 / 1e9, peak_mem_above_gb=(peak64 - mem0) / 1e9,
+        own_width_observed=own64))
+    del op, op64, res64, runs
+    torch.cuda.empty_cache()
+
+
+def phase_northstar_bsr(dev, solves):
+    """Phase 10b (ROADMAP item 15): lowest-20 of the 10,000,000-row int8
+    banded matrix (``generate_banded_bsr_quantized(78_125, 128)``, built
+    on the host, its time kept apart) to relative 1e-8 through
+    ``examples/northstar.py --mode banded --quantize --progressive``, a
+    cold and a warm run: converged, kernel 4 launched, the oracle relative
+    residual (float64, dequantized blocks plus the diagonal) <= 1e-8."""
+    import torch
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    args = northstar.parse_args(["--mode", "banded", "--quantize", "--n",
+                                 str(NS_BSR_N), *NORTHSTAR_ARGV])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    q = northstar.build_operator(args, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    op_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"  built q on the host and moved it: n={q.shape[0]}, int8 blocks "
+          f"{tuple(q.qblocks.shape)} ({q.qblocks.numel() / 1e9:.2f} GB) in "
+          f"{gen_s:.1f} s (kept out of every wall); allocated {op_gb:.2f} GB",
+          flush=True)
+    before = kernels.banded_q_bsr_spmm.launches
+    width, m_max = _resolved_width(q, args)
+    print(f"  max_dim_sub resolves to {width} (m_max {m_max})", flush=True)
+    run = _northstar_run(f"int8 banded n={NS_BSR_N} lowest-20 progressive",
+                         q, args, profile=True)
+    launches = kernels.banded_q_bsr_spmm.launches - before
+    res = run.pop("res")
+    lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
+    oracle = _int8_oracle_residual(q, res.eigenvectors, lam)
+    print(f"  int8 10M: oracle relative residual {oracle:.3e}, kernel 4 "
+          f"launches {launches} (three runs), refined iterations "
+          f"{res.iterations}, stalled={res.stalled}", flush=True)
+    _check(launches > 0, "banded_q_bsr_spmm never launched at 10M rows")
+    _check(oracle <= SOLVE_TOL, f"int8 10M: oracle residual {oracle:.3e}")
+    solves.append(dict(
+        solve="northstar int8 banded f32 lowest-20 progressive 1e-8 rel",
+        n=NS_BSR_N, iterations=res.iterations, stalled=res.stalled,
+        host_generation_s=gen_s, operator_gb=op_gb, width=width,
+        m_max=m_max, oracle_residual_rel=oracle, launches=launches, **run))
+    del q, res
+    torch.cuda.empty_cache()
+
+
+# Phase 10c: the CLI's solve on a small dense matrix (the reference's
+# demo fixture's size class) and the northstar's bf16 banded mode at
+# 1,048,576 rows.
+CLI_N = 200
+BANDED_ARGV = ["--mode", "banded", "--n", "1048576", "--tolerance", "1e-2"]
+
+
+def phase_entry_points(dev, solves):
+    """Phase 10c: ``python -m fortran_davidson_tpu_torch solve`` on a
+    small .npy in a subprocess on the card (its JSON line within 1e-9 of
+    scipy), and ``examples/northstar.py --mode banded`` at 1M rows, which
+    must converge on bf16 storage through kernel 1."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.models import generators
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    A = generators.generate_diagonal_dominant(CLI_N, 1e-3,
+                                              device="cpu").numpy()
+    want = scipy.linalg.eigh(A, eigvals_only=True)[:3]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "A.npy")
+        np.save(path, A)
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "fortran_davidson_tpu_torch", "solve",
+             path, "-k", "3"], cwd=root, capture_output=True, text=True,
+            timeout=300)
+    cli_s = time.perf_counter() - t0
+    _check(p.returncode == 0, f"CLI solve exited {p.returncode}: "
+           f"{p.stderr[-2000:]}")
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    diff = float(np.max(np.abs(np.asarray(out["eigenvalues"]) - want)))
+    print(f"  CLI solve (subprocess, {cli_s:.1f} s): iterations "
+          f"{out['iterations']}, converged={out['converged']}, |eig - "
+          f"scipy| {diff:.3e}", flush=True)
+    _check(out["converged"] and diff <= 1e-9,
+           f"CLI solve: converged={out['converged']}, |eig - scipy| {diff:.3e}")
+
+    built = []
+    build = northstar.build_operator
+    northstar.build_operator = lambda *a, **kw: built.append(
+        build(*a, **kw)) or built[-1]
+    before = kernels.banded_bsr_spmm.launches
+    try:
+        rc = northstar.main(BANDED_ARGV)
+    finally:
+        northstar.build_operator = build
+    launches = kernels.banded_bsr_spmm.launches - before
+    blocks = built[0].blocks.dtype
+    print(f"  northstar {' '.join(BANDED_ARGV)}: exit {rc}, blocks {blocks}, "
+          f"kernel 1 launches {launches}", flush=True)
+    _check(rc == 0, f"northstar --mode banded exited {rc}")
+    _check(blocks == torch.bfloat16, f"--mode banded stored {blocks}")
+    _check(launches > 0, "kernel 1 never launched in --mode banded")
+    solves.append(dict(solve="CLI solve, dense n=200 lowest-3", wall_s=cli_s,
+                       iterations=out["iterations"], eig_diff_scipy=diff))
+    solves.append(dict(solve="northstar --mode banded bf16 n=1048576",
+                       exit=rc, launches=launches))
+    del built
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def _counting_collectives(cls):
     """Count the calls of the collectives of ``cls`` (a RowMesh) by name
@@ -3229,6 +3587,13 @@ def _counting_collectives(cls):
     finally:
         for name, fn in saved.items():
             setattr(cls, name, fn)
+
+
+def _shape_of(op):
+    """The block shape of a banded operator, as ``_bound`` reads it."""
+    return types.SimpleNamespace(n_block_rows=op.n_block_rows,
+                                 block_size=op.block_size,
+                                 bandwidth=op.bandwidth)
 
 
 def _nonzero_blocks(blocks, K: int) -> int:
@@ -3664,9 +4029,7 @@ def main() -> int:
                   k1_info, variant_info, band_checks, ext_info, permuted_info,
                   q64_info)
     # Kernel 1's variants at the probes' shape (row 10 of PERF.md's table).
-    probe_case = (types.SimpleNamespace(n_block_rows=probe.n_block_rows,
-                                        block_size=probe.block_size,
-                                        bandwidth=probe.bandwidth),
+    probe_case = (_shape_of(probe),
                   _nonzero_blocks(probe.blocks, 2 * probe.bandwidth + 1))
     del probe
     library = library_times(A)
@@ -3720,33 +4083,38 @@ def main() -> int:
          lambda: phase_remote(A, dev, rendezvous, solves, refs),
          ("banded_remote_halo_spmm",)),
     ]
+
+    def run_path(title, run, expected):
+        """Run one solve phase with every launch count set to 0, add its
+        launches to ``counts``, and check that it launched ``expected``."""
+        print(title, flush=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        phase_counts = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        phase_counts["banded_spmm_copy"] = (
+            kernels.banded_spmm_variant.copy_launches)
+        phase_counts.update({name: fn.f64_launches
+                             for name, fn in f64_names.items()})
+        gram = kernels.banded_bsr_spmm_gram
+        phase_counts.update(zip(typed_names, (gram.bf16_launches,
+                                              gram.f64_launches)))
+        phase_counts["banded_bsr_spmm_gram"] -= (gram.bf16_launches
+                                                 + gram.f64_launches)
+        qgram = kernels.banded_q_bsr_spmm_gram
+        phase_counts["banded_q_bsr_spmm_gram_f64"] = qgram.f64_launches
+        phase_counts["banded_q_bsr_spmm_gram"] -= qgram.f64_launches
+        print(f"    phase launches {phase_counts} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name in expected:
+            _check(phase_counts[name] > 0,
+                   f"{name} was never launched on the path of {title}")
+        for name, count in phase_counts.items():
+            counts[name] += count
+
     try:
         for title, run, expected in paths:
-            print(title, flush=True)
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            run()
-            phase_counts = {fn.__name__: fn.launches
-                            for fn in kernels.KERNELS}
-            phase_counts["banded_spmm_copy"] = (
-                kernels.banded_spmm_variant.copy_launches)
-            phase_counts.update({name: fn.f64_launches
-                                 for name, fn in f64_names.items()})
-            gram = kernels.banded_bsr_spmm_gram
-            phase_counts.update(zip(typed_names, (gram.bf16_launches,
-                                                  gram.f64_launches)))
-            phase_counts["banded_bsr_spmm_gram"] -= (gram.bf16_launches
-                                                     + gram.f64_launches)
-            qgram = kernels.banded_q_bsr_spmm_gram
-            phase_counts["banded_q_bsr_spmm_gram_f64"] = qgram.f64_launches
-            phase_counts["banded_q_bsr_spmm_gram"] -= qgram.f64_launches
-            print(f"    phase launches {phase_counts} in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            for name in expected:
-                _check(phase_counts[name] > 0,
-                       f"{name} was never launched on the path of {title}")
-            for name, count in phase_counts.items():
-                counts[name] += count
+            run_path(title, run, expected)
         for name in (*(fn.__name__ for fn in kernels.KERNELS), *f64_names,
                      "banded_bsr_spmm_gram_bf16"):
             _check(counts[name] > 0,
@@ -3758,10 +4126,26 @@ def main() -> int:
             dist.destroy_process_group()
         tmp.cleanup()
 
-    summary = []
-    nnz = {"nbr=8192": (A, _nonzero_blocks(A.blocks, 3)),
-           "nbr=16384": (q, _nonzero_blocks(q.qblocks, 3)),
+    # The 10M-row phases want the card to themselves: keep what the
+    # kernels line needs of A and q (their shapes, their nonzero blocks).
+    nnz = {"nbr=8192": (_shape_of(A), _nonzero_blocks(A.blocks, 3)),
+           "nbr=16384": (_shape_of(q), _nonzero_blocks(q.qblocks, 3)),
            **variant_info["ops"]}
+    del A, A32, q, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    for title, run, expected in [
+            ("[10a] matrix-free north star, n=10,000,384, lowest-20",
+             lambda: phase_northstar_free(dev, solves), ()),
+            ("[10b] sparse north star, int8, n=10,000,000, lowest-20",
+             lambda: phase_northstar_bsr(dev, solves),
+             ("banded_q_bsr_spmm",)),
+            ("[10c] entry points: the CLI's solve, northstar --mode banded",
+             lambda: phase_entry_points(dev, solves),
+             ("banded_bsr_spmm",))]:
+        run_path(title, run, expected)
+
+    summary = []
     for name in REPLACES:
         rows = [r for r in record if r["name"] == name]
         dtype, m, mv, write_out, shape = MAIN_CASE[name]
@@ -3839,7 +4223,7 @@ def main() -> int:
                 probe_split_bounds_ms=_k1_split_bounds(
                     *probe_case, PROBE["m"], "bfloat16"))
         if name == "banded_q_bsr_spmm_gram":
-            entry.update(_split_bounds(q, nnz["nbr=16384"][1], m, mv))
+            entry.update(_split_bounds(*nnz["nbr=16384"], m, mv))
         if name == "banded_spmm_copy":
             entry.update(variant="banded_spmm_variant(variant='copy')",
                          shapes=k1_info["copy"])
@@ -3854,7 +4238,7 @@ def main() -> int:
                 main_case_ms=next(r["ms"] for r in rows
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
-    print(f"[10] ran {time.perf_counter() - t_run:.1f} s, the build "
+    print(f"[11] ran {time.perf_counter() - t_run:.1f} s, the build "
           f"{build_s:.1f} s of it", flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

@@ -15,6 +15,10 @@ SpMM+Gram) runs in the CUDA kernels of ``csrc/`` on a GPU and in their
 plain PyTorch versions on the CPU. Entry points build on the GPU unless
 given ``device="cpu"``. Options of later slices raise
 :class:`InvalidOptionsError`.
+
+Command line: ``python -m fortran_davidson_tpu_torch
+{solve,demo,benchmark,northstar}`` (``__main__.py``, the drivers in
+``examples/``), on the GPU unless given ``--platform cpu``.
 """
 
 from fortran_davidson_tpu_torch.config import DavidsonOptions, DavidsonResult

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from fortran_davidson_tpu_torch.core.correction import validate_method
+from fortran_davidson_tpu_torch.utils.ds import gram_chunk
 from fortran_davidson_tpu_torch.utils.dtypes import (as_device_tensor,
                                                      as_torch_dtype)
 from fortran_davidson_tpu_torch.utils.errors import (InvalidOptionsError,
@@ -186,7 +187,9 @@ def _carry_budget_bytes(device=None) -> int:
 
     ``FDT_CARRY_BUDGET_BYTES`` overrides it. On a GPU it is three quarters
     of the card's free memory when the solve starts (the operator is
-    already resident then); elsewhere it is the JAX package's 12 GB, so
+    already resident then), counting as free what PyTorch's caching
+    allocator holds unused, so that the width does not depend on what an
+    earlier solve left cached; elsewhere it is the JAX package's 12 GB, so
     CPU solves resolve the same widths as the reference.
     """
     env = os.environ.get("FDT_CARRY_BUDGET_BYTES")
@@ -195,6 +198,8 @@ def _carry_budget_bytes(device=None) -> int:
     device = torch.device("cpu" if device is None else device)
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
+        free += (torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
         return int(0.75 * free)
     return int(12e9)
 
@@ -202,16 +207,29 @@ def _carry_budget_bytes(device=None) -> int:
 def _memory_clamped_max_dim(max_dim: int, *, n_local: int, lowest: int,
                             init_dim: int, step: Optional[int],
                             itemsize: int, generalized: bool,
-                            budget: int) -> int:
+                            budget: int,
+                            refined_chunk: Optional[int] = None) -> int:
     """Clamp the default ``max_dim`` so the tall carries fit the budget
     (the JAX package's footprint model: V, AV (and BV) at the padded width,
-    doubled during a collapse, plus ~8*lowest n-length columns)."""
+    doubled during a collapse, plus ~8*lowest n-length columns).
+
+    ``refined_chunk`` (a refined solve on a GPU: the compensated Gram's
+    row chunk, ``utils.ds.gram_chunk``) adds what the refined path holds
+    besides: ~8*lowest more n-length columns (its residuals, polish and
+    warm-start blocks) and the compensated Gram's partials and their
+    two_sum fold, four (n/chunk, m_max, m_max) blocks. The chunk halves
+    until it divides n, so at n = 10,000,000 (= 2^7 5^7) it is 128 and the
+    partials of an m_max = 220 basis take 15 GB each (PERF.md §6).
+    """
     n_carries = 3 if generalized else 2
-    aux = 8 * lowest
+    aux = 8 * lowest * (1 if refined_chunk is None else 2)
 
     def fits(md: int) -> bool:
         m_max = subspace_cap(init_dim, md, step)
-        return itemsize * n_local * (2 * n_carries * m_max + aux) <= budget
+        need = itemsize * n_local * (2 * n_carries * m_max + aux)
+        if refined_chunk is not None:
+            need += 4 * itemsize * (n_local // refined_chunk) * m_max ** 2
+        return need <= budget
 
     floor = init_dim + 4
     if max_dim <= floor or fits(max_dim):
@@ -274,12 +292,15 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
                                                   step) > n:
             max_dim //= 2
         # ... and clamped so the tall carries fit device memory.
+        n_local = n // max(shard_row_divisor if sharded else 1, 1)
+        on_gpu = torch.device("cpu" if device is None
+                              else device).type == "cuda"
         max_dim = _memory_clamped_max_dim(
-            max_dim,
-            n_local=n // max(shard_row_divisor if sharded else 1, 1),
-            lowest=lowest, init_dim=init_dim, step=step,
-            itemsize=dtype.itemsize, generalized=generalized,
-            budget=_carry_budget_bytes(device))
+            max_dim, n_local=n_local, lowest=lowest, init_dim=init_dim,
+            step=step, itemsize=dtype.itemsize, generalized=generalized,
+            budget=_carry_budget_bytes(device),
+            refined_chunk=(gram_chunk(n_local) if opts.refined and on_gpu
+                           else None))
     m_max = subspace_cap(init_dim, max_dim, step)
     require(m_max <= n, InvalidOptionsError,
             f"padded subspace width {m_max} exceeds matrix dimension {n}; "
@@ -342,3 +363,16 @@ class DavidsonResult:
     # float64(eigenvalues) + float64(eigenvalues_lo) is what the residual
     # check used.
     eigenvalues_lo: torch.Tensor = None
+    # final_polish: low words of the polished eigenvectors (the JAX
+    # package's result drops them); eigenvectors + eigenvectors_lo is the
+    # vector the residual check used. At n = 10M the float32 words alone
+    # floor a dense-coupled problem's float64 residual near 1e-8.
+    eigenvectors_lo: torch.Tensor = None
+
+    def block_until_ready(self) -> "DavidsonResult":
+        """Wait for the device that holds the result
+        (``fortran_davidson_tpu.config.DavidsonResult.block_until_ready``);
+        nothing to wait for on the CPU."""
+        if self.eigenvalues.device.type == "cuda":
+            torch.cuda.synchronize(self.eigenvalues.device)
+        return self

@@ -543,6 +543,7 @@ def _apply_final_polish(cfg: ResolvedConfig, A: LinearOperator,
         stalled=res.stalled,
         inner_iterations=res.inner_iterations,
         eigenvalues_lo=pol.evals_lo,
+        eigenvectors_lo=pol.evecs_lo,
     )
 
 

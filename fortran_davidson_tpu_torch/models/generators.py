@@ -1,10 +1,12 @@
 """Problem generators (counterpart of
 ``fortran_davidson_tpu/models/generators.py``).
 
-``generate_diagonal_dominant`` draws from ``jax.random`` and has no
-counterpart here: tests build that fixture with the JAX package and hand
-it over as numpy. The generators below are numpy-seeded or deterministic,
-and build on ``device``, by default the GPU.
+The generators are numpy-seeded or deterministic, and build on
+``device``, by default the GPU. ``generate_diagonal_dominant`` has the
+JAX package's construction but draws from ``np.random.default_rng(seed)``
+(``jax.random`` has no counterpart here), so its values differ from the
+JAX package's: parity tests build that fixture with the JAX package and
+hand it over as numpy.
 """
 
 from __future__ import annotations
@@ -18,6 +20,23 @@ from fortran_davidson_tpu_torch.ops.operators import MatrixFreeOperator
 from fortran_davidson_tpu_torch.utils import ds as dsm
 from fortran_davidson_tpu_torch.utils.dtypes import (canonical_dtype,
                                                      default_device)
+
+
+def generate_diagonal_dominant(n: int, sparsity: float, diag_val=None,
+                               seed: int = 0, dtype=torch.float64,
+                               device=None) -> torch.Tensor:
+    """Random dense symmetric diagonal-dominant matrix (test fixture;
+    ``src/array_utils.f90:86-113``): a uniform upper triangle scaled by
+    ``sparsity``, symmetrized, on a diagonal of ``1..n`` (or ``diag_val``).
+    Seeded by numpy, so not the JAX package's values."""
+    dt = canonical_dtype(dtype)
+    rng = np.random.default_rng(seed)
+    arr = np.triu(rng.random((n, n)) * sparsity, 1)
+    arr = arr + arr.T
+    diag = (np.arange(1, n + 1, dtype=np.float64) if diag_val is None
+            else np.full((n,), diag_val, dtype=np.float64))
+    return torch.as_tensor(arr + np.diag(diag),
+                           device=default_device(device)).to(dt)
 
 
 def bse_surrogate(n: int = 864, coupling: float = 5e-4, seed: int = 864,

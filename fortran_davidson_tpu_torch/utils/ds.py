@@ -254,7 +254,7 @@ def _tall_sum_tree(x, lo) -> DS:
     return DS(out.hi[:m], out.lo[:m])
 
 
-def _chunk(n: int, chunk: Optional[int]) -> int:
+def gram_chunk(n: int, chunk: Optional[int] = None) -> int:
     """The Gram's chunk rows: ``chunk`` (default 4096) halved until it
     divides n."""
     chunk = 4096 if chunk is None else chunk
@@ -273,7 +273,7 @@ def gram_ds(V, W=None, *, chunk: Optional[int] = None) -> DS:
     """
     W = V if W is None else W
     n, m = V.shape
-    c = _chunk(n, chunk)
+    c = gram_chunk(n, chunk)
     return gram_ds_pre(V.reshape(n // c, c, m),
                        W.reshape(n // c, c, W.shape[1]))
 
@@ -287,7 +287,7 @@ def gram_ds_pre(Vc, Wc=None) -> DS:
 def col_sumsq_ds(X, *, chunk: Optional[int] = None) -> DS:
     """Compensated per-column sum of squares."""
     n, m = X.shape
-    c = _chunk(n, chunk)
+    c = gram_chunk(n, chunk)
     Xc = X.reshape(n // c, c, m)
     return ds_sum_tree(torch.sum(Xc * Xc, dim=1), axis=0)
 

@@ -9,14 +9,18 @@ resolver, before it allocates anything; the second takes the card away.
 """
 
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
 import fortran_davidson_tpu_torch as fdtt
+from fortran_davidson_tpu_torch import __main__ as cli
 from fortran_davidson_tpu_torch import convert
 from fortran_davidson_tpu_torch.config import validate_initial_vectors
+from fortran_davidson_tpu_torch.examples import (benchmark_free, demo,
+                                                 northstar)
 from fortran_davidson_tpu_torch.models import generators as tgen
 from fortran_davidson_tpu_torch.parallel import mesh as tmesh
 from fortran_davidson_tpu_torch.parallel import multihost
@@ -26,6 +30,15 @@ _RNG = np.random.default_rng(0)
 _A = np.eye(16) + 1e-3 * _RNG.standard_normal((16, 16))
 _COLS = np.array([[0, 0, 1], [0, 1, 1]], np.int32)
 _BLOCKS = _RNG.standard_normal((2, 4, 12))
+
+
+def _cli_solve():
+    """``python -m fortran_davidson_tpu_torch solve`` on a .npy file."""
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/A.npy"
+        np.save(path, _A)
+        return cli.main(["solve", path])
+
 
 # Each entry point given numpy (or nothing but sizes and a seed) and no
 # device.
@@ -61,6 +74,16 @@ ENTRY_POINTS = {
     "convert.diagonal": lambda: convert.diagonal(np.arange(1.0, 5.0)),
     "parallel.mesh_device": lambda: tmesh.mesh_device(),
     "parallel.multihost.initialize": lambda: multihost.initialize(),
+    "generate_diagonal_dominant":
+        lambda: tgen.generate_diagonal_dominant(16, 1e-3),
+    "cli.solve": _cli_solve,
+    "cli.demo": lambda: cli.main(["demo"]),
+    "examples.demo": lambda: demo.main([]),
+    "examples.benchmark_free": lambda: benchmark_free.main([]),
+    "examples.northstar": lambda: northstar.main(["--n", "1024"]),
+    "examples.northstar --mode banded --quantize": lambda: northstar.main(
+        ["--mode", "banded", "--quantize", "--n", "1024", "--block-size",
+         "16"]),
 }
 
 
