@@ -247,8 +247,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    solve`` on a 200-row .npy in a subprocess (its JSON line within 1e-9
    of scipy), and ``examples/northstar.py --mode banded`` at 1,048,576
    rows (bf16 storage, kernel 1), which must exit 0.
-11. Prints the solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-10, each counted from 0 over its own phase; kernel 9, the copy
+12. The ELL family at 1M rows, after phase 10 (each sub-phase a solve
+   phase counted as the others; every build on the host timed apart):
+   (a) BASELINE config 3, ``generate_sparse_diagonal_dominant(1_000_000,
+   50, seed=0)``'s COO as a scipy CSR matrix handed to
+   ``fdtt.eigensolve(csr, 10)`` with default options: ``as_operator``
+   assembles an ``ELLOperator`` natively (the ELL width, the native
+   library's state and calls printed), plain PyTorch gathers, no kernel;
+   converged, true residual (float64, through the operator) <= 1e-8; the
+   same solve on the card machine's CPU within 1e-10 relative and ±1
+   iteration (at ``CONFIG3_CUT_N`` rows, printed as cut, when one CPU
+   apply says the CPU solve would take over ``CPU_BUDGET_S``); one ELL
+   apply at m = 10 against one ``SlicedELLOperator.from_ell`` apply.
+   (b) ``split_band_remainder`` of ``generate_local_sparse(1_000_000, 12,
+   locality=95, seed=7)`` (bs 128, bw 1, sliced-ELL remainder, n_pad
+   1,000,064), lowest-10 in float64 to 1e-8 on the kernels and on the
+   plain path in turns: kernel 1 launched on the kernel path only, the
+   same iterations, eigenvalues within 1e-10 relative, no padding pair;
+   the band fraction; the unsplit ``ELLOperator``: the same eigenvalues,
+   iterations ±1, its walls beside the hybrid's. (c) That COO scrambled
+   by ``np.random.default_rng(8).permutation``: the band fraction
+   without a reordering and with ``reorder="rcm"`` (native RCM timed),
+   the reordered solve at 12b's eigenvalues, kernel 1 launched, the
+   ``unpermute``d eigenvectors' true residuals against the scrambled COO
+   <= 1e-8. (d) ``eigensolve_sharded`` of 12b's operator at world size 1
+   over NCCL: kernel 2 launched (kernel 1 not), 12b's iterations and
+   eigenvalues. (e) The refined recipe of
+   tests/test_ds_apply_sparse.py:141-164 on the float32 hybrid of the
+   same COO (``dtype=float32``): lowest-4, relative 1e-8, ``refined=True,
+   final_polish=3`` from a loose warm start, through kernel 1's float32
+   entry; oracle relative residual against the float64 promotion <= 1e-8.
+   Each prints iterations, true residual, cold and warm walls, peak
+   memory and host build time.
+11. Prints the run's time and phase 12's share of it, the solves' and
+   kernels' JSON lines (launch counts of the solve
+   phases 4-12, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
    the rest and no phase launches them (nor kernel 3's and kernel 5's
    float64 entries); for
@@ -3567,6 +3600,495 @@ def phase_entry_points(dev, solves):
     torch.cuda.empty_cache()
 
 
+# Phase 12: the ELL family at BASELINE config 3's size (BASELINE.json
+# config 3: CSR, diagonal-dominant, 1M rows, ~50 nnz a row, DPR,
+# lowest-10) and the 1M-row hybrid band + remainder at bench.py:444-449's
+# locality.
+CONFIG3_N = 1_000_000
+CONFIG3_NNZ = 50
+# 12a's card-against-CPU comparison runs at CONFIG3_N when the CPU solve
+# is estimated to take at most CPU_BUDGET_S, else at CONFIG3_CUT_N.
+CONFIG3_CUT_N = 262_144
+CPU_BUDGET_S = 120.0
+LOCAL_N = 1_000_000
+LOCAL_ARGS = dict(nnz_per_row=12, locality=95.0, seed=7)
+HYB = dict(block_size=128, bandwidth=1)
+SCRAMBLE_SEED = 8
+SPARSE_K = 10
+SPARSE_EIG_RTOL = 1e-10
+HYB_REFINED = dict(method="DPR", tolerance=1e-8, relative_tolerance=True,
+                   dtype="float32", expansion="lowest-k", refined=True,
+                   final_polish=3, max_iterations=60)
+
+
+def _max_residual(op, X, lam) -> float:
+    """max_j ||A x_j - lam_j x_j|| through ``op`` (float64)."""
+    import torch
+    R = op.matmat(X) - X * lam[None, :]
+    return float(torch.max(torch.linalg.vector_norm(R, dim=0)))
+
+
+def _eig_rel(a, b) -> float:
+    """max_j |a_j - b_j| / |b_j|, on the host in float64."""
+    import torch
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.max(torch.abs(a - b) / torch.abs(b)))
+
+
+def _native_calls(before: dict) -> dict:
+    """The native assembler's calls by function since ``before``."""
+    from fortran_davidson_tpu_torch import native
+    return {k: v - before.get(k, 0)
+            for k, v in native.status()["used"].items()}
+
+
+def _config3_csr(n: int):
+    """(BASELINE config 3 at ``n`` rows as a scipy CSR matrix, its host
+    build time): the COO of ``generate_sparse_diagonal_dominant(n, 50,
+    seed=0)``, duplicates summed by scipy."""
+    import scipy.sparse as sp
+    from fortran_davidson_tpu_torch.ops.sparse import \
+        sparse_diagonal_dominant_coo
+    t0 = time.perf_counter()
+    rows, cols, vals = sparse_diagonal_dominant_coo(n, CONFIG3_NNZ, seed=0)
+    csr = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    return csr, time.perf_counter() - t0
+
+
+def phase_config3(dev, solves):
+    """Phase 12a: BASELINE config 3, handed to ``fdtt.eigensolve`` as a
+    scipy CSR matrix with default options (DPR, float64, 1e-8), lowest-10:
+    ``as_operator`` assembles an ``ELLOperator`` on the host (native C++)
+    and its applies are plain PyTorch gathers. A cold solve (the host
+    assembly inside) and two warm ones on the built operator: converged,
+    max true residual (float64, through the operator) <= 1e-8; the same
+    solve on the card machine's CPU within 1e-10 relative and ±1
+    iteration (at ``CONFIG3_CUT_N`` rows when the CPU would take over
+    ``CPU_BUDGET_S``); one ELL apply at m = 10 timed against one
+    ``SlicedELLOperator.from_ell`` apply."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch import native
+
+    csr, gen_s = _config3_csr(CONFIG3_N)
+    print(f"  config 3 CSR: n={CONFIG3_N}, nnz={csr.nnz} "
+          f"({csr.nnz / CONFIG3_N:.2f} a row), generated on the host in "
+          f"{gen_s:.1f} s", flush=True)
+    before = dict(native.status()["used"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cold, cold_s = _solve_converged(
+        f"eigensolve(csr, {SPARSE_K}) [cold, host assembly inside]", csr,
+        SPARSE_K)
+    t0 = time.perf_counter()
+    op = fdtt.as_operator(csr)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    calls = _native_calls(before)
+    walls = [cold_s]
+    for _ in range(2):
+        res, wall = _solve_converged(f"eigensolve(ELL, {SPARSE_K}) [warm]",
+                                     op, SPARSE_K)
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    true_res = _max_residual(op, res.eigenvectors, res.eigenvalues)
+    width = op.nnz_per_row
+    ell_gb = (op.indices.numel() * 4 + op.values.numel() * 8) / 1e9
+    print(f"  ELL width {width} ({ell_gb:.2f} GB of indices and values), "
+          f"native library built {native.status()['built']}, native calls "
+          f"{calls}; host build {build_s:.1f} s (as_operator, the transfer "
+          f"included); iterations {res.iterations} (cold "
+          f"{cold.iterations}), true residual {true_res:.3e}; walls: cold "
+          f"{cold_s:.3f} s (assembly inside), warm {walls[1]:.3f} / "
+          f"{walls[2]:.3f} s; peak {peak:.2f} GB", flush=True)
+    _check(calls["ell_from_coo"] >= 2,
+           "config 3 was not assembled by the native library")
+    _check(true_res <= SOLVE_TOL, f"config 3: true residual {true_res:.3e}")
+    _check(res.iterations == cold.iterations,
+           "config 3: the warm solve took other iterations than the cold")
+
+    x = torch.randn((CONFIG3_N, 10), dtype=torch.float64, device=dev)
+    ell_ms = _time_ms(lambda: op.matmat(x))
+    t0 = time.perf_counter()
+    sell = fdtt.SlicedELLOperator.from_ell(op)
+    torch.cuda.synchronize()
+    sell_build_s = time.perf_counter() - t0
+    sell_ms = _time_ms(lambda: sell.matmat(x))
+    y, ys = op.matmat(x), sell.matmat(x)
+    sell_err = float(torch.max(torch.abs(ys - y)) / torch.max(torch.abs(y)))
+    slots = dict(ell=CONFIG3_N * width, sell=sell.gather_slots,
+                 buckets=len(sell.bucket_rows))
+    print(f"  one apply at m=10: ELL {ell_ms:.3f} ms ({slots['ell']} slots), "
+          f"sliced ELL {sell_ms:.3f} ms ({slots['sell']} slots in "
+          f"{slots['buckets']} buckets; from_ell {sell_build_s:.1f} s on the "
+          f"host), max rel diff {sell_err:.2e}", flush=True)
+    _check(sell_err <= 1e-12, f"sliced ELL apply differs by {sell_err:.2e}")
+    del sell, y, ys
+
+    # The card machine's CPU: one CPU apply at m = 10 sizes the CPU solve
+    # (operator columns / 10 applies); over the budget, both run cut.
+    t0 = time.perf_counter()
+    op_cpu = fdtt.as_operator(csr, device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    xc = x.cpu()
+    t0 = time.perf_counter()
+    op_cpu.matmat(xc)
+    apply_cpu_s = time.perf_counter() - t0
+    estimate_s = res.operator_columns / 10 * apply_cpu_s
+    cut = estimate_s > CPU_BUDGET_S
+    n_cmp = CONFIG3_CUT_N if cut else CONFIG3_N
+    print(f"  CPU ({torch.get_num_threads()} threads): build "
+          f"{cpu_build_s:.1f} s, one apply at m=10 {apply_cpu_s:.2f} s, "
+          f"solve estimated at {estimate_s:.0f} s ({res.operator_columns} "
+          f"operator columns) -> comparison at n={n_cmp}"
+          + (f" (CUT from {CONFIG3_N}: the CPU solve would take over "
+             f"{CPU_BUDGET_S:.0f} s)" if cut else ""), flush=True)
+    del x, xc
+    card = res
+    if cut:
+        del op_cpu
+        csr_c, _ = _config3_csr(n_cmp)
+        card, _ = _solve_converged(f"config 3 n={n_cmp} [card]", csr_c,
+                                   SPARSE_K)
+        op_cpu = fdtt.as_operator(csr_c, device="cpu")
+    t0 = time.perf_counter()
+    cpu = fdtt.eigensolve(op_cpu, SPARSE_K)
+    cpu_s = time.perf_counter() - t0
+    diff = _eig_rel(card.eigenvalues, cpu.eigenvalues)
+    print(f"  card against CPU at n={n_cmp}: iterations {card.iterations} / "
+          f"{cpu.iterations}, converged {card.converged} / {cpu.converged}, "
+          f"max rel eigenvalue diff {diff:.3e}, CPU solve {cpu_s:.1f} s",
+          flush=True)
+    _check(cpu.converged and abs(cpu.iterations - card.iterations) <= 1,
+           f"config 3 on the CPU: {cpu.iterations} iterations, converged "
+           f"{cpu.converged}")
+    _check(diff <= SPARSE_EIG_RTOL, f"config 3 card vs CPU: {diff:.3e}")
+    solves.append(dict(
+        solve=f"config 3 ELL f64 lowest-{SPARSE_K} (scipy CSR in)",
+        n=CONFIG3_N, nnz=int(csr.nnz), ell_width=width, ell_gb=ell_gb,
+        native_calls=calls, host_generation_s=gen_s, host_build_s=build_s,
+        iterations=res.iterations, true_residual=true_res, wall_s=walls,
+        peak_mem_gb=peak, apply_ms_m10=ell_ms, sell_apply_ms_m10=sell_ms,
+        slots=slots, cpu_n=n_cmp, cpu_cut=cut,
+        cpu_iterations=cpu.iterations, cpu_eig_rel=diff, cpu_solve_s=cpu_s,
+        cpu_estimate_s=estimate_s))
+    del op, op_cpu, csr, res, cold, card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _local_coo(dtype):
+    """(12b's COO, its host generation time)."""
+    import fortran_davidson_tpu_torch as fdtt
+    t0 = time.perf_counter()
+    coo = fdtt.generate_local_sparse(LOCAL_N, dtype=dtype, **LOCAL_ARGS)
+    return coo, time.perf_counter() - t0
+
+
+def _split(coo, dev, dtype, **kw):
+    """(``split_band_remainder`` of ``coo`` on ``dev``, its host build
+    time, the transfer included)."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    t0 = time.perf_counter()
+    op = fdtt.split_band_remainder(*coo, LOCAL_N, dtype=dtype, device=dev,
+                                   **HYB, **kw)
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return op, time.perf_counter() - t0
+
+
+def _describe(op) -> dict:
+    rem = op.remainder
+    return dict(n_pad=op.shape[0], block_rows=op.band.n_block_rows,
+                band_gb=op.band.blocks.numel()
+                * op.band.blocks.element_size() / 1e9,
+                band_fraction=op.band_fraction,
+                remainder=type(rem).__name__, remainder_nnz=rem.nnz,
+                remainder_slots=getattr(rem, "gather_slots", None))
+
+
+def _plain_hybrid(op):
+    """``op`` with its band applied by kernel 1's plain version."""
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    band, rem = op.band, op.remainder
+    return fdtt.MatrixFreeOperator(
+        lambda X: (kernels.banded_bsr_spmm_plain(band.blocks, X.contiguous(),
+                                                 band.bandwidth)
+                   + rem.matmat(X)),
+        op.shape[0], dtype=op.dtype, diag=op.diagonal(), device=op.device)
+
+
+def phase_hybrid(dev, solves, shared):
+    """Phase 12b: ``split_band_remainder`` of
+    ``generate_local_sparse(1_000_000, 12, locality=95, seed=7)`` (bs 128,
+    bw 1, sliced-ELL remainder; n_pad = 1,000,064), lowest-10 in float64
+    to 1e-8, on the kernels and on the plain path in turns: kernel 1
+    launched on the kernel path and never on the plain one, the same
+    iterations, eigenvalues within 1e-10 relative, no padding pair; and
+    the unsplit ``ELLOperator`` of the same COO: the same eigenvalues,
+    iterations ±1. ``shared`` keeps the operator and its solve for 12c,
+    12d."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    coo, gen_s = _local_coo(torch.float64)
+    op, build_s = _split(coo, dev, torch.float64)
+    desc = _describe(op)
+    pad = float(op.diagonal()[-1])
+    print(f"  hybrid: {desc}, padded diagonal {pad:.6e}; COO "
+          f"{len(coo[0])} entries generated in {gen_s:.1f} s, split in "
+          f"{build_s:.1f} s", flush=True)
+    plain = _plain_hybrid(op)
+    walls, runs = {"kernels": [], "plain": []}, {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for path in ("kernels", "plain", "kernels", "plain"):
+        before = kernels.banded_bsr_spmm.launches
+        res, wall = _solve_converged(
+            f"eigensolve(hybrid, {SPARSE_K}) [{path}]",
+            op if path == "kernels" else plain, SPARSE_K)
+        launches = kernels.banded_bsr_spmm.launches - before
+        walls[path].append(wall)
+        runs[path] = (res, launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res, launches = runs["kernels"]
+    ref, plain_launches = runs["plain"]
+    true_res = _max_residual(op, res.eigenvectors, res.eigenvalues)
+    diff = _eig_rel(res.eigenvalues, ref.eigenvalues)
+    pad_rows = float(torch.max(torch.abs(res.eigenvectors[LOCAL_N:])))
+    print(f"  kernel 1 launches {launches} (plain path {plain_launches}), "
+          f"iterations {res.iterations} (plain {ref.iterations}), max rel "
+          f"eigenvalue diff {diff:.3e}, true residual {true_res:.3e}, "
+          f"largest eigenvalue {float(res.eigenvalues.max()):.6f}, max "
+          f"|x| on the padded rows {pad_rows:.1e}; walls kernels "
+          f"{walls['kernels']}, plain {walls['plain']} s (cold first); peak "
+          f"{peak:.2f} GB", flush=True)
+    _check(launches > 0 and plain_launches == 0,
+           f"kernel 1 launches {launches} / plain {plain_launches}")
+    _check(res.iterations == ref.iterations,
+           f"hybrid: {res.iterations} iterations vs {ref.iterations} plain")
+    _check(diff <= SPARSE_EIG_RTOL, f"hybrid vs plain: {diff:.3e}")
+    _check(true_res <= SOLVE_TOL, f"hybrid: true residual {true_res:.3e}")
+    _check(float(res.eigenvalues.max()) < pad and pad_rows <= 1e-8,
+           "hybrid: a padding pair among the lowest")
+    del plain, ref, runs
+
+    t0 = time.perf_counter()
+    ell = fdtt.ELLOperator.from_coo(*coo, LOCAL_N, device=dev)
+    torch.cuda.synchronize()
+    ell_build_s = time.perf_counter() - t0
+    ell_walls = []
+    for tag in ("cold", "warm"):
+        eres, wall = _solve_converged(
+            f"eigensolve(unsplit ELL, {SPARSE_K}) [{tag}]", ell, SPARSE_K)
+        ell_walls.append(wall)
+    ell_diff = _eig_rel(eres.eigenvalues, res.eigenvalues)
+    print(f"  unsplit ELL (width {ell.nnz_per_row}, built in "
+          f"{ell_build_s:.1f} s): iterations {eres.iterations}, max rel "
+          f"eigenvalue diff from the hybrid {ell_diff:.3e}; warm wall ELL "
+          f"{ell_walls[1]:.3f} s against the hybrid's "
+          f"{walls['kernels'][1]:.3f} s", flush=True)
+    _check(abs(eres.iterations - res.iterations) <= 1
+           and ell_diff <= SPARSE_EIG_RTOL,
+           f"unsplit ELL: {eres.iterations} iterations, {ell_diff:.3e}")
+    solves.append(dict(
+        solve=f"hybrid f64 lowest-{SPARSE_K} n={LOCAL_N}", **desc,
+        host_generation_s=gen_s, host_build_s=build_s,
+        iterations=res.iterations, launches=launches,
+        true_residual=true_res, eig_rel_plain=diff, wall_s=walls["kernels"],
+        plain_wall_s=walls["plain"], peak_mem_gb=peak,
+        ell_width=ell.nnz_per_row, ell_iterations=eres.iterations,
+        ell_wall_s=ell_walls, ell_eig_rel=ell_diff))
+    shared.update(coo=coo, op=op, res=res, wall=walls["kernels"][1])
+    del ell, eres
+    torch.cuda.empty_cache()
+
+
+def phase_rcm(dev, solves, shared):
+    """Phase 12c: 12b's COO scrambled by
+    ``np.random.default_rng(8).permutation``: its band fraction without a
+    reordering and with ``reorder="rcm"`` (the native RCM timed alone),
+    and the lowest-10 solve of the reordered operator: 12b's eigenvalues
+    within 1e-10 relative, kernel 1 launched, and the ``unpermute``d
+    eigenvectors' true residuals against the scrambled COO (float64) <=
+    1e-8."""
+    import numpy as np
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch import native
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    rows, cols, vals = shared["coo"]
+    p = np.random.default_rng(SCRAMBLE_SEED).permutation(LOCAL_N)
+    scrambled = (p[rows], p[cols], vals)
+    raw, raw_s = _split(scrambled, "cpu", torch.float64)
+    raw_fraction = raw.band_fraction
+    del raw
+    before = dict(native.status()["used"])
+    t0 = time.perf_counter()
+    native.rcm_order(scrambled[0], scrambled[1], LOCAL_N)
+    rcm_s = time.perf_counter() - t0
+    op, build_s = _split(scrambled, dev, torch.float64, reorder="rcm")
+    calls = _native_calls(before)
+    desc = _describe(op)
+    print(f"  band fraction without a reordering {raw_fraction:.4f} (split "
+          f"on the host in {raw_s:.1f} s), with RCM {desc['band_fraction']:.4f}"
+          f" (12b's unscrambled: {shared['op'].band_fraction:.4f}); native "
+          f"RCM {rcm_s:.2f} s, native calls {calls}; split with RCM "
+          f"{build_s:.1f} s; {desc}", flush=True)
+    _check(calls["rcm_order"] >= 2, "the RCM ordering did not run natively")
+    before = kernels.banded_bsr_spmm.launches
+    walls = []
+    for tag in ("cold", "warm"):
+        res, wall = _solve_converged(
+            f"eigensolve(RCM hybrid, {SPARSE_K}) [{tag}]", op, SPARSE_K)
+        walls.append(wall)
+    launches = kernels.banded_bsr_spmm.launches - before
+    diff = _eig_rel(res.eigenvalues, shared["res"].eigenvalues)
+    X = op.unpermute(res.eigenvectors)
+    scr = fdtt.ELLOperator.from_coo(*scrambled, LOCAL_N, device=dev)
+    true_res = _max_residual(scr, X, res.eigenvalues)
+    print(f"  RCM hybrid: iterations {res.iterations} (12b "
+          f"{shared['res'].iterations}), kernel 1 launches {launches}, max "
+          f"rel eigenvalue diff from 12b {diff:.3e}, true residual of the "
+          f"unpermuted eigenvectors against the scrambled COO "
+          f"{true_res:.3e}; walls {walls} s", flush=True)
+    _check(launches > 0, "the RCM hybrid never launched kernel 1")
+    _check(diff <= SPARSE_EIG_RTOL, f"RCM hybrid vs 12b: {diff:.3e}")
+    _check(tuple(X.shape) == (LOCAL_N, SPARSE_K) and true_res <= SOLVE_TOL,
+           f"RCM hybrid: unpermuted true residual {true_res:.3e}")
+    solves.append(dict(
+        solve=f"RCM hybrid f64 lowest-{SPARSE_K} n={LOCAL_N} (scrambled)",
+        **desc, band_fraction_unordered=raw_fraction, rcm_s=rcm_s,
+        native_calls=calls, host_build_s=build_s, iterations=res.iterations,
+        launches=launches, eig_rel_12b=diff, true_residual=true_res,
+        wall_s=walls))
+    del op, res, X, scr
+    torch.cuda.empty_cache()
+
+
+def phase_sparse_sharded(dev, solves, shared):
+    """Phase 12d: ``eigensolve_sharded`` of 12b's operator at world size 1
+    over a one-rank NCCL group: the band through kernel 2 (which must
+    launch; kernel 1 must not), the remainder through the ELL rule; 12b's
+    iterations and eigenvalues within 1e-10 relative, true residual <=
+    1e-8."""
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import (eigensolve_sharded,
+                                                     shard_operator)
+
+    op, ref = shared["op"], shared["res"]
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mesh = _one_rank_mesh(f"file://{tmp.name}/rendezvous", dev)
+        t0 = time.perf_counter()
+        sh = shard_operator(op, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _check(type(sh).__name__ == "ShardedHybridOperator",
+               f"shard_operator(hybrid) gave {type(sh).__name__}")
+        k1, k2 = kernels.banded_bsr_spmm.launches, kernels.bsr_spmm.launches
+        walls = []
+        for tag in ("cold", "warm"):
+            res, wall = _solve_converged(
+                f"eigensolve_sharded(hybrid, {SPARSE_K}) [{tag}]", sh,
+                SPARSE_K, solver=lambda A, k, second_matrix=None, **kw:
+                eigensolve_sharded(A, k, mesh, second_matrix=second_matrix,
+                                   **kw))
+            walls.append(wall)
+        k1 = kernels.banded_bsr_spmm.launches - k1
+        k2 = kernels.bsr_spmm.launches - k2
+        diff = _eig_rel(res.eigenvalues, ref.eigenvalues)
+        true_res = _max_residual(op, res.eigenvectors, res.eigenvalues)
+        print(f"  sharded hybrid (world 1, nccl; shard_operator "
+              f"{build_s:.1f} s, the remainder to ELL on the host): "
+              f"iterations {res.iterations} (12b {ref.iterations}), kernel "
+              f"2 launches {k2}, kernel 1 launches {k1}, max rel eigenvalue "
+              f"diff {diff:.3e}, true residual {true_res:.3e}; walls {walls}"
+              f" s (12b warm {shared['wall']:.3f} s)", flush=True)
+        _check(k2 > 0 and k1 == 0, f"kernel 2 launches {k2}, kernel 1 {k1}")
+        _check(res.iterations == ref.iterations,
+               f"sharded hybrid: {res.iterations} iterations vs "
+               f"{ref.iterations}")
+        _check(diff <= SPARSE_EIG_RTOL, f"sharded hybrid vs 12b: {diff:.3e}")
+        _check(true_res <= SOLVE_TOL,
+               f"sharded hybrid: true residual {true_res:.3e}")
+        solves.append(dict(
+            solve=f"sharded (world 1, nccl) hybrid f64 lowest-{SPARSE_K}",
+            n=op.shape[0], host_build_s=build_s, iterations=res.iterations,
+            launches_k2=k2, eig_rel_12b=diff, true_residual=true_res,
+            wall_s=walls, single_device_wall_s=shared["wall"]))
+        del sh, res
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
+def phase_hybrid_refined(dev, solves):
+    """Phase 12e: the refined recipe of tests/test_ds_apply_sparse.py:141-164
+    on a float32 hybrid of 12b's COO drawn in float32: a loose lowest-4
+    warm start, then ``refined=True, final_polish=3`` at relative 1e-8
+    through kernel 1's float32 entry; the oracle relative residual against
+    the float64 promotion of the stored matrix (eigenvalues hi + lo) <=
+    1e-8."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+
+    coo, gen_s = _local_coo(torch.float32)
+    op, build_s = _split(coo, dev, torch.float32)
+    del coo
+    before = kernels.banded_bsr_spmm.launches
+    loose, loose_s = _solve_converged("hybrid f32 lowest-4 [loose]", op, 4,
+                                      **LOOSE)
+    res, wall = _solve_converged("hybrid f32 lowest-4 [refined, polish 3]",
+                                 op, 4, initial_vectors=loose.eigenvectors,
+                                 **HYB_REFINED)
+    launches = kernels.banded_bsr_spmm.launches - before
+    rem = op.remainder
+    A64 = fdtt.HybridBandedOperator(
+        fdtt.BSROperator(op.band.block_cols, op.band.blocks.double(),
+                         bandwidth=op.band.bandwidth),
+        fdtt.SlicedELLOperator(rem.bucket_rows, rem.bucket_indices,
+                               [v.double() for v in rem.bucket_values],
+                               rem.gather_map, chunk=rem.chunk))
+    lam = res.eigenvalues.double()
+    if res.eigenvalues_lo is not None:
+        lam = lam + res.eigenvalues_lo.double()
+    oracle = {}
+    for words in ("hi", "hi+lo"):
+        X = res.eigenvectors.double()
+        if words == "hi+lo" and res.eigenvectors_lo is not None:
+            X = X + res.eigenvectors_lo.double()
+        X = X / torch.linalg.vector_norm(X, dim=0)
+        R = torch.linalg.vector_norm(A64.matmat(X) - X * lam, dim=0)
+        oracle[words] = float(torch.max(R / torch.clamp(torch.abs(lam),
+                                                        min=1.0)))
+    print(f"  refined hybrid f32 (COO {gen_s:.1f} s, split {build_s:.1f} "
+          f"s): loose {loose.iterations} iterations {loose_s:.3f} s, refined "
+          f"{res.iterations} iterations {wall:.3f} s, stalled={res.stalled}, "
+          f"kernel 1 launches {launches}, oracle relative residual "
+          f"{oracle}", flush=True)
+    _check(launches > 0, "the refined hybrid never launched kernel 1")
+    _check(min(oracle.values()) <= SOLVE_TOL,
+           f"refined hybrid: oracle residual {oracle}")
+    solves.append(dict(
+        solve="hybrid f32 lowest-4 refined + polish 3, 1e-8 rel",
+        n=op.shape[0], loose_iterations=loose.iterations,
+        iterations=res.iterations, stalled=res.stalled, launches=launches,
+        oracle_residual_rel=oracle, wall_s=[loose_s, wall],
+        host_build_s=build_s))
+    del op, A64, res, loose
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def _counting_collectives(cls):
     """Count the calls of the collectives of ``cls`` (a RowMesh) by name
@@ -4145,6 +4667,29 @@ def main() -> int:
              ("banded_bsr_spmm",))]:
         run_path(title, run, expected)
 
+    # Phase 12: the ELL family at 1M rows, each sub-phase counted from 0.
+    t12 = time.perf_counter()
+    shared = {}
+    for title, run, expected in [
+            (f"[12a] BASELINE config 3: scipy CSR, n={CONFIG3_N}, "
+             f"lowest-{SPARSE_K} (ELL, no kernel)",
+             lambda: phase_config3(dev, solves), ()),
+            (f"[12b] hybrid band + remainder, n={LOCAL_N}, "
+             f"lowest-{SPARSE_K}, kernel 1",
+             lambda: phase_hybrid(dev, solves, shared),
+             ("banded_bsr_spmm",)),
+            ("[12c] RCM on the scrambled COO", lambda: phase_rcm(
+                dev, solves, shared), ("banded_bsr_spmm",)),
+            ("[12d] sharded hybrid, world size 1 (NCCL), kernel 2",
+             lambda: phase_sparse_sharded(dev, solves, shared),
+             ("bsr_spmm",)),
+            ("[12e] refined float32 hybrid, lowest-4",
+             lambda: phase_hybrid_refined(dev, solves),
+             ("banded_bsr_spmm",))]:
+        run_path(title, run, expected)
+    shared.clear()
+    phase12_s = time.perf_counter() - t12
+
     summary = []
     for name in REPLACES:
         rows = [r for r in record if r["name"] == name]
@@ -4238,8 +4783,10 @@ def main() -> int:
                 main_case_ms=next(r["ms"] for r in rows
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
-    print(f"[11] ran {time.perf_counter() - t_run:.1f} s, the build "
-          f"{build_s:.1f} s of it", flush=True)
+    total_s = time.perf_counter() - t_run
+    print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
+          f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%)",
+          flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))
     print(smi)

@@ -8,8 +8,9 @@ convergence), plus Olsen and GJD (block MINRES) corrections, the refined
 double-single path with its final polish (``refined``, ``final_polish``,
 :func:`polish_eigenpairs`), lowest-k expansion, generalized pencils, warm
 starts and the incremental-H engine (``fused_gram``), on dense, diagonal,
-matrix-free, block-sparse (BSR, f64/f32/bf16 storage) and int8 banded
-operators, and the row-sharded solve over ``torch.distributed``
+matrix-free, block-sparse (BSR, f64/f32/bf16 storage), int8 banded,
+padded and sliced ELL and hybrid band+remainder operators (scipy sparse
+input becomes ELL), and the row-sharded solve over ``torch.distributed``
 (:mod:`fortran_davidson_tpu_torch.parallel`). Their SpMM (and fused
 SpMM+Gram) runs in the CUDA kernels of ``csrc/`` on a GPU and in their
 plain PyTorch versions on the CPU. Entry points build on the GPU unless
@@ -34,10 +35,16 @@ from fortran_davidson_tpu_torch.ops.operators import (
 )
 from fortran_davidson_tpu_torch.ops.sparse import (
     BSROperator,
+    ELLOperator,
+    HybridBandedOperator,
     QuantizedBandedOperator,
+    SlicedELLOperator,
     generate_banded_bsr,
     generate_banded_bsr_quantized,
+    generate_local_sparse,
+    generate_sparse_diagonal_dominant,
     quantize_banded_int8,
+    split_band_remainder,
 )
 from fortran_davidson_tpu_torch.solver import (eigensolve,
                                                generalized_eigensolver,
@@ -59,12 +66,15 @@ __all__ = [
     "DenseOperator",
     "DeviceUnavailableError",
     "DiagonalOperator",
+    "ELLOperator",
+    "HybridBandedOperator",
     "InvalidOptionsError",
     "LinearOperator",
     "MatrixFreeOperator",
     "NumericalError",
     "OperatorError",
     "QuantizedBandedOperator",
+    "SlicedELLOperator",
     "SubtractDiagOperator",
     "as_operator",
     "default_device",
@@ -73,8 +83,11 @@ __all__ = [
     "generalized_eigensolver",
     "generate_banded_bsr",
     "generate_banded_bsr_quantized",
+    "generate_local_sparse",
+    "generate_sparse_diagonal_dominant",
     "polish_eigenpairs",
     "probe_diagonal",
     "quantize_banded_int8",
+    "split_band_remainder",
     "__version__",
 ]

@@ -13,11 +13,10 @@ Commands:
   northstar   the 10M-row single-GPU benchmark driver
 
 ``solve`` accepts whitespace-text matrices (the reference's interchange
-format, ``utils.io``), ``.npy`` dense arrays, or ``.npz`` files with a
-dense ``matrix`` entry. scipy-sparse CSR members (``data`` / ``indices``
-/ ``indptr`` / ``shape``) need the hybrid band+remainder operator, which
-the port does not have yet: they raise ``OperatorError`` (ROADMAP item
-16).
+format, ``utils.io``), ``.npy`` dense arrays, or ``.npz`` files with
+either a dense ``matrix`` entry or scipy-sparse CSR members (``data`` /
+``indices`` / ``indptr`` / ``shape``); sparse input becomes a padded-ELL
+operator (``ops.operators.as_operator``), assembled on the host.
 """
 
 from __future__ import annotations
@@ -33,15 +32,15 @@ from fortran_davidson_tpu_torch.ops.operators import as_operator
 from fortran_davidson_tpu_torch.solver import eigensolve
 from fortran_davidson_tpu_torch.utils.dtypes import (canonical_dtype,
                                                      default_device)
-from fortran_davidson_tpu_torch.utils.errors import OperatorError
 from fortran_davidson_tpu_torch.utils.io import read_matrix
 
 _EXAMPLES = {"demo": "demo", "benchmark": "benchmark_free",
              "northstar": "northstar"}
 
 
-def _read_array(path: str) -> np.ndarray:
-    """The dense matrix stored at ``path``."""
+def _read_array(path: str):
+    """The matrix stored at ``path``: a dense array, or a
+    ``scipy.sparse.csr_matrix`` from an ``.npz`` of CSR members."""
     if path.endswith(".npy"):
         return np.load(path)
     if path.endswith(".npz"):
@@ -49,11 +48,9 @@ def _read_array(path: str) -> np.ndarray:
             if "matrix" in z:
                 return z["matrix"]
             if {"data", "indices", "indptr", "shape"} <= set(z.files):
-                raise OperatorError(
-                    f"{path}: scipy CSR input becomes the hybrid "
-                    "band+remainder operator, which the torch port does not "
-                    "have yet (ROADMAP Queue 1 item 16); store a dense "
-                    "'matrix' entry instead")
+                import scipy.sparse as sp
+                return sp.csr_matrix((z["data"], z["indices"], z["indptr"]),
+                                     shape=tuple(z["shape"]))
             raise SystemExit(
                 f"{path}: .npz needs a 'matrix' entry or scipy CSR "
                 f"members (data/indices/indptr/shape); found "
@@ -123,7 +120,8 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
 
     ps = sub.add_parser("solve", help="lowest-k eigenpairs of a matrix file")
-    ps.add_argument("matrix", help=".npy / .npz / whitespace-text matrix")
+    ps.add_argument("matrix", help=".npy / .npz (dense 'matrix' or scipy "
+                    "CSR members, which become ELL) / whitespace-text matrix")
     ps.add_argument("--lowest", "-k", type=int, default=3)
     ps.add_argument("--second-matrix", help="operator B (generalized)")
     ps.add_argument("--method", default="DPR",

@@ -2,8 +2,12 @@
 
 The JAX operators keep their data in a few arrays: ``DenseOperator.matrix``,
 ``DiagonalOperator.diag``, ``BSROperator.block_cols`` / ``.blocks`` /
-``.bandwidth`` and ``QuantizedBandedOperator.qblocks`` / ``.scale_rows`` /
-``.diag`` / ``.bandwidth``. These functions take those arrays (anything
+``.bandwidth``, ``QuantizedBandedOperator.qblocks`` / ``.scale_rows`` /
+``.diag`` / ``.bandwidth``, ``ELLOperator.indices`` / ``.values`` /
+``.chunk``, ``SlicedELLOperator.bucket_rows`` / ``.bucket_indices`` /
+``.bucket_values`` / ``.gather_map`` / ``.chunk``, and
+``HybridBandedOperator.band`` / ``.remainder`` / ``.perm`` (operators
+themselves). These functions take those arrays (anything
 ``numpy.asarray`` accepts) and return the matching operator of this
 package on ``device`` (by default the GPU; pass ``device="cpu"`` for the
 CPU). A single-device operator's ``backend`` field is not carried across:
@@ -22,8 +26,10 @@ import torch
 from fortran_davidson_tpu_torch.ops.operators import (DenseOperator,
                                                       DiagonalOperator,
                                                       LinearOperator)
-from fortran_davidson_tpu_torch.ops.sparse import (BSROperator,
-                                                  QuantizedBandedOperator)
+from fortran_davidson_tpu_torch.ops.sparse import (BSROperator, ELLOperator,
+                                                  HybridBandedOperator,
+                                                  QuantizedBandedOperator,
+                                                  SlicedELLOperator)
 from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,
                                                      HaloQuantizedOperator)
 from fortran_davidson_tpu_torch.parallel.mesh import RowMesh
@@ -68,17 +74,59 @@ def quantized(qblocks, scale_rows, diag, bandwidth: int,
                                    bandwidth=bandwidth)
 
 
+def ell(indices, values, chunk: int = 8, dtype=None,
+        device=None) -> ELLOperator:
+    """An :class:`ELLOperator` from the (n, L) column and value tables."""
+    return ELLOperator(_tensor(indices, device=device).to(torch.int32),
+                       _tensor(values, dtype, device), chunk=chunk)
+
+
+def sliced_ell(bucket_rows, bucket_indices, bucket_values, gather_map,
+               chunk: int = 8, dtype=None, device=None) -> SlicedELLOperator:
+    """A :class:`SlicedELLOperator` from its bucket tables (one entry a
+    bucket) and its (n,) unsort map."""
+    return SlicedELLOperator(
+        [_tensor(r, device=device) for r in bucket_rows],
+        [_tensor(i, device=device) for i in bucket_indices],
+        [_tensor(v, dtype, device) for v in bucket_values],
+        _tensor(gather_map, device=device), chunk=chunk)
+
+
 def operator(op, dtype=None, device=None) -> LinearOperator:
     """The port's counterpart of a JAX operator, read through its array
-    attributes: an int8 banded (``qblocks``, ``scale_rows``, ``diag``,
-    ``bandwidth``; ``dtype`` does not apply), a BSR (``blocks``,
-    ``block_cols``, ``bandwidth``), a dense (``matrix``) or a diagonal
-    (``diag``) operator. The int8 operator is recognised first: it too
-    has a ``diag``, of shape (nbr, bs)."""
+    attributes, in this order:
+
+    - a hybrid band + remainder (``band``, ``remainder``, ``perm``: its
+      parts converted in turn). It has neither ``blocks`` nor ``matrix``,
+      and its band has ``blocks``: it is recognised first;
+    - an int8 banded (``qblocks``, ``scale_rows``, ``diag``,
+      ``bandwidth``; ``dtype`` does not apply): it too has a ``diag``, of
+      shape (nbr, bs), so it comes before the diagonal;
+    - a sliced ELL (``bucket_rows``, ``bucket_indices``,
+      ``bucket_values``, ``gather_map``, ``chunk``), before the ELL,
+      whose ``chunk`` it shares;
+    - an ELL (``indices``, ``values``, ``chunk``);
+    - a BSR (``blocks``, ``block_cols``, ``bandwidth``), a dense
+      (``matrix``) or a diagonal (``diag``) operator.
+    """
+    if hasattr(op, "band") and hasattr(op, "remainder"):
+        rem = (None if op.remainder is None
+               else operator(op.remainder, dtype=dtype, device=device))
+        perm = (None if op.perm is None
+                else _tensor(op.perm, device=device))
+        return HybridBandedOperator(operator(op.band, dtype=dtype,
+                                             device=device), rem, perm=perm)
     if all(hasattr(op, a) for a in ("qblocks", "scale_rows", "diag",
                                     "bandwidth")):
         return quantized(op.qblocks, op.scale_rows, op.diag, op.bandwidth,
                          device=device)
+    if hasattr(op, "bucket_rows") and hasattr(op, "gather_map"):
+        return sliced_ell(op.bucket_rows, op.bucket_indices, op.bucket_values,
+                          op.gather_map, chunk=op.chunk, dtype=dtype,
+                          device=device)
+    if all(hasattr(op, a) for a in ("indices", "values", "chunk")):
+        return ell(op.indices, op.values, chunk=op.chunk, dtype=dtype,
+                   device=device)
     if hasattr(op, "blocks") and hasattr(op, "block_cols"):
         return bsr(op.block_cols, op.blocks, getattr(op, "bandwidth", None),
                    dtype=dtype, device=device)
@@ -89,8 +137,8 @@ def operator(op, dtype=None, device=None) -> LinearOperator:
         return diagonal(op.diag, dtype=dtype, device=device)
     raise OperatorError(
         f"no torch counterpart for {type(op).__name__}: convert dense, "
-        "diagonal, BSR and int8 banded operators; build matrix-free ones with "
-        "MatrixFreeOperator")
+        "diagonal, BSR, int8 banded, ELL, sliced-ELL and hybrid operators; "
+        "build matrix-free ones with MatrixFreeOperator")
 
 
 def halo(op, mesh: RowMesh, backend: Optional[str] = None):

@@ -296,16 +296,20 @@ def from_element_fn(fn: Callable, n: int, dtype=torch.float64,
 
 
 def as_operator(obj, dtype=None, device=None) -> LinearOperator:
-    """Coerce user input (operator / dense array / diagonal) to a
-    LinearOperator. Tensors stay on their device unless ``device`` is
-    given; numpy goes to ``device``, by default the GPU."""
+    """Coerce user input (operator / dense array / diagonal / scipy
+    sparse matrix) to a LinearOperator. Tensors stay on their device
+    unless ``device`` is given; numpy and scipy input go to ``device``, by
+    default the GPU."""
     if isinstance(obj, LinearOperator):
         return obj
+    # scipy.sparse input (duck-typed, so scipy stays optional): CSR, CSC
+    # and COO matrices become padded-ELL operators, assembled on the host
+    # (``fortran_davidson_tpu/ops/operators.py:397-403``).
     if hasattr(obj, "tocsr") and hasattr(obj, "shape"):
-        raise OperatorError(
-            "scipy.sparse input becomes an ELLOperator, which the torch port "
-            "does not have yet (ROADMAP Queue 1 item 16); build a BSROperator "
-            "or a dense tensor instead")
+        from fortran_davidson_tpu_torch.ops.sparse import ELLOperator
+        csr = obj.tocsr()
+        return ELLOperator.from_csr(csr.indptr, csr.indices, csr.data,
+                                    dtype=dtype or csr.dtype, device=device)
     arr = as_device_tensor(obj, device)
     if dtype is not None:
         arr = arr.to(as_torch_dtype(dtype))

@@ -37,8 +37,11 @@ from fortran_davidson_tpu_torch.ops.operators import (DenseOperator,
                                                       DiagonalOperator,
                                                       LinearOperator,
                                                       as_operator)
-from fortran_davidson_tpu_torch.ops.sparse import (BSROperator,
-                                                  QuantizedBandedOperator)
+from fortran_davidson_tpu_torch.ops.sparse import (BSROperator, ELLOperator,
+                                                  HybridBandedOperator,
+                                                  QuantizedBandedOperator,
+                                                  SlicedELLOperator,
+                                                  _ell_chunked_apply)
 from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,
                                                      HaloQuantizedOperator,
                                                      block_diagonal,
@@ -155,18 +158,87 @@ class ShardedBSROperator(_RowSharded):
     def dtype(self):
         return self.blocks.dtype
 
-    def matmat(self, block):
+    def _compute(self, target):
         # Mixed precision as BSROperator.matmat: the narrower type.
-        target = block.dtype
-        compute = (self.dtype if self.dtype.itemsize < target.itemsize
-                   else target)
-        x = self.mesh.all_gather_rows(block.to(compute))
-        return kernels.bsr_spmm(self.block_cols, self.blocks.to(compute), x,
-                                out_dtype=target)
+        return self.dtype if self.dtype.itemsize < target.itemsize else target
+
+    def matmat(self, block):
+        x = self.mesh.all_gather_rows(block.to(self._compute(block.dtype)))
+        return self.apply_gathered(x, out_dtype=block.dtype)
+
+    def apply_gathered(self, x, out_dtype=None):
+        """The rank's rows of A X from the all-gathered X (kernel 2)."""
+        out_dtype = x.dtype if out_dtype is None else out_dtype
+        compute = self._compute(x.dtype)
+        return kernels.bsr_spmm(self.block_cols, self.blocks.to(compute),
+                                x.to(compute), out_dtype=out_dtype)
 
     def diagonal(self):
         return block_diagonal(self.blocks, self.block_cols,
                               self.block_rows.start)
+
+
+class ShardedELLOperator(_RowSharded):
+    """The rank's rows of an ELL slot table, with global column indices
+    (the row split of ``fortran_davidson_tpu/parallel/sharded.py:131-132``):
+    the skinny X is all-gathered and the rank's rows gather from it, the
+    pattern of :class:`ShardedBSROperator`."""
+
+    def __init__(self, op: ELLOperator, mesh: RowMesh):
+        super().__init__(mesh, op.shape[0])
+        self.rows = mesh.rows(op.shape[0])
+        self.indices = local_rows(op.indices, self.rows, mesh.device)
+        self.values = local_rows(op.values, self.rows, mesh.device)
+        self.chunk = op.chunk
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    def matmat(self, block):
+        return self.apply_gathered(self.mesh.all_gather_rows(block))
+
+    def apply_gathered(self, x):
+        """The rank's rows of A X from the all-gathered X."""
+        return _ell_chunked_apply(self.indices, self.values, x, self.chunk)
+
+    def diagonal(self):
+        own = self.indices == (self.rows.start + torch.arange(
+            self.indices.shape[0], dtype=torch.int32,
+            device=self.indices.device))[:, None]
+        return torch.sum(torch.where(own, self.values, 0), dim=1)
+
+
+class ShardedHybridOperator(_RowSharded):
+    """The rank's rows of a band + remainder operator: the band through
+    :class:`ShardedBSROperator` (kernel 2) and the remainder through
+    :class:`ShardedELLOperator`, both from one all-gather of X."""
+
+    def __init__(self, op: HybridBandedOperator, mesh: RowMesh):
+        super().__init__(mesh, op.shape[0])
+        self.band = ShardedBSROperator(op.band, mesh)
+        rem = op.remainder
+        if isinstance(rem, SlicedELLOperator):
+            rem = rem.to_ell()
+        self.remainder = None if rem is None else ShardedELLOperator(rem,
+                                                                     mesh)
+
+    @property
+    def dtype(self):
+        return self.band.dtype
+
+    def matmat(self, block):
+        if self.remainder is None:
+            return self.band.matmat(block)
+        x = self.mesh.all_gather_rows(block)
+        return (self.band.apply_gathered(x)
+                + self.remainder.apply_gathered(x))
+
+    def diagonal(self):
+        d = self.band.diagonal()
+        if self.remainder is not None:
+            d = d + self.remainder.diagonal()
+        return d
 
 
 def shard_operator(op: LinearOperator, mesh: RowMesh,
@@ -176,16 +248,21 @@ def shard_operator(op: LinearOperator, mesh: RowMesh,
     - dense: the matrix rows; diagonal: the diagonal entries;
     - BSR: the block rows, with global ``block_cols`` (all-gathered X,
       kernel 2);
+    - ELL: the rows of the slot table, with global column indices
+      (all-gathered X); sliced ELL: ``to_ell()`` first, then the ELL rule
+      (its unsort gather would cross ranks);
+    - hybrid band + remainder: the band by the BSR rule (kernel 2) and the
+      remainder by the ELL rule, from one all-gather of X;
     - int8 quantized banded: a :class:`HaloQuantizedOperator` (ring halo
       exchange, kernel 7);
     - operators that are sharded already (the halo operators and the
       results of this function) pass through.
 
-    Any other kind raises ``OperatorError``: ELL, sliced ELL and hybrid
-    operators are not ported yet, and a ``MatrixFreeOperator``'s callable
-    sees the global rows, so it has no per-rank counterpart yet (ROADMAP
-    Queue 1 item 19). Running with an unsharded operator would defeat the
-    point of :func:`eigensolve_sharded` without a visible signal.
+    Any other kind raises ``OperatorError``: a ``MatrixFreeOperator``'s
+    callable sees the global rows, so it has no per-rank counterpart yet
+    (ROADMAP Queue 1 item 19). Running with an unsharded operator would
+    defeat the point of :func:`eigensolve_sharded` without a visible
+    signal.
     """
     require(axis == mesh.axis, OperatorError,
             f"axis {axis!r} is not the mesh's {mesh.axis!r}")
@@ -197,6 +274,12 @@ def shard_operator(op: LinearOperator, mesh: RowMesh,
         return HaloQuantizedOperator.from_quantized(op, mesh, axis)
     if isinstance(op, BSROperator):
         return ShardedBSROperator(op, mesh)
+    if isinstance(op, SlicedELLOperator):
+        return ShardedELLOperator(op.to_ell(), mesh)
+    if isinstance(op, ELLOperator):
+        return ShardedELLOperator(op, mesh)
+    if isinstance(op, HybridBandedOperator):
+        return ShardedHybridOperator(op, mesh)
     if isinstance(op, DenseOperator):
         return ShardedDenseOperator(op.matrix, mesh)
     if isinstance(op, DiagonalOperator):

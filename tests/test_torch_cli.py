@@ -21,7 +21,6 @@ from fortran_davidson_tpu.models.generators import generate_diagonal_dominant
 from fortran_davidson_tpu.utils import io as jio
 from fortran_davidson_tpu_torch.__main__ import main
 from fortran_davidson_tpu_torch.utils import io as tio
-from fortran_davidson_tpu_torch.utils.errors import OperatorError
 
 
 @pytest.fixture(scope="module")
@@ -133,11 +132,23 @@ def test_nonconvergence_exits_1(files, capsys):
     assert rc == 1 and not got["converged"]
 
 
-def test_scipy_csr_npz_raises_by_name(files, tmp_path):
+def test_scipy_csr_npz_raises_by_name(files, tmp_path, capsys):
+    # The name is kept from when the port refused CSR input by name (the
+    # ELL operator was missing): a CSR .npz now becomes an ELLOperator, as
+    # in the JAX CLI, and its solve must match the JAX CLI's.
     A, _, _ = files
     csr = sp.csr_matrix(A)
     path = tmp_path / "A.npz"
     np.savez(path, data=csr.data, indices=csr.indices, indptr=csr.indptr,
              shape=np.asarray(csr.shape))
-    with pytest.raises(OperatorError, match="item 16"):
-        main(["solve", str(path), "--platform", "cpu"])
+    args = [str(path), "-k", "3", "--tolerance", "1e-8"]
+    assert jax_main(["solve", *args]) == 0
+    want = _last_json(capsys)
+    rc, got = _solve(capsys, *args)
+    assert rc == 0 and got["converged"] == want["converged"] is True
+    assert abs(got["iterations"] - want["iterations"]) <= 1
+    np.testing.assert_allclose(got["eigenvalues"], want["eigenvalues"],
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got["eigenvalues"],
+                               scipy.linalg.eigh(A, eigvals_only=True)[:3],
+                               rtol=0, atol=1e-8)

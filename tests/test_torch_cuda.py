@@ -1700,3 +1700,90 @@ def test_polish_eigenpairs_on_the_card(cuda_device):
     # The polish applies the off-diagonal words through matmat_ds (plain
     # PyTorch), not kernel 4.
     assert kernels.banded_q_bsr_spmm.launches == before
+
+
+# -- the ELL family ------------------------------------------------------
+
+def _local_coo(dtype=torch.float64):
+    return fdtt.generate_local_sparse(3000, 12, locality=95.0, seed=7,
+                                      dtype=dtype)
+
+
+@pytest.mark.parametrize("kind", ["ell", "sell", "hybrid_sell", "hybrid_ell"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ell_family_apply_on_the_card_equals_the_cpu(cuda_device, kind,
+                                                     dtype):
+    # The ELL gathers are plain PyTorch on either device (the same
+    # products, summed in another order on the card); the hybrid's band
+    # goes through kernel 1 on the card, its plain version on the CPU.
+    rows, cols, vals = _local_coo(dtype)
+
+    def build(dev):
+        if kind.startswith("hybrid"):
+            return fdtt.split_band_remainder(
+                rows, cols, vals, 3000, block_size=128, bandwidth=1,
+                dtype=dtype, remainder_format=kind.split("_")[1], device=dev)
+        cls = fdtt.ELLOperator if kind == "ell" else fdtt.SlicedELLOperator
+        return cls.from_coo(rows, cols, vals, 3000, dtype=dtype, device=dev)
+    card, cpu = build(cuda_device), build("cpu")
+    x = torch.randn((cpu.shape[0], 20), dtype=dtype)
+    before = kernels.banded_bsr_spmm.launches
+    y = card.matmat(x.to(cuda_device))
+    assert (kernels.banded_bsr_spmm.launches - before
+            == (1 if kind.startswith("hybrid") else 0))
+    torch.testing.assert_close(y.cpu(), cpu.matmat(x), **_tol(dtype))
+    torch.testing.assert_close(card.diagonal().cpu(), cpu.diagonal(),
+                               rtol=0, atol=0)
+    if dtype == torch.float32:
+        xh, xl = x, x * 1e-8
+        h, lo = card.offdiag().matmat_ds(xh.to(cuda_device),
+                                         xl.to(cuda_device))
+        ch, cl = cpu.offdiag().matmat_ds(xh, xl)
+        got = h.double().cpu() + lo.double().cpu()
+        torch.testing.assert_close(got, ch.double() + cl.double(), rtol=0,
+                                   atol=5e-10)
+
+
+def test_hybrid_solve_on_the_card_runs_kernel_1_and_equals_the_plain_path(
+        cuda_device):
+    rows, cols, vals = _local_coo()
+    hyb = fdtt.split_band_remainder(rows, cols, vals, 3000, block_size=128,
+                                    bandwidth=1, device=cuda_device)
+    band = hyb.band
+    plain = fdtt.MatrixFreeOperator(
+        lambda X: (kernels.banded_bsr_spmm_plain(band.blocks, X.contiguous(),
+                                                 1)
+                   + hyb.remainder.matmat(X)),
+        hyb.shape[0], dtype=hyb.dtype, diag=hyb.diagonal(),
+        device=cuda_device)
+    before = kernels.banded_bsr_spmm.launches
+    res = fdtt.eigensolve(hyb, 4, tolerance=1e-8)
+    launches = kernels.banded_bsr_spmm.launches - before
+    ref = fdtt.eigensolve(plain, 4, tolerance=1e-8)
+    assert kernels.banded_bsr_spmm.launches - before == launches > 0
+    assert res.converged and ref.converged
+    assert res.iterations == ref.iterations
+    torch.testing.assert_close(res.eigenvalues, ref.eigenvalues, rtol=1e-10,
+                               atol=0)
+    cpu = fdtt.eigensolve(fdtt.split_band_remainder(
+        rows, cols, vals, 3000, block_size=128, bandwidth=1, device="cpu"),
+        4, tolerance=1e-8)
+    assert abs(cpu.iterations - res.iterations) <= 1
+    torch.testing.assert_close(res.eigenvalues.cpu(), cpu.eigenvalues,
+                               rtol=1e-10, atol=0)
+    # No padded pair (the padded diagonal sits above the spectrum).
+    assert float(res.eigenvalues.max()) < float(hyb.diagonal()[-1])
+
+
+def test_scipy_csr_solve_on_the_card(cuda_device):
+    import scipy.sparse as sp
+    from fortran_davidson_tpu_torch.ops.sparse import \
+        sparse_diagonal_dominant_coo
+    rows, cols, vals = sparse_diagonal_dominant_coo(4000, 20, seed=0)
+    csr = sp.csr_matrix((vals, (rows, cols)), shape=(4000, 4000))
+    res = fdtt.eigensolve(csr, 4)
+    assert res.converged and res.eigenvectors.is_cuda
+    cpu = fdtt.eigensolve(fdtt.as_operator(csr, device="cpu"), 4)
+    assert abs(cpu.iterations - res.iterations) <= 1
+    torch.testing.assert_close(res.eigenvalues.cpu(), cpu.eigenvalues,
+                               rtol=1e-10, atol=0)

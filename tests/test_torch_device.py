@@ -13,6 +13,7 @@ import tempfile
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import fortran_davidson_tpu_torch as fdtt
@@ -38,6 +39,19 @@ def _cli_solve():
         path = f"{d}/A.npy"
         np.save(path, _A)
         return cli.main(["solve", path])
+
+
+def _cli_solve_csr():
+    """The same on an .npz of scipy CSR members (an ELLOperator)."""
+    csr = scipy.sparse.csr_matrix(_A)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/A.npz"
+        np.savez(path, data=csr.data, indices=csr.indices, indptr=csr.indptr,
+                 shape=np.asarray(csr.shape))
+        return cli.main(["solve", path])
+
+
+_LOCAL = fdtt.generate_local_sparse(64, 4, locality=4.0, seed=0)
 
 
 # Each entry point given numpy (or nothing but sizes and a seed) and no
@@ -76,7 +90,31 @@ ENTRY_POINTS = {
     "parallel.multihost.initialize": lambda: multihost.initialize(),
     "generate_diagonal_dominant":
         lambda: tgen.generate_diagonal_dominant(16, 1e-3),
+    "ELLOperator": lambda: fdtt.ELLOperator(np.zeros((4, 2), np.int32),
+                                            np.ones((4, 2))),
+    "ELLOperator.from_coo": lambda: fdtt.ELLOperator.from_coo(*_LOCAL, 64),
+    "ELLOperator.from_csr": lambda: fdtt.ELLOperator.from_csr(
+        [0, 1, 2], [0, 1], [1.0, 2.0]),
+    "ELLOperator.from_dense": lambda: fdtt.ELLOperator.from_dense(_A),
+    "SlicedELLOperator.from_coo":
+        lambda: fdtt.SlicedELLOperator.from_coo(*_LOCAL, 64),
+    "split_band_remainder": lambda: fdtt.split_band_remainder(
+        *_LOCAL, 64, block_size=8),
+    "split_band_remainder rcm": lambda: fdtt.split_band_remainder(
+        *_LOCAL, 64, block_size=8, reorder="rcm"),
+    "generate_sparse_diagonal_dominant":
+        lambda: fdtt.generate_sparse_diagonal_dominant(64, 4),
+    "as_operator(scipy csr)": lambda: fdtt.as_operator(
+        scipy.sparse.csr_matrix(_A)),
+    "eigensolve(scipy csr)": lambda: fdtt.eigensolve(
+        scipy.sparse.csr_matrix(_A), 2),
+    "convert.ell": lambda: convert.ell(np.zeros((4, 2), np.int32),
+                                       np.ones((4, 2))),
+    "convert.sliced_ell": lambda: convert.sliced_ell(
+        [np.zeros(1, np.int32)], [np.zeros((1, 1), np.int32)],
+        [np.ones((1, 1))], np.zeros(4, np.int32)),
     "cli.solve": _cli_solve,
+    "cli.solve CSR .npz": _cli_solve_csr,
     "cli.demo": lambda: cli.main(["demo"]),
     "examples.demo": lambda: demo.main([]),
     "examples.benchmark_free": lambda: benchmark_free.main([]),

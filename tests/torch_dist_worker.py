@@ -7,6 +7,8 @@ and each runs every check of the run on its rows: the halo operators'
 applies, diagonals and off-diagonal splits, and the sharded solves. The
 inputs come from the parent as ``inputs.npz``; each rank writes what it
 computed to ``rank<r>.npz``, and the parent compares with the JAX package.
+At world sizes 1 and 2 (``SPARSE_WORLDS``) the ranks also apply and solve
+the ELL family's sharded operators.
 
 A spawned process imports the module of its target, and the test
 modules and ``tests/conftest.py`` import JAX: this module imports only
@@ -60,6 +62,16 @@ SOLVES = {
 }
 
 
+# The ELL family's sharding rules (ELL, sliced ELL through to_ell, the
+# hybrid's band through kernel 2 and its remainder through the ELL rule),
+# checked at world sizes 1 and 2: name -> (lowest, options).
+SPARSE_WORLDS = (1, 2)
+SPARSE_SOLVES = {"ell": (3, F64), "sell": (3, F64), "hybrid": (3, F64)}
+# The sharded operator each rule gives.
+SPARSE_KINDS = {"ell": "ShardedELLOperator", "sell": "ShardedELLOperator",
+                "hybrid": "ShardedHybridOperator"}
+
+
 def spawn(world: int, run_dir: str) -> list:
     """Run every check at ``world`` ranks; returns each rank's results."""
     mp.spawn(_rank_main, args=(world, run_dir), nprocs=world, join=True)
@@ -110,6 +122,22 @@ def solve_cases(inputs, mesh=None) -> dict:
         "gjd": (A, None, None),
         "gjd_warm": (A, None, None),
         "gjd_halo": (halo("solve_halo", "pallas"), None, None),
+    }
+
+
+def sparse_cases(inputs) -> dict:
+    """name -> the global CPU operator of each SPARSE_SOLVES case, built
+    from the COO triplets ``coo_*`` (the hybrid padded to an even number
+    of block rows, for two ranks)."""
+    import fortran_davidson_tpu_torch as fdtt
+    coo = (inputs["coo_rows"], inputs["coo_cols"], inputs["coo_vals"],
+           int(inputs["coo_n"]))
+    return {
+        "ell": fdtt.ELLOperator.from_coo(*coo, device="cpu"),
+        "sell": fdtt.SlicedELLOperator.from_coo(*coo, device="cpu"),
+        "hybrid": fdtt.split_band_remainder(*coo, block_size=16, bandwidth=1,
+                                            block_rows_multiple=2,
+                                            device="cpu"),
     }
 
 
@@ -203,6 +231,24 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
         # The split is exact: A x = offdiag(A) x + diag(A) ∘ x.
         out[f"int8_{bw}_split_y"] = (hq.offdiag().matmat(Xq)
                                      + hq.diagonal()[:, None] * Xq).numpy()
+
+    if world in SPARSE_WORLDS:
+        for name, op in sparse_cases(inputs).items():
+            sharded = shard_operator(op, mesh)
+            assert type(sharded).__name__ == SPARSE_KINDS[name]
+            X = inputs["Xsp"][:op.shape[0]]
+            with counting_collectives() as calls:
+                out[f"sparse_{name}_y"] = sharded.matmat(torch.from_numpy(
+                    X[mesh.rows(X.shape[0])])).numpy()
+            out[f"sparse_{name}_gathers"] = np.array(
+                sum(calls[n] for n in GATHERS))
+            out[f"sparse_{name}_diag"] = sharded.diagonal().numpy()
+            lowest, opts = SPARSE_SOLVES[name]
+            res = eigensolve_sharded(op, lowest, mesh, **opts)
+            out[f"sparse_{name}_evals"] = res.eigenvalues.numpy()
+            out[f"sparse_{name}_evecs"] = res.eigenvectors.numpy()
+            out[f"sparse_{name}_iterations"] = np.array(res.iterations)
+            out[f"sparse_{name}_converged"] = np.array(res.converged)
 
     for name, (A, B, X0) in solve_cases(inputs, mesh).items():
         lowest, opts = SOLVES[name]
