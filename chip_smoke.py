@@ -279,9 +279,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    entry; oracle relative residual against the float64 promotion <= 1e-8.
    Each prints iterations, true residual, cold and warm walls, peak
    memory and host build time.
-11. Prints the run's time and phase 12's share of it, the solves' and
-   kernels' JSON lines (launch counts of the solve
-   phases 4-12, each counted from 0 over its own phase; kernel 9, the copy
+13. Chebyshev restarts, locking, eigsh, matmul_precision and the batched
+   solve, after phase 12, on phase 4's matrix A rebuilt, phase 7's
+   coupling-3 float32 storage C32 and its float64 promotion C (each
+   sub-phase a solve phase; cold and warm walls): (a) lowest-20 of C,
+   lowest-k, ``max_dim_sub=80``, unfiltered, ``cheb_degree=8`` and
+   ``"auto"``: converged, true residuals <= 1e-8, eigenvalues within
+   1e-9 relative of the unfiltered solve's, the unfiltered solve
+   collapsing twice or more and the filtered ones once or more; a
+   counted solve of each (the operator behind a wrapper) holds kernel
+   1's launches to the applies, 1 + 12 single-column Lanczos applies
+   (filtered only) + one an expansion + degree + 1 a filtered collapse,
+   and ``operator_columns`` to the nonzero columns applied less the
+   bound's 12. (b) lowest-20 DPR on C (lowest-k) and lowest-3 GJD on A,
+   each without and with ``locking=True``: the same eigenvalues within
+   1e-9, not stalled, true residuals <= 1e-8, locking's
+   ``operator_columns`` no more. (c) ``eigsh`` on A: "SA" k=6 within
+   1e-9 of phase 4's lowest-6, "LA" k=6, "BE" k=6 and ``sigma`` the
+   median of the diagonal, k=4 (the spectral fold), each with true
+   residuals <= 1e-8 on the card; kernel 1's launches a call. (d) a
+   float32 lowest-20 on C32 at relative 1e-2 under the default,
+   ``"tensorfloat32"``, ``"bfloat16"`` and the default again:
+   eigenvalues within 1e-2 relative of (a)'s float64 solve, every CUDA
+   matmul flag the same before and after each solve and after a solve
+   made to raise, the default's bits the same before and after; one
+   (n, 20)ᵀ(n, 20) float32 GEMM's error against float64 under each
+   ``matmul_precision`` name. (e) ``eigensolve_batched`` of 64
+   ``generate_diagonal_dominant(1024, 1e-3)`` matrices (seeds 0-63),
+   lowest-3 to 1e-9, and with diagonal B's: each problem's eigenvalues
+   within 1e-12 of its single solve's, its iterations equal; the batch
+   wall beside the sum of the single walls (no kernel).
+11. Prints the run's time and the shares of phases 12 and 13, the
+   solves' and kernels' JSON lines (launch counts of the solve
+   phases 4-13, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
    the rest and no phase launches them (nor kernel 3's and kernel 5's
    float64 entries); for
@@ -4089,6 +4119,439 @@ def phase_hybrid_refined(dev, solves):
     torch.cuda.empty_cache()
 
 
+# Phase 13 (ROADMAP 18a-18b): Chebyshev-filtered restarts, locking, eigsh,
+# the reduced matmul precisions and the batched solve, after phase 12.
+# 13a's and 13b's DPR cases run on phase 7's coupling-3 matrix promoted to
+# float64: lowest-20 there collapses every fourth iteration at
+# max_dim_sub=80, where phase 4's matrix converges after one collapse.
+CHEB_OPTS = dict(expansion="lowest-k", max_dim_sub=80)
+CHEB_CASES = (("unfiltered", 0), ("degree 8", 8), ("auto", "auto"))
+LANCZOS_APPLIES = 12
+EIGSH_CASES = (("SA", dict(k=6, which="SA")), ("LA", dict(k=6, which="LA")),
+               ("BE", dict(k=6, which="BE")), ("sigma", dict(k=4)))
+PRECISIONS = (None, "float32", "highest", "tensorfloat32", "bfloat16_3x",
+              "bfloat16")
+REDUCED_TOL = 1e-2
+BATCH, BATCH_N = 64, 1024
+
+
+def phase13_operators(dev) -> dict:
+    """Phase 4's matrix (float64), phase 7's coupling-3 float32 storage and
+    its float64 promotion, built on the host as phases 4 and 7 build
+    them."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    t0 = time.perf_counter()
+    A = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3,
+                                 seed=0, dtype=torch.float64, device=dev)
+    C32 = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=3.0,
+                                   seed=0, dtype=torch.float32, device=dev)
+    C = fdtt.BSROperator(C32.block_cols, C32.blocks.double(), bandwidth=1)
+    torch.cuda.synchronize()
+    print(f"  phase 13's matrices (phase 4's A in float64, phase 7's "
+          f"coupling-3 float32 storage and its float64 promotion C) built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(A=A, C32=C32, C=C)
+
+
+@contextlib.contextmanager
+def _recording_degrees():
+    """The filter degrees ``chebyshev.auto_degree`` picks in the block."""
+    from fortran_davidson_tpu_torch.core import chebyshev
+    degrees, auto = [], chebyshev.auto_degree
+
+    def record(*args, **kwargs):
+        degrees.append(auto(*args, **kwargs))
+        return degrees[-1]
+
+    chebyshev.auto_degree = record
+    try:
+        yield degrees
+    finally:
+        chebyshev.auto_degree = auto
+
+
+def _counted(op):
+    """``op`` behind a wrapper that counts its applies (``calls``, each
+    block's width) and the nonzero columns they took (``columns``)."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+
+    class Counted(fdtt.LinearOperator):
+        shape = property(lambda self: op.shape)
+        dtype = property(lambda self: op.dtype)
+        device = property(lambda self: op.device)
+
+        def __init__(self):
+            self.calls, self.columns = [], 0
+
+        def matmat(self, block):
+            self.calls.append(block.shape[1])
+            self.columns += int(torch.count_nonzero(
+                torch.sum(torch.abs(block), dim=0)))
+            return op.matmat(block)
+
+        def diagonal(self):
+            return op.diagonal()
+
+    return Counted()
+
+
+def _collapses(res) -> int:
+    dims = res.subspace_dims[:res.iterations]
+    return int((dims[1:] < dims[:-1]).sum())
+
+
+def _rel_diff(a, b) -> float:
+    import torch
+    return float(torch.max(torch.abs(a.double() - b.double())
+                           / torch.clamp(torch.abs(b.double()), min=1.0)))
+
+
+def phase_cheb(ops, dev, solves, shared):
+    """Phase 13a: lowest-20 of C (``CHEB_OPTS``) unfiltered, with
+    ``cheb_degree=8`` and ``"auto"``, through kernel 1: each converges, a
+    true residual <= 1e-8, eigenvalues within 1e-9 relative of the
+    unfiltered solve's, the unfiltered solve collapses twice or more and
+    the filtered ones once or more. A counted solve of each (the operator
+    behind a wrapper) holds kernel 1's launches to its applies: one for
+    the initial basis, ``LANCZOS_APPLIES`` single-column ones for the
+    bound (filtered only), one an expansion and ``degree + 1`` a filtered
+    collapse; and ``operator_columns`` to the nonzero columns applied less
+    the bound's."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    C = ops["C"]
+    k1 = kernels.banded_bsr_spmm
+    ref = None
+    for label, cheb in CHEB_CASES:
+        walls, launches = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for tag in ("cold", "warm"):
+            before = k1.launches
+            res, wall = _solve_converged(
+                f"C lowest-20 {CHEB_OPTS} {label} [{tag}]", C, 20,
+                cheb_degree=cheb, **CHEB_OPTS)
+            walls.append(wall)
+            launches.append(k1.launches - before)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counted = _counted(C)
+        before = k1.launches
+        with _recording_degrees() as degrees:
+            cres = fdtt.eigensolve(counted, 20, cheb_degree=cheb,
+                                   **CHEB_OPTS)
+        counted_launches = k1.launches - before
+        collapses = _collapses(res)
+        filtered = cheb != 0
+        if cheb != "auto":
+            _check(degrees == [], f"13a {label}: auto_degree was called")
+            degrees = [cheb] * collapses if filtered else []
+        lanczos = LANCZOS_APPLIES if filtered else 0
+        expansions = res.iterations - 1 - collapses
+        applies = 1 + lanczos + expansions + sum(d + 1 for d in degrees)
+        true_res = _true_residual(C.blocks, 1, None, res.eigenvectors,
+                                  res.eigenvalues)
+        print(f"  13a {label}: iterations {res.iterations}, collapses "
+              f"{collapses}, degrees {degrees}, operator_columns "
+              f"{res.operator_columns}; kernel 1 launches a solve "
+              f"{launches} (counted solve {counted_launches}, its applies "
+              f"{len(counted.calls)}, predicted {applies}; nonzero columns "
+              f"{counted.columns}, less the bound's {lanczos}); true "
+              f"residual {true_res:.3e}; walls cold {walls[0]:.4f} s, warm "
+              f"{walls[1]:.4f} s; peak {peak:.2f} GB", flush=True)
+        _check(true_res <= SOLVE_TOL, f"13a {label}: true residual "
+               f"{true_res:.3e}")
+        _check(cres.iterations == res.iterations
+               and launches[0] == launches[1] == counted_launches,
+               f"13a {label}: the counted solve took {cres.iterations} "
+               f"iterations and {counted_launches} launches")
+        _check(counted_launches == len(counted.calls) == applies,
+               f"13a {label}: {counted_launches} launches, "
+               f"{len(counted.calls)} applies, {applies} predicted")
+        _check(counted.calls[1:1 + lanczos] == [1] * lanczos,
+               f"13a {label}: the bound's applies are not single columns")
+        _check(cres.operator_columns == counted.columns - lanczos,
+               f"13a {label}: operator_columns {cres.operator_columns}, "
+               f"{counted.columns} columns applied")
+        if filtered:
+            _check(collapses > 0, f"13a {label}: no collapse")
+            eig = _rel_diff(res.eigenvalues, ref.eigenvalues)
+            print(f"    max |eig - eig_unfiltered| / max(|eig|, 1) = "
+                  f"{eig:.3e}", flush=True)
+            _check(eig <= 1e-9, f"13a {label}: eigenvalues {eig:.3e} from "
+                   "the unfiltered solve's")
+        else:
+            _check(collapses >= 2, f"13a: the unfiltered solve collapsed "
+                   f"{collapses} times")
+            ref = res
+        solves.append(dict(
+            solve=f"phase 13a coupling-3 f64 lowest-20 lowest-k max_dim_sub "
+            f"80 cheb_degree={cheb!r}", n=C.shape[0],
+            iterations=res.iterations, collapses=collapses, degrees=degrees,
+            operator_columns=res.operator_columns, launches=launches[1],
+            cold_wall_s=walls[0], wall_s=walls[1], true_residual=true_res,
+            peak_mem_gb=peak))
+        del counted, cres
+    shared["C_lowest20"] = ref.eigenvalues.clone()
+    del ref, res
+    torch.cuda.empty_cache()
+
+
+def phase_locking(ops, dev, solves):
+    """Phase 13b: lowest-20 DPR on C (lowest-k, the default width) and
+    lowest-3 GJD on phase 4's matrix, each without and with
+    ``locking=True``: both converge, not stalled, eigenvalues within 1e-9
+    relative of each other, true residuals <= 1e-8, and locking applies no
+    more operator columns."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    k1 = kernels.banded_bsr_spmm
+    for label, op, k, opts in (
+            ("C DPR lowest-20 lowest-k", ops["C"], 20,
+             dict(expansion="lowest-k")),
+            ("A GJD lowest-3", ops["A"], 3, dict(method="GJD"))):
+        runs = {}
+        for lock in (False, True):
+            walls = []
+            for tag in ("cold", "warm"):
+                before = k1.launches
+                res, wall = _solve_converged(
+                    f"{label} locking={lock} [{tag}]", op, k, locking=lock,
+                    **opts)
+                walls.append(wall)
+            true_res = _true_residual(op.blocks, 1, None, res.eigenvectors,
+                                      res.eigenvalues)
+            runs[lock] = (res, walls, k1.launches - before, true_res)
+        (off, off_walls, off_l, off_r), (on, on_walls, on_l, on_r) = (
+            runs[False], runs[True])
+        eig = _rel_diff(on.eigenvalues, off.eigenvalues)
+        print(f"  13b {label}: operator_columns {off.operator_columns} "
+              f"without locking, {on.operator_columns} with; iterations "
+              f"{off.iterations} / {on.iterations}; kernel 1 launches a "
+              f"solve {off_l} / {on_l}; inner iterations "
+              f"{off.inner_iterations} / {on.inner_iterations}; max rel "
+              f"eigenvalue diff {eig:.3e}; true residuals {off_r:.3e} / "
+              f"{on_r:.3e}; walls (cold, warm) {off_walls} / {on_walls} s",
+              flush=True)
+        _check(not off.stalled and not on.stalled, f"13b {label}: stalled")
+        _check(eig <= 1e-9, f"13b {label}: eigenvalues {eig:.3e} apart")
+        _check(max(off_r, on_r) <= SOLVE_TOL, f"13b {label}: true residuals "
+               f"{off_r:.3e} / {on_r:.3e}")
+        _check(on.operator_columns <= off.operator_columns,
+               f"13b {label}: locking applied {on.operator_columns} columns "
+               f"against {off.operator_columns}")
+        solves.append(dict(
+            solve=f"phase 13b {label} locking", n=op.shape[0],
+            iterations=[off.iterations, on.iterations],
+            operator_columns=[off.operator_columns, on.operator_columns],
+            launches=[off_l, on_l], wall_s=[off_walls, on_walls],
+            true_residual=[off_r, on_r], eig_rel=eig))
+        del runs, off, on
+    torch.cuda.empty_cache()
+
+
+def phase_eigsh(ops, dev, solves, shared):
+    """Phase 13c: ``eigsh`` on phase 4's matrix through kernel 1: "SA"
+    k=6 equal to phase 4's lowest-6 within 1e-9; "LA" k=6, "BE" k=6 and
+    ``sigma`` = the median of the diagonal, k=4 (the spectral fold, two
+    applies a block), each certified by true residuals <= 1e-8 on the
+    card; kernel 1's launches a call."""
+    import numpy as np
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    A = ops["A"]
+    k1 = kernels.banded_bsr_spmm
+    diag = A.diagonal()
+    sigma = float(torch.median(diag))
+    for label, kw in EIGSH_CASES:
+        if label == "sigma":
+            kw = dict(kw, sigma=sigma)
+        walls, launches = [], []
+        for tag in ("cold", "warm"):
+            torch.cuda.synchronize()
+            before = k1.launches
+            t0 = time.perf_counter()
+            w, v = fdtt.eigsh(A, **kw)
+            walls.append(time.perf_counter() - t0)
+            launches.append(k1.launches - before)
+        lam = torch.from_numpy(np.ascontiguousarray(w)).to(dev)
+        X = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        true_res = _true_residual(A.blocks, 1, None, X, lam)
+        print(f"  13c eigsh {kw}: eigenvalues {w.tolist()}; kernel 1 "
+              f"launches a call {launches}; true residual {true_res:.3e}; "
+              f"walls (cold, warm) {walls} s", flush=True)
+        _check(w.shape == (kw["k"],) and v.shape == (A.shape[0], kw["k"])
+               and bool(np.all(np.isfinite(w))), f"13c {label}: bad output")
+        _check(launches[0] > 0, f"13c {label}: kernel 1 never launched")
+        _check(true_res <= SOLVE_TOL, f"13c {label}: true residual "
+               f"{true_res:.3e}")
+        extra = {}
+        if label == "SA":
+            diff = float(torch.max(torch.abs(
+                lam - shared["phase4_lowest20"][:6].to(dev))))
+            print(f"    |eig - phase 4's lowest-6| = {diff:.3e}", flush=True)
+            _check(diff <= 1e-9, f"13c SA: {diff:.3e} from phase 4's")
+            extra["eig_diff_phase4"] = diff
+        if label == "sigma":
+            near = torch.sort(torch.abs(diag - sigma))[0][:4]
+            got = torch.sort(torch.abs(lam - sigma))[0]
+            _check(float(torch.max(torch.abs(got - near))) <= 1e-2,
+                   f"13c sigma: not the eigenvalues nearest {sigma}")
+            extra["sigma"] = sigma
+        solves.append(dict(
+            solve=f"phase 13c eigsh {label} k={kw['k']}", n=A.shape[0],
+            launches=launches, wall_s=walls, true_residual=true_res,
+            eigenvalues=w.tolist(), **extra))
+        del X, v
+    torch.cuda.empty_cache()
+
+
+def _matmul_flags() -> tuple:
+    import torch
+    m = torch.backends.cuda.matmul
+    return (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+            m.allow_fp16_reduced_precision_reduction,
+            m.allow_bf16_reduced_precision_reduction,
+            torch.get_float32_matmul_precision())
+
+
+def phase_precision(ops, dev, solves, shared):
+    """Phase 13d: float32 lowest-20 on phase 7's float32 storage at
+    relative ``REDUCED_TOL`` under the default, ``"tensorfloat32"`` and
+    ``"bfloat16"`` (then the default again): eigenvalues within 1e-2
+    relative of 13a's float64 solve of the same stored matrix; every CUDA
+    matmul flag the same before and after each solve, and after a solve
+    made to raise; the default's eigenvalues bit for bit the same before
+    and after. Prints one (n, 20)ᵀ(n, 20) float32 GEMM's error against
+    float64 under each ``matmul_precision`` name."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.utils.dtypes import full_precision_matmuls
+    C32 = ops["C32"]
+    n = C32.shape[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    V = torch.randn((n, 20), generator=g, device=dev)
+    exact = V.double().T @ V.double()
+    scale = torch.abs(V.double()).T @ torch.abs(V.double())
+    gemm = {}
+    for name in PRECISIONS:
+        with full_precision_matmuls(name):
+            err = (V.T @ V).double() - exact
+        gemm[str(name)] = dict(
+            rel_to_max=float(torch.max(torch.abs(err))
+                             / torch.max(torch.abs(exact))),
+            rel_to_abs=float(torch.max(torch.abs(err) / scale)))
+    print("  13d (n, 20)ᵀ(n, 20) float32 GEMM against float64 by "
+          "matmul_precision (max |err| / max |G|; max |err| / (|V|ᵀ|V|)): "
+          + "; ".join(f"{k} {v['rel_to_max']:.3e} {v['rel_to_abs']:.3e}"
+                      for k, v in gemm.items()), flush=True)
+    del V, exact, scale
+    kw = dict(dtype="float32", expansion="lowest-k", relative_tolerance=True,
+              tolerance=REDUCED_TOL)
+    ref = shared["C_lowest20"]
+    runs = []
+    for precision in (None, "tensorfloat32", "bfloat16", None):
+        flags = _matmul_flags()
+        res, wall = _solve_converged(
+            f"C32 float32 lowest-20 rel {REDUCED_TOL} matmul_precision="
+            f"{precision!r}", C32, 20, matmul_precision=precision, **kw)
+        _check(_matmul_flags() == flags, f"13d {precision}: the flags "
+               f"{flags} became {_matmul_flags()}")
+        eig = _rel_diff(res.eigenvalues, ref)
+        print(f"    eigenvalues within {eig:.3e} relative of the float64 "
+              "solve's", flush=True)
+        _check(eig <= REDUCED_TOL, f"13d {precision}: {eig:.3e} from float64")
+        runs.append(dict(precision=precision, iterations=res.iterations,
+                         wall_s=wall, eig_rel_f64=eig,
+                         eigenvalues=res.eigenvalues.clone()))
+    _check(torch.equal(runs[0]["eigenvalues"], runs[-1]["eigenvalues"]),
+           "13d: the default solve's bits moved after the reduced ones")
+
+    calls = [0]
+
+    def failing(X):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("the third apply fails on purpose")
+        return C32.matmat(X)
+
+    flags = _matmul_flags()
+    try:
+        fdtt.eigensolve(fdtt.MatrixFreeOperator(
+            failing, n, dtype=torch.float32, diag=C32.diagonal(), device=dev),
+            20, matmul_precision="tensorfloat32", **kw)
+    except RuntimeError as exc:
+        _check("on purpose" in str(exc), f"13d: {exc}")
+    else:
+        _check(False, "13d: the failing solve did not raise")
+    _check(_matmul_flags() == flags, "13d: the flags moved after a solve "
+           "that raised")
+    print(f"    flags before and after each solve and after the raise: "
+          f"{flags}; the default's bits equal before and after", flush=True)
+    solves.append(dict(
+        solve=f"phase 13d C32 f32 lowest-20 rel {REDUCED_TOL} "
+        "matmul_precision", n=n, gemm_error=gemm,
+        runs=[{k: v for k, v in r.items() if k != "eigenvalues"}
+              for r in runs], flags=list(flags)))
+
+
+def phase_batched(dev, solves):
+    """Phase 13e (no kernel): ``eigensolve_batched`` of ``BATCH``
+    ``generate_diagonal_dominant(BATCH_N, 1e-3)`` matrices (seeds 0-63),
+    lowest-3 to 1e-9, and of the same with diagonal B's: each problem's
+    eigenvalues within 1e-12 of its single solve's, and its iterations."""
+    import numpy as np
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.models import generators
+    mats = torch.stack([generators.generate_diagonal_dominant(
+        BATCH_N, 1e-3, seed=s, device=dev) for s in range(BATCH)])
+    diag_b = torch.from_numpy(np.stack([
+        1.0 + 0.05 * np.random.default_rng(s).random(BATCH_N)
+        for s in range(BATCH)])).to(dev)
+    for label, B in (("standard", None), ("diagonal-B pencil", diag_b)):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fdtt.eigensolve_batched(mats, 3, second_matrices=B,
+                                          tolerance=1e-9)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        singles, diff, same_its = 0.0, 0.0, True
+        for i in range(BATCH):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = fdtt.eigensolve(mats[i], 3, second_matrix=None if B is None
+                                  else B[i], tolerance=1e-9)
+            torch.cuda.synchronize()
+            singles += time.perf_counter() - t0
+            diff = max(diff, float(torch.max(torch.abs(
+                res.eigenvalues[i] - one.eigenvalues))))
+            same_its &= int(res.iterations[i]) == one.iterations
+        its = res.iterations.tolist()
+        print(f"  13e batched {label}: {BATCH} x n={BATCH_N} lowest-3, "
+              f"iterations {min(its)}-{max(its)}, all converged "
+              f"{bool(torch.all(res.converged))}; max |eig - single| "
+              f"{diff:.3e}; batch walls (cold, warm) {walls} s, the "
+              f"{BATCH} single solves {singles:.3f} s", flush=True)
+        _check(bool(torch.all(res.converged)), f"13e {label}: not converged")
+        _check(tuple(res.eigenvalues.shape) == (BATCH, 3)
+               and tuple(res.iterations.shape) == (BATCH,),
+               f"13e {label}: leaves without the batch axis")
+        _check(diff <= 1e-12 and same_its, f"13e {label}: {diff:.3e} from "
+               "the single solves, or other iterations")
+        solves.append(dict(
+            solve=f"phase 13e batched {label} {BATCH} x n={BATCH_N} "
+            "lowest-3", iterations=its, wall_s=walls,
+            single_walls_sum_s=singles, eig_diff_single=diff))
+    del mats, diag_b
+    torch.cuda.empty_cache()
+
+
+
 @contextlib.contextmanager
 def _counting_collectives(cls):
     """Count the calls of the collectives of ``cls`` (a RowMesh) by name
@@ -4653,6 +5116,8 @@ def main() -> int:
     nnz = {"nbr=8192": (_shape_of(A), _nonzero_blocks(A.blocks, 3)),
            "nbr=16384": (_shape_of(q), _nonzero_blocks(q.qblocks, 3)),
            **variant_info["ops"]}
+    # Phase 13c holds eigsh's lowest-6 to phase 4's lowest-20.
+    shared13 = {"phase4_lowest20": refs[20]["eigenvalues"].cpu()}
     del A, A32, q, refs
     gc.collect()
     torch.cuda.empty_cache()
@@ -4689,6 +5154,31 @@ def main() -> int:
         run_path(title, run, expected)
     shared.clear()
     phase12_s = time.perf_counter() - t12
+
+    # Phase 13: Chebyshev restarts, locking, eigsh, matmul_precision and
+    # the batched solve, each sub-phase counted from 0.
+    t13 = time.perf_counter()
+    ops13 = phase13_operators(dev)
+    for title, run, expected in [
+            ("[13a] Chebyshev-filtered restarts, lowest-20 on C",
+             lambda: phase_cheb(ops13, dev, solves, shared13),
+             ("banded_bsr_spmm",)),
+            ("[13b] locking: DPR lowest-20 on C, GJD lowest-3 on A",
+             lambda: phase_locking(ops13, dev, solves),
+             ("banded_bsr_spmm",)),
+            ("[13c] eigsh on A: SA, LA, BE, sigma",
+             lambda: phase_eigsh(ops13, dev, solves, shared13),
+             ("banded_bsr_spmm",)),
+            ("[13d] matmul_precision: float32 lowest-20 on C32",
+             lambda: phase_precision(ops13, dev, solves, shared13),
+             ("banded_bsr_spmm",)),
+            (f"[13e] eigensolve_batched, {BATCH} x n={BATCH_N} (no kernel)",
+             lambda: phase_batched(dev, solves), ())]:
+        run_path(title, run, expected)
+    del ops13
+    shared13.clear()
+    torch.cuda.empty_cache()
+    phase13_s = time.perf_counter() - t13
 
     summary = []
     for name in REPLACES:
@@ -4785,7 +5275,8 @@ def main() -> int:
         summary.append(entry)
     total_s = time.perf_counter() - t_run
     print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
-          f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%)",
+          f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%), "
+          f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%)",
           flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

@@ -7,21 +7,25 @@ options (DPR, float64, doubling expansion, CholeskyQR2, sticky
 convergence), plus Olsen and GJD (block MINRES) corrections, the refined
 double-single path with its final polish (``refined``, ``final_polish``,
 :func:`polish_eigenpairs`), lowest-k expansion, generalized pencils, warm
-starts and the incremental-H engine (``fused_gram``), on dense, diagonal,
+starts, the incremental-H engine (``fused_gram``), locking,
+Chebyshev-filtered restarts (``cheb_degree``) and reduced matmul
+precisions (``matmul_precision``), on dense, diagonal,
 matrix-free, block-sparse (BSR, f64/f32/bf16 storage), int8 banded,
 padded and sliced ELL and hybrid band+remainder operators (scipy sparse
 input becomes ELL), and the row-sharded solve over ``torch.distributed``
 (:mod:`fortran_davidson_tpu_torch.parallel`). Their SpMM (and fused
 SpMM+Gram) runs in the CUDA kernels of ``csrc/`` on a GPU and in their
 plain PyTorch versions on the CPU. Entry points build on the GPU unless
-given ``device="cpu"``. Options of later slices raise
-:class:`InvalidOptionsError`.
+given ``device="cpu"``. :func:`eigsh` is shaped like
+``scipy.sparse.linalg.eigsh`` (every ``which``, ``sigma`` through the
+spectral fold); :func:`eigensolve_batched` solves a stack of problems.
 
 Command line: ``python -m fortran_davidson_tpu_torch
 {solve,demo,benchmark,northstar}`` (``__main__.py``, the drivers in
 ``examples/``), on the GPU unless given ``--platform cpu``.
 """
 
+from fortran_davidson_tpu_torch.batched import eigensolve_batched
 from fortran_davidson_tpu_torch.config import DavidsonOptions, DavidsonResult
 from fortran_davidson_tpu_torch.ops.operators import (
     DenseOperator,
@@ -46,6 +50,7 @@ from fortran_davidson_tpu_torch.ops.sparse import (
     quantize_banded_int8,
     split_band_remainder,
 )
+from fortran_davidson_tpu_torch.scipy_compat import eigsh
 from fortran_davidson_tpu_torch.solver import (eigensolve,
                                                generalized_eigensolver,
                                                polish_eigenpairs)
@@ -79,6 +84,8 @@ __all__ = [
     "as_operator",
     "default_device",
     "eigensolve",
+    "eigensolve_batched",
+    "eigsh",
     "from_element_fn",
     "generalized_eigensolver",
     "generate_banded_bsr",

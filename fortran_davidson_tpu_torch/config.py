@@ -3,10 +3,11 @@
 
 The options, their defaults and their validation are the JAX package's,
 so the two APIs match; see ``fortran_davidson_tpu.config.DavidsonOptions``
-for what each knob does. Options whose machinery is not ported yet are
-accepted by the dataclass and rejected with :class:`InvalidOptionsError`,
-naming the option, when a solve is resolved (:func:`resolve_options`):
-they never silently fall back to something else.
+for what each knob does. The row-sharded solve refuses the two options
+whose machinery it lacks (``refined=True``, ``orthonormalization="qr"``)
+with :class:`InvalidOptionsError`, naming the option, when the solve is
+resolved (:func:`resolve_options`): it never silently falls back to
+something else.
 
 ``carry_layout``: the port stores the tall carries flat, always.
 ``"chunked"`` (and ``"auto"``, which picks it for refined solves in the
@@ -113,23 +114,6 @@ class DavidsonOptions:
             raise InvalidOptionsError(f"unknown dtype {self.dtype!r}") from exc
 
 
-def _require_ported(opts: DavidsonOptions) -> None:
-    """Reject options whose machinery the torch port does not have yet."""
-    not_yet = [
-        (opts.cheb_degree != 0, "cheb_degree",
-         "ROADMAP item 18 (Chebyshev restarts)"),
-        (opts.locking, "locking=True", "ROADMAP item 18"),
-        (opts.matmul_precision in ("bfloat16", "bfloat16_3x",
-                                   "tensorfloat32"),
-         f"matmul_precision={opts.matmul_precision!r}",
-         "reduced-precision matmuls (the port pins TF32 off)"),
-    ]
-    for bad, name, where in not_yet:
-        require(not bad, InvalidOptionsError,
-                f"{name} is not ported to the torch package yet; it waits "
-                f"for {where}")
-
-
 @dataclasses.dataclass(frozen=True)
 class ResolvedConfig:
     """Options resolved against a concrete problem."""
@@ -159,6 +143,12 @@ class ResolvedConfig:
     refined: bool = False
     final_polish: int = 0
     polish_update: str = "dpr"
+    locking: bool = False
+    # ``None`` or one of DavidsonOptions' names; the solver's precision
+    # context (``utils.dtypes.full_precision_matmuls``) maps it.
+    matmul_precision: Optional[str] = None
+    cheb_degree: int = 0
+    cheb_auto: bool = False
 
 
 def merge_options(options: Optional[DavidsonOptions],
@@ -263,7 +253,12 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
     """Options resolved against a problem of order ``n``. A row-sharded
     solve (``sharded``, over ``shard_row_divisor`` ranks) sizes the
     memory clamp by the rows one rank holds, as the JAX package does."""
-    _require_ported(opts)
+    cheb_auto = opts.cheb_degree == "auto"
+    require(not ((cheb_auto or opts.cheb_degree >= 2) and generalized),
+            InvalidOptionsError,
+            "Chebyshev-filtered restarts (cheb_degree >= 2 or 'auto') "
+            "require a standard problem: the filter is a polynomial in "
+            "A alone")
     require(not (sharded and opts.refined), InvalidOptionsError,
             "refined=True is not ported to the sharded solve: it waits for "
             "ROADMAP item 19 (shard-local double-single folds, "
@@ -331,6 +326,15 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
         refined=bool(opts.refined),
         final_polish=int(opts.final_polish),
         polish_update=str(opts.polish_update),
+        locking=bool(opts.locking),
+        # A float32 solve pins full float32 matmuls unless asked otherwise
+        # (``fortran_davidson_tpu/config.py:550-554``).
+        matmul_precision=(opts.matmul_precision
+                          if opts.matmul_precision is not None
+                          else ("float32" if dtype == torch.float32
+                                else None)),
+        cheb_degree=0 if cheb_auto else int(opts.cheb_degree),
+        cheb_auto=cheb_auto,
     )
 
 

@@ -1,7 +1,8 @@
 """The block-Davidson outer loop as an eager loop over device tensors
 (counterpart of ``fortran_davidson_tpu/core/loop.py``, on flat carries:
 DPR, Olsen and GJD corrections, the refined double-single path with its
-final polish, and the incremental-H engine of ``fused_gram``).
+final polish, the incremental-H engine of ``fused_gram``, locking and
+Chebyshev-filtered restarts).
 
 The design keeps the JAX package's invariants:
 
@@ -62,6 +63,7 @@ from typing import Optional
 import torch
 
 from fortran_davidson_tpu_torch.config import DavidsonResult, ResolvedConfig
+from fortran_davidson_tpu_torch.core import chebyshev
 from fortran_davidson_tpu_torch.core import correction as corr_mod
 from fortran_davidson_tpu_torch.core import orthogonal, refine, subspace
 from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
@@ -83,6 +85,11 @@ _POLISH_POLL_AT = 4
 
 def _apply(op: LinearOperator, X, dt):
     return op.matmat(X).to(dt)
+
+
+def _filtered(cfg: ResolvedConfig) -> bool:
+    """Collapses restart through the Chebyshev filter."""
+    return cfg.cheb_degree >= 2 or cfg.cheb_auto
 
 
 def _check_fused(cfg: ResolvedConfig, gen: bool) -> None:
@@ -163,6 +170,13 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
         state["BV"] = BV
     if cfg.fused_gram:
         state["H"] = H
+    if _filtered(cfg):
+        # The filter's damping interval ends at an upper bound of the
+        # spectrum: 12 single-column applies, once per solve
+        # (``core/loop.py:122-123``), not charged to ``operator_columns``.
+        state["spec_ub"] = chebyshev.lanczos_upper_bound(
+            lambda T: _apply(A, T, dt), A.shape[0], dt, device=dev,
+            rows=rows, n_local=n)
     if cfg.method == "GJD":
         # Cumulative inner MINRES steps over the solve, and (warm start)
         # the previous raw correction block; zero is a cold start.
@@ -383,17 +397,25 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         if not collapse:
             # Expansion iff the current dim <= max_dim
             # (``src/davidson.f90:195``).
+            corr_mask = pmk
+            if cfg.locking:
+                # Deflation (``core/loop.py:451-458``): converged pairs keep
+                # their Ritz vectors in the basis but spend no correction
+                # column; the orthonormalization drops their zero columns.
+                unconv = torch.ones((kk,), dtype=dt, device=dev)
+                unconv[:k] = (~has_conv).to(dt)
+                corr_mask = pmk * unconv
             if cfg.method == "DPR":
                 corr = corr_mod.dpr_correction(R, lam[:kk], diag_a, diag_b,
-                                               pmk)
+                                               corr_mask)
             elif cfg.method == "OLSEN":
                 corr = corr_mod.olsen_correction(R, lam[:kk], X, diag_a,
-                                                 diag_b, pmk, rows)
+                                                 diag_b, corr_mask, rows)
             else:
                 warm_t = None
                 if cfg.gjd_warm:
                     warm_t = st["corr_prev"][:, :kk]
-                corr, it_in = _gjd(cfg, A, B, dt, lam[:kk], X, R, pmk,
+                corr, it_in = _gjd(cfg, A, B, dt, lam[:kk], X, R, corr_mask,
                                    diag_a, diag_b, warm_t, rows)
                 st["inner_ops"] += torch.max(it_in)
                 if cfg.gjd_warm:
@@ -403,7 +425,8 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
                     st["corr_prev"][:, kk:] = 0
             del R, X
             Q, alive_q = orthogonal.orthonormalize_block(
-                V[:, :m], corr, pmk, n_reorth=cfg.n_reorth, method=cfg.ortho,
+                V[:, :m], corr, corr_mask, n_reorth=cfg.n_reorth,
+                method=cfg.ortho,
                 rank_width=k if lowest_k else m_max, rows=rows,
                 precise=precise)
             del corr
@@ -453,9 +476,32 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             # the caches follow by a triangular solve.
             del R, X
             W2 = W[:, :init_dim]
-            Qc, Rc = orthogonal.thin_qr_collapse(Vw @ W2, method=cfg.ortho,
-                                                 rows=rows, precise=precise)
-            AQc = orthogonal.right_tri_solve(AVw @ W2, Rc)
+            if _filtered(cfg):
+                # The filtered restart (``core/loop.py:643-674``): damp the
+                # restart block on [first unwanted Ritz value, spectral
+                # upper bound]. The filtered block leaves the span of the
+                # cached AV, so its A-image is applied afresh: degree + 1
+                # block applies, charged to operator_columns.
+                a = lam[init_dim]
+                b = torch.maximum(st["spec_ub"],
+                                  a + 1e-3 * (torch.abs(a) + 1.0))
+                lo = torch.minimum(lam[0], a - 1e-6 * (torch.abs(a) + 1.0))
+                degree = (chebyshev.auto_degree(lo, a, b, dt)
+                          if cfg.cheb_auto else cfg.cheb_degree)
+                X2 = chebyshev.chebyshev_filter(lambda T: _apply(A, T, dt),
+                                                Vw @ W2, degree, a, b, lo)
+                Qc, Rc = orthogonal.thin_qr_collapse(X2, method=cfg.ortho,
+                                                     rows=rows,
+                                                     precise=precise)
+                del X2
+                AQc = _apply(A, Qc, dt)
+                st["op_cols"] += (degree + 1) * init_dim
+            else:
+                Qc, Rc = orthogonal.thin_qr_collapse(Vw @ W2,
+                                                     method=cfg.ortho,
+                                                     rows=rows,
+                                                     precise=precise)
+                AQc = orthogonal.right_tri_solve(AVw @ W2, Rc)
             BQc = (orthogonal.right_tri_solve(BV[:, :w] @ W2, Rc) if gen
                    else None)
             V.zero_()
@@ -551,7 +597,7 @@ def _engine(cfg: ResolvedConfig, A: LinearOperator,
             B: Optional[LinearOperator], X0=None,
             rows: Rows = LOCAL, A_off: Optional[LinearOperator] = None,
             B_off: Optional[LinearOperator] = None) -> DavidsonResult:
-    with _precision_ctx(), torch.no_grad():
+    with _precision_ctx(cfg.matmul_precision), torch.no_grad():
         st = init_state(cfg, A, B, X0=X0, rows=rows)
         res = pack_result(run_state(cfg, A, B, st, rows, A_off=A_off,
                                     B_off=B_off))

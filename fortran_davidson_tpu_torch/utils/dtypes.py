@@ -101,22 +101,37 @@ def safe_denominator(d, dtype=None, floor_scale: float = 1e2):
     return sign * mag
 
 
-@contextlib.contextmanager
-def full_precision_matmuls():
-    """Full-precision float32 matmuls inside the block: TF32 off.
+# ``matmul_precision`` names that let cuBLAS take float32 products in a
+# reduced mode. PyTorch's flag API offers one such mode for float32 GEMMs
+# on the card, TF32 (``allow_tf32``): ``"tensorfloat32"`` and
+# ``"bfloat16_3x"`` (the JAX package's 3-pass bf16, ~float32 accurate on a
+# TPU) map onto it, and so does ``"bfloat16"``, whose bf16 mode the CUDA
+# backend does not take.
+REDUCED_PRECISIONS = ("tensorfloat32", "bfloat16_3x", "bfloat16")
 
-    The GPU form of the JAX package's ``_precision_ctx``
-    (``fortran_davidson_tpu/core/loop.py:54-68``): TF32 keeps ~10
-    mantissa bits, which poisons the projected matrix, Ritz products and
-    residuals of a float32 solve and the compensated Grams and applies of
-    the refined path. No effect on float64. The solver's loop and the
-    refined functions that can be called outside it
-    (``core/refine.refined_pairs``, ``polish``) run under it.
+
+@contextlib.contextmanager
+def full_precision_matmuls(precision=None):
+    """The solver's matmul-precision context (the GPU form of the JAX
+    package's ``_precision_ctx``, ``fortran_davidson_tpu/core/loop.py:54-68``).
+
+    ``precision`` is a resolved ``matmul_precision``. ``None``,
+    ``"float32"`` and ``"highest"`` turn TF32 off: it keeps ~10 mantissa
+    bits, which poisons the projected matrix, Ritz products and residuals
+    of a float32 solve and the compensated Grams and applies of the
+    refined path. A name in :data:`REDUCED_PRECISIONS` turns it on.
+    Only the CUDA backend's flags are touched, so a solve on the CPU
+    stays full float32 whatever the name, as the JAX package's does; no
+    effect on float64. Every flag is restored on exit, also when the
+    block raises. The solver's loop and the refined functions that can be
+    called outside it (``core/refine.refined_pairs``, ``polish``) run
+    under it.
     """
     matmul = torch.backends.cuda.matmul.allow_tf32
     cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    reduced = precision in REDUCED_PRECISIONS
+    torch.backends.cuda.matmul.allow_tf32 = reduced
+    torch.backends.cudnn.allow_tf32 = reduced
     try:
         yield
     finally:

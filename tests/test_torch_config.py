@@ -114,3 +114,94 @@ def test_generate_diagonal_dominant_construction(dtype):
     B = generate_diagonal_dominant(50, 1e-3, diag_val=1.0, seed=1,
                                    dtype=dtype, device="cpu")
     assert torch.equal(torch.diagonal(B), torch.ones(50, dtype=dtype))
+
+
+# -- matmul_precision (tests/test_numerics.py:274-312, TestMatmulPrecision)
+
+PRECISIONS = [None, "float32", "highest", "tensorfloat32", "bfloat16_3x",
+              "bfloat16"]
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_precision_resolves_as_jax(dtype, precision):
+    opts = dict(dtype=dtype, matmul_precision=precision)
+    want = jax_resolve(JaxOptions(**opts), 3, 100, False).matmul_precision
+    got = config.resolve_options(config.merge_options(None, opts), 3, 100,
+                                 generalized=False).matmul_precision
+    assert got == want
+    assert got == (precision if precision is not None
+                   else ("float32" if dtype == "float32" else None))
+
+
+def test_invalid_precision_raises():
+    with pytest.raises(config.InvalidOptionsError, match="matmul_precision"):
+        config.DavidsonOptions(matmul_precision="quad")
+
+
+@pytest.mark.parametrize("precision,tf32", [
+    (None, False), ("float32", False), ("highest", False),
+    ("tensorfloat32", True), ("bfloat16_3x", True), ("bfloat16", True)])
+def test_precision_context_sets_and_restores_the_cuda_flags(monkeypatch,
+                                                            precision, tf32):
+    # Only the CUDA backend's TF32 flags change (the one flag API the port
+    # uses), and every flag comes back, also when the solve raises.
+    from fortran_davidson_tpu_torch.utils.dtypes import full_precision_matmuls
+    for start in (False, True):
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", start)
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", start)
+        with pytest.raises(RuntimeError, match="inside"):
+            with full_precision_matmuls(precision):
+                assert torch.backends.cuda.matmul.allow_tf32 == tf32
+                assert torch.backends.cudnn.allow_tf32 == tf32
+                raise RuntimeError("inside")
+        assert torch.backends.cuda.matmul.allow_tf32 == start
+        assert torch.backends.cudnn.allow_tf32 == start
+
+
+def test_reduced_precision_leaves_cpu_matmuls_in_float32():
+    # torch.set_float32_matmul_precision("medium") would send CPU float32
+    # products through bf16 (an error of ~0.2 here); the port's context
+    # touches only the CUDA flags.
+    from fortran_davidson_tpu_torch.utils.dtypes import full_precision_matmuls
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn((300, 300), generator=g)
+    b = torch.randn((300, 300), generator=g)
+    exact = a.double() @ b.double()
+    with full_precision_matmuls("bfloat16"):
+        err = float(((a @ b).double() - exact).abs().max())
+    assert err < 1e-3
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_float32_cpu_solve_gives_the_default_bits(precision):
+    # On the CPU the reduced precisions change nothing, as the JAX
+    # package's context is a no-op there: the default's bits, and the
+    # loop ran under the requested CUDA flag.
+    from fortran_davidson_tpu_torch.ops.operators import DenseOperator
+    A = generate_diagonal_dominant(60, 1e-3, seed=0, dtype=torch.float32,
+                                   device="cpu")
+    seen = set()
+
+    class Spy(DenseOperator):
+        def matmat(self, block):
+            seen.add(torch.backends.cuda.matmul.allow_tf32)
+            return super().matmat(block)
+
+    base = eigensolve(A, 3, dtype="float32", tolerance=1e-5)
+    res = eigensolve(Spy(A), 3, dtype="float32", tolerance=1e-5,
+                     matmul_precision=precision)
+    assert res.converged and res.iterations == base.iterations
+    assert torch.equal(res.eigenvalues, base.eigenvalues)
+    assert torch.equal(res.eigenvectors, base.eigenvectors)
+    assert seen == {precision in ("tensorfloat32", "bfloat16_3x",
+                                  "bfloat16")}
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_solve_under_explicit_precision_float64():
+    A = generate_diagonal_dominant(60, 1e-3, seed=0, device="cpu")
+    base = eigensolve(A, 3, tolerance=1e-8)
+    pinned = eigensolve(A, 3, tolerance=1e-8, matmul_precision="highest")
+    assert pinned.converged
+    assert torch.equal(pinned.eigenvalues, base.eigenvalues)

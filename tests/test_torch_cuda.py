@@ -1787,3 +1787,106 @@ def test_scipy_csr_solve_on_the_card(cuda_device):
     assert abs(cpu.iterations - res.iterations) <= 1
     torch.testing.assert_close(res.eigenvalues.cpu(), cpu.eigenvalues,
                                rtol=1e-10, atol=0)
+
+
+# -- Chebyshev restarts, locking, matmul_precision, eigsh, batched -----------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nbr,bs", [(8192, 128), (37, 16), (5, 24)])
+def test_kernel_1_at_one_column(cuda_device, dtype, nbr, bs):
+    # The Lanczos bound applies A to one column (m = 1), on the full-size
+    # table too; x a view of a vector, as the bound hands it over.
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=1, coupling=1e-3,
+                                  seed=0, dtype=dtype, device=cuda_device)
+    v = torch.randn((op.shape[0],), dtype=dtype, device=cuda_device)
+    before = kernels.banded_bsr_spmm.launches
+    y = op.matmat(v[:, None])
+    assert kernels.banded_bsr_spmm.launches == before + 1
+    assert y.shape == (op.shape[0], 1)
+    torch.testing.assert_close(
+        y, kernels.banded_bsr_spmm_plain(op.blocks, v[:, None], 1),
+        **_tol(dtype))
+
+
+def _plain_banded(op):
+    return fdtt.MatrixFreeOperator(
+        lambda X: kernels.banded_bsr_spmm_plain(op.blocks, X.contiguous(),
+                                                op.bandwidth),
+        op.shape[0], dtype=op.dtype, diag=op.diagonal(), device=op.device)
+
+
+def test_filter_and_bound_through_kernel_1(cuda_device):
+    from fortran_davidson_tpu_torch.core import chebyshev
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    plain = _plain_banded(op)
+    X = torch.randn((op.shape[0], 6), dtype=torch.float64,
+                    device=cuda_device)
+    before = kernels.banded_bsr_spmm.launches
+    y = chebyshev.chebyshev_filter(op.matmat, X, 8, 1.2, 64.0, 0.9)
+    assert kernels.banded_bsr_spmm.launches == before + 8
+    want = chebyshev.chebyshev_filter(plain.matmat, X, 8, 1.2, 64.0, 0.9)
+    torch.testing.assert_close(y, want, rtol=1e-12, atol=1e-12)
+    ub = chebyshev.lanczos_upper_bound(op.matmat, op.shape[0], torch.float64,
+                                       device=cuda_device)
+    ub_cpu = chebyshev.lanczos_upper_bound(
+        _plain_banded(fdtt.generate_banded_bsr(
+            64, 16, bandwidth=1, coupling=0.1, seed=0, device="cpu")).matmat,
+        op.shape[0], torch.float64)
+    assert abs(float(ub) - float(ub_cpu)) <= 1e-10 * abs(float(ub_cpu))
+    assert float(ub) >= float(torch.linalg.eigvalsh(op.to_dense().cpu())[-1])
+
+
+@pytest.mark.parametrize("cheb", [8, "auto"])
+def test_filtered_and_locked_solves_on_the_card(cuda_device, cheb):
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    kw = dict(expansion="lowest-k", max_dim_sub=12, cheb_degree=cheb,
+              locking=True)
+    res = fdtt.eigensolve(op, 3, **kw)
+    ref = fdtt.eigensolve(_plain_banded(op), 3, **kw)
+    assert res.converged and res.iterations == ref.iterations
+    assert res.operator_columns == ref.operator_columns
+    torch.testing.assert_close(res.eigenvalues, ref.eigenvalues, rtol=0,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("precision", [None, "float32", "highest",
+                                       "tensorfloat32", "bfloat16_3x",
+                                       "bfloat16"])
+def test_precision_context_on_the_card(cuda_device, precision):
+    from fortran_davidson_tpu_torch.utils.dtypes import (
+        REDUCED_PRECISIONS, full_precision_matmuls)
+    # The error of each entry of a float32 Gram against |a|ᵀ|a|: ~1e-8 in
+    # full float32, ~1e-5 under TF32 (~10 mantissa bits).
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn((8192, 64), generator=g, device=cuda_device)
+    exact = a.double().T @ a.double()
+    scale = a.double().abs().T @ a.double().abs()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    with pytest.raises(RuntimeError, match="inside"):
+        with full_precision_matmuls(precision):
+            err = float((((a.T @ a).double() - exact).abs() / scale).max())
+            raise RuntimeError("inside")
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == flags
+    assert (err > 1e-6) == (precision in REDUCED_PRECISIONS), err
+
+
+def test_eigsh_and_batched_on_the_card(cuda_device):
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    before = kernels.banded_bsr_spmm.launches
+    w = fdtt.eigsh(op, k=3, which="SA", tol=1e-9, return_eigenvectors=False)
+    assert kernels.banded_bsr_spmm.launches > before
+    want = torch.linalg.eigvalsh(op.to_dense().cpu()).numpy()
+    assert abs(w - want[:3]).max() <= 1e-9
+    w, v = fdtt.eigsh(op, k=2, which="LA", tol=1e-9)
+    assert abs(w - want[-2:]).max() <= 1e-8
+    mats = torch.stack([op.to_dense()[:256, :256]] * 3)
+    res = fdtt.eigensolve_batched(mats, 2, tolerance=1e-9)
+    one = fdtt.eigensolve(mats[0], 2, tolerance=1e-9)
+    assert res.eigenvalues.is_cuda and res.iterations.tolist() == [
+        one.iterations] * 3
+    assert torch.equal(res.eigenvalues[1], one.eigenvalues)

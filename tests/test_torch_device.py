@@ -113,6 +113,13 @@ ENTRY_POINTS = {
     "convert.sliced_ell": lambda: convert.sliced_ell(
         [np.zeros(1, np.int32)], [np.zeros((1, 1), np.int32)],
         [np.ones((1, 1))], np.zeros(4, np.int32)),
+    "eigsh": lambda: fdtt.eigsh(_A, k=2),
+    "eigsh(scipy csr)": lambda: fdtt.eigsh(scipy.sparse.csr_matrix(_A), k=2),
+    "eigsh sigma": lambda: fdtt.eigsh(_A, k=2, sigma=1.0),
+    "eigensolve_batched": lambda: fdtt.eigensolve_batched(
+        np.stack([_A, _A]), 2),
+    "eigensolve_batched diagonal": lambda: fdtt.eigensolve_batched(
+        np.arange(1.0, 17.0).reshape(2, 8), 1),
     "cli.solve": _cli_solve,
     "cli.solve CSR .npz": _cli_solve_csr,
     "cli.demo": lambda: cli.main(["demo"]),

@@ -26,7 +26,10 @@ the tests here compare the ranks' rows, put back together, with:
 - at world sizes 1 and 2, the ELL family's sharded operators (ELL, sliced
   ELL, hybrid band + remainder) against the global operator, and their
   sharded solves against the port's and the JAX package's
-  single-device solves.
+  single-device solves;
+- at world size 2, a solve with Chebyshev-filtered restarts of degree
+  ``"auto"`` and locking: every rank takes the single-device solve's
+  degrees, iterations and operator columns.
 
 The argument checks and ``convert.halo`` need no process group: they use
 a :class:`RowMesh` whose group is never called.
@@ -34,6 +37,7 @@ a :class:`RowMesh` whose group is never called.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,6 +111,8 @@ def jax_ops():
 def inputs(jax_ops, tmp_path_factory):
     rng = np.random.default_rng(7)
     d = dict(A=np.asarray(jgen.generate_diagonal_dominant(64, 1e-3)),
+             Ac=np.array(jgen.generate_diagonal_dominant(
+                 64, 0.3, key=jax.random.PRNGKey(3))),
              B=np.asarray(jgen.generate_diagonal_dominant(64, 1e-3,
                                                           diag_val=1.0)),
              X0=rng.standard_normal((64, 2)),
@@ -397,6 +403,36 @@ def test_sharded_sparse_solve_matches_jax(ranks, sparse_single, world, name):
     X = _gathered(res, f"sparse_{name}_evecs")
     dense = to_numpy(op.to_dense())
     r = np.linalg.norm(dense @ X - X * lam[None, :], axis=0)
+    assert np.all(r <= opts["tolerance"])
+
+
+@pytest.mark.parametrize("world", worker.CHEB_WORLDS)
+def test_sharded_filtered_restarts_with_locking(ranks, inputs, world):
+    # Every rank draws its rows of one start vector and sums the bound's
+    # dots over the ranks, so the bound, each collapse's degree and the
+    # operator applies are the single-device solve's on every rank (a
+    # rank that took another degree would hang the next collective).
+    d, _ = inputs
+    lowest, opts = worker.CHEB
+    with worker.recording_degrees() as degrees:
+        rt = fdtt.eigensolve(convert.dense(d["Ac"], device="cpu"), lowest,
+                             **opts)
+    res = ranks(world)
+    assert rt.converged and len(degrees) > 0
+    dims = rt.subspace_dims[:rt.iterations]
+    assert int(torch.sum(dims[1:] < dims[:-1])) == len(degrees)
+    for r in res:
+        assert r["cheb_degrees"].tolist() == degrees
+        assert int(r["cheb_iterations"]) == rt.iterations
+        assert int(r["cheb_operator_columns"]) == rt.operator_columns
+        assert bool(r["cheb_converged"])
+        np.testing.assert_allclose(r["cheb_evals"], to_numpy(rt.eigenvalues),
+                                   rtol=0, atol=1e-10)
+    want = np.linalg.eigvalsh(d["Ac"])[:lowest]
+    np.testing.assert_allclose(res[0]["cheb_evals"], want, rtol=0, atol=1e-8)
+    X = _gathered(res, "cheb_evecs")
+    lam = res[0]["cheb_evals"]
+    r = np.linalg.norm(d["Ac"] @ X - X * lam[None, :], axis=0)
     assert np.all(r <= opts["tolerance"])
 
 

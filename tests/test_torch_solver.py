@@ -132,18 +132,6 @@ def test_result_layout_and_history():
     np.testing.assert_allclose(res, to_numpy(rt.residual_norms), atol=1e-10)
 
 
-@pytest.mark.parametrize("option", [
-    dict(cheb_degree=4),
-    dict(cheb_degree="auto"), dict(locking=True),
-    dict(matmul_precision="bfloat16"),
-])
-def test_unported_options_raise_by_name(option):
-    A = torch.from_numpy(_dd(30, 1))
-    name = next(iter(option))
-    with pytest.raises(InvalidOptionsError, match=name):
-        fdtt.eigensolve(A, 2, **option)
-
-
 def test_invalid_inputs_raise():
     A = torch.from_numpy(_dd(30, 1))
     with pytest.raises(OperatorError):

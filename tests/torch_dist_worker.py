@@ -71,6 +71,13 @@ SPARSE_SOLVES = {"ell": (3, F64), "sell": (3, F64), "hybrid": (3, F64)}
 SPARSE_KINDS = {"ell": "ShardedELLOperator", "sell": "ShardedELLOperator",
                 "hybrid": "ShardedHybridOperator"}
 
+# Chebyshev-filtered restarts ("auto" degree) with locking on the dense
+# ``Ac``, at world size 2: every rank must take the same bound, degrees
+# and operator applies as the single-device solve.
+CHEB_WORLDS = (2,)
+CHEB = (3, dict(cheb_degree="auto", locking=True, expansion="lowest-k",
+                max_dim_sub=12, tolerance=1e-8))
+
 
 def spawn(world: int, run_dir: str) -> list:
     """Run every check at ``world`` ranks; returns each rank's results."""
@@ -139,6 +146,24 @@ def sparse_cases(inputs) -> dict:
                                             block_rows_multiple=2,
                                             device="cpu"),
     }
+
+
+@contextlib.contextmanager
+def recording_degrees():
+    """The filter degrees that ``chebyshev.auto_degree`` picks in the
+    ``with`` block, in order."""
+    from fortran_davidson_tpu_torch.core import chebyshev
+    degrees, auto = [], chebyshev.auto_degree
+
+    def record(*args, **kwargs):
+        degrees.append(auto(*args, **kwargs))
+        return degrees[-1]
+
+    chebyshev.auto_degree = record
+    try:
+        yield degrees
+    finally:
+        chebyshev.auto_degree = auto
 
 
 @contextlib.contextmanager
@@ -249,6 +274,19 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
             out[f"sparse_{name}_evecs"] = res.eigenvectors.numpy()
             out[f"sparse_{name}_iterations"] = np.array(res.iterations)
             out[f"sparse_{name}_converged"] = np.array(res.converged)
+
+    if world in CHEB_WORLDS:
+        from fortran_davidson_tpu_torch import convert
+        lowest, opts = CHEB
+        with recording_degrees() as degrees:
+            res = eigensolve_sharded(convert.dense(inputs["Ac"], device="cpu"),
+                                     lowest, mesh, **opts)
+        out.update(cheb_evals=res.eigenvalues.numpy(),
+                   cheb_evecs=res.eigenvectors.numpy(),
+                   cheb_iterations=np.array(res.iterations),
+                   cheb_converged=np.array(res.converged),
+                   cheb_operator_columns=np.array(res.operator_columns),
+                   cheb_degrees=np.array(degrees))
 
     for name, (A, B, X0) in solve_cases(inputs, mesh).items():
         lowest, opts = SOLVES[name]
