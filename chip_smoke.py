@@ -309,9 +309,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    lowest-3 to 1e-9, and with diagonal B's: each problem's eigenvalues
    within 1e-12 of its single solve's, its iterations equal; the batch
    wall beside the sum of the single walls (no kernel).
-11. Prints the run's time and the shares of phases 12 and 13, the
+14. Checkpoint and resume, observability, debugging and the sharded
+   refined path, right after phase 8b (each sub-phase a solve phase;
+   checkpoints under ``chiprun_out/``, deleted at the end): (a)
+   ``eigensolve_checkpointed`` of phase 4's matrix, lowest-3 and
+   lowest-20 every 2 iterations (a callback keeps the newest step only):
+   the one-shot ``eigensolve``'s eigenvalues, residual history,
+   iterations and operator columns bit for bit; the same solve
+   interrupted by a callback after its first save, then resumed: the same
+   bits, and kernel 1's launches of both runs equal to the one-shot
+   solve's; bytes a save, each save's and the restore's seconds, the
+   walls; ``ConvergenceLogger`` one record a chunk, as
+   the residual history; ``profile_trace`` around a warm lowest-3 solve
+   writes a trace holding kernel 1's events and an ``annotate`` span;
+   ``nan_trap`` raises ``FloatingPointError`` with one diagonal block of
+   the matrix set to NaN (restored after). (b) phase 6b's refined stage
+   row-sharded at world size 1 over NCCL: kernel 7's float32-x entry
+   launched, iterations within ±2 of 6b's, the oracle <= 1e-8,
+   eigenvalues within 1e-9 relative of 6b's; walls and the idle share.
+   (c) ``eigensolve_checkpointed(..., mesh=mesh)`` through
+   ``HaloBSROperator(A, "pallas")``, lowest-3, interrupted after its
+   first save and resumed: phase 8a's iterations and eigenvalue bits,
+   kernel 6's launches of both runs the one-shot sharded solve's.
+11. Prints the run's time and the shares of phases 12, 13 and 14, the
    solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-13, each counted from 0 over its own phase; kernel 9, the copy
+   phases 4-14, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
    the rest and no phase launches them (nor kernel 3's and kernel 5's
    float64 entries); for
@@ -2647,6 +2669,9 @@ def phase_refined(q, dev, solves, refs):
     busy = _device_busy("int8 lowest-20 refined [kernels]",
                         lambda: fdtt.eigensolve(q, 20, initial_vectors=X0,
                                                 **REFINED))
+    # Phase 14b holds the sharded refined stage to this one.
+    refs["refined"] = dict(iterations=out.iterations, eigenvalues=lam.clone(),
+                           wall=walls["kernels"][1])
     solves.append(dict(
         solve="int8 banded f32 lowest-20 refined + final_polish=3 (1e-8 "
         "rel)", n=q.shape[0], iterations=out.iterations,
@@ -3175,6 +3200,9 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
                f"sharded {label} {k}: eigenvalues differ by {diff:.3e}")
         _check(true_res <= limits[1],
                f"sharded {label} {k}: true residual {true_res:.3e}")
+        # Phase 14c holds a sharded checkpoint to these bits.
+        refs.setdefault("sharded", {})[(label, k)] = dict(
+            iterations=res.iterations, eigenvalues=res.eigenvalues.clone())
         solves.append(dict(
             solve=(f"sharded (world 1, nccl) {label} "
                    + {"int8": "int8 f32 lowest-20 loose",
@@ -4551,6 +4579,379 @@ def phase_batched(dev, solves):
     torch.cuda.empty_cache()
 
 
+# Phase 14 (ROADMAP 18c, item 19): checkpoint and resume, the chunked
+# driver's callbacks, the profiler hooks and the NaN trap on phase 4's
+# matrix (kernel 1); the sharded refined stage of phase 6b (kernel 7) and
+# a sharded checkpoint through "pallas" (kernel 6), at world size 1 over
+# phase 8's NCCL group. Every checkpoint goes under chiprun_out/ and is
+# deleted at the phase's end.
+CKPT_EVERY = 2
+_STEP_NAME = r"^step_\d+$"
+
+
+class _Interrupt(RuntimeError):
+    """Raised by a chunk callback: the process dying after a save."""
+
+
+def _interrupt_once():
+    """A chunk callback that raises at its first call (after the first
+    save) only."""
+    calls = []
+
+    def callback(state):
+        calls.append(state["it"])
+        if len(calls) == 1:
+            raise _Interrupt
+    return callback
+
+
+def _keep_latest(directory, sizes=None):
+    """A chunk callback that removes every step but the newest (a
+    lowest-20 save of the 1M-row basis is ~5.5 GB), and appends the
+    newest step's bytes on disk to ``sizes``."""
+    import re
+    import shutil
+
+    def callback(state):
+        steps = sorted(int(name[5:]) for name in os.listdir(directory)
+                       if re.match(_STEP_NAME, name))
+        for it in steps[:-1]:
+            shutil.rmtree(os.path.join(directory, f"step_{it}"))
+        if sizes is not None:
+            path = os.path.join(directory, f"step_{steps[-1]}")
+            sizes.append(sum(os.path.getsize(os.path.join(path, f))
+                             for f in os.listdir(path)))
+    return callback
+
+
+@contextlib.contextmanager
+def _timed_calls(module, names):
+    """Seconds of each call of ``module.<name>`` for each name (host
+    clock, synchronised on both ends) inside the ``with`` block."""
+    import torch
+    times = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _ckpt_root() -> str:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", f"phase14_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def _same_solve(res, ref) -> bool:
+    """Bit for bit: eigenvalues, residual history (NaN past the exit),
+    iterations, operator columns."""
+    import torch
+    hist = torch.equal(torch.nan_to_num(res.residual_history, nan=-1.0),
+                       torch.nan_to_num(ref.residual_history, nan=-1.0))
+    return (res.iterations == ref.iterations
+            and res.operator_columns == ref.operator_columns
+            and torch.equal(res.eigenvalues, ref.eigenvalues) and hist)
+
+
+def _checkpointed(directory, every, callbacks=(), mesh=None):
+    """``eigensolve_checkpointed`` into ``directory``, with ``_solve``'s
+    signature."""
+    import fortran_davidson_tpu_torch as fdtt
+
+    def solver(op, k, second_matrix=None, **kw):
+        return fdtt.eigensolve_checkpointed(op, k, directory, every=every,
+                                            second_matrix=second_matrix,
+                                            mesh=mesh, callbacks=callbacks,
+                                            **kw)
+    return solver
+
+
+def phase_checkpoint(A, dev, solves, refs):
+    """Phase 14a: ``eigensolve_checkpointed`` on phase 4's matrix through
+    kernel 1, lowest-3 and lowest-20 every ``CKPT_EVERY`` iterations:
+    uninterrupted, the one-shot solve's bits; interrupted after its first
+    save and resumed, the same bits, and kernel 1's launches of both runs
+    the one-shot solve's. Every save and restore is timed, and its bytes
+    on disk counted. The logger's records, a profiled solve's trace and
+    the NaN trap."""
+    import json as json_mod
+    import shutil
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch import checkpoint
+    from fortran_davidson_tpu_torch.checkpoint import latest_step
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.utils.debugging import nan_trap
+    from fortran_davidson_tpu_torch.utils.observability import (
+        ConvergenceLogger, annotate, profile_trace)
+
+    k1 = kernels.banded_bsr_spmm
+    root = _ckpt_root()
+    try:
+        for k in (3, 20):
+            before = k1.launches
+            ref, ref_wall = _solve_converged(f"eigensolve(A, {k}) [one-shot]",
+                                             A, k)
+            one_shot = k1.launches - before
+            full = os.path.join(root, f"lowest{k}_full")
+            log, sizes = ConvergenceLogger(), []
+            with _timed_calls(checkpoint, ("save_state",
+                                           "restore_state")) as times:
+                res, full_wall = _solve_converged(
+                    f"eigensolve_checkpointed(A, {k}, every={CKPT_EVERY})",
+                    A, k, solver=_checkpointed(
+                        full, CKPT_EVERY, (_keep_latest(full, sizes), log)))
+            hist = res.residual_history
+            log_ok = (len(log.records) == -(-res.iterations // CKPT_EVERY)
+                      and all(rec["max_residual"]
+                              == float(hist[rec["iteration"] - 1].max())
+                              for rec in log.records))
+            _check(_same_solve(res, ref), f"14a lowest-{k}: the checkpointed "
+                   "solve is not the one-shot solve bit for bit")
+            _check(latest_step(full) == ref.iterations,
+                   f"14a lowest-{k}: latest step {latest_step(full)}")
+            _check(log_ok, f"14a lowest-{k}: the logger's records "
+                   f"{log.records} against the history")
+            shutil.rmtree(full)
+
+            cut = os.path.join(root, f"lowest{k}_cut")
+            before = k1.launches
+            try:
+                fdtt.eigensolve_checkpointed(A, k, cut, every=CKPT_EVERY,
+                                             callbacks=(_interrupt_once(),))
+                interrupted = False
+            except _Interrupt:
+                interrupted = True
+            saved = latest_step(cut)
+            with _timed_calls(checkpoint, ("save_state",
+                                           "restore_state")) as more:
+                resumed, resume_wall = _solve_converged(
+                    f"eigensolve_checkpointed(A, {k}) resumed from "
+                    f"step_{saved}", A, k, solver=_checkpointed(
+                        cut, CKPT_EVERY, (_keep_latest(cut, sizes),)))
+            launches = k1.launches - before
+            shutil.rmtree(cut)
+            saves = times["save_state"] + more["save_state"]
+            restores = more["restore_state"]
+            print(f"  14a lowest-{k}: {ref.iterations} iterations, "
+                  f"checkpointed and resumed bit for bit "
+                  f"{_same_solve(res, ref)} / {_same_solve(resumed, ref)}; "
+                  f"kernel 1 launches one-shot {one_shot}, interrupted + "
+                  f"resumed {launches}; bytes a save {sizes} (max "
+                  f"{max(sizes) / 1e9:.3f} GB); saves "
+                  f"{[round(t, 3) for t in saves]} s, restore "
+                  f"{[round(t, 3) for t in restores]} s; warm walls: "
+                  f"one-shot {ref_wall:.4f} s, checkpointed {full_wall:.4f} s "
+                  f"({len(log.records)} saves), resumed {resume_wall:.4f} s "
+                  f"(from step_{saved}); logger records "
+                  f"{[(r['iteration'], r['subspace_dim']) for r in log.records]}",
+                  flush=True)
+            _check(interrupted and saved == min(CKPT_EVERY, ref.iterations),
+                   f"14a lowest-{k}: interrupted {interrupted} at {saved}")
+            _check(_same_solve(resumed, ref), f"14a lowest-{k}: the resumed "
+                   "solve is not the one-shot solve bit for bit")
+            _check(launches == one_shot, f"14a lowest-{k}: {launches} kernel "
+                   f"1 launches interrupted + resumed, {one_shot} one-shot")
+            _check(len(restores) == 1, f"14a lowest-{k}: {len(restores)} "
+                   "restores in the resumed solve")
+            solves.append(dict(
+                solve=f"phase 14a checkpointed banded f64 lowest-{k} "
+                f"every={CKPT_EVERY}", n=A.shape[0],
+                iterations=ref.iterations, one_shot_wall_s=ref_wall,
+                checkpointed_wall_s=full_wall, resumed_wall_s=resume_wall,
+                resumed_from=saved, launches_one_shot=one_shot,
+                launches_interrupted_and_resumed=launches, save_bytes=sizes,
+                save_s=saves, restore_s=restores))
+            del ref, res, resumed
+            torch.cuda.empty_cache()
+
+        # The profiler hooks around a warm lowest-3 solve.
+        trace_dir = os.path.join(root, "trace")
+        with profile_trace(trace_dir):
+            with annotate("phase14-eigensolve"):
+                fdtt.eigensolve(A, 3)
+        files = os.listdir(trace_dir)
+        _check(len(files) == 1, f"14a: trace files {files}")
+        path = os.path.join(trace_dir, files[0])
+        with open(path) as f:
+            events = json_mod.load(f)["traceEvents"]
+        k1_events = sum(1 for e in events if e.get("cat") == "kernel"
+                        and "banded_spmm_kernel" in str(e.get("name")))
+        spans = sum(1 for e in events
+                    if e.get("name") == "phase14-eigensolve")
+        print(f"  14a profile_trace: {os.path.getsize(path)} bytes, "
+              f"{len(events)} events, {k1_events} of kernel 1, {spans} "
+              "annotate spans", flush=True)
+        _check(k1_events > 0 and spans > 0,
+               "14a: the trace holds no kernel 1 event or no annotate span")
+
+        # The NaN trap: one diagonal block of A set to NaN, then restored.
+        r, s, bs = A.blocks.shape[0] // 2, A.bandwidth, A.blocks.shape[1]
+        cols = slice(s * bs, (s + 1) * bs)
+        kept = A.blocks[r, :, cols].clone()
+        trapped = None
+        A.blocks[r, :, cols] = float("nan")
+        try:
+            with nan_trap():
+                fdtt.eigensolve(A, 3)
+        except FloatingPointError as exc:
+            trapped = str(exc)
+        finally:
+            A.blocks[r, :, cols] = kept
+        print(f"  14a nan_trap on A with block ({r}, {s}) NaN: "
+              f"FloatingPointError {trapped!r}", flush=True)
+        _check(trapped is not None, "14a: the NaN trap did not raise")
+        _check(torch.equal(A.blocks[r, :, cols], kept),
+               "14a: A's block was not restored")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_sharded_refined(q, dev, rendezvous, solves, refs):
+    """Phase 14b: phase 6b's refined stage (``REFINED`` from phase 6's
+    loose vectors) row-sharded at world size 1 over NCCL: every apply,
+    and each word of the polish's off-diagonal apply, through kernel 7's
+    float32-x entry; iterations within ±2 of 6b's (the rank's fold is the
+    tree, not the single-device cascade), the float64 oracle <= 1e-8,
+    eigenvalues within 1e-9 relative of 6b's."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import eigensolve_sharded
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    X0, six = refs["int8"]["eigenvectors"], refs["refined"]
+    k7 = kernels.banded_q_ext_bsr_spmm
+
+    def sharded(op, k, second_matrix=None, **kw):
+        return eigensolve_sharded(op, k, mesh, second_matrix=second_matrix,
+                                  **kw)
+
+    walls = []
+    for turn in ("cold", "warm"):
+        before = k7.launches - k7.f64_launches
+        res, wall = _solve_converged(
+            f"eigensolve_sharded(q, 20) refined [{turn}]", q, 20,
+            solver=sharded, initial_vectors=X0, **REFINED)
+        launches = k7.launches - k7.f64_launches - before
+        walls.append(wall)
+    lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
+    oracle = _int8_oracle_residual(q, res.eigenvectors, lam)
+    diff = float(torch.max(torch.abs(lam - six["eigenvalues"])
+                           / torch.clamp(torch.abs(six["eigenvalues"]),
+                                         min=1.0)))
+    busy = _device_busy("eigensolve_sharded(q, 20) refined",
+                        lambda: sharded(q, 20, initial_vectors=X0,
+                                        **REFINED))
+    print(f"  14b sharded refined: iterations {res.iterations} (6b "
+          f"{six['iterations']}), stalled={res.stalled}, kernel 7 float32-x "
+          f"launches {launches} a solve; oracle relative residual "
+          f"{oracle:.3e}; max |eig - eig_6b| / max(|eig|, 1) {diff:.3e}; "
+          f"walls cold {walls[0]:.4f} s, warm {walls[1]:.4f} s (6b on one "
+          f"device: {six['wall']:.4f} s here, 1.194 s in PR 13)", flush=True)
+    _check(launches > 0, "14b: kernel 7's float32-x entry never launched")
+    _check(abs(res.iterations - six["iterations"]) <= 2,
+           f"14b: {res.iterations} iterations vs 6b's {six['iterations']}")
+    _check(oracle <= REFINED["tolerance"],
+           f"14b: oracle relative residual {oracle:.3e}")
+    _check(diff <= 1e-9, f"14b: eigenvalues {diff:.3e} from 6b's")
+    solves.append(dict(
+        solve="phase 14b sharded (world 1, nccl) int8 f32 lowest-20 "
+        "refined + final_polish=3", n=q.shape[0], iterations=res.iterations,
+        single_device_iterations=six["iterations"], stalled=res.stalled,
+        wall_s=walls, single_device_wall_s=six["wall"],
+        oracle_residual_rel=oracle, eig_diff_6b=diff, launches=launches,
+        **busy))
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_checkpoint(A, dev, rendezvous, solves, refs):
+    """Phase 14c: ``eigensolve_checkpointed(..., mesh=mesh)`` through
+    ``HaloBSROperator(A, "pallas")`` (kernel 6) at world size 1 over NCCL,
+    lowest-3, interrupted after its first save and resumed: phase 8a's
+    sharded lowest-3 iterations and eigenvalue bits, and kernel 6's
+    launches of both runs those of the one-shot sharded solve."""
+    import shutil
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.checkpoint import latest_step
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded)
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    H = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas")
+    eight = refs["sharded"][("Halo(A, pallas)", 3)]
+    k6 = kernels.banded_ext_bsr_spmm
+
+    def sharded(op, k, second_matrix=None, **kw):
+        return eigensolve_sharded(op, k, mesh, second_matrix=second_matrix,
+                                  **kw)
+
+    before = k6.launches
+    one, one_wall = _solve_converged("eigensolve_sharded(Halo(A), 3) "
+                                     "[one-shot]", H, 3, solver=sharded,
+                                     tolerance=SOLVE_TOL)
+    one_shot = k6.launches - before
+    root = _ckpt_root()
+    cut = os.path.join(root, "sharded_cut")
+    try:
+        before = k6.launches
+        try:
+            fdtt.eigensolve_checkpointed(H, 3, cut, every=CKPT_EVERY,
+                                         mesh=mesh, tolerance=SOLVE_TOL,
+                                         callbacks=(_interrupt_once(),))
+            interrupted = False
+        except _Interrupt:
+            interrupted = True
+        saved = latest_step(cut)
+        res, wall = _solve_converged(
+            f"eigensolve_checkpointed(Halo(A), 3, mesh) resumed from "
+            f"step_{saved}", H, 3,
+            solver=_checkpointed(cut, CKPT_EVERY, mesh=mesh),
+            tolerance=SOLVE_TOL)
+        launches = k6.launches - before
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = (res.iterations == eight["iterations"]
+            and torch.equal(res.eigenvalues, eight["eigenvalues"]))
+    print(f"  14c sharded checkpoint: interrupted {interrupted} at "
+          f"step_{saved}, resumed: {res.iterations} iterations (8a "
+          f"{eight['iterations']}), 8a's eigenvalue bits {same}, one-shot "
+          f"{_same_solve(res, one)}; kernel 6 launches one-shot {one_shot}, "
+          f"interrupted + resumed {launches}; walls one-shot "
+          f"{one_wall:.4f} s, resumed {wall:.4f} s", flush=True)
+    _check(interrupted and saved == min(CKPT_EVERY, one.iterations),
+           f"14c: interrupted {interrupted} at {saved}")
+    _check(same, "14c: not phase 8a's iterations and eigenvalue bits")
+    _check(_same_solve(res, one), "14c: not the one-shot sharded solve")
+    _check(launches == one_shot, f"14c: {launches} kernel 6 launches "
+           f"interrupted + resumed, {one_shot} one-shot")
+    solves.append(dict(
+        solve="phase 14c sharded (world 1, nccl) checkpoint Halo(A, pallas) "
+        "f64 lowest-3", n=A.shape[0], iterations=res.iterations,
+        resumed_from=saved, one_shot_wall_s=one_wall, resumed_wall_s=wall,
+        launches_one_shot=one_shot, launches_interrupted_and_resumed=launches))
+    del H, res, one
+    torch.cuda.empty_cache()
+
+
 
 @contextlib.contextmanager
 def _counting_collectives(cls):
@@ -5067,7 +5468,18 @@ def main() -> int:
         ("[8b] sharded path, world size 1 (NCCL), pallas-remote",
          lambda: phase_remote(A, dev, rendezvous, solves, refs),
          ("banded_remote_halo_spmm",)),
+        ("[14a] checkpoint and resume, the logger, the profiler hooks and "
+         "the NaN trap on A, kernel 1",
+         lambda: phase_checkpoint(A, dev, solves, refs),
+         ("banded_bsr_spmm",)),
+        ("[14b] sharded refined stage, world size 1 (NCCL), kernel 7",
+         lambda: phase_sharded_refined(q, dev, rendezvous, solves, refs),
+         ("banded_q_ext_bsr_spmm",)),
+        ("[14c] sharded checkpoint, world size 1 (NCCL), kernel 6",
+         lambda: phase_sharded_checkpoint(A, dev, rendezvous, solves, refs),
+         ("banded_ext_bsr_spmm",)),
     ]
+    elapsed = {}
 
     def run_path(title, run, expected):
         """Run one solve phase with every launch count set to 0, add its
@@ -5089,8 +5501,9 @@ def main() -> int:
         qgram = kernels.banded_q_bsr_spmm_gram
         phase_counts["banded_q_bsr_spmm_gram_f64"] = qgram.f64_launches
         phase_counts["banded_q_bsr_spmm_gram"] -= qgram.f64_launches
-        print(f"    phase launches {phase_counts} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        elapsed[title] = time.perf_counter() - t0
+        print(f"    phase launches {phase_counts} in {elapsed[title]:.1f} s",
+              flush=True)
         for name in expected:
             _check(phase_counts[name] > 0,
                    f"{name} was never launched on the path of {title}")
@@ -5274,9 +5687,12 @@ def main() -> int:
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
     total_s = time.perf_counter() - t_run
+    phase14_s = sum(t for title, t in elapsed.items()
+                    if title.startswith("[14"))
     print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
           f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%), "
-          f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%)",
+          f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%), "
+          f"phase 14 {phase14_s:.1f} s ({100 * phase14_s / total_s:.1f}%)",
           flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

@@ -19,6 +19,11 @@ plain PyTorch versions on the CPU. Entry points build on the GPU unless
 given ``device="cpu"``. :func:`eigsh` is shaped like
 ``scipy.sparse.linalg.eigsh`` (every ``which``, ``sigma`` through the
 spectral fold); :func:`eigensolve_batched` solves a stack of problems.
+:func:`eigensolve_checkpointed` saves the solve's state every few
+iterations and resumes it bit for bit, on one device or row-sharded
+(``torch.save`` files, not the JAX package's orbax ones);
+``utils.observability`` and ``utils.debugging`` hold the convergence
+logger, the profiler hooks and the NaN trap.
 
 Command line: ``python -m fortran_davidson_tpu_torch
 {solve,demo,benchmark,northstar}`` (``__main__.py``, the drivers in
@@ -26,7 +31,10 @@ Command line: ``python -m fortran_davidson_tpu_torch
 """
 
 from fortran_davidson_tpu_torch.batched import eigensolve_batched
+from fortran_davidson_tpu_torch.checkpoint import eigensolve_checkpointed
 from fortran_davidson_tpu_torch.config import DavidsonOptions, DavidsonResult
+from fortran_davidson_tpu_torch.core.loop import (clear_compiled_caches,
+                                                  set_compiled_cache_capacity)
 from fortran_davidson_tpu_torch.ops.operators import (
     DenseOperator,
     DiagonalOperator,
@@ -82,9 +90,11 @@ __all__ = [
     "SlicedELLOperator",
     "SubtractDiagOperator",
     "as_operator",
+    "clear_compiled_caches",
     "default_device",
     "eigensolve",
     "eigensolve_batched",
+    "eigensolve_checkpointed",
     "eigsh",
     "from_element_fn",
     "generalized_eigensolver",
@@ -95,6 +105,7 @@ __all__ = [
     "polish_eigenpairs",
     "probe_diagonal",
     "quantize_banded_int8",
+    "set_compiled_cache_capacity",
     "split_band_remainder",
     "__version__",
 ]

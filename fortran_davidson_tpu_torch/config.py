@@ -3,9 +3,9 @@
 
 The options, their defaults and their validation are the JAX package's,
 so the two APIs match; see ``fortran_davidson_tpu.config.DavidsonOptions``
-for what each knob does. The row-sharded solve refuses the two options
-whose machinery it lacks (``refined=True``, ``orthonormalization="qr"``)
-with :class:`InvalidOptionsError`, naming the option, when the solve is
+for what each knob does. The row-sharded solve refuses the one option
+whose machinery it lacks (``orthonormalization="qr"``) with
+:class:`InvalidOptionsError`, naming the option, when the solve is
 resolved (:func:`resolve_options`): it never silently falls back to
 something else.
 
@@ -194,11 +194,21 @@ def _carry_budget_bytes(device=None) -> int:
     return int(12e9)
 
 
-def _memory_clamped_max_dim(max_dim: int, *, n_local: int, lowest: int,
-                            init_dim: int, step: Optional[int],
-                            itemsize: int, generalized: bool,
-                            budget: int,
-                            refined_chunk: Optional[int] = None) -> int:
+def _carry_fits(max_dim: int, *, n_local: int, lowest: int, init_dim: int,
+                step: Optional[int], itemsize: int, generalized: bool,
+                budget: int, refined_chunk: Optional[int] = None) -> bool:
+    """Whether the tall carries of width ``max_dim`` fit the budget (the
+    footprint model of :func:`_memory_clamped_max_dim`)."""
+    n_carries = 3 if generalized else 2
+    aux = 8 * lowest * (1 if refined_chunk is None else 2)
+    m_max = subspace_cap(init_dim, max_dim, step)
+    need = itemsize * n_local * (2 * n_carries * m_max + aux)
+    if refined_chunk is not None:
+        need += 4 * itemsize * (n_local // refined_chunk) * m_max ** 2
+    return need <= budget
+
+
+def _memory_clamped_max_dim(max_dim: int, **model) -> int:
     """Clamp the default ``max_dim`` so the tall carries fit the budget
     (the JAX package's footprint model: V, AV (and BV) at the padded width,
     doubled during a collapse, plus ~8*lowest n-length columns).
@@ -211,17 +221,10 @@ def _memory_clamped_max_dim(max_dim: int, *, n_local: int, lowest: int,
     until it divides n, so at n = 10,000,000 (= 2^7 5^7) it is 128 and the
     partials of an m_max = 220 basis take 15 GB each (PERF.md §6).
     """
-    n_carries = 3 if generalized else 2
-    aux = 8 * lowest * (1 if refined_chunk is None else 2)
-
     def fits(md: int) -> bool:
-        m_max = subspace_cap(init_dim, md, step)
-        need = itemsize * n_local * (2 * n_carries * m_max + aux)
-        if refined_chunk is not None:
-            need += 4 * itemsize * (n_local // refined_chunk) * m_max ** 2
-        return need <= budget
+        return _carry_fits(md, **model)
 
-    floor = init_dim + 4
+    floor = model["init_dim"] + 4
     if max_dim <= floor or fits(max_dim):
         return max_dim
     md = max_dim - (max_dim % 4 or 4)
@@ -247,6 +250,32 @@ def validate_initial_vectors(initial_vectors, n: int, init_dim: int, dtype,
     return X0
 
 
+def _footprint_model(opts: DavidsonOptions, lowest: int, n: int,
+                     init_dim: int, step: Optional[int], generalized: bool,
+                     device, sharded: bool, shard_row_divisor: int) -> dict:
+    """The arguments of :func:`_carry_fits` for a problem on ``device``
+    (the rows one rank holds, for a sharded solve)."""
+    n_local = n // max(shard_row_divisor if sharded else 1, 1)
+    on_gpu = torch.device("cpu" if device is None else device).type == "cuda"
+    return dict(n_local=n_local, lowest=lowest, init_dim=init_dim,
+                step=step, itemsize=as_torch_dtype(opts.dtype).itemsize,
+                generalized=generalized, budget=_carry_budget_bytes(device),
+                refined_chunk=(gram_chunk(n_local) if opts.refined and on_gpu
+                               else None))
+
+
+def width_fits(cfg: "ResolvedConfig", opts: DavidsonOptions, n: int,
+               device=None, sharded: bool = False,
+               shard_row_divisor: int = 1) -> bool:
+    """Whether ``cfg``'s width fits today's device-memory budget (the
+    default width's clamp): a checkpoint's width, adopted on resume when
+    ``max_dim_sub`` was left to the default."""
+    step = None if cfg.expansion == "doubling" else cfg.lowest
+    return _carry_fits(cfg.max_dim, **_footprint_model(
+        opts, cfg.lowest, n, cfg.init_dim, step, cfg.generalized, device,
+        sharded, shard_row_divisor))
+
+
 def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
                     generalized: bool, device=None, sharded: bool = False,
                     shard_row_divisor: int = 1) -> ResolvedConfig:
@@ -259,10 +288,6 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
             "Chebyshev-filtered restarts (cheb_degree >= 2 or 'auto') "
             "require a standard problem: the filter is a polynomial in "
             "A alone")
-    require(not (sharded and opts.refined), InvalidOptionsError,
-            "refined=True is not ported to the sharded solve: it waits for "
-            "ROADMAP item 19 (shard-local double-single folds, "
-            "fortran_davidson_tpu/utils/ds.py:286)")
     require(not (sharded and opts.orthonormalization == "qr"),
             InvalidOptionsError,
             "orthonormalization='qr' is not ported to the sharded solve "
@@ -287,15 +312,10 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
                                                   step) > n:
             max_dim //= 2
         # ... and clamped so the tall carries fit device memory.
-        n_local = n // max(shard_row_divisor if sharded else 1, 1)
-        on_gpu = torch.device("cpu" if device is None
-                              else device).type == "cuda"
         max_dim = _memory_clamped_max_dim(
-            max_dim, n_local=n_local, lowest=lowest, init_dim=init_dim,
-            step=step, itemsize=dtype.itemsize, generalized=generalized,
-            budget=_carry_budget_bytes(device),
-            refined_chunk=(gram_chunk(n_local) if opts.refined and on_gpu
-                           else None))
+            max_dim, **_footprint_model(opts, lowest, n, init_dim, step,
+                                        generalized, device, sharded,
+                                        shard_row_divisor))
     m_max = subspace_cap(init_dim, max_dim, step)
     require(m_max <= n, InvalidOptionsError,
             f"padded subspace width {m_max} exceeds matrix dimension {n}; "

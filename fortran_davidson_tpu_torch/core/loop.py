@@ -1,8 +1,9 @@
 """The block-Davidson outer loop as an eager loop over device tensors
 (counterpart of ``fortran_davidson_tpu/core/loop.py``, on flat carries:
 DPR, Olsen and GJD corrections, the refined double-single path with its
-final polish, the incremental-H engine of ``fused_gram``, locking and
-Chebyshev-filtered restarts).
+final polish, the incremental-H engine of ``fused_gram``, locking,
+Chebyshev-filtered restarts, and the chunked stepper that checkpoints
+and per-chunk callbacks run on).
 
 The design keeps the JAX package's invariants:
 
@@ -36,11 +37,11 @@ at a collapse (``core/loop.py:119-127,343-344,589-604,682-688``). The
 gram operand is the basis up to the new block's end, ``V[:, :c0+kk]``,
 not all ``m_max`` columns: the columns past it are zero in V and in H.
 
-The refined path (``cfg.refined``, single device) measures the
-projection compensated and refines the k wanted Ritz vectors against it,
-takes true residuals and Rayleigh-refined eigenvalues from
-``refine.refined_pairs`` (one off-diagonal apply of the k columns), gates
-admitted columns by their Rayleigh quotient, and exits at its attainable
+The refined path (``cfg.refined``) measures the projection compensated
+and refines the k wanted Ritz vectors against it, takes true residuals
+and Rayleigh-refined eigenvalues from ``refine.refined_pairs`` (one
+off-diagonal apply of the k columns), gates admitted columns by their
+Rayleigh quotient, and exits at its attainable
 floor: after ``_PLATEAU_ITERS`` iterations without a 1% gain of the worst
 unconverged residual, or, with ``final_polish``, as soon as a trial
 polish at the first short plateau certifies the pairs. The JAX package
@@ -54,6 +55,16 @@ The tall arrays may be one rank's rows of a row-sharded solve
 (``parallel.sharded``): every reduction over rows goes through the
 ``rows`` hook (``core/rows.py``), so every rank sees the same small
 matrices, flags and counts and takes the same branches.
+
+**The explicit state.** Everything the loop carries from one iteration
+to the next is in the state dict of :func:`init_state`, so a state can
+stop at any iteration boundary (``st["chunk_end"]``) and go on later,
+from memory or from a checkpoint (``checkpoint.py``), with the same
+iterates, the same iteration count and no operator applied again.
+:func:`run_chunked` is that driver; the one-shot solve is its single
+chunk. The port compiles nothing, so :func:`get_stepper` hands out plain
+functions and the JAX package's compiled-program caches have nothing to
+hold (:func:`set_compiled_cache_capacity`, :func:`clear_compiled_caches`).
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ from fortran_davidson_tpu_torch.core import correction as corr_mod
 from fortran_davidson_tpu_torch.core import orthogonal, refine, subspace
 from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
+from fortran_davidson_tpu_torch.utils import debugging
 from fortran_davidson_tpu_torch.utils.ds import DS, two_sum
 from fortran_davidson_tpu_torch.utils.dtypes import \
     full_precision_matmuls as _precision_ctx
@@ -153,6 +165,7 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
                                                    AV[:, :init_dim], rows)
     state = dict(
         V=V, AV=AV, m=m, m_hi=init_dim, col_ok=col_ok, it=0,
+        chunk_end=cfg.max_iterations,
         has_conv=torch.zeros((k,), dtype=torch.bool, device=dev),
         all_conv=False,
         evals=torch.zeros((k,), dtype=dt, device=dev),
@@ -192,13 +205,13 @@ def init_state(cfg: ResolvedConfig, A: LinearOperator,
     return state
 
 
-def _refined_ritz(Vw, AVw, BVw, mask, m_max: int, k: int):
+def _refined_ritz(Vw, AVw, BVw, mask, m_max: int, k: int, rows: Rows):
     """Rayleigh-Ritz of the refined path (``core/loop.py:295-335``): the
     projection(s) measured compensated, the masked (generalized) eigh of
     their roundings, and the k wanted eigenvectors refined first-order
     against the DS residual of the same penalized matrices the eigh
     diagonalized (penalties added with exact two_sum)."""
-    H_ds = subspace.project_ds(Vw, AVw)
+    H_ds = subspace.project_ds(Vw, AVw, rows)
     H = H_ds.hi + H_ds.lo
     pen = torch.diag(subspace._pad_penalties(H, mask, m_max))
     ph, pl = two_sum(H_ds.hi, pen)
@@ -206,7 +219,7 @@ def _refined_ritz(Vw, AVw, BVw, mask, m_max: int, k: int):
         lam, W = orthogonal.eigh(H + pen)
         W[:, :k] = refine.refine_ritz(DS(ph, pl + H_ds.lo), lam, W, k)
         return lam, W
-    S_ds = subspace.project_ds(Vw, BVw)
+    S_ds = subspace.project_ds(Vw, BVw, rows)
     lam, W = subspace.masked_generalized_eigh(H, S_ds.hi + S_ds.lo, mask,
                                               m_max)
     sh, sl = two_sum(S_ds.hi, torch.diag(1.0 - mask))
@@ -232,12 +245,13 @@ def _rq_gate(Q, AQ, alive_q, lam, pair_mask, k: int, rows: Rows):
             keep[order])
 
 
-def _certify(cfg: ResolvedConfig, A_off, B_off, diag_a, diag_b, evals, X):
+def _certify(cfg: ResolvedConfig, A_off, B_off, diag_a, diag_b, evals, X,
+             rows: Rows):
     """The trial polish: does a final polish of these pairs certify at
     the user's tolerance? (One host read.)"""
     pol = refine.polish(A_off, diag_a, evals, X,
                         iterations=cfg.final_polish, B_off=B_off,
-                        diag_b=diag_b, update=cfg.polish_update)
+                        diag_b=diag_b, update=cfg.polish_update, rows=rows)
     return bool(torch.all(_converged(cfg, pol.errors, pol.evals)))
 
 
@@ -280,13 +294,15 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
               B: Optional[LinearOperator], st: dict,
               rows: Rows = LOCAL, A_off: Optional[LinearOperator] = None,
               B_off: Optional[LinearOperator] = None) -> dict:
-    """Iterate until convergence, a stall, or ``max_iterations``.
+    """Iterate until convergence, a stall, ``max_iterations`` or
+    ``st["chunk_end"]``, whichever comes first.
 
     ``st`` is updated in place and returned. ``st["m"]`` and
     ``st["stalled"]`` may be 0-d device tensors between iterations; they
     are read at the next iteration's synchronisation (or by
-    :func:`pack_result`). ``A_off``/``B_off``: the off-diagonal splits
-    the refined path needs (``A.offdiag()``).
+    :func:`settle`). ``A_off``/``B_off``: the off-diagonal splits the
+    refined path needs (``A.offdiag()``). Under
+    ``utils.debugging.nan_trap`` a NaN raises ``FloatingPointError``.
     """
     k = cfg.lowest
     m_max = cfg.m_max
@@ -307,8 +323,10 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
     V, AV = st["V"], st["AV"]
     BV = st["BV"] if gen else None
     ar = torch.arange(m_max, device=dev)
+    trap = debugging.nans_trapped()
+    end = min(st["chunk_end"], cfg.max_iterations)
 
-    while st["it"] < cfg.max_iterations and not st["all_conv"]:
+    while st["it"] < end and not st["all_conv"]:
         w = st["m_hi"]
         # Active columns: prefix up to m minus the columns dropped by the
         # rank-revealing orthonormalization. Ritz pairs live in pair index
@@ -320,14 +338,22 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         # The fused engine reads H from the state: CGS2 never touches
         # admitted columns, so their entries stay valid.
         Vw, AVw = V[:, :w], AV[:, :w]
-        if precise:
-            lam, W = _refined_ritz(Vw, AVw, BV[:, :w] if gen else None,
-                                   mask, m_max, k)
-        else:
-            H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw,
-                                                               rows)
-            S = subspace.project(Vw, BV[:, :w], rows) if gen else None
-            lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
+        try:
+            if precise:
+                lam, W = _refined_ritz(Vw, AVw, BV[:, :w] if gen else None,
+                                       mask, m_max, k, rows)
+            else:
+                H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw,
+                                                                   rows)
+                S = subspace.project(Vw, BV[:, :w], rows) if gen else None
+                lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
+        except torch.linalg.LinAlgError as exc:
+            if trap:
+                # A solver library may refuse a NaN matrix outright.
+                raise FloatingPointError(
+                    f"NaN in the projected matrix at iteration "
+                    f"{st['it'] + 1}") from exc
+            raise
 
         # Ritz vectors and block residuals from the caches. Lowest-k only
         # ever corrects the k wanted pairs; doubling corrects every pair.
@@ -345,7 +371,8 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             # correction (the cache residual carries ~sqrt(n)*eps*λ
             # noise). Nonexistent pairs read an infinite error.
             ref = refine.refined_pairs(A_off, diag_a, X[:, :k], B_off=B_off,
-                                       diag_b=diag_b if gen else None)
+                                       diag_b=diag_b if gen else None,
+                                       rows=rows)
             pm_k = pair_mask[:k] > 0.5
             errors = torch.where(pm_k, ref.errors.to(dt),
                                  torch.full_like(ref.errors.to(dt),
@@ -370,12 +397,21 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
         for key in ("m", "stalled"):
             if isinstance(st[key], torch.Tensor):
                 pending.append(st[key])
+        if trap:
+            # Ritz values must be finite; a residual norm may be +inf
+            # (a refined pair that does not exist yet), never NaN.
+            pending.append(torch.all(torch.isfinite(evals))
+                           & ~torch.any(torch.isnan(errors)))
         flags = torch.stack([t.to(torch.int64) for t in pending]).tolist()
         all_conv = bool(flags.pop(0))
         improved = bool(flags.pop(0)) if precise else False
         for key in ("m", "stalled"):
             if isinstance(st[key], torch.Tensor):
                 st[key] = flags.pop(0)
+        if trap and not flags.pop(0):
+            raise FloatingPointError(
+                f"NaN in the Ritz values or residual norms at iteration "
+                f"{st['it'] + 1}")
         st["stalled"] = bool(st["stalled"])
         if st["stalled"]:
             # The previous expansion admitted no column: the state is a
@@ -533,18 +569,31 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
             elif (cfg.final_polish > 0 and st["no_prog"] == _POLISH_POLL_AT
                   and not collapse
                   and _certify(cfg, A_off, B_off, diag_a,
-                               diag_b if gen else None, evals, st["evecs"])):
+                               diag_b if gen else None, evals, st["evecs"],
+                               rows)):
                 st["stalled"] = True
             if st["stalled"] is True:
                 break
     return st
 
 
+def settle(st: dict) -> dict:
+    """Read the flags an expansion left on the device (``m``,
+    ``stalled``) into host values: one synchronisation. A chunk boundary
+    and the end of a solve call it; the state is then all host values and
+    tensors, as a checkpoint stores it."""
+    pending = [key for key in ("m", "stalled")
+               if isinstance(st[key], torch.Tensor)]
+    if pending:
+        vals = torch.stack([st[key].to(torch.int64)
+                            for key in pending]).tolist()
+        st.update(zip(pending, vals))
+    st["stalled"] = bool(st["stalled"])
+    return st
+
+
 def pack_result(st: dict) -> DavidsonResult:
-    stalled = st["stalled"]
-    if isinstance(stalled, torch.Tensor):
-        # An expansion on the last allowed iteration left its flag unread.
-        stalled = bool(stalled)
+    """The result of a settled state (:func:`settle`)."""
     return DavidsonResult(
         eigenvalues=st["evals"],
         eigenvectors=st["evecs"],
@@ -555,7 +604,7 @@ def pack_result(st: dict) -> DavidsonResult:
         residual_history=st["history"],
         subspace_dims=st["dims"],
         operator_columns=int(st["op_cols"]),
-        stalled=stalled,
+        stalled=st["stalled"],
         inner_iterations=(int(st["inner_ops"]) if "inner_ops" in st
                           else None),
     )
@@ -563,7 +612,8 @@ def pack_result(st: dict) -> DavidsonResult:
 
 def _apply_final_polish(cfg: ResolvedConfig, A: LinearOperator,
                         B: Optional[LinearOperator], A_off, B_off,
-                        res: DavidsonResult) -> DavidsonResult:
+                        res: DavidsonResult,
+                        rows: Rows = LOCAL) -> DavidsonResult:
     """Double-single polish of the k returned pairs and the honest
     re-check (``core/loop.py:837-882``): convergence is evaluated against
     the polished TRUE residuals."""
@@ -572,7 +622,7 @@ def _apply_final_polish(cfg: ResolvedConfig, A: LinearOperator,
                         res.eigenvectors, iterations=cfg.final_polish,
                         B_off=B_off,
                         diag_b=None if B is None else B.diagonal().to(dt),
-                        update=cfg.polish_update)
+                        update=cfg.polish_update, rows=rows)
     conv = _converged(cfg, pol.errors, pol.evals)
     return DavidsonResult(
         eigenvalues=pol.evals,
@@ -593,14 +643,83 @@ def _apply_final_polish(cfg: ResolvedConfig, A: LinearOperator,
     )
 
 
+def set_compiled_cache_capacity(capacity: int) -> None:
+    """Kept for the JAX package's API: there it bounds the compiled
+    engines and steppers kept alive. The port compiles nothing, so there
+    is nothing to bound; a capacity below 1 raises ``ValueError`` as
+    there."""
+    if capacity < 1:
+        raise ValueError("cache capacity must be >= 1")
+
+
+def clear_compiled_caches() -> None:
+    """Kept for the JAX package's API: there it drops every compiled
+    program. The port compiles nothing and caches nothing: a no-op."""
+
+
+def get_stepper(cfg: ResolvedConfig, rows: Rows = LOCAL):
+    """``(init, step)`` over an explicit state dict
+    (``fortran_davidson_tpu.core.loop.get_stepper``), as plain functions:
+    nothing is compiled, so nothing is cached.
+
+    ``init(A, B, X0=None) -> state``; ``step(A, B, state, A_off=None,
+    B_off=None) -> state`` iterates up to ``state["chunk_end"]`` (at first
+    ``max_iterations``) and leaves the device flags unread. Both run
+    under the solve's precision context and ``no_grad``.
+    """
+    def init(A, B, X0=None):
+        with _precision_ctx(cfg.matmul_precision), torch.no_grad():
+            return init_state(cfg, A, B, X0=X0, rows=rows)
+
+    def step(A, B, st, A_off=None, B_off=None):
+        with _precision_ctx(cfg.matmul_precision), torch.no_grad():
+            return run_state(cfg, A, B, st, rows, A_off=A_off, B_off=B_off)
+
+    return init, step
+
+
+def run_chunked(cfg: ResolvedConfig, A: LinearOperator,
+                B: Optional[LinearOperator], *, every: int, callbacks=(),
+                state: Optional[dict] = None, rows: Rows = LOCAL,
+                A_off: Optional[LinearOperator] = None,
+                B_off: Optional[LinearOperator] = None,
+                X0=None) -> DavidsonResult:
+    """Chunked driver (``fortran_davidson_tpu.core.loop.run_chunked``):
+    run ``every`` iterations, settle the state (one host read), call each
+    callback with it, and go on. The exit test is the one-shot's
+    (convergence, a stall, ``max_iterations``), so the iterates, the
+    iteration count and the operator applies are the one-shot solve's;
+    the final polish runs at the end. ``state`` resumes a stopped solve
+    (a callback's state, or a restored checkpoint); ``X0`` warm-starts a
+    fresh one. ``A_off``/``B_off`` default to the operators' splits when
+    the configuration is refined.
+    """
+    if every < 1:
+        raise ValueError("every must be >= 1")
+    if cfg.refined and A_off is None:
+        A_off = A.offdiag()
+        B_off = None if B is None else B.offdiag()
+    init, step = get_stepper(cfg, rows)
+    st = init(A, B, X0) if state is None else state
+    while True:
+        st["chunk_end"] = min(st["it"] + every, cfg.max_iterations)
+        settle(step(A, B, st, A_off=A_off, B_off=B_off))
+        for cb in callbacks:
+            cb(st)
+        if st["all_conv"] or st["stalled"] or (st["it"]
+                                               >= cfg.max_iterations):
+            break
+    res = pack_result(st)
+    if cfg.final_polish > 0:
+        with _precision_ctx(cfg.matmul_precision), torch.no_grad():
+            res = _apply_final_polish(cfg, A, B, A_off, B_off, res, rows)
+    return res
+
+
 def _engine(cfg: ResolvedConfig, A: LinearOperator,
             B: Optional[LinearOperator], X0=None,
             rows: Rows = LOCAL, A_off: Optional[LinearOperator] = None,
             B_off: Optional[LinearOperator] = None) -> DavidsonResult:
-    with _precision_ctx(cfg.matmul_precision), torch.no_grad():
-        st = init_state(cfg, A, B, X0=X0, rows=rows)
-        res = pack_result(run_state(cfg, A, B, st, rows, A_off=A_off,
-                                    B_off=B_off))
-        if cfg.final_polish > 0:
-            res = _apply_final_polish(cfg, A, B, A_off, B_off, res)
-        return res
+    """The one-shot solve: :func:`run_chunked` in one chunk."""
+    return run_chunked(cfg, A, B, every=cfg.max_iterations, rows=rows,
+                       A_off=A_off, B_off=B_off, X0=X0)

@@ -13,10 +13,11 @@ Invariants (as in the JAX package): inactive columns are exactly zero,
 active columns need not be a prefix of the basis, and vanished directions
 are dropped, never filled with arbitrary vectors.
 
-``precise=True`` (the refined path, single device) measures every Gram
-compensated (``utils.ds.gram_ds``): a plain float32 Gram at n = 10M
-mismeasures by ~sqrt(n)*eps, and neither CGS nor CholeskyQR can correct
-below what the Gram measures.
+``precise=True`` (the refined path) measures every Gram compensated
+(``utils.ds.gram_ds``, summed over the ranks of a sharded solve by the
+``rows`` hook): a plain float32 Gram at n = 10M mismeasures by
+~sqrt(n)*eps, and neither CGS nor CholeskyQR can correct below what the
+Gram measures.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def project_out(V, block, rows: Rows = LOCAL, precise: bool = False):
     new direction the projection can leave standing).
     """
     if precise:
-        g = dsm.gram_ds(V, block)
+        g = dsm.gram_ds(V, block, rows=rows)
         return block - V @ (g.hi + g.lo)
     return block - V @ rows.sum(V.T @ block)
 
@@ -52,7 +53,7 @@ def project_out(V, block, rows: Rows = LOCAL, precise: bool = False):
 def _gram(X, rows: Rows, precise: bool):
     """Gram XᵀX, compensated when ``precise``."""
     if precise:
-        g = dsm.gram_ds(X)
+        g = dsm.gram_ds(X, rows=rows)
         return g.hi + g.lo
     return rows.sum(X.T @ X)
 
@@ -106,10 +107,11 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         with it which columns survive, is the JAX package's.
       rows: the row-reduction hook (``core/rows.py``); the ``"qr"`` method
         is single-device only.
-      precise: compensated Grams (single device), the survivor floor
-        256·eps instead of sqrt(eps), and SVQB's noise floor: a surviving
-        column carries rounding noise at ~eps·sqrt(n) relative, so a
-        Gram eigenvalue below ``(10·eps)²·n`` is junk, not a direction.
+      precise: compensated Grams, the survivor floor 256·eps instead of
+        sqrt(eps), and SVQB's noise floor: a surviving column carries
+        rounding noise at ~eps·sqrt(n) relative, so a Gram eigenvalue
+        below ``(10·eps)²·n`` (n the global row count) is junk, not a
+        direction.
 
     Returns:
       ``(q, alive)``: (n, b) block with orthonormal active columns,
@@ -137,7 +139,7 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
     if precise:
         width = block.shape[1] if rank_width is None else rank_width
         rank_rtol = max(width * finfo.eps,
-                        (10.0 * finfo.eps) ** 2 * block.shape[0])
+                        (10.0 * finfo.eps) ** 2 * rows.size * block.shape[0])
     if method == "qr":
         # Compact survivors to a prefix first: with an interior zero
         # column, Householder QR routes components of later columns onto

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 from fortran_davidson_tpu_torch.utils import ds as dsm
 from fortran_davidson_tpu_torch.utils.ds import DS
 from fortran_davidson_tpu_torch.utils.dtypes import full_precision_matmuls
@@ -52,9 +53,9 @@ def pencil_shifted_diag_apply(diag_a, diag_b, lam_hi, lam_lo, X) -> DS:
     return DS(*dsm.fast_two_sum(p, e + shift_lo * X))
 
 
-def _diag_quad_form(d, X, Y=None, extra_lo=None) -> DS:
+def _diag_quad_form(d, X, Y=None, extra_lo=None, rows: Rows = LOCAL) -> DS:
     """Fully compensated Σ_i d_i X_i Y_i per column (Y defaults to X)."""
-    return dsm.weighted_dot_cols_ds(d, X, Y, extra_lo=extra_lo)
+    return dsm.weighted_dot_cols_ds(d, X, Y, extra_lo=extra_lo, rows=rows)
 
 
 def _assemble_residual(AoffX, shift: DS, lam: DS, BoffX=None) -> DS:
@@ -69,9 +70,9 @@ def _assemble_residual(AoffX, shift: DS, lam: DS, BoffX=None) -> DS:
     return DS(*dsm.fast_two_sum(s, lo))
 
 
-def _ds_col_norms(R: DS):
+def _ds_col_norms(R: DS, rows: Rows = LOCAL):
     """Column norms of a DS residual: ||hi||² + 2<hi, lo> compensated."""
-    sq = dsm.col_sumsq_pair_ds(R.hi, R.lo)
+    sq = dsm.col_sumsq_pair_ds(R.hi, R.lo, rows=rows)
     pos = sq.hi > 0
     return dsm.ds_sqrt(DS(torch.clamp(sq.hi, min=0.0),
                           torch.where(pos, sq.lo,
@@ -133,22 +134,25 @@ class RefinedPairs(NamedTuple):
 
 
 @full_precision_matmuls()
-def refined_pairs(A_off, diag_a, X, B_off=None, diag_b=None) -> RefinedPairs:
+def refined_pairs(A_off, diag_a, X, B_off=None, diag_b=None,
+                  rows: Rows = LOCAL) -> RefinedPairs:
     """Refined eigenvalues and true residuals for the column block ``X``:
     one off-diagonal apply per operator, the rest compensated elementwise
-    and reduction work. ``X`` need not be normalized."""
+    and reduction work. ``X`` need not be normalized; in a row-sharded
+    solve it holds the rank's rows, and ``rows`` sums over the ranks."""
     gen = diag_b is not None
     AoffX = A_off.matmat(X).to(X.dtype)
     BoffX = (B_off.matmat(X).to(X.dtype) if (gen and B_off is not None)
              else None)
-    num = dsm.ds_add(dsm.dot_cols_ds(X, AoffX), _diag_quad_form(diag_a, X))
+    num = dsm.ds_add(dsm.dot_cols_ds(X, AoffX, rows),
+                     _diag_quad_form(diag_a, X, rows=rows))
     if gen:
-        den = (dsm.dot_cols_ds(X, BoffX) if BoffX is not None
+        den = (dsm.dot_cols_ds(X, BoffX, rows) if BoffX is not None
                else dsm.ds(torch.zeros(X.shape[1], dtype=X.dtype,
                                        device=X.device)))
-        den = dsm.ds_add(den, _diag_quad_form(diag_b, X))
+        den = dsm.ds_add(den, _diag_quad_form(diag_b, X, rows=rows))
     else:
-        den = dsm.dot_cols_ds(X, X)
+        den = dsm.dot_cols_ds(X, X, rows)
     # A nonexistent (all-zero) pair has xᵀBx == 0: floor the denominator
     # to 1 so λ, the residual and the error come out 0, not NaN.
     dead = den.hi == 0
@@ -159,7 +163,7 @@ def refined_pairs(A_off, diag_a, X, B_off=None, diag_b=None) -> RefinedPairs:
     lam_b = DS(torch.broadcast_to(lam.hi[None, :], X.shape),
                torch.broadcast_to(lam.lo[None, :], X.shape))
     R = _assemble_residual(AoffX, shift, lam_b, BoffX)
-    return RefinedPairs(evals=lam.to_float(), errors=_ds_col_norms(R),
+    return RefinedPairs(evals=lam.to_float(), errors=_ds_col_norms(R, rows),
                         residual=R.hi + R.lo)
 
 
@@ -176,7 +180,8 @@ class PolishResult(NamedTuple):
 
 @full_precision_matmuls()
 def polish(A_off, diag_a, evals, evecs, iterations: int = 3,
-           B_off=None, diag_b=None, update: str = "dpr") -> PolishResult:
+           B_off=None, diag_b=None, update: str = "dpr",
+           rows: Rows = LOCAL) -> PolishResult:
     """Jacobi (DPR-style) eigenpair refinement with double-single vectors.
 
     Each iteration applies ``A_off`` to the hi and lo words (through the
@@ -186,7 +191,8 @@ def polish(A_off, diag_a, evals, evecs, iterations: int = 3,
     (``update="dpr"``), or with the Olsen-projected ``δ = M⁻¹r − μ M⁻¹x``
     on near-exact denominators (``update="olsen"``, which keeps updating
     the coordinates with λ ≈ d that the floored step freezes), then
-    renormalizes in DS.
+    renormalizes in DS. In a row-sharded solve ``evecs`` holds the
+    rank's rows, and ``rows`` sums over the ranks.
     """
     if update not in ("dpr", "olsen"):
         raise ValueError(
@@ -210,20 +216,22 @@ def polish(A_off, diag_a, evals, evecs, iterations: int = 3,
                  if (gen and B_off is not None) else None)
 
         num = dsm.ds_add(
-            dsm.dot_cols_ds(x_hi, AoffX),
+            dsm.dot_cols_ds(x_hi, AoffX, rows),
             _diag_quad_form(diag_a, x_hi,
-                            extra_lo=2.0 * (diag_a[:, None] * x_lo) * x_hi))
+                            extra_lo=2.0 * (diag_a[:, None] * x_lo) * x_hi,
+                            rows=rows))
         if Aoff_lo is not None:
-            num = dsm.ds_add(num, dsm.ds(torch.sum(x_hi * Aoff_lo, dim=0)))
+            num = dsm.ds_add(num, dsm.ds(rows.sum(torch.sum(x_hi * Aoff_lo,
+                                                            dim=0))))
         if gen:
             den = dsm.ds_add(
-                dsm.dot_cols_ds(x_hi, BoffX) if BoffX is not None
+                dsm.dot_cols_ds(x_hi, BoffX, rows) if BoffX is not None
                 else dsm.ds(torch.zeros_like(lam)),
                 _diag_quad_form(diag_b, x_hi,
                                 extra_lo=2.0 * (diag_b[:, None] * x_lo)
-                                * x_hi))
+                                * x_hi, rows=rows))
         else:
-            den = dsm.col_sumsq_pair_ds(x_hi, x_lo)
+            den = dsm.col_sumsq_pair_ds(x_hi, x_lo, rows)
         lam_ds = dsm.ds_div(num, den)
         lam = lam_ds.to_float()
 
@@ -240,7 +248,7 @@ def polish(A_off, diag_a, evals, evecs, iterations: int = 3,
                    torch.broadcast_to(lam_ds.lo[None, :], x_hi.shape))
         R_ds = _assemble_residual(
             AoffX, DS(shift.hi, shift.lo + shift_lo_term), lam_b, BoffX)
-        errors = _ds_col_norms(R_ds)
+        errors = _ds_col_norms(R_ds, rows)
         R = R_ds.hi + R_ds.lo
 
         if gen:
@@ -260,20 +268,22 @@ def polish(A_off, diag_a, evals, evecs, iterations: int = 3,
             den_raw = torch.where(torch.abs(denom) < tiny, sgn * tiny, denom)
             Mr = R / den_raw
             Mx = x_hi / den_raw
-            mu_den = torch.sum(x_hi * Mx, dim=0)
+            mu_den, mag, mu_num = rows.sum(torch.stack([
+                torch.sum(x_hi * Mx, dim=0),
+                torch.sum(torch.abs(x_hi * Mx), dim=0),
+                torch.sum(x_hi * Mr, dim=0)]))
             # Where μ's denominator sinks to its summation noise, μ is
             # garbage: those columns take the floored-DPR step.
-            mag = torch.sum(torch.abs(x_hi * Mx), dim=0)
             noise = 16.0 * torch.finfo(R.dtype).eps * mag + 1e-30
             ill = torch.abs(mu_den) < noise
             mu_den = torch.where(ill, torch.where(mu_den < 0, -noise, noise),
                                  mu_den)
-            mu = torch.sum(x_hi * Mr, dim=0) / mu_den
+            mu = mu_num / mu_den
             delta = torch.where(ill[None, :], delta, Mr - mu[None, :] * Mx)
         s, e2 = dsm.two_sum(x_hi, delta)
         x_hi, x_lo = dsm.fast_two_sum(s, e2 + x_lo)
 
-        nrm = dsm.ds_sqrt(dsm.col_sumsq_pair_ds(x_hi, x_lo))
+        nrm = dsm.ds_sqrt(dsm.col_sumsq_pair_ds(x_hi, x_lo, rows))
         inv = dsm.ds_div(dsm.ds(torch.ones_like(lam)), nrm)
         p2, e3 = dsm.two_prod(x_hi, inv.hi[None, :])
         x_hi, x_lo = dsm.fast_two_sum(

@@ -10,8 +10,10 @@ after each such product (``fortran_davidson_tpu/parallel/sharded.py:9-15``);
 here they are explicit: the core modules route each one through a
 :class:`Rows` hook. :data:`LOCAL` is the single-device hook, whose sums
 are the identity and whose norms are the single-device code's own, so the
-single-device solve is unchanged. ``parallel.sharded.MeshRows`` sums
-with ``all_reduce(SUM)`` over the mesh's process group.
+single-device solve is unchanged. ``parallel.sharded.RowShardConstraint``
+sums with ``all_reduce(SUM)`` over the mesh's process group, and folds
+the double-single partials of the refined path (:meth:`Rows.sum_ds`) in
+rank order.
 """
 
 from __future__ import annotations
@@ -24,10 +26,26 @@ class Rows:
 
     #: Global index of the first local row.
     offset = 0
+    #: Ranks the rows are split over in equal contiguous slices, and this
+    #: process's rank.
+    size = 1
+    rank = 0
+    #: The double-single reductions may take the streaming slab cascade
+    #: from ``utils.ds._CASCADE_MIN_ROWS`` rows (the JAX package's
+    #: single-device strategy); a sharded solve folds by the tree.
+    cascade = True
 
     def sum(self, t):
         """The sum over all rows of a partial sum over the local rows."""
         return t
+
+    def sum_ds(self, hi, lo):
+        """The double-single sum over all rows of a ``(hi, lo)`` partial
+        over the local rows (no final renormalisation)."""
+        return hi, lo
+
+    def barrier(self) -> None:
+        """Wait for every rank (nothing to wait for on one device)."""
 
     def norms(self, X):
         """Column 2-norms of the tall (rows, w) block."""

@@ -55,8 +55,8 @@ def initial_subspace_with_guess(diag, X0, m_init: int, m_max: int,
     j = X0.shape[1]
     dt = diag.dtype
     eps = torch.finfo(dt).eps
-    rank_rtol = (max(m_init * eps, (10.0 * eps) ** 2 * n) if precise
-                 else None)
+    rank_rtol = (max(m_init * eps, (10.0 * eps) ** 2 * rows.size * n)
+                 if precise else None)
     C = torch.zeros((n, m_init), dtype=dt, device=diag.device)
     C[:, :j] = X0.to(dt)
     if m_init > j:
@@ -77,11 +77,11 @@ def project(V, AV, rows: Rows = LOCAL):
     return rows.sum(V.T @ AV)
 
 
-def project_ds(V, AV) -> "dsm.DS":
+def project_ds(V, AV, rows: Rows = LOCAL) -> "dsm.DS":
     """The compensated projection H = Vᵀ(AV) as a DS pair
-    (``utils.ds.gram_ds``; single device): the refined Rayleigh-Ritz's
-    H_ds, and S_ds = Vᵀ(BV) for a pencil."""
-    return dsm.gram_ds(V, AV)
+    (``utils.ds.gram_ds``): the refined Rayleigh-Ritz's H_ds, and S_ds =
+    Vᵀ(BV) for a pencil."""
+    return dsm.gram_ds(V, AV, rows=rows)
 
 
 def _pad_penalties(H, mask, m_max: Optional[int] = None):

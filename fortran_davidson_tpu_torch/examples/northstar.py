@@ -15,9 +15,10 @@ flag):
   3.84 GB at n = 10M against 15.4 GB of float32 blocks;
 - ``--sharded``: row-shard the solve over the ranks of the
   ``torch.distributed`` group that ``parallel.multihost.initialize()``
-  starts (one process a GPU, ``torchrun``). The matrix-free operator has
-  no sharding rule and ``--refined`` no sharded path yet: both raise by
-  name (ROADMAP item 19).
+  starts (one process a GPU, ``torchrun``); ``--progressive`` and
+  ``--refined`` run the sharded refined path. The matrix-free operator
+  has no sharding rule and ``--polish`` no per-rank form yet: both raise
+  by name (ROADMAP item 19).
 
 The 10M-row, 1e-8 recipe of the JAX package (its default basis width
 resolves from a device-memory budget, ``config._carry_budget_bytes``)::

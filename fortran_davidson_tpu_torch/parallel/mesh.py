@@ -69,6 +69,15 @@ class RowMesh:
         gather(out, t, group=self.group)
         return out
 
+    def barrier(self) -> None:
+        """Wait for every rank of the group (nothing to wait for alone)."""
+        if self.size == 1:
+            return
+        if self.device.type == "cuda":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
+
     def ring_exchange(self, x, halo: int):
         """``(from_prev, from_next, works)``: the last ``halo`` rows of the
         ring predecessor's ``x`` and the first ``halo`` rows of its

@@ -17,6 +17,10 @@ solve on its contiguous slice of the rows.
   decision, and every live count, is the same on every rank: no rank
   branches apart and hangs the next collective.
 - DPR corrections, residuals and basis updates are row-local.
+- The refined path's compensated reductions fold each rank's rows by the
+  tree and the ranks' (width) double-single partials in rank order by an
+  exact cascade (:meth:`RowShardConstraint.sum_ds`), the JAX package's
+  shard-local order (``fortran_davidson_tpu/utils/ds.py:286-330``).
 
 One host read per iteration, as in the single-device loop.
 """
@@ -47,8 +51,14 @@ from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,
                                                      block_diagonal,
                                                      local_rows)
 from fortran_davidson_tpu_torch.parallel.mesh import ROWS_AXIS, RowMesh
+from fortran_davidson_tpu_torch.utils.ds import cascade_partials
 from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
+
+# The row-sharded keys of the loop state (``core/loop.init_state``): each
+# rank holds its rows of them; every other key is the same on every rank
+# (``fortran_davidson_tpu/parallel/sharded.py:48``).
+SHARDED_STATE_KEYS = ("V", "AV", "BV", "evecs", "corr_prev")
 
 
 class RowShardConstraint(Rows):
@@ -58,13 +68,26 @@ class RowShardConstraint(Rows):
     ``all_reduce(SUM)`` over the mesh's group, for a problem of ``n``
     rows."""
 
+    cascade = False
+
     def __init__(self, mesh: RowMesh, n: int):
         self.mesh = mesh
         self.n = n
         self.offset = mesh.rows(n).start
+        self.size = mesh.size
+        self.rank = mesh.rank
 
     def sum(self, t):
         return self.mesh.all_reduce(t)
+
+    def sum_ds(self, hi, lo):
+        # One all-gather of the stacked (hi, lo) partials, in rank order,
+        # folded exactly by every rank: the same bits everywhere.
+        parts = self.mesh.all_gather_rows(torch.stack([hi, lo])[None])
+        return cascade_partials(parts[:, 0], parts[:, 1])
+
+    def barrier(self) -> None:
+        self.mesh.barrier()
 
     def norms(self, X):
         return torch.sqrt(self.sum(torch.sum(X * X, dim=0)))
@@ -118,6 +141,13 @@ class ShardedDenseOperator(_RowSharded):
     def diagonal(self):
         return torch.diagonal(self.matrix, offset=self.rows.start)
 
+    def offdiag(self) -> "ShardedDenseOperator":
+        """Exact off-diagonal split: the rank's diagonal entries zeroed."""
+        out = object.__new__(ShardedDenseOperator)
+        out.__dict__.update(self.__dict__, matrix=self.matrix.clone())
+        torch.diagonal(out.matrix, offset=self.rows.start).zero_()
+        return out
+
 
 class ShardedDiagonalOperator(_RowSharded):
     """The rank's entries of a diagonal operator (row-local apply)."""
@@ -135,6 +165,11 @@ class ShardedDiagonalOperator(_RowSharded):
 
     def diagonal(self):
         return self.diag
+
+    def offdiag(self) -> "ShardedDiagonalOperator":
+        out = object.__new__(ShardedDiagonalOperator)
+        out.__dict__.update(self.__dict__, diag=torch.zeros_like(self.diag))
+        return out
 
 
 class ShardedBSROperator(_RowSharded):
@@ -177,6 +212,22 @@ class ShardedBSROperator(_RowSharded):
         return block_diagonal(self.blocks, self.block_cols,
                               self.block_rows.start)
 
+    def offdiag(self) -> "ShardedBSROperator":
+        """Exact off-diagonal split: the diagonal entries of the rank's
+        on-diagonal blocks zeroed."""
+        nbr_l, bs, kbs = self.blocks.shape
+        own = self.block_cols == (self.block_rows.start + torch.arange(
+            nbr_l, dtype=self.block_cols.dtype,
+            device=self.block_cols.device))[:, None]
+        j = torch.arange(kbs, device=self.blocks.device)
+        in_block_diag = (torch.arange(bs, device=self.blocks.device)[:, None]
+                         == (j % bs)[None, :])
+        mask = own[:, None, j // bs] & in_block_diag[None]
+        out = object.__new__(ShardedBSROperator)
+        out.__dict__.update(self.__dict__,
+                            blocks=torch.where(mask, 0, self.blocks))
+        return out
+
 
 class ShardedELLOperator(_RowSharded):
     """The rank's rows of an ELL slot table, with global column indices
@@ -202,11 +253,20 @@ class ShardedELLOperator(_RowSharded):
         """The rank's rows of A X from the all-gathered X."""
         return _ell_chunked_apply(self.indices, self.values, x, self.chunk)
 
-    def diagonal(self):
-        own = self.indices == (self.rows.start + torch.arange(
+    def _own(self):
+        return self.indices == (self.rows.start + torch.arange(
             self.indices.shape[0], dtype=torch.int32,
             device=self.indices.device))[:, None]
-        return torch.sum(torch.where(own, self.values, 0), dim=1)
+
+    def diagonal(self):
+        return torch.sum(torch.where(self._own(), self.values, 0), dim=1)
+
+    def offdiag(self) -> "ShardedELLOperator":
+        """Exact off-diagonal split: the stored diagonal slots zeroed."""
+        out = object.__new__(ShardedELLOperator)
+        out.__dict__.update(self.__dict__, values=torch.where(
+            self._own(), 0, self.values))
+        return out
 
 
 class ShardedHybridOperator(_RowSharded):
@@ -239,6 +299,14 @@ class ShardedHybridOperator(_RowSharded):
         if self.remainder is not None:
             d = d + self.remainder.diagonal()
         return d
+
+    def offdiag(self) -> "ShardedHybridOperator":
+        out = object.__new__(ShardedHybridOperator)
+        out.__dict__.update(
+            self.__dict__, band=self.band.offdiag(),
+            remainder=(None if self.remainder is None
+                       else self.remainder.offdiag()))
+        return out
 
 
 def shard_operator(op: LinearOperator, mesh: RowMesh,
@@ -289,25 +357,11 @@ def shard_operator(op: LinearOperator, mesh: RowMesh,
         "refusing to run eigensolve_sharded with an unsharded operator")
 
 
-def eigensolve_sharded(matrix, lowest: int, mesh: RowMesh,
-                       second_matrix=None, axis: str = ROWS_AXIS,
-                       options: Optional[DavidsonOptions] = None,
-                       initial_vectors=None,
-                       **overrides) -> DavidsonResult:
-    """Row-sharded Davidson solve; every rank of ``mesh`` calls it.
-
-    Same contract as :func:`fortran_davidson_tpu_torch.eigensolve`. Every
-    rank passes the same global operator (or an operator sharded already,
-    such as a :class:`HaloBSROperator` on ``mesh``) and, for a warm start,
-    the same global (n, j) ``initial_vectors``; each rank takes its rows.
-
-    Returns the result on every rank: ``eigenvectors`` holds the rank's
-    rows (``mesh.rows(n)``); everything else is global and the same on
-    every rank. GJD's MINRES sums its column norms and dots over the
-    ranks. ``refined=True`` raises ``InvalidOptionsError``: the sharded
-    refined path waits for ROADMAP item 19.
-    """
-    opts = merge_options(options, overrides)
+def prepare_sharded(matrix, lowest: int, mesh: RowMesh, second_matrix,
+                    axis: str, opts: DavidsonOptions):
+    """The rank's operators, the resolved configuration and the row hook
+    of a sharded solve: ``(A, B, cfg, rows)``. :func:`eigensolve_sharded`
+    and ``eigensolve_checkpointed(mesh=...)`` share it."""
     dt = canonical_dtype(opts.dtype)
     A = shard_operator(as_operator(matrix, dtype=dt, device=mesh.device),
                        mesh, axis)
@@ -322,8 +376,48 @@ def eigensolve_sharded(matrix, lowest: int, mesh: RowMesh,
     cfg = resolve_options(opts, lowest, n, generalized=B is not None,
                           device=mesh.device, sharded=True,
                           shard_row_divisor=mesh.size)
-    X0 = validate_initial_vectors(initial_vectors, n, cfg.init_dim, dt,
-                                  device=mesh.device)
-    if X0 is not None:
-        X0 = X0[mesh.rows(n)]
-    return _engine(cfg, A, B, X0=X0, rows=RowShardConstraint(mesh, n))
+    return A, B, cfg, RowShardConstraint(mesh, n)
+
+
+def local_initial_vectors(initial_vectors, n: int, cfg, mesh: RowMesh,
+                          dtype):
+    """The rank's rows of a warm-start block: the global (n, j) block, or
+    already the rank's rows of it (a sharded result's ``eigenvectors``),
+    validated. ``None`` for ``None``."""
+    n_local = n // mesh.size
+    local = (initial_vectors is not None and mesh.size > 1
+             and initial_vectors.shape[0] == n_local)
+    X0 = validate_initial_vectors(initial_vectors, n_local if local else n,
+                                  cfg.init_dim, dtype, device=mesh.device)
+    return X0 if X0 is None or local else X0[mesh.rows(n)]
+
+
+def eigensolve_sharded(matrix, lowest: int, mesh: RowMesh,
+                       second_matrix=None, axis: str = ROWS_AXIS,
+                       options: Optional[DavidsonOptions] = None,
+                       initial_vectors=None,
+                       **overrides) -> DavidsonResult:
+    """Row-sharded Davidson solve; every rank of ``mesh`` calls it.
+
+    Same contract as :func:`fortran_davidson_tpu_torch.eigensolve`. Every
+    rank passes the same global operator (or an operator sharded already,
+    such as a :class:`HaloBSROperator` on ``mesh``) and, for a warm start,
+    the same global (n, j) ``initial_vectors``, each rank taking its rows,
+    or its own rows of them (a sharded result's ``eigenvectors``).
+
+    Returns the result on every rank: ``eigenvectors`` holds the rank's
+    rows (``mesh.rows(n)``); everything else is global and the same on
+    every rank. GJD's MINRES sums its column norms and dots over the
+    ranks; the refined path (``refined=True``, ``final_polish``) folds its
+    compensated sums shard-locally (:meth:`RowShardConstraint.sum_ds`) and
+    takes the operators' exact off-diagonal splits (``offdiag()``).
+    """
+    opts = merge_options(options, overrides)
+    A, B, cfg, rows = prepare_sharded(matrix, lowest, mesh, second_matrix,
+                                      axis, opts)
+    X0 = local_initial_vectors(initial_vectors, A.shape[0], cfg, mesh,
+                               canonical_dtype(opts.dtype))
+    if cfg.refined:
+        return _engine(cfg, A, B, X0=X0, rows=rows, A_off=A.offdiag(),
+                       B_off=None if B is None else B.offdiag())
+    return _engine(cfg, A, B, X0=X0, rows=rows)

@@ -24,29 +24,14 @@ from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
 
 
-def eigensolve(matrix, lowest: int, second_matrix=None,
-               options: Optional[DavidsonOptions] = None,
-               initial_vectors=None,
-               **overrides) -> DavidsonResult:
-    """Compute the lowest-k eigenpairs of a (generalized) symmetric problem.
-
-    Args:
-      matrix: operator A — a LinearOperator, a dense (n, n) tensor or
-        array, or a 1-D diagonal.
-      lowest: number of lowest eigenpairs to compute.
-      second_matrix: optional operator B for the pencil ``A x = lambda B x``
-        (same accepted types, same device as A). ``None`` selects the
-        standard problem.
-      options: DavidsonOptions; keyword overrides are applied on top, e.g.
-        ``eigensolve(A, 3, tolerance=1e-6)``.
-      initial_vectors: optional (n, j) warm-start block, ``j <= init_dim``.
-
-    Returns:
-      DavidsonResult, with tensors on A's device.
-    """
-    opts = merge_options(options, overrides)
+def prepare(matrix, lowest: int, second_matrix, opts: DavidsonOptions,
+            device=None):
+    """The operators and the resolved configuration of a single-device
+    solve: ``(A, B, cfg)``, on ``device`` for numpy input (tensors keep
+    theirs). :func:`eigensolve` and ``eigensolve_checkpointed`` share it,
+    so both resolve every option alike."""
     dt = canonical_dtype(opts.dtype)
-    A = as_operator(matrix, dtype=dt)
+    A = as_operator(matrix, dtype=dt, device=device)
     B = (None if second_matrix is None
          else as_operator(second_matrix, dtype=dt, device=A.device))
     require(A.shape[0] == A.shape[1], OperatorError, "A must be square")
@@ -71,8 +56,34 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
         # from the operator's fused SpMM+Gram. Capability is an operator
         # property, so the flag resolves here, not in resolve_options.
         cfg = dataclasses.replace(cfg, fused_gram=True)
+    return A, B, cfg
+
+
+def eigensolve(matrix, lowest: int, second_matrix=None,
+               options: Optional[DavidsonOptions] = None,
+               initial_vectors=None,
+               **overrides) -> DavidsonResult:
+    """Compute the lowest-k eigenpairs of a (generalized) symmetric problem.
+
+    Args:
+      matrix: operator A — a LinearOperator, a dense (n, n) tensor or
+        array, or a 1-D diagonal.
+      lowest: number of lowest eigenpairs to compute.
+      second_matrix: optional operator B for the pencil ``A x = lambda B x``
+        (same accepted types, same device as A). ``None`` selects the
+        standard problem.
+      options: DavidsonOptions; keyword overrides are applied on top, e.g.
+        ``eigensolve(A, 3, tolerance=1e-6)``.
+      initial_vectors: optional (n, j) warm-start block, ``j <= init_dim``.
+
+    Returns:
+      DavidsonResult, with tensors on A's device.
+    """
+    opts = merge_options(options, overrides)
+    A, B, cfg = prepare(matrix, lowest, second_matrix, opts)
     X0 = validate_initial_vectors(initial_vectors, A.shape[0], cfg.init_dim,
-                                  dt, device=A.device)
+                                  canonical_dtype(opts.dtype),
+                                  device=A.device)
     if cfg.refined:
         # The refined path also takes the off-diagonal splits, for its
         # compensated true residuals (structural for the sparse formats,

@@ -29,9 +29,17 @@ whatever the compiler does.
 Tall reductions (rows ~10⁶-10⁷) fold with the JAX package's default
 single-device strategy: a sequential cascade of 65,536-row slabs from
 ``_CASCADE_MIN_ROWS`` rows up, the two_sum tree below. The tree pairs
-contiguous halves, the order the JAX package uses off the TPU. The
-shard-local pairings of its GSPMD strategy wait for the sharded refined
-path (ROADMAP item 19).
+contiguous halves, the order the JAX package uses off the TPU.
+
+The tall reductions take a ``rows`` hook (``core/rows.py``). In a
+row-sharded solve each rank holds its rows only, and the reductions
+follow the JAX package's GSPMD strategy (``sum_strategy("tree",
+row_divisor=D)``, ``fortran_davidson_tpu/utils/ds.py:286-330``): each
+rank folds its own rows by the tree (never the cascade), and only the
+(width) hi/lo partials cross ranks, gathered in rank order and folded by
+the exact sequential cascade of :func:`cascade_partials`
+(``Rows.sum_ds``). The Gram's chunk divides the rank's rows (it is cut
+from the local row count), as ``_chunk_sharded`` does (``:440-455``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
 
 
 class DS(NamedTuple):
@@ -202,30 +212,42 @@ def _fold_leading(hi, lo):
     return hi[0], lo[0]
 
 
-def ds_sum_tree(x, axis: int = 0, lo=None) -> DS:
+def cascade_partials(hi, lo):
+    """Exact sequential fold of axis 0 (no final renorm): the JAX
+    package's fold of the per-shard partials
+    (``fortran_davidson_tpu/utils/ds.py:321-325``)."""
+    h_acc, l_acc = hi[0], lo[0]
+    for i in range(1, hi.shape[0]):
+        h_acc, err = two_sum(h_acc, hi[i])
+        l_acc = l_acc + lo[i] + err
+    return h_acc, l_acc
+
+
+def ds_sum_tree(x, axis: int = 0, lo=None, rows: Rows = LOCAL) -> DS:
     """Exact-compensated sum along ``axis`` by a two_sum binary tree.
 
     ``lo`` seeds the error channel (e.g. per-element two_prod errors, for
-    Dot2-grade compensated dot products).
+    Dot2-grade compensated dot products). With a sharded ``rows`` hook,
+    ``axis`` holds the rank's rows and the sum is over every rank's.
     """
     hi = torch.movedim(x, axis, 0)
     lo = (torch.zeros_like(hi) if lo is None
           else torch.movedim(lo, axis, 0))
-    return DS(*fast_two_sum(*_fold_leading(hi, lo)))
+    return DS(*fast_two_sum(*rows.sum_ds(*_fold_leading(hi, lo))))
 
 
-def tall_sum_ds(x, lo=None) -> DS:
+def tall_sum_ds(x, lo=None, rows: Rows = LOCAL) -> DS:
     """Exact-compensated column sums of a tall (n, m) pair: the cascade
-    from ``_CASCADE_MIN_ROWS`` rows, the tree below."""
+    from ``_CASCADE_MIN_ROWS`` rows on one device, the tree otherwise."""
     lo = torch.zeros_like(x) if lo is None else lo
     n, m = x.shape
-    if _use_cascade(n):
+    if rows.cascade and _use_cascade(n):
         return _cascade_fold(lambda s, c: (x[s:s + c], lo[s:s + c]),
                              n, m, x, _CASCADE_SLAB)
-    return _tall_sum_tree(x, lo)
+    return _tall_sum_tree(x, lo, rows)
 
 
-def _tall_sum_tree(x, lo) -> DS:
+def _tall_sum_tree(x, lo, rows: Rows = LOCAL) -> DS:
     """The two_sum tree on a full-lane ``(n/g, g*m)`` reshape of the pair
     (g = 128/m' strata, m' = m rounded up to a power of two), its g
     strata per column folded by an exact sequential cascade at the end:
@@ -235,15 +257,15 @@ def _tall_sum_tree(x, lo) -> DS:
     while mp < m:
         mp *= 2
     if mp > 128:
-        return ds_sum_tree(x, axis=0, lo=lo)
+        return ds_sum_tree(x, axis=0, lo=lo, rows=rows)
     g = 128 // mp
     pad_rows = (g - n % g) % g
     if mp != m or pad_rows:
         x = torch.nn.functional.pad(x, (0, mp - m, 0, pad_rows))
         lo = torch.nn.functional.pad(lo, (0, mp - m, 0, pad_rows))
         n += pad_rows
-    hi1, lo1 = _fold_leading(x.reshape(n // g, g * mp),
-                             lo.reshape(n // g, g * mp))
+    hi1, lo1 = rows.sum_ds(*_fold_leading(x.reshape(n // g, g * mp),
+                                          lo.reshape(n // g, g * mp)))
     s = hi1.reshape(g, mp)
     e = lo1.reshape(g, mp)
     hi_acc, lo_acc = s[0], e[0]
@@ -263,7 +285,8 @@ def gram_chunk(n: int, chunk: Optional[int] = None) -> int:
     return max(chunk, 1)
 
 
-def gram_ds(V, W=None, *, chunk: Optional[int] = None) -> DS:
+def gram_ds(V, W=None, *, chunk: Optional[int] = None,
+            rows: Rows = LOCAL) -> DS:
     """Compensated Gram matrix ``Vᵀ W`` (W defaults to V) as a DS pair.
 
     The row axis is cut into ``chunk``-row slabs; each slab's partial
@@ -275,41 +298,43 @@ def gram_ds(V, W=None, *, chunk: Optional[int] = None) -> DS:
     n, m = V.shape
     c = gram_chunk(n, chunk)
     return gram_ds_pre(V.reshape(n // c, c, m),
-                       W.reshape(n // c, c, W.shape[1]))
+                       W.reshape(n // c, c, W.shape[1]), rows)
 
 
-def gram_ds_pre(Vc, Wc=None) -> DS:
+def gram_ds_pre(Vc, Wc=None, rows: Rows = LOCAL) -> DS:
     """Compensated Gram on pre-chunked ``(n/c, c, m)`` operands."""
     Wc = Vc if Wc is None else Wc
-    return ds_sum_tree(torch.bmm(Vc.transpose(1, 2), Wc), axis=0)
+    return ds_sum_tree(torch.bmm(Vc.transpose(1, 2), Wc), axis=0, rows=rows)
 
 
-def col_sumsq_ds(X, *, chunk: Optional[int] = None) -> DS:
+def col_sumsq_ds(X, *, chunk: Optional[int] = None,
+                 rows: Rows = LOCAL) -> DS:
     """Compensated per-column sum of squares."""
     n, m = X.shape
     c = gram_chunk(n, chunk)
     Xc = X.reshape(n // c, c, m)
-    return ds_sum_tree(torch.sum(Xc * Xc, dim=1), axis=0)
+    return ds_sum_tree(torch.sum(Xc * Xc, dim=1), axis=0, rows=rows)
 
 
-def col_norms_ds(X, *, chunk: Optional[int] = None):
+def col_norms_ds(X, *, chunk: Optional[int] = None, rows: Rows = LOCAL):
     """Compensated per-column 2-norms (plain float result)."""
-    return ds_sqrt(col_sumsq_ds(X, chunk=chunk)).to_float()
+    return ds_sqrt(col_sumsq_ds(X, chunk=chunk, rows=rows)).to_float()
 
 
-def dot_cols_ds(X, Y) -> DS:
+def dot_cols_ds(X, Y, rows: Rows = LOCAL) -> DS:
     """Fully compensated per-column dots diag(XᵀY) (Dot2 quality): exact
     elementwise products (two_prod) and exact summation, accurate under
     heavy cancellation. For (n, k) column blocks, not wide bases."""
     n, k = X.shape
-    if _use_cascade(n):
+    if rows.cascade and _use_cascade(n):
         return _cascade_fold(lambda s, c: two_prod(X[s:s + c], Y[s:s + c]),
                              n, k, X, _CASCADE_SLAB)
     p, e = two_prod(X, Y)
-    return tall_sum_ds(p, lo=e)
+    return tall_sum_ds(p, lo=e, rows=rows)
 
 
-def weighted_dot_cols_ds(d, X, Y=None, extra_lo=None) -> DS:
+def weighted_dot_cols_ds(d, X, Y=None, extra_lo=None,
+                         rows: Rows = LOCAL) -> DS:
     """Fully compensated ``Σ_i d_i X_ij Y_ij`` per column (Y defaults X).
 
     Both multiplications use two_prod. ``extra_lo`` adds a per-element
@@ -326,17 +351,17 @@ def weighted_dot_cols_ds(d, X, Y=None, extra_lo=None) -> DS:
             lo = lo + ev
         return q, lo
 
-    if _use_cascade(n):
+    if rows.cascade and _use_cascade(n):
         return _cascade_fold(
             lambda s, c: terms(d[s:s + c], X[s:s + c], Y[s:s + c],
                                None if extra_lo is None
                                else extra_lo[s:s + c]),
             n, k, X, _CASCADE_SLAB)
     q, lo = terms(d, X, Y, extra_lo)
-    return tall_sum_ds(q, lo=lo)
+    return tall_sum_ds(q, lo=lo, rows=rows)
 
 
-def col_sumsq_pair_ds(hi, lo) -> DS:
+def col_sumsq_pair_ds(hi, lo, rows: Rows = LOCAL) -> DS:
     """Compensated per-column ``Σ (hi+lo)²`` of a DS column block:
     ``Σ hi² + 2 Σ hi∘lo``, the squares exact, the cross term in the error
     channel (the lo² term, ~eps⁴, is dropped)."""
@@ -346,11 +371,11 @@ def col_sumsq_pair_ds(hi, lo) -> DS:
         p, e = two_prod(hs, hs)
         return p, e + 2.0 * (hs * ls)
 
-    if _use_cascade(n):
+    if rows.cascade and _use_cascade(n):
         return _cascade_fold(lambda s, c: terms(hi[s:s + c], lo[s:s + c]),
                              n, k, hi, _CASCADE_SLAB)
     p, e = terms(hi, lo)
-    return tall_sum_ds(p, lo=e)
+    return tall_sum_ds(p, lo=e, rows=rows)
 
 
 # -- compensated elementwise kernels used by the solver -------------------

@@ -1890,3 +1890,107 @@ def test_eigsh_and_batched_on_the_card(cuda_device):
     assert res.eigenvalues.is_cuda and res.iterations.tolist() == [
         one.iterations] * 3
     assert torch.equal(res.eigenvalues[1], one.eigenvalues)
+
+
+# -- checkpoint / resume on the card ----------------------------------------
+
+class _Interrupt(RuntimeError):
+    """A callback's stand-in for the process dying."""
+
+
+def _interrupt_once():
+    calls = []
+
+    def callback(state):
+        calls.append(state["it"])
+        if len(calls) == 1:
+            raise _Interrupt
+    return callback
+
+
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    # Checkpointed, and interrupted after its first save then resumed:
+    # the one-shot solve's bits, iterations and kernel 1 launches.
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    kernels.reset_launch_counts()
+    ref = fdtt.eigensolve(op, 3, max_dim_sub=12)
+    one_shot = kernels.banded_bsr_spmm.launches
+    assert one_shot > 0
+    res = fdtt.eigensolve_checkpointed(op, 3, str(tmp_path / "a"), every=2,
+                                       max_dim_sub=12)
+    kernels.reset_launch_counts()
+    with pytest.raises(_Interrupt):
+        fdtt.eigensolve_checkpointed(op, 3, str(tmp_path / "b"), every=2,
+                                     max_dim_sub=12,
+                                     callbacks=(_interrupt_once(),))
+    resumed = fdtt.eigensolve_checkpointed(op, 3, str(tmp_path / "b"),
+                                           every=2, max_dim_sub=12)
+    assert kernels.banded_bsr_spmm.launches == one_shot
+    for r in (res, resumed):
+        assert r.iterations == ref.iterations
+        assert r.operator_columns == ref.operator_columns
+        assert r.eigenvalues.is_cuda
+        assert torch.equal(r.eigenvalues, ref.eigenvalues)
+        torch.testing.assert_close(r.residual_history, ref.residual_history,
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+def test_card_checkpoint_resumes_on_the_cpu(cuda_device, tmp_path):
+    # Saved on the card, resumed on the CPU (and the other way round): the
+    # files map to the resuming device, and the solve ends with the
+    # uninterrupted iterations and eigenvalues to 1e-10.
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    op_cpu = fdtt.BSROperator(op.block_cols.cpu(), op.blocks.cpu(),
+                              bandwidth=1)
+    ref = fdtt.eigensolve(op, 3, max_dim_sub=12)
+    for first, second, tag in ((op, op_cpu, "to_cpu"),
+                               (op_cpu, op, "to_card")):
+        d = str(tmp_path / tag)
+        with pytest.raises(_Interrupt):
+            fdtt.eigensolve_checkpointed(first, 3, d, every=2,
+                                         max_dim_sub=12,
+                                         callbacks=(_interrupt_once(),))
+        res = fdtt.eigensolve_checkpointed(second, 3, d, every=2,
+                                           max_dim_sub=12)
+        assert res.eigenvalues.device.type == second.device.type
+        assert res.converged and res.iterations == ref.iterations
+        torch.testing.assert_close(res.eigenvalues.cpu(),
+                                   ref.eigenvalues.cpu(), rtol=0, atol=1e-10)
+
+
+def test_sum_ds_at_world_size_one_is_the_local_fold(cuda_device, tmp_path):
+    # Over a one-rank NCCL group the ranks' cascade is the identity: the
+    # sharded compensated Gram, dots and norms have the local tree's bits.
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.core.rows import Rows
+    from fortran_davidson_tpu_torch.parallel import (RowShardConstraint,
+                                                     multihost)
+    from fortran_davidson_tpu_torch.utils import ds as dsm
+
+    class LocalTree(Rows):
+        cascade = False
+
+    n = 1 << 19
+    g = torch.Generator(device="cpu").manual_seed(5)
+    V = torch.randn((n, 20), generator=g).to(cuda_device)
+    X = torch.randn((n, 4), generator=g).to(cuda_device)
+    mesh = multihost.initialize(init_method=f"file://{tmp_path}/rendezvous",
+                                world_size=1, rank=0, device=cuda_device)
+    try:
+        assert dist.get_backend() == "nccl"
+        rows = RowShardConstraint(mesh, n)
+        hi, lo = torch.randn(7, device=cuda_device), torch.zeros(7).to(
+            cuda_device)
+        shi, slo = rows.sum_ds(hi, lo)
+        assert torch.equal(shi, hi) and torch.equal(slo, lo)
+        for fn in (lambda r: dsm.gram_ds(V, rows=r),
+                   lambda r: dsm.dot_cols_ds(X, X, r),
+                   lambda r: dsm.col_sumsq_pair_ds(X, 1e-8 * X, r),
+                   lambda r: dsm.weighted_dot_cols_ds(X[:, 0], X, rows=r)):
+            got, want = fn(rows), fn(LocalTree())
+            assert torch.equal(got.hi, want.hi)
+            assert torch.equal(got.lo, want.lo)
+    finally:
+        dist.destroy_process_group()

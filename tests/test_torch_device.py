@@ -51,6 +51,12 @@ def _cli_solve_csr():
         return cli.main(["solve", path])
 
 
+def _checkpointed():
+    """``eigensolve_checkpointed`` on numpy, into a fresh directory."""
+    with tempfile.TemporaryDirectory() as d:
+        return fdtt.eigensolve_checkpointed(_A, 2, d)
+
+
 _LOCAL = fdtt.generate_local_sparse(64, 4, locality=4.0, seed=0)
 
 
@@ -120,6 +126,7 @@ ENTRY_POINTS = {
         np.stack([_A, _A]), 2),
     "eigensolve_batched diagonal": lambda: fdtt.eigensolve_batched(
         np.arange(1.0, 17.0).reshape(2, 8), 1),
+    "eigensolve_checkpointed": _checkpointed,
     "cli.solve": _cli_solve,
     "cli.solve CSR .npz": _cli_solve_csr,
     "cli.demo": lambda: cli.main(["demo"]),

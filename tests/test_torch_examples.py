@@ -20,7 +20,6 @@ from fortran_davidson_tpu.examples import northstar as jax_northstar
 from fortran_davidson_tpu_torch.__main__ import main as cli_main
 from fortran_davidson_tpu_torch.examples import (benchmark_free, demo,
                                                  northstar)
-from fortran_davidson_tpu_torch.utils.errors import InvalidOptionsError
 from tests.torch_parity import to_numpy
 
 _NUM = r"[-+0-9.e]+"
@@ -133,6 +132,7 @@ def test_northstar_sharded_on_one_rank(capsys, one_rank_group):
             "4", "--tolerance", "1e-3", "--expansion", "lowest-k"]
     assert northstar.main(argv) == 0
     assert "mesh: {'rows': 1}" in capsys.readouterr().out
-    # The sharded refined path waits for ROADMAP item 19.
-    with pytest.raises(InvalidOptionsError, match="item 19"):
-        northstar.main([*argv, "--progressive"])
+    # The sharded refined path: the loose stage's rank rows warm-start the
+    # refined one, polished in the solve.
+    assert northstar.main([*argv, "--progressive"]) == 0
+    assert "converged=True" in capsys.readouterr().out

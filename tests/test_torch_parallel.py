@@ -29,7 +29,16 @@ the tests here compare the ranks' rows, put back together, with:
   single-device solves;
 - at world size 2, a solve with Chebyshev-filtered restarts of degree
   ``"auto"`` and locking: every rank takes the single-device solve's
-  degrees, iterations and operator columns.
+  degrees, iterations and operator columns;
+- at world sizes 1 and 2, the sharded refined path (the float32
+  surrogate's dense matrix, and a banded BSR with an in-solve polish)
+  against the JAX package's sharded refined solve on
+  ``default_mesh(world)``: iterations within ±1, the same converged flag,
+  eigenvalues within the JAX test's 1e-5; and sharded checkpoints: the
+  checkpointed solve, its resume, an interrupted and resumed solve (bit
+  for bit the uninterrupted one), and at world size 2 a checkpoint moved
+  from two ranks to one and from one to two (the uninterrupted
+  iterations).
 
 The argument checks and ``convert.halo`` need no process group: they use
 a :class:`RowMesh` whose group is never called.
@@ -49,6 +58,7 @@ import fortran_davidson_tpu_torch as fdtt
 from fortran_davidson_tpu import config as jconfig
 from fortran_davidson_tpu import parallel as jpar
 from fortran_davidson_tpu.models import generators as jgen
+from fortran_davidson_tpu.models.generators import surrogate_hamiltonian
 from fortran_davidson_tpu.ops import sparse as jsparse
 from fortran_davidson_tpu_torch import config as tconfig
 from fortran_davidson_tpu_torch import convert
@@ -104,6 +114,9 @@ def jax_ops():
                                                       dtype=f32)
     ops["tiny2"] = jsparse.generate_banded_bsr(8, 8, bandwidth=2,
                                                coupling=1e-3, seed=23)
+    # The sharded refined path's banded case (tests/test_parallel.py:268).
+    ops["refined_bsr"] = jsparse.generate_banded_bsr(64, 16, bandwidth=1,
+                                                     coupling=1e-3, dtype=f32)
     return ops
 
 
@@ -120,6 +133,13 @@ def inputs(jax_ops, tmp_path_factory):
              Xq=rng.standard_normal((256, 4)).astype(np.float32))
     d.update(X32=rng.standard_normal((1024, 5)).astype(np.float32),
              Xs=rng.standard_normal((64, 3)))
+    # The refined and checkpoint cases: the float32 surrogate's matrix
+    # (n = 2048) and the n=512 matrix of tests/test_checkpoint.py:129.
+    n_sur = 2048
+    d.update(surrogate32=np.asarray(surrogate_hamiltonian(
+        n_sur, dtype=jnp.float32).matmat(jnp.eye(n_sur, dtype=jnp.float32))),
+        A512=np.asarray(jgen.generate_diagonal_dominant(512, 1e-3),
+                        np.float32))
     # The ELL family's cases: a 500-row locality-bearing COO (the hybrid
     # pads it to 512 rows, 32 block rows of 16).
     rows, cols, vals = jsparse.generate_local_sparse(500, 6, locality=20.0,
@@ -382,6 +402,22 @@ def test_sharded_sparse_apply_matches_the_global_operator(
 
 @pytest.mark.parametrize("name", list(worker.SPARSE_SOLVES))
 @pytest.mark.parametrize("world", worker.SPARSE_WORLDS)
+def test_sharded_sparse_offdiag_is_the_global_split(ranks, inputs,
+                                                     sparse_single, world,
+                                                     name):
+    # The refined path's off-diagonal split of the rank's rows (the stored
+    # diagonal slots zeroed): the global operator's offdiag() apply,
+    # within 1e-13 of max|Y|.
+    d, _ = inputs
+    op = sparse_single(name)[0]
+    X = torch.from_numpy(d["Xsp"][:op.shape[0]])
+    y = op.offdiag().matmat(X).numpy()
+    got = _gathered(ranks(world), f"sparse_{name}_offdiag_y")
+    assert np.max(np.abs(got - y)) <= 1e-13 * np.max(np.abs(y))
+
+
+@pytest.mark.parametrize("name", list(worker.SPARSE_SOLVES))
+@pytest.mark.parametrize("world", worker.SPARSE_WORLDS)
 def test_sharded_sparse_solve_matches_jax(ranks, sparse_single, world, name):
     # Against the port's single-device solve: the same iterations,
     # eigenvalues within 1e-10; against the JAX package's: iterations
@@ -434,6 +470,104 @@ def test_sharded_filtered_restarts_with_locking(ranks, inputs, world):
     lam = res[0]["cheb_evals"]
     r = np.linalg.norm(d["Ac"] @ X - X * lam[None, :], axis=0)
     assert np.all(r <= opts["tolerance"])
+
+
+@pytest.fixture(scope="module")
+def jax_refined(inputs, jax_ops):
+    """(name, world) -> the JAX package's sharded refined solve of a
+    REFINED_SOLVES case on default_mesh(world)."""
+    @functools.cache
+    def run(name: str, world: int):
+        lowest, opts = worker.REFINED_SOLVES[name]
+        op = (surrogate_hamiltonian(2048, dtype=jnp.float32)
+              if name == "refined_surrogate" else jax_ops["refined_bsr"])
+        res = jpar.eigensolve_sharded(op, lowest, jpar.default_mesh(world),
+                                      **opts)
+        res.block_until_ready()
+        return res
+
+    return run
+
+
+@pytest.mark.parametrize("name", list(worker.REFINED_SOLVES))
+@pytest.mark.parametrize("world", worker.REFINED_WORLDS)
+def test_sharded_refined_matches_jax(ranks, inputs, jax_refined, world,
+                                     name):
+    # The shard-local double-single folds: the ranks agree bit for bit;
+    # against the JAX package's sharded solve at the same world size,
+    # iterations within ±1, the same converged flag, eigenvalues within
+    # the JAX test's 1e-5; the loop's (or the polish's) true residuals
+    # under the tolerance, and the gathered eigenvectors' float64
+    # residuals against the stored matrix within float32 roundoff of it.
+    d, _ = inputs
+    res = ranks(world)
+    rj = jax_refined(name, world)
+    lowest, opts = worker.REFINED_SOLVES[name]
+    for r in res[1:]:
+        np.testing.assert_array_equal(r[f"{name}_evals"],
+                                      res[0][f"{name}_evals"])
+        assert int(r[f"{name}_iterations"]) == int(
+            res[0][f"{name}_iterations"])
+    r0 = res[0]
+    assert abs(int(r0[f"{name}_iterations"]) - int(rj.iterations)) <= 1
+    assert bool(r0[f"{name}_converged"]) == bool(rj.converged) == True
+    np.testing.assert_allclose(r0[f"{name}_evals"],
+                               np.asarray(rj.eigenvalues), rtol=0, atol=1e-5)
+    assert float(np.max(r0[f"{name}_residuals"])) < opts["tolerance"]
+    dense = (d["surrogate32"] if name == "refined_surrogate"
+             else to_numpy(worker.banded(d, "refined_bsr").to_dense()))
+    X = _gathered(res, f"{name}_evecs").astype(np.float64)
+    X /= np.linalg.norm(X, axis=0)
+    lam = (r0[f"{name}_evals"].astype(np.float64)
+           + r0[f"{name}_evals_lo"].astype(np.float64))
+    r = np.linalg.norm(dense.astype(np.float64) @ X - X * lam, axis=0)
+    assert np.all(r <= 1e-5 * np.maximum(np.abs(lam), 1.0))
+
+
+@pytest.mark.parametrize("name", list(worker.CKPT_SOLVES))
+@pytest.mark.parametrize("world", worker.CKPT_WORLDS)
+def test_sharded_checkpoint_resumes_bit_for_bit(ranks, inputs, world, name):
+    # The checkpointed sharded solve, its resume from the complete
+    # directory, and an interrupted one resumed: the same bits, iterations
+    # and operator columns as the uninterrupted sharded solve, on every
+    # rank; the interrupted run left exactly its first step on disk.
+    d, _ = inputs
+    res = ranks(world)
+    key, lowest, every, opts = worker.CKPT_SOLVES[name]
+    for r in res:
+        assert bool(r[f"{name}_converged"])
+        for leg in ("again", "resumed"):
+            for field in ("evals", "iterations", "operator_columns"):
+                np.testing.assert_array_equal(r[f"{name}_{leg}_{field}"],
+                                              r[f"{name}_{field}"])
+        first = min(every, int(r[f"{name}_iterations"]))
+        assert r[f"{name}_cut_saved"].tolist() == ["solver_config.json",
+                                                   f"step_{first}"]
+        np.testing.assert_array_equal(r[f"{name}_evals"],
+                                      res[0][f"{name}_evals"])
+    # The single-device solve of the same options: the same iterations.
+    one = fdtt.eigensolve(convert.dense(d[key], device="cpu"), lowest,
+                          **opts)
+    assert int(res[0][f"{name}_iterations"]) == one.iterations
+    np.testing.assert_allclose(res[0][f"{name}_evals"],
+                               to_numpy(one.eigenvalues), rtol=0,
+                               atol=1e-10 if "dtype" not in opts else 1e-6)
+
+
+def test_sharded_checkpoint_moves_between_world_sizes(ranks, inputs):
+    # Written on two ranks, resumed on one (rank 0's one-rank group), and
+    # written on one, resumed on two: each rank reads the rows it owns,
+    # and the solve ends with the uninterrupted iterations.
+    res = ranks(2)
+    full = res[0]
+    for leg, holders in (("2to1", res[:1]), ("1to2", res)):
+        for r in holders:
+            assert bool(r[f"ckpt_{leg}_converged"])
+            assert int(r[f"ckpt_{leg}_iterations"]) == int(
+                full["ckpt_iterations"])
+            np.testing.assert_allclose(r[f"ckpt_{leg}_evals"],
+                                       full["ckpt_evals"], rtol=0,
+                                       atol=1e-12)
 
 
 # -- argument checks (no process group) --------------------------------
@@ -507,11 +641,11 @@ def test_pallas_remote_names_kernel_8(monkeypatch):
         tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2), backend="mosaic")
 
 
-@pytest.mark.parametrize("option", [dict(refined=True)])
-def test_sharded_solve_rejects_unported_options(option):
+def test_sharded_solve_rejects_qr():
     A = np.asarray(jgen.generate_diagonal_dominant(64, 1e-3))
-    with pytest.raises(InvalidOptionsError, match="not ported.*item 19"):
-        tpar.eigensolve_sharded(A, 3, _fake_mesh(1), **option)
+    with pytest.raises(InvalidOptionsError, match="orthonormalization='qr'"):
+        tpar.eigensolve_sharded(A, 3, _fake_mesh(1),
+                                orthonormalization="qr")
 
 
 def test_multihost_refuses_a_local_fallback(monkeypatch):

@@ -8,7 +8,10 @@ applies, diagonals and off-diagonal splits, and the sharded solves. The
 inputs come from the parent as ``inputs.npz``; each rank writes what it
 computed to ``rank<r>.npz``, and the parent compares with the JAX package.
 At world sizes 1 and 2 (``SPARSE_WORLDS``) the ranks also apply and solve
-the ELL family's sharded operators.
+the ELL family's sharded operators, run the sharded refined path
+(``REFINED_SOLVES``) and checkpoint and resume sharded solves
+(``CKPT_WORLDS``); at world size 2 a checkpoint also moves between world
+sizes (a one-rank group of rank 0 and the two ranks).
 
 A spawned process imports the module of its target, and the test
 modules and ``tests/conftest.py`` import JAX: this module imports only
@@ -77,6 +80,98 @@ SPARSE_KINDS = {"ell": "ShardedELLOperator", "sell": "ShardedELLOperator",
 CHEB_WORLDS = (2,)
 CHEB = (3, dict(cheb_degree="auto", locking=True, expansion="lowest-k",
                 max_dim_sub=12, tolerance=1e-8))
+
+# The sharded refined path (``tests/test_parallel.py:247-277``, cut to a
+# few thousand rows): name -> (lowest, options). The float32 surrogate is
+# its dense matrix here (the port has no sharding rule for a matrix-free
+# operator yet, ROADMAP item 19); the banded BSR runs through kernel 2's
+# sharded rule with an in-solve polish.
+REFINED_WORLDS = (1, 2)
+REFINED_SOLVES = {
+    "refined_surrogate": (4, dict(method="DPR", tolerance=1e-6,
+                                  relative_tolerance=True, max_iterations=40,
+                                  dtype="float32", expansion="lowest-k",
+                                  refined=True)),
+    "refined_bsr": (3, dict(method="DPR", tolerance=1e-6, dtype="float32",
+                            refined=True, final_polish=2,
+                            max_iterations=200)),
+}
+# Sharded checkpoints (``tests/test_checkpoint.py:104-142, 214-247``):
+# the dense ``A`` every 2 iterations, and the n=512 float32 refined solve
+# every 4; name -> (input, lowest, every, options).
+CKPT_WORLDS = (1, 2)
+CKPT_SOLVES = {
+    "ckpt": ("A", 3, 2, dict(tolerance=1e-8)),
+    "ckpt_refined": ("A512", 3, 4, dict(dtype="float32", refined=True,
+                                         tolerance=1e-6, max_iterations=80)),
+}
+
+
+class Interrupt(RuntimeError):
+    """Raised by a callback after the first save: the process dying."""
+
+
+def interrupt_once():
+    """A chunk callback that raises at its first call only."""
+    calls = []
+
+    def callback(state):
+        calls.append(state["it"])
+        if len(calls) == 1:
+            raise Interrupt
+    return callback
+
+
+def checkpoint_cases(inputs, mesh, run_dir: str, out: dict) -> None:
+    """Each CKPT_SOLVES case on ``mesh``: uninterrupted, resumed from its
+    complete directory, and interrupted after its first save then
+    resumed. At world size 2, the ``ckpt`` case also moves a checkpoint
+    from the two ranks to a one-rank mesh of rank 0, and from it to the
+    two ranks."""
+    from fortran_davidson_tpu_torch import convert, eigensolve_checkpointed
+    from fortran_davidson_tpu_torch.parallel import RowMesh
+
+    def solve(name, tag, callbacks=(), on=mesh):
+        key, lowest, every, opts = CKPT_SOLVES[name]
+        A = convert.dense(inputs[key], device="cpu")
+        return eigensolve_checkpointed(
+            A, lowest, os.path.join(run_dir, f"{name}_{tag}"), every=every,
+            mesh=on, callbacks=callbacks, **opts)
+
+    def record(prefix, res):
+        out[f"{prefix}_evals"] = res.eigenvalues.numpy()
+        out[f"{prefix}_iterations"] = np.array(res.iterations)
+        out[f"{prefix}_converged"] = np.array(res.converged)
+        out[f"{prefix}_operator_columns"] = np.array(res.operator_columns)
+
+    for name in CKPT_SOLVES:
+        record(name, solve(name, "full"))
+        record(f"{name}_again", solve(name, "full"))
+        try:
+            solve(name, "cut", (interrupt_once(),))
+        except Interrupt:
+            out[f"{name}_cut_saved"] = np.array(sorted(os.listdir(
+                os.path.join(run_dir, f"{name}_cut"))))
+        record(f"{name}_resumed", solve(name, "cut"))
+    if mesh.size != 2:
+        return
+    # Checkpoints across world sizes: a one-rank group of rank 0 (every
+    # rank creates it; rank 1 is no member).
+    group = dist.new_group([0])
+    one = (RowMesh(group=group, size=1, rank=0, device=mesh.device)
+           if mesh.rank == 0 else None)
+    try:
+        solve("ckpt", "2to1", (interrupt_once(),))
+    except Interrupt:
+        pass
+    if one is not None:
+        record("ckpt_2to1", solve("ckpt", "2to1", on=one))
+        try:
+            solve("ckpt", "1to2", (interrupt_once(),), on=one)
+        except Interrupt:
+            pass
+    mesh.barrier()
+    record("ckpt_1to2", solve("ckpt", "1to2"))
 
 
 def spawn(world: int, run_dir: str) -> list:
@@ -268,6 +363,8 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
             out[f"sparse_{name}_gathers"] = np.array(
                 sum(calls[n] for n in GATHERS))
             out[f"sparse_{name}_diag"] = sharded.diagonal().numpy()
+            out[f"sparse_{name}_offdiag_y"] = sharded.offdiag().matmat(
+                torch.from_numpy(X[mesh.rows(X.shape[0])])).numpy()
             lowest, opts = SPARSE_SOLVES[name]
             res = eigensolve_sharded(op, lowest, mesh, **opts)
             out[f"sparse_{name}_evals"] = res.eigenvalues.numpy()
@@ -287,6 +384,24 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
                    cheb_converged=np.array(res.converged),
                    cheb_operator_columns=np.array(res.operator_columns),
                    cheb_degrees=np.array(degrees))
+
+    if world in REFINED_WORLDS:
+        from fortran_davidson_tpu_torch import convert
+        for name, (lowest, opts) in REFINED_SOLVES.items():
+            A = (convert.dense(inputs["surrogate32"], device="cpu")
+                 if name == "refined_surrogate"
+                 else banded(inputs, "refined_bsr"))
+            res = eigensolve_sharded(A, lowest, mesh, **opts)
+            out[f"{name}_evals"] = res.eigenvalues.numpy()
+            out[f"{name}_evals_lo"] = (np.zeros(lowest, np.float32)
+                                       if res.eigenvalues_lo is None
+                                       else res.eigenvalues_lo.numpy())
+            out[f"{name}_evecs"] = res.eigenvectors.numpy()
+            out[f"{name}_residuals"] = res.residual_norms.numpy()
+            out[f"{name}_iterations"] = np.array(res.iterations)
+            out[f"{name}_converged"] = np.array(res.converged)
+    if world in CKPT_WORLDS:
+        checkpoint_cases(inputs, mesh, run_dir, out)
 
     for name, (A, B, X0) in solve_cases(inputs, mesh).items():
         lowest, opts = SOLVES[name]
