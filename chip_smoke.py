@@ -214,28 +214,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    leg sharded (kernel 7's float64-x entry, ``banded_q_ext_bsr_spmm_f64``,
    which must launch; phase 6's float64 iterations, eigenvalues and true
    relative residual within 1e-6); kernels 1 and 4 never launch; times the
-   all-gather exchange. (b) Lowest-3 and lowest-20
+   ring exchange. (b) Lowest-3 and lowest-20
    through ``backend="pallas-remote"`` (kernel 8, ring exchange, no
    x_ext); kernels 1 and 6 never launch.
 9. One halo apply of the ``"pallas-remote"`` path against the
    ``"pallas"`` path at m = 20, 40, 160: the same bits; CUDA-event and
-   host-clock times of both, in turns, of each exchange alone, and of the
-   ``"pallas"`` path's two other parts alone: the ``torch.cat`` into
-   x_ext and kernel 6.
+   host-clock times of both, in turns, of the ring exchange alone and of
+   the all-gather exchange it replaced, and of the ``"pallas"`` path's
+   two other parts alone: the ``torch.cat`` into x_ext and kernel 6.
 10. The north stars at 10M rows and the entry points, each a solve phase
    counted as phases 4-8 are, run once A, A32 and q are freed:
    (a) ROADMAP item 14: lowest-20 of ``surrogate_hamiltonian(10_000_384,
    float32)`` through ``examples/northstar.py``'s progressive recipe
    (``NORTHSTAR_ARGV``, bench.py:574-612's), a cold, a warm and (the
-   port's own width) a profiled run, first under the JAX package's 12 GB
+   12 GB budget's width) a profiled run, first under the JAX package's 12 GB
    budget (``FDT_CARRY_BUDGET_BYTES``; the width must resolve to its 44),
    then at the port's own width; each converges with an oracle relative
    residual <= 1e-8 (float64 promotion of the stored float32 operator,
    the polish's hi + lo vectors and eigenvalues; the float32 words alone
    and the float64 surrogate are printed beside it), and its eigenvalues
    within 1e-8 relative of a plain float64 DPR solve of the float64
-   surrogate at the 12 GB budget's width (the A/B; cold and warm; at the
-   port's own width that solve stops at a fixed point above 1e-8,
+   surrogate at the 12 GB budget's width (the A/B; cold, warm and
+   profiled; at the port's own width that solve stops at a fixed point above 1e-8,
    ROADMAP Queue 3: shown, not gated). Prints the resolved widths, the
    refined iterations beside the JAX package's 17, walls, peak memory,
    the idle share. (b) ROADMAP item 15: lowest-20 of
@@ -257,7 +257,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    converged, true residual (float64, through the operator) <= 1e-8; the
    same solve on the card machine's CPU within 1e-10 relative and ±1
    iteration (at ``CONFIG3_CUT_N`` rows, printed as cut, when one CPU
-   apply says the CPU solve would take over ``CPU_BUDGET_S``); one ELL
+   apply says the CPU solve would take over ``CPU_BUDGET_S``, 10 s,
+   which keeps the run's time with phase 15 in it); one ELL
    apply at m = 10 against one ``SlicedELLOperator.from_ell`` apply.
    (b) ``split_band_remainder`` of ``generate_local_sparse(1_000_000, 12,
    locality=95, seed=7)`` (bs 128, bw 1, sliced-ELL remainder, n_pad
@@ -331,9 +332,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``HaloBSROperator(A, "pallas")``, lowest-3, interrupted after its
    first save and resumed: phase 8a's iterations and eigenvalue bits,
    kernel 6's launches of both runs the one-shot sharded solve's.
-11. Prints the run's time and the shares of phases 12, 13 and 14, the
+15. The rest of ROADMAP item 19 at world size 1 over NCCL (each
+   sub-phase a solve phase): (c) right after 14c,
+   ``orthonormalization="qr"`` (the TSQR) through ``HaloBSROperator(A,
+   "pallas")``, lowest-3 and lowest-20, beside the one-device ``"qr"``
+   solve through kernel 1: the same iterations and eigenvalue bits,
+   kernel 6's launches the counted applies; (d) the float64 surrogate
+   pencil (``surrogate_overlap``) at 1,000,448 rows, lowest-4, through
+   the per-rank callables: the one-device iterations and eigenvalue
+   bits, true residual <= 1e-8, no kernel; (a) right after 10a, on a
+   fresh one-rank group, 10a's surrogate through ``northstar --mode free
+   --sharded --polish 2`` at the 12 GB budget's width and the float64
+   DPR solve: 10a's iterations (refined and plain), the float64
+   eigenvalues within 1e-12 relative of 10a's, the oracle after the
+   per-rank polish <= 1e-8, no kernel; walls, idle share and peak memory
+   beside 10a's; (b) right after 10b, 10b's operator (not built again)
+   through ``--mode banded --quantize --sharded --progressive --polish
+   2`` at 10b's width: kernel 7 on the ring exchange's x_ext, its
+   launches the counted applies, refined iterations within ±2 of 10b's,
+   eigenvalues within 1e-10 relative, the oracle after the polish <=
+   1e-8, and one kernel 7 call at m = 20 against its plain version.
+11. Prints the run's time and the shares of phases 12, 13, 14 and 15, the
    solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-14, each counted from 0 over its own phase; kernel 9, the copy
+   phases 4-15, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
    the rest and no phase launches them (nor kernel 3's and kernel 5's
    float64 entries); for
@@ -3224,7 +3245,6 @@ def phase_sharded(A, q, dev, rendezvous, solves, refs):
     from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
                                                      HaloQuantizedOperator,
                                                      shard_operator)
-    from fortran_davidson_tpu_torch.parallel.halo import extend, halo_slabs
 
     mesh = _one_rank_mesh(rendezvous, dev)
     print(f"  mesh: {mesh.size} rank over nccl on {mesh.device}", flush=True)
@@ -3249,16 +3269,21 @@ def phase_sharded(A, q, dev, rendezvous, solves, refs):
     _check(launches > 0, "the sharded float64 int8 solve never launched "
            "kernel 7's float64-x entry")
 
-    # The exchange alone (one all_gather of the 2*bw*bs boundary rows),
-    # with the concatenation into x_ext, which copies x, and one all_reduce
-    # of a Gram-sized matrix.
+    # The exchange alone (the ring exchange of the bw*bs boundary rows;
+    # views at world size 1), with the concatenation into x_ext, which
+    # copies x, and one all_reduce of a Gram-sized matrix.
     halo = A.bandwidth * A.block_size
+
+    def extend(x):
+        prev, nxt, _ = mesh.ring_exchange(x, halo)
+        return torch.cat([prev, x, nxt])
+
     for m in (20, 40, 160):
         x = torch.randn((A.shape[0], m), dtype=torch.float64, device=dev)
         G = torch.randn((m, m), dtype=torch.float64, device=dev)
         row = dict(solve=f"collectives f64 m={m}")
-        for key, fn in (("exchange", lambda: halo_slabs(mesh, x, halo)),
-                        ("extend", lambda: extend(mesh, x, halo)),
+        for key, fn in (("exchange", lambda: mesh.ring_exchange(x, halo)),
+                        ("extend", lambda: extend(x)),
                         ("all_reduce", lambda: mesh.all_reduce(G))):
             row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(fn)
         print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
@@ -3297,18 +3322,30 @@ def phase_remote(A, dev, rendezvous, solves, refs):
     torch.cuda.empty_cache()
 
 
+def _all_gather_halos(mesh, x, halo: int):
+    """The halo exchange of ``"xla"``, ``"pallas"`` and the int8 operator
+    before they took the ring exchange: one ``all_gather`` of every
+    rank's ``2 * halo`` boundary rows. Phase 9 times it beside the ring
+    exchange; no path runs it."""
+    import torch
+    edges = mesh.all_gather_rows(torch.cat([x[:halo], x[-halo:]]))
+    edges = edges.reshape(mesh.size, 2 * halo, *x.shape[1:])
+    return (edges[(mesh.rank - 1) % mesh.size, halo:],
+            edges[(mesh.rank + 1) % mesh.size, :halo])
+
+
 def remote_vs_pallas_apply(A, dev, rendezvous, solves):
     """Phase 9: one apply of the ``"pallas-remote"`` path (the ring
     exchange, kernel 8's interior and edge launches) against the
-    ``"pallas"`` path (the all-gather exchange, the x_ext concatenation,
-    kernel 6), f64 on the 1M-row matrix at world size 1: the same bits,
-    and the CUDA-event and host-clock times of each path, in turns
-    (pallas, remote, remote, pallas), of each exchange alone, and of the
+    ``"pallas"`` path (the ring exchange, the x_ext concatenation, kernel
+    6), f64 on the 1M-row matrix at world size 1: the same bits, and the
+    CUDA-event and host-clock times of each path, in turns (pallas,
+    remote, remote, pallas), of the ring exchange alone and of the
+    all-gather exchange it replaced (``_all_gather_halos``), and of the
     ``"pallas"`` path's copy into x_ext and its kernel 6 alone."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     from fortran_davidson_tpu_torch.parallel import HaloBSROperator
-    from fortran_davidson_tpu_torch.parallel.halo import halo_slabs
 
     mesh = _one_rank_mesh(rendezvous, dev)
     ops = {b: HaloBSROperator.from_bsr(A, 1, mesh, backend=b)
@@ -3325,13 +3362,13 @@ def remote_vs_pallas_apply(A, dev, rendezvous, solves):
             key = f"{backend}_apply_{turn}"
             row[f"{key}_ms"], row[f"{key}_host_ms"] = _device_and_host_ms(
                 lambda op=ops[backend]: op.matmat(x))
-        prev, nxt = halo_slabs(mesh, x, halo)
+        prev, nxt, _ = mesh.ring_exchange(x, halo)
         x_ext = torch.cat([prev, x, nxt])
         blocks = ops["pallas"].blocks
         for key, fn in (("ring_exchange",
                          lambda: mesh.ring_exchange(x, halo)),
                         ("all_gather_exchange",
-                         lambda: halo_slabs(mesh, x, halo)),
+                         lambda: _all_gather_halos(mesh, x, halo)),
                         ("x_ext_cat", lambda: torch.cat([prev, x, nxt])),
                         ("kernel6", lambda: kernels.banded_ext_bsr_spmm(
                             blocks, x_ext, bandwidth=A.bandwidth,
@@ -3411,16 +3448,18 @@ def _surrogate_oracle(op, X, lam) -> float:
     return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
 
 
-def _northstar_run(label, op, args, profile: bool = False) -> dict:
+def _northstar_run(label, op, args, profile: bool = False,
+                   mesh=None) -> dict:
     """A cold and a warm run of the northstar example's recipe
-    (``northstar.solve_timed``), with the peak memory above the start and
-    (``profile``) one more run under the profiler."""
+    (``northstar.solve_timed``, row-sharded over ``mesh`` when given),
+    with the peak memory above the start and (``profile``) one more run
+    under the profiler."""
     import torch
     from fortran_davidson_tpu_torch.examples import northstar
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    res, cold, warm = northstar.solve_timed(op, args)
+    res, cold, warm = northstar.solve_timed(op, args, mesh)
     peak = torch.cuda.max_memory_allocated()
     out = dict(res=res, cold_s=cold, warm_s=warm, peak_mem_gb=peak / 1e9,
                peak_mem_above_gb=(peak - mem0) / 1e9,
@@ -3436,11 +3475,11 @@ def _northstar_run(label, op, args, profile: bool = False) -> dict:
            and tuple(res.eigenvectors.shape) == (op.shape[0], args.lowest),
            f"{label}: bad output")
     if profile:
-        out.update(_device_busy(label, lambda: northstar.run(op, args)))
+        out.update(_device_busy(label, lambda: northstar.run(op, args, mesh)))
     return out
 
 
-def phase_northstar_free(dev, solves):
+def phase_northstar_free(dev, solves, ns):
     """Phase 10a (ROADMAP item 14): lowest-20 of
     ``surrogate_hamiltonian(10_000_384, float32)`` to relative 1e-8
     through ``examples/northstar.py``'s progressive recipe, at the JAX
@@ -3450,8 +3489,10 @@ def phase_northstar_free(dev, solves):
     the final polish) hold a float64 oracle of the stored float32
     operator to 1e-8, and their eigenvalues the float64 solve's (at the
     12 GB budget's width; at its own width it stalls, shown) to 1e-8
-    relative."""
+    relative. ``ns["free"]`` keeps the parity leg's and the float64
+    solve's numbers for phase 15a."""
     import torch
+    from fortran_davidson_tpu_torch import eigensolve
     from fortran_davidson_tpu_torch.examples import northstar
     from fortran_davidson_tpu_torch.models import generators
 
@@ -3471,7 +3512,7 @@ def phase_northstar_free(dev, solves):
                        f"width {width}, the JAX package's {JAX_NS_WIDTH}")
             run = _northstar_run(
                 f"surrogate n={NS_FREE_N} lowest-20 progressive [{leg}]",
-                op, args, profile=leg == "own")
+                op, args, profile=leg == "parity")
         res = run["res"]
         lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
         X = res.eigenvectors.double() + res.eigenvectors_lo.double()
@@ -3513,7 +3554,9 @@ def phase_northstar_free(dev, solves):
                 f"float64 surrogate n={NS_FREE_N} lowest-20 plain DPR "
                 f"[parity width, {tag}]", op64, 20, **F64_NORTHSTAR)
             walls64.append(wall)
-    peak64 = torch.cuda.max_memory_allocated()
+        peak64 = torch.cuda.max_memory_allocated()
+        busy64 = _device_busy("float64 surrogate lowest-20 [parity width]",
+                              lambda: eigensolve(op64, 20, **F64_NORTHSTAR))
     lam64 = res64.eigenvalues
     oracle64 = _surrogate_oracle(op64, res64.eigenvectors, lam64)
     width64 = int(res64.subspace_dims.max())
@@ -3523,6 +3566,14 @@ def phase_northstar_free(dev, solves):
           f"max_memory_allocated {peak64 / 1e9:.2f} GB "
           f"({(peak64 - mem0) / 1e9:.2f} above the start)", flush=True)
     _check(oracle64 <= SOLVE_TOL, f"float64 oracle residual {oracle64:.3e}")
+    ns["free"] = dict(
+        parity={key: runs["parity"][key] for key in (
+            "cold_s", "warm_s", "peak_mem_gb", "peak_mem_above_gb",
+            "device_idle_share")},
+        parity_iterations=runs["parity"]["res"].iterations,
+        f64=dict(iterations=res64.iterations, eigenvalues=lam64.clone(),
+                 wall_s=walls64, peak_mem_gb=peak64 / 1e9,
+                 peak_mem_above_gb=(peak64 - mem0) / 1e9, **busy64))
     for leg, run in runs.items():
         run["eig_rel_f64"] = float(torch.max(
             torch.abs(run.pop("lam") - lam64)
@@ -3541,18 +3592,20 @@ def phase_northstar_free(dev, solves):
         "width]", n=NS_FREE_N, iterations=res64.iterations, wall_s=walls64,
         max_subspace_dim=width64, oracle=oracle64,
         peak_mem_gb=peak64 / 1e9, peak_mem_above_gb=(peak64 - mem0) / 1e9,
-        own_width_observed=own64))
+        own_width_observed=own64, **busy64))
     del op, op64, res64, runs
     torch.cuda.empty_cache()
 
 
-def phase_northstar_bsr(dev, solves):
+def phase_northstar_bsr(dev, solves, ns):
     """Phase 10b (ROADMAP item 15): lowest-20 of the 10,000,000-row int8
     banded matrix (``generate_banded_bsr_quantized(78_125, 128)``, built
     on the host, its time kept apart) to relative 1e-8 through
     ``examples/northstar.py --mode banded --quantize --progressive``, a
     cold and a warm run: converged, kernel 4 launched, the oracle relative
-    residual (float64, dequantized blocks plus the diagonal) <= 1e-8."""
+    residual (float64, dequantized blocks plus the diagonal) <= 1e-8.
+    ``ns["bsr"]`` keeps the operator, its width and the result for phase
+    15b, which runs the same matrix row-sharded."""
     import torch
     from fortran_davidson_tpu_torch.examples import northstar
     from fortran_davidson_tpu_torch.ops import kernels
@@ -3588,6 +3641,10 @@ def phase_northstar_bsr(dev, solves):
         n=NS_BSR_N, iterations=res.iterations, stalled=res.stalled,
         host_generation_s=gen_s, operator_gb=op_gb, width=width,
         m_max=m_max, oracle_residual_rel=oracle, launches=launches, **run))
+    ns["bsr"] = dict(q=q, width=width, iterations=res.iterations, lam=lam,
+                     run={key: run[key] for key in (
+                         "cold_s", "warm_s", "peak_mem_gb",
+                         "peak_mem_above_gb", "device_idle_share")})
     del q, res
     torch.cuda.empty_cache()
 
@@ -3667,7 +3724,7 @@ CONFIG3_NNZ = 50
 # 12a's card-against-CPU comparison runs at CONFIG3_N when the CPU solve
 # is estimated to take at most CPU_BUDGET_S, else at CONFIG3_CUT_N.
 CONFIG3_CUT_N = 262_144
-CPU_BUDGET_S = 120.0
+CPU_BUDGET_S = 10.0
 LOCAL_N = 1_000_000
 LOCAL_ARGS = dict(nnz_per_row=12, locality=95.0, seed=7)
 HYB = dict(block_size=128, bandwidth=1)
@@ -4953,6 +5010,383 @@ def phase_sharded_checkpoint(A, dev, rendezvous, solves, refs):
 
 
 
+# Phase 15: the rest of ROADMAP item 19 on one card, at world size 1.
+# 15d: the matrix-free pencil at phase 6c's size.
+FREE_PENCIL_N = 1_000_448
+FREE_PENCIL_K = 4
+NS_POLISH = 2
+
+
+@contextlib.contextmanager
+def _counting_applies(cls):
+    """Count the calls of ``cls.matmat`` (every instance, ``offdiag()``'s
+    too) inside the ``with`` block: ``calls[0]``."""
+    calls = [0]
+    matmat = cls.matmat
+
+    def counted(self, block):
+        calls[0] += 1
+        return matmat(self, block)
+
+    cls.matmat = counted
+    try:
+        yield calls
+    finally:
+        cls.matmat = matmat
+
+
+def _no_launches(label) -> None:
+    """Fail when any kernel launched since the last reset (a matrix-free
+    phase runs no kernel)."""
+    from fortran_davidson_tpu_torch.ops import kernels
+    counts = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    print(f"  {label}: kernel launches {counts}", flush=True)
+    _check(not any(counts.values()), f"{label}: a kernel launched")
+
+
+def _sharded_solver(mesh):
+    from fortran_davidson_tpu_torch.parallel import eigensolve_sharded
+
+    def sharded(op, k, second_matrix=None, **kw):
+        return eigensolve_sharded(op, k, mesh, second_matrix=second_matrix,
+                                  **kw)
+    return sharded
+
+
+def phase_sharded_qr(A, dev, rendezvous, solves):
+    """Phase 15c: ``orthonormalization="qr"`` row-sharded (the TSQR; at
+    world size 1 its second stage is skipped) through
+    ``HaloBSROperator(A, "pallas")`` (kernel 6), lowest-3 and lowest-20,
+    beside the one-device ``"qr"`` solve through kernel 1: the same
+    iterations and eigenvalue bits, kernel 6's launches the sharded
+    solve's counted applies, true residuals <= 1e-8."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import HaloBSROperator
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    H = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas")
+    k6 = kernels.banded_ext_bsr_spmm
+    qr = dict(tolerance=SOLVE_TOL, orthonormalization="qr")
+    for k in (3, 20):
+        one, one_wall = _solve_converged(f"eigensolve(A, {k}) qr [one "
+                                         "device, kernel 1]", A, k, **qr)
+        before = k6.launches
+        with _counting_applies(HaloBSROperator) as applies:
+            res, wall = _solve_converged(
+                f"eigensolve_sharded(Halo(A, pallas), {k}) qr", H, k,
+                solver=_sharded_solver(mesh), **qr)
+        launches = k6.launches - before
+        same = torch.equal(res.eigenvalues, one.eigenvalues)
+        true_res = _true_residual(A.blocks, 1, None, res.eigenvectors,
+                                  res.eigenvalues)
+        print(f"  15c sharded qr lowest-{k}: iterations {res.iterations} "
+              f"(one device {one.iterations}), the one-device eigenvalue "
+              f"bits {same}, kernel 6 launches {launches} for "
+              f"{applies[0]} applies, true residual {true_res:.3e}; walls "
+              f"{wall:.4f} s (one device {one_wall:.4f} s)", flush=True)
+        _check(res.iterations == one.iterations,
+               f"15c lowest-{k}: {res.iterations} iterations vs "
+               f"{one.iterations}")
+        _check(same, f"15c lowest-{k}: not the one-device qr bits")
+        _check(launches == applies[0] > 0,
+               f"15c lowest-{k}: {launches} kernel 6 launches for "
+               f"{applies[0]} applies")
+        _check(true_res <= SOLVE_TOL,
+               f"15c lowest-{k}: true residual {true_res:.3e}")
+        solves.append(dict(
+            solve=f"phase 15c sharded (world 1, nccl) Halo(A, pallas) f64 "
+            f"lowest-{k} orthonormalization=qr", n=A.shape[0],
+            iterations=res.iterations, wall_s=wall, one_device_wall_s=one_wall,
+            launches=launches, applies=applies[0], true_residual=true_res))
+        del res, one
+    del H
+    torch.cuda.empty_cache()
+
+
+def phase_free_pencil(dev, rendezvous, solves):
+    """Phase 15d: the generalized matrix-free pencil (the float64
+    surrogate and its overlap at ``FREE_PENCIL_N`` rows, lowest-4)
+    row-sharded through the per-rank callables: the one-device pencil's
+    iterations and eigenvalue bits, true residual <= 1e-8, no kernel."""
+    import torch
+    from fortran_davidson_tpu_torch.models import generators
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    A = generators.surrogate_hamiltonian(FREE_PENCIL_N, device=dev)
+    B = generators.surrogate_overlap(FREE_PENCIL_N, device=dev)
+    k = FREE_PENCIL_K
+    one, one_wall = _solve_converged(
+        f"eigensolve(surrogate, {k}, B=overlap) [one device]", A, k, B=B,
+        tolerance=SOLVE_TOL)
+    walls = []
+    for tag in ("cold", "warm"):
+        res, wall = _solve_converged(
+            f"eigensolve_sharded(surrogate, {k}, B=overlap) [{tag}]", A, k,
+            B=B, solver=_sharded_solver(mesh), tolerance=SOLVE_TOL)
+        walls.append(wall)
+    X = res.eigenvectors
+    R = A.matmat(X) - B.matmat(X) * res.eigenvalues[None, :]
+    true_res = float(torch.max(torch.linalg.vector_norm(R, dim=0)))
+    same = torch.equal(res.eigenvalues, one.eigenvalues)
+    print(f"  15d sharded matrix-free pencil n={FREE_PENCIL_N}: iterations "
+          f"{res.iterations} (one device {one.iterations}), the one-device "
+          f"eigenvalue bits {same}, true residual {true_res:.3e}; walls "
+          f"cold {walls[0]:.4f} s, warm {walls[1]:.4f} s (one device "
+          f"{one_wall:.4f} s)", flush=True)
+    _check(res.iterations == one.iterations,
+           f"15d: {res.iterations} iterations vs {one.iterations}")
+    _check(same, "15d: not the one-device pencil's eigenvalue bits")
+    _check(true_res <= SOLVE_TOL, f"15d: true residual {true_res:.3e}")
+    _no_launches("15d")
+    solves.append(dict(
+        solve=f"phase 15d sharded (world 1, nccl) matrix-free pencil f64 "
+        f"lowest-{k}", n=FREE_PENCIL_N, iterations=res.iterations,
+        wall_s=walls, one_device_wall_s=one_wall, true_residual=true_res))
+    del A, B, res, one, X, R
+    torch.cuda.empty_cache()
+
+
+def phase_northstar_free_sharded(dev, solves, ns):
+    """Phase 15a: the surrogate north star row-sharded at full size
+    (``examples/northstar.py --mode free --sharded``, a fresh one-rank
+    NCCL group) under 10a's 12 GB budget (width 44): the float32
+    ``--progressive --polish 2`` recipe (cold, warm, profiled) and the
+    plain float64 DPR solve (cold, warm, profiled), through the
+    per-rank callables: 10a's iterations (4; the refined 17), the float64
+    eigenvalues within 1e-12 relative of 10a's, the oracle after the
+    per-rank polish <= 1e-8, no kernel launched. Walls, idle shares and
+    peak memory beside 10a's."""
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch import polish_eigenpairs
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.models import generators
+
+    ten = ns["free"]
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mesh = _one_rank_mesh(f"file://{tmp.name}/rendezvous", dev)
+        args = northstar.parse_args(["--n", str(NS_FREE_N), *NORTHSTAR_ARGV,
+                                     "--sharded", "--polish",
+                                     str(NS_POLISH)])
+        op = northstar.build_operator(args, device=mesh.device)
+        with _env("FDT_CARRY_BUDGET_BYTES", JAX_NS_BUDGET):
+            torch.cuda.empty_cache()
+            width, m_max = _resolved_width(op, args)
+            _check(width == JAX_NS_WIDTH, f"15a: width {width}")
+            run = _northstar_run(f"sharded surrogate n={NS_FREE_N} lowest-20 "
+                                 "progressive [parity width]", op, args,
+                                 profile=True, mesh=mesh)
+        res = run.pop("res")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pol = polish_eigenpairs(op, res, iterations=NS_POLISH, mesh=mesh)
+        torch.cuda.synchronize()
+        polish_s = time.perf_counter() - t0
+        lam = pol.evals.double() + pol.evals_lo.double()
+        oracle = _surrogate_oracle(
+            op, pol.evecs_hi.double() + pol.evecs_lo.double(), lam)
+        print(f"  15a f32: refined iterations {res.iterations} (10a "
+              f"{ten['parity_iterations']}); cold / warm {run['cold_s']:.3f} "
+              f"/ {run['warm_s']:.3f} s (10a {ten['parity']['cold_s']:.3f} / "
+              f"{ten['parity']['warm_s']:.3f}), idle "
+              f"{run['device_idle_share']:.1%} (10a "
+              f"{ten['parity']['device_idle_share']:.1%}), peak "
+              f"{run['peak_mem_gb']:.2f} GB (10a "
+              f"{ten['parity']['peak_mem_gb']:.2f}); per-rank polish "
+              f"({NS_POLISH} iterations) {polish_s:.3f} s, oracle "
+              f"{oracle:.3e}, polished residuals "
+              f"{[f'{float(e):.2e}' for e in pol.errors]}", flush=True)
+        iterations = res.iterations
+        _check(iterations == ten["parity_iterations"],
+               f"15a f32: {iterations} refined iterations vs 10a's "
+               f"{ten['parity_iterations']}")
+        _check(oracle <= SOLVE_TOL, f"15a f32: oracle {oracle:.3e}")
+        del res, pol
+        op64 = generators.surrogate_hamiltonian(NS_FREE_N,
+                                                dtype=torch.float64,
+                                                device=mesh.device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        walls64 = []
+        sharded = _sharded_solver(mesh)
+        with _env("FDT_CARRY_BUDGET_BYTES", JAX_NS_BUDGET):
+            for tag in ("cold", "warm"):
+                res64, wall = _solve_converged(
+                    f"sharded float64 surrogate n={NS_FREE_N} lowest-20 plain "
+                    f"DPR [parity width, {tag}]", op64, 20, solver=sharded,
+                    **F64_NORTHSTAR)
+                walls64.append(wall)
+            peak64 = torch.cuda.max_memory_allocated()
+            busy64 = _device_busy(
+                "sharded float64 surrogate lowest-20 [parity width]",
+                lambda: sharded(op64, 20, **F64_NORTHSTAR))
+        f64 = ten["f64"]
+        rel64 = float(torch.max(torch.abs(res64.eigenvalues
+                                          - f64["eigenvalues"])
+                                / torch.abs(f64["eigenvalues"])))
+        oracle64 = _surrogate_oracle(op64, res64.eigenvectors,
+                                     res64.eigenvalues)
+        print(f"  15a f64: iterations {res64.iterations} (10a "
+              f"{f64['iterations']}), max relative eigenvalue diff from 10a "
+              f"{rel64:.3e} (bits equal "
+              f"{torch.equal(res64.eigenvalues, f64['eigenvalues'])}), "
+              f"oracle {oracle64:.3e}; cold / warm {walls64[0]:.3f} / "
+              f"{walls64[1]:.3f} s (10a {f64['wall_s'][0]:.3f} / "
+              f"{f64['wall_s'][1]:.3f}), idle "
+              f"{busy64['device_idle_share']:.1%} (10a "
+              f"{f64['device_idle_share']:.1%}), peak {peak64 / 1e9:.2f} GB "
+              f"(10a {f64['peak_mem_gb']:.2f})", flush=True)
+        _check(res64.iterations == f64["iterations"],
+               f"15a f64: {res64.iterations} iterations vs "
+               f"{f64['iterations']}")
+        _check(rel64 <= 1e-12, f"15a f64: eigenvalues {rel64:.3e} from 10a's")
+        _check(oracle64 <= SOLVE_TOL, f"15a f64: oracle {oracle64:.3e}")
+        _no_launches("15a")
+        solves.append(dict(
+            solve="phase 15a sharded (world 1, nccl) northstar surrogate f32 "
+            f"lowest-20 progressive + polish {NS_POLISH} [parity width]",
+            n=NS_FREE_N, iterations=iterations,
+            ten_a_iterations=ten["parity_iterations"], polish_s=polish_s,
+            oracle=oracle, ten_a=ten["parity"], **run))
+        solves.append(dict(
+            solve="phase 15a sharded (world 1, nccl) northstar surrogate f64 "
+            "lowest-20 plain DPR [parity width]", n=NS_FREE_N,
+            iterations=res64.iterations, wall_s=walls64,
+            peak_mem_gb=peak64 / 1e9, peak_mem_above_gb=(peak64 - mem0) / 1e9,
+            eig_rel_10a=rel64, oracle=oracle64, **busy64))
+        del op, op64, res64
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
+def phase_northstar_bsr_sharded(dev, solves, ns):
+    """Phase 15b: phase 10b's 10,000,000-row int8 matrix (the same
+    operator, not built again) row-sharded (``examples/northstar.py
+    --mode banded --quantize --sharded --progressive --polish 2``, 10b's
+    width, a fresh one-rank NCCL group): every apply through kernel 7
+    (float32 x) on the ring exchange's x_ext, its launches the counted
+    applies of the solves and the per-rank polish; refined iterations
+    within ±2 of 10b's (the sharded path folds by the tree, 10b by the
+    cascade), the oracle after the polish <= 1e-8, the solve's
+    eigenvalues within 1e-10 relative of 10b's; then one kernel 7 call at
+    the solve's shape (m = 20) against its plain version, within its
+    phase-3 limit."""
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch import polish_eigenpairs
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import HaloQuantizedOperator
+
+    ten = ns.pop("bsr")
+    q = ten["q"]
+    k7 = kernels.banded_q_ext_bsr_spmm
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mesh = _one_rank_mesh(f"file://{tmp.name}/rendezvous", dev)
+        args = northstar.parse_args(
+            ["--mode", "banded", "--quantize", "--n", str(NS_BSR_N),
+             *NORTHSTAR_ARGV, "--sharded", "--polish", str(NS_POLISH),
+             "--max-dim-sub", str(ten["width"])])
+        before, before64 = k7.launches, k7.f64_launches
+        with _counting_applies(HaloQuantizedOperator) as applies:
+            run = _northstar_run(f"sharded int8 banded n={NS_BSR_N} "
+                                 "lowest-20 progressive", q, args,
+                                 profile=True, mesh=mesh)
+            res = run.pop("res")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pol = polish_eigenpairs(q, res, iterations=NS_POLISH, mesh=mesh)
+            torch.cuda.synchronize()
+            polish_s = time.perf_counter() - t0
+        launches = k7.launches - before
+        f64_launches = k7.f64_launches - before64
+        lam_solve = res.eigenvalues.double() + res.eigenvalues_lo.double()
+        rel = float(torch.max(torch.abs(lam_solve - ten["lam"])
+                              / torch.abs(ten["lam"])))
+        lam = pol.evals.double() + pol.evals_lo.double()
+        oracle = _int8_oracle_residual(
+            q, pol.evecs_hi.double() + pol.evecs_lo.double(), lam)
+        print(f"  15b: refined iterations {res.iterations} (10b "
+              f"{ten['iterations']}), stalled={res.stalled}; kernel 7 "
+              f"launches {launches} for {applies[0]} counted applies (three "
+              f"runs and the polish; float64-x {f64_launches}); eigenvalues "
+              f"{rel:.3e} relative from 10b's; per-rank polish "
+              f"({NS_POLISH} iterations) {polish_s:.3f} s, oracle "
+              f"{oracle:.3e}; cold / warm {run['cold_s']:.3f} / "
+              f"{run['warm_s']:.3f} s (10b {ten['run']['cold_s']:.3f} / "
+              f"{ten['run']['warm_s']:.3f}), idle "
+              f"{run['device_idle_share']:.1%} (10b "
+              f"{ten['run']['device_idle_share']:.1%}), peak "
+              f"{run['peak_mem_gb']:.2f} GB (10b "
+              f"{ten['run']['peak_mem_gb']:.2f})", flush=True)
+        _check(launches == applies[0] > 0 and f64_launches == 0,
+               f"15b: {launches} kernel 7 launches ({f64_launches} float64-x) "
+               f"for {applies[0]} applies")
+        _check(abs(res.iterations - ten["iterations"]) <= 2,
+               f"15b: {res.iterations} iterations vs 10b's "
+               f"{ten['iterations']}")
+        _check(rel <= 1e-10, f"15b: eigenvalues {rel:.3e} from 10b's")
+        _check(oracle <= SOLVE_TOL, f"15b: oracle {oracle:.3e}")
+        solves.append(dict(
+            solve="phase 15b sharded (world 1, nccl) northstar int8 banded f32 "
+            f"lowest-20 progressive + polish {NS_POLISH}", n=NS_BSR_N,
+            iterations=res.iterations, ten_b_iterations=ten["iterations"],
+            stalled=res.stalled, launches=launches, applies=applies[0],
+            eig_rel_10b=rel, polish_s=polish_s, oracle_residual_rel=oracle,
+            ten_b=ten["run"], **run))
+        del res, pol
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    # Kept for the kernel 7 check at this size (``kernel7_at_10m``), which
+    # runs outside the counted path.
+    ns["q"] = q
+    del q, ten
+    torch.cuda.empty_cache()
+
+
+def kernel7_at_10m(q, dev, solves) -> None:
+    """One kernel 7 call at phase 15b's shape (10b's operator, float32 x,
+    m = 20, the x_ext the ring exchange builds at world size 1) against
+    its plain version, within its phase-3 limit; outside every counted
+    path, as phase 3's comparisons are."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import (HaloQuantizedOperator,
+                                                     RowMesh)
+
+    # World size 1: the exchange calls no collective, so no group is needed.
+    mesh = RowMesh(group=None, size=1, rank=0, device=dev)
+    h = HaloQuantizedOperator.from_quantized(q, mesh)
+    x = torch.randn((q.shape[0], 20), dtype=torch.float32, device=dev)
+    prev, nxt, _ = mesh.ring_exchange(x, q.bandwidth * q.block_size)
+    x_ext = torch.cat([prev, x, nxt])
+    del x
+    lead = (h.qblocks, h.scale_rows, h.diag)
+    y = kernels.banded_q_ext_bsr_spmm(*lead, x_ext, bandwidth=q.bandwidth)
+    y_p = kernels.banded_q_ext_bsr_spmm_plain(*lead, x_ext,
+                                              bandwidth=q.bandwidth)
+    err = float(torch.max(torch.abs(y.double() - y_p.double())))
+    rel = err / float(torch.max(torch.abs(y_p.double())))
+    print(f"  15b kernel 7 at n={q.shape[0]} m=20 against its plain version: "
+          f"max abs err {err:.3e}, relative {rel:.3e} (limit "
+          f"{TOL['float32']})", flush=True)
+    _check(rel <= TOL["float32"], f"15b: kernel 7 rel err {rel:.3e}")
+    solves.append(dict(solve="phase 15b kernel 7 at n=10,000,000 m=20 "
+                       "against its plain version", max_abs_err=err,
+                       rel_err=rel))
+    del h, x_ext, y, y_p
+    torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def _counting_collectives(cls):
     """Count the calls of the collectives of ``cls`` (a RowMesh) by name
@@ -5478,6 +5912,13 @@ def main() -> int:
         ("[14c] sharded checkpoint, world size 1 (NCCL), kernel 6",
          lambda: phase_sharded_checkpoint(A, dev, rendezvous, solves, refs),
          ("banded_ext_bsr_spmm",)),
+        ("[15c] sharded orthonormalization='qr' (TSQR), world size 1 "
+         "(NCCL), kernel 6 beside kernel 1",
+         lambda: phase_sharded_qr(A, dev, rendezvous, solves),
+         ("banded_ext_bsr_spmm", "banded_bsr_spmm")),
+        (f"[15d] matrix-free pencil, n={FREE_PENCIL_N}, row-sharded, world "
+         "size 1 (NCCL)", lambda: phase_free_pencil(dev, rendezvous, solves),
+         ()),
     ]
     elapsed = {}
 
@@ -5534,16 +5975,28 @@ def main() -> int:
     del A, A32, q, refs
     gc.collect()
     torch.cuda.empty_cache()
+    # 10a and 10b keep what 15a and 15b run beside (10b its operator).
+    ns = {}
     for title, run, expected in [
             ("[10a] matrix-free north star, n=10,000,384, lowest-20",
-             lambda: phase_northstar_free(dev, solves), ()),
+             lambda: phase_northstar_free(dev, solves, ns), ()),
+            ("[15a] matrix-free north star row-sharded, world size 1 "
+             "(NCCL), --polish 2",
+             lambda: phase_northstar_free_sharded(dev, solves, ns), ()),
             ("[10b] sparse north star, int8, n=10,000,000, lowest-20",
-             lambda: phase_northstar_bsr(dev, solves),
+             lambda: phase_northstar_bsr(dev, solves, ns),
              ("banded_q_bsr_spmm",)),
+            ("[15b] sparse north star row-sharded, world size 1 (NCCL), "
+             "--polish 2, kernel 7",
+             lambda: phase_northstar_bsr_sharded(dev, solves, ns),
+             ("banded_q_ext_bsr_spmm",)),
             ("[10c] entry points: the CLI's solve, northstar --mode banded",
              lambda: phase_entry_points(dev, solves),
              ("banded_bsr_spmm",))]:
         run_path(title, run, expected)
+        if "q" in ns:
+            kernel7_at_10m(ns.pop("q"), dev, solves)
+    ns.clear()
 
     # Phase 12: the ELL family at 1M rows, each sub-phase counted from 0.
     t12 = time.perf_counter()
@@ -5687,12 +6140,14 @@ def main() -> int:
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
     total_s = time.perf_counter() - t_run
-    phase14_s = sum(t for title, t in elapsed.items()
-                    if title.startswith("[14"))
+    phase14_s, phase15_s = (sum(t for title, t in elapsed.items()
+                                if title.startswith(f"[{p}"))
+                            for p in (14, 15))
     print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
           f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%), "
           f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%), "
-          f"phase 14 {phase14_s:.1f} s ({100 * phase14_s / total_s:.1f}%)",
+          f"phase 14 {phase14_s:.1f} s ({100 * phase14_s / total_s:.1f}%), "
+          f"phase 15 {phase15_s:.1f} s ({100 * phase15_s / total_s:.1f}%)",
           flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

@@ -3,11 +3,8 @@
 
 The options, their defaults and their validation are the JAX package's,
 so the two APIs match; see ``fortran_davidson_tpu.config.DavidsonOptions``
-for what each knob does. The row-sharded solve refuses the one option
-whose machinery it lacks (``orthonormalization="qr"``) with
-:class:`InvalidOptionsError`, naming the option, when the solve is
-resolved (:func:`resolve_options`): it never silently falls back to
-something else.
+for what each knob does. Every option runs on the row-sharded solve
+too (``orthonormalization="qr"`` as a TSQR, ``core.orthogonal.tsqr``).
 
 ``carry_layout``: the port stores the tall carries flat, always.
 ``"chunked"`` (and ``"auto"``, which picks it for refined solves in the
@@ -288,10 +285,6 @@ def resolve_options(opts: DavidsonOptions, lowest: int, n: int,
             "Chebyshev-filtered restarts (cheb_degree >= 2 or 'auto') "
             "require a standard problem: the filter is a polynomial in "
             "A alone")
-    require(not (sharded and opts.orthonormalization == "qr"),
-            InvalidOptionsError,
-            "orthonormalization='qr' is not ported to the sharded solve "
-            "(a Householder QR of row-sharded blocks); use 'cholqr2'")
     require(1 <= lowest, InvalidOptionsError, "lowest must be >= 1")
     require(lowest <= n, InvalidOptionsError,
             f"lowest={lowest} exceeds matrix dimension {n}")

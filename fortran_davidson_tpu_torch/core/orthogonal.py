@@ -105,8 +105,8 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         with (default ``b``). The solver passes the JAX engine's padded
         width when it hands over a narrower block, so the threshold, and
         with it which columns survive, is the JAX package's.
-      rows: the row-reduction hook (``core/rows.py``); the ``"qr"`` method
-        is single-device only.
+      rows: the row-reduction hook (``core/rows.py``); in a row-sharded
+        solve the ``"qr"`` method is the TSQR of :func:`tsqr`.
       precise: compensated Grams, the survivor floor 256·eps instead of
         sqrt(eps), and SVQB's noise floor: a surviving column carries
         rounding noise at ~eps·sqrt(n) relative, so a Gram eigenvalue
@@ -147,17 +147,40 @@ def orthonormalize_block(V, block, mask, n_reorth: int = 2,
         order = torch.argsort((~alive).to(torch.int8), stable=True)
         block = block[:, order]
         mask = mask[order]
-        q, _ = torch.linalg.qr(block)
+        q, _ = tsqr(block, rows)
         q = q * mask[None, :]
         # Householder QR completes zero columns with arbitrary directions
         # that may lie in span(V): sweep once more and renormalize.
-        q = project_out(V, q)
-        norms = torch.linalg.vector_norm(q, dim=0)
+        q = project_out(V, q, rows)
+        norms = rows.norms(q)
         inv = torch.where(norms > 0, 1.0 / torch.where(norms > 0, norms, 1.0),
                           0.0)
         return q * inv[None, :], (norms > 0.5).to(dt)
     return svqb(block, mask, rank_rtol=rank_rtol, return_alive=True,
                 rank_width=rank_width, rows=rows, precise=precise)
+
+
+def tsqr(X, rows: Rows = LOCAL):
+    """Householder QR of a tall block whose rows are spread over the ranks
+    of ``rows`` (TSQR, Demmel et al. 2012): ``(Q, R)`` with ``Q`` the
+    rank's rows of the orthonormal factor and ``R`` the same (w, w)
+    triangle on every rank.
+
+    Each rank factors its own (n_local, w) rows, X_r = Q_r R_r; the ranks'
+    R_r, stacked in rank order (:meth:`Rows.gather`), are factored again,
+    [R_0; R_1; ...] = Q' R, by every rank on the same bits; the rank's Q is
+    Q_r times its (w, w) slice of Q'. On one rank the second stage is
+    skipped, so the result is ``torch.linalg.qr``'s bits. Column signs
+    may differ from a Householder QR of the gathered block (each stage
+    picks its own reflector signs); the span, and with it the Ritz
+    values, do not.
+    """
+    Q1, R1 = torch.linalg.qr(X)
+    if rows.size == 1:
+        return Q1, R1
+    Q2, R = torch.linalg.qr(rows.gather(R1))
+    r = R1.shape[0]
+    return Q1 @ Q2[rows.rank * r:(rows.rank + 1) * r], R
 
 
 def cholqr_once(X, unit_diag=None, jitter: float = 0.0,
@@ -227,9 +250,10 @@ def thin_qr_collapse(X, method: str = "cholqr2", rows: Rows = LOCAL,
                      precise: bool = False):
     """Thin QR of the collapsed Ritz block, returned as (Q, R) so the
     cached A@V / B@V follow by a triangular solve with no operator
-    application (see ``fortran_davidson_tpu.core.orthogonal``)."""
+    application (see ``fortran_davidson_tpu.core.orthogonal``); in a
+    row-sharded solve ``method="qr"`` is the TSQR of :func:`tsqr`."""
     if method == "qr":
-        return torch.linalg.qr(X)
+        return tsqr(X, rows)
     return cholqr2(X, rows=rows, precise=precise)
 
 

@@ -11,9 +11,11 @@ here they are explicit: the core modules route each one through a
 :class:`Rows` hook. :data:`LOCAL` is the single-device hook, whose sums
 are the identity and whose norms are the single-device code's own, so the
 single-device solve is unchanged. ``parallel.sharded.RowShardConstraint``
-sums with ``all_reduce(SUM)`` over the mesh's process group, and folds
+sums with ``all_reduce(SUM)`` over the mesh's process group, folds
 the double-single partials of the refined path (:meth:`Rows.sum_ds`) in
-rank order.
+rank order, and gathers the ranks' rows (:meth:`Rows.gather`) for the
+TSQR's second stage and for per-rank matrix-free callables that read
+rows other than their own.
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ class Rows:
         """The double-single sum over all rows of a ``(hi, lo)`` partial
         over the local rows (no final renormalisation)."""
         return hi, lo
+
+    def gather(self, t):
+        """Every rank's ``t`` (same shape on each) stacked along the
+        leading axis, in rank order: on one device, ``t`` itself."""
+        return t
 
     def barrier(self) -> None:
         """Wait for every rank (nothing to wait for on one device)."""

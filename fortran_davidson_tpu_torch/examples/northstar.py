@@ -16,9 +16,9 @@ flag):
 - ``--sharded``: row-shard the solve over the ranks of the
   ``torch.distributed`` group that ``parallel.multihost.initialize()``
   starts (one process a GPU, ``torchrun``); ``--progressive`` and
-  ``--refined`` run the sharded refined path. The matrix-free operator
-  has no sharding rule and ``--polish`` no per-rank form yet: both raise
-  by name (ROADMAP item 19).
+  ``--refined`` run the sharded refined path, the surrogate through the
+  matrix-free rule (its callables are per-rank), and ``--polish`` polishes
+  each rank's rows (``polish_eigenpairs(..., mesh=mesh)``).
 
 The 10M-row, 1e-8 recipe of the JAX package (its default basis width
 resolves from a device-memory budget, ``config._carry_budget_bytes``)::
@@ -96,10 +96,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--platform", choices=["cpu", "cuda"],
                         help="device (default: the GPU)")
     args = parser.parse_args(argv)
-    if args.sharded and args.polish:
-        parser.error("--polish is not sharded: polish_eigenpairs takes the "
-                     "global vectors, and a sharded solve returns each "
-                     "rank's rows (ROADMAP item 19)")
     if args.progressive:
         args.refined = True
         args.final_polish = max(args.final_polish, 3)
@@ -194,7 +190,7 @@ def main(argv=None) -> int:
     res, _, _ = solve_timed(op, args, mesh)
     if args.polish:
         t0 = time.perf_counter()
-        pol = polish_eigenpairs(op, res, iterations=args.polish)
+        pol = polish_eigenpairs(op, res, iterations=args.polish, mesh=mesh)
         errs = [float(v) for v in pol.errors]
         print(f"polish ({args.polish} iters): "
               f"{time.perf_counter() - t0:.2f} s")

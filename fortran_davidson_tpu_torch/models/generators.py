@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from fortran_davidson_tpu_torch.core.rows import LOCAL
 from fortran_davidson_tpu_torch.ops.operators import MatrixFreeOperator
 from fortran_davidson_tpu_torch.utils import ds as dsm
 from fortran_davidson_tpu_torch.utils.dtypes import (canonical_dtype,
@@ -62,16 +63,18 @@ def _rank2_trig_factors(n: int, dtype, device=None):
     return torch.cos(t), torch.sin(t)
 
 
-def low_rank_plus_diag_apply(X, diag, factors, weights):
+def low_rank_plus_diag_apply(X, diag, factors, weights, rows=LOCAL):
     """Apply diag(d) + sum_r w_r u_r u_r^T (diagonal of the low-rank part
-    removed, so ``diag`` is the exact operator diagonal)."""
+    removed, so ``diag`` is the exact operator diagonal). Per-rank: the
+    skinny gram ``Uᵀ X`` is summed over the ranks by ``rows.sum``."""
     U = factors  # (n, r)
-    low = (U * weights[None, :]) @ (U.T @ X)
+    low = (U * weights[None, :]) @ rows.sum(U.T @ X)
     corr = torch.sum((U * U) * weights[None, :], dim=1)
     return diag[:, None] * X + low - corr[:, None] * X
 
 
-def low_rank_offdiag_apply_ds(x_hi, x_lo, diag, factors, weights):
+def low_rank_offdiag_apply_ds(x_hi, x_lo, diag, factors, weights,
+                              rows=LOCAL):
     """Double-single off-diagonal apply: ``sum_r w_r u_r u_rᵀ`` minus its
     own diagonal, on ``x = x_hi + x_lo``, returned as ``(y_hi, y_lo)``.
 
@@ -81,15 +84,17 @@ def low_rank_offdiag_apply_ds(x_hi, x_lo, diag, factors, weights):
     column and every product and add an error-free transform, which
     pushes the floor to ~eps². ``diag`` (the off-diagonal operator's zero
     diagonal) keeps the captured signature of the float32 apply. The
-    pass count grows with the rank r (the surrogates' r <= 2).
+    pass count grows with the rank r (the surrogates' r <= 2). Per-rank:
+    each Dot2 pass folds the ranks' partials exactly (``rows.sum_ds``),
+    and the low word's ``Uᵀ x_lo`` is summed by ``rows.sum``.
     """
     U = factors
     g_rows = [dsm.dot_cols_ds(torch.broadcast_to(U[:, r:r + 1], x_hi.shape),
-                              x_hi)
+                              x_hi, rows)
               for r in range(U.shape[1])]
     g = dsm.DS(torch.stack([gr.hi for gr in g_rows]),
                torch.stack([gr.lo for gr in g_rows]))
-    g = dsm.ds_add(g, dsm.ds(U.T @ x_lo))
+    g = dsm.ds_add(g, dsm.ds(rows.sum(U.T @ x_lo)))
     p, e = dsm.two_prod(weights[:, None], g.hi)
     h_hi, h_lo = p, e + weights[:, None] * g.lo
 
@@ -124,8 +129,9 @@ def surrogate_hamiltonian(n: int, coupling: float = 1e-4, dtype=torch.float64,
     U = torch.stack([c, s], dim=1)
     w = torch.tensor([coupling, -coupling], dtype=dt, device=device)
 
-    def offdiag_apply(X, diag, U, w):
-        return low_rank_plus_diag_apply(X, torch.zeros_like(diag), U, w)
+    def offdiag_apply(X, diag, U, w, rows=LOCAL):
+        return low_rank_plus_diag_apply(X, torch.zeros_like(diag), U, w,
+                                        rows)
 
     return MatrixFreeOperator(low_rank_plus_diag_apply, n, dtype=dt, diag=diag,
                               captured=(diag, U, w), offdiag_fn=offdiag_apply,
@@ -144,8 +150,9 @@ def surrogate_overlap(n: int, coupling: float = 1e-5, dtype=torch.float64,
     U = s[:, None]
     w = torch.tensor([coupling], dtype=dt, device=device)
 
-    def offdiag_apply(X, diag, U, w):
-        return low_rank_plus_diag_apply(X, torch.zeros_like(diag), U, w)
+    def offdiag_apply(X, diag, U, w, rows=LOCAL):
+        return low_rank_plus_diag_apply(X, torch.zeros_like(diag), U, w,
+                                        rows)
 
     return MatrixFreeOperator(low_rank_plus_diag_apply, n, dtype=dt, diag=diag,
                               captured=(diag, U, w), offdiag_fn=offdiag_apply,

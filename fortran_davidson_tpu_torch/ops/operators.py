@@ -14,10 +14,12 @@ its device, numpy and Python values go to ``device`` (default: the GPU).
 from __future__ import annotations
 
 import abc
+import inspect
 from typing import Callable, Optional
 
 import torch
 
+from fortran_davidson_tpu_torch.core.rows import LOCAL
 from fortran_davidson_tpu_torch.utils.dtypes import (as_device_tensor,
                                                      as_torch_dtype,
                                                      default_device)
@@ -174,6 +176,22 @@ class DiagonalOperator(LinearOperator):
         return torch.diag(self.diag)
 
 
+def takes_rows(fn: Optional[Callable]) -> bool:
+    """Whether a matrix-free callable is per-rank: it takes a ``rows``
+    keyword (the ``core.rows.Rows`` hook)."""
+    if fn is None:
+        return False
+    try:
+        return "rows" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def call_with_rows(fn: Callable, args, rows):
+    """``fn(*args, rows=rows)`` for a per-rank callable, else ``fn(*args)``."""
+    return fn(*args, rows=rows) if takes_rows(fn) else fn(*args)
+
+
 class MatrixFreeOperator(LinearOperator):
     """Operator defined by a block callable ``fn(X: (n, m), *captured)``.
 
@@ -186,6 +204,18 @@ class MatrixFreeOperator(LinearOperator):
     is an optional double-single apply of this operator
     (:meth:`LinearOperator.matmat_ds`); ``offdiag_ds_fn`` becomes the
     ``ds_fn`` of the :meth:`offdiag` operator.
+
+    Per-rank callables: a callable that takes a ``rows`` keyword (a
+    ``core.rows.Rows`` hook) declares that it computes the rows it is
+    handed from those rows alone, contracting over rows only through the
+    hook (``rows.sum``, ``rows.sum_ds``, ``rows.gather``, ``rows.offset``).
+    Here, on one device, it is called with ``rows=LOCAL`` and every row;
+    ``parallel.shard_operator`` runs it on each rank's rows of X and of
+    every captured tensor whose leading dimension is n, with the mesh's
+    hook. A callable without the keyword is called as it is here and has
+    no sharding rule: handed only its rank's rows, a global-view callable
+    that contracts over all of them would return a wrong answer with no
+    signal, so ``shard_operator`` refuses it.
     """
 
     def __init__(self, fn: Callable, n: int, dtype=torch.float64,
@@ -220,7 +250,7 @@ class MatrixFreeOperator(LinearOperator):
         return self._device
 
     def matmat(self, block):
-        return self.fn(block, *self.captured)
+        return call_with_rows(self.fn, (block, *self.captured), LOCAL)
 
     def diagonal(self):
         if self.diag is not None:
@@ -230,7 +260,8 @@ class MatrixFreeOperator(LinearOperator):
     def matmat_ds(self, x_hi, x_lo):
         if self.ds_fn is None:
             return None
-        return self.ds_fn(x_hi, x_lo, *self.captured)
+        return call_with_rows(self.ds_fn, (x_hi, x_lo, *self.captured),
+                              LOCAL)
 
     def offdiag(self):
         if self.offdiag_fn is None:
@@ -244,23 +275,32 @@ class MatrixFreeOperator(LinearOperator):
 
 
 def probe_diagonal(matmat: Callable, n: int, dtype, device=None,
-                   block: int = 128):
+                   block: int = 128, rows: Optional[slice] = None):
     """Diagonal of an implicit operator from blocks of canonical unit
     vectors: ``ceil(n / block)`` block applications (the reference takes
     n single-vector applications, ``src/davidson.f90:516-521``). The last
-    block is shifted to end at row n, as in the JAX package."""
+    block is shifted to end at row n, as in the JAX package.
+
+    ``rows``: the global rows that ``matmat`` takes and returns (a
+    rank's slice in a row-sharded solve, default all n); the result is
+    their diagonal entries. Every caller issues the same ``ceil(n /
+    block)`` applications, so the ranks' collectives stay in lockstep."""
     dtype = as_torch_dtype(dtype)
     device = default_device(device)
+    rows = slice(0, n) if rows is None else rows
+    n_local = rows.stop - rows.start
     block = min(block, n)
     nblocks = -(-n // block)
-    eye = torch.eye(block, dtype=dtype, device=device)
-    diag = torch.zeros((n,), dtype=dtype, device=device)
+    diag = torch.zeros((n_local,), dtype=dtype, device=device)
     for i in range(nblocks):
         start = min(i * block, n - block)
-        probes = torch.zeros((n, block), dtype=dtype, device=device)
-        probes[start:start + block] = eye
+        # The probe's unit rows that fall in ``rows``, as local indices.
+        lo, hi = max(start, rows.start), min(start + block, rows.stop)
+        at = torch.arange(lo, max(hi, lo), device=device)
+        probes = torch.zeros((n_local, block), dtype=dtype, device=device)
+        probes[at - rows.start, at - start] = 1
         out = matmat(probes)
-        diag[start:start + block] = torch.diagonal(out[start:start + block])
+        diag[at - rows.start] = out[at - rows.start, at - start]
     return diag
 
 
@@ -274,7 +314,9 @@ def from_element_fn(fn: Callable, n: int, dtype=torch.float64,
     time and contracted against the input block. ``fn`` takes broadcasting
     int64 tensors ``i`` (rows, 1) and ``j`` (1, n) and returns the
     (rows, n) entries (compute them in the operator's dtype: torch
-    promotes ``1.0 + i`` to float32).
+    promotes ``1.0 + i`` to float32). The apply is per-rank: it builds
+    the rows it is handed (from ``rows.offset``) against every rank's X
+    (``rows.gather``), so the operator shards.
     """
     dt = as_torch_dtype(dtype)
     device = default_device(device)
@@ -282,13 +324,17 @@ def from_element_fn(fn: Callable, n: int, dtype=torch.float64,
     if diag is None:
         diag = fn(cols, cols).to(dt)
 
-    def apply(X, diag):
-        out = torch.empty((n, X.shape[1]), dtype=X.dtype, device=X.device)
-        for start in range(0, n, row_block):
-            rows = torch.arange(start, min(start + row_block, n),
-                                device=X.device)[:, None]
-            block = fn(rows, cols[None, :]).to(X.dtype)
-            out[start:start + rows.shape[0]] = block @ X
+    def apply(X, diag, rows=LOCAL):
+        Xg = rows.gather(X)
+        n_local = X.shape[0]
+        out = torch.empty((n_local, X.shape[1]), dtype=X.dtype,
+                          device=X.device)
+        for start in range(0, n_local, row_block):
+            stop = min(start + row_block, n_local)
+            i = torch.arange(rows.offset + start, rows.offset + stop,
+                             device=X.device)[:, None]
+            block = fn(i, cols[None, :]).to(X.dtype)
+            out[start:stop] = block @ Xg
         return out
 
     return MatrixFreeOperator(apply, n, dtype=dt, diag=diag, captured=(diag,),

@@ -7,14 +7,11 @@ rows at most ``bandwidth`` block rows away, so an apply needs, beyond
 the rank's own rows, only the last ``bandwidth * bs`` rows of its ring
 predecessor and the first of its successor. JAX moves them with two
 ``ppermute``s. At the ring's two ends the wrapped rows meet the zero
-blocks of out-of-range slots. Two exchanges move them here:
-
-- :func:`halo_slabs` (``"xla"``, ``"pallas"`` and the int8 operator):
-  one ``all_gather`` of each rank's 2·bw·bs boundary rows, after which a
-  rank takes its neighbours' slabs. Traffic O(world · bw · bs · m).
-- :meth:`RowMesh.ring_exchange` (``"pallas-remote"``): ring-neighbour
-  point-to-point, O(bw · bs · m) per rank at any world size; at world
-  size 1, where a send to oneself is refused, the rank's own rows.
+blocks of out-of-range slots. Every backend moves them here with
+:meth:`RowMesh.ring_exchange`: ring-neighbour point-to-point, O(bw · bs
+· m) per rank at any world size, waited on before the rows that read
+them; at world size 1, where a send to oneself is refused, the halos are
+views of the rank's own rows.
 
 Backends, as in JAX:
 
@@ -82,18 +79,20 @@ def block_diagonal(blocks, block_cols, row0: int):
     return torch.diagonal(diag_blocks, dim1=1, dim2=2).reshape(-1)
 
 
-def halo_slabs(mesh: RowMesh, x, halo: int):
+def _exchange(mesh: RowMesh, x, halo: int):
     """``(from_prev, from_next)``: the last ``halo`` rows of the ring
-    predecessor's ``x`` and the first ``halo`` rows of its successor's."""
-    edges = mesh.all_gather_rows(torch.cat([x[:halo], x[-halo:]]))
-    edges = edges.reshape(mesh.size, 2 * halo, *x.shape[1:])
-    return (edges[(mesh.rank - 1) % mesh.size, halo:],
-            edges[(mesh.rank + 1) % mesh.size, :halo])
+    predecessor's ``x`` and the first ``halo`` rows of its successor's,
+    by :meth:`RowMesh.ring_exchange`, its works waited on (on NCCL the
+    stream waits, not the host)."""
+    from_prev, from_next, works = mesh.ring_exchange(x, halo)
+    for work in works:
+        work.wait()
+    return from_prev, from_next
 
 
-def extend(mesh: RowMesh, x, halo: int):
+def _extended(mesh: RowMesh, x, halo: int):
     """The halo-extended rows ``[from_prev; x; from_next]``."""
-    from_prev, from_next = halo_slabs(mesh, x, halo)
+    from_prev, from_next = _exchange(mesh, x, halo)
     return torch.cat([from_prev, x, from_next])
 
 
@@ -194,12 +193,13 @@ class HaloBSROperator(LinearOperator):
                    else block.dtype)
         if self.backend == "pallas-remote":
             return self._matmat_remote(block, compute)
-        from_prev, from_next = halo_slabs(self.mesh, block, bw * bs)
         if self.backend == "pallas":
-            x_ext = torch.cat([from_prev, block, from_next]).to(compute)
+            # Cast before the send, so the halos travel in the compute type.
+            x_ext = _extended(self.mesh, block.to(compute), bw * bs)
             return kernels.banded_ext_bsr_spmm(
                 self.blocks.to(compute), x_ext, bandwidth=bw,
                 out_dtype=block.dtype)
+        from_prev, from_next = _exchange(self.mesh, block, bw * bs)
         # Interior contraction over the block columns this rank owns,
         # then the halo contraction over the 2*bw received blocks
         # (fortran_davidson_tpu/parallel/halo.py:139-172).
@@ -296,7 +296,7 @@ class HaloQuantizedOperator(LinearOperator):
 
     def matmat(self, block):
         bw, bs = self.bandwidth, self.block_size
-        x_ext = extend(self.mesh, block, bw * bs)
+        x_ext = _extended(self.mesh, block, bw * bs)
         apply = (kernels.banded_q_ext_bsr_spmm if self.backend == "pallas"
                  else kernels.banded_q_ext_bsr_spmm_plain)
         return apply(self.qblocks, self.scale_rows, self.diag, x_ext,

@@ -21,6 +21,12 @@ solve on its contiguous slice of the rows.
   tree and the ranks' (width) double-single partials in rank order by an
   exact cascade (:meth:`RowShardConstraint.sum_ds`), the JAX package's
   shard-local order (``fortran_davidson_tpu/utils/ds.py:286-330``).
+- ``orthonormalization="qr"`` is a TSQR (``core.orthogonal.tsqr``): each
+  rank's Householder QR, then one QR of the ranks' gathered R factors.
+- The matrix-free rule (:class:`ShardedMatrixFreeOperator`): where GSPMD
+  splits a global-view callable in the JAX package, the port takes
+  per-rank callables, which declare themselves by a ``rows`` keyword and
+  sum over rows through it; a callable without it raises.
 
 One host read per iteration, as in the single-device loop.
 """
@@ -40,7 +46,10 @@ from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.ops.operators import (DenseOperator,
                                                       DiagonalOperator,
                                                       LinearOperator,
-                                                      as_operator)
+                                                      MatrixFreeOperator,
+                                                      as_operator,
+                                                      probe_diagonal,
+                                                      takes_rows)
 from fortran_davidson_tpu_torch.ops.sparse import (BSROperator, ELLOperator,
                                                   HybridBandedOperator,
                                                   QuantizedBandedOperator,
@@ -86,10 +95,17 @@ class RowShardConstraint(Rows):
         parts = self.mesh.all_gather_rows(torch.stack([hi, lo])[None])
         return cascade_partials(parts[:, 0], parts[:, 1])
 
+    def gather(self, t):
+        return self.mesh.all_gather_rows(t)
+
     def barrier(self) -> None:
         self.mesh.barrier()
 
     def norms(self, X):
+        # One rank holds every row: the single-device norm, so that a
+        # world-size-1 solve keeps the single-device bits.
+        if self.size == 1:
+            return super().norms(X)
         return torch.sqrt(self.sum(torch.sum(X * X, dim=0)))
 
     def col_mean(self, X):
@@ -309,6 +325,87 @@ class ShardedHybridOperator(_RowSharded):
         return out
 
 
+class ShardedMatrixFreeOperator(_RowSharded):
+    """The rank's rows of a matrix-free operator whose callables are
+    per-rank (they take a ``rows`` keyword, see
+    :class:`~fortran_davidson_tpu_torch.ops.operators.MatrixFreeOperator`).
+
+    The JAX package shards every captured array whose leading dimension
+    is n and lets GSPMD split the global-view callable and insert the row
+    sums (``fortran_davidson_tpu/parallel/sharded.py:145-151``). PyTorch
+    has no GSPMD, so here each callable runs on the rank's rows: this
+    operator keeps the rank's rows of every captured tensor whose leading
+    dimension is n, and of ``diag``, and calls ``fn(X_local,
+    *captured_local, rows=hook)``, the hook a :class:`RowShardConstraint`
+    through which the callable sums (and gathers) over the ranks.
+    ``offdiag_fn``, ``ds_fn`` and ``offdiag_ds_fn`` are called alike.
+    """
+
+    def __init__(self, op: MatrixFreeOperator, mesh: RowMesh):
+        n = op.shape[0]
+        super().__init__(mesh, n)
+        self.rows = mesh.rows(n)
+
+        def local(t):
+            if isinstance(t, torch.Tensor):
+                return local_rows(t, self.rows, mesh.device) if (
+                    t.ndim >= 1 and t.shape[0] == n) else t.to(mesh.device)
+            return t
+
+        self.fn, self.offdiag_fn = op.fn, op.offdiag_fn
+        self.ds_fn, self.offdiag_ds_fn = op.ds_fn, op.offdiag_ds_fn
+        self.captured = tuple(local(c) for c in op.captured)
+        self.diag = None if op.diag is None else local(op.diag)
+        self._dtype = op.dtype
+        self.hook = RowShardConstraint(mesh, n)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def matmat(self, block):
+        return self.fn(block, *self.captured, rows=self.hook)
+
+    def diagonal(self):
+        if self.diag is not None:
+            return self.diag
+        # Probed through the per-rank apply: every rank issues the same
+        # probes, so the callable's collectives stay in lockstep.
+        return probe_diagonal(self.matmat, self._n, self._dtype,
+                              self.mesh.device, rows=self.rows)
+
+    def matmat_ds(self, x_hi, x_lo):
+        if self.ds_fn is None:
+            return None
+        return self.ds_fn(x_hi, x_lo, *self.captured, rows=self.hook)
+
+    def offdiag(self) -> LinearOperator:
+        if self.offdiag_fn is None:
+            return super().offdiag()
+        out = object.__new__(ShardedMatrixFreeOperator)
+        out.__dict__.update(
+            self.__dict__, fn=self.offdiag_fn, offdiag_fn=None,
+            ds_fn=self.offdiag_ds_fn, offdiag_ds_fn=None,
+            diag=torch.zeros((self.rows.stop - self.rows.start,),
+                             dtype=self._dtype, device=self.mesh.device))
+        return out
+
+
+def _shard_matrix_free(op: MatrixFreeOperator,
+                       mesh: RowMesh) -> ShardedMatrixFreeOperator:
+    """The per-rank rule, or ``OperatorError`` naming the callable that
+    does not take ``rows``."""
+    for name in ("fn", "offdiag_fn", "ds_fn", "offdiag_ds_fn"):
+        fn = getattr(op, name)
+        require(fn is None or takes_rows(fn), OperatorError,
+                f"shard_operator: no sharding rule for MatrixFreeOperator "
+                f"whose {name} takes no 'rows' keyword: a callable handed "
+                "only its rank's rows must declare that it is per-rank "
+                "(sum over rows through rows.sum, see MatrixFreeOperator); "
+                "refusing to run eigensolve_sharded with it")
+    return ShardedMatrixFreeOperator(op, mesh)
+
+
 def shard_operator(op: LinearOperator, mesh: RowMesh,
                    axis: str = ROWS_AXIS) -> LinearOperator:
     """The mesh rank's rows of a (global) operator.
@@ -323,14 +420,20 @@ def shard_operator(op: LinearOperator, mesh: RowMesh,
       remainder by the ELL rule, from one all-gather of X;
     - int8 quantized banded: a :class:`HaloQuantizedOperator` (ring halo
       exchange, kernel 7);
+    - matrix-free: a :class:`ShardedMatrixFreeOperator`, the rank's rows
+      of ``diag`` and of every captured tensor whose leading dimension is
+      n, each callable run on the rank's rows with the mesh's
+      ``rows`` hook. Every callable (``fn``, ``offdiag_fn``, ``ds_fn``,
+      ``offdiag_ds_fn``) must take the ``rows`` keyword; one that does
+      not is a global-view callable, which would contract over the
+      rank's rows only and give a wrong answer with no signal: it raises
+      ``OperatorError``, and never runs on gathered global rows;
     - operators that are sharded already (the halo operators and the
       results of this function) pass through.
 
-    Any other kind raises ``OperatorError``: a ``MatrixFreeOperator``'s
-    callable sees the global rows, so it has no per-rank counterpart yet
-    (ROADMAP Queue 1 item 19). Running with an unsharded operator would
-    defeat the point of :func:`eigensolve_sharded` without a visible
-    signal.
+    Any other kind raises ``OperatorError``: running with an unsharded
+    operator would defeat the point of :func:`eigensolve_sharded` without
+    a visible signal.
     """
     require(axis == mesh.axis, OperatorError,
             f"axis {axis!r} is not the mesh's {mesh.axis!r}")
@@ -352,6 +455,8 @@ def shard_operator(op: LinearOperator, mesh: RowMesh,
         return ShardedDenseOperator(op.matrix, mesh)
     if isinstance(op, DiagonalOperator):
         return ShardedDiagonalOperator(op.diag, mesh)
+    if isinstance(op, MatrixFreeOperator):
+        return _shard_matrix_free(op, mesh)
     raise OperatorError(
         f"shard_operator: no sharding rule for {type(op).__name__}; "
         "refusing to run eigensolve_sharded with an unsharded operator")

@@ -19,6 +19,7 @@ from fortran_davidson_tpu_torch.config import (DavidsonOptions, DavidsonResult,
                                                validate_initial_vectors)
 from fortran_davidson_tpu_torch.core.loop import _engine
 from fortran_davidson_tpu_torch.core.refine import PolishResult, polish
+from fortran_davidson_tpu_torch.core.rows import LOCAL
 from fortran_davidson_tpu_torch.ops.operators import as_operator
 from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
@@ -95,28 +96,55 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
 
 def polish_eigenpairs(matrix, result: DavidsonResult, iterations: int = 3,
                       second_matrix=None, dtype=None,
-                      update: str = "dpr") -> PolishResult:
+                      update: str = "dpr", mesh=None) -> PolishResult:
     """Double-single post-refinement of a solve's eigenpairs
     (``fortran_davidson_tpu.solver.polish_eigenpairs``): the k returned
     pairs re-iterated with the vectors held as hi/lo pairs and every
     diagonal cancellation exact (:func:`core.refine.polish`, which pins
     TF32 off), on the operator's device.
 
+    ``mesh`` (a ``parallel.RowMesh``): polish row-sharded, every rank of
+    the mesh calling it. The operators are sharded by
+    ``parallel.shard_operator``; ``result.eigenvectors`` may be the
+    rank's rows (a sharded result's) or the global (n, k) block, which
+    each rank cuts to its rows. ``evecs_hi`` and ``evecs_lo`` are then
+    the rank's rows; everything else is global and the same on every
+    rank.
+
     Returns a :class:`~fortran_davidson_tpu_torch.core.refine.PolishResult`;
     ``evecs_hi + evecs_lo`` is the float64-grade eigenvector.
     """
     dt = canonical_dtype(dtype or result.eigenvectors.dtype)
-    A = as_operator(matrix, dtype=dt)
-    B = (None if second_matrix is None
-         else as_operator(second_matrix, dtype=dt, device=A.device))
+    X = result.eigenvectors.to(dt)
+    rows = LOCAL
+    if mesh is None:
+        A = as_operator(matrix, dtype=dt)
+        B = (None if second_matrix is None
+             else as_operator(second_matrix, dtype=dt, device=A.device))
+    else:
+        from fortran_davidson_tpu_torch.parallel.sharded import (
+            RowShardConstraint, shard_operator)
+        A = shard_operator(as_operator(matrix, dtype=dt, device=mesh.device),
+                           mesh)
+        B = (None if second_matrix is None else shard_operator(
+            as_operator(second_matrix, dtype=dt, device=mesh.device), mesh))
+        n = A.shape[0]
+        local = mesh.rows(n)
+        require(X.shape[0] in (n, local.stop - local.start), OperatorError,
+                f"eigenvectors have {X.shape[0]} rows: neither the "
+                f"operator's {n} nor the rank's {local.stop - local.start}")
+        if X.shape[0] != local.stop - local.start:
+            X = X[local]
+        X = X.to(mesh.device)
+        rows = RowShardConstraint(mesh, n)
     with torch.no_grad():
         return polish(
             A.offdiag(), A.diagonal().to(dt),
-            result.eigenvalues.to(dt), result.eigenvectors.to(dt),
+            result.eigenvalues.to(X.device, dt), X,
             iterations=iterations,
             B_off=None if B is None else B.offdiag(),
             diag_b=None if B is None else B.diagonal().to(dt),
-            update=update)
+            update=update, rows=rows)
 
 
 def generalized_eigensolver(matrix, lowest: int, method: str = "DPR",

@@ -136,3 +136,29 @@ def test_northstar_sharded_on_one_rank(capsys, one_rank_group):
     # refined one, polished in the solve.
     assert northstar.main([*argv, "--progressive"]) == 0
     assert "converged=True" in capsys.readouterr().out
+
+
+def _polished(out: str) -> tuple:
+    """The polished eigenvalues and residuals that ``northstar`` prints."""
+    vals = re.search(r"polished eigenvalues: \[(.*)\]", out).group(1)
+    errs = re.search(r"polished residuals:\s+\[(.*)\]", out).group(1)
+    return (np.array([float(v.strip(" '")) for v in vals.split(",")]),
+            np.array([float(v.strip(" '")) for v in errs.split(",")]))
+
+
+def test_northstar_free_sharded_polish_on_one_rank(capsys, one_rank_group):
+    # The matrix-free surrogate through its per-rank callables and the
+    # per-rank polish (polish_eigenpairs(mesh=...)): converged, polished
+    # residuals under 1e-8, and the polished eigenvalues those of the
+    # unsharded example to the 9 printed decimals' last unit (1e-9).
+    argv = ["--platform", "cpu", "--mode", "free", "--n", "4096",
+            "--lowest", "4", "--progressive", "--tolerance", "1e-8",
+            "--expansion", "lowest-k", "--polish", "2"]
+    assert northstar.main(argv) == 0
+    lam, _ = _polished(capsys.readouterr().out)
+    assert northstar.main(["--sharded", *argv]) == 0
+    out = capsys.readouterr().out
+    assert "mesh: {'rows': 1}" in out and "converged=True" in out
+    lam_s, errs = _polished(out)
+    assert np.all(errs <= 1e-8), errs
+    np.testing.assert_allclose(lam_s, lam, rtol=0, atol=1e-9)

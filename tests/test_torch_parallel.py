@@ -20,9 +20,12 @@ the tests here compare the ranks' rows, put back together, with:
   solve's tolerance; the ``"pallas-remote"`` solves also against the JAX
   package's sharded solve through its remote kernel at the same world
   size;
-- the ring exchange of ``"pallas-remote"``: the halos equal the
-  all-gather's bit for bit, and an apply makes two sends and two
-  receives at world sizes 2 and 4 (none at 1) and no collective;
+- the ring exchange of every halo backend (``"xla"``, ``"pallas"``,
+  ``"pallas-remote"`` and the int8 operator's two): the halos equal the
+  all-gather's bit for bit, so do the applies of ``"xla"``, ``"pallas"``
+  and the int8 operator with the halos moved either way, and an apply
+  makes two sends and two receives at world sizes 2 and 4 (none at 1)
+  and no collective;
 - at world sizes 1 and 2, the ELL family's sharded operators (ELL, sliced
   ELL, hybrid band + remainder) against the global operator, and their
   sharded solves against the port's and the JAX package's
@@ -38,12 +41,25 @@ the tests here compare the ranks' rows, put back together, with:
   checkpointed solve, its resume, an interrupted and resumed solve (bit
   for bit the uninterrupted one), and at world size 2 a checkpoint moved
   from two ranks to one and from one to two (the uninterrupted
-  iterations).
+  iterations);
+- ``orthonormalization="qr"`` (the TSQR): at world size 1 the
+  single-device solve's bits, at 1 and 2 the JAX package's sharded
+  ``"qr"`` solve (iterations within ±1, eigenvalues within 1e-10), and a
+  block with zero columns keeps them zero, its survivors orthonormal;
+- at world sizes 1 and 2, the matrix-free operators through their
+  per-rank callables (the surrogate, the surrogate pencil,
+  ``from_element_fn``, the float32 surrogate's double-single applies and
+  a probed diagonal): the applies equal the single-device ones (bit for
+  bit at world size 1), the solves match the JAX package's
+  ``eigensolve_sharded`` (``tests/test_parallel.py:100``), and the
+  per-rank ``polish_eigenpairs(mesh=...)`` of a sharded refined result
+  matches the JAX package's polish of its sharded result.
 
 The argument checks and ``convert.halo`` need no process group: they use
 a :class:`RowMesh` whose group is never called.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -65,8 +81,7 @@ from fortran_davidson_tpu_torch import convert
 from fortran_davidson_tpu_torch import parallel as tpar
 from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.parallel import multihost
-from fortran_davidson_tpu_torch.utils.errors import (InvalidOptionsError,
-                                                     OperatorError)
+from fortran_davidson_tpu_torch.utils.errors import OperatorError
 from tests import torch_dist_worker as worker
 from tests.torch_parity import to_numpy
 
@@ -77,6 +92,19 @@ CPU = torch.device("cpu")
 def _fake_mesh(size: int, rank: int = 0) -> tpar.RowMesh:
     """A mesh for checks that run before any collective."""
     return tpar.RowMesh(group=None, size=size, rank=rank, device=CPU)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """Torch on one thread inside, as in the ranks
+    (``torch_dist_worker._rank_main``): the bit-for-bit comparisons with
+    the ranks need the products' reduction order that one thread takes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _tables(op) -> dict:
@@ -147,6 +175,16 @@ def inputs(jax_ops, tmp_path_factory):
     d.update(coo_rows=rows, coo_cols=cols, coo_vals=vals,
              coo_n=np.array(500),
              Xsp=np.random.default_rng(41).standard_normal((512, 4)))
+    # The matrix-free applies' X, and orthonormalize_block's "qr" case: a
+    # 3-column orthonormal V and a 7-column block whose columns 1 and 5
+    # are zero, column 3 lies in span(V) and column 6 is inactive.
+    qr_rng = np.random.default_rng(18)
+    V, _ = np.linalg.qr(qr_rng.standard_normal((64, 3)))
+    block = qr_rng.standard_normal((64, 7))
+    block[:, [1, 5]] = 0.0
+    block[:, 3] = V @ qr_rng.standard_normal(3)
+    d.update(Xf=qr_rng.standard_normal((worker.FREE_N, 5)), qr_V=V,
+             qr_block=block, qr_mask=np.array([1.0] * 6 + [0.0]))
     for tag, op in jax_ops.items():
         if hasattr(op, "qblocks"):
             d.update({f"{tag}_q": np.asarray(op.qblocks),
@@ -247,19 +285,33 @@ def test_ring_exchange_equals_the_all_gather(ranks, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_remote_apply_is_ring_point_to_point_only(ranks, world):
-    # Per rank and apply: two sends and two receives to the ring
-    # neighbours (none at world size 1, where the halos are the rank's own
-    # rows) and no collective; "pallas" makes one all-gather.
+    # Per rank and apply, of every halo backend and of the int8 operator:
+    # two sends and two receives to the ring neighbours (none at world
+    # size 1, where the halos are the rank's own rows) and no collective.
+    p2p = 2 if world > 1 else 0
+    want = {**dict.fromkeys(worker.COUNTED, 0), "isend": p2p, "irecv": p2p}
+    keys = [f"halo{bw}_{b}_calls" for bw in worker.HALO_BANDS
+            for b in worker.HALO_BACKENDS]
+    keys += [f"int8_{bw}_{b}_calls" for bw in worker.INT8_BANDS
+             for b in ("xla", "pallas")]
     for r in ranks(world):
-        for bw in worker.HALO_BANDS:
-            calls = dict(zip(worker.COUNTED,
-                             r[f"halo{bw}_pallas-remote_calls"].tolist()))
-            p2p = 2 if world > 1 else 0
-            assert calls == {**dict.fromkeys(worker.COUNTED, 0),
-                             "isend": p2p, "irecv": p2p}, calls
-            gathers = dict(zip(worker.COUNTED,
-                               r[f"halo{bw}_pallas_calls"].tolist()))
-            assert sum(gathers[n] for n in worker.GATHERS) == 1
+        for key in keys:
+            calls = dict(zip(worker.COUNTED, r[key].tolist()))
+            assert calls == want, (key, calls)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ring_exchange_apply_equals_the_all_gather_apply(ranks, world):
+    # "xla", "pallas" and the int8 operator's two backends with the halos
+    # moved by the ring exchange and by the all-gather it replaced: the
+    # same bits.
+    keys = [f"halo{bw}_{b}_y" for bw in worker.HALO_BANDS
+            for b in ("xla", "pallas")]
+    keys += [f"int8_{bw}_{b}_y" for bw in worker.INT8_BANDS
+             for b in ("xla", "pallas")]
+    for r in ranks(world):
+        for key in keys:
+            np.testing.assert_array_equal(r[key], r[f"{key}_gathered"])
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
@@ -287,6 +339,7 @@ def single_device(inputs, jax_ops):
         jA = {"halo_pallas": jax_ops["solve_halo"],
               "halo_remote": jax_ops["solve_halo"],
               "gjd_halo": jax_ops["solve_halo"],
+              "qr_halo": jax_ops["solve_halo"],
               "remote_f32": jax_ops["solve_remote"],
               "bsr": jax_ops["solve_bsr"],
               "int8": jax_ops["solve_int8"],
@@ -296,8 +349,9 @@ def single_device(inputs, jax_ops):
                             initial_vectors=d["X0"] if name == "warm" else None,
                             **opts)
         A, B, X0 = worker.solve_cases(d)[name]
-        rt = fdtt.eigensolve(A, lowest, second_matrix=B, initial_vectors=X0,
-                             **opts)
+        with _one_thread():
+            rt = fdtt.eigensolve(A, lowest, second_matrix=B,
+                                 initial_vectors=X0, **opts)
         return rj, rt, to_numpy(A.to_dense()).astype(np.float64)
 
     return run
@@ -338,6 +392,62 @@ def test_sharded_solve_matches_single_device(ranks, inputs, single_device,
         r = r / np.maximum(np.abs(lam), 1.0)
     # int8 in float32: the loop's residual floor plus float32 roundoff of X.
     assert np.all(r <= opts["tolerance"] * (2.0 if "dtype" in opts else 1.0))
+
+
+@pytest.mark.parametrize("name", ["qr", "qr_halo"])
+def test_sharded_qr_at_world_size_one_is_the_single_device_qr(
+        ranks, single_device, name):
+    # One rank skips the TSQR's second stage: the single-device "qr"
+    # solve's iterations and eigenvalue bits.
+    _, rt, _ = single_device(name)
+    r = ranks(1)[0]
+    assert int(r[f"{name}_iterations"]) == rt.iterations
+    np.testing.assert_array_equal(r[f"{name}_evals"],
+                                  to_numpy(rt.eigenvalues))
+
+
+@pytest.mark.parametrize("name", ["qr", "qr_halo"])
+@pytest.mark.parametrize("world", (1, 2))
+def test_sharded_qr_matches_jax_sharded(ranks, inputs, jax_ops, world, name):
+    # The JAX package's sharded "qr" solve at the same world size:
+    # iterations within ±1, eigenvalues within 1e-10.
+    d, _ = inputs
+    lowest, opts = worker.SOLVES[name]
+    mesh = jpar.default_mesh(world)
+    jA = (d["A"] if name == "qr" else jpar.HaloBSROperator.from_bsr(
+        jax_ops["solve_halo"], 1, mesh, backend="pallas"))
+    rj = jpar.eigensolve_sharded(jA, lowest, mesh, **opts)
+    res = ranks(world)
+    its = {int(r[f"{name}_iterations"]) for r in res}
+    assert len(its) == 1 and abs(its.pop() - int(rj.iterations)) <= 1
+    np.testing.assert_allclose(res[0][f"{name}_evals"],
+                               np.asarray(rj.eigenvalues), rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("world", worker.FREE_WORLDS)
+def test_tsqr_keeps_zero_columns_zero(ranks, inputs, world):
+    # orthonormalize_block's "qr" branch on row-sharded rows: the two zero
+    # columns, the one in span(V) and the inactive one come out exactly
+    # zero, after the survivors; the survivors are orthonormal and
+    # orthogonal to V to 1e-13, and span what the JAX package's "qr"
+    # branch spans (their projectors within 1e-12).
+    d, _ = inputs
+    res = ranks(world)
+    q = _gathered(res, "qr_q")
+    for r in res:
+        np.testing.assert_array_equal(r["qr_alive"], [1, 1, 1, 0, 0, 0, 0])
+    np.testing.assert_array_equal(q[:, 3:], 0.0)
+    np.testing.assert_allclose(q[:, :3].T @ q[:, :3], np.eye(3), rtol=0,
+                               atol=1e-13)
+    assert np.max(np.abs(d["qr_V"].T @ q)) <= 1e-13
+    from fortran_davidson_tpu.core import orthogonal as jortho
+    qj, alive_j = jortho.orthonormalize_block(
+        jnp.asarray(d["qr_V"]), jnp.asarray(d["qr_block"]),
+        jnp.asarray(d["qr_mask"]), method="qr")
+    qj = np.asarray(qj)[:, np.asarray(alive_j) > 0.5]
+    np.testing.assert_allclose(q[:, :3] @ q[:, :3].T, qj @ qj.T, rtol=0,
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("name", ["halo_remote", "remote_f32"])
@@ -480,7 +590,8 @@ def jax_refined(inputs, jax_ops):
     def run(name: str, world: int):
         lowest, opts = worker.REFINED_SOLVES[name]
         op = (surrogate_hamiltonian(2048, dtype=jnp.float32)
-              if name == "refined_surrogate" else jax_ops["refined_bsr"])
+              if name in ("refined_surrogate", "refined_free")
+              else jax_ops["refined_bsr"])
         res = jpar.eigensolve_sharded(op, lowest, jpar.default_mesh(world),
                                       **opts)
         res.block_until_ready()
@@ -514,7 +625,8 @@ def test_sharded_refined_matches_jax(ranks, inputs, jax_refined, world,
     np.testing.assert_allclose(r0[f"{name}_evals"],
                                np.asarray(rj.eigenvalues), rtol=0, atol=1e-5)
     assert float(np.max(r0[f"{name}_residuals"])) < opts["tolerance"]
-    dense = (d["surrogate32"] if name == "refined_surrogate"
+    dense = (d["surrogate32"] if name in ("refined_surrogate",
+                                          "refined_free")
              else to_numpy(worker.banded(d, "refined_bsr").to_dense()))
     X = _gathered(res, f"{name}_evecs").astype(np.float64)
     X /= np.linalg.norm(X, axis=0)
@@ -570,6 +682,175 @@ def test_sharded_checkpoint_moves_between_world_sizes(ranks, inputs):
                                        atol=1e-12)
 
 
+# -- matrix-free operators through their per-rank callables -----------
+
+def _jax_free(name: str, n: int = worker.FREE_N):
+    """The JAX package's (A, B) of a FREE_SOLVES case."""
+    if name == "free_elem":
+        from fortran_davidson_tpu.ops.operators import from_element_fn
+        return from_element_fn(
+            lambda i, j: jnp.where(i == j, 1.0 + i,
+                                   1e-3 * jnp.cos(0.01 * (i + j))), n), None
+    return (surrogate_hamiltonian(n),
+            jgen.surrogate_overlap(n) if name == "free_pencil" else None)
+
+
+@pytest.fixture(scope="module")
+def free_single(inputs):
+    """name -> the port's single-device applies of a free_apply_ops()
+    operator on inputs["Xf"]: y, diagonal, offdiag y, and (float32) the
+    double-single applies' hi + lo."""
+    d, _ = inputs
+    ops = worker.free_apply_ops()
+
+    @functools.cache
+    def run(name: str) -> dict:
+        op = ops[name]
+        x = torch.from_numpy(d["Xf"]).to(op.dtype)
+        with _one_thread():
+            out = dict(y=op.matmat(x), diag=op.diagonal(),
+                       offdiag_y=op.offdiag().matmat(x))
+            if op.dtype == torch.float32:
+                for tag, o in (("ds", op), ("offdiag_ds", op.offdiag())):
+                    ds = o.matmat_ds(x, x * 1e-8)
+                    if ds is not None:
+                        out[tag] = ds[0].double() + ds[1].double()
+        return {k: to_numpy(v) for k, v in out.items()}
+
+    return run
+
+
+@pytest.mark.parametrize("name", list(worker.free_apply_ops(8)))
+@pytest.mark.parametrize("world", worker.FREE_WORLDS)
+def test_sharded_matrix_free_apply_matches_single_device(
+        ranks, free_single, world, name):
+    # The rank's rows of every captured tensor, the callable run on them
+    # with the mesh's hook: at world size 1 the single-device bits; at 2,
+    # within 1e-13 of max|Y| in float64, two float32 ulps (1e-6) in
+    # float32, the double-single applies within 1e-12 (the ranks' Dot2
+    # partials fold exactly; what differs is the lo word's plain sum);
+    # diagonals (stored or probed) exactly.
+    want = free_single(name)
+    res = ranks(world)
+    for key, w in want.items():
+        got = _gathered(res, f"fapply_{name}_{key}")
+        assert got.shape == w.shape
+        if world == 1 or key == "diag":
+            np.testing.assert_array_equal(got, w, err_msg=key)
+            continue
+        rel = {np.dtype(np.float32): 1e-6}.get(w.dtype, 1e-13)
+        if key.endswith("ds"):
+            rel = 1e-12
+        assert np.max(np.abs(got - w)) <= rel * np.max(np.abs(w)), key
+
+
+def test_per_rank_callables_keep_their_single_device_bits(inputs):
+    # On one device the per-rank callables get rows=LOCAL: the apply is
+    # the global-view formula's bits (diag X + (U w) (Uᵀ X) - corr X; the
+    # element rows in 256-row blocks against X), and every callable called
+    # without the keyword gives what the operator gives through it.
+    d, _ = inputs
+    ops = worker.free_apply_ops()
+    x = torch.from_numpy(d["Xf"])
+    for name in ("free", "overlap"):
+        diag, U, w = ops[name].captured
+        want = (diag[:, None] * x + (U * w[None, :]) @ (U.T @ x)
+                - torch.sum((U * U) * w[None, :], dim=1)[:, None] * x)
+        assert torch.equal(ops[name].matmat(x), want), name
+    out = torch.empty_like(x)
+    cols = torch.arange(worker.FREE_N)
+    for start in range(0, worker.FREE_N, 256):
+        i = torch.arange(start, start + 256)[:, None]
+        out[start:start + 256] = worker.element(i, cols[None, :]) @ x
+    assert torch.equal(ops["free_elem"].matmat(x), out)
+    op = ops["free32"]
+    x32 = x.float()
+    for o in (op, op.offdiag()):
+        assert torch.equal(o.fn(x32, *o.captured), o.matmat(x32))
+        if o.ds_fn is not None:
+            for a, b in zip(o.ds_fn(x32, x32 * 1e-8, *o.captured),
+                            o.matmat_ds(x32, x32 * 1e-8)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(worker.FREE_SOLVES))
+@pytest.mark.parametrize("world", worker.FREE_WORLDS)
+def test_sharded_matrix_free_solve_matches_jax(ranks, world, name):
+    # Against the JAX package's eigensolve_sharded on default_mesh(world)
+    # (tests/test_parallel.py:100): iterations within ±1, eigenvalues
+    # within 1e-10; against the port's single-device solve: the same
+    # iterations, eigenvalues within 1e-10 (at world size 1, its bits);
+    # the ranks agree; true residuals of the gathered eigenvectors within
+    # the tolerance.
+    lowest, opts = worker.FREE_SOLVES[name]
+    jA, jB = _jax_free(name)
+    rj = jpar.eigensolve_sharded(jA, lowest, jpar.default_mesh(world),
+                                 second_matrix=jB, **opts)
+    A, B = worker.free_cases()[name]
+    with _one_thread():
+        rt = fdtt.eigensolve(A, lowest, second_matrix=B, **opts)
+    res = ranks(world)
+    its = {int(r[f"{name}_iterations"]) for r in res}
+    assert len(its) == 1 and {bool(r[f"{name}_converged"]) for r in res} \
+        == {True} == {bool(rj.converged)}
+    it = its.pop()
+    assert it == rt.iterations and abs(it - int(rj.iterations)) <= 1
+    lam = res[0][f"{name}_evals"]
+    for r in res[1:]:
+        np.testing.assert_array_equal(r[f"{name}_evals"], lam)
+    np.testing.assert_allclose(lam, np.asarray(rj.eigenvalues), rtol=0,
+                               atol=1e-10)
+    if world == 1:
+        np.testing.assert_array_equal(lam, to_numpy(rt.eigenvalues))
+    np.testing.assert_allclose(lam, to_numpy(rt.eigenvalues), rtol=0,
+                               atol=1e-10)
+    X = torch.from_numpy(_gathered(res, f"{name}_evecs"))
+    BX = X if B is None else B.matmat(X)
+    r = torch.linalg.vector_norm(A.matmat(X) - BX * torch.from_numpy(lam),
+                                 dim=0)
+    assert float(r.max()) <= opts["tolerance"]
+
+
+@pytest.mark.parametrize("world", worker.FREE_WORLDS)
+def test_per_rank_polish_matches_jax(ranks, inputs, jax_refined, world):
+    # polish_eigenpairs(mesh=...) of the sharded matrix-free refined solve
+    # against the JAX package's polish_eigenpairs of its sharded solve:
+    # eigenvalues (hi + lo) within 1e-9 of the JAX package's float32
+    # evals, which carry their rounding to float32 (eps·|λ| at most, the
+    # JAX result has no low words); true residuals both under 1e-8;
+    # the ranks' evecs_hi + evecs_lo equal their rows of the port's
+    # single-device polish of the same (gathered) vectors within 1e-12;
+    # the polish from the gathered global vectors gives the bits of the
+    # polish from the rank's rows.
+    d, _ = inputs
+    res = ranks(world)
+    rj = jax_refined("refined_free", world)
+    pj = fdt.polish_eigenpairs(surrogate_hamiltonian(2048, dtype=jnp.float32),
+                               rj, iterations=worker.POLISH_ITERATIONS)
+    r0 = res[0]
+    lam = (r0["polish_evals"].astype(np.float64)
+           + r0["polish_evals_lo"].astype(np.float64))
+    lam_j = np.asarray(pj.evals, np.float64)
+    np.testing.assert_allclose(lam, lam_j, rtol=np.finfo(np.float32).eps,
+                               atol=1e-9)
+    assert np.max(r0["polish_errors"]) < 1e-8
+    assert np.max(np.asarray(pj.errors)) < 1e-8
+    for r in res:
+        assert bool(r["polish_global_same"])
+        np.testing.assert_array_equal(r["polish_evals"], r0["polish_evals"])
+    op = worker.free_apply_ops(2048)["free32"]
+    one = fdtt.DavidsonResult(
+        eigenvalues=torch.from_numpy(r0["polish_input_evals"]),
+        eigenvectors=torch.from_numpy(_gathered(res, "polish_input")),
+        iterations=0, converged=True, converged_pairs=None,
+        residual_norms=None, residual_history=None, subspace_dims=None)
+    pol = fdtt.polish_eigenpairs(op, one,
+                                 iterations=worker.POLISH_ITERATIONS)
+    x = to_numpy(pol.evecs_hi).astype(np.float64) + to_numpy(pol.evecs_lo)
+    np.testing.assert_allclose(_gathered(res, "polish_x"), x, rtol=0,
+                               atol=1e-12)
+
+
 # -- argument checks (no process group) --------------------------------
 
 def test_unported_kinds_have_no_sharding_rule():
@@ -586,7 +867,10 @@ def test_unported_kinds_have_no_sharding_rule():
         def diagonal(self):
             return torch.ones(64, dtype=torch.float64)
 
-    for op in (free, Mystery()):
+    # A per-rank fn beside a global-view ds_fn: refused as well.
+    half = fdtt.MatrixFreeOperator(lambda X, rows: X, 64, diag=torch.ones(64),
+                                   device="cpu", ds_fn=lambda h, lo: (h, lo))
+    for op in (free, half, Mystery()):
         with pytest.raises(OperatorError, match="no sharding rule"):
             tpar.shard_operator(op, mesh)
 
@@ -639,13 +923,6 @@ def test_pallas_remote_names_kernel_8(monkeypatch):
                                       backend="pallas-remote")
     with pytest.raises(OperatorError, match="unknown halo backend"):
         tpar.HaloBSROperator.from_bsr(bsr, 1, _fake_mesh(2), backend="mosaic")
-
-
-def test_sharded_solve_rejects_qr():
-    A = np.asarray(jgen.generate_diagonal_dominant(64, 1e-3))
-    with pytest.raises(InvalidOptionsError, match="orthonormalization='qr'"):
-        tpar.eigensolve_sharded(A, 3, _fake_mesh(1),
-                                orthonormalization="qr")
 
 
 def test_multihost_refuses_a_local_fallback(monkeypatch):

@@ -11,7 +11,13 @@ At world sizes 1 and 2 (``SPARSE_WORLDS``) the ranks also apply and solve
 the ELL family's sharded operators, run the sharded refined path
 (``REFINED_SOLVES``) and checkpoint and resume sharded solves
 (``CKPT_WORLDS``); at world size 2 a checkpoint also moves between world
-sizes (a one-rank group of rank 0 and the two ranks).
+sizes (a one-rank group of rank 0 and the two ranks). At world sizes 1
+and 2 (``FREE_WORLDS``) they apply and solve the matrix-free operators
+through their per-rank callables, polish a sharded result
+(``polish_eigenpairs(mesh=...)``) and orthonormalize a block with zero
+columns by the TSQR; every halo apply is also repeated with the halos
+moved by :func:`all_gather_halos`, the all-gather form the ring exchange
+replaced.
 
 A spawned process imports the module of its target, and the test
 modules and ``tests/conftest.py`` import JAX: this module imports only
@@ -62,7 +68,21 @@ SOLVES = {
     "gjd_warm": (3, dict(method="GJD", tolerance=1e-8, gjd_warm_start=True)),
     "gjd_halo": (3, dict(method="GJD", tolerance=1e-8,
                          gjd_preconditioner="dpr")),
+    # orthonormalization="qr": the TSQR of row-sharded blocks.
+    "qr": (3, dict(tolerance=1e-8, orthonormalization="qr")),
+    "qr_halo": (3, dict(tolerance=1e-8, orthonormalization="qr")),
 }
+
+# The matrix-free operators, row-sharded through their per-rank
+# callables (``tests/test_parallel.py:100``), at world sizes 1 and 2:
+# name -> (lowest, options) of the solves of the n = FREE_N operators
+# (``free_cases``).
+FREE_WORLDS = (1, 2)
+FREE_N = 512
+FREE_SOLVES = {"free": (3, F64), "free_pencil": (3, F64),
+               "free_elem": (3, F64)}
+# The polish of the sharded matrix-free refined solve.
+POLISH_ITERATIONS = 2
 
 
 # The ELL family's sharding rules (ELL, sliced ELL through to_ell, the
@@ -82,16 +102,17 @@ CHEB = (3, dict(cheb_degree="auto", locking=True, expansion="lowest-k",
                 max_dim_sub=12, tolerance=1e-8))
 
 # The sharded refined path (``tests/test_parallel.py:247-277``, cut to a
-# few thousand rows): name -> (lowest, options). The float32 surrogate is
-# its dense matrix here (the port has no sharding rule for a matrix-free
-# operator yet, ROADMAP item 19); the banded BSR runs through kernel 2's
-# sharded rule with an in-solve polish.
+# few thousand rows): name -> (lowest, options). The float32 surrogate
+# runs as its dense matrix and as the matrix-free operator itself (its
+# per-rank callables); the banded BSR runs through kernel 2's sharded rule
+# with an in-solve polish.
 REFINED_WORLDS = (1, 2)
+REFINED_SURROGATE = dict(method="DPR", tolerance=1e-6,
+                         relative_tolerance=True, max_iterations=40,
+                         dtype="float32", expansion="lowest-k", refined=True)
 REFINED_SOLVES = {
-    "refined_surrogate": (4, dict(method="DPR", tolerance=1e-6,
-                                  relative_tolerance=True, max_iterations=40,
-                                  dtype="float32", expansion="lowest-k",
-                                  refined=True)),
+    "refined_surrogate": (4, REFINED_SURROGATE),
+    "refined_free": (4, REFINED_SURROGATE),
     "refined_bsr": (3, dict(method="DPR", tolerance=1e-6, dtype="float32",
                             refined=True, final_polish=2,
                             max_iterations=200)),
@@ -174,6 +195,129 @@ def checkpoint_cases(inputs, mesh, run_dir: str, out: dict) -> None:
     record("ckpt_1to2", solve("ckpt", "1to2"))
 
 
+def all_gather_halos(mesh, x, halo: int):
+    """``(from_prev, from_next)`` by one ``all_gather`` of every rank's
+    ``2 * halo`` boundary rows: the exchange of the ``"xla"``,
+    ``"pallas"`` and int8 halo operators before the ring exchange, kept
+    as the reference the ring exchange must equal bit for bit."""
+    edges = mesh.all_gather_rows(torch.cat([x[:halo], x[-halo:]]))
+    edges = edges.reshape(mesh.size, 2 * halo, *x.shape[1:])
+    return (edges[(mesh.rank - 1) % mesh.size, halo:],
+            edges[(mesh.rank + 1) % mesh.size, :halo])
+
+
+@contextlib.contextmanager
+def all_gather_exchange():
+    """The halo operators of the ``with`` block move their halos by
+    :func:`all_gather_halos`."""
+    from fortran_davidson_tpu_torch.parallel import halo
+    saved = halo._exchange
+    halo._exchange = all_gather_halos
+    try:
+        yield
+    finally:
+        halo._exchange = saved
+
+
+def element(i, j):
+    """The element function of the ``free_elem`` case (torch tensors):
+    i + 1 on the diagonal, 1e-3 cos(0.01 (i + j)) off it."""
+    return torch.where(i == j, 1.0 + i.double(),
+                       1e-3 * torch.cos(0.01 * (i + j).double()))
+
+
+def free_cases(n: int = FREE_N) -> dict:
+    """name -> (A, B) of the matrix-free cases, global CPU operators."""
+    from fortran_davidson_tpu_torch.models import generators as gen
+    from fortran_davidson_tpu_torch.ops.operators import from_element_fn
+    A = gen.surrogate_hamiltonian(n, device="cpu")
+    return {"free": (A, None),
+            "free_pencil": (A, gen.surrogate_overlap(n, device="cpu")),
+            "free_elem": (from_element_fn(element, n, device="cpu"), None)}
+
+
+def free_apply_ops(n: int = FREE_N) -> dict:
+    """name -> a global CPU matrix-free operator whose applies are checked
+    sharded: the surrogates, the element operator, the float32 surrogate
+    (its double-single applies) and the surrogate without its diagonal
+    (probed through the apply)."""
+    from fortran_davidson_tpu_torch.models import generators as gen
+    from fortran_davidson_tpu_torch.ops.operators import MatrixFreeOperator
+    ops = {name: A for name, (A, _) in free_cases(n).items()
+           if name != "free_pencil"}
+    ops["overlap"] = free_cases(n)["free_pencil"][1]
+    ops["free32"] = gen.surrogate_hamiltonian(n, dtype=torch.float32,
+                                              device="cpu")
+    A = ops["free"]
+    ops["probed"] = MatrixFreeOperator(A.fn, n, dtype=A.dtype,
+                                       captured=A.captured, device="cpu")
+    return ops
+
+
+def free_checks(inputs, mesh, refined, out: dict) -> None:
+    """The sharded matrix-free applies and solves, the per-rank polish of
+    the sharded refined result ``refined`` (REFINED_SOLVES'
+    ``refined_free``) and the TSQR of a block with zero columns, on
+    ``mesh``."""
+    import dataclasses
+    from fortran_davidson_tpu_torch import polish_eigenpairs
+    from fortran_davidson_tpu_torch.core.orthogonal import orthonormalize_block
+    from fortran_davidson_tpu_torch.parallel import (RowShardConstraint,
+                                                     eigensolve_sharded,
+                                                     shard_operator)
+    X = torch.from_numpy(inputs["Xf"][mesh.rows(FREE_N)])
+    for name, op in free_apply_ops().items():
+        sharded = shard_operator(op, mesh)
+        assert type(sharded).__name__ == "ShardedMatrixFreeOperator"
+        x = X.to(op.dtype)
+        out[f"fapply_{name}_y"] = sharded.matmat(x).numpy()
+        out[f"fapply_{name}_diag"] = sharded.diagonal().numpy()
+        out[f"fapply_{name}_offdiag_y"] = sharded.offdiag().matmat(x).numpy()
+        if op.dtype == torch.float32:
+            for tag, o in (("ds", sharded), ("offdiag_ds", sharded.offdiag())):
+                ds = o.matmat_ds(x, x * 1e-8)
+                if ds is not None:
+                    out[f"fapply_{name}_{tag}"] = (ds[0].double()
+                                                   + ds[1].double()).numpy()
+    for name, (A, B) in free_cases().items():
+        lowest, opts = FREE_SOLVES[name]
+        res = eigensolve_sharded(A, lowest, mesh, second_matrix=B, **opts)
+        out[f"{name}_evals"] = res.eigenvalues.numpy()
+        out[f"{name}_evecs"] = res.eigenvectors.numpy()
+        out[f"{name}_iterations"] = np.array(res.iterations)
+        out[f"{name}_converged"] = np.array(res.converged)
+
+    # The polish of the sharded matrix-free refined solve, from its rank
+    # rows and from the gathered global vectors.
+    op32, res = refined
+    pol = polish_eigenpairs(op32, res, iterations=POLISH_ITERATIONS,
+                            mesh=mesh)
+    out.update(polish_evals=pol.evals.numpy(),
+               polish_evals_lo=pol.evals_lo.numpy(),
+               polish_errors=pol.errors.numpy(),
+               polish_x=(pol.evecs_hi.double()
+                         + pol.evecs_lo.double()).numpy(),
+               polish_input=res.eigenvectors.numpy(),
+               polish_input_evals=res.eigenvalues.numpy())
+    whole = dataclasses.replace(
+        res, eigenvectors=mesh.all_gather_rows(res.eigenvectors))
+    pol_g = polish_eigenpairs(op32, whole, iterations=POLISH_ITERATIONS,
+                              mesh=mesh)
+    out["polish_global_same"] = np.array(
+        torch.equal(pol_g.evecs_hi, pol.evecs_hi)
+        and torch.equal(pol_g.evecs_lo, pol.evecs_lo)
+        and torch.equal(pol_g.evals, pol.evals))
+
+    # orthonormalize_block's "qr" branch on a block with zero columns.
+    rows = mesh.rows(inputs["qr_block"].shape[0])
+    q, alive = orthonormalize_block(
+        torch.from_numpy(inputs["qr_V"][rows]),
+        torch.from_numpy(inputs["qr_block"][rows]),
+        torch.from_numpy(inputs["qr_mask"]), method="qr",
+        rows=RowShardConstraint(mesh, inputs["qr_block"].shape[0]))
+    out.update(qr_q=q.numpy(), qr_alive=alive.numpy())
+
+
 def spawn(world: int, run_dir: str) -> list:
     """Run every check at ``world`` ranks; returns each rank's results."""
     mp.spawn(_rank_main, args=(world, run_dir), nprocs=world, join=True)
@@ -224,6 +368,8 @@ def solve_cases(inputs, mesh=None) -> dict:
         "gjd": (A, None, None),
         "gjd_warm": (A, None, None),
         "gjd_halo": (halo("solve_halo", "pallas"), None, None),
+        "qr": (A, None, None),
+        "qr_halo": (halo("solve_halo", "pallas"), None, None),
     }
 
 
@@ -298,7 +444,6 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
                                                      HaloQuantizedOperator,
                                                      eigensolve_sharded,
                                                      multihost, shard_operator)
-    from fortran_davidson_tpu_torch.parallel.halo import halo_slabs
 
     init = "file://" + os.path.join(run_dir, "rendezvous")
     mesh = multihost.initialize(init_method=init, world_size=world, rank=rank,
@@ -320,6 +465,10 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
                 out[f"halo{bw}_{backend}_y"] = h.matmat(X).numpy()
             out[f"halo{bw}_{backend}_calls"] = np.array(
                 [calls[n] for n in COUNTED])
+            if backend != "pallas-remote":
+                with all_gather_exchange():
+                    out[f"halo{bw}_{backend}_y_gathered"] = \
+                        h.matmat(X).numpy()
             out[f"halo{bw}_{backend}_diag"] = h.diagonal().numpy()
             out[f"halo{bw}_{backend}_offdiag_y"] = \
                 h.offdiag().matmat(X).numpy()
@@ -336,7 +485,7 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
         from_prev, from_next, works = mesh.ring_exchange(Xs, halo)
         for work in works:
             work.wait()
-        slabs = halo_slabs(mesh, Xs, halo)
+        slabs = all_gather_halos(mesh, Xs, halo)
         out[f"ring{halo}"] = torch.cat([from_prev, from_next]).numpy()
         out[f"slabs{halo}"] = torch.cat(slabs).numpy()
     Xq = torch.from_numpy(inputs["Xq"][mesh.rows(inputs["Xq"].shape[0])])
@@ -346,7 +495,12 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
         assert isinstance(hq, HaloQuantizedOperator) and hq.backend == "pallas"
         for backend in ("xla", "pallas"):
             h = HaloQuantizedOperator.from_quantized(q, mesh, backend=backend)
-            out[f"int8_{bw}_{backend}_y"] = h.matmat(Xq).numpy()
+            with counting_collectives() as calls:
+                out[f"int8_{bw}_{backend}_y"] = h.matmat(Xq).numpy()
+            out[f"int8_{bw}_{backend}_calls"] = np.array(
+                [calls[n] for n in COUNTED])
+            with all_gather_exchange():
+                out[f"int8_{bw}_{backend}_y_gathered"] = h.matmat(Xq).numpy()
         out[f"int8_{bw}_diag"] = hq.diagonal().numpy()
         # The split is exact: A x = offdiag(A) x + diag(A) ∘ x.
         out[f"int8_{bw}_split_y"] = (hq.offdiag().matmat(Xq)
@@ -385,13 +539,20 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
                    cheb_operator_columns=np.array(res.operator_columns),
                    cheb_degrees=np.array(degrees))
 
+    refined = {}
     if world in REFINED_WORLDS:
         from fortran_davidson_tpu_torch import convert
+        from fortran_davidson_tpu_torch.models.generators import \
+            surrogate_hamiltonian
         for name, (lowest, opts) in REFINED_SOLVES.items():
-            A = (convert.dense(inputs["surrogate32"], device="cpu")
-                 if name == "refined_surrogate"
-                 else banded(inputs, "refined_bsr"))
+            A = {"refined_surrogate": lambda: convert.dense(
+                     inputs["surrogate32"], device="cpu"),
+                 "refined_free": lambda: surrogate_hamiltonian(
+                     inputs["surrogate32"].shape[0], dtype=torch.float32,
+                     device="cpu"),
+                 "refined_bsr": lambda: banded(inputs, "refined_bsr")}[name]()
             res = eigensolve_sharded(A, lowest, mesh, **opts)
+            refined[name] = (A, res)
             out[f"{name}_evals"] = res.eigenvalues.numpy()
             out[f"{name}_evals_lo"] = (np.zeros(lowest, np.float32)
                                        if res.eigenvalues_lo is None
@@ -402,6 +563,8 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
             out[f"{name}_converged"] = np.array(res.converged)
     if world in CKPT_WORLDS:
         checkpoint_cases(inputs, mesh, run_dir, out)
+    if world in FREE_WORLDS:
+        free_checks(inputs, mesh, refined["refined_free"], out)
 
     for name, (A, B, X0) in solve_cases(inputs, mesh).items():
         lowest, opts = SOLVES[name]
