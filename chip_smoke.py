@@ -352,9 +352,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches the counted applies, refined iterations within ±2 of 10b's,
    eigenvalues within 1e-10 relative, the oracle after the polish <=
    1e-8, and one kernel 7 call at m = 20 against its plain version.
-11. Prints the run's time and the shares of phases 12, 13, 14 and 15, the
+16. The scaling audit (``parallel/scaling.py``) at world size 1 over
+   NCCL (each sub-phase a solve phase): (a) after 15d, the collective
+   inventory of one refined iteration (the probe's options: lowest-20,
+   float32, max_dim_sub 44) of phase 6's int8 matrix (2,097,152 rows,
+   kernel 7), and after 15b the same of 10b's 10,000,000-row matrix (the
+   same object, on a fresh group): byte-identical, no tall collective,
+   kernel 7's launches the ring exchanges; (b) after 16a, the per-rule
+   report (``scaling.rule_report``): the f64 halo operator through
+   ``"pallas"`` (kernel 6) and ``"pallas-remote"`` (kernel 8) on phase
+   4's matrix and a 524,288-row sibling, and 15a's surrogate at
+   5,000,192 and 10,000,384 rows, row-local (launches one or two an
+   exchange); dense, general BSR (kernel 2), ELL, sliced ELL and the
+   hybrid gather x and must read n-scale, their bytes a row printed;
+   (c) after the 10M-row 16a, the projected efficiency on 2, 4 and 8
+   GPUs (a model: NVLink 4's published 450 GB/s, the median host time
+   of one all_reduce of the iteration's largest payload measured in
+   16a, this run's one-device iteration times of 15b and 8a's
+   lowest-20); (d) with two or more GPUs, 8b's lowest-20 and 14b's
+   refined stage at world sizes 2 (and 4) over NCCL in spawned ranks,
+   held to world 1 (iterations, the refined stage ±1; eigenvalues
+   within 1e-12 relative; each rank's inventory), the measured
+   efficiency beside the model's; with one GPU a line says it did not
+   run; (e) 6b's refined stage on one device under
+   ``sum_strategy("tree")`` beside the default cascade, in turns:
+   iterations, oracle, warm wall, idle share, device ops (no default
+   changes).
+11. Prints the run's time and the shares of phases 12-16, the
    solves' and kernels' JSON lines (launch counts of the solve
-   phases 4-15, each counted from 0 over its own phase; kernel 9, the copy
+   phases 4-16, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
    the rest and no phase launches them (nor kernel 3's and kernel 5's
    float64 entries); for
@@ -2219,7 +2245,7 @@ def _device_busy(label, run, shapes: bool = False) -> dict:
           + f" (the trace read in {time.perf_counter() - t_read:.1f} s)",
           flush=True)
     out = dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-               device_idle_share=idle)
+               device_idle_share=idle, device_ops=len(events))
     if shapes:
         out.update(by_name_ms={k: v / 1e3 for k, v in by_name.items()},
                    prof=prof)
@@ -3223,7 +3249,8 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
                f"sharded {label} {k}: true residual {true_res:.3e}")
         # Phase 14c holds a sharded checkpoint to these bits.
         refs.setdefault("sharded", {})[(label, k)] = dict(
-            iterations=res.iterations, eigenvalues=res.eigenvalues.clone())
+            iterations=res.iterations, eigenvalues=res.eigenvalues.clone(),
+            wall=min(walls[1:]))
         solves.append(dict(
             solve=(f"sharded (world 1, nccl) {label} "
                    + {"int8": "int8 f32 lowest-20 loose",
@@ -4927,6 +4954,9 @@ def phase_sharded_refined(q, dev, rendezvous, solves, refs):
     _check(oracle <= REFINED["tolerance"],
            f"14b: oracle relative residual {oracle:.3e}")
     _check(diff <= 1e-9, f"14b: eigenvalues {diff:.3e} from 6b's")
+    # Phase 16d holds the multi-GPU refined stage to this one.
+    refs["sharded_refined"] = dict(iterations=res.iterations,
+                                   eigenvalues=lam.clone(), wall=walls[1])
     solves.append(dict(
         solve="phase 14b sharded (world 1, nccl) int8 f32 lowest-20 "
         "refined + final_polish=3", n=q.shape[0], iterations=res.iterations,
@@ -5334,6 +5364,9 @@ def phase_northstar_bsr_sharded(dev, solves, ns):
                f"{ten['iterations']}")
         _check(rel <= 1e-10, f"15b: eigenvalues {rel:.3e} from 10b's")
         _check(oracle <= SOLVE_TOL, f"15b: oracle {oracle:.3e}")
+        # Phase 16c's one-device iteration time: the example's own
+        # ms/iter, the warm run over its refined iterations.
+        ns["t_iter_15b"] = run["warm_s"] / res.iterations
         solves.append(dict(
             solve="phase 15b sharded (world 1, nccl) northstar int8 banded f32 "
             f"lowest-20 progressive + polish {NS_POLISH}", n=NS_BSR_N,
@@ -5347,7 +5380,7 @@ def phase_northstar_bsr_sharded(dev, solves, ns):
             dist.destroy_process_group()
         tmp.cleanup()
     # Kept for the kernel 7 check at this size (``kernel7_at_10m``), which
-    # runs outside the counted path.
+    # runs outside the counted path, and for phase 16a's inventory.
     ns["q"] = q
     del q, ten
     torch.cuda.empty_cache()
@@ -5385,6 +5418,444 @@ def kernel7_at_10m(q, dev, solves) -> None:
                        rel_err=rel))
     del h, x_ext, y, y_p
     torch.cuda.empty_cache()
+
+
+# Phase 16 (parallel/scaling.py): the collective inventory of one solver
+# iteration (``scaling.iteration_inventory``) of each sharding rule at two
+# row counts on the one-rank NCCL group, the N-GPU projection from it, the
+# run on two and four GPUs where the host has them, and the one-device
+# sum_strategy A/B. The probe's options (lowest-20, float32, refined,
+# max_dim_sub 44: the JAX probe's) for the int8 and matrix-free rules;
+# P16_F64 for the float64 ones.
+P16_LOWEST = 20
+P16_F64 = dict(method="DPR", tolerance=SOLVE_TOL, expansion="lowest-k",
+               max_dim_sub=44)
+# Phase 4's matrix's sibling: 4,096 block rows of 128, n = 524,288.
+P16_SIBLING_NBR = 4096
+# The gathering rules' row counts: dense; ELL, sliced ELL and the hybrid
+# from phase 12's COO recipe (LOCAL_ARGS) at these orders.
+P16_DENSE_N = (4096, 8192)
+P16_COO_N = (65536, 131072)
+# all_reduce calls timed for the latency of one, and the GPU counts of the
+# projection.
+P16_LATENCY_CALLS = 50
+P16_CHIPS = (2, 4, 8)
+# Phase 16d's matrices: phase 4's (f64, kernel 8) and phase 6's (int8).
+P16_MULTI = dict(nbr=8192, bs=128, q_nbr=16384)
+
+
+def _print_inventory(label, stats) -> None:
+    kinds = ", ".join(f"{k} {v['count']} x, {v['bytes']} B"
+                      for k, v in stats["by_kind"].items())
+    print(f"  16 {label}: n={stats['n']} width {stats['width']} m_max "
+          f"{stats['m_max']}: {stats['total_bytes']} B in "
+          f"{stats['total_count']} calls ({kinds}); m_max ceiling "
+          f"{stats['m_max_ceiling_bytes']} B; largest "
+          f"{stats['largest'][:2]}; ring exchanges {stats['exchanges']}, "
+          f"kernel launches {stats['launches']}", flush=True)
+
+
+def _hold_launches(label, launches: dict, exchanges: int, kernel: str,
+                   per_exchange: int) -> None:
+    """A halo rule's iteration: ``per_exchange`` launches of ``kernel`` an
+    exchange (one exchange an apply), and no other kernel."""
+    _check(exchanges > 0 and launches == {kernel: per_exchange * exchanges},
+           f"16 {label}: launches {launches} for {exchanges} exchanges")
+
+
+def _all_reduce_latency(mesh, stats) -> float:
+    """Median host seconds of one ``mesh.all_reduce`` (synchronised) of
+    the inventory's largest payload."""
+    import torch
+    rec = max(stats["records"], key=lambda r: r.bytes)
+    t = torch.zeros(rec.shape, dtype=rec.dtype, device=mesh.device)
+    stats["latency_payload"] = f"{rec.bytes} B {rec.dtype} {rec.shape}"
+    for _ in range(5):
+        mesh.all_reduce(t)
+    times = []
+    for _ in range(P16_LATENCY_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_reduce(t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase16_int8(q, dev, rendezvous, solves, p16):
+    """Phase 16a at 2,097,152 rows: one refined iteration of phase 6's
+    int8 matrix row-sharded (kernel 7) recorded; kernel 7's launches the
+    ring exchanges; the latency of one all_reduce of its largest payload
+    (16c's)."""
+    from fortran_davidson_tpu_torch.parallel import scaling
+    mesh = _one_rank_mesh(rendezvous, dev)
+    stats = scaling.iteration_inventory(q, mesh, P16_LOWEST,
+                                        **scaling.probe_options())
+    _print_inventory("a int8 (kernel 7)", stats)
+    _hold_launches("a int8", stats["launches"], stats["exchanges"],
+                   "banded_q_ext_bsr_spmm", 1)
+    latency = _all_reduce_latency(mesh, stats)
+    print(f"  16c latency: {latency * 1e6:.1f} us median host time of one "
+          f"all_reduce of the largest payload ({stats['latency_payload']}) "
+          f"over {P16_LATENCY_CALLS} calls on the one-rank NCCL group (a "
+          "lower bound: nothing crosses a wire)", flush=True)
+    p16.update(int8_2m=stats, latency_s=latency)
+    solves.append(dict(solve="phase 16a inventory int8 refined iteration",
+                       **_inventory_json(stats),
+                       all_reduce_latency_s=latency))
+
+
+def _inventory_json(stats) -> dict:
+    return {k: v for k, v in stats.items() if k != "records"}
+
+
+def phase16_rules(A, dev, rendezvous, solves, refs, p16):
+    """Phase 16b: the per-rule report (``scaling.rule_report``) on the
+    one-rank NCCL group: row-local the f64 halo operator through
+    ``"pallas"`` (kernel 6) and ``"pallas-remote"`` (kernel 8), phase 4's
+    matrix and its 524,288-row sibling, each launch a ring exchange's, and
+    15a's surrogate at 5,000,192 and 10,000,384 rows (no kernel); n-scale
+    the rules that gather x: dense, general BSR (phase 4's matrix, kernel
+    2), ELL, sliced ELL and the hybrid's remainder (phase 12's recipe)."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.models import generators
+    from fortran_davidson_tpu_torch.ops import sparse
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     scaling)
+    mesh = _one_rank_mesh(rendezvous, dev)
+    sib = fdtt.generate_banded_bsr(P16_SIBLING_NBR, 128, bandwidth=1,
+                                   coupling=1e-3, seed=0,
+                                   dtype=torch.float64, device=dev)
+    probe = scaling.probe_options()
+
+    def halo(backend):
+        return lambda op: HaloBSROperator.from_bsr(op, 1, mesh,
+                                                   backend=backend)
+
+    def coo(n, build):
+        return build(*sparse.generate_local_sparse(n, **LOCAL_ARGS), n)
+
+    def free(n):
+        return generators.surrogate_hamiltonian(n, dtype=torch.float32,
+                                                device=dev)
+    rules = [
+        ("halo f64 pallas (kernel 6)", halo("pallas"), (sib, A), True,
+         P16_F64, ("banded_ext_bsr_spmm", 1)),
+        ("halo f64 pallas-remote (kernel 8)", halo("pallas-remote"),
+         (sib, A), True, P16_F64, ("banded_remote_halo_spmm", 2)),
+        ("matrix-free surrogate (15a)", free,
+         (NS_FREE_N // 2, NS_FREE_N), True, probe, None),
+        ("dense", lambda n: fdtt.generate_banded_bsr(
+            n // 128, 128, bandwidth=1, coupling=1e-3, seed=0,
+            dtype=torch.float64, device=dev).to_dense(), P16_DENSE_N, False,
+         P16_F64, None),
+        ("general BSR (kernel 2)", lambda op: op, (sib, A), False, P16_F64,
+         None),
+        ("ELL", lambda n: coo(n, lambda *c: fdtt.ELLOperator.from_coo(
+            *c, device=dev)), P16_COO_N, False, P16_F64, None),
+        ("sliced ELL", lambda n: coo(n, lambda *c: (
+            fdtt.SlicedELLOperator.from_coo(*c, device=dev))), P16_COO_N,
+         False, P16_F64, None),
+        ("hybrid band + remainder (kernel 2)", lambda n: coo(
+            n, lambda *c: fdtt.split_band_remainder(
+                *c, block_size=128, bandwidth=1, device=dev)), P16_COO_N,
+         False, P16_F64, None),
+    ]
+    reports = []
+    for rule, build, sizes, local, opts, held in rules:
+        t0 = time.perf_counter()
+        rep = scaling.rule_report(rule, build(sizes[0]), build(sizes[1]),
+                                  mesh, local, P16_LOWEST, **opts)
+        torch.cuda.empty_cache()
+        kinds = "; ".join(", ".join(f"{k} {v['count']} x {v['bytes']} B"
+                                    for k, v in bk.items())
+                          for bk in rep["by_kind"])
+        print(f"  16b {rule}: n={rep['n']} "
+              f"{'row-local' if rep['row_local'] else 'n-scale'}, "
+              f"{rep['total_bytes']} B an iteration, "
+              f"{rep['bytes_per_row']:.1f} B a row more; by kind {kinds}; "
+              f"exchanges {rep['exchanges']}, launches {rep['launches']} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if held is not None:
+            for launches, exchanges in zip(rep["launches"],
+                                           rep["exchanges"]):
+                _hold_launches(f"b {rule}", launches, exchanges, *held)
+        reports.append(rep)
+    del sib
+    torch.cuda.empty_cache()
+    one = refs["sharded"][("Halo(A, pallas)", 20)]
+    p16.update(rules=reports, t_iter_8a=one["wall"] / one["iterations"])
+    solves.append(dict(solve="phase 16b per-rule inventory",
+                       rules=reports))
+
+
+def _projections(t_iter, total_bytes, total_count, latency) -> list:
+    from fortran_davidson_tpu_torch.parallel import scaling
+    return [scaling.projected_efficiency(t_iter, total_bytes, total_count, c,
+                                         latency_s=latency)
+            for c in P16_CHIPS]
+
+
+def phase16_northstar(dev, solves, ns, p16):
+    """Phase 16a at 10,000,000 rows: one refined iteration of 10b's int8
+    matrix (the same object) row-sharded on a fresh one-rank NCCL group
+    (kernel 7): the 2,097,152-row inventory's bytes and calls, no tall
+    collective, kernel 7's launches the exchanges; then 16c: the projected
+    efficiency on 2, 4 and 8 GPUs of 15b's north star and of 8a's
+    lowest-20 from this run's one-device iteration times, the latency 16a
+    measured and NVLink 4's published 450 GB/s (a model)."""
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.parallel import scaling
+    q = ns.pop("q")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mesh = _one_rank_mesh(f"file://{tmp.name}/rendezvous", dev)
+        stats = scaling.iteration_inventory(q, mesh, P16_LOWEST,
+                                            **scaling.probe_options())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    del q
+    _print_inventory("a int8 (kernel 7)", stats)
+    _hold_launches("a int8 10M", stats["launches"], stats["exchanges"],
+                   "banded_q_ext_bsr_spmm", 1)
+    small = p16["int8_2m"]
+    scaling.assert_n_independent(small, stats)
+    scaling.audit_no_tall_collectives(small, small["n_local"],
+                                      small["m_max"])
+    scaling.audit_no_tall_collectives(stats, stats["n_local"],
+                                      stats["m_max"])
+    print(f"  16a: the inventories at n={small['n']} and n={stats['n']} are "
+          f"byte-identical ({stats['total_bytes']} B in "
+          f"{stats['total_count']} calls an iteration), no tall collective",
+          flush=True)
+    pallas = next(r for r in p16["rules"] if "pallas (" in r["rule"])
+    cases = [("15b int8 north star n=10,000,000", ns["t_iter_15b"],
+              stats["total_bytes"], stats["total_count"]),
+             ("8a f64 lowest-20 n=1,048,576 (pallas)", p16["t_iter_8a"],
+              pallas["total_bytes"][1], pallas["total_count"][1])]
+    out = []
+    for label, t_iter, b, count in cases:
+        proj = _projections(t_iter, b, count, p16["latency_s"])
+        print(f"  16c projection (a model: NVLink 4 at "
+              f"{scaling.NVLINK_GBPS_PER_GPU:.0f} GB/s published, latency "
+              f"{p16['latency_s'] * 1e6:.1f} us measured on one rank) of "
+              f"{label}: t_iter {t_iter * 1e3:.2f} ms measured, {b} B in "
+              f"{count} calls an iteration: efficiency "
+              + ", ".join(f"{p['chips']} GPUs {p['efficiency']:.4f} (comm "
+                          f"{p['comm_s'] * 1e3:.3f} ms)" for p in proj),
+              flush=True)
+        out.append(dict(case=label, t_iter_s=t_iter, bytes=b, calls=count,
+                        projections=proj))
+    solves.append(dict(solve="phase 16a inventory int8 refined iteration",
+                       **_inventory_json(stats)))
+    solves.append(dict(solve="phase 16c projection (model)",
+                       latency_s=p16["latency_s"],
+                       nvlink_gbps=scaling.NVLINK_GBPS_PER_GPU, cases=out))
+
+
+def phase_sum_strategy(q, dev, solves, refs):
+    """Phase 16e: phase 6b's refined stage on one device under
+    ``sum_strategy("tree")`` beside the default cascade, warm solves in
+    turns (cascade, tree, tree, cascade) and one profiled each:
+    iterations, the oracle, the warm wall, the idle share and the device
+    ops. It measures; no default changes."""
+    import torch
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.utils import ds
+    X0 = refs["int8"]["eigenvectors"]
+    runs = {"cascade": [], "tree": []}
+    out = {}
+    for strategy in ("tree", "cascade", "tree", "tree", "cascade"):
+        with ds.sum_strategy(strategy):
+            res, wall = _solve_converged(
+                f"int8 refined lowest-20 [sum_strategy {strategy}]", q, 20,
+                initial_vectors=X0, **REFINED)
+        runs[strategy].append(wall)
+        lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
+        out[strategy] = dict(iterations=res.iterations, lam=lam,
+                             oracle=_int8_oracle_residual(
+                                 q, res.eigenvectors, lam))
+        del res
+    for strategy in ("cascade", "tree"):
+        with ds.sum_strategy(strategy):
+            out[strategy].update(_device_busy(
+                f"int8 refined lowest-20 [sum_strategy {strategy}]",
+                lambda: fdtt.eigensolve(q, 20, initial_vectors=X0,
+                                        **REFINED)))
+    diff = float(torch.max(torch.abs(out["tree"]["lam"]
+                                     - out["cascade"]["lam"])
+                           / torch.clamp(torch.abs(out["cascade"]["lam"]),
+                                         min=1.0)))
+    for strategy, o in out.items():
+        warm = statistics.median(runs[strategy][-2:])
+        print(f"  16e {strategy}: iterations {o['iterations']}, oracle "
+              f"{o['oracle']:.3e}, warm wall {warm:.4f} s (runs "
+              f"{[round(w, 4) for w in runs[strategy]]}), idle share "
+              f"{o['device_idle_share']:.1%}, device ops {o['device_ops']}",
+              flush=True)
+        _check(o["oracle"] <= REFINED["tolerance"],
+               f"16e {strategy}: oracle {o['oracle']:.3e}")
+        solves.append(dict(
+            solve=f"phase 16e int8 refined lowest-20 sum_strategy "
+            f"{strategy}", n=q.shape[0], iterations=o["iterations"],
+            wall_s=runs[strategy], oracle_residual_rel=o["oracle"],
+            **{k: v for k, v in o.items()
+               if k not in ("lam", "iterations", "oracle")}))
+    print(f"  16e: max |eig_tree - eig_cascade| / max(|eig|, 1) {diff:.3e}",
+          flush=True)
+    _check(diff <= out["tree"]["oracle"] + out["cascade"]["oracle"],
+           f"16e: eigenvalues differ by {diff:.3e}")
+    torch.cuda.empty_cache()
+
+
+def _rank16(rank: int, world: int, tmp: str, cfg: dict) -> None:
+    """A rank of phase 16d: phase 8b's lowest-20 through
+    ``"pallas-remote"`` (kernel 8) and phase 14b's refined stage through
+    kernel 7 on ``world`` GPUs over NCCL, two solves each, then one
+    recorded iteration of each; rank 0 writes the results to
+    ``tmp/world<W>.json``."""
+    import torch
+    import torch.distributed as dist
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded,
+                                                     multihost, scaling)
+    dev = torch.device(cfg["device"], rank)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else lambda: None)
+    mesh = multihost.initialize(
+        init_method=f"file://{tmp}/rendezvous{world}", world_size=world,
+        rank=rank, device=dev)
+    out = {}
+
+    def timed(op, **kw):
+        walls = []
+        for _ in range(2):
+            mesh.barrier()
+            sync()
+            t0 = time.perf_counter()
+            res = eigensolve_sharded(op, P16_LOWEST, mesh, **kw)
+            sync()
+            mesh.barrier()
+            walls.append(time.perf_counter() - t0)
+        return res, walls
+
+    try:
+        A = fdtt.generate_banded_bsr(cfg["nbr"], cfg["bs"], bandwidth=1,
+                                     coupling=1e-3, seed=0,
+                                     dtype=torch.float64, device=dev)
+        R = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas-remote")
+        del A
+        res, walls = timed(R, tolerance=SOLVE_TOL)
+        stats = scaling.iteration_inventory(R, mesh, P16_LOWEST, **P16_F64)
+        out["remote"] = dict(iterations=res.iterations, walls=walls,
+                             eigenvalues=res.eigenvalues.tolist(),
+                             by_kind=stats["by_kind"])
+        del R, res
+        q = fdtt.generate_banded_bsr_quantized(cfg["q_nbr"], cfg["bs"],
+                                               device=dev)
+        X0 = torch.load(os.path.join(tmp, "x0.pt")).to(dev)
+        res, walls = timed(q, initial_vectors=X0, **REFINED)
+        stats = scaling.iteration_inventory(q, mesh, P16_LOWEST,
+                                            **scaling.probe_options())
+        lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
+        out["refined"] = dict(iterations=res.iterations, walls=walls,
+                              eigenvalues=lam.tolist(),
+                              by_kind=stats["by_kind"])
+        out["launches"] = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(tmp, f"world{world}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _same_per_rank(by_kind, one, world) -> bool:
+    """A rank's inventory at ``world`` ranks (``by_kind``) is ``one``'s
+    (one rank): the same calls of each kind, the same bytes, but the
+    all-gathers of the ranks' partials, ``world`` times as large."""
+    return by_kind.keys() == one.keys() and all(
+        by_kind[k]["count"] == one[k]["count"]
+        and by_kind[k]["bytes"] == (world if k == "all-gather" else 1)
+        * one[k]["bytes"] for k in one)
+
+
+def phase16_multi_gpu(dev, solves, refs, p16) -> None:
+    """Phase 16d: with two or more GPUs visible, phase 8b's lowest-20
+    (kernel 8) and phase 14b's refined stage (kernel 7) at world size 2
+    (and 4 with four GPUs) over NCCL: world 1's iterations (the refined
+    stage ±1), eigenvalues within 1e-12 relative, each rank's recorded
+    bytes 16b's and 16a's inventories (the partials' all-gathers W times
+    as large), the measured efficiency beside the projection. With one
+    GPU it prints that it did not run."""
+    import torch
+    import torch.multiprocessing as mp
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"  16d did not run: {count} GPU visible "
+              f"({torch.cuda.get_device_name(0)}); it needs two or more",
+              flush=True)
+        solves.append(dict(solve="phase 16d multi-GPU", ran=False,
+                           gpus=count))
+        return
+    remote = next(r for r in p16["rules"] if "remote" in r["rule"])
+    one = {"remote": (refs["sharded"][("Halo(A, pallas-remote)", 20)],
+                      remote["by_kind"][1]),
+           "refined": (refs["sharded_refined"],
+                       p16["int8_2m"]["by_kind"])}
+    cfg = dict(device=dev.type, **P16_MULTI)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(refs["int8"]["eigenvectors"].cpu(),
+                   os.path.join(tmp, "x0.pt"))
+        for world in (2, 4) if count >= 4 else (2,):
+            mp.spawn(_rank16, args=(world, tmp, cfg), nprocs=world,
+                     join=True)
+            with open(os.path.join(tmp, f"world{world}.json")) as f:
+                got = json.load(f)
+            for case, (ref, kinds1) in one.items():
+                g = got[case]
+                lam = torch.tensor(g["eigenvalues"], dtype=torch.float64)
+                lam1 = ref["eigenvalues"].double().cpu()
+                rel = float(torch.max(torch.abs(lam - lam1)
+                                      / torch.abs(lam1)))
+                t_w = min(g["walls"])
+                eff = ref["wall"] / (world * t_w)
+                t_iter = ref["wall"] / ref["iterations"]
+                stats = p16["int8_2m"] if case == "refined" else dict(
+                    total_bytes=remote["total_bytes"][1],
+                    total_count=remote["total_count"][1])
+                proj = _projections(t_iter, stats["total_bytes"],
+                                    stats["total_count"],
+                                    p16["latency_s"])
+                proj_w = next((p["efficiency"] for p in proj
+                               if p["chips"] == world), None)
+                same = _same_per_rank(g["by_kind"], kinds1, world)
+                print(f"  16d world {world} {case}: iterations "
+                      f"{g['iterations']} (world 1 {ref['iterations']}), "
+                      f"eigenvalues {rel:.3e} relative from world 1's, "
+                      f"inventory per rank as world 1's: {same}; warm wall "
+                      f"{t_w:.4f} s (world 1 {ref['wall']:.4f} s): measured "
+                      f"efficiency {eff:.4f}, projected {proj_w}",
+                      flush=True)
+                slack = 1 if case == "refined" else 0
+                _check(abs(g["iterations"] - ref["iterations"]) <= slack,
+                       f"16d world {world} {case}: {g['iterations']} "
+                       "iterations")
+                _check(rel <= 1e-12, f"16d world {world} {case}: "
+                       f"eigenvalues {rel:.3e}")
+                _check(same, f"16d world {world} {case}: inventory")
+                solves.append(dict(
+                    solve=f"phase 16d world {world} {case}",
+                    iterations=g["iterations"], walls=g["walls"],
+                    eig_rel_world1=rel, efficiency=eff,
+                    projected_efficiency=proj_w))
+            _check(got["launches"]["banded_remote_halo_spmm"] > 0
+                   and got["launches"]["banded_q_ext_bsr_spmm"] > 0,
+                   f"16d world {world}: launches {got['launches']}")
 
 
 @contextlib.contextmanager
@@ -5873,6 +6344,8 @@ def main() -> int:
         0))
     # The one-rank NCCL group of phases 8-9 meets at a file in here.
     tmp = tempfile.TemporaryDirectory()
+    # What phase 16 carries from 16a-16b to 16c and 16d.
+    p16 = {}
     rendezvous = f"file://{tmp.name}/rendezvous"
     paths = [
         ("[4] main path", lambda: phase_main(A, dev, solves, refs),
@@ -5919,6 +6392,20 @@ def main() -> int:
         (f"[15d] matrix-free pencil, n={FREE_PENCIL_N}, row-sharded, world "
          "size 1 (NCCL)", lambda: phase_free_pencil(dev, rendezvous, solves),
          ()),
+        ("[16a] collective inventory of one refined iteration, int8, "
+         "n=2,097,152, world size 1 (NCCL), kernel 7",
+         lambda: phase16_int8(q, dev, rendezvous, solves, p16),
+         ("banded_q_ext_bsr_spmm",)),
+        ("[16b] collective inventory of each sharding rule at two row "
+         "counts, world size 1 (NCCL)",
+         lambda: phase16_rules(A, dev, rendezvous, solves, refs, p16),
+         ("banded_ext_bsr_spmm", "banded_remote_halo_spmm", "bsr_spmm")),
+        ("[16d] world sizes 2 and 4 over NCCL, where the GPUs are",
+         lambda: phase16_multi_gpu(dev, solves, refs, p16), ()),
+        ("[16e] phase 6b's refined stage under sum_strategy('tree') beside "
+         "the cascade, one device, kernel 4",
+         lambda: phase_sum_strategy(q, dev, solves, refs),
+         ("banded_q_bsr_spmm",)),
     ]
     elapsed = {}
 
@@ -5990,12 +6477,17 @@ def main() -> int:
              "--polish 2, kernel 7",
              lambda: phase_northstar_bsr_sharded(dev, solves, ns),
              ("banded_q_ext_bsr_spmm",)),
+            ("[16a] collective inventory of one refined iteration, int8, "
+             "n=10,000,000 (10b's matrix), world size 1 (NCCL), kernel 7; "
+             "[16c] the N-GPU projection",
+             lambda: phase16_northstar(dev, solves, ns, p16),
+             ("banded_q_ext_bsr_spmm",)),
             ("[10c] entry points: the CLI's solve, northstar --mode banded",
              lambda: phase_entry_points(dev, solves),
              ("banded_bsr_spmm",))]:
         run_path(title, run, expected)
-        if "q" in ns:
-            kernel7_at_10m(ns.pop("q"), dev, solves)
+        if title.startswith("[15b]"):
+            kernel7_at_10m(ns["q"], dev, solves)
     ns.clear()
 
     # Phase 12: the ELL family at 1M rows, each sub-phase counted from 0.
@@ -6140,14 +6632,15 @@ def main() -> int:
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
     total_s = time.perf_counter() - t_run
-    phase14_s, phase15_s = (sum(t for title, t in elapsed.items()
-                                if title.startswith(f"[{p}"))
-                            for p in (14, 15))
+    phase14_s, phase15_s, phase16_s = (
+        sum(t for title, t in elapsed.items() if title.startswith(f"[{p}"))
+        for p in (14, 15, 16))
     print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
           f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%), "
           f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%), "
           f"phase 14 {phase14_s:.1f} s ({100 * phase14_s / total_s:.1f}%), "
-          f"phase 15 {phase15_s:.1f} s ({100 * phase15_s / total_s:.1f}%)",
+          f"phase 15 {phase15_s:.1f} s ({100 * phase15_s / total_s:.1f}%), "
+          f"phase 16 {phase16_s:.1f} s ({100 * phase16_s / total_s:.1f}%)",
           flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

@@ -54,6 +54,11 @@ class Rows:
     def barrier(self) -> None:
         """Wait for every rank (nothing to wait for on one device)."""
 
+    def skipped(self, kind: str, t) -> None:
+        """Note the collective of ``kind`` on ``t`` that N ranks make and
+        that this hook skips (``parallel.scaling``'s inventory); nothing
+        on one device."""
+
     def norms(self, X):
         """Column 2-norms of the tall (rows, w) block."""
         return torch.linalg.vector_norm(X, dim=0)

@@ -3,9 +3,13 @@
 the operator and of the tall basis partitioned over the ranks, NCCL on
 GPUs and gloo on the CPU.
 
-``fortran_davidson_tpu/parallel/scaling.py`` has no counterpart: it
-audits the collectives of XLA's compiled HLO, and here the collectives
-are the explicit calls of ``parallel/mesh.py`` and ``parallel/halo.py``.
+Every collective is a call of ``RowMesh`` (``parallel/mesh.py``):
+``parallel/scaling.py`` records them (the counterpart of the JAX
+package's HLO inventory) for its row-locality audit and N-GPU
+projection. Row-local (no collective grows with n): the halo operators
+(``"xla"``, ``"pallas"``, ``"pallas-remote"``, the int8 one) and the
+per-rank matrix-free rule. The dense, general BSR, ELL, sliced ELL and
+hybrid rules all-gather x in every apply (n-scale by design).
 """
 
 from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,

@@ -17,13 +17,20 @@ device. Conventions, as in the JAX package:
 ``replicated`` has no counterpart to place: every rank computes the small
 matrices from all-reduced sums and holds all of them. It is kept, as the
 whole-range slice, for code written against the JAX API.
+
+Every collective of the port is one of :class:`RowMesh`'s three methods
+(``all_reduce``, ``all_gather_rows``, ``ring_exchange``), so each of them
+also appends a :class:`Collective` to the inventories that
+``parallel.scaling.record_collectives`` holds open.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -32,6 +39,39 @@ from fortran_davidson_tpu_torch.utils.dtypes import default_device
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
 
 ROWS_AXIS = "rows"
+
+
+class Collective(NamedTuple):
+    """One collective call, as an inventory records it.
+
+    ``kind`` is the JAX HLO op's name (``"all-reduce"``, ``"all-gather"``,
+    ``"collective-permute"``); ``bytes`` the payload one rank moves: an
+    all-reduce's tensor, an all-gather's result, a permute's sent rows
+    (``fortran_davidson_tpu/parallel/scaling.py:75-80``); ``moved`` is
+    False where one rank makes no transfer (at world size 1, or a call
+    that one rank skips) but N >= 2 ranks would.
+    """
+
+    kind: str
+    bytes: int
+    dtype: torch.dtype
+    shape: tuple
+    moved: bool
+
+
+# The inventories open in this context (``parallel.scaling``).
+_INVENTORIES: contextvars.ContextVar = contextvars.ContextVar(
+    "collective_inventories", default=())
+
+
+def _record(kind: str, dtype, shape, moved: bool) -> None:
+    inventories = _INVENTORIES.get()
+    if inventories:
+        shape = tuple(int(d) for d in shape)
+        rec = Collective(kind, math.prod(shape) * dtype.itemsize, dtype,
+                         shape, moved)
+        for records in inventories:
+            records.append(rec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +95,7 @@ class RowMesh:
         """Sum ``t`` over the ranks, in place where ``t`` is contiguous;
         every rank gets the same bits."""
         t = t.contiguous()
+        _record("all-reduce", t.dtype, t.shape, self.size > 1)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
@@ -64,6 +105,7 @@ class RowMesh:
         t = t.contiguous()
         out = torch.empty((self.size * t.shape[0], *t.shape[1:]),
                           dtype=t.dtype, device=t.device)
+        _record("all-gather", t.dtype, out.shape, self.size > 1)
         gather = (getattr(dist, "all_gather_single", None)
                   or dist.all_gather_into_tensor)
         gather(out, t, group=self.group)
@@ -99,6 +141,11 @@ class RowMesh:
         is the mesh's group (:func:`default_mesh`).
         """
         x = x.contiguous()
+        # The two sends of every rank (JAX's two ``ppermute``s), recorded
+        # at world size 1 too, where they are views.
+        for _ in range(2):
+            _record("collective-permute", x.dtype, (halo, *x.shape[1:]),
+                    self.size > 1)
         if self.size == 1:
             return x[-halo:], x[:halo], []
         left = (self.rank - 1) % self.size

@@ -29,6 +29,15 @@ solve on its contiguous slice of the rows.
   sum over rows through it; a callable without it raises.
 
 One host read per iteration, as in the single-device loop.
+
+What crosses between ranks in an iteration (``parallel/scaling.py``
+records it): width-scale all-reduces and all-gathers of partials, and
+per operator apply either the halo rows (row-local: the halo operators,
+kernels 6-8, and the per-rank matrix-free rule) or the whole skinny X.
+The rules that all-gather X are n-scale by design: dense, general BSR
+(kernel 2), ELL, sliced ELL (through ``to_ell``) and the hybrid (one
+gather for its band and its remainder), ``n * w * itemsize`` bytes an
+apply per rank (160 B a row at w = 20 in float64).
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,
                                                      HaloQuantizedOperator,
                                                      block_diagonal,
                                                      local_rows)
-from fortran_davidson_tpu_torch.parallel.mesh import ROWS_AXIS, RowMesh
+from fortran_davidson_tpu_torch.parallel.mesh import (ROWS_AXIS, RowMesh,
+                                                      _record)
 from fortran_davidson_tpu_torch.utils.ds import cascade_partials
 from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
@@ -101,10 +111,17 @@ class RowShardConstraint(Rows):
     def barrier(self) -> None:
         self.mesh.barrier()
 
+    def skipped(self, kind: str, t) -> None:
+        # Recorded as not moved: a one-rank mesh's inventory is then an
+        # N-rank solve's.
+        _record(kind, t.dtype, t.shape, False)
+
     def norms(self, X):
         # One rank holds every row: the single-device norm, so that a
-        # world-size-1 solve keeps the single-device bits.
+        # world-size-1 solve keeps the single-device bits. The inventory
+        # still counts the all-reduce of the (w,) partials N ranks make.
         if self.size == 1:
+            self.skipped("all-reduce", X[0])
             return super().norms(X)
         return torch.sqrt(self.sum(torch.sum(X * X, dim=0)))
 

@@ -30,6 +30,10 @@ Tall reductions (rows ~10⁶-10⁷) fold with the JAX package's default
 single-device strategy: a sequential cascade of 65,536-row slabs from
 ``_CASCADE_MIN_ROWS`` rows up, the two_sum tree below. The tree pairs
 contiguous halves, the order the JAX package uses off the TPU.
+:func:`sum_strategy` changes the fold inside its ``with`` block:
+``"tree"`` folds a one-device solve by the tree at every size, as a
+sharded rank does, and ``row_divisor=D`` folds D contiguous row slabs
+by the tree each and takes their partials in order, as D ranks would.
 
 The tall reductions take a ``rows`` hook (``core/rows.py``). In a
 row-sharded solve each rank holds its rows only, and the reductions
@@ -44,6 +48,8 @@ from the local row count), as ``_chunk_sharded`` does (``:440-455``).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple, Optional
 
 import torch
@@ -168,9 +174,42 @@ def ds_sqrt(x: DS) -> DS:
 _CASCADE_SLAB = 65536
 _CASCADE_MIN_ROWS = 4 * _CASCADE_SLAB
 
+# The tall-reduction strategy of :func:`sum_strategy`, and the row slabs
+# its tree folds apart (1: the rows as one slab).
+_SUM_STRATEGY: contextvars.ContextVar = contextvars.ContextVar(
+    "ds_sum_strategy", default="cascade")
+_ROW_DIVISOR: contextvars.ContextVar = contextvars.ContextVar(
+    "ds_row_divisor", default=1)
+
+
+@contextlib.contextmanager
+def sum_strategy(name: str, row_divisor: int = 1):
+    """The tall reductions' fold inside the ``with`` block
+    (``fortran_davidson_tpu/utils/ds.py:201-220``).
+
+    ``"cascade"`` (the default): the single-device slab cascade from
+    ``_CASCADE_MIN_ROWS`` rows, the tree below. ``"tree"``: the tree at
+    every row count, the fold of a sharded rank (``core/rows.py``), so a
+    one-device refined solve takes the bits of the world-size-1 sharded
+    one. ``row_divisor`` > 1: the tree folds that many contiguous slabs of
+    the rows a process holds apart, the Gram's chunk divides a slab, and
+    the slab partials fold in order by the exact cascade of
+    :func:`cascade_partials`, as that many ranks would. No default moves
+    outside the block. Unknown names raise ``ValueError``.
+    """
+    if name not in ("cascade", "tree"):
+        raise ValueError(f"unknown ds sum strategy {name!r}")
+    token = _SUM_STRATEGY.set(name)
+    token_d = _ROW_DIVISOR.set(max(int(row_divisor), 1))
+    try:
+        yield
+    finally:
+        _SUM_STRATEGY.reset(token)
+        _ROW_DIVISOR.reset(token_d)
+
 
 def _use_cascade(n: int) -> bool:
-    return n >= _CASCADE_MIN_ROWS
+    return _SUM_STRATEGY.get() == "cascade" and n >= _CASCADE_MIN_ROWS
 
 
 def _cascade_fold(slab_fn, n: int, width: int, like, B: int) -> DS:
@@ -212,6 +251,21 @@ def _fold_leading(hi, lo):
     return hi[0], lo[0]
 
 
+def _fold_rows(hi, lo, rows: Rows):
+    """The (no renorm) sum over every rank's rows of axis 0 of the pair:
+    the tree over the local rows (over each of ``row_divisor`` slabs of
+    them, the slab partials cascaded in order), then ``rows.sum_ds``."""
+    D = _ROW_DIVISOR.get()
+    r = hi.shape[0]
+    if D > 1 and r >= D and r % D == 0:
+        parts = [_fold_leading(h, l)
+                 for h, l in zip(hi.split(r // D), lo.split(r // D))]
+        hi, lo = cascade_partials(torch.stack([p[0] for p in parts]),
+                                  torch.stack([p[1] for p in parts]))
+        return rows.sum_ds(hi, lo)
+    return rows.sum_ds(*_fold_leading(hi, lo))
+
+
 def cascade_partials(hi, lo):
     """Exact sequential fold of axis 0 (no final renorm): the JAX
     package's fold of the per-shard partials
@@ -233,7 +287,7 @@ def ds_sum_tree(x, axis: int = 0, lo=None, rows: Rows = LOCAL) -> DS:
     hi = torch.movedim(x, axis, 0)
     lo = (torch.zeros_like(hi) if lo is None
           else torch.movedim(lo, axis, 0))
-    return DS(*fast_two_sum(*rows.sum_ds(*_fold_leading(hi, lo))))
+    return DS(*fast_two_sum(*_fold_rows(hi, lo, rows)))
 
 
 def tall_sum_ds(x, lo=None, rows: Rows = LOCAL) -> DS:
@@ -264,8 +318,8 @@ def _tall_sum_tree(x, lo, rows: Rows = LOCAL) -> DS:
         x = torch.nn.functional.pad(x, (0, mp - m, 0, pad_rows))
         lo = torch.nn.functional.pad(lo, (0, mp - m, 0, pad_rows))
         n += pad_rows
-    hi1, lo1 = rows.sum_ds(*_fold_leading(x.reshape(n // g, g * mp),
-                                          lo.reshape(n // g, g * mp)))
+    hi1, lo1 = _fold_rows(x.reshape(n // g, g * mp),
+                          lo.reshape(n // g, g * mp), rows)
     s = hi1.reshape(g, mp)
     e = lo1.reshape(g, mp)
     hi_acc, lo_acc = s[0], e[0]
@@ -278,10 +332,14 @@ def _tall_sum_tree(x, lo, rows: Rows = LOCAL) -> DS:
 
 def gram_chunk(n: int, chunk: Optional[int] = None) -> int:
     """The Gram's chunk rows: ``chunk`` (default 4096) halved until it
-    divides n."""
+    divides n (and, under ``sum_strategy(row_divisor=D)``, n / D)."""
     chunk = 4096 if chunk is None else chunk
     while n % chunk and chunk > 1:
         chunk //= 2
+    D = _ROW_DIVISOR.get()
+    if D > 1 and n % D == 0:
+        while (n // D) % chunk and chunk > 1:
+            chunk //= 2
     return max(chunk, 1)
 
 

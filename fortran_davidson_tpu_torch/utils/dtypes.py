@@ -70,6 +70,12 @@ def numpy_dtype(dtype) -> np.dtype:
     return np.dtype(str(dt).removeprefix("torch."))
 
 
+def ensure_x64() -> None:
+    """Kept for the JAX package's API, where it turns on JAX's 64-bit
+    mode. PyTorch has float64 on the CPU and the GPU at all times: a
+    no-op."""
+
+
 def canonical_dtype(dtype) -> torch.dtype:
     """Normalize a user-supplied solver dtype (float32 or float64)."""
     dt = as_torch_dtype(dtype)

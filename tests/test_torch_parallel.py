@@ -53,7 +53,16 @@ the tests here compare the ranks' rows, put back together, with:
   bit at world size 1), the solves match the JAX package's
   ``eigensolve_sharded`` (``tests/test_parallel.py:100``), and the
   per-rank ``polish_eigenpairs(mesh=...)`` of a sharded refined result
-  matches the JAX package's polish of its sharded result.
+  matches the JAX package's polish of its sharded result;
+- the scaling audit (``parallel.scaling``): at world sizes 1, 2 and 4 the
+  probe's inventories at two row counts are byte-identical and pass the
+  tall audit, agree across world sizes, and the JAX package's compiled
+  probe at 4 devices gets the same verdicts; at world size 2 the ELL
+  rule (it gathers x) fails both audits with the JAX texts; the ranks'
+  double-single folds are the one-device folds under
+  ``sum_strategy("tree", row_divisor=world)`` bit for bit, and at world
+  size 1 the refined surrogate past the cascade's threshold gives the
+  one-device ``"tree"`` solve's eigenvalue bits.
 
 The argument checks and ``convert.halo`` need no process group: they use
 a :class:`RowMesh` whose group is never called.
@@ -61,6 +70,7 @@ a :class:`RowMesh` whose group is never called.
 
 import contextlib
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +83,7 @@ import fortran_davidson_tpu as fdt
 import fortran_davidson_tpu_torch as fdtt
 from fortran_davidson_tpu import config as jconfig
 from fortran_davidson_tpu import parallel as jpar
+from fortran_davidson_tpu.parallel import scaling as jscaling
 from fortran_davidson_tpu.models import generators as jgen
 from fortran_davidson_tpu.models.generators import surrogate_hamiltonian
 from fortran_davidson_tpu.ops import sparse as jsparse
@@ -80,7 +91,10 @@ from fortran_davidson_tpu_torch import config as tconfig
 from fortran_davidson_tpu_torch import convert
 from fortran_davidson_tpu_torch import parallel as tpar
 from fortran_davidson_tpu_torch.ops import kernels
+from fortran_davidson_tpu_torch.models import generators as tgen
 from fortran_davidson_tpu_torch.parallel import multihost
+from fortran_davidson_tpu_torch.parallel import scaling
+from fortran_davidson_tpu_torch.utils import ds as tds
 from fortran_davidson_tpu_torch.utils.errors import OperatorError
 from tests import torch_dist_worker as worker
 from tests.torch_parity import to_numpy
@@ -185,6 +199,10 @@ def inputs(jax_ops, tmp_path_factory):
     block[:, 3] = V @ qr_rng.standard_normal(3)
     d.update(Xf=qr_rng.standard_normal((worker.FREE_N, 5)), qr_V=V,
              qr_block=block, qr_mask=np.array([1.0] * 6 + [0.0]))
+    # The tall block of the double-single folds.
+    ds_rng = np.random.default_rng(19)
+    d.update(ds_x=ds_rng.standard_normal((worker.DS_N, 3)).astype(np.float32),
+             ds_y=ds_rng.standard_normal((worker.DS_N, 3)).astype(np.float32))
     for tag, op in jax_ops.items():
         if hasattr(op, "qblocks"):
             d.update({f"{tag}_q": np.asarray(op.qblocks),
@@ -849,6 +867,132 @@ def test_per_rank_polish_matches_jax(ranks, inputs, jax_refined, world):
     x = to_numpy(pol.evecs_hi).astype(np.float64) + to_numpy(pol.evecs_lo)
     np.testing.assert_allclose(_gathered(res, "polish_x"), x, rtol=0,
                                atol=1e-12)
+
+
+# -- the scaling audit (parallel.scaling) -------------------------------
+
+def _inventory(r: dict, prefix: str) -> tuple:
+    """(stats, records) of an inventory a rank saved
+    (``torch_dist_worker._inventory``)."""
+    return (json.loads(str(r[f"{prefix}_stats"])),
+            json.loads(str(r[f"{prefix}_records"])))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_scaling_probe_is_row_local(ranks, world):
+    # One refined iteration of the int8 halo probe at 64 and 128 block rows
+    # of 32: byte-identical inventories, no tall collective, the same on
+    # every rank; at least one all-reduce, and two permutes (the ring
+    # exchange's two sends) per operator apply, the only permutes.
+    res = ranks(world)
+    small, large = (_inventory(res[0], f"scaling{nbr}")[0]
+                    for nbr in worker.SCALING_NBR)
+    scaling.assert_n_independent(small, large)
+    scaling.audit_no_tall_collectives(small, small["n_local"],
+                                      small["m_max"])
+    assert small["n_devices"] == world and small["n"] < large["n"]
+    for r in res[1:]:
+        assert _inventory(r, "scaling64") == _inventory(res[0], "scaling64")
+    for nbr, stats in zip(worker.SCALING_NBR, (small, large)):
+        applies = int(res[0][f"scaling{nbr}_applies"])
+        kinds = stats["by_kind"]
+        assert kinds["all-reduce"]["count"] >= 1
+        assert applies >= 1 and stats["exchanges"] == applies
+        assert kinds["collective-permute"]["count"] == 2 * applies
+        assert stats["moved_bytes"] == (0 if world == 1
+                                        else stats["total_bytes"])
+
+
+def test_scaling_probe_agrees_across_world_sizes(ranks):
+    # The same calls at every world size, in the same order, with the same
+    # payloads, except each all-gather of the ranks' double-single
+    # partials (``RowShardConstraint.sum_ds``): its result holds one
+    # partial per rank, so it grows with the world size, not with n.
+    one = _inventory(ranks(1)[0], "scaling64")[1]
+    for world in WORLDS[1:]:
+        recs = _inventory(ranks(world)[0], "scaling64")[1]
+        assert [r[0] for r in recs] == [r[0] for r in one]
+        for (kind, b, shape, _), (_, b1, shape1, _) in zip(recs, one):
+            if kind == "all-gather":
+                assert shape == [world * shape1[0], *shape1[1:]]
+                assert b == world * b1
+            else:
+                assert (b, shape) == (b1, shape1)
+
+
+def test_scaling_verdict_matches_jax(ranks):
+    # The JAX package's compiled probe at 4 devices on the same shape gets
+    # the port's verdicts: n-independent and row-local. The bytes are not
+    # held equal: GSPMD combines the all-reduces and pads the width to
+    # 128 lanes, where the port sends each call at the active width.
+    res = ranks(4)
+    small, large = (_inventory(res[0], f"scaling{nbr}")[0]
+                    for nbr in worker.SCALING_NBR)
+    j_small, j_large = (jscaling.probe_compiled_collectives(
+        n_devices=4, nbr=nbr, bs=worker.SCALING_BS)
+        for nbr in worker.SCALING_NBR)
+    for check in (jscaling.assert_n_independent, scaling.assert_n_independent):
+        check(j_small, j_large)
+        check(small, large)
+    for audit in (jscaling.audit_no_tall_collectives,
+                  scaling.audit_no_tall_collectives):
+        audit(j_small, j_small["n_local"], j_small["m_max"])
+        audit(small, small["n_local"], small["m_max"])
+    print(f"per-iteration collectives at 4 ranks, n={small['n']}: the port "
+          f"{small['total_bytes']} B in {small['total_count']} calls "
+          f"(m_max ceiling {small['m_max_ceiling_bytes']} B), the JAX "
+          f"package {j_small['total_bytes']} B in {j_small['total_count']}")
+
+
+def test_gathering_rule_fails_both_audits(ranks):
+    # The ELL rule all-gathers x: its inventory grows with n and its
+    # gathered block (m_max = 2k at 2 ranks) is a full local panel; both
+    # audits fail with the JAX package's texts.
+    small, large = (_inventory(ranks(2)[0], f"gather{n}")[0]
+                    for n in worker.GATHER_N)
+    for check, match in ((scaling.assert_n_independent, "scales with n"),
+                         (jscaling.assert_n_independent, "scales with n")):
+        with pytest.raises(AssertionError, match=match):
+            check(small, large)
+    texts = []
+    for audit in (scaling.audit_no_tall_collectives,
+                  jscaling.audit_no_tall_collectives):
+        with pytest.raises(AssertionError, match="n-scale") as err:
+            audit(small, small["n_local"], small["m_max"], small["itemsize"])
+        texts.append(str(err.value))
+    assert texts[0] == texts[1]
+    assert small["largest"][0].endswith(
+        f"f64[{small['n']},{worker.GATHER['lowest']}] all-gather")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_row_divisor_folds_as_the_ranks(ranks, inputs, world):
+    # The ranks' double-single folds of their rows (each rank's tree, the
+    # partials cascaded in rank order) are the one-device folds under
+    # sum_strategy("tree", row_divisor=world), bit for bit.
+    d, _ = inputs
+    x, y = torch.from_numpy(d["ds_x"]), torch.from_numpy(d["ds_y"])
+    with _one_thread(), tds.sum_strategy("tree", row_divisor=world):
+        want = {"dot": tds.dot_cols_ds(x, y), "gram": tds.gram_ds(x, y),
+                "sumsq": tds.col_sumsq_ds(x)}
+    for r in ranks(world):
+        for name, folded in want.items():
+            np.testing.assert_array_equal(r[f"ds_{name}"],
+                                          torch.stack(folded).numpy())
+
+
+def test_tree_strategy_gives_the_world_one_refined_bits(ranks):
+    # Past the cascade's threshold a one-device solve folds by the cascade
+    # and a sharded rank by the tree; under sum_strategy("tree") the
+    # one-device refined solve takes the world-size-1 sharded bits.
+    r0 = ranks(1)[0]
+    lowest, opts = worker.REFINED_SOLVES["refined_free"]
+    op = tgen.surrogate_hamiltonian(worker.DS_N, dtype=torch.float32,
+                                    device="cpu")
+    with _one_thread(), tds.sum_strategy("tree"):
+        res = fdtt.eigensolve(op, lowest, **opts)
+    np.testing.assert_array_equal(res.eigenvalues.numpy(), r0["tall_evals"])
+    assert res.iterations == int(r0["tall_iterations"])
 
 
 # -- argument checks (no process group) --------------------------------

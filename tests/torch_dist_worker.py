@@ -17,7 +17,12 @@ through their per-rank callables, polish a sharded result
 (``polish_eigenpairs(mesh=...)``) and orthonormalize a block with zero
 columns by the TSQR; every halo apply is also repeated with the halos
 moved by :func:`all_gather_halos`, the all-gather form the ring exchange
-replaced.
+replaced. At every world size they also take the collective inventory of
+one iteration of the scaling probe (``parallel.scaling``) at two row
+counts, and fold the double-single reductions of a tall block over their
+rows; at world size 2 they take the inventory of the ELL rule, which
+gathers x, and at world size 1 they solve the float32 surrogate past the
+cascade's threshold (``scaling_cases``).
 
 A spawned process imports the module of its target, and the test
 modules and ``tests/conftest.py`` import JAX: this module imports only
@@ -27,6 +32,7 @@ numpy, torch and the port.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import numpy as np
@@ -126,6 +132,25 @@ CKPT_SOLVES = {
     "ckpt_refined": ("A512", 3, 4, dict(dtype="float32", refined=True,
                                          tolerance=1e-6, max_iterations=80)),
 }
+
+# The scaling audit (``tests/test_scaling_model.py``'s probe shape): one
+# refined float32 iteration of the int8 halo probe at these block rows of
+# SCALING_BS, at every world size.
+SCALING_NBR = (64, 128)
+SCALING_BS = 32
+# The ELL rule's inventory at world size 2, at these row counts. Its
+# options make m_max = 2k, so the gathered k-column block (2 * n_local * k
+# rows) is one full local panel, the tall audit's cap, and n_local is past
+# the cap's 32 m_max² floor.
+GATHER_WORLDS = (2,)
+GATHER_N = (4096, 8192)
+GATHER = dict(lowest=20, init_dim=20, max_dim_sub=20, expansion="lowest-k",
+              tolerance=1e-8)
+# The double-single folds of a sharded rank on DS_N rows (past the
+# cascade's threshold, with a ragged tail of its slab), at every world
+# size; at TALL_WORLDS the refined surrogate solve of that order.
+DS_N = 303_104
+TALL_WORLDS = (1,)
 
 
 class Interrupt(RuntimeError):
@@ -438,6 +463,79 @@ def counting_collectives():
             setattr(dist, n, fn)
 
 
+@contextlib.contextmanager
+def counting_recorded_applies(cls):
+    """Count the calls of ``cls.matmat`` made while a collective inventory
+    is open (``parallel.scaling.record_collectives``): ``calls[0]``."""
+    from fortran_davidson_tpu_torch.parallel import mesh as mesh_module
+    calls = [0]
+    matmat = cls.matmat
+
+    def counted(self, block):
+        calls[0] += bool(mesh_module._INVENTORIES.get())
+        return matmat(self, block)
+
+    cls.matmat = counted
+    try:
+        yield calls
+    finally:
+        cls.matmat = matmat
+
+
+def _inventory(stats: dict, prefix: str, out: dict) -> None:
+    """``stats`` (``parallel.scaling``) as JSON strings: the stats and
+    the records as (kind, bytes, shape, moved)."""
+    records = stats.pop("records")
+    out[f"{prefix}_stats"] = np.array(json.dumps(stats))
+    out[f"{prefix}_records"] = np.array(json.dumps(
+        [(r.kind, r.bytes, list(r.shape), r.moved) for r in records]))
+
+
+def scaling_cases(inputs, mesh, out: dict) -> None:
+    """The scaling probe's inventories and the applies in each, the
+    double-single folds of the rank's rows of ``ds_x``/``ds_y``, the ELL
+    rule's inventories (GATHER_WORLDS) and the refined surrogate solve
+    of order DS_N (TALL_WORLDS), on ``mesh``."""
+    from fortran_davidson_tpu_torch.models.generators import \
+        surrogate_hamiltonian
+    from fortran_davidson_tpu_torch.ops.sparse import (ELLOperator,
+                                                      generate_local_sparse)
+    from fortran_davidson_tpu_torch.parallel import (HaloQuantizedOperator,
+                                                     RowShardConstraint,
+                                                     eigensolve_sharded,
+                                                     scaling)
+    from fortran_davidson_tpu_torch.utils import ds
+    for nbr in SCALING_NBR:
+        with counting_recorded_applies(HaloQuantizedOperator) as applies:
+            stats = scaling.probe_collectives(mesh, nbr=nbr, bs=SCALING_BS)
+        _inventory(stats, f"scaling{nbr}", out)
+        out[f"scaling{nbr}_applies"] = np.array(applies[0])
+
+    rows = RowShardConstraint(mesh, DS_N)
+    x, y = (torch.from_numpy(inputs[name][mesh.rows(DS_N)])
+            for name in ("ds_x", "ds_y"))
+    for name, fold in (("dot", lambda: ds.dot_cols_ds(x, y, rows=rows)),
+                       ("gram", lambda: ds.gram_ds(x, y, rows=rows)),
+                       ("sumsq", lambda: ds.col_sumsq_ds(x, rows=rows))):
+        out[f"ds_{name}"] = torch.stack(fold()).numpy()
+
+    if mesh.size in GATHER_WORLDS:
+        opts = dict(GATHER)
+        lowest = opts.pop("lowest")
+        for n in GATHER_N:
+            coo = generate_local_sparse(n, 6, locality=20.0, seed=41)
+            op = ELLOperator.from_coo(*coo, n, device="cpu")
+            _inventory(scaling.iteration_inventory(op, mesh, lowest, **opts),
+                       f"gather{n}", out)
+    if mesh.size in TALL_WORLDS:
+        lowest, opts = REFINED_SOLVES["refined_free"]
+        res = eigensolve_sharded(
+            surrogate_hamiltonian(DS_N, dtype=torch.float32, device="cpu"),
+            lowest, mesh, **opts)
+        out.update(tall_evals=res.eigenvalues.numpy(),
+                   tall_iterations=np.array(res.iterations))
+
+
 def _rank_main(rank: int, world: int, run_dir: str) -> None:
     torch.set_num_threads(1)
     from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
@@ -565,6 +663,7 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
         checkpoint_cases(inputs, mesh, run_dir, out)
     if world in FREE_WORLDS:
         free_checks(inputs, mesh, refined["refined_free"], out)
+    scaling_cases(inputs, mesh, out)
 
     for name, (A, B, X0) in solve_cases(inputs, mesh).items():
         lowest, opts = SOLVES[name]
