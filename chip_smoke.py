@@ -112,6 +112,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      in a buffer of its own and its halos pointing into its ring
      neighbours' buffers (no x_ext), equal to kernel 1 bit for bit in f64,
      f32 and bf16;
+   - kernel 8's one-launch form (``banded_remote_push_spmm``) at world
+     size 1, its edge rows pushed into its own window (``RowMesh.
+     open_window``: cudaMalloc'd, its IPC handle taken), at the same
+     shapes and types: against its plain version (the same dataflow on a
+     window of tensor memory), bit for bit against kernel 6 on the
+     wrapped x_ext and against itself on the other buffer, timed beside
+     kernel 8's two launches;
    - double-single on the card: ``two_sum`` and ``two_prod`` on
      ``DS_PAIRS`` float32 pairs from 2**-100 to 2**100 (two_prod from
      2**-40, its partial products normal) exact against float64 and
@@ -215,9 +222,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    which must launch; phase 6's float64 iterations, eigenvalues and true
    relative residual within 1e-6); kernels 1 and 4 never launch; times the
    ring exchange. (b) Lowest-3 and lowest-20
-   through ``backend="pallas-remote"`` (kernel 8, ring exchange, no
-   x_ext); kernels 1 and 6 never launch.
-9. One halo apply of the ``"pallas-remote"`` path against the
+   through ``backend="pallas-remote"`` (kernel 8 on its ``"push"``
+   route: one launch an apply pushes the halos into the rank's own
+   window, no x_ext, no ring exchange); kernels 1 and 6 and kernel 8's
+   two-launch form never launch.
+9. One halo apply of the ``"pallas-remote"`` path (the push route)
+   against the
    ``"pallas"`` path at m = 20, 40, 160: the same bits; CUDA-event and
    host-clock times of both, in turns, of the ring exchange alone and of
    the all-gather exchange it replaced, and of the ``"pallas"`` path's
@@ -360,25 +370,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    same object, on a fresh group): byte-identical, no tall collective,
    kernel 7's launches the ring exchanges; (b) after 16a, the per-rule
    report (``scaling.rule_report``): the f64 halo operator through
-   ``"pallas"`` (kernel 6) and ``"pallas-remote"`` (kernel 8) on phase
-   4's matrix and a 524,288-row sibling, and 15a's surrogate at
-   5,000,192 and 10,000,384 rows, row-local (launches one or two an
-   exchange); dense, general BSR (kernel 2), ELL, sliced ELL and the
+   ``"pallas"`` (kernel 6) and ``"pallas-remote"`` (kernel 8's push) on
+   phase 4's matrix and a 524,288-row sibling, and 15a's surrogate at
+   5,000,192 and 10,000,384 rows, row-local (one launch an exchange;
+   the two halo rules' inventories byte-identical to each other and to
+   the exchange's 73,760 B in 12 calls, ``P16_HALO_BYTES``); dense, general BSR (kernel 2), ELL, sliced ELL and the
    hybrid gather x and must read n-scale, their bytes a row printed;
    (c) after the 10M-row 16a, the projected efficiency on 2, 4 and 8
    GPUs (a model: NVLink 4's published 450 GB/s, the median host time
    of one all_reduce of the iteration's largest payload measured in
    16a, this run's one-device iteration times of 15b and 8a's
-   lowest-20); (d) with two or more GPUs, 8b's lowest-20 and 14b's
-   refined stage at world sizes 2 (and 4) over NCCL in spawned ranks,
-   held to world 1 (iterations, the refined stage ±1; eigenvalues
-   within 1e-12 relative; each rank's inventory), the measured
-   efficiency beside the model's; with one GPU a line says it did not
-   run; (e) 6b's refined stage on one device under
+   lowest-20); (d) with two or more GPUs, 8b's lowest-20 (kernel 8 on
+   the push route, which the ranks' route rule must pick: NVLink peers
+   on one host) and 14b's refined stage at world sizes 2 (and 4) over
+   NCCL in spawned ranks, held to world 1 (iterations, the refined stage
+   ±1; eigenvalues within 1e-12 relative; each rank's inventory,
+   printed), the measured efficiency beside the model's, and one apply
+   at f64 m = 40 of the push route and of the exchange route through its
+   own functions, in turns, on every rank; with one GPU a line says it
+   did not run; (e) 6b's refined stage on one device under
    ``sum_strategy("tree")`` beside the default cascade, in turns:
    iterations, oracle, warm wall, idle share, device ops (no default
    changes).
-11. Prints the run's time and the shares of phases 12-16, the
+17. Kernel 8's push route at world size 1 (after 16e, on the one-rank
+   NCCL group and the 1M-row f64 matrix): ``route == "push"``; lowest-3
+   and lowest-20 give phase 4's iterations and eigenvalues within 1e-10,
+   with one ``banded_remote_push_spmm`` launch a counted apply, no NCCL
+   point-to-point call and no launch of kernel 8's two-launch form; at
+   m = 20, 40, 160 the push apply gives ``"pallas"``'s bits and the
+   exchange route's (timed through its own functions: ``ring_exchange``,
+   then the interior and the edge launch), CUDA-event times of both in
+   turns (push, exchange, exchange, push) beside the push's bound.
+11. Prints the run's time and the shares of phases 12-17, the
    solves' and kernels' JSON lines (launch counts of the solve
    phases 4-16, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
@@ -448,6 +471,9 @@ SOURCES = {
     "banded_q_ext_bsr_spmm": "fortran_davidson_tpu_torch/csrc/q_spmm.cu",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu_torch/csrc/remote_halo.cu",
+    # Kernel 8's one-launch form, its halos pushed from inside the kernel.
+    "banded_remote_push_spmm":
+        "fortran_davidson_tpu_torch/csrc/remote_halo.cu",
     # Kernel 9: kernel 1's template (csrc/banded_spmm.cuh) as its "copy"
     # variant, instantiated in csrc/banded_spmm_var_{f64,f32,bf16}.cu.
     "banded_spmm_copy": "fortran_davidson_tpu_torch/csrc/banded_spmm.cuh",
@@ -478,6 +504,8 @@ REPLACES = {
         "fortran_davidson_tpu/ops/pallas_kernels.py:1059",
     "banded_remote_halo_spmm":
         "fortran_davidson_tpu/ops/pallas_kernels.py:1416",
+    "banded_remote_push_spmm":
+        "fortran_davidson_tpu/ops/pallas_kernels.py:1416",
     "banded_spmm_copy": "bench.py:85",
     "fused_probe_bf16deq": "experiments/fused_probe.py:191",
     "fused_probe_tg_bf16deq": "experiments/fused_probe.py:191",
@@ -498,6 +526,7 @@ MAIN_CASE = {
     "banded_q_ext_bsr_spmm": ("float32", 20, None, True, "nbr=16384"),
     "banded_q_ext_bsr_spmm_f64": ("float64", 20, None, True, "nbr=16384"),
     "banded_remote_halo_spmm": ("float64", 40, None, True, "nbr=8192"),
+    "banded_remote_push_spmm": ("float64", 40, None, True, "nbr=8192"),
     "banded_spmm_copy": ("float64", 48, None, True, "nbr=8192"),
     # The probe's own shape (PROBE, m = mv = 256; fused_probe.py:206-219).
     "fused_probe_bf16deq": ("bfloat16", 256, 256, False, "nbr=4096"),
@@ -595,6 +624,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     from fortran_davidson_tpu_torch.ops import kernels
     from fortran_davidson_tpu_torch.ops.sparse import (
         BSROperator, generate_banded_bsr, generate_banded_bsr_quantized)
+    from fortran_davidson_tpu_torch.parallel import RowMesh
 
     gen = torch.Generator(device=dev).manual_seed(1)
     clock = [time.perf_counter()]
@@ -928,11 +958,51 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
             for m in widths:
                 spmm_case(name, kernel, plain, dtype, m, note, timed, twins)
             del blocks, pad, framed
+    lap("kernel 8")
+
+    # -- kernel 8 in one launch: at world size 1 the shard pushes its edge
+    #    rows into its own window (cudaMalloc'd, RowMesh.open_window) and
+    #    reads them back as its halos; held to its plain version (the same
+    #    dataflow on a window of tensor memory) and, bit for bit, to kernel
+    #    6 on the wrapped x_ext, and to itself on a second call (the other
+    #    buffer), in every type
+    name = "banded_remote_push_spmm"
+    for op, note, widths in remote_sets:
+        bw = op.bandwidth
+        halo = bw * op.block_size
+        kernel_rows = op.shape[0]
+        for dtype in (f64, f32, bf16):
+            blocks = op.blocks.to(dtype)
+            acc = kernels.acc_dtype(dtype)
+            window = RowMesh(group=None, size=1, rank=0,
+                             device=dev).open_window(
+                kernels.window_slot_bytes(halo, max(widths), dtype))
+            local = kernels.HaloWindow.local(dev, window.slot_bytes)
+            kernel = (lambda x, b=blocks, bw=bw, w=window, o=acc:
+                      kernels.banded_remote_push_spmm(
+                          b, x, w, bandwidth=bw, epoch=w.next_epoch(),
+                          out_dtype=o))
+            plain = (lambda x, b=blocks, bw=bw, w=local, o=acc:
+                     kernels.banded_remote_push_spmm_plain(
+                         b, x, w, bandwidth=bw, epoch=w.next_epoch(),
+                         out_dtype=o))
+            twins = [("banded_ext_bsr_spmm on the wrapped rows",
+                      lambda x, b=blocks, bw=bw, h=halo, o=acc:
+                          kernels.banded_ext_bsr_spmm(
+                              b, torch.cat([x[-h:], x, x[:h]]),
+                              bandwidth=bw, out_dtype=o)),
+                     ("itself on the other buffer", kernel)]
+            timed = op.n_block_rows >= 8192 and dtype == f64
+            for m in widths:
+                spmm_case(name, kernel, plain, dtype, m, note, timed, twins)
+            torch.cuda.synchronize()
+            window.raise_if_faulted()
+            del blocks, window, local
     del rag
     torch.cuda.empty_cache()
 
-    # Kernels 6 and 7 side by side with kernels 1 and 4, and kernel 8 with
-    # kernels 6 and 1, at the same widths.
+    # Kernels 6 and 7 side by side with kernels 1 and 4, kernel 8 with
+    # kernels 6 and 1, and its push form with kernel 8, at the same widths.
     def ms_of(name, dtype, m, shape):
         return next(r["ms"] for r in record if r["name"] == name
                     and r["dtype"] == dtype and r["m"] == m and r["mv"] is None
@@ -945,6 +1015,8 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
             ("banded_remote_halo_spmm", "banded_ext_bsr_spmm", "float64",
              "nbr=8192", EXT_WIDTHS),
             ("banded_remote_halo_spmm", "banded_bsr_spmm", "float64",
+             "nbr=8192", EXT_WIDTHS),
+            ("banded_remote_push_spmm", "banded_remote_halo_spmm", "float64",
              "nbr=8192", EXT_WIDTHS)):
         pairs = ", ".join(f"m={m}: {ms_of(ext, dtype, m, shape):.4f} / "
                           f"{ms_of(base, dtype, m, shape):.4f}"
@@ -955,7 +1027,7 @@ def phase_kernels(A, A32, q, probe, dev, record, slab_checks, gram_splits,
     print(f"  banded_ext_bsr_spmm f64 routes by width (bs=128, aligned): "
           f"{routes}", flush=True)
 
-    lap("kernel 8 and the side-by-side widths")
+    lap("kernel 8's push form and the side-by-side widths")
     slab_checks.update(four_slab_check(A, q, randn))
     lap("the four-slab check")
 
@@ -3327,15 +3399,18 @@ def phase_sharded(A, q, dev, rendezvous, solves, refs):
 
 def phase_remote(A, dev, rendezvous, solves, refs):
     """Phase 8b: lowest-3 and lowest-20 through ``backend="pallas-remote"``
-    (kernel 8: the ring exchange, then the interior and edge launches, no
-    x_ext) at world size 1 over the same NCCL group, held to phase 4;
-    kernels 1 and 6 must not launch."""
+    (kernel 8 on the route the topology gives one card, ``"push"``: one
+    launch an apply pushes the halos into the rank's own window, no x_ext)
+    at world size 1 over the same NCCL group, held to phase 4; kernels 1
+    and 6 and kernel 8's two-launch form must not launch."""
     import torch
     from fortran_davidson_tpu_torch.ops import kernels
     from fortran_davidson_tpu_torch.parallel import HaloBSROperator
 
     mesh = _one_rank_mesh(rendezvous, dev)
     R = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas-remote")
+    print(f"  route: {R.route}", flush=True)
+    _check(R.route == "push", f"one card's route is {R.route!r}")
     _check(R.blocks.data_ptr() == A.blocks.data_ptr(),
            "the world-size-1 shard copied the blocks")
     f64 = dict(tolerance=SOLVE_TOL)
@@ -3343,8 +3418,10 @@ def phase_remote(A, dev, rendezvous, solves, refs):
                                     (20, R, f64, "Halo(A, pallas-remote)")],
                     refs, solves)
     _check(kernels.banded_bsr_spmm.launches == 0
-           and kernels.banded_ext_bsr_spmm.launches == 0,
-           "the pallas-remote solves launched kernel 1 or kernel 6")
+           and kernels.banded_ext_bsr_spmm.launches == 0
+           and kernels.banded_remote_halo_spmm.launches == 0,
+           "the pallas-remote solves launched kernel 1, kernel 6 or kernel "
+           "8's two-launch form")
     del R
     torch.cuda.empty_cache()
 
@@ -3362,8 +3439,8 @@ def _all_gather_halos(mesh, x, halo: int):
 
 
 def remote_vs_pallas_apply(A, dev, rendezvous, solves):
-    """Phase 9: one apply of the ``"pallas-remote"`` path (the ring
-    exchange, kernel 8's interior and edge launches) against the
+    """Phase 9: one apply of the ``"pallas-remote"`` path (one card's
+    route, ``"push"``: kernel 8's one launch) against the
     ``"pallas"`` path (the ring exchange, the x_ext concatenation, kernel
     6), f64 on the 1M-row matrix at world size 1: the same bits, and the
     CUDA-event and host-clock times of each path, in turns (pallas,
@@ -3377,6 +3454,7 @@ def remote_vs_pallas_apply(A, dev, rendezvous, solves):
     mesh = _one_rank_mesh(rendezvous, dev)
     ops = {b: HaloBSROperator.from_bsr(A, 1, mesh, backend=b)
            for b in ("pallas", "pallas-remote")}
+    print(f"  pallas-remote route: {ops['pallas-remote'].route}", flush=True)
     halo = A.bandwidth * A.block_size
     for m in (20, 40, 160):
         x = torch.randn((A.shape[0], m), dtype=torch.float64, device=dev)
@@ -5442,6 +5520,13 @@ P16_LATENCY_CALLS = 50
 P16_CHIPS = (2, 4, 8)
 # Phase 16d's matrices: phase 4's (f64, kernel 8) and phase 6's (int8).
 P16_MULTI = dict(nbr=8192, bs=128, q_nbr=16384)
+# The f64 halo rules' iteration at both row counts, as the ring exchange
+# recorded it before the push route existed: bytes and calls, each rank's
+# at any world size.
+P16_HALO_BYTES = [73760, 73760]
+P16_HALO_CALLS = [12, 12]
+# Phase 17's widths (phase 9's).
+P17_WIDTHS = (20, 40, 160)
 
 
 def _print_inventory(label, stats) -> None:
@@ -5512,8 +5597,11 @@ def _inventory_json(stats) -> dict:
 def phase16_rules(A, dev, rendezvous, solves, refs, p16):
     """Phase 16b: the per-rule report (``scaling.rule_report``) on the
     one-rank NCCL group: row-local the f64 halo operator through
-    ``"pallas"`` (kernel 6) and ``"pallas-remote"`` (kernel 8), phase 4's
-    matrix and its 524,288-row sibling, each launch a ring exchange's, and
+    ``"pallas"`` (kernel 6) and ``"pallas-remote"`` (kernel 8's push, one
+    launch an exchange; the two rules' inventories one, the exchange's),
+    phase
+    4's matrix and its 524,288-row sibling, each launch a ring
+    exchange's, and
     15a's surrogate at 5,000,192 and 10,000,384 rows (no kernel); n-scale
     the rules that gather x: dense, general BSR (phase 4's matrix, kernel
     2), ELL, sliced ELL and the hybrid's remainder (phase 12's recipe)."""
@@ -5542,8 +5630,8 @@ def phase16_rules(A, dev, rendezvous, solves, refs, p16):
     rules = [
         ("halo f64 pallas (kernel 6)", halo("pallas"), (sib, A), True,
          P16_F64, ("banded_ext_bsr_spmm", 1)),
-        ("halo f64 pallas-remote (kernel 8)", halo("pallas-remote"),
-         (sib, A), True, P16_F64, ("banded_remote_halo_spmm", 2)),
+        ("halo f64 pallas-remote (kernel 8's push)", halo("pallas-remote"),
+         (sib, A), True, P16_F64, ("banded_remote_push_spmm", 1)),
         ("matrix-free surrogate (15a)", free,
          (NS_FREE_N // 2, NS_FREE_N), True, probe, None),
         ("dense", lambda n: fdtt.generate_banded_bsr(
@@ -5584,6 +5672,15 @@ def phase16_rules(A, dev, rendezvous, solves, refs, p16):
         reports.append(rep)
     del sib
     torch.cuda.empty_cache()
+    # The push moves the rows the exchange moved and is recorded as it:
+    # the two halo rules' inventories are one, ``P16_HALO_BYTES``.
+    pallas, remote = reports[0], reports[1]
+    _check(remote["by_kind"] == pallas["by_kind"]
+           and remote["total_bytes"] == P16_HALO_BYTES
+           and remote["total_count"] == P16_HALO_CALLS,
+           f"16b: the push route's inventory {remote['by_kind']} "
+           f"({remote['total_bytes']} B in {remote['total_count']} calls) is "
+           f"not the exchange's {pallas['by_kind']}")
     one = refs["sharded"][("Halo(A, pallas)", 20)]
     p16.update(rules=reports, t_iter_8a=one["wall"] / one["iterations"])
     solves.append(dict(solve="phase 16b per-rule inventory",
@@ -5711,12 +5808,132 @@ def phase_sum_strategy(q, dev, solves, refs):
     torch.cuda.empty_cache()
 
 
+def phase17_push(A, dev, rendezvous, solves, refs):
+    """Phase 17: kernel 8's push route at world size 1 on the one-rank NCCL
+    group. ``HaloBSROperator(A, backend="pallas-remote")`` must take
+    ``"push"`` (one card: the rank is its own neighbour); its lowest-3 and
+    lowest-20 give phase 4's iterations and eigenvalues within 1e-10, with
+    one ``banded_remote_push_spmm`` launch a counted apply, no NCCL
+    point-to-point call and no launch of kernel 8's two-launch form. The
+    exchange route, which meshes that span hosts take, runs its own branch
+    (``HaloBSROperator._apply_exchange``) through the lowest-3 on an
+    instance set to it (no argument selects a route): phase 4's iterations
+    and eigenvalues, two launches of kernel 8's two-launch form a counted
+    apply and no push. At ``P17_WIDTHS`` one apply gives the ``"pallas"``
+    apply's bits and the exchange route's, and both are timed with CUDA
+    events in turns (push, exchange, exchange, push) beside the push's
+    bound."""
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded)
+
+    mesh = _one_rank_mesh(rendezvous, dev)
+    R = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas-remote")
+    P = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas")
+    print(f"  route: {R.route} (pallas: {P.route})", flush=True)
+    _check(R.route == "push", f"one card's route is {R.route!r}")
+    p2p = [0]
+    batch = dist.batch_isend_irecv
+
+    def counted_p2p(ops):
+        p2p[0] += 1
+        return batch(ops)
+    for k in (3, 20):
+        dist.batch_isend_irecv = counted_p2p
+        before = (kernels.banded_remote_push_spmm.launches,
+                  kernels.banded_remote_halo_spmm.launches)
+        try:
+            with _counting_applies(HaloBSROperator) as applies:
+                res, wall = _solve_converged(
+                    f"eigensolve_sharded(Halo(A, pallas-remote, push), {k})",
+                    R, k, solver=_sharded_solver(mesh), tolerance=SOLVE_TOL)
+        finally:
+            dist.batch_isend_irecv = batch
+        pushes = kernels.banded_remote_push_spmm.launches - before[0]
+        halo = kernels.banded_remote_halo_spmm.launches - before[1]
+        diff = float(torch.max(torch.abs(res.eigenvalues
+                                         - refs[k]["eigenvalues"])))
+        print(f"  17 lowest-{k}: iterations {res.iterations} (phase 4 "
+              f"{refs[k]['iterations']}), eigenvalue diff {diff:.3e}; "
+              f"{applies[0]} applies, {pushes} push launches, {halo} "
+              f"two-launch launches, {p2p[0]} NCCL p2p calls; wall "
+              f"{wall:.4f} s", flush=True)
+        _check(res.iterations == refs[k]["iterations"] and diff <= 1e-10,
+               f"17 lowest-{k}: {res.iterations} iterations, eigenvalues "
+               f"{diff:.3e} from phase 4's")
+        _check(applies[0] > 0 and pushes == applies[0] and halo == 0
+               and p2p[0] == 0, f"17 lowest-{k}: {applies[0]} applies, "
+               f"{pushes} pushes, {halo} two-launch launches, {p2p[0]} p2p")
+        solves.append(dict(solve=f"phase 17 push route f64 lowest-{k}",
+                           iterations=res.iterations, wall_s=wall,
+                           eig_diff_phase4=diff, applies=applies[0],
+                           push_launches=pushes, p2p_calls=p2p[0]))
+        del res
+    E = HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas-remote")
+    E.route = "exchange"
+    before = (kernels.banded_remote_push_spmm.launches,
+              kernels.banded_remote_halo_spmm.launches)
+    with _counting_applies(HaloBSROperator) as applies:
+        res, wall = _solve_converged(
+            "eigensolve_sharded(Halo(A, pallas-remote, exchange), 3)", E, 3,
+            solver=_sharded_solver(mesh), tolerance=SOLVE_TOL)
+    pushes = kernels.banded_remote_push_spmm.launches - before[0]
+    halo = kernels.banded_remote_halo_spmm.launches - before[1]
+    diff = float(torch.max(torch.abs(res.eigenvalues - refs[3]["eigenvalues"])))
+    print(f"  17 exchange route lowest-3: iterations {res.iterations} (phase "
+          f"4 {refs[3]['iterations']}), eigenvalue diff {diff:.3e}; "
+          f"{applies[0]} applies, {halo} two-launch launches, {pushes} push "
+          f"launches; wall {wall:.4f} s", flush=True)
+    _check(res.iterations == refs[3]["iterations"] and diff <= 1e-10,
+           f"17 exchange route lowest-3: {res.iterations} iterations, "
+           f"eigenvalues {diff:.3e} from phase 4's")
+    _check(applies[0] > 0 and halo == 2 * applies[0] and pushes == 0,
+           f"17 exchange route: {applies[0]} applies, {halo} two-launch "
+           f"launches, {pushes} pushes")
+    solves.append(dict(solve="phase 17 exchange route f64 lowest-3",
+                       iterations=res.iterations, wall_s=wall,
+                       eig_diff_phase4=diff, applies=applies[0],
+                       two_launch_launches=halo))
+    del res, E
+    nnz = _nonzero_blocks(A.blocks, 2 * A.bandwidth + 1)
+    for m in P17_WIDTHS:
+        x = torch.randn((A.shape[0], m), dtype=torch.float64, device=dev)
+        y = R.matmat(x)
+        same = (torch.equal(y, P.matmat(x)),
+                torch.equal(y, R._apply_exchange(x, R.blocks)))
+        row = dict(solve=f"phase 17 apply f64 m={m}: push vs exchange",
+                   same_bits_pallas=same[0], same_bits_exchange=same[1])
+        for turn, (key, fn) in enumerate((
+                ("push", lambda: R.matmat(x)),
+                ("exchange", lambda: R._apply_exchange(x, R.blocks)),
+                ("exchange", lambda: R._apply_exchange(x, R.blocks)),
+                ("push", lambda: R.matmat(x)))):
+            row[f"{key}_{turn}_ms"] = _time_ms(fn)
+        row["bound_ms"], row["bound_by"] = _bound(
+            "banded_remote_push_spmm", "float64", m, None, _shape_of(A), nnz)
+        print("  " + ", ".join(f"{k_}={v:.4f}" if isinstance(v, float)
+                               else f"{k_}={v}" for k_, v in row.items()),
+              flush=True)
+        _check(all(same), f"17 m={m}: the push apply's bits differ from "
+               f"pallas's / the exchange route's: {same}")
+        solves.append(row)
+        del x, y
+    R._push["window"].raise_if_faulted()
+    del R, P
+    torch.cuda.empty_cache()
+
+
 def _rank16(rank: int, world: int, tmp: str, cfg: dict) -> None:
     """A rank of phase 16d: phase 8b's lowest-20 through
-    ``"pallas-remote"`` (kernel 8) and phase 14b's refined stage through
+    ``"pallas-remote"`` (kernel 8 on the route the ranks' topology gives:
+    ``"push"`` over NVLink peers) and phase 14b's refined stage through
     kernel 7 on ``world`` GPUs over NCCL, two solves each, then one
-    recorded iteration of each; rank 0 writes the results to
-    ``tmp/world<W>.json``."""
+    recorded iteration of each, and one f64 apply at m = 40 of the push
+    route and of the exchange route (``HaloBSROperator._apply_exchange``)
+    timed in turns;
+    each rank writes its results to ``tmp/world<W>_rank<r>.json``."""
     import torch
     import torch.distributed as dist
     import fortran_davidson_tpu_torch as fdtt
@@ -5754,8 +5971,24 @@ def _rank16(rank: int, world: int, tmp: str, cfg: dict) -> None:
         stats = scaling.iteration_inventory(R, mesh, P16_LOWEST, **P16_F64)
         out["remote"] = dict(iterations=res.iterations, walls=walls,
                              eigenvalues=res.eigenvalues.tolist(),
-                             by_kind=stats["by_kind"])
-        del R, res
+                             by_kind=stats["by_kind"], route=R.route,
+                             launches={fn.__name__: fn.launches
+                                       for fn in kernels.KERNELS})
+        # One apply of each route in turns (every rank the same calls).
+        x = torch.randn((R.blocks.shape[0] * R.block_size, 40),
+                        dtype=torch.float64, device=dev)
+        same = torch.equal(R.matmat(x), R._apply_exchange(x, R.blocks))
+        apply_ms = {}
+        for turn, (key, fn) in enumerate((
+                ("push", lambda: R.matmat(x)),
+                ("exchange", lambda: R._apply_exchange(x, R.blocks)),
+                ("exchange", lambda: R._apply_exchange(x, R.blocks)),
+                ("push", lambda: R.matmat(x)))):
+            mesh.barrier()
+            apply_ms[f"{key}_{turn}"] = _time_ms(fn)
+        out["apply_m40"] = dict(same_bits=same, ms=apply_ms)
+        R._push["window"].raise_if_faulted()
+        del R, res, x
         q = fdtt.generate_banded_bsr_quantized(cfg["q_nbr"], cfg["bs"],
                                                device=dev)
         X0 = torch.load(os.path.join(tmp, "x0.pt")).to(dev)
@@ -5769,9 +6002,8 @@ def _rank16(rank: int, world: int, tmp: str, cfg: dict) -> None:
         out["launches"] = {fn.__name__: fn.launches for fn in kernels.KERNELS}
     finally:
         dist.destroy_process_group()
-    if rank == 0:
-        with open(os.path.join(tmp, f"world{world}.json"), "w") as f:
-            json.dump(out, f)
+    with open(os.path.join(tmp, f"world{world}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
 
 
 def _same_per_rank(by_kind, one, world) -> bool:
@@ -5786,12 +6018,14 @@ def _same_per_rank(by_kind, one, world) -> bool:
 
 def phase16_multi_gpu(dev, solves, refs, p16) -> None:
     """Phase 16d: with two or more GPUs visible, phase 8b's lowest-20
-    (kernel 8) and phase 14b's refined stage (kernel 7) at world size 2
-    (and 4 with four GPUs) over NCCL: world 1's iterations (the refined
-    stage ±1), eigenvalues within 1e-12 relative, each rank's recorded
-    bytes 16b's and 16a's inventories (the partials' all-gathers W times
-    as large), the measured efficiency beside the projection. With one
-    GPU it prints that it did not run."""
+    (kernel 8 on the push route, which the route rule must pick) and phase
+    14b's refined stage (kernel 7) at world size 2 (and 4 with four GPUs)
+    over NCCL: world 1's iterations (the refined stage ±1), eigenvalues
+    within 1e-12 relative, each rank's recorded bytes 16b's and 16a's
+    inventories (the partials' all-gathers W times as large; printed a
+    rank), the measured efficiency beside the projection, kernel 8's push
+    launched and its two-launch form not, and one apply of each route
+    (rank 0's times). With one GPU it prints that it did not run."""
     import torch
     import torch.multiprocessing as mp
     count = torch.cuda.device_count()
@@ -5814,8 +6048,31 @@ def phase16_multi_gpu(dev, solves, refs, p16) -> None:
         for world in (2, 4) if count >= 4 else (2,):
             mp.spawn(_rank16, args=(world, tmp, cfg), nprocs=world,
                      join=True)
-            with open(os.path.join(tmp, f"world{world}.json")) as f:
-                got = json.load(f)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"world{world}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            got = ranks[0]
+            for r, g_r in enumerate(ranks):
+                for case in one:
+                    kinds = ", ".join(f"{k} {v['count']} x {v['bytes']} B"
+                                      for k, v in g_r[case]["by_kind"].items())
+                    print(f"  16d world {world} rank {r} {case}: {kinds}",
+                          flush=True)
+                    _check(_same_per_rank(g_r[case]["by_kind"], one[case][1],
+                                          world),
+                           f"16d world {world} rank {r} {case}: inventory")
+                launches = g_r["remote"]["launches"]
+                print(f"  16d world {world} rank {r}: route "
+                      f"{g_r['remote']['route']}, the solves' launches "
+                      f"{launches}; one apply f64 m=40 (ms) "
+                      f"{g_r['apply_m40']}", flush=True)
+                _check(g_r["remote"]["route"] == "push"
+                       and launches["banded_remote_push_spmm"] > 0
+                       and launches["banded_remote_halo_spmm"] == 0
+                       and g_r["apply_m40"]["same_bits"],
+                       f"16d world {world} rank {r}: route "
+                       f"{g_r['remote']['route']}, launches {launches}")
             for case, (ref, kinds1) in one.items():
                 g = got[case]
                 lam = torch.tensor(g["eigenvalues"], dtype=torch.float64)
@@ -5852,9 +6109,10 @@ def phase16_multi_gpu(dev, solves, refs, p16) -> None:
                     solve=f"phase 16d world {world} {case}",
                     iterations=g["iterations"], walls=g["walls"],
                     eig_rel_world1=rel, efficiency=eff,
-                    projected_efficiency=proj_w))
-            _check(got["launches"]["banded_remote_halo_spmm"] > 0
-                   and got["launches"]["banded_q_ext_bsr_spmm"] > 0,
+                    projected_efficiency=proj_w,
+                    route=got["remote"]["route"],
+                    apply_m40_ms=got["apply_m40"]["ms"]))
+            _check(got["launches"]["banded_q_ext_bsr_spmm"] > 0,
                    f"16d world {world}: launches {got['launches']}")
 
 
@@ -5862,8 +6120,8 @@ def phase16_multi_gpu(dev, solves, refs, p16) -> None:
 def _counting_collectives(cls):
     """Count the calls of the collectives of ``cls`` (a RowMesh) by name
     inside the ``with`` block."""
-    counts = dict.fromkeys(("all_reduce", "all_gather_rows", "ring_exchange"),
-                           0)
+    counts = dict.fromkeys(("all_reduce", "all_gather_rows", "ring_exchange",
+                            "ring_push"), 0)
     saved = {name: getattr(cls, name) for name in counts}
 
     def counted(name, fn):
@@ -5926,6 +6184,8 @@ def _bound(name, dtype, m, mv, op, nnz_blocks):
     if name == "bsr_spmm":
         moved += nbr * K * 4                          # block_cols
     moved += x_rows * m * isz + n * m * max(isz, 4)   # x in, Y out
+    if name == "banded_remote_push_spmm":
+        moved += 2 * bw * bs * m * isz                # the halos written
     ops = 2 * nnz_blocks * bs * bs * m + (2 * n * m if quant else 0)
     if name == "banded_spmm_copy":
         # Adds only, on the CUDA cores (f64 34 TFLOP/s, f32 67): every
@@ -6071,6 +6331,9 @@ def library_times(A) -> dict:
     out["banded_remote_halo_spmm"] = dict(
         ms=None, rel=None, call="none: x comes from three buffers (the "
         "shard's rows and two received halos); no PyTorch call takes them")
+    out["banded_remote_push_spmm"] = dict(
+        ms=None, rel=None, call="none: it also writes the halos into the "
+        "ring neighbours' windows; no PyTorch call does both")
     return out
 
 
@@ -6134,7 +6397,8 @@ _K1_TYPES = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16"}
 def _k1_entries(log: str) -> dict:
     """Kernel 1, its variants, kernel 8 and kernel 2 (``banded_spmm_kernel``
     of csrc/banded_spmm.cuh, by x-row source: kernel 1's masked one, kernel
-    8's inside and split ones, kernel 2's column table): "f64 TM=128 TN=48
+    8's inside and split ones and its push form's, kernel 2's column
+    table): "f64 TM=128 TN=48
     RPC=1 full direct normal Masked" -> (registers, spill store bytes,
     static shared bytes), from the build's report. The ring is dynamic shared memory (``_k1_plan``)."""
     import re
@@ -6142,7 +6406,7 @@ def _k1_entries(log: str) -> dict:
     for name, n, spill, smem in _ptxas_entries(log):
         m = re.search(r"banded_spmm_kernelI(d|f|13__nv_bfloat16)Li(\d+)ELi"
                       r"(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)ENS_\d+"
-                      r"(Masked|Inside|Split|Table)", name)
+                      r"(Masked|Inside|Split|Table|Push)", name)
         if m:
             t, tm, tn, rpc, var, store, ev, src = m.groups()
             key = (f"{_K1_TYPES[t]} TM={tm} TN={tn} RPC={rpc} "
@@ -6255,7 +6519,8 @@ def main() -> int:
             print(f"      {key}: {regs} registers, {spill} B spill, {smem} B "
                   "static smem")
         print("    kernel 1, its variants (source Masked), kernel 8 (sources "
-              "Inside and Split), kernel 6's cp.async route (Inside) and "
+              "Inside and Split; its push form, Push), kernel 6's cp.async "
+              "route (Inside) and "
               "kernel 2 (Table) on csrc/banded_spmm.cuh: ptxas "
               "registers, spill stores, static smem; the default ring "
               "(kernels.banded_spmm_plan)")
@@ -6374,7 +6639,7 @@ def main() -> int:
           "banded_q_ext_bsr_spmm_f64")),
         ("[8b] sharded path, world size 1 (NCCL), pallas-remote",
          lambda: phase_remote(A, dev, rendezvous, solves, refs),
-         ("banded_remote_halo_spmm",)),
+         ("banded_remote_push_spmm",)),
         ("[14a] checkpoint and resume, the logger, the profiler hooks and "
          "the NaN trap on A, kernel 1",
          lambda: phase_checkpoint(A, dev, solves, refs),
@@ -6399,13 +6664,17 @@ def main() -> int:
         ("[16b] collective inventory of each sharding rule at two row "
          "counts, world size 1 (NCCL)",
          lambda: phase16_rules(A, dev, rendezvous, solves, refs, p16),
-         ("banded_ext_bsr_spmm", "banded_remote_halo_spmm", "bsr_spmm")),
+         ("banded_ext_bsr_spmm", "banded_remote_push_spmm", "bsr_spmm")),
         ("[16d] world sizes 2 and 4 over NCCL, where the GPUs are",
          lambda: phase16_multi_gpu(dev, solves, refs, p16), ()),
         ("[16e] phase 6b's refined stage under sum_strategy('tree') beside "
          "the cascade, one device, kernel 4",
          lambda: phase_sum_strategy(q, dev, solves, refs),
          ("banded_q_bsr_spmm",)),
+        ("[17] kernel 8's push route, world size 1 (NCCL), beside its "
+         "exchange route",
+         lambda: phase17_push(A, dev, rendezvous, solves, refs),
+         ("banded_remote_push_spmm", "banded_remote_halo_spmm")),
     ]
     elapsed = {}
 
@@ -6632,15 +6901,16 @@ def main() -> int:
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
     total_s = time.perf_counter() - t_run
-    phase14_s, phase15_s, phase16_s = (
+    phase14_s, phase15_s, phase16_s, phase17_s = (
         sum(t for title, t in elapsed.items() if title.startswith(f"[{p}"))
-        for p in (14, 15, 16))
+        for p in (14, 15, 16, 17))
     print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
           f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%), "
           f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%), "
           f"phase 14 {phase14_s:.1f} s ({100 * phase14_s / total_s:.1f}%), "
           f"phase 15 {phase15_s:.1f} s ({100 * phase15_s / total_s:.1f}%), "
-          f"phase 16 {phase16_s:.1f} s ({100 * phase16_s / total_s:.1f}%)",
+          f"phase 16 {phase16_s:.1f} s ({100 * phase16_s / total_s:.1f}%), "
+          f"phase 17 {phase17_s:.1f} s ({100 * phase17_s / total_s:.1f}%)",
           flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

@@ -78,6 +78,7 @@ from fortran_davidson_tpu_torch.core import chebyshev
 from fortran_davidson_tpu_torch.core import correction as corr_mod
 from fortran_davidson_tpu_torch.core import orthogonal, refine, subspace
 from fortran_davidson_tpu_torch.core.rows import LOCAL, Rows
+from fortran_davidson_tpu_torch.ops import kernels
 from fortran_davidson_tpu_torch.ops.operators import LinearOperator
 from fortran_davidson_tpu_torch.utils import debugging
 from fortran_davidson_tpu_torch.utils.ds import DS, two_sum
@@ -692,27 +693,31 @@ def run_chunked(cfg: ResolvedConfig, A: LinearOperator,
     the final polish runs at the end. ``state`` resumes a stopped solve
     (a callback's state, or a restored checkpoint); ``X0`` warm-starts a
     fresh one. ``A_off``/``B_off`` default to the operators' splits when
-    the configuration is refined.
+    the configuration is refined. A halo push that ran out of its wait
+    (kernel 8's one launch) is raised by name where its CUDA error
+    surfaces (:func:`~fortran_davidson_tpu_torch.ops.kernels.
+    halo_push_faults`), usually at the iteration's synchronisation.
     """
     if every < 1:
         raise ValueError("every must be >= 1")
-    if cfg.refined and A_off is None:
-        A_off = A.offdiag()
-        B_off = None if B is None else B.offdiag()
-    init, step = get_stepper(cfg, rows)
-    st = init(A, B, X0) if state is None else state
-    while True:
-        st["chunk_end"] = min(st["it"] + every, cfg.max_iterations)
-        settle(step(A, B, st, A_off=A_off, B_off=B_off))
-        for cb in callbacks:
-            cb(st)
-        if st["all_conv"] or st["stalled"] or (st["it"]
-                                               >= cfg.max_iterations):
-            break
-    res = pack_result(st)
-    if cfg.final_polish > 0:
-        with _precision_ctx(cfg.matmul_precision), torch.no_grad():
-            res = _apply_final_polish(cfg, A, B, A_off, B_off, res, rows)
+    with kernels.halo_push_faults():
+        if cfg.refined and A_off is None:
+            A_off = A.offdiag()
+            B_off = None if B is None else B.offdiag()
+        init, step = get_stepper(cfg, rows)
+        st = init(A, B, X0) if state is None else state
+        while True:
+            st["chunk_end"] = min(st["it"] + every, cfg.max_iterations)
+            settle(step(A, B, st, A_off=A_off, B_off=B_off))
+            for cb in callbacks:
+                cb(st)
+            if st["all_conv"] or st["stalled"] or (st["it"]
+                                                   >= cfg.max_iterations):
+                break
+        res = pack_result(st)
+        if cfg.final_polish > 0:
+            with _precision_ctx(cfg.matmul_precision), torch.no_grad():
+                res = _apply_final_polish(cfg, A, B, A_off, B_off, res, rows)
     return res
 
 

@@ -46,7 +46,10 @@
 // instead of the band (Table, at RPC = 1: window j is slot j, in block
 // column cols[r, j]). A source also maps the grid's rows to block rows.
 // The int8 entries wrap kernel 1's or kernel 8's source in Quant, which
-// also carries the slab's scales and the exact diagonal.
+// also carries the slab's scales and the exact diagonal. Kernel 8's
+// one-launch form (Push, remote_push.cuh) also takes a step before and
+// after a CTA's walk (before_walk, after_walk): the ring neighbours' halo
+// push and the wait for its own halos, then the signal that they are read.
 //
 // Variants (template parameters, measurement only):
 //   kVar    kFull | kNoY (products, no Y: one column-sum row a CTA into
@@ -365,6 +368,19 @@ __device__ __forceinline__ void finish(const Quant<Base>& src,
                   __fmul_rn(d, static_cast<float>(__ldg(xr + 1)))));
 }
 
+// A CTA's step before its walk (the CTA owns block row r0, row tile i0 of
+// rows_a rows, column tile c0 of vcols columns, of a grid of row_tiles x
+// col_tiles tiles a block row), and its step after the walk, once its last
+// chunk is in shared memory. Only Push sources (remote_push.cuh) take
+// them; for the others both calls are empty.
+template <class Src, typename X>
+__device__ __forceinline__ void before_walk(const Src&, const X*, long long,
+                                            int, int, int, int, int, int, int,
+                                            int, int) {}
+template <class Src>
+__device__ __forceinline__ void after_walk(const Src&, long long, int, int,
+                                           int) {}
+
 // The window a CTA walks: Kw block columns, and the first x row of chunk
 // kc0 of window column j. The banded sources read RPC + 2*bw contiguous
 // block columns from r0 - bw; the table reads its row's K entries.
@@ -634,6 +650,10 @@ banded_spmm_kernel(const typename Elems<T>::Slab* __restrict__ blocks,
   const long long n = static_cast<long long>(nbr) * bs;
   const long long L = static_cast<long long>(K) * bs;
 
+  if constexpr (kVar == kFull)
+    before_walk(src, x, r0, i0, min(TM, bs - i0), c0, min(TN, m - c0), nbr,
+                bs, bw, m, row_tiles * col_tiles);
+
   Acc acc[RPC][NT][4];
 #pragma unroll
   for (int i = 0; i < RPC; ++i)
@@ -711,6 +731,8 @@ banded_spmm_kernel(const typename Elems<T>::Slab* __restrict__ blocks,
     }
     cp_wait(0);
     __syncthreads();
+    if constexpr (kVar == kFull)
+      after_walk(src, r0, nbr, bw, row_tiles * col_tiles);
   }
 
   if constexpr (kVar == kNoY) {

@@ -2,8 +2,8 @@
 PyTorch versions, and launch counters (counterpart of
 ``fortran_davidson_tpu/ops/pallas_kernels.py``).
 
-Eight kernels, in ``csrc/``, and the TPU measurement kernels as
-variants:
+Eight kernels (kernel 8 in two forms), in ``csrc/``, and the TPU
+measurement kernels as variants:
 
 - :func:`banded_bsr_spmm` replaces ``banded_bsr_spmm``
   (``fortran_davidson_tpu/ops/pallas_kernels.py:438``): DIA-banded
@@ -48,7 +48,11 @@ variants:
 - :func:`banded_remote_halo_spmm` replaces ``banded_remote_halo_spmm``
   (``pallas_kernels.py:1416``): kernel 1's template over a shard's rows
   and its two received halos through three pointers, no halo-extended
-  copy, in an interior and an edge launch (``csrc/remote_halo.cu``).
+  copy, in an interior and an edge launch (``csrc/remote_halo.cu``);
+  and :func:`banded_remote_push_spmm`, that TPU kernel's own form: one
+  launch pushes the shard's edge rows into its ring neighbours' halo
+  windows (:class:`HaloWindow`, ``csrc/peer_window.cu``) and computes
+  over its own, the protocol in ``csrc/remote_push.cuh``.
 
 Measurement variants, never called by a path of the port:
 :func:`banded_spmm_variant` (kernel 1's: ``"copy"``, the counterpart of
@@ -87,16 +91,23 @@ under ``csrc/`` (so an edited source is rebuilt), loaded with ``ctypes``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import threading
 import time
+import weakref
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+
+from fortran_davidson_tpu_torch.utils.errors import HaloPushFault
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -162,6 +173,18 @@ _ARGTYPES = {
     **{f"fdt_banded_remote_halo_spmm_{s}": [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _I, _I, _I, _I, _P]
        for s in _SUFFIX.values()},
+    # blocks, x, y, nbr, bs, K, bw, m, own, left, right, fault, slot_bytes,
+    # epoch, rank, timeout_ns, stream
+    **{f"fdt_banded_remote_push_spmm_{s}": [*_BANDED[:-1], _P, _P, _P, _P, _L,
+                                            _L, _I, _L, _P]
+       for s in _SUFFIX.values()},
+    # The halo window (csrc/peer_window.cu): bytes, ptr out, handle out;
+    # handle, ptr out; ptr; ptr; src, dst, bytes.
+    "fdt_window_alloc": [_L, _P, _P],
+    "fdt_window_open": [_P, _P],
+    "fdt_window_close": [_P],
+    "fdt_window_free": [_P],
+    "fdt_window_read": [_P, _P, _L],
 }
 
 
@@ -1386,9 +1409,400 @@ def banded_remote_halo_spmm(blocks, x_local, from_prev, from_next, *,
 banded_remote_halo_spmm.launches = 0
 
 
+# -- kernel 8 in one launch: the halos pushed from inside the kernel --------
+
+# The window's slots: top holds the ring predecessor's last bw*bs rows
+# (from_prev), bot the successor's first (from_next).
+SLOTS = ("top", "bot")
+TOP, BOT = 0, 1
+# The window's layout (csrc/remote_push.cuh): a header of int64 words,
+# arrived[slot][parity] at words 0-3 and consumed[slot] at words 4-5 (then
+# the kernel's own counters), and the slots from byte 256, each buffer a
+# multiple of 256 bytes.
+WINDOW_HEADER = 256
+_ARRIVED, _CONSUMED = 0, 4
+# The bound of every wait of the protocol: past it the kernel records
+# rank, epoch and slot and traps (the plain version raises).
+PUSH_SPIN_LIMIT_NS = 10_000_000_000
+# A fault record's ``what`` (csrc/remote_push.cuh).
+_WAITS = {1: "arrived", 2: "consumed"}
+
+
+class PushPlan(NamedTuple):
+    """One apply's place in the protocol (:func:`push_plan`)."""
+
+    parity: int       # the buffer of each slot that the epoch writes and reads
+    reuse_after: int  # its pushers wait until the reader's consumed >= this
+
+
+def push_plan(epoch: int) -> PushPlan:
+    """The buffers and the waits of the push form's ``epoch``-th apply
+    (1, 2, ...: the operator's host counter, the same on every rank).
+
+    Epoch ``e`` writes and reads each slot's buffer ``e % 2``. Its pushers
+    first wait until the receiving neighbour has read that buffer's
+    previous rows, those of epoch ``e - 2`` (``consumed >= e - 2``: the
+    window starts at 0, so epochs 1 and 2 wait on nothing); its readers
+    wait until the slot's ``arrived`` flag of that buffer is ``e``, then,
+    once the rows are read, set the sender's ``consumed`` to ``e``. The
+    kernel takes the epoch alone and computes the same two numbers
+    (``csrc/remote_halo.cu``); the plain version takes them from here.
+    """
+    if isinstance(epoch, bool) or not isinstance(epoch, int) or epoch < 1:
+        raise ValueError(f"epoch must be an int >= 1, got {epoch!r}")
+    return PushPlan(epoch % 2, epoch - 2)
+
+
+def window_slot_bytes(rows: int, m: int, dtype: torch.dtype) -> int:
+    """The bytes of one slot buffer that holds (rows, m) of ``dtype``,
+    rounded up to 256."""
+    return -(-rows * m * dtype.itemsize // 256) * 256
+
+
+def window_slot_offset(slot: int, parity: int, slot_bytes: int) -> int:
+    """Byte offset of slot ``slot``'s buffer ``parity`` in a window."""
+    return WINDOW_HEADER + (2 * slot + parity) * slot_bytes
+
+
+def window_bytes(slot_bytes: int) -> int:
+    """The bytes of a window whose slot buffers hold ``slot_bytes``."""
+    return WINDOW_HEADER + 4 * slot_bytes
+
+
+class HaloWindow:
+    """One rank's halo window and its ring neighbours' as it reaches them:
+    what :func:`banded_remote_push_spmm` pushes into and reads.
+
+    ``ptrs`` are the base addresses of this rank's window and of its
+    predecessor's (left) and successor's (right), which are this rank's
+    own at world size 1; ``mems``, where the memory is a tensor (the CPU,
+    a window of one rank), are the same three as uint8 tensors, which the
+    plain version needs. ``fault`` is the kernel's fault record, an int64
+    tensor in host memory (page-locked on the card, where the kernel writes
+    it): set, rank, epoch, slot, the wait, the flag's last value;
+    ``fault_word`` is a numpy view of it, which the fault checks read
+    without a tensor operation.
+    ``epoch`` counts the applies that used the window
+    (:meth:`next_epoch`); a new window starts again at 0.
+    """
+
+    def __init__(self, *, rank: int, slot_bytes: int, ptrs, fault,
+                 device, mems=None):
+        self.rank = int(rank)
+        self.slot_bytes = int(slot_bytes)
+        self.ptrs = tuple(int(p) for p in ptrs)
+        self.fault = fault
+        self.fault_word = fault.numpy()
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.mems = None if mems is None else tuple(mems)
+        self.state = {"epoch": 0}
+        self.release = lambda: None
+        _WINDOWS.add(self)
+        if device.type == "cuda":
+            _watch_faults()
+
+    @classmethod
+    def local(cls, device, slot_bytes: int) -> "HaloWindow":
+        """The window of a rank that is its own ring neighbour (world size
+        1), in tensor memory on ``device``: left and right are its own."""
+        device = torch.device(device)
+        mem = torch.zeros(window_bytes(slot_bytes), dtype=torch.uint8,
+                          device=device)
+        return cls(rank=0, slot_bytes=slot_bytes, ptrs=(mem.data_ptr(),) * 3,
+                   fault=new_fault_record(device), device=device,
+                   mems=(mem,) * 3)
+
+    @property
+    def epoch(self) -> int:
+        return self.state["epoch"]
+
+    def next_epoch(self) -> int:
+        """The epoch of the next apply."""
+        self.state["epoch"] += 1
+        return self.state["epoch"]
+
+    def buffer(self, which: int, slot: int, parity: int, dtype, rows: int,
+               m: int):
+        """Slot ``slot``'s buffer ``parity`` of window ``which`` (0 own, 1
+        left, 2 right) as a (rows, m) tensor of ``dtype`` (tensor memory
+        only)."""
+        off = window_slot_offset(slot, parity, self.slot_bytes)
+        return self.mems[which][off:off + rows * m * dtype.itemsize].view(
+            dtype).view(rows, m)
+
+    def flags(self, which: int):
+        """Window ``which``'s arrived (words 0-3) and consumed (4-5) flags
+        as an int64 tensor view (tensor memory only)."""
+        return self.mems[which][:48].view(torch.int64)
+
+    def raise_if_faulted(self) -> None:
+        """Raise :class:`HaloPushFault` if a wait of the protocol ran out
+        on this rank (the record in host memory, readable after the trap
+        that lost the context)."""
+        rec = [int(v) for v in self.fault.tolist()]
+        if rec[0]:
+            raise HaloPushFault(rec[1], rec[2], SLOTS[rec[3]],
+                                _WAITS.get(rec[4], str(rec[4])), rec[5])
+
+
+# Every live window, whose fault records halo_push_faults reads.
+_WINDOWS = weakref.WeakSet()
+
+
+@contextlib.contextmanager
+def halo_push_faults(windows=None):
+    """Name a push fault where its CUDA error surfaces. A wait of the push
+    form that ran out traps, which loses the CUDA context: the next CUDA
+    call anywhere raises a generic ``RuntimeError``, and the rank, epoch
+    and slot are in the window's fault record. Inside this context such an
+    error is raised as the :class:`HaloPushFault` of a window whose record
+    is set, from the CUDA error; other errors pass unchanged. ``windows``:
+    the windows to read (an apply's own); by default every live window
+    whose record was set inside the context. The solver's loop
+    (``core.loop.run_chunked``) and the push route's apply run inside it.
+    """
+    before = ()
+    if windows is None:
+        before = weakref.WeakSet(w for w in list(_WINDOWS) if _faulted(w))
+    try:
+        yield
+    except HaloPushFault:
+        raise
+    except RuntimeError as exc:
+        for window in list(_WINDOWS) if windows is None else windows:
+            if window not in before and _faulted(window):
+                try:
+                    window.raise_if_faulted()
+                except HaloPushFault as fault:
+                    raise fault from exc
+        raise
+
+
+def _faulted(window) -> bool:
+    return bool(window.fault_word[0])
+
+
+# How often the fault watch reads the live windows' records, in seconds.
+FAULT_WATCH_S = 0.01
+_WATCH = {}
+
+
+def _watch_faults() -> None:
+    """Start, once, the thread that writes each push fault's message to
+    stderr as soon as a kernel writes its record, before it traps. NCCL's
+    watchdog thread may end the process on the CUDA error that follows,
+    before the solve raises :class:`HaloPushFault`; the message (rank,
+    epoch, slot) is then in the log all the same. Card windows only: the
+    plain version raises where it waits."""
+    if _WATCH:
+        return
+
+    def watch():
+        told = weakref.WeakSet()
+        while True:
+            time.sleep(FAULT_WATCH_S)
+            try:
+                windows = list(_WINDOWS)
+            except RuntimeError:  # the set changed while it was read
+                continue
+            for window in windows:
+                if window in told or not _faulted(window):
+                    continue
+                told.add(window)
+                try:
+                    window.raise_if_faulted()
+                except HaloPushFault as fault:
+                    print(f"HaloPushFault: {fault}", file=sys.stderr,
+                          flush=True)
+    _WATCH["thread"] = threading.Thread(target=watch, daemon=True,
+                                        name="halo-push-faults")
+    _WATCH["thread"].start()
+
+
+def new_fault_record(device):
+    """A zeroed fault record for a window on ``device``: host memory,
+    page-locked where the card writes it."""
+    pin = torch.device(device).type == "cuda"
+    return torch.zeros(8, dtype=torch.int64, pin_memory=pin)
+
+
+def _window_call(entry: str, device, *args) -> int:
+    with torch.cuda.device(device):
+        return getattr(_library(), entry)(*args)
+
+
+def window_alloc(device, nbytes: int) -> tuple:
+    """``(ptr, handle)``: a zeroed window of ``nbytes`` on ``device``,
+    cudaMalloc'd outside PyTorch's caching allocator, and its 64-byte IPC
+    handle (``csrc/peer_window.cu``)."""
+    ptr, handle = ctypes.c_void_p(0), ctypes.create_string_buffer(64)
+    err = _window_call("fdt_window_alloc", device, nbytes, ctypes.byref(ptr),
+                       handle)
+    if err:
+        raise RuntimeError(f"fdt_window_alloc({nbytes}): CUDA error {err}")
+    return ptr.value, handle.raw
+
+
+def window_open(device, handle: bytes) -> int:
+    """A neighbour's window, from its IPC handle, in this process's address
+    space (peer access enabled lazily)."""
+    ptr = ctypes.c_void_p(0)
+    err = _window_call("fdt_window_open", device,
+                       ctypes.create_string_buffer(handle, 64),
+                       ctypes.byref(ptr))
+    if err:
+        raise RuntimeError(f"cudaIpcOpenMemHandle: CUDA error {err}")
+    return ptr.value
+
+
+def window_close(device, ptr: int) -> None:
+    err = _window_call("fdt_window_close", device, ptr)
+    if err:
+        raise RuntimeError(f"cudaIpcCloseMemHandle: CUDA error {err}")
+
+
+def window_free(device, ptr: int) -> None:
+    err = _window_call("fdt_window_free", device, ptr)
+    if err:
+        raise RuntimeError(f"cudaFree of a halo window: CUDA error {err}")
+
+
+def window_flags(device, ptr: int) -> list:
+    """The six flag words of the window at ``ptr`` (a synchronous copy)."""
+    words = (ctypes.c_longlong * 6)()
+    err = _window_call("fdt_window_read", device, ptr, words, 48)
+    if err:
+        raise RuntimeError(f"reading a halo window: CUDA error {err}")
+    return list(words)
+
+
+def _wait_flag(window: HaloWindow, epoch: int, slot: int, what: int,
+               flag, want: int, at_least: bool) -> None:
+    """The plain version's wait: poll ``flag`` (a one-element tensor) until
+    it is ``want`` (``>=`` with ``at_least``); past PUSH_SPIN_LIMIT_NS
+    record the fault and raise, as the kernel traps."""
+    deadline = time.monotonic() + PUSH_SPIN_LIMIT_NS * 1e-9
+    while True:
+        v = int(flag)
+        if (v >= want) if at_least else (v == want):
+            return
+        if time.monotonic() > deadline:
+            window.fault.copy_(torch.tensor(
+                [1, window.rank, epoch, slot, what, v, 0, 0]))
+            window.raise_if_faulted()
+        time.sleep(1e-5)
+
+
+def banded_remote_push_spmm_plain(blocks, x_local, window, *,
+                                  bandwidth: int, epoch: int,
+                                  out_dtype=None):
+    """Plain PyTorch ``banded_remote_push_spmm``: the kernel's dataflow on
+    the window's tensors. Wait until each receiving neighbour has read the
+    buffer's previous rows, copy the shard's first ``bw*bs`` rows into the
+    predecessor's bot slot and its last into the successor's top slot and
+    set their arrived flags to ``epoch``; wait for this rank's own slots to
+    hold ``epoch``'s rows; then :func:`banded_remote_halo_spmm_plain` over
+    them, and set the senders' consumed flags. Ranks simulated in one
+    process run it on threads of their own (each waits for the others'
+    pushes)."""
+    if window.mems is None:
+        raise ValueError("the plain push needs a window of tensor memory")
+    plan = push_plan(epoch)
+    bs, bw, m = blocks.shape[1], int(bandwidth), x_local.shape[1]
+    halo, dt, p = bw * bs, x_local.dtype, plan.parity
+    own, left, right = (window.flags(i) for i in range(3))
+    pushes = ((BOT, 1, left, x_local[:halo]), (TOP, 2, right, x_local[-halo:]))
+    for slot, which, flags, rows in pushes:
+        _wait_flag(window, epoch, slot, 2, own[_CONSUMED + slot],
+                   plan.reuse_after, True)
+        window.buffer(which, slot, p, dt, halo, m).copy_(rows)
+        flags[_ARRIVED + 2 * slot + p] = epoch
+    for slot in (TOP, BOT):
+        _wait_flag(window, epoch, slot, 1, own[_ARRIVED + 2 * slot + p],
+                   epoch, False)
+    y = banded_remote_halo_spmm_plain(
+        blocks, x_local, window.buffer(0, TOP, p, dt, halo, m),
+        window.buffer(0, BOT, p, dt, halo, m), bandwidth=bw,
+        out_dtype=out_dtype)
+    left[_CONSUMED + TOP] = epoch
+    right[_CONSUMED + BOT] = epoch
+    return y
+
+
+def _check_push(blocks, x, window, bandwidth: int, epoch: int) -> int:
+    """Checks of the push form's arguments; returns K."""
+    K = _check_banded(blocks, x, bandwidth)
+    push_plan(epoch)
+    if not isinstance(window, HaloWindow):
+        raise ValueError(f"window must be a HaloWindow, got "
+                         f"{type(window).__name__}")
+    if window.device != x.device:
+        raise ValueError(f"window on {window.device}, x on {x.device}")
+    need = int(bandwidth) * blocks.shape[1] * x.shape[1] * x.dtype.itemsize
+    if window.slot_bytes < need:
+        raise ValueError(f"window slots of {window.slot_bytes} B are too "
+                         f"small for {need} B of halo rows")
+    if blocks.shape[0] < int(bandwidth):
+        raise ValueError(f"bandwidth {bandwidth} exceeds the shard's "
+                         f"{blocks.shape[0]} block rows")
+    return K
+
+
+def banded_remote_push_spmm(blocks, x_local, window, *, bandwidth: int,
+                            epoch: int, out_dtype=None):
+    """Y = A_local @ [from_prev; x_local; from_next] for a shard's
+    DIA-banded rows in one launch that also moves the halos: the TPU
+    kernel's form (``fortran_davidson_tpu/ops/pallas_kernels.py:1416``,
+    its in-kernel remote copies).
+
+    The launch writes the shard's first ``bw*bs`` rows of x into the ring
+    predecessor's window and its last into the successor's (through peer
+    pointers), and reads its own halos from this rank's window once its
+    neighbours' pushes of the same ``epoch`` have arrived
+    (``csrc/remote_halo.cu``, ``csrc/remote_push.cuh``). Every rank calls
+    it with the same epochs, in the same order (:func:`push_plan`).
+
+    Args:
+      blocks: (nbr, bs, K*bs), K = 2*bandwidth + 1, the shard's block rows.
+      x_local: (nbr*bs, m), the blocks' type: the shard's rows.
+      window: this rank's :class:`HaloWindow` on x's device, its slots at
+        least ``bandwidth*bs*m`` elements of x's type.
+      epoch: this apply's epoch, >= 1.
+      out_dtype: Y's type (default x's type).
+    """
+    K = _check_push(blocks, x_local, window, bandwidth, epoch)
+    out_dtype = x_local.dtype if out_dtype is None else out_dtype
+    name = "banded_remote_push_spmm"
+    if _on_cpu(name, x_local):
+        return banded_remote_push_spmm_plain(
+            blocks, x_local, window, bandwidth=bandwidth, epoch=epoch,
+            out_dtype=out_dtype)
+    window.raise_if_faulted()
+    sfx = _dense_suffix(name, blocks, x_local)
+    _require_contiguous(name, blocks, x_local)
+    nbr, bs, _ = blocks.shape
+    m = x_local.shape[1]
+    y = torch.empty((nbr * bs, m), dtype=acc_dtype(x_local.dtype),
+                    device=x_local.device)
+    if y.numel():
+        _run(f"fdt_{name}_{sfx}", x_local.device, blocks.data_ptr(),
+             x_local.data_ptr(), y.data_ptr(), nbr, bs, K, int(bandwidth), m,
+             *window.ptrs, window.fault.data_ptr(), window.slot_bytes, epoch,
+             window.rank, PUSH_SPIN_LIMIT_NS)
+        banded_remote_push_spmm.launches += 1
+    return _out(y, out_dtype)
+
+
+banded_remote_push_spmm.launches = 0
+
+
 KERNELS = (banded_bsr_spmm, bsr_spmm, banded_bsr_spmm_gram,
            banded_q_bsr_spmm, banded_q_bsr_spmm_gram, banded_ext_bsr_spmm,
-           banded_q_ext_bsr_spmm, banded_remote_halo_spmm)
+           banded_q_ext_bsr_spmm, banded_remote_halo_spmm,
+           banded_remote_push_spmm)
 
 
 # The wrappers whose float64-x launches are also counted apart

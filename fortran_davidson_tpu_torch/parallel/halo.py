@@ -7,11 +7,11 @@ rows at most ``bandwidth`` block rows away, so an apply needs, beyond
 the rank's own rows, only the last ``bandwidth * bs`` rows of its ring
 predecessor and the first of its successor. JAX moves them with two
 ``ppermute``s. At the ring's two ends the wrapped rows meet the zero
-blocks of out-of-range slots. Every backend moves them here with
-:meth:`RowMesh.ring_exchange`: ring-neighbour point-to-point, O(bw · bs
-· m) per rank at any world size, waited on before the rows that read
-them; at world size 1, where a send to oneself is refused, the halos are
-views of the rank's own rows.
+blocks of out-of-range slots. Every backend but ``"pallas-remote"`` on
+its push route moves them here with :meth:`RowMesh.ring_exchange`:
+ring-neighbour point-to-point, O(bw · bs · m) per rank at any world
+size, waited on before the rows that read them; at world size 1, where a
+send to oneself is refused, the halos are views of the rank's own rows.
 
 Backends, as in JAX:
 
@@ -22,16 +22,25 @@ Backends, as in JAX:
   (kernel 6) and
   :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_q_ext_bsr_spmm`
   (kernel 7), which take their plain versions on the CPU.
-- ``"pallas-remote"``: kernel 8,
-  :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_remote_halo_spmm`,
-  which reads the shard's rows and the two halos through their own
-  pointers (no x_ext). The TPU kernel pushes the halos to the neighbours
-  from inside itself while its interior tiles compute; here the ring
-  exchange starts, the interior block rows (which read no halo) launch
-  while it runs, the stream waits on its works, and the 2·bw edge block
-  rows launch (:meth:`HaloBSROperator.matmat`). The same two launches run
-  at every world size, so one GPU at world size 1 runs what N run, less
-  the transfer. BSR operator only, as in JAX.
+- ``"pallas-remote"``: kernel 8, which reads the shard's rows and the
+  two halos through their own pointers (no x_ext), by one of two routes,
+  the operator's ``route``, decided once at construction from the mesh's
+  topology (:func:`~fortran_davidson_tpu_torch.parallel.mesh.halo_route`):
+
+  - ``"push"`` (every ring neighbour's GPU on this host and
+    peer-accessible; world size 1 on the card):
+    :meth:`RowMesh.ring_push`, the TPU kernel's own form
+    (:func:`~fortran_davidson_tpu_torch.ops.kernels.banded_remote_push_spmm`):
+    one launch writes the shard's edge rows into the neighbours' halo
+    windows over NVLink and computes over the halos pushed into its own,
+    no NCCL call. At world size 1 it pushes into the rank's own window.
+  - ``"exchange"`` (meshes that span hosts, CPU ranks):
+    :func:`~fortran_davidson_tpu_torch.ops.kernels.banded_remote_halo_spmm`
+    after :meth:`RowMesh.ring_exchange`: the exchange starts, the interior
+    block rows (which read no halo) launch while it runs, the stream waits
+    on its works, and the 2·bw edge block rows launch.
+
+  No route falls back to the other. BSR operator only, as in JAX.
 - ``"xla"``: JAX's non-kernel path as plain torch: for the BSR operator
   the interior contraction over the columns the rank owns plus the halo
   contraction over the 2·bw received blocks (any banded column table);
@@ -116,6 +125,18 @@ class HaloBSROperator(LinearOperator):
     restricted to a band: every stored block's column lies within
     ``bandwidth`` block rows of its own block row. The operator keeps the
     mesh rank's block rows, on the mesh's device.
+
+    ``route`` says how an apply moves the halos: ``"push"``, kernel 8's
+    one launch that pushes them into the ring neighbours' windows (backend
+    ``"pallas-remote"`` where every neighbour's GPU is on this host and
+    peer-accessible, :func:`~fortran_davidson_tpu_torch.parallel.mesh.
+    halo_route`), or ``"exchange"``, ring point-to-point before the kernel
+    (every other case). It is decided at construction, from the topology
+    alone (a collective for ``"pallas-remote"`` on a mesh of GPUs). The
+    push route's window (:meth:`RowMesh.open_window`) is opened at the
+    first apply and regrown, collectively, when a wider block arrives:
+    to twice its slots at least, so a solve regrows it a handful of
+    times. An operator and its :meth:`offdiag` share it.
     """
 
     def __init__(self, block_cols, blocks, bandwidth: int, mesh: RowMesh,
@@ -137,6 +158,9 @@ class HaloBSROperator(LinearOperator):
         self.axis = axis
         self.backend = backend
         self._nbr = nbr
+        self.route = (mesh.halo_route() if backend == "pallas-remote"
+                      else "exchange")
+        self._push = {"window": None}
 
     @classmethod
     def from_bsr(cls, op, bandwidth: int, mesh: RowMesh,
@@ -163,25 +187,56 @@ class HaloBSROperator(LinearOperator):
     def device(self):
         return self.mesh.device
 
-    def _matmat_remote(self, block, compute):
-        """Kernel 8 (``"pallas-remote"``): start the ring exchange, launch
-        the interior block rows while it runs, make the stream wait on it,
-        launch the edge rows into the same output. No host sync."""
-        bw, bs = self.bandwidth, self.block_size
-        # Cast before the send, so the halos travel in the compute type.
-        x = block.to(compute).contiguous()
-        blocks = self.blocks.to(compute)
-        from_prev, from_next, works = self.mesh.ring_exchange(x, bw * bs)
+    def _window(self, rows: int, m: int, dtype):
+        """The push route's window, opened or regrown (collectively) to
+        hold (rows, m) of ``dtype`` a slot."""
+        need = kernels.window_slot_bytes(rows, m, dtype)
+        window = self._push["window"]
+        if window is None or window.slot_bytes < need:
+            cap = need
+            if window is not None:
+                cap = max(need, 2 * window.slot_bytes)
+                self.mesh.close_window(window)
+            self._push["window"] = window = self.mesh.open_window(cap)
+        return window
+
+    def _apply_push(self, x, blocks):
+        """The ``"push"`` route's apply of ``x`` (the compute type): one
+        launch that pushes the halos and computes (Y in the accumulation
+        type), a push fault of its window raised by name where its CUDA
+        error surfaces."""
+        window = self._push["window"]
+        with kernels.halo_push_faults(() if window is None else (window,)):
+            window = self._window(self.bandwidth * self.block_size,
+                                  x.shape[1], x.dtype)
+            return self.mesh.ring_push(blocks, x, window, self.bandwidth)
+
+    def _apply_exchange(self, x, blocks):
+        """The ``"exchange"`` route's apply of ``x`` (the compute type):
+        start the ring exchange, launch the interior block rows while it
+        runs, make the stream wait on it, launch the edge rows into the
+        same output (Y in the accumulation type). No host sync."""
+        bw = self.bandwidth
+        from_prev, from_next, works = self.mesh.ring_exchange(
+            x, bw * self.block_size)
         args = (blocks, x, from_prev, from_next)
-        y = torch.empty(x.shape, dtype=kernels.acc_dtype(compute),
+        y = torch.empty(x.shape, dtype=kernels.acc_dtype(x.dtype),
                         device=x.device)
         kernels.banded_remote_halo_spmm(*args, bandwidth=bw, rows="interior",
                                         out=y)
         for work in works:
             work.wait()
-        kernels.banded_remote_halo_spmm(*args, bandwidth=bw, rows="edge",
-                                        out=y)
-        return y.to(block.dtype)
+        return kernels.banded_remote_halo_spmm(*args, bandwidth=bw,
+                                               rows="edge", out=y)
+
+    def _matmat_remote(self, block, compute):
+        """Kernel 8 (``"pallas-remote"``) on the operator's ``route``."""
+        # Cast before the send, so the halos travel in the compute type.
+        x = block.to(compute).contiguous()
+        blocks = self.blocks.to(compute)
+        apply = (self._apply_push if self.route == "push"
+                 else self._apply_exchange)
+        return apply(x, blocks).to(block.dtype)
 
     def matmat(self, block):
         nbr_l, bs, kbs = self.blocks.shape

@@ -14,7 +14,9 @@ they project the efficiency on N devices.
 The JAX package reads the collectives out of the compiled HLO of the
 sharded step. Here the collectives are explicit calls, and every one of
 them is a method of :class:`~.mesh.RowMesh` (``all_reduce``,
-``all_gather_rows``, ``ring_exchange``): :func:`record_collectives`
+``all_gather_rows``, ``ring_exchange``, ``ring_push``: kernel 8's one
+launch, which moves the same rows from inside the kernel and is recorded
+as the exchange is): :func:`record_collectives`
 records each call while it is open, and :func:`probe_collectives` runs
 one iteration of the sharded north-star program inside it. The record is
 exact (the calls that ran, at their payloads) and per rank, at any world
@@ -73,8 +75,9 @@ def record_collectives():
 
     Yields the list that each call of ``RowMesh.all_reduce``
     (``"all-reduce"``), ``RowMesh.all_gather_rows`` (``"all-gather"``)
-    and ``RowMesh.ring_exchange`` (two ``"collective-permute"``, the two
-    sends) appends a :class:`~.mesh.Collective` to, in call order; so do
+    and ``RowMesh.ring_exchange`` or ``RowMesh.ring_push`` (two
+    ``"collective-permute"``, the two sends) appends a
+    :class:`~.mesh.Collective` to, in call order; so do
     the all-reduce of the norms and the TSQR's gather that a one-rank
     mesh skips. Blocks nest; each sees every call made inside it.
     """
@@ -185,8 +188,8 @@ def iteration_inventory(matrix, mesh: RowMesh, lowest: int = 20,
     Returns :func:`collective_stats` and ``n``, ``n_local``, ``m_max``,
     ``n_devices``, ``width`` (the iteration's active width),
     ``m_max_ceiling_bytes`` (the Gram payloads at ``m_max``, the JAX
-    package's static count), ``exchanges`` (ring exchanges, one per halo
-    apply), ``launches`` (the kernels launched in the iteration, by
+    package's static count), ``exchanges`` (ring exchanges or pushes, one
+    per halo apply), ``launches`` (the kernels launched in the iteration, by
     wrapper; none on the CPU) and ``records``. Every rank of ``mesh``
     calls it.
     """

@@ -38,3 +38,20 @@ class NumericalError(DavidsonError, ArithmeticError):
 def require(cond: bool, exc_type: type, msg: str) -> None:
     if not cond:
         raise exc_type(msg)
+
+
+class HaloPushFault(DavidsonError):
+    """Raised when a wait of kernel 8's one-launch halo push
+    (``ops.kernels.banded_remote_push_spmm``) ran past its bound: the
+    ranks did not apply the operator in lockstep. Names the rank, its
+    epoch, the slot (``"top"``: the predecessor's rows; ``"bot"``: the
+    successor's) and the wait (``"arrived"``: the neighbour's rows;
+    ``"consumed"``: its reading of the buffer's previous rows)."""
+
+    def __init__(self, rank: int, epoch: int, slot: str, wait: str,
+                 seen: int):
+        super().__init__(
+            f"halo push: rank {rank}, epoch {epoch}, slot {slot}: the wait "
+            f"for {wait} ran out (the flag held {seen}); the ranks did not "
+            "apply the operator in lockstep")
+        self.rank, self.epoch, self.slot, self.wait = rank, epoch, slot, wait

@@ -998,10 +998,12 @@ def test_remote_kernel_refuses_what_it_does_not_take(cuda_device):
     assert call.launches == before
 
 
-def test_remote_solve_world_size_one_over_nccl(cuda_device, tmp_path):
-    # "pallas-remote" at world size 1: the halos are the rank's own rows,
-    # kernel 8 launches twice per apply, kernels 1 and 6 never, and the
-    # solve is the single-device one.
+def test_remote_solve_world_size_one_over_nccl(cuda_device, tmp_path,
+                                               monkeypatch):
+    # "pallas-remote" at world size 1 takes the push route: kernel 8's one
+    # launch a counted apply pushes the halos into the rank's own window,
+    # its two-launch form and kernels 1 and 6 never run, no NCCL
+    # point-to-point call is made, and the solve is the single-device one.
     import torch.distributed as dist
     from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
                                                      eigensolve_sharded,
@@ -1011,19 +1013,284 @@ def test_remote_solve_world_size_one_over_nccl(cuda_device, tmp_path):
     single = fdtt.eigensolve(op, 3, max_dim_sub=12)
     mesh = multihost.initialize(init_method=f"file://{tmp_path}/rendezvous",
                                 world_size=1, rank=0, device=cuda_device)
+    applies, p2p = [0], [0]
+    matmat = HaloBSROperator.matmat
+
+    def counted(self, block):
+        applies[0] += 1
+        return matmat(self, block)
+    batch = dist.batch_isend_irecv
+
+    def p2p_call(ops):
+        p2p[0] += 1
+        return batch(ops)
+    monkeypatch.setattr(HaloBSROperator, "matmat", counted)
+    monkeypatch.setattr(dist, "batch_isend_irecv", p2p_call)
     try:
         assert dist.get_backend() == "nccl" and mesh.size == 1
         H = HaloBSROperator.from_bsr(op, 1, mesh, backend="pallas-remote")
+        assert H.route == "push"
         kernels.reset_launch_counts()
         res = eigensolve_sharded(H, 3, mesh, max_dim_sub=12)
-        assert kernels.banded_remote_halo_spmm.launches > 0
-        assert (kernels.banded_bsr_spmm.launches
+        assert applies[0] > 0 and p2p[0] == 0
+        assert kernels.banded_remote_push_spmm.launches == applies[0]
+        assert (kernels.banded_remote_halo_spmm.launches
+                == kernels.banded_bsr_spmm.launches
                 == kernels.banded_ext_bsr_spmm.launches == 0)
     finally:
         dist.destroy_process_group()
     assert res.converged and res.iterations == single.iterations
     torch.testing.assert_close(res.eigenvalues, single.eigenvalues, rtol=0,
                                atol=1e-10)
+
+
+def test_remote_solve_on_the_exchange_route_over_nccl(cuda_device, tmp_path,
+                                                      monkeypatch):
+    # The "exchange" route, which meshes that span hosts take, run on one
+    # card through the operator's own branch (an instance set to it): the
+    # ring exchange, then kernel 8's two launches a counted apply, no push,
+    # and the solve is the single-device one.
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded,
+                                                     multihost)
+    op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                                  device=cuda_device)
+    single = fdtt.eigensolve(op, 3, max_dim_sub=12)
+    mesh = multihost.initialize(init_method=f"file://{tmp_path}/rendezvous",
+                                world_size=1, rank=0, device=cuda_device)
+    applies = [0]
+    matmat = HaloBSROperator.matmat
+
+    def counted(self, block):
+        applies[0] += 1
+        return matmat(self, block)
+    monkeypatch.setattr(HaloBSROperator, "matmat", counted)
+    try:
+        H = HaloBSROperator.from_bsr(op, 1, mesh, backend="pallas-remote")
+        H.route = "exchange"
+        kernels.reset_launch_counts()
+        res = eigensolve_sharded(H, 3, mesh, max_dim_sub=12)
+        assert applies[0] > 0
+        assert kernels.banded_remote_halo_spmm.launches == 2 * applies[0]
+        assert (kernels.banded_remote_push_spmm.launches
+                == kernels.banded_ext_bsr_spmm.launches == 0)
+        assert H._push["window"] is None
+    finally:
+        dist.destroy_process_group()
+    assert res.converged and res.iterations == single.iterations
+    torch.testing.assert_close(res.eigenvalues, single.eigenvalues, rtol=0,
+                               atol=1e-10)
+
+
+# -- kernel 8 in one launch: the halos pushed into the window --------------
+
+def _one_rank_window(dev, rows, m, dtype):
+    """A world-size-1 mesh's window (cudaMalloc'd, its IPC handle taken; its
+    neighbours are the rank itself, so nothing is opened)."""
+    from fortran_davidson_tpu_torch.parallel import RowMesh
+    mesh = RowMesh(group=None, size=1, rank=0, device=dev)
+    return mesh.open_window(kernels.window_slot_bytes(rows, m, dtype))
+
+
+def _wrapped(x, halo):
+    """x_ext of a one-rank ring: the rank's own last and first rows."""
+    return torch.cat([x[-halo:], x, x[:halo]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 20, 64, 130])
+@pytest.mark.parametrize("bw", [1, 3])
+def test_push_kernel_gives_kernel_6s_bits(cuda_device, dtype, m, bw):
+    # test_remote_kernel_matches_plain_and_kernel_6's grid (37 block rows,
+    # ragged against every tile), at world size 1: the one launch pushes
+    # the shard's edge rows into its own window and reads them back as its
+    # halos, so kernel 6 on the wrapped x_ext sees the same values: the
+    # same bits, on both buffers (epochs 1 and 2).
+    nbr, bs = 37, 16
+    store = torch.float32 if dtype == torch.bfloat16 else dtype
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=11, dtype=store,
+                                  device=cuda_device)
+    blocks, halo = op.blocks.to(dtype), bw * bs
+    acc = kernels.acc_dtype(dtype)
+    window = _one_rank_window(cuda_device, halo, m, dtype)
+    before = kernels.banded_remote_push_spmm.launches
+    for epoch in (1, 2):
+        x = torch.randn((nbr * bs, m), device=cuda_device).to(dtype)
+        y = kernels.banded_remote_push_spmm(blocks, x, window, bandwidth=bw,
+                                            epoch=epoch, out_dtype=acc)
+        assert kernels.banded_remote_push_spmm.launches == before + epoch
+        assert y.dtype == acc and y.shape == (nbr * bs, m)
+        assert torch.equal(y, kernels.banded_ext_bsr_spmm(
+            blocks, _wrapped(x, halo), bandwidth=bw, out_dtype=acc))
+        local = kernels.HaloWindow.local(cuda_device, window.slot_bytes)
+        torch.testing.assert_close(
+            y, kernels.banded_remote_push_spmm_plain(
+                blocks, x, local, bandwidth=bw, epoch=1, out_dtype=acc),
+            **_tol(store))
+    torch.cuda.synchronize()
+    window.raise_if_faulted()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("bs,bw,m", [(256, 5, 480), (128, 9, 530)])
+def test_push_kernel_with_more_edge_tiles_than_sms(cuda_device, dtype, bs,
+                                                   bw, m):
+    # More edge CTAs than the H100's 132 SMs (200 and 162 here): the
+    # pushers are the first of them, one an SM at most, and the rest wait
+    # for their rows; kernel 6's bits on the wrapped rows, on both buffers.
+    nbr = 24
+    store = torch.float32 if dtype == torch.bfloat16 else dtype
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=3, dtype=store,
+                                  device=cuda_device)
+    blocks, halo = op.blocks.to(dtype), bw * bs
+    acc = kernels.acc_dtype(dtype)
+    window = _one_rank_window(cuda_device, halo, m, dtype)
+    for epoch in (1, 2, 3):
+        x = torch.randn((nbr * bs, m), device=cuda_device).to(dtype)
+        y = kernels.banded_remote_push_spmm(blocks, x, window, bandwidth=bw,
+                                            epoch=epoch, out_dtype=acc)
+        assert torch.equal(y, kernels.banded_ext_bsr_spmm(
+            blocks, _wrapped(x, halo), bandwidth=bw, out_dtype=acc))
+    torch.cuda.synchronize()
+    window.raise_if_faulted()
+
+
+def test_push_kernel_over_2000_applies(cuda_device):
+    # The reuse race: 2,000 back-to-back applies with x rewritten in place
+    # between them, through both buffers in turn, each held bit for bit
+    # to kernel 6 on the wrapped rows (the mismatches counted on the card).
+    nbr, bs, bw, m = 64, 128, 1, 40
+    op = fdtt.generate_banded_bsr(nbr, bs, bandwidth=bw, seed=4,
+                                  device=cuda_device)
+    halo = bw * bs
+    xs = [torch.randn((nbr * bs, m), dtype=torch.float64, device=cuda_device)
+          for _ in range(3)]
+    refs = [kernels.banded_ext_bsr_spmm(op.blocks, _wrapped(x, halo),
+                                        bandwidth=bw) for x in xs]
+    window = _one_rank_window(cuda_device, halo, m, torch.float64)
+    x = torch.empty_like(xs[0])
+    bad = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    before = kernels.banded_remote_push_spmm.launches
+    for i in range(2000):
+        x.copy_(xs[i % 3])
+        y = kernels.banded_remote_push_spmm(op.blocks, x, window,
+                                            bandwidth=bw,
+                                            epoch=window.next_epoch())
+        bad += torch.any(y != refs[i % 3])
+    assert int(bad) == 0
+    assert kernels.banded_remote_push_spmm.launches == before + 2000
+    assert window.epoch == 2000
+    window.raise_if_faulted()
+
+
+_SKIP = """
+import sys, time, torch
+from fortran_davidson_tpu_torch.ops import kernels
+from fortran_davidson_tpu_torch.parallel import RowMesh
+from fortran_davidson_tpu_torch.utils.errors import HaloPushFault
+dev = torch.device("cuda", 0)
+kernels.PUSH_SPIN_LIMIT_NS = 2_000_000_000
+mesh = RowMesh(group=None, size=1, rank=0, device=dev)
+window = mesh.open_window(kernels.window_slot_bytes(16, 4, torch.float64))
+blocks = torch.zeros((8, 16, 48), dtype=torch.float64, device=dev)
+x = torch.ones((128, 4), dtype=torch.float64, device=dev)
+for epoch in (1, 2):
+    kernels.banded_remote_push_spmm(blocks, x, window, bandwidth=1,
+                                    epoch=epoch)
+torch.cuda.synchronize()
+t0 = time.monotonic()
+kernels.banded_remote_push_spmm(blocks, x, window, bandwidth=1, epoch=5)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as exc:
+    print("sync raised:", str(exc).splitlines()[0])
+print(f"waited {time.monotonic() - t0:.2f} s")
+try:
+    window.raise_if_faulted()
+except HaloPushFault as exc:
+    print("fault:", exc)
+    sys.exit(3)
+"""
+
+
+def test_push_kernel_traps_a_skipped_epoch(cuda_device):
+    # Epochs 1, 2, then 5: the pushers wait for the reader's consumed >= 3,
+    # which never comes. Within the bound (2 s here) the kernel records
+    # rank, epoch and slot in host memory and traps; the window raises with
+    # them. A trap loses the CUDA context, so it runs in a process of its
+    # own.
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _SKIP], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 3, (out.stdout, out.stderr[-2000:])
+    assert "sync raised" in out.stdout
+    assert "rank 0, epoch 5, slot" in out.stdout and "consumed" in out.stdout
+    waited = float(out.stdout.split("waited ")[1].split(" s")[0])
+    assert 1.9 <= waited <= 30, out.stdout
+
+
+_SKIP_SOLVE = """
+import os, sys, tempfile, torch
+import fortran_davidson_tpu_torch as fdtt
+from fortran_davidson_tpu_torch.ops import kernels
+from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                 eigensolve_sharded,
+                                                 multihost)
+from fortran_davidson_tpu_torch.utils.errors import HaloPushFault
+dev = torch.device("cuda", 0)
+kernels.PUSH_SPIN_LIMIT_NS = 1_000_000_000
+op = fdtt.generate_banded_bsr(64, 16, bandwidth=1, coupling=0.1, seed=0,
+                              device=dev)
+mesh = multihost.initialize(
+    init_method=f"file://{tempfile.mkdtemp()}/rendezvous", world_size=1,
+    rank=0, device=dev)
+H = HaloBSROperator.from_bsr(op, 1, mesh, backend="pallas-remote")
+step, calls = kernels.HaloWindow.next_epoch, []
+def skipping(window):
+    e = step(window)
+    calls.append(e)
+    if len(calls) == 2:
+        window.state["epoch"] = e = e + 2
+        print(f"skipped to epoch {e}", flush=True)
+    return e
+kernels.HaloWindow.next_epoch = skipping
+try:
+    eigensolve_sharded(H, 3, mesh, max_dim_sub=12)
+except HaloPushFault as exc:
+    print("fault:", exc)
+    print("cause:", type(exc.__cause__).__name__)
+    sys.stdout.flush()
+    os._exit(3)
+print("no fault")
+"""
+
+
+def test_push_solve_raises_a_skipped_epoch_by_name(cuda_device):
+    # A solve on the push route whose second apply skips an epoch (e + 2
+    # for e): its pushers wait for consumed >= e, which never comes, and
+    # the kernel traps. The solve raises HaloPushFault with the rank, epoch
+    # and slot where the CUDA error surfaces (usually the iteration's
+    # synchronisation), unless NCCL's watchdog thread ends the process
+    # first on that error; either way the fault watch has written the
+    # message to stderr. In a process of its own (the context is lost).
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _SKIP_SOLVE], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    both = out.stdout + out.stderr
+    assert out.returncode != 0 and "no fault" not in out.stdout, both[-3000:]
+    epoch = out.stdout.split("skipped to epoch ")[1].split()[0]
+    assert f"halo push: rank 0, epoch {epoch}, slot" in both, both[-3000:]
+    assert "the wait for consumed ran out" in both
+    if out.returncode == 3:
+        assert f"fault: halo push: rank 0, epoch {epoch}" in out.stdout
 
 
 # -- float64 x on int8 storage (kernels 4, 5, 7) --------------------------
