@@ -401,7 +401,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    exchange route's (timed through its own functions: ``ring_exchange``,
    then the interior and the edge launch), CUDA-event times of both in
    turns (push, exchange, exchange, push) beside the push's bound.
-11. Prints the run's time and the shares of phases 12-17, the
+18. BASELINE config 5 (``BASELINE.json`` configs[4]): the 78,128
+   block rows of 128 (n = 10,000,384) of ``generate_banded_bsr``, each
+   rank building only its own block rows (``ops.sparse.banded_bsr_rows``,
+   ``banded_bsr_quantized_rows``; ``n_block_rows=`` on the sharded
+   operators). (a) Right after the build, before phase 4's and phase 6's
+   matrices are built whole: their block rows as each rank of worlds 4
+   and 2, built alone on the card, then the whole builds, each rank's
+   tables bit-equal to its rows of the whole build; every build's host
+   seconds and host memory (the resident set sampled every 5 ms, and the
+   high-water mark). (b) After 10c, (i) in float64 (30.72 GB of blocks,
+   the host build kept out of every wall), lowest-20 under 10a's float64
+   options at the 12 GB budget's width (44) through kernel 1 on one
+   device and row-sharded at world size 1 on the push route through
+   kernel 8p: cold, warm and traced solves, the same iterations and
+   eigenvalues within 1e-12, true residuals <= 1e-8 relative, launches
+   the counted applies; the card's own width once, observed; (ii) 15b's
+   int8 recipe on the 78,128-block-row int8 matrix, built by
+   ``examples/northstar.py --sharded`` as the rank's rows, at world size
+   1 through kernel 7: 15b's gates. (c) With two or more GPUs, config 5
+   (push route; at world size 4 also the exchange route) and 15b's and
+   15a's recipes at world sizes 1, 2 and 4 in spawned NCCL ranks, each
+   building only its rows: world 1's iterations (the float32 refined
+   recipes ±1), eigenvalues, true residuals or oracles, each rank's
+   operator its rows' bytes, its host memory rising by at most 4 GB, its
+   launches, inventory and per-iteration split (busy, idle, host,
+   collective wait), the measured efficiency beside the model; every
+   gate's failure is collected and raised at the end.
+11. Prints the run's time and the shares of phases 12-18, the
    solves' and kernels' JSON lines (launch counts of the solve
    phases 4-16, each counted from 0 over its own phase; kernel 9, the copy
    variant, and kernel 5's three bf16-dequant variants are listed with
@@ -442,6 +469,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -2446,35 +2474,66 @@ LOOSE = dict(method="DPR", tolerance=1e-3, relative_tolerance=True,
              dtype="float32", expansion="lowest-k", max_iterations=30)
 
 
-# Block rows of the int8 oracle's chunks: 1.6 GB of float64 blocks each
+# Block rows of the oracles' chunks: 1.6 GB of float64 blocks each
 # (all 78,125 at 10M rows would take 30.7 GB).
 ORACLE_ROWS = 4096
 
 
-def _int8_true_residual(q, X, lam) -> float:
-    """max_j ||A x_j - lam_j x_j|| / max(|lam_j|, 1) in float64, with the
-    dequantized blocks and the exact diagonal; ``ORACLE_ROWS`` block rows
-    at a time, each with its x window (``bw`` halo block rows on each
-    side, as ``kernels.banded_bsr_spmm_plain`` pads them)."""
+def _banded_residual(dense_rows, nbr, bs, bw, X, lam, diag=None,
+                     mesh=None) -> float:
+    """max_j ||A x_j - lam_j x_j|| / ||x_j|| / max(|lam_j|, 1) in float64.
+    ``dense_rows(r0, r1)``: A's block rows r0..r1-1 as float64 (r1-r0, bs,
+    K*bs) DIA-aligned blocks (their off-diagonal part when ``diag`` holds
+    the exact diagonal), ``ORACLE_ROWS`` block rows at a time. On
+    ``mesh``: the rank's ``nbr`` block rows, X's halo rows from its ring
+    neighbours (``ring_exchange``; at the ring's ends they meet zero
+    blocks) and the sums over the ranks; else X padded with zeros."""
     import torch
-    X = X.double()
-    lam = lam.double()
-    nbr, bs, kbs = q.qblocks.shape
-    K, bw, m = kbs // bs, q.bandwidth, X.shape[1]
-    xp = torch.nn.functional.pad(X.reshape(nbr, bs, m), (0, 0, 0, 0, bw, bw))
-    sq = torch.zeros(m, dtype=torch.float64, device=X.device)
+    X, lam = X.double(), lam.double()
+    m, K = X.shape[1], 2 * bw + 1
+    if mesh is None:
+        xp = torch.nn.functional.pad(X.reshape(nbr, bs, m),
+                                     (0, 0, 0, 0, bw, bw))
+    else:
+        prev, nxt, works = mesh.ring_exchange(X, bw * bs)
+        for work in works:
+            work.wait()
+        xp = torch.cat([prev, X, nxt]).reshape(nbr + 2 * bw, bs, m)
+    sums = torch.zeros((2, m), dtype=torch.float64, device=X.device)
     for r0 in range(0, nbr, ORACLE_ROWS):
         r1 = min(r0 + ORACLE_ROWS, nbr)
-        deq = (q.qblocks[r0:r1].float()
-               * q.scale_rows[r0:r1, None, :]).double()
         window = torch.cat([xp[r0 + k:r1 + k] for k in range(K)], dim=1)
         xr = xp[r0 + bw:r1 + bw]
-        R = (torch.bmm(deq, window) + q.diag[r0:r1, :, None].double() * xr
-             - xr * lam)
-        del deq, window
-        sq += torch.sum(R * R, dim=(0, 1))
-    res = torch.sqrt(sq)
+        R = torch.bmm(dense_rows(r0, r1), window)
+        del window
+        if diag is not None:
+            R = R + diag[r0:r1, :, None].double() * xr
+        R = R - xr * lam
+        sums[0] += torch.sum(R * R, dim=(0, 1))
+        del R
+    sums[1] = torch.sum(X * X, dim=0)
+    if mesh is not None:
+        sums = mesh.all_reduce(sums)
+    res = torch.sqrt(sums[0] / sums[1])
     return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
+
+
+def _f64_residual(op, X, lam, mesh=None) -> float:
+    """:func:`_banded_residual` of a float64 banded operator (a
+    ``BSROperator`` or the rank's ``HaloBSROperator``)."""
+    return _banded_residual(lambda r0, r1: op.blocks[r0:r1],
+                            op.blocks.shape[0], op.block_size, op.bandwidth,
+                            X, lam, mesh=mesh)
+
+
+def _int8_residual(op, X, lam, mesh=None) -> float:
+    """:func:`_banded_residual` of an int8 operator (its dequantized
+    blocks and exact diagonal)."""
+    return _banded_residual(
+        lambda r0, r1: (op.qblocks[r0:r1].float()
+                        * op.scale_rows[r0:r1, None, :]).double(),
+        op.qblocks.shape[0], op.block_size, op.bandwidth, X, lam,
+        diag=op.diag, mesh=mesh)
 
 
 def phase_int8(q, dev, solves, refs):
@@ -2505,7 +2564,7 @@ def phase_int8(q, dev, solves, refs):
             _check(launches > 0, "banded_q_bsr_spmm never launched")
             peak = torch.cuda.max_memory_allocated() / 1e9
             out = res
-    true_res = _int8_true_residual(q, out.eigenvectors, out.eigenvalues)
+    true_res = _int8_residual(q, out.eigenvectors, out.eigenvalues)
     rel = float(torch.max(torch.abs(out.eigenvalues - ref.eigenvalues)
                           / torch.abs(ref.eigenvalues)))
     print(f"  int8: launches per solve={launches} true relative residual="
@@ -2579,7 +2638,7 @@ def int8_float64_solve(q, dev, solves, refs):
            f"float64 int8: launches {launches} (plain {plain_launches})")
     _check(out.eigenvalues.dtype == torch.float64, "float64 int8: "
            f"eigenvalues are {out.eigenvalues.dtype}")
-    true_res = _int8_true_residual(q, out.eigenvectors, out.eigenvalues)
+    true_res = _int8_residual(q, out.eigenvectors, out.eigenvalues)
     diff = float(torch.max(torch.abs(out.eigenvalues - ref.eigenvalues)
                            / torch.clamp(torch.abs(ref.eigenvalues), min=1)))
     print(f"  int8 float64: launches {launches} iterations {out.iterations} "
@@ -2721,17 +2780,6 @@ def _plain_quantized(q):
     return PlainQuantized(q.qblocks, q.scale_rows, q.diag, q.bandwidth)
 
 
-def _int8_oracle_residual(q, X, lam) -> float:
-    """The north-star contract's check (tests/test_ds_apply_sparse.py):
-    max_j ||A x_j - lam_j x_j|| / max(|lam_j|, 1) in float64 on the
-    normalized columns, with the dequantized blocks and the diagonal;
-    ``lam`` the float64 eigenvalues (hi + lo words)."""
-    import torch
-    X = X.double()
-    X = X / torch.linalg.vector_norm(X, dim=0)
-    return _int8_true_residual(q, X, lam.double())
-
-
 def phase_refined(q, dev, solves, refs):
     """Phase 6b: the refined stage (``REFINED``) on the 2M-row int8
     matrix from phase 6's loose eigenvectors: every ``matmat`` through
@@ -2764,8 +2812,8 @@ def phase_refined(q, dev, solves, refs):
                       ((peak_abs - mem0) / 1e9, peak_abs / 1e9))
     (out, lam, launches, (peak, peak_abs)), (ref, lam_ref, _, _) = (
         runs["kernels"], runs["plain"])
-    true_res = _int8_oracle_residual(q, out.eigenvectors, lam)
-    ref_res = _int8_oracle_residual(q, ref.eigenvectors, lam_ref)
+    true_res = _int8_residual(q, out.eigenvectors, lam)
+    ref_res = _int8_residual(q, ref.eigenvectors, lam_ref)
     diff = float(torch.max(torch.abs(lam - lam_ref)
                            / torch.clamp(torch.abs(lam_ref), min=1.0)))
     loose = refs["int8"]["wall"]
@@ -3294,7 +3342,7 @@ def _sharded_solves(A, q, mesh, cases, refs, solves):
                     **kw)
             walls.append(wall)
         if k in ("int8", "int8_f64"):
-            true_res = _int8_true_residual(q, res.eigenvectors,
+            true_res = _int8_residual(q, res.eigenvectors,
                                            res.eigenvalues)
             diff = float(torch.max(torch.abs(res.eigenvalues
                                              - ref["eigenvalues"])
@@ -3735,7 +3783,7 @@ def phase_northstar_bsr(dev, solves, ns):
     launches = kernels.banded_q_bsr_spmm.launches - before
     res = run.pop("res")
     lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
-    oracle = _int8_oracle_residual(q, res.eigenvectors, lam)
+    oracle = _int8_residual(q, res.eigenvectors, lam)
     print(f"  int8 10M: oracle relative residual {oracle:.3e}, kernel 4 "
           f"launches {launches} (three runs), refined iterations "
           f"{res.iterations}, stalled={res.stalled}", flush=True)
@@ -5013,7 +5061,7 @@ def phase_sharded_refined(q, dev, rendezvous, solves, refs):
         launches = k7.launches - k7.f64_launches - before
         walls.append(wall)
     lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
-    oracle = _int8_oracle_residual(q, res.eigenvectors, lam)
+    oracle = _int8_residual(q, res.eigenvectors, lam)
     diff = float(torch.max(torch.abs(lam - six["eigenvalues"])
                            / torch.clamp(torch.abs(six["eigenvalues"]),
                                          min=1.0)))
@@ -5419,7 +5467,7 @@ def phase_northstar_bsr_sharded(dev, solves, ns):
         rel = float(torch.max(torch.abs(lam_solve - ten["lam"])
                               / torch.abs(ten["lam"])))
         lam = pol.evals.double() + pol.evals_lo.double()
-        oracle = _int8_oracle_residual(
+        oracle = _int8_residual(
             q, pol.evecs_hi.double() + pol.evecs_lo.double(), lam)
         print(f"  15b: refined iterations {res.iterations} (10b "
               f"{ten['iterations']}), stalled={res.stalled}; kernel 7 "
@@ -5773,7 +5821,7 @@ def phase_sum_strategy(q, dev, solves, refs):
         runs[strategy].append(wall)
         lam = res.eigenvalues.double() + res.eigenvalues_lo.double()
         out[strategy] = dict(iterations=res.iterations, lam=lam,
-                             oracle=_int8_oracle_residual(
+                             oracle=_int8_residual(
                                  q, res.eigenvectors, lam))
         del res
     for strategy in ("cascade", "tree"):
@@ -5933,6 +5981,9 @@ def _rank16(rank: int, world: int, tmp: str, cfg: dict) -> None:
     recorded iteration of each, and one f64 apply at m = 40 of the push
     route and of the exchange route (``HaloBSROperator._apply_exchange``)
     timed in turns;
+    the same lowest-20 on the exchange route (an instance set to it), and
+    with ``cfg["trace"]`` one traced solve of each route (:func:`_traced`,
+    its chrome trace gzipped under ``cfg["trace_dir"]``);
     each rank writes its results to ``tmp/world<W>_rank<r>.json``."""
     import torch
     import torch.distributed as dist
@@ -5987,8 +6038,29 @@ def _rank16(rank: int, world: int, tmp: str, cfg: dict) -> None:
             mesh.barrier()
             apply_ms[f"{key}_{turn}"] = _time_ms(fn)
         out["apply_m40"] = dict(same_bits=same, ms=apply_ms)
+        # The same lowest-20 on the exchange route (an instance set to it,
+        # sharing the rows), so that both routes solve in one run; with
+        # cfg["trace"] one traced solve of each route.
+        E = HaloBSROperator(R.block_cols, R.blocks, 1, mesh,
+                            backend="pallas-remote", n_block_rows=cfg["nbr"])
+        E.route = "exchange"
+        before = kernels.banded_remote_halo_spmm.launches
+        res_e, walls_e = timed(E, tolerance=SOLVE_TOL)
+        out["exchange"] = dict(
+            iterations=res_e.iterations, walls=walls_e,
+            eigenvalues=res_e.eigenvalues.tolist(),
+            launches=kernels.banded_remote_halo_spmm.launches - before)
+        for route, op in (("push", R), ("exchange", E)):
+            if cfg.get("trace"):
+                out[f"trace_{route}"] = _traced(
+                    f"16d world {world} rank {rank} 8b {route}",
+                    lambda: eigensolve_sharded(op, P16_LOWEST, mesh,
+                                               tolerance=SOLVE_TOL).iterations,
+                    os.path.join(cfg["trace_dir"], f"phase16d_8b_{route}_"
+                                 f"world{world}_rank{rank}.json.gz"),
+                    mesh.barrier)
         R._push["window"].raise_if_faulted()
-        del R, res, x
+        del R, E, res, res_e, x
         q = fdtt.generate_banded_bsr_quantized(cfg["q_nbr"], cfg["bs"],
                                                device=dev)
         X0 = torch.load(os.path.join(tmp, "x0.pt")).to(dev)
@@ -6046,8 +6118,10 @@ def phase16_multi_gpu(dev, solves, refs, p16) -> None:
         torch.save(refs["int8"]["eigenvectors"].cpu(),
                    os.path.join(tmp, "x0.pt"))
         for world in (2, 4) if count >= 4 else (2,):
-            mp.spawn(_rank16, args=(world, tmp, cfg), nprocs=world,
-                     join=True)
+            mp.spawn(_rank16, args=(world, tmp, dict(
+                cfg, trace=world == 4,
+                trace_dir=os.path.join(os.getcwd(), "chiprun_out"))),
+                nprocs=world, join=True)
             ranks = []
             for r in range(world):
                 with open(os.path.join(tmp, f"world{world}_rank{r}.json")) as f:
@@ -6114,6 +6188,824 @@ def phase16_multi_gpu(dev, solves, refs, p16) -> None:
                     apply_m40_ms=got["apply_m40"]["ms"]))
             _check(got["launches"]["banded_q_ext_bsr_spmm"] > 0,
                    f"16d world {world}: launches {got['launches']}")
+            # 8b's lowest-20 on the exchange route, beside the push above;
+            # T1 is world 1's push solve (8b).
+            ref = one["remote"][0]
+            lam1 = ref["eigenvalues"].double().cpu()
+            for r, g_r in enumerate(ranks):
+                ex = g_r["exchange"]
+                rel = float(torch.max(torch.abs(torch.tensor(
+                    ex["eigenvalues"], dtype=torch.float64) - lam1)
+                    / torch.abs(lam1)))
+                print(f"  16d world {world} rank {r} remote on the exchange "
+                      f"route: iterations {ex['iterations']} (world 1 "
+                      f"{ref['iterations']}), eigenvalues {rel:.3e} "
+                      f"relative from world 1's, two-launch launches "
+                      f"{ex['launches']}, walls {ex['walls']}", flush=True)
+                _check(ex["iterations"] == ref["iterations"] and rel <= 1e-12
+                       and ex["launches"] > 0,
+                       f"16d world {world} rank {r} exchange route: "
+                       f"{ex['iterations']} iterations, eigenvalues "
+                       f"{rel:.3e}, {ex['launches']} launches")
+            t_w = min(got["exchange"]["walls"])
+            eff = ref["wall"] / (world * t_w)
+            print(f"  16d world {world} remote on the exchange route: warm "
+                  f"wall {t_w:.4f} s (world 1, push: {ref['wall']:.4f} s): "
+                  f"measured efficiency {eff:.4f}", flush=True)
+            solves.append(dict(
+                solve=f"phase 16d world {world} remote exchange route",
+                iterations=got["exchange"]["iterations"],
+                walls=got["exchange"]["walls"], efficiency=eff,
+                traces={r: {route: g_r[f"trace_{route}"]
+                            for route in ("push", "exchange")
+                            if f"trace_{route}" in g_r}
+                        for r, g_r in enumerate(ranks)}))
+
+
+# Phase 18: BASELINE config 5 (``BASELINE.json`` configs[4]: a
+# row-partitioned 10M-row BSR matrix, lowest-20, the halo-overlapped
+# SpMM): ``generate_banded_bsr(78_128, 128, bandwidth=1, coupling=1e-3)``,
+# n = 10,000,384 (the examples' default n; phase 10b's 78,125 block rows
+# divide by neither 2 nor 4), in float64 (30.72 GB of blocks) and int8,
+# each rank building only its own block rows.
+P18_NBR = 78_128
+P18_BS = 128
+# Phase 10a's float64 options at the 12 GB budget's width, stated: a
+# rank's default would count only its own rows and widen the basis.
+P18_F64 = dict(F64_NORTHSTAR, max_dim_sub=JAX_NS_WIDTH)
+# 18a: phase 4's and phase 6's matrices, built as each rank of these
+# world sizes.
+P18_ROW_BUILDS = (("float64", 8192), ("int8", 16384))
+P18_WORLDS = (2, 4)
+# A rank's host peak may rise by this much while it builds its rows.
+P18_HOST_RISE_GB = 4.0
+# The host's waits on the device in a trace: a synchronize, a blocking
+# copy.
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+# The span of a traced run, in which its device and host events count.
+TRACE_SPAN = "phase18_traced_run"
+
+
+def _vm_hwm_gb() -> float:
+    """The process's host peak resident set so far, GB: VmHWM of
+    /proc/self/status, or, where that file lacks it (not every kernel
+    reports it), ``getrusage``'s ``ru_maxrss``, the same high-water mark.
+    Either counts a spawned process's parent's resident set at the
+    fork."""
+    import resource
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _rss_gb():
+    """The process's resident set now, GB (``/proc/self/statm``), or None
+    where the file is missing."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+@contextlib.contextmanager
+def _host_build():
+    """Time the block and watch the host's memory in it: a thread samples
+    the resident set every 5 ms (``rss_gb``: before, peak), beside the
+    high-water mark before and after (``hwm_gb``, :func:`_vm_hwm_gb`).
+    Fills the yielded dict when the block ends."""
+    out, stop = {}, threading.Event()
+    base = _rss_gb()
+    peak = [base]
+
+    def sample() -> None:
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], _rss_gb())
+
+    watcher = None if base is None else threading.Thread(target=sample,
+                                                         daemon=True)
+    if watcher is not None:
+        watcher.start()
+    hwm0, t0 = _vm_hwm_gb(), time.perf_counter()
+    try:
+        yield out
+    finally:
+        stop.set()
+        if watcher is not None:
+            watcher.join()
+        out.update(host_build_s=time.perf_counter() - t0,
+                   hwm_gb=(hwm0, _vm_hwm_gb()),
+                   rss_gb=None if base is None
+                   else (base, max(peak[0], _rss_gb())))
+
+
+def _host_rise_gb(build: dict) -> float:
+    """How far a build took the host's resident set above its start:
+    sampled where ``/proc/self/statm`` exists, else the high-water
+    mark's rise."""
+    low, high = build["rss_gb"] or build["hwm_gb"]
+    return high - low
+
+
+def _host_text(build: dict) -> str:
+    rss, hwm = build["rss_gb"], build["hwm_gb"]
+    return (f"{build['host_build_s']:.2f} s on the host, host peak "
+            f"+{_host_rise_gb(build):.3f} GB ("
+            + (f"resident {rss[0]:.3f} -> {rss[1]:.3f} GB sampled; "
+               if rss else "no /proc/self/statm; ")
+            + f"high-water mark {hwm[0]:.3f} -> {hwm[1]:.3f} GB)")
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors of one shape and dtype holding the same bits."""
+    import torch
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.element_size()]),
+                            b.view(ints[b.element_size()])))
+
+
+def _row_tables(form: str, nbr: int, rows: slice, dev) -> tuple:
+    """Block rows ``rows`` of the banded matrix of ``nbr`` block rows of
+    128 (seed 0, coupling 1e-3, bandwidth 1) in ``form``, built alone."""
+    import torch
+    from fortran_davidson_tpu_torch.ops import sparse
+    gen = dict(bandwidth=1, coupling=1e-3, seed=0, device=dev)
+    if form == "int8":
+        return sparse.banded_bsr_quantized_rows(nbr, P18_BS, rows, **gen)
+    return sparse.banded_bsr_rows(nbr, P18_BS, rows, dtype=torch.float64,
+                                  **gen)
+
+
+def phase18_rank_builds(dev, p18) -> None:
+    """Phase 18a, before phase 4's and phase 6's matrices are built whole:
+    each rank's block rows of both at world sizes 4 and 2, built alone on
+    the card (the smallest first), with the host seconds and the host's
+    memory in the build (:func:`_host_build`); kept in
+    ``p18["rank_builds"]`` for :func:`phase18_rank_check`."""
+    import torch
+    from fortran_davidson_tpu_torch.parallel import RowMesh
+    builds = p18["rank_builds"] = []
+    for form, nbr in P18_ROW_BUILDS:
+        for world in sorted(P18_WORLDS, reverse=True):
+            for rank in range(world):
+                rows = RowMesh(group=None, size=world, rank=rank,
+                               device=dev).rows(nbr)
+                with _host_build() as build:
+                    tables = _row_tables(form, nbr, rows, dev)
+                    torch.cuda.synchronize()
+                print(f"  18a {form} nbr={nbr} world {world} rank {rank}: "
+                      f"block rows {rows.start}-{rows.stop} built alone in "
+                      f"{_host_text(build)}", flush=True)
+                builds.append(dict(build, form=form, nbr=nbr, world=world,
+                                   rank=rank, rows=rows, tables=tables))
+
+
+def phase18_rank_check(A, q, p18, whole: dict) -> dict:
+    """Phase 18a, after the whole builds (``whole``: each form's
+    :func:`_host_build`): every rank's tables are the
+    matching rows of A's and q's, bit for bit (block columns, blocks;
+    int8 blocks, scales, diagonal). Frees them; returns the solves
+    entry."""
+    import torch
+    full = {"float64": (A.block_cols, A.blocks),
+            "int8": (q.qblocks, q.scale_rows, q.diag)}
+    for form, build in whole.items():
+        print(f"  18a {form} whole build: {_host_text(build)}", flush=True)
+    builds = []
+    for b in p18.pop("rank_builds"):
+        tables = b.pop("tables")
+        same = all(_same_bits(t, w[b["rows"]])
+                   for t, w in zip(tables, full[b["form"]]))
+        _check(same, f"18a {b['form']} world {b['world']} rank {b['rank']}: "
+               "the rank's rows differ from the whole build's")
+        builds.append(dict(b, rows=(b["rows"].start, b["rows"].stop)))
+        del tables
+    torch.cuda.empty_cache()
+    print(f"  18a: {len(builds)} rank builds, each bit-equal to its rows of "
+          "the whole build", flush=True)
+    return dict(solve="phase 18a rank builds against the whole builds",
+                builds=builds, whole=whole)
+
+
+def _surrogate_residual(op, X, lam, mesh) -> float:
+    """:func:`_surrogate_oracle` on a mesh rank's rows ``X`` of the
+    whole surrogate ``op``: the float64 promotion of its diagonal,
+    factors and weights, the skinny gram and the norms summed over the
+    ranks."""
+    import torch
+    from fortran_davidson_tpu_torch.models.generators import \
+        low_rank_plus_diag_apply
+    from fortran_davidson_tpu_torch.parallel import RowShardConstraint
+    rows = RowShardConstraint(mesh, op.shape[0])
+    mine = mesh.rows(op.shape[0])
+    d, U, w = (t.double() for t in op.captured)
+    X, lam = X.double(), lam.double()
+    R = low_rank_plus_diag_apply(X, d[mine], U[mine], w, rows=rows) - X * lam
+    sums = mesh.all_reduce(torch.stack([torch.sum(R * R, dim=0),
+                                        torch.sum(X * X, dim=0)]))
+    res = torch.sqrt(sums[0] / sums[1])
+    return float(torch.max(res / torch.clamp(torch.abs(lam), min=1.0)))
+
+
+def _traced(label, run, trace_path=None, barrier=None) -> dict:
+    """``run()`` once under ``torch.profiler`` (``run`` returns the number
+    of iterations to divide by): per iteration, the device's busy time
+    (the union of its kernels' and copies' intervals), its idle time (the
+    wall less busy), the host's own time (the wall less its waits on the
+    device: ``HOST_WAITS``) and the collective wait (device time in NCCL
+    kernels), each counted inside the run's own span (``TRACE_SPAN``, a
+    ``record_function``); the chrome trace gzipped to ``trace_path`` when
+    given. The ranks of a mesh pass its ``barrier``, met once every
+    rank's profiler runs and before the span, so that none waits in a
+    collective for another's profiler to start."""
+    import gzip
+    import shutil
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if barrier is not None:
+            barrier()
+            torch.cuda.synchronize()
+        with torch.profiler.record_function(TRACE_SPAN):
+            t0 = time.perf_counter()
+            iters = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.profiler.kineto_results.events())
+    span = next(e for e in events if e.name() == TRACE_SPAN
+                and e.device_type() == DeviceType.CPU)
+    lo, hi = span.start_ns() / 1e6, span.end_ns() / 1e6
+    dev_ops = sorted((max(e.start_ns() / 1e6, lo), min(e.end_ns() / 1e6, hi),
+                      e.name())
+                     for e in events if e.device_type() == DeviceType.CUDA
+                     and not e.is_user_annotation()
+                     and e.end_ns() / 1e6 > lo and e.start_ns() / 1e6 < hi)
+    busy, end, nccl = 0.0, float("-inf"), 0.0
+    for s, f, name in dev_ops:
+        busy += max(0.0, f - max(s, end))
+        end = max(end, f)
+        if "nccl" in name.lower():
+            nccl += f - s
+    waits = [(e.end_ns() - e.start_ns()) / 1e6 for e in events
+             if e.device_type() == DeviceType.CPU and e.name() in HOST_WAITS
+             and lo <= e.start_ns() / 1e6 < hi]
+    per = max(int(iters), 1)
+    out = dict(profiled_wall_ms=wall_ms, iterations=int(iters),
+               device_ops=len(dev_ops), host_wait_events=len(waits),
+               busy_ms_per_iter=busy / per,
+               idle_ms_per_iter=(wall_ms - busy) / per,
+               host_ms_per_iter=(wall_ms - sum(waits)) / per,
+               collective_wait_ms_per_iter=nccl / per,
+               device_idle_share=1.0 - busy / wall_ms)
+    if trace_path is not None:
+        os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+        raw = trace_path.removesuffix(".gz")
+        prof.export_chrome_trace(raw)
+        with open(raw, "rb") as src, gzip.open(trace_path, "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(raw)
+        out["trace"] = os.path.relpath(trace_path, os.getcwd())
+    print(f"  traced {label}: wall {wall_ms:.1f} ms, {iters} iterations; "
+          f"per iteration busy {out['busy_ms_per_iter']:.2f} ms, idle "
+          f"{out['idle_ms_per_iter']:.2f}, host "
+          f"{out['host_ms_per_iter']:.2f}, collective wait "
+          f"{out['collective_wait_ms_per_iter']:.2f} ({len(dev_ops)} device "
+          f"ops, {len(waits)} host waits); idle share "
+          f"{out['device_idle_share']:.1%}"
+          + (f"; trace {out['trace']}" if trace_path else ""), flush=True)
+    return out
+
+
+def phase18_config5(dev, solves):
+    """Phase 18b(i): BASELINE config 5 in float64 on one GPU:
+    ``generate_banded_bsr(78_128, 128, bandwidth=1, coupling=1e-3,
+    dtype=float64)`` (30.72 GB of blocks; its host build kept out of every
+    wall), lowest-20 under phase 10a's float64 options at the width the
+    12 GB budget resolves (which must be 44), through kernel 1 on one
+    device and row-sharded at world size 1 (a fresh one-rank NCCL group)
+    on the push route through kernel 8p, the operator taking the whole
+    tables as the rank's rows (``n_block_rows=``, views); a cold, a warm
+    and a profiled solve each: the same iterations, eigenvalues within
+    1e-12 relative of each other, true residuals <= 1e-8 relative, each
+    kernel's launches its counted applies. Then the card's own width
+    once, one device, observed and not gated."""
+    import torch
+    import torch.distributed as dist
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch import config
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import HaloBSROperator
+
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    with _host_build() as build:
+        A = fdtt.generate_banded_bsr(P18_NBR, P18_BS, bandwidth=1,
+                                     coupling=1e-3, seed=0,
+                                     dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
+    build["operator_gb"] = (torch.cuda.memory_allocated() - mem0) / 1e9
+    print(f"  18b(i) built A: n={A.shape[0]}, blocks {tuple(A.blocks.shape)} "
+          f"float64 ({A.blocks.numel() * 8 / 1e9:.2f} GB; allocated "
+          f"{build['operator_gb']:.2f} GB) in {_host_text(build)} (kept out "
+          "of every wall)", flush=True)
+    with _env("FDT_CARRY_BUDGET_BYTES", JAX_NS_BUDGET):
+        width = config.resolve_options(
+            config.merge_options(None, F64_NORTHSTAR), 20, A.shape[0],
+            generalized=False, device=dev).max_dim
+    _check(width == JAX_NS_WIDTH, f"18b(i): the 12 GB budget resolves width "
+           f"{width}, not {JAX_NS_WIDTH}")
+    legs = {}
+
+    def leg(name, op, solver, cls, kernel):
+        solve = solver or fdtt.eigensolve
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = kernel.launches
+        walls = []
+        with _counting_applies(cls) as applies:
+            for tag in ("cold", "warm"):
+                res, wall = _solve_converged(
+                    f"18b(i) {name} lowest-20 f64 [{tag}]", op, 20,
+                    solver=solver, **P18_F64)
+                walls.append(wall)
+            peak = torch.cuda.max_memory_allocated()
+            busy = _traced(f"18b(i) {name}", lambda: solve(
+                op, 20, **P18_F64).iterations)
+        launches = kernel.launches - before
+        resid = _f64_residual(A, res.eigenvectors, res.eigenvalues)
+        _check(launches == applies[0] > 0,
+               f"18b(i) {name}: {launches} {kernel.__name__} launches for "
+               f"{applies[0]} applies")
+        _check(resid <= SOLVE_TOL, f"18b(i) {name}: true residual "
+               f"{resid:.3e}")
+        legs[name] = dict(iterations=res.iterations, eigenvalues=res.
+                          eigenvalues.clone(), wall_s=walls,
+                          true_residual_rel=resid, launches=launches,
+                          applies=applies[0], peak_mem_gb=peak / 1e9,
+                          peak_mem_above_gb=(peak - base) / 1e9,
+                          device_idle_share=busy["device_idle_share"],
+                          profiled_wall_ms=busy["profiled_wall_ms"])
+        print(f"  18b(i) {name}: iterations {res.iterations}, cold / warm "
+              f"{walls[0]:.3f} / {walls[1]:.3f} s, true residual "
+              f"{resid:.3e}, {kernel.__name__} launches {launches} for "
+              f"{applies[0]} applies, peak {peak / 1e9:.2f} GB "
+              f"({(peak - base) / 1e9:.2f} above), idle "
+              f"{busy['device_idle_share']:.1%}", flush=True)
+
+    leg("one device, kernel 1", A, None, fdtt.BSROperator,
+        kernels.banded_bsr_spmm)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mesh = _one_rank_mesh(f"file://{tmp.name}/rendezvous", dev)
+        R = HaloBSROperator(A.block_cols, A.blocks, 1, mesh,
+                            backend="pallas-remote", n_block_rows=P18_NBR)
+        _check(R.route == "push" and R.blocks.data_ptr()
+               == A.blocks.data_ptr(), f"18b(i): route {R.route}, or the "
+               "world-size-1 rank copied its rows")
+        leg("sharded world 1, push, kernel 8p", R, _sharded_solver(mesh),
+            HaloBSROperator, kernels.banded_remote_push_spmm)
+        R._push["window"].raise_if_faulted()
+        del R
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    one, sh = legs.values()
+    rel = float(torch.max(torch.abs(sh["eigenvalues"] - one["eigenvalues"])
+                          / torch.abs(one["eigenvalues"])))
+    print(f"  18b(i): sharded against one device: iterations "
+          f"{sh['iterations']} / {one['iterations']}, eigenvalues {rel:.3e} "
+          f"relative (bits equal "
+          f"{torch.equal(sh['eigenvalues'], one['eigenvalues'])})",
+          flush=True)
+    _check(sh["iterations"] == one["iterations"] and rel <= 1e-12,
+           f"18b(i): sharded {sh['iterations']} iterations, eigenvalues "
+           f"{rel:.3e} from one device's")
+    # The card's own width: observed, not gated (the float64 surrogate
+    # stalls at 10M rows there, ROADMAP Queue 3).
+    torch.cuda.empty_cache()
+    own, wall = _solve("18b(i) one device lowest-20 f64 [own width, "
+                       "observed]", A, 20, **F64_NORTHSTAR)
+    own = dict(converged=own.converged, stalled=own.stalled,
+               iterations=own.iterations, wall_s=wall,
+               max_subspace_dim=int(own.subspace_dims.max()),
+               residual_norms=own.residual_norms.tolist())
+    print(f"  18b(i) own width: {own}", flush=True)
+    for name, got in legs.items():
+        solves.append(dict(
+            solve=f"phase 18b(i) config 5 f64 lowest-20 [{name}]",
+            n=A.shape[0], width=width, eig_rel_one_device=rel,
+            **{k: v for k, v in got.items() if k != "eigenvalues"},
+            **build))
+    solves.append(dict(solve="phase 18b(i) config 5 f64 lowest-20 [one "
+                       "device, own width, observed]", **own))
+    del A
+    torch.cuda.empty_cache()
+
+
+def phase18_int8(dev, solves):
+    """Phase 18b(ii): phase 15b's int8 recipe (``examples/northstar.py
+    --mode banded --quantize --sharded --progressive --polish 2``) on the
+    78,128-block-row int8 matrix at world size 1 (a fresh one-rank NCCL
+    group), built by the example as the rank's rows (``n_block_rows=``;
+    at world size 1 all of them), at the width the card resolves: 15b's
+    gates (the oracle after the per-rank polish <= 1e-8, kernel 7's
+    launches the counted applies, no float64-x launch); host build
+    seconds, the operator's GB, cold, warm and profiled walls."""
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch import polish_eigenpairs
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.ops import kernels
+    from fortran_davidson_tpu_torch.parallel import HaloQuantizedOperator
+
+    k7 = kernels.banded_q_ext_bsr_spmm
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        mesh = _one_rank_mesh(f"file://{tmp.name}/rendezvous", dev)
+        args = northstar.parse_args(
+            ["--mode", "banded", "--quantize", "--n", str(P18_NBR * P18_BS),
+             *NORTHSTAR_ARGV, "--sharded", "--polish", str(NS_POLISH)])
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        with _host_build() as build:
+            q = northstar.build_operator(args, mesh=mesh)
+            torch.cuda.synchronize()
+        build["operator_gb"] = (torch.cuda.memory_allocated() - mem0) / 1e9
+        _check(isinstance(q, HaloQuantizedOperator),
+               f"18b(ii): the example built a {type(q).__name__}")
+        width, m_max = _resolved_width(q, args)
+        args.max_dim_sub = width
+        print(f"  18b(ii) built q as the rank's rows: n={q.shape[0]}, int8 "
+              f"blocks {tuple(q.qblocks.shape)} (allocated "
+              f"{build['operator_gb']:.2f} GB) in {_host_text(build)} (kept "
+              f"out of every wall); width {width} (m_max {m_max})",
+              flush=True)
+        before, before64 = k7.launches, k7.f64_launches
+        with _counting_applies(HaloQuantizedOperator) as applies:
+            run = _northstar_run(f"18b(ii) sharded int8 banded n={q.shape[0]} "
+                                 "lowest-20 progressive", q, args,
+                                 profile=True, mesh=mesh)
+            res = run.pop("res")
+            pol = polish_eigenpairs(q, res, iterations=NS_POLISH, mesh=mesh)
+        launches = k7.launches - before
+        f64_launches = k7.f64_launches - before64
+        lam = pol.evals.double() + pol.evals_lo.double()
+        oracle = _int8_residual(q, pol.evecs_hi.double()
+                                + pol.evecs_lo.double(), lam)
+        print(f"  18b(ii): refined iterations {res.iterations}, stalled="
+              f"{res.stalled}; kernel 7 launches {launches} for {applies[0]} "
+              f"counted applies (float64-x {f64_launches}); oracle after the "
+              f"polish {oracle:.3e}", flush=True)
+        _check(launches == applies[0] > 0 and f64_launches == 0,
+               f"18b(ii): {launches} kernel 7 launches ({f64_launches} "
+               f"float64-x) for {applies[0]} applies")
+        _check(oracle <= SOLVE_TOL, f"18b(ii): oracle {oracle:.3e}")
+        solves.append(dict(
+            solve="phase 18b(ii) sharded (world 1, nccl) int8 config 5 f32 "
+            f"lowest-20 progressive + polish {NS_POLISH}", n=q.shape[0],
+            iterations=res.iterations, stalled=res.stalled, width=width,
+            m_max=m_max, launches=launches, applies=applies[0],
+            oracle_residual_rel=oracle, **build, **run))
+        del q, res, pol
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+
+
+def _rank18(rank: int, world: int, tmp: str, cfg: dict) -> None:
+    """A rank of phase 18c on ``world`` GPUs over NCCL, each rank building
+    only its own block rows: (i) config 5 in float64 on the push route
+    (with ``cfg["exchange"]`` also on the exchange route, an instance set
+    to it, sharing the rows), (ii) phase 15b's int8 recipe at
+    ``cfg["int8_width"]`` (None: the width the card resolves), (iii)
+    phase 15a's surrogate recipe at width 44; each a cold, a warm and a
+    traced run (:func:`_traced`; the float64 runs' chrome traces gzipped
+    under ``cfg["trace_dir"]`` with ``cfg["trace"]``) and one recorded
+    iteration: the rank's walls, device peak, host peak around its builds
+    (VmHWM: the process is fresh), kernel launches against counted
+    applies and collective inventory. Writes
+    ``tmp/p18_world<W>_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch import polish_eigenpairs
+    from fortran_davidson_tpu_torch.examples import northstar
+    from fortran_davidson_tpu_torch.ops import kernels, sparse
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     HaloQuantizedOperator,
+                                                     eigensolve_sharded,
+                                                     multihost, scaling)
+    from fortran_davidson_tpu_torch.parallel.sharded import \
+        ShardedMatrixFreeOperator
+    dev = torch.device(cfg["device"], rank)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = dict(world=world, rank=rank)
+    mesh = multihost.initialize(
+        init_method=f"file://{tmp}/rendezvous18_{world}", world_size=world,
+        rank=rank, device=dev)
+
+    def fresh() -> int:
+        """Empty the cache and reset the peak; the bytes allocated."""
+        if dev.type != "cuda":
+            return 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+
+    def built(make) -> tuple:
+        """``make()``, with its host seconds and memory
+        (:func:`_host_build`) and the device bytes it took."""
+        mem0 = fresh()
+        with _host_build() as build:
+            made = make()
+            sync()
+        return made, dict(build, operator_bytes=fresh() - mem0)
+
+    def recipe(label, op, run, cls, inventory, trace=None) -> tuple:
+        """Two timed runs of ``run`` (every rank starting together), a
+        traced one, and one recorded iteration with ``inventory``'s
+        options."""
+        base = fresh()
+        kernels.reset_launch_counts()
+        walls = []
+        with _counting_applies(cls) as applies:
+            for _ in range(2):
+                mesh.barrier()
+                sync()
+                t0 = time.perf_counter()
+                res = run()
+                sync()
+                mesh.barrier()
+                walls.append(time.perf_counter() - t0)
+            split = _traced(f"18c world {world} rank {rank} {label}",
+                            lambda: run().iterations, trace, mesh.barrier)
+        rec = dict(iterations=res.iterations, walls=walls,
+                   applies=applies[0], split=split,
+                   launches={fn.__name__: fn.launches
+                             for fn in kernels.KERNELS if fn.launches},
+                   f64_x_launches=kernels.banded_q_ext_bsr_spmm.f64_launches)
+        if dev.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(dev)
+            rec.update(device_peak_gb=peak / 1e9,
+                       device_peak_above_gb=(peak - base) / 1e9)
+        stats = scaling.iteration_inventory(op, mesh, 20, **inventory)
+        rec["inventory"] = {k: stats[k] for k in ("total_bytes",
+                                                  "total_count", "by_kind")}
+        return res, rec
+
+    def trace_path(name):
+        if not cfg["trace"]:
+            return None
+        return os.path.join(cfg["trace_dir"], f"phase18c_{name}_world{world}"
+                            f"_rank{rank}.json.gz")
+
+    try:
+        # (i) Config 5 in float64 on the push route (kernel 8p), and on
+        # the exchange route (kernel 8's two launches).
+        (cols, blocks), build = built(lambda: sparse.banded_bsr_rows(
+            P18_NBR, P18_BS, mesh.rows(P18_NBR), bandwidth=1, coupling=1e-3,
+            seed=0, dtype=torch.float64, device=dev))
+        R = HaloBSROperator(cols, blocks, 1, mesh, backend="pallas-remote",
+                            n_block_rows=P18_NBR)
+        del cols, blocks
+        routes = {"push": R}
+        if cfg["exchange"]:
+            routes["exchange"] = HaloBSROperator(
+                R.block_cols, R.blocks, 1, mesh, backend="pallas-remote",
+                n_block_rows=P18_NBR)
+            routes["exchange"].route = "exchange"
+        for route, op in routes.items():
+            res, rec = recipe(
+                f"f64 {route}", op,
+                lambda: eigensolve_sharded(op, 20, mesh, **P18_F64),
+                HaloBSROperator, P18_F64, trace_path(f"f64_{route}"))
+            rec.update(route=op.route, eigenvalues=res.eigenvalues.tolist(),
+                       true_residual_rel=_f64_residual(
+                           op, res.eigenvectors, res.eigenvalues, mesh))
+            out[f"f64_{route}"] = dict(rec, **build)
+            del res
+        if R._push["window"] is not None:
+            R._push["window"].raise_if_faulted()
+        del R, op, routes
+        # (ii) 15b's int8 recipe and (iii) 15a's surrogate recipe, each
+        # polished per rank after its runs.
+        for name, argv, cls in (
+                ("int8", ["--mode", "banded", "--quantize", "--n",
+                          str(P18_NBR * P18_BS), "--max-dim-sub",
+                          str(cfg["int8_width"] or 0)],
+                 HaloQuantizedOperator),
+                ("surrogate", ["--n", str(NS_FREE_N), "--max-dim-sub",
+                               str(JAX_NS_WIDTH)],
+                 ShardedMatrixFreeOperator)):
+            args = northstar.parse_args([*argv, *NORTHSTAR_ARGV, "--sharded",
+                                         "--polish", str(NS_POLISH)])
+            op, build = built(lambda: northstar.build_operator(args,
+                                                               mesh=mesh))
+            if not args.max_dim_sub:
+                args.max_dim_sub = _resolved_width(op, args)[0]
+            res, rec = recipe(
+                name, op, lambda: northstar.run(op, args, mesh), cls,
+                scaling.probe_options(max_dim_sub=args.max_dim_sub))
+            sync()
+            t0 = time.perf_counter()
+            pol = polish_eigenpairs(op, res, iterations=NS_POLISH, mesh=mesh)
+            sync()
+            polish_s = time.perf_counter() - t0
+            lam = pol.evals.double() + pol.evals_lo.double()
+            X = pol.evecs_hi.double() + pol.evecs_lo.double()
+            oracle = (_int8_residual(op, X, lam, mesh) if name == "int8"
+                      else _surrogate_residual(op, X, lam, mesh))
+            lam_s = res.eigenvalues.double() + res.eigenvalues_lo.double()
+            X_s = res.eigenvectors.double() + res.eigenvectors_lo.double()
+            oracle_solve = (_int8_residual(op, X_s, lam_s, mesh)
+                            if name == "int8" else
+                            _surrogate_residual(op, X_s, lam_s, mesh))
+            rec.update(width=args.max_dim_sub, polish_s=polish_s,
+                       oracle=oracle, oracle_solve=oracle_solve,
+                       stalled=bool(res.stalled),
+                       eigenvalues=(res.eigenvalues.double()
+                                    + res.eigenvalues_lo.double()).tolist())
+            out[name] = dict(rec, **build)
+            del op, res, pol, X, X_s
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"p18_world{world}_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def _eig_rel_max(a, b) -> float:
+    import torch
+    a = torch.tensor(a, dtype=torch.float64)
+    b = torch.tensor(b, dtype=torch.float64)
+    return float(torch.max(torch.abs(a - b) / torch.abs(b)))
+
+
+def _p18_hold(world: int, ranks: list, one: dict, latency: float,
+              solves, failed: list) -> None:
+    """Phase 18c's gates at ``world`` ranks against world 1 (``one``,
+    rank 0 of the world-1 spawn), every rank printed, each gate that
+    fails appended to ``failed`` (the phase raises them all at its end,
+    after every world size has run); the measured efficiency T1 / (N ·
+    TN), and an iteration's, beside ``projected_efficiency``'s model."""
+    from fortran_davidson_tpu_torch.parallel import scaling
+
+    def check(cond: bool, msg: str) -> None:
+        if not cond:
+            print(f"  FAILED: {msg}", flush=True)
+            failed.append(msg)
+
+    blocks_gb = P18_NBR // world * P18_BS * 3 * P18_BS * 8 / 1e9
+    for g in ranks:
+        r = g["rank"]
+        for case in ("f64_push", "f64_exchange", "int8", "surrogate"):
+            if case not in g:
+                continue
+            c, ref = g[case], one[case if case in one else "f64_push"]
+            split = c["split"]
+            rise = _host_rise_gb(c)
+            rel = _eig_rel_max(c["eigenvalues"], ref["eigenvalues"])
+            resid = c.get("true_residual_rel", c.get("oracle"))
+            own = ("" if case.startswith("f64") else
+                   f" (the solve's own pairs {c['oracle_solve']:.3e}, "
+                   f"stalled={c['stalled']})")
+            print(f"  18c world {world} rank {r} {case}: iterations "
+                  f"{c['iterations']} (world 1 {ref['iterations']}), "
+                  f"eigenvalues {rel:.3e} relative from world 1's, "
+                  f"{'true residual' if case.startswith('f64') else 'oracle'}"
+                  f" {resid:.3e}{own}; walls "
+                  f"{[round(w, 4) for w in c['walls']]} "
+                  f"s, idle {split['device_idle_share']:.1%}, per iteration "
+                  f"busy {split['busy_ms_per_iter']:.2f} / idle "
+                  f"{split['idle_ms_per_iter']:.2f} / host "
+                  f"{split['host_ms_per_iter']:.2f} / collective wait "
+                  f"{split['collective_wait_ms_per_iter']:.2f} ms; device "
+                  f"peak {c.get('device_peak_gb', 0):.2f} GB, operator "
+                  f"{c['operator_bytes'] / 1e9:.3f} GB built in "
+                  f"{_host_text(c)}; "
+                  f"launches {c['launches']} for {c['applies']} applies; "
+                  f"inventory {c['inventory']['total_bytes']} B in "
+                  f"{c['inventory']['total_count']} calls", flush=True)
+            if case.startswith("f64"):
+                kernel, per = (("banded_remote_push_spmm", 1)
+                               if case == "f64_push"
+                               else ("banded_remote_halo_spmm", 2))
+                check(c["route"] == case[4:] and c["launches"] == {
+                    kernel: per * c["applies"]} and c["applies"] > 0,
+                    f"18c world {world} rank {r} {case}: route "
+                    f"{c['route']}, launches {c['launches']} for "
+                    f"{c['applies']} applies")
+                check(c["iterations"] == ref["iterations"] and rel <= 1e-12
+                       and resid <= SOLVE_TOL,
+                       f"18c world {world} rank {r} {case}: "
+                       f"{c['iterations']} iterations, eigenvalues {rel:.3e}, "
+                       f"true residual {resid:.3e}")
+                check(abs(c["operator_bytes"] / 1e9 / blocks_gb - 1) <= 0.01
+                       and rise <= P18_HOST_RISE_GB,
+                       f"18c world {world} rank {r} {case}: operator "
+                       f"{c['operator_bytes'] / 1e9:.3f} GB against "
+                       f"{blocks_gb:.3f}, host peak +{rise:.3f} GB")
+            else:
+                k7 = c["launches"].get("banded_q_ext_bsr_spmm", 0)
+                check((k7 == c["applies"] > 0 and c["f64_x_launches"] == 0
+                        and set(c["launches"]) == {"banded_q_ext_bsr_spmm"})
+                       if case == "int8" else not c["launches"],
+                       f"18c world {world} rank {r} {case}: launches "
+                       f"{c['launches']} for {c['applies']} applies")
+                if c["iterations"] != ref["iterations"]:
+                    print(f"  18c world {world} rank {r} {case}: "
+                          f"{c['iterations']} refined iterations against "
+                          f"world 1's {ref['iterations']} (the ±1 allowed "
+                          "a float32 refined solve)", flush=True)
+                check(abs(c["iterations"] - ref["iterations"]) <= 1
+                       and rel <= 1e-10 and resid <= SOLVE_TOL,
+                       f"18c world {world} rank {r} {case}: "
+                       f"{c['iterations']} iterations, eigenvalues {rel:.3e}, "
+                       f"oracle {resid:.3e}")
+    got = ranks[0]
+    for case in ("f64_push", "f64_exchange", "int8", "surrogate"):
+        if case not in got:
+            continue
+        c, ref = got[case], one[case if case in one else "f64_push"]
+        t1, tn = min(ref["walls"]), max(min(g[case]["walls"]) for g in ranks)
+        eff = t1 / (world * tn)
+        eff_iter = (t1 / ref["iterations"]) / (world * tn / c["iterations"])
+        inv = c["inventory"]
+        proj = scaling.projected_efficiency(
+            t1 / ref["iterations"], inv["total_bytes"], inv["total_count"],
+            world, latency_s=latency)["efficiency"]
+        print(f"  18c world {world} {case}: warm wall {tn:.4f} s (world 1 "
+              f"{t1:.4f} s): measured T1 / (N · TN) {eff:.4f}, an "
+              f"iteration's {eff_iter:.4f}, projected {proj:.4f} (t_iter "
+              f"{t1 / ref['iterations'] * 1e3:.2f} ms, "
+              f"{inv['total_bytes']} B in {inv['total_count']} calls an "
+              f"iteration, latency {latency * 1e6:.1f} us)", flush=True)
+        solves.append(dict(
+            solve=f"phase 18c world {world} {case}", efficiency=eff,
+            efficiency_per_iteration=eff_iter,
+            projected_efficiency=proj, t1_s=t1, tn_s=tn,
+            ranks=[{k: v for k, v in g[case].items() if k != "eigenvalues"}
+                   for g in ranks]))
+
+
+def phase18_multi_gpu(dev, solves, p16) -> None:
+    """Phase 18c: with two or more GPUs visible, config 5 and the north
+    stars at world sizes 1, 2 and 4 (where four GPUs are visible) over
+    NCCL in spawned ranks (:func:`_rank18`), each rank building only its
+    own rows; world 1 the reference (and the int8 width): the float64
+    solve world 1's iterations, eigenvalues within 1e-12 relative, true
+    residuals <= 1e-8, on the push route and at world size 4 on the
+    exchange route; the int8 and surrogate recipes world 1's refined
+    iterations ±1, eigenvalues within 1e-10, oracle <= 1e-8; each rank's
+    float64 operator its rows' bytes within 1% and its host peak rising by
+    at most ``P18_HOST_RISE_GB`` during the build; kernel launches the
+    counted applies. With one GPU it prints that it did not run."""
+    import torch
+    import torch.multiprocessing as mp
+    from fortran_davidson_tpu_torch.parallel import scaling
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"  18c did not run: {count} GPU visible; it needs two or more",
+              flush=True)
+        solves.append(dict(solve="phase 18c multi-GPU", ran=False,
+                           gpus=count))
+        return
+    worlds = (1, 2, 4) if count >= 4 else (1, 2)
+    latency = p16.get("latency_s", scaling.ASSUMED_LATENCY_S)
+    cfg = dict(device=dev.type, int8_width=None,
+               trace_dir=os.path.join(os.getcwd(), "chiprun_out"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    one, failed = None, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for world in worlds:
+            t0 = time.perf_counter()
+            mp.spawn(_rank18, args=(world, tmp, dict(
+                cfg, trace=world == 4, exchange=world == 4)),
+                nprocs=world, join=True)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"p18_world{world}_rank{r}.json")
+                          ) as f:
+                    ranks.append(json.load(f))
+            if one is None:
+                one = ranks[0]
+                cfg["int8_width"] = one["int8"]["width"]
+            _p18_hold(world, ranks, one, latency, solves, failed)
+            print(f"    18c world {world} in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    _check(not failed, "18c: " + "; ".join(failed))
 
 
 @contextlib.contextmanager
@@ -6558,21 +7450,34 @@ def main() -> int:
                   f"{kernels.ext_spmm_plan(0, torch.float64, 128, m, 'tma')}")
     sys.stdout.flush()
 
+    # Phase 18a: the rank builds of A and q first, while the host peak
+    # is low, then the whole builds; checked against each other below.
+    print("[18a] phase 4's and phase 6's matrices built as each rank of "
+          "worlds 4 and 2, then whole", flush=True)
+    t18a = time.perf_counter()
+    p18, whole18 = {}, {}
+    phase18_rank_builds(dev, p18)
     t0 = time.perf_counter()
-    A = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3,
-                                 seed=0, dtype=torch.float64, device=dev)
+    with _host_build() as whole18["float64"]:
+        A = fdtt.generate_banded_bsr(8192, 128, bandwidth=1, coupling=1e-3,
+                                     seed=0, dtype=torch.float64, device=dev)
+        torch.cuda.synchronize()
     A32 = fdtt.BSROperator(A.block_cols, A.blocks.float(), bandwidth=1)
     torch.cuda.synchronize()
     print(f"    built A: n={A.shape[0]}, blocks {tuple(A.blocks.shape)} "
           f"float64 ({A.blocks.numel() * 8 / 1e9:.2f} GB) and float32 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    q = fdtt.generate_banded_bsr_quantized(16384, 128, bandwidth=1,
-                                           coupling=1e-3, seed=0, device=dev)
-    torch.cuda.synchronize()
+    with _host_build() as whole18["int8"]:
+        q = fdtt.generate_banded_bsr_quantized(16384, 128, bandwidth=1,
+                                               coupling=1e-3, seed=0,
+                                               device=dev)
+        torch.cuda.synchronize()
     print(f"    built q: n={q.shape[0]}, int8 blocks "
           f"{tuple(q.qblocks.shape)} ({q.qblocks.numel() / 1e6:.0f} MB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rows18 = phase18_rank_check(A, q, p18, whole18)
+    t18a = time.perf_counter() - t18a
 
     probe = _probe_operator(dev)
     print(f"    built the probes' matrix: n={probe.shape[0]}, blocks "
@@ -6591,7 +7496,7 @@ def main() -> int:
     library = library_times(A)
     ds_info = ds_card_checks(q, dev)
 
-    solves, refs = [], {}
+    solves, refs = [rows18], {}
     counts = {fn.__name__: 0 for fn in kernels.KERNELS}
     # Kernels 4 and 7 with float64 x: their own kernel, counted apart.
     f64_names = {f"{fn.__name__}_f64": fn for fn in kernels.F64_X_KERNELS}
@@ -6753,7 +7658,18 @@ def main() -> int:
              ("banded_q_ext_bsr_spmm",)),
             ("[10c] entry points: the CLI's solve, northstar --mode banded",
              lambda: phase_entry_points(dev, solves),
-             ("banded_bsr_spmm",))]:
+             ("banded_bsr_spmm",)),
+            ("[18b(i)] BASELINE config 5: float64 banded BSR, "
+             "n=10,000,384, lowest-20, one device (kernel 1) and row-sharded "
+             "at world size 1 (NCCL) on the push route (kernel 8p)",
+             lambda: phase18_config5(dev, solves),
+             ("banded_bsr_spmm", "banded_remote_push_spmm")),
+            ("[18b(ii)] 15b's int8 recipe on config 5's 78,128 block rows, "
+             "built as the rank's rows, world size 1 (NCCL), kernel 7",
+             lambda: phase18_int8(dev, solves), ("banded_q_ext_bsr_spmm",)),
+            ("[18c] config 5 and the north stars at world sizes 2 and 4 over "
+             "NCCL, each rank building its own rows, where the GPUs are",
+             lambda: phase18_multi_gpu(dev, solves, p16), ())]:
         run_path(title, run, expected)
         if title.startswith("[15b]"):
             kernel7_at_10m(ns["q"], dev, solves)
@@ -6901,16 +7817,18 @@ def main() -> int:
                                   if "nbr=16384" in r["shape"]))
         summary.append(entry)
     total_s = time.perf_counter() - t_run
-    phase14_s, phase15_s, phase16_s, phase17_s = (
+    elapsed["[18a]"] = t18a
+    phase14_s, phase15_s, phase16_s, phase17_s, phase18_s = (
         sum(t for title, t in elapsed.items() if title.startswith(f"[{p}"))
-        for p in (14, 15, 16, 17))
+        for p in (14, 15, 16, 17, 18))
     print(f"[11] ran {total_s:.1f} s, the build {build_s:.1f} s of it, "
           f"phase 12 {phase12_s:.1f} s ({100 * phase12_s / total_s:.1f}%), "
           f"phase 13 {phase13_s:.1f} s ({100 * phase13_s / total_s:.1f}%), "
           f"phase 14 {phase14_s:.1f} s ({100 * phase14_s / total_s:.1f}%), "
           f"phase 15 {phase15_s:.1f} s ({100 * phase15_s / total_s:.1f}%), "
           f"phase 16 {phase16_s:.1f} s ({100 * phase16_s / total_s:.1f}%), "
-          f"phase 17 {phase17_s:.1f} s ({100 * phase17_s / total_s:.1f}%)",
+          f"phase 17 {phase17_s:.1f} s ({100 * phase17_s / total_s:.1f}%), "
+          f"phase 18 {phase18_s:.1f} s ({100 * phase18_s / total_s:.1f}%)",
           flush=True)
     print(json.dumps({"solves": solves, "ds": ds_info}))
     print(json.dumps({"kernels": summary}))

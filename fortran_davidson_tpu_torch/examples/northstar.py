@@ -18,7 +18,9 @@ flag):
   starts (one process a GPU, ``torchrun``); ``--progressive`` and
   ``--refined`` run the sharded refined path, the surrogate through the
   matrix-free rule (its callables are per-rank), and ``--polish`` polishes
-  each rank's rows (``polish_eigenpairs(..., mesh=mesh)``).
+  each rank's rows (``polish_eigenpairs(..., mesh=mesh)``); ``--mode
+  banded`` then builds only the rank's block rows, on its GPU (the host
+  draws no other rank's rows).
 
 The 10M-row, 1e-8 recipe of the JAX package (its default basis width
 resolves from a device-memory budget, ``config._carry_budget_bytes``)::
@@ -40,6 +42,7 @@ import torch
 
 from fortran_davidson_tpu_torch.models.generators import surrogate_hamiltonian
 from fortran_davidson_tpu_torch.ops.sparse import (
+    BSROperator, banded_bsr_quantized_rows, banded_bsr_rows,
     generate_banded_bsr, generate_banded_bsr_quantized)
 from fortran_davidson_tpu_torch.solver import eigensolve, polish_eigenpairs
 from fortran_davidson_tpu_torch.utils.dtypes import default_device
@@ -102,27 +105,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build_operator(args: argparse.Namespace, device=None):
+def build_operator(args: argparse.Namespace, device=None, mesh=None):
     """The operator of ``args.mode`` on ``device`` (by default
-    ``--platform``, else the GPU)."""
+    ``--platform``, else the GPU). With ``mesh`` (``--sharded``), a banded
+    operator is built as the mesh rank's block rows alone, on the rank's
+    device (the host draws no other rank's rows): the int8 one as a
+    ``HaloQuantizedOperator`` (kernel 7), the float one as a
+    ``ShardedBSROperator`` (the rule ``eigensolve_sharded`` gives the
+    global one). The surrogate is O(n) and is built whole; the solve
+    keeps the rank's rows of it."""
+    if mesh is not None:
+        device = mesh.device
     device = default_device(device if device is not None else args.platform)
     if args.mode == "free":
         return surrogate_hamiltonian(args.n, dtype=torch.float32,
                                      device=device)
     nbr = args.n // args.block_size
+    banded = dict(bandwidth=args.bandwidth, coupling=1e-3, device=device)
+    if args.quantize and mesh is None:
+        return generate_banded_bsr_quantized(nbr, args.block_size, **banded)
     if args.quantize:
-        return generate_banded_bsr_quantized(nbr, args.block_size,
-                                             bandwidth=args.bandwidth,
-                                             coupling=1e-3, device=device)
-    op = generate_banded_bsr(nbr, args.block_size, bandwidth=args.bandwidth,
-                             coupling=1e-3, dtype=torch.float32,
-                             device=device)
+        from fortran_davidson_tpu_torch.parallel import HaloQuantizedOperator
+        return HaloQuantizedOperator(
+            *banded_bsr_quantized_rows(nbr, args.block_size, mesh.rows(nbr),
+                                       **banded),
+            args.bandwidth, mesh, n_block_rows=nbr)
+    if mesh is None:
+        op = generate_banded_bsr(nbr, args.block_size, dtype=torch.float32,
+                                 **banded)
+    else:
+        op = BSROperator(*banded_bsr_rows(nbr, args.block_size,
+                                          mesh.rows(nbr),
+                                          dtype=torch.float32, **banded),
+                         bandwidth=args.bandwidth)
     if op.device.type == "cuda":
         # bf16 block storage (f32 iterates and sums) halves the operator's
         # memory; its values carry bf16 representation error (~0.4%
         # relative).
         op = op.astype(torch.bfloat16)
-    return op
+    if mesh is None:
+        return op
+    from fortran_davidson_tpu_torch.parallel.sharded import ShardedBSROperator
+    return ShardedBSROperator(op, mesh, n_block_rows=nbr)
 
 
 def solve_options(args: argparse.Namespace) -> tuple[dict, dict]:
@@ -186,7 +210,7 @@ def main(argv=None) -> int:
         from fortran_davidson_tpu_torch.parallel import multihost
         mesh = multihost.initialize(device=args.platform)
         print(f"mesh: {{{mesh.axis!r}: {mesh.size}}}")
-    op = build_operator(args, device=None if mesh is None else mesh.device)
+    op = build_operator(args, mesh=mesh)
     res, _, _ = solve_timed(op, args, mesh)
     if args.polish:
         t0 = time.perf_counter()

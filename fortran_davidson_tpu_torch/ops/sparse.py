@@ -25,6 +25,7 @@ where it builds.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -299,11 +300,135 @@ def _two_pass_gram(op, block, vv, write_out: bool):
     return (y, g) if write_out else g
 
 
-def _dia_block_cols(nbr: int, bw: int):
+def _dia_block_cols(nbr: int, bw: int, rows: slice = slice(None)):
     """Gather-safe column table of DIA-aligned storage: virtual column
-    r - bw + k clipped into range."""
-    offs = np.arange(nbr)[:, None] - bw + np.arange(2 * bw + 1)
+    r - bw + k clipped into range (of the block rows ``rows``)."""
+    offs = np.arange(nbr)[rows, None] - bw + np.arange(2 * bw + 1)
     return np.clip(offs, 0, nbr - 1).astype(np.int32)
+
+
+# The banded generators build ROW_CHUNK_BYTES of blocks at a time on up
+# to BUILD_THREADS host threads (numpy's draws and array passes release
+# the GIL), and copy each chunk into the output tensors on their device
+# before dropping it: the host holds a few chunks, never a whole table.
+ROW_CHUNK_BYTES = 32 << 20
+BUILD_THREADS = 8
+
+
+def _uniform_blocks(seed: int, start: int, count: int, bs: int, dt,
+                    coupling: float):
+    """``count`` (bs, bs) coupling blocks from draw ``start`` of
+    ``default_rng(seed)``'s stream, shaped as the generators shape
+    them."""
+    rng = np.random.default_rng(seed)
+    rng.bit_generator.advance(start)
+    return (rng.random((count, bs, bs)).astype(dt) - 0.5) * coupling
+
+
+def _banded_rows(nbr: int, bs: int, bw: int, coupling: float, seed: int,
+                 dt, a: int, b: int, quantize: bool = False) -> tuple:
+    """Block rows [a, b) of the banded generators' matrix, bit for bit
+    those rows of :func:`generate_banded_bsr` (``quantize=False``: the
+    (b-a, bs, K*bs) blocks of ``dt``) and of
+    :func:`generate_banded_bsr_quantized` (``quantize=True``, ``dt``
+    float32: the int8 blocks, the (b-a, K*bs) scales and the (b-a, bs)
+    diagonal), as numpy arrays.
+
+    The whole generator draws one float64 uniform an entry from one PCG64
+    stream: the upper coupling blocks of diagonal d = 1..bw (nbr - d
+    blocks each), then the nbr diagonal blocks. Each run of blocks these
+    rows need is drawn after advancing the stream past the draws before
+    it: for each d the upper blocks of rows a..b-1 and, for the lower
+    slot d, which mirrors row r - d's upper block, those of rows
+    a-d..b-d-1; then the diagonal blocks of rows a..b-1. Every later step
+    (the symmetrisation, the diagonal, the quantization with one scale a
+    block row and slot) works on one block row at a time.
+    """
+    K = 2 * bw + 1
+    bs2 = bs * bs
+    vals = np.zeros((b - a, K, bs, bs), dt)
+    start = 0
+    for d in range(1, bw + 1):
+        cnt = nbr - d
+        lo, hi = max(a - d, 0), min(b, cnt)
+        if hi > lo:
+            blocks = _uniform_blocks(seed, start + lo * bs2, hi - lo, bs, dt,
+                                     coupling)
+            if hi > a:
+                vals[:hi - a, bw + d] = blocks[a - lo:]
+            top = min(hi, b - d)
+            if top > lo:
+                vals[lo + d - a:top + d - a, bw - d] = \
+                    blocks[:top - lo].transpose(0, 2, 1)
+            del blocks
+        start += cnt * bs2
+    dblocks = _uniform_blocks(seed, start + a * bs2, b - a, bs, dt, coupling)
+    dblocks = dblocks + dblocks.transpose(0, 2, 1)
+    # Entries a*bs..b*bs-1 of np.arange(1, nbr*bs + 1, dtype=dt), which
+    # numpy fills as 1 + float(i) in dt (equal past 2**24 in float32 too).
+    diag = (np.arange(a * bs, b * bs).astype(dt) + dt.type(1)).reshape(
+        b - a, bs)
+    idx = np.arange(bs)
+    dblocks[:, idx, idx] = diag
+    vals[:, bw] = dblocks
+    del dblocks
+    if not quantize:
+        return (np.ascontiguousarray(vals.transpose(0, 2, 1, 3)).reshape(
+            b - a, bs, K * bs),)
+    # b4[r, i, k, j] == vals[r, k, i, j] (the stored row-major layout),
+    # with the centre slot's diagonal zeroed for the off-diagonal split.
+    b4 = vals.transpose(0, 2, 1, 3).copy()
+    del vals
+    b4[:, idx, bw, idx] = 0.0
+    amax = np.max(np.abs(b4), axis=(1, 3))              # (b-a, K)
+    scales = np.where(amax > 0, amax / dt.type(127.0),
+                      dt.type(1.0)).astype(dt)
+    # clip(round(b4 / s)), in place: the same float32 operations.
+    np.divide(b4, scales[:, None, :, None], out=b4)
+    np.round(b4, out=b4)
+    np.clip(b4, -127, 127, out=b4)
+    q4 = b4.astype(np.int8)
+    del b4
+    scale_rows = np.broadcast_to(
+        scales[:, :, None], (b - a, K, bs)).reshape(b - a, K * bs)
+    return (q4.reshape(b - a, bs, K * bs), np.ascontiguousarray(scale_rows),
+            diag)
+
+
+def _banded_tables(nbr: int, bs: int, bw: int, coupling: float, seed: int,
+                   dtype, rows: slice, device, quantize: bool = False,
+                   chunk_rows: Optional[int] = None) -> list:
+    """Block rows ``rows`` of the banded generators' tables
+    (:func:`_banded_rows`) as tensors on ``device``, built ``chunk_rows``
+    block rows at a time (by default ROW_CHUNK_BYTES of blocks) on up to
+    BUILD_THREADS host threads, each chunk copied into the outputs before
+    it is dropped. Any chunking gives the same bits."""
+    K = 2 * bw + 1
+    require(nbr >= K, OperatorError,
+            f"need at least K={K} block rows for bandwidth {bw}")
+    a, b, _ = rows.indices(nbr)
+    dt = np.dtype(np.float32) if quantize else numpy_dtype(dtype)
+    shapes = [((b - a, bs, K * bs), torch.int8 if quantize
+               else as_torch_dtype(dtype))]
+    if quantize:
+        shapes += [((b - a, K * bs), torch.float32),
+                   ((b - a, bs), torch.float32)]
+    outs = [torch.empty(shape, dtype=t, device=device) for shape, t in shapes]
+    step = chunk_rows or max(1, ROW_CHUNK_BYTES // (K * bs * bs
+                                                    * dt.itemsize))
+
+    def fill(lo: int) -> None:
+        hi = min(lo + step, b)
+        parts = _banded_rows(nbr, bs, bw, coupling, seed, dt, lo, hi,
+                             quantize)
+        for out, part in zip(outs, parts):
+            out[lo - a:hi - a].copy_(torch.from_numpy(part))
+
+    starts = range(a, b, step)
+    with ThreadPoolExecutor(min(BUILD_THREADS, len(starts))) as pool:
+        for _ in pool.map(fill, starts):
+            pass
+    return outs
 
 
 def generate_banded_bsr(n_block_rows: int, bs: int, bandwidth: int = 1,
@@ -314,36 +439,31 @@ def generate_banded_bsr(n_block_rows: int, bs: int, bandwidth: int = 1,
     Bit-equal to ``fortran_davidson_tpu.ops.sparse.generate_banded_bsr``
     (the same numpy draws in the same order): dense diagonal blocks with
     dominant diagonal ``1..n`` and small random coupling blocks within
-    ``bandwidth`` block diagonals on each side, stored DIA-aligned.
+    ``bandwidth`` block diagonals on each side, stored DIA-aligned. Built
+    in chunks of block rows straight into the tensor on ``device``
+    (:func:`banded_bsr_rows` builds some of its rows alone).
     """
-    rng = np.random.default_rng(seed)
-    dt = numpy_dtype(dtype)
-    nbr = n_block_rows
-    bw = bandwidth
-    K = 2 * bw + 1
-    require(nbr >= K, OperatorError,
-            f"need at least K={K} block rows for bandwidth {bw}")
-    vals = np.zeros((nbr, K, bs, bs), dt)
-    for d in range(1, bw + 1):
-        cnt = nbr - d
-        if cnt <= 0:
-            continue
-        blocks = (rng.random((cnt, bs, bs)).astype(dt) - 0.5) * coupling
-        r = np.arange(cnt)
-        vals[r, bw + d] = blocks
-        vals[r + d, bw - d] = blocks.transpose(0, 2, 1)
-    dblocks = (rng.random((nbr, bs, bs)).astype(dt) - 0.5) * coupling
-    dblocks = dblocks + dblocks.transpose(0, 2, 1)
-    diag = np.arange(1, nbr * bs + 1, dtype=dt).reshape(nbr, bs)
-    idx = np.arange(bs)
-    dblocks[:, idx, idx] = diag
-    vals[:, bw] = dblocks
-    blocks = np.ascontiguousarray(vals.transpose(0, 2, 1, 3)).reshape(
-        nbr, bs, K * bs)
-    del vals, dblocks
-    return BSROperator(torch.from_numpy(_dia_block_cols(nbr, bw)),
-                       torch.from_numpy(blocks), bandwidth=bw,
-                       device=default_device(device))
+    return BSROperator(*banded_bsr_rows(n_block_rows, bs, slice(None),
+                                        bandwidth, coupling, seed, dtype,
+                                        device), bandwidth=bandwidth)
+
+
+def banded_bsr_rows(n_block_rows: int, bs: int, rows: slice,
+                    bandwidth: int = 1, coupling: float = 1e-3,
+                    seed: int = 0, dtype=torch.float64, device=None):
+    """``(block_cols, blocks)`` of the block rows ``rows`` of
+    ``generate_banded_bsr(n_block_rows, bs, bandwidth, coupling, seed,
+    dtype)``'s matrix, bit for bit, with global block columns, on
+    ``device`` (by default the GPU). The host draws only these rows (a
+    chunk at a time): a rank of a row-sharded solve builds its own rows
+    (``mesh.rows(n_block_rows)``) and hands them to a sharded operator
+    with ``n_block_rows=`` (``parallel.HaloBSROperator``,
+    ``parallel.sharded.ShardedBSROperator``)."""
+    device = default_device(device)
+    blocks, = _banded_tables(n_block_rows, bs, bandwidth, coupling, seed,
+                             dtype, rows, device)
+    cols = torch.from_numpy(_dia_block_cols(n_block_rows, bandwidth, rows))
+    return cols.to(device), blocks
 
 
 class QuantizedBandedOperator(LinearOperator):
@@ -500,49 +620,28 @@ def generate_banded_bsr_quantized(n_block_rows: int, bs: int,
     """Generate and int8-quantize a banded operator on the host
     (``ops/sparse.py:1172-1227``), so only the int8 blocks and the float32
     scales and diagonal reach the device. Bit-equal to the JAX package's:
-    the same numpy draws, assembly and quantization, in the same order.
+    the same numpy draws, assembly and quantization, in the same order,
+    built in chunks of block rows straight into the tensors on ``device``
+    (:func:`banded_bsr_quantized_rows` builds some of its rows alone).
     """
-    rng = np.random.default_rng(seed)
-    dt = np.float32
-    nbr, bw = n_block_rows, bandwidth
-    K = 2 * bw + 1
-    require(nbr >= K, OperatorError,
-            f"need at least K={K} block rows for bandwidth {bw}")
-    vals = np.zeros((nbr, K, bs, bs), dt)
-    for d in range(1, bw + 1):
-        cnt = nbr - d
-        if cnt <= 0:
-            continue
-        blocks = (rng.random((cnt, bs, bs)).astype(dt) - 0.5) * coupling
-        r = np.arange(cnt)
-        vals[r, bw + d] = blocks
-        vals[r + d, bw - d] = blocks.transpose(0, 2, 1)
-    dblocks = (rng.random((nbr, bs, bs)).astype(dt) - 0.5) * coupling
-    dblocks = dblocks + dblocks.transpose(0, 2, 1)
-    diag = np.arange(1, nbr * bs + 1, dtype=dt).reshape(nbr, bs)
-    idx = np.arange(bs)
-    dblocks[:, idx, idx] = diag
-    vals[:, bw] = dblocks
-    del dblocks
-    # b4[r, i, k, j] == vals[r, k, i, j] (the stored row-major layout),
-    # with the centre slot's diagonal zeroed for the off-diagonal split.
-    b4 = vals.transpose(0, 2, 1, 3).copy()
-    del vals
-    b4[:, idx, bw, idx] = 0.0
-    amax = np.max(np.abs(b4), axis=(1, 3))              # (nbr, K)
-    scales = np.where(amax > 0, amax / dt(127.0), dt(1.0)).astype(dt)
-    # clip(round(b4 / s)), in place: the same float32 operations.
-    np.divide(b4, scales[:, None, :, None], out=b4)
-    np.round(b4, out=b4)
-    np.clip(b4, -127, 127, out=b4)
-    q4 = b4.astype(np.int8)
-    del b4
-    scale_rows = np.broadcast_to(
-        scales[:, :, None], (nbr, K, bs)).reshape(nbr, K * bs)
     return QuantizedBandedOperator(
-        torch.from_numpy(q4.reshape(nbr, bs, K * bs)),
-        torch.from_numpy(np.ascontiguousarray(scale_rows)),
-        torch.from_numpy(diag), bandwidth=bw, device=default_device(device))
+        *banded_bsr_quantized_rows(n_block_rows, bs, slice(None), bandwidth,
+                                   coupling, seed, device),
+        bandwidth=bandwidth)
+
+
+def banded_bsr_quantized_rows(n_block_rows: int, bs: int, rows: slice,
+                              bandwidth: int = 1, coupling: float = 1e-3,
+                              seed: int = 0, device=None):
+    """``(qblocks, scale_rows, diag)`` of the block rows ``rows`` of
+    ``generate_banded_bsr_quantized(n_block_rows, bs, bandwidth,
+    coupling, seed)``'s operator, bit for bit, on ``device`` (by default
+    the GPU), the host drawing only these rows; for
+    ``parallel.HaloQuantizedOperator(..., n_block_rows=)``, as
+    :func:`banded_bsr_rows` is for the float operators."""
+    return tuple(_banded_tables(n_block_rows, bs, bandwidth, coupling, seed,
+                                torch.float32, rows, default_device(device),
+                                quantize=True))
 
 
 # -- the ELL family: padded ELL, sliced ELL, band + remainder --------------

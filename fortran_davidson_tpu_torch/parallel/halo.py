@@ -56,10 +56,16 @@ otherwise: on a GPU it launches its kernel or raises, never falls back.
 The operators keep only their rank's rows; at world size 1 those are
 views of the global tables handed in (no copy when they are already on
 the mesh's device). ``shape`` is global; ``diagonal()`` and ``matmat``
-work on the rank's rows.
+work on the rank's rows. With ``n_block_rows=`` (the global block-row
+count) the tables handed in hold only the rank's rows already, as
+``ops.sparse.banded_bsr_rows`` and ``banded_bsr_quantized_rows`` build
+them: a rank then never holds another rank's rows, on the host or on its
+device. (The JAX package shards one global array and has no such entry.)
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -78,14 +84,17 @@ def local_rows(t, rows: slice, device) -> torch.Tensor:
 
 def block_diagonal(blocks, block_cols, row0: int):
     """The matrix diagonal of a rank's (nbr_l, bs, K*bs) block rows, whose
-    first global block row is ``row0``: the sum of the blocks stored at
-    each row's own block column, then their diagonals."""
+    first global block row is ``row0``: the diagonal entries of every
+    slot's block, summed over the row's own slots (those stored at its own
+    block column). It reads nbr_l*K*bs entries and copies no block: a
+    solve takes the diagonal every iteration."""
     nbr_l, bs, kbs = blocks.shape
     own = block_cols == (row0 + torch.arange(
         nbr_l, dtype=block_cols.dtype, device=blocks.device))[:, None]
-    b4 = blocks.reshape(nbr_l, bs, kbs // bs, bs)
-    diag_blocks = torch.sum(torch.where(own[:, None, :, None], b4, 0), dim=2)
-    return torch.diagonal(diag_blocks, dim1=1, dim2=2).reshape(-1)
+    entries = torch.diagonal(blocks.reshape(nbr_l, bs, kbs // bs, bs),
+                             dim1=1, dim2=3)                 # (nbr_l, K, bs)
+    return torch.sum(torch.where(own[:, :, None], entries, 0),
+                     dim=1).reshape(-1)
 
 
 def _exchange(mesh: RowMesh, x, halo: int):
@@ -117,6 +126,19 @@ def _check_slab(nbr: int, bandwidth: int, mesh: RowMesh, axis: str) -> int:
     return nbr_local
 
 
+def own_rows(held: int, n_block_rows, mesh: RowMesh,
+             nbr_local: int) -> slice:
+    """The rank's block rows in tables that hold ``held`` of them: its
+    slab of global tables (``n_block_rows`` None), or all of them when
+    the tables hold only the rank's rows of ``n_block_rows``."""
+    if n_block_rows is None:
+        return slice(mesh.rank * nbr_local, (mesh.rank + 1) * nbr_local)
+    require(held == nbr_local, OperatorError,
+            f"tables of a rank's rows hold {held} block rows; rank "
+            f"{mesh.rank} of {mesh.size} owns {nbr_local} of {n_block_rows}")
+    return slice(0, held)
+
+
 class HaloBSROperator(LinearOperator):
     """Banded block-ELL operator applied with ring halo exchange.
 
@@ -124,7 +146,10 @@ class HaloBSROperator(LinearOperator):
     tables of :class:`~fortran_davidson_tpu_torch.ops.sparse.BSROperator`,
     restricted to a band: every stored block's column lies within
     ``bandwidth`` block rows of its own block row. The operator keeps the
-    mesh rank's block rows, on the mesh's device.
+    mesh rank's block rows, on the mesh's device. With ``n_block_rows``
+    (the global count) the tables are the rank's (nbr / size) rows
+    already, with global block columns
+    (``ops.sparse.banded_bsr_rows(nbr, bs, mesh.rows(nbr), ...)``).
 
     ``route`` says how an apply moves the halos: ``"push"``, kernel 8's
     one launch that pushes them into the ring neighbours' windows (backend
@@ -140,16 +165,18 @@ class HaloBSROperator(LinearOperator):
     """
 
     def __init__(self, block_cols, blocks, bandwidth: int, mesh: RowMesh,
-                 axis: str = ROWS_AXIS, backend: str = "xla"):
+                 axis: str = ROWS_AXIS, backend: str = "xla", *,
+                 n_block_rows: Optional[int] = None):
         require(backend in ("xla", "pallas", "pallas-remote"), OperatorError,
                 f"unknown halo backend {backend!r}")
-        nbr, K = block_cols.shape[:2]
+        held, K = block_cols.shape[:2]
+        nbr = held if n_block_rows is None else int(n_block_rows)
         nbr_local = _check_slab(nbr, bandwidth, mesh, axis)
         require(backend == "xla" or K == 2 * bandwidth + 1, OperatorError,
                 f"backend={backend!r} runs a DIA-banded kernel and needs "
                 f"K == 2*bandwidth+1 window-aligned slots, got K={K}, "
                 f"bw={bandwidth}; use backend='xla'")
-        rows = slice(mesh.rank * nbr_local, (mesh.rank + 1) * nbr_local)
+        rows = own_rows(held, n_block_rows, mesh, nbr_local)
         self.block_cols = local_rows(block_cols, rows, mesh.device).to(
             torch.int32)
         self.blocks = local_rows(blocks, rows, mesh.device)
@@ -301,19 +328,23 @@ class HaloQuantizedOperator(LinearOperator):
     boundary rows and contracts the halo-extended slab, through kernel 7
     (``"pallas"``, the default) or the dequantized product (``"xla"``).
     Same accuracy contract as the single-device operator (bf16-class;
-    diagonal and ``offdiag`` exact).
+    diagonal and ``offdiag`` exact). With ``n_block_rows`` (the global
+    count) the tables are the rank's rows already
+    (``ops.sparse.banded_bsr_quantized_rows``).
     """
 
     def __init__(self, qblocks, scale_rows, diag, bandwidth: int,
                  mesh: RowMesh, axis: str = ROWS_AXIS,
-                 backend: str = "pallas"):
-        nbr, bs, kbs = qblocks.shape
+                 backend: str = "pallas", *,
+                 n_block_rows: Optional[int] = None):
+        held, bs, kbs = qblocks.shape
+        nbr = held if n_block_rows is None else int(n_block_rows)
         nbr_local = _check_slab(nbr, bandwidth, mesh, axis)
         require(kbs == (2 * bandwidth + 1) * bs, OperatorError,
                 "quantized halo needs DIA-aligned K == 2*bw+1 slots")
         require(backend in ("xla", "pallas"), OperatorError,
                 f"unknown backend {backend!r}")
-        rows = slice(mesh.rank * nbr_local, (mesh.rank + 1) * nbr_local)
+        rows = own_rows(held, n_block_rows, mesh, nbr_local)
         self.qblocks = local_rows(qblocks, rows, mesh.device).to(torch.int8)
         self.scale_rows = local_rows(scale_rows, rows, mesh.device).to(
             torch.float32)

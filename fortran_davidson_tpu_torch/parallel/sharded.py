@@ -67,7 +67,7 @@ from fortran_davidson_tpu_torch.ops.sparse import (BSROperator, ELLOperator,
 from fortran_davidson_tpu_torch.parallel.halo import (HaloBSROperator,
                                                      HaloQuantizedOperator,
                                                      block_diagonal,
-                                                     local_rows)
+                                                     local_rows, own_rows)
 from fortran_davidson_tpu_torch.parallel.mesh import (ROWS_AXIS, RowMesh,
                                                       _record)
 from fortran_davidson_tpu_torch.utils.ds import cascade_partials
@@ -209,18 +209,22 @@ class ShardedBSROperator(_RowSharded):
     """The rank's block rows of a BSR operator, with global block columns.
     The skinny X is all-gathered and the general kernel
     (:func:`~fortran_davidson_tpu_torch.ops.kernels.bsr_spmm`) contracts
-    the rank's rows, as GSPMD does around a call it cannot partition."""
+    the rank's rows, as GSPMD does around a call it cannot partition.
+    With ``n_block_rows`` (the global count), ``op`` holds only the
+    rank's block rows already (``ops.sparse.banded_bsr_rows``)."""
 
-    def __init__(self, op: BSROperator, mesh: RowMesh):
-        super().__init__(mesh, op.shape[0])
-        nbr = op.n_block_rows
+    def __init__(self, op: BSROperator, mesh: RowMesh, *,
+                 n_block_rows: Optional[int] = None):
+        held = op.n_block_rows
+        nbr = held if n_block_rows is None else int(n_block_rows)
+        super().__init__(mesh, nbr * op.block_size)
         require(nbr % mesh.size == 0, OperatorError,
                 f"{nbr} block rows not divisible by the {mesh.size}-device "
                 "mesh; pad the block rows")
         self.block_rows = mesh.rows(nbr)
-        self.block_cols = local_rows(op.block_cols, self.block_rows,
-                                     mesh.device)
-        self.blocks = local_rows(op.blocks, self.block_rows, mesh.device)
+        mine = own_rows(held, n_block_rows, mesh, nbr // mesh.size)
+        self.block_cols = local_rows(op.block_cols, mine, mesh.device)
+        self.blocks = local_rows(op.blocks, mine, mesh.device)
 
     @property
     def dtype(self):

@@ -17,7 +17,22 @@ world size 2, and 4 where four GPUs are visible, over NCCL in spawned
 ranks, each held to world 1 (iterations, eigenvalues, each rank's
 collective inventory), its route, its measured efficiency printed beside
 the model's projection, and one apply of the push and of the exchange
-route timed in turns. Last, a skipped epoch at the largest world size:
+route timed in turns, and the same lowest-20 on the exchange route (an
+instance set to it), so that both routes solve in one run; at world size
+4 one traced solve of each route on every rank, its chrome trace gzipped
+under ``chiprun_out/`` and its busy, idle, host and collective-wait
+milliseconds an iteration printed. Then phase 18c
+(``chip_smoke.phase18_multi_gpu``): BASELINE config 5 in float64 (push
+route; at world size 4 also the exchange route) and phases 15b's and
+15a's north-star recipes at world sizes 1, 2 and 4 over NCCL, each rank
+building only its own block rows, world 1 the reference (so the world-1
+ranks run phase 18b's sharded legs), each rank's walls, idle, device and
+host peaks, launches, inventory and split printed, the float64 solves'
+traces at world size 4 under ``chiprun_out/``. ``--18b`` also runs
+phase 18b (config 5 through kernel 1 on one device and at world size 1,
+and the int8 recipe) in this process first; a failure of 18c is
+reported, and makes the run exit 1, at its end. Last, a skipped epoch
+at the largest world size:
 rank 0 applies the push route once more than the others; every rank's
 wait must run out within the bound (``SKIP_LIMIT_NS``) and report its
 rank, epoch and slot instead of hanging. Exits 1 without two GPUs or when
@@ -29,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -135,6 +151,9 @@ def main() -> int:
     smi = cs._smi()
     print(f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(smi, flush=True)
+    # The host's memory: every rank of phase 18c builds its rows on it.
+    print(subprocess.run(["free", "-g"], capture_output=True,
+                         text=True).stdout, flush=True)
     path, _ = kernels.build()
     print(f"built {path.name} in {time.perf_counter() - t_run:.1f} s",
           flush=True)
@@ -185,6 +204,25 @@ def main() -> int:
         t0 = time.perf_counter()
         cs.phase16_multi_gpu(dev, solves, refs, p16)
         print(f"    16d in {time.perf_counter() - t0:.1f} s", flush=True)
+    if "--18b" in sys.argv[1:]:
+        for title, run in [
+                ("[18b(i)] config 5 float64, one device and world size 1",
+                 lambda: cs.phase18_config5(dev, solves)),
+                ("[18b(ii)] 15b's int8 recipe on config 5's rows, world "
+                 "size 1", lambda: cs.phase18_int8(dev, solves))]:
+            print(title, flush=True)
+            kernels.reset_launch_counts()
+            run()
+    print("[18c] config 5 and the north stars at world sizes 1, 2 and 4 over "
+          "NCCL, each rank building its own rows", flush=True)
+    t0 = time.perf_counter()
+    failed18 = None
+    try:
+        cs.phase18_multi_gpu(dev, solves, p16)
+    except AssertionError as err:
+        # Reported, and the run exits 1, after the skipped-epoch check.
+        failed18 = err
+    print(f"    18c in {time.perf_counter() - t0:.1f} s", flush=True)
     world = 4 if torch.cuda.device_count() >= 4 else 2
     print(f"[skip] a skipped epoch at world size {world}", flush=True)
     t0 = time.perf_counter()
@@ -196,7 +234,11 @@ def main() -> int:
     print(smi)
     print(json.dumps({"solves": [s for s in solves
                                  if str(s.get("solve", "")).startswith(
-                                     "phase 16")]}, default=str))
+                                     ("phase 16", "phase 18"))]},
+                     default=str))
+    if failed18 is not None:
+        print(f"multi_gpu: phase 18c failed: {failed18}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -2342,3 +2342,74 @@ def test_sum_ds_at_world_size_one_is_the_local_fold(cuda_device, tmp_path):
             assert torch.equal(got.lo, want.lo)
     finally:
         dist.destroy_process_group()
+
+
+# -- the banded generators' row builds -------------------------------------
+
+def _same_bits(a, b) -> bool:
+    ints = {8: torch.int64, 4: torch.int32, 1: torch.int8}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(ints[a.element_size()]),
+                            b.view(ints[b.element_size()])))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("form", ["float64", "int8"])
+def test_rank_rows_on_the_card_equal_the_whole_build(cuda_device, form,
+                                                     world, monkeypatch):
+    # Each rank's rows, built alone on the card, are those rows of the
+    # whole build, bit for bit; chunks of 5 block rows on several host
+    # threads, each copied into the tensor on the card.
+    from fortran_davidson_tpu_torch.ops import sparse
+    from fortran_davidson_tpu_torch.parallel import RowMesh
+    nbr, bs, bw = 96, 32, 2
+    monkeypatch.setattr(sparse, "ROW_CHUNK_BYTES", 5 * (2 * bw + 1) * bs * bs)
+    gen = dict(bandwidth=bw, coupling=1e-3, seed=4, device=cuda_device)
+    if form == "int8":
+        q = fdtt.generate_banded_bsr_quantized(nbr, bs, **gen)
+        whole = (q.qblocks, q.scale_rows, q.diag)
+    else:
+        A = fdtt.generate_banded_bsr(nbr, bs, dtype=torch.float64, **gen)
+        whole = (A.block_cols, A.blocks)
+    for rank in range(world):
+        rows = RowMesh(group=None, size=world, rank=rank,
+                       device=cuda_device).rows(nbr)
+        got = (sparse.banded_bsr_quantized_rows(nbr, bs, rows, **gen)
+               if form == "int8" else
+               sparse.banded_bsr_rows(nbr, bs, rows, dtype=torch.float64,
+                                      **gen))
+        for g, w in zip(got, whole):
+            assert g.device.type == "cuda"
+            assert _same_bits(g, w[rows])
+
+
+def test_push_solve_from_rank_rows_gives_the_global_bits(cuda_device,
+                                                         tmp_path):
+    # World size 1 over NCCL, kernel 8 on the push route: the operator
+    # built from the rank's rows (n_block_rows=) solves to the bits of the
+    # one cut from the global tables.
+    import torch.distributed as dist
+    from fortran_davidson_tpu_torch.ops import sparse
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     eigensolve_sharded,
+                                                     multihost)
+    nbr, bs = 64, 16
+    gen = dict(bandwidth=1, coupling=0.1, seed=0, device=cuda_device)
+    op = fdtt.generate_banded_bsr(nbr, bs, **gen)
+    mesh = multihost.initialize(init_method=f"file://{tmp_path}/rendezvous",
+                                world_size=1, rank=0, device=cuda_device)
+    try:
+        own = HaloBSROperator(*sparse.banded_bsr_rows(
+            nbr, bs, mesh.rows(nbr), **gen), 1, mesh,
+            backend="pallas-remote", n_block_rows=nbr)
+        cut = HaloBSROperator.from_bsr(op, 1, mesh, backend="pallas-remote")
+        assert own.route == cut.route == "push"
+        kernels.reset_launch_counts()
+        a = eigensolve_sharded(own, 3, mesh, max_dim_sub=12)
+        pushes = kernels.banded_remote_push_spmm.launches
+        b = eigensolve_sharded(cut, 3, mesh, max_dim_sub=12)
+    finally:
+        dist.destroy_process_group()
+    assert pushes > 0 and a.converged and a.iterations == b.iterations
+    assert _same_bits(a.eigenvalues, b.eigenvalues)
+    assert _same_bits(a.eigenvectors, b.eigenvectors)

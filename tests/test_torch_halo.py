@@ -725,3 +725,32 @@ def test_push_kernel_checks_its_arguments():
         kernels.banded_remote_push_spmm_plain(blocks, x, meta, bandwidth=1,
                                               epoch=1)
     assert window.epoch == 0 and window.flags(0).tolist() == [0] * 6
+
+
+def _allocated_bytes(fn) -> int:
+    """Bytes the ops inside ``fn()`` allocate on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as p:
+        fn()
+    return sum(max(e.cpu_memory_usage, 0) for e in p.key_averages())
+
+
+@pytest.mark.parametrize("kind", ["xla", "pallas", "pallas-remote",
+                                  "general"])
+def test_sharded_diagonal_copies_no_block(kind):
+    # A solve takes the operator's diagonal every iteration: the rank's
+    # diagonal reads each slot's diagonal entries, never a copy of its
+    # block table (at 10M rows in float64 that copy was 30.7 GB and ran
+    # the world-size-1 solve out of memory), with the global diagonal's
+    # bits.
+    from fortran_davidson_tpu_torch.ops.sparse import generate_banded_bsr
+    from fortran_davidson_tpu_torch.parallel.sharded import (
+        ShardedBSROperator)
+    A = generate_banded_bsr(64, 32, bandwidth=2, seed=3, device="cpu")
+    for rank in range(2):
+        mesh = RowMesh(group=None, size=2, rank=rank,
+                       device=torch.device("cpu"))
+        op = (ShardedBSROperator(A, mesh) if kind == "general"
+              else HaloBSROperator.from_bsr(A, 2, mesh, backend=kind))
+        assert _allocated_bytes(op.diagonal) < op.blocks.nbytes // 8
+        assert torch.equal(op.diagonal(), A.diagonal()[mesh.rows(A.shape[0])])

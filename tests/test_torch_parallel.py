@@ -62,7 +62,10 @@ the tests here compare the ranks' rows, put back together, with:
   double-single folds are the one-device folds under
   ``sum_strategy("tree", row_divisor=world)`` bit for bit, and at world
   size 1 the refined surrogate past the cascade's threshold gives the
-  one-device ``"tree"`` solve's eigenvalue bits.
+  one-device ``"tree"`` solve's eigenvalue bits;
+- at world sizes 2 and 4, solves on operators each rank built from its
+  own rows (``n_block_rows=``) give the bits of the same solves on
+  operators cut from the global tables (f64 ``"pallas-remote"``, int8).
 
 The argument checks and ``convert.halo`` need no process group: they use
 a :class:`RowMesh` whose group is never called.
@@ -410,6 +413,19 @@ def test_sharded_solve_matches_single_device(ranks, inputs, single_device,
         r = r / np.maximum(np.abs(lam), 1.0)
     # int8 in float32: the loop's residual floor plus float32 roundoff of X.
     assert np.all(r <= opts["tolerance"] * (2.0 if "dtype" in opts else 1.0))
+
+
+@pytest.mark.parametrize("name", list(worker.ROWS_SOLVES))
+@pytest.mark.parametrize("world", worker.ROWS_WORLDS)
+def test_rank_row_solve_gives_the_global_table_bits(ranks, world, name):
+    # Operators each rank built from its own rows (n_block_rows=) solve to
+    # the bits of those cut from the global tables: f64 "pallas-remote"
+    # (the exchange route on CPU ranks) and the int8 halo (kernel 7).
+    for r in ranks(world):
+        assert bool(r[f"{name}_own_converged"])
+        for key in ("evals", "evecs", "iterations"):
+            np.testing.assert_array_equal(r[f"{name}_own_{key}"],
+                                          r[f"{name}_cut_{key}"])
 
 
 @pytest.mark.parametrize("name", ["qr", "qr_halo"])

@@ -22,7 +22,10 @@ one iteration of the scaling probe (``parallel.scaling``) at two row
 counts, and fold the double-single reductions of a tall block over their
 rows; at world size 2 they take the inventory of the ELL rule, which
 gathers x, and at world size 1 they solve the float32 surrogate past the
-cascade's threshold (``scaling_cases``).
+cascade's threshold (``scaling_cases``). At world sizes 2 and 4
+(``ROWS_WORLDS``) they solve on operators built from each rank's own
+rows beside the same operators cut from the global tables
+(``rows_cases``).
 
 A spawned process imports the module of its target, and the test
 modules and ``tests/conftest.py`` import JAX: this module imports only
@@ -132,6 +135,16 @@ CKPT_SOLVES = {
     "ckpt_refined": ("A512", 3, 4, dict(dtype="float32", refined=True,
                                          tolerance=1e-6, max_iterations=80)),
 }
+
+# Sharded solves whose operators each rank builds from its own block
+# rows (``ops.sparse.banded_bsr_rows``, ``banded_bsr_quantized_rows``,
+# ``n_block_rows=``), beside the same solves on operators cut from the
+# global tables, at world sizes 2 and 4 (``rows_cases``): name -> (lowest,
+# options). "pallas-remote" takes the exchange route on CPU ranks.
+ROWS_WORLDS = (2, 4)
+ROWS_NBR = 64
+ROWS_SEED = 9
+ROWS_SOLVES = {"rows_remote": (3, F64), "rows_int8": (3, INT8)}
 
 # The scaling audit (``tests/test_scaling_model.py``'s probe shape): one
 # refined float32 iteration of the int8 halo probe at these block rows of
@@ -536,6 +549,40 @@ def scaling_cases(inputs, mesh, out: dict) -> None:
                    tall_iterations=np.array(res.iterations))
 
 
+def rows_cases(mesh, out: dict) -> None:
+    """Each ROWS_SOLVES case solved twice: on the operator the rank built
+    from its own rows (``own``) and on the one cut from the global tables
+    (``cut``)."""
+    import fortran_davidson_tpu_torch as fdtt
+    from fortran_davidson_tpu_torch.ops import sparse
+    from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
+                                                     HaloQuantizedOperator,
+                                                     eigensolve_sharded)
+    nbr, rows = ROWS_NBR, mesh.rows(ROWS_NBR)
+    gen = dict(bandwidth=1, seed=ROWS_SEED, device="cpu")
+    A = fdtt.generate_banded_bsr(nbr, 8, **gen)
+    q = fdtt.generate_banded_bsr_quantized(nbr, 8, **gen)
+    pairs = {
+        "rows_remote": (
+            HaloBSROperator(*sparse.banded_bsr_rows(nbr, 8, rows, **gen), 1,
+                            mesh, backend="pallas-remote", n_block_rows=nbr),
+            HaloBSROperator.from_bsr(A, 1, mesh, backend="pallas-remote")),
+        "rows_int8": (
+            HaloQuantizedOperator(
+                *sparse.banded_bsr_quantized_rows(nbr, 8, rows, **gen), 1,
+                mesh, n_block_rows=nbr),
+            HaloQuantizedOperator.from_quantized(q, mesh)),
+    }
+    for name, ops in pairs.items():
+        lowest, opts = ROWS_SOLVES[name]
+        for tag, op in zip(("own", "cut"), ops):
+            res = eigensolve_sharded(op, lowest, mesh, **opts)
+            out[f"{name}_{tag}_evals"] = res.eigenvalues.numpy()
+            out[f"{name}_{tag}_evecs"] = res.eigenvectors.numpy()
+            out[f"{name}_{tag}_iterations"] = np.array(res.iterations)
+            out[f"{name}_{tag}_converged"] = np.array(res.converged)
+
+
 def _rank_main(rank: int, world: int, run_dir: str) -> None:
     torch.set_num_threads(1)
     from fortran_davidson_tpu_torch.parallel import (HaloBSROperator,
@@ -664,6 +711,8 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
     if world in FREE_WORLDS:
         free_checks(inputs, mesh, refined["refined_free"], out)
     scaling_cases(inputs, mesh, out)
+    if world in ROWS_WORLDS:
+        rows_cases(mesh, out)
 
     for name, (A, B, X0) in solve_cases(inputs, mesh).items():
         lowest, opts = SOLVES[name]
