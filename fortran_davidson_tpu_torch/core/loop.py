@@ -65,6 +65,24 @@ iterates, the same iteration count and no operator applied again.
 chunk. The port compiles nothing, so :func:`get_stepper` hands out plain
 functions and the JAX package's compiled-program caches have nothing to
 hold (:func:`set_compiled_cache_capacity`, :func:`clear_compiled_caches`).
+
+**Spans.** Under a recording profiler (``utils.observability.
+profile_trace``, or any ``torch.profiler.profile``) the loop marks its
+phases, so a trace read in Perfetto shows each kernel and each host wait
+under the phase that issued it (the innermost span open at its launch):
+``fdt.init`` (the stepper's :func:`init_state`, and the diagonals
+:func:`run_state` takes before its first iteration), ``fdt.rayleigh_ritz``
+(the masks, H and the masked eigh), ``fdt.residual`` (X, AXW, R, the
+norms and the convergence test), ``fdt.host_read`` (the iteration's one
+read and the history it records; :func:`settle`'s and
+:func:`pack_result`'s reads), ``fdt.correction`` (DPR, Olsen or GJD),
+``fdt.orthonormalize`` (the block's CGS2 + CholQR2 or SVQB; a collapse's
+thin QR), ``fdt.basis_update`` (Q, AQ, BQ and ``col_ok`` written into the
+carried buffers; a collapse's rewrite of them), ``fdt.apply`` (every
+operator apply, nested in the phase that asked for it, or, for the new
+block's AQ, directly in the solve) and ``fdt.polish`` (the refined path's
+trial and final polish). The solver's entry points open ``fdt.solve``
+around the whole call. Off the profiler a span is one boolean check.
 """
 
 from __future__ import annotations
@@ -84,6 +102,7 @@ from fortran_davidson_tpu_torch.utils import debugging
 from fortran_davidson_tpu_torch.utils.ds import DS, two_sum
 from fortran_davidson_tpu_torch.utils.dtypes import \
     full_precision_matmuls as _precision_ctx
+from fortran_davidson_tpu_torch.utils.observability import annotate
 
 # Refined-path plateau exit: consecutive iterations without a 1% gain of
 # the worst unconverged wanted residual before the loop concludes it has
@@ -97,7 +116,8 @@ _POLISH_POLL_AT = 4
 
 
 def _apply(op: LinearOperator, X, dt):
-    return op.matmat(X).to(dt)
+    with annotate("fdt.apply"):
+        return op.matmat(X).to(dt)
 
 
 def _filtered(cfg: ResolvedConfig) -> bool:
@@ -250,10 +270,12 @@ def _certify(cfg: ResolvedConfig, A_off, B_off, diag_a, diag_b, evals, X,
              rows: Rows):
     """The trial polish: does a final polish of these pairs certify at
     the user's tolerance? (One host read.)"""
-    pol = refine.polish(A_off, diag_a, evals, X,
-                        iterations=cfg.final_polish, B_off=B_off,
-                        diag_b=diag_b, update=cfg.polish_update, rows=rows)
-    return bool(torch.all(_converged(cfg, pol.errors, pol.evals)))
+    with annotate("fdt.polish"):
+        pol = refine.polish(A_off, diag_a, evals, X,
+                            iterations=cfg.final_polish, B_off=B_off,
+                            diag_b=diag_b, update=cfg.polish_update,
+                            rows=rows)
+        return bool(torch.all(_converged(cfg, pol.errors, pol.evals)))
 
 
 def _converged(cfg: ResolvedConfig, errors, evals):
@@ -317,245 +339,264 @@ def run_state(cfg: ResolvedConfig, A: LinearOperator,
     if precise and A_off is None:
         raise ValueError("cfg.refined requires A_off (= A.offdiag())")
     lowest_k = cfg.expansion == "lowest-k"
-    diag_a = A.diagonal().to(dt)
-    n = diag_a.shape[0]
-    diag_b = (B.diagonal().to(dt) if gen
-              else torch.ones((n,), dtype=dt, device=dev))
+    with annotate("fdt.init"):
+        diag_a = A.diagonal().to(dt)
+        n = diag_a.shape[0]
+        diag_b = (B.diagonal().to(dt) if gen
+                  else torch.ones((n,), dtype=dt, device=dev))
+        ar = torch.arange(m_max, device=dev)
     V, AV = st["V"], st["AV"]
     BV = st["BV"] if gen else None
-    ar = torch.arange(m_max, device=dev)
     trap = debugging.nans_trapped()
     end = min(st["chunk_end"], cfg.max_iterations)
 
     while st["it"] < end and not st["all_conv"]:
         w = st["m_hi"]
-        # Active columns: prefix up to m minus the columns dropped by the
-        # rank-revealing orthonormalization. Ritz pairs live in pair index
-        # space, a prefix of width sum(mask).
-        mask = (ar[:w] < st["m"]).to(dt) * st["col_ok"][:w]
-        pair_mask = (ar[:w] < torch.sum(mask)).to(dt)
+        with annotate("fdt.rayleigh_ritz"):
+            # Active columns: prefix up to m minus the columns dropped by
+            # the rank-revealing orthonormalization. Ritz pairs live in
+            # pair index space, a prefix of width sum(mask).
+            mask = (ar[:w] < st["m"]).to(dt) * st["col_ok"][:w]
+            pair_mask = (ar[:w] < torch.sum(mask)).to(dt)
 
-        # Rayleigh-Ritz on the leading w columns (masked, penalized eigh).
-        # The fused engine reads H from the state: CGS2 never touches
-        # admitted columns, so their entries stay valid.
-        Vw, AVw = V[:, :w], AV[:, :w]
-        try:
+            # Rayleigh-Ritz on the leading w columns (masked, penalized
+            # eigh). The fused engine reads H from the state: CGS2 never
+            # touches admitted columns, so their entries stay valid.
+            Vw, AVw = V[:, :w], AV[:, :w]
+            try:
+                if precise:
+                    lam, W = _refined_ritz(Vw, AVw,
+                                           BV[:, :w] if gen else None,
+                                           mask, m_max, k, rows)
+                else:
+                    H = (st["H"][:w, :w] if fused
+                         else subspace.project(Vw, AVw, rows))
+                    S = subspace.project(Vw, BV[:, :w], rows) if gen else None
+                    lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
+            except torch.linalg.LinAlgError as exc:
+                if trap:
+                    # A solver library may refuse a NaN matrix outright.
+                    raise FloatingPointError(
+                        f"NaN in the projected matrix at iteration "
+                        f"{st['it'] + 1}") from exc
+                raise
+
+        with annotate("fdt.residual"):
+            # Ritz vectors and block residuals from the caches. Lowest-k
+            # only ever corrects the k wanted pairs; doubling corrects
+            # every pair.
+            kk = k if lowest_k else w
+            Wk = W[:, :kk]
+            pmk = pair_mask[:kk]
+            X = (Vw @ Wk) * pmk[None, :]
+            AXW = AVw @ Wk
+            BXW = BV[:, :w] @ Wk if gen else X
+            R = (AXW - BXW * lam[:kk][None, :]) * pmk[None, :]
+            del AXW, BXW
             if precise:
-                lam, W = _refined_ritz(Vw, AVw, BV[:, :w] if gen else None,
-                                       mask, m_max, k, rows)
+                # True residuals and Rayleigh-refined eigenvalues of the k
+                # wanted pairs; the compensated residual also feeds the
+                # correction (the cache residual carries ~sqrt(n)*eps*λ
+                # noise). Nonexistent pairs read an infinite error.
+                ref = refine.refined_pairs(A_off, diag_a, X[:, :k],
+                                           B_off=B_off,
+                                           diag_b=diag_b if gen else None,
+                                           rows=rows)
+                pm_k = pair_mask[:k] > 0.5
+                errors = torch.where(pm_k, ref.errors.to(dt),
+                                     torch.full_like(ref.errors.to(dt),
+                                                     float("inf")))
+                evals = ref.evals.to(dt)
+                R[:, :k] = torch.where(pm_k[None, :], ref.residual.to(dt),
+                                       torch.zeros_like(R[:, :k]))
             else:
-                H = st["H"][:w, :w] if fused else subspace.project(Vw, AVw,
-                                                                   rows)
-                S = subspace.project(Vw, BV[:, :w], rows) if gen else None
-                lam, W = subspace.ritz_decomposition(H, S, mask, m_max)
-        except torch.linalg.LinAlgError as exc:
+                errors = rows.norms(R[:, :k])
+                evals = lam[:k]
+            conv_now = _converged(cfg, errors, evals)
+            # A pair can only converge if it exists (rank-deficient starts).
+            conv_now = conv_now & (pair_mask[:k] > 0.5)
+            has_conv = (st["has_conv"] | conv_now) if cfg.sticky else conv_now
+
+        with annotate("fdt.host_read"):
+            # The iteration's one host synchronisation.
+            pending = [torch.all(has_conv)]
+            if precise:
+                worst = torch.max(torch.where(has_conv,
+                                              torch.zeros_like(errors),
+                                              errors))
+                pending.append(worst < st["best_err"] * (1.0 - 1e-2))
+            for key in ("m", "stalled"):
+                if isinstance(st[key], torch.Tensor):
+                    pending.append(st[key])
             if trap:
-                # A solver library may refuse a NaN matrix outright.
+                # Ritz values must be finite; a residual norm may be +inf
+                # (a refined pair that does not exist yet), never NaN.
+                pending.append(torch.all(torch.isfinite(evals))
+                               & ~torch.any(torch.isnan(errors)))
+            flags = torch.stack([t.to(torch.int64) for t in pending]).tolist()
+            all_conv = bool(flags.pop(0))
+            improved = bool(flags.pop(0)) if precise else False
+            for key in ("m", "stalled"):
+                if isinstance(st[key], torch.Tensor):
+                    st[key] = flags.pop(0)
+            if trap and not flags.pop(0):
                 raise FloatingPointError(
-                    f"NaN in the projected matrix at iteration "
-                    f"{st['it'] + 1}") from exc
-            raise
-
-        # Ritz vectors and block residuals from the caches. Lowest-k only
-        # ever corrects the k wanted pairs; doubling corrects every pair.
-        kk = k if lowest_k else w
-        Wk = W[:, :kk]
-        pmk = pair_mask[:kk]
-        X = (Vw @ Wk) * pmk[None, :]
-        AXW = AVw @ Wk
-        BXW = BV[:, :w] @ Wk if gen else X
-        R = (AXW - BXW * lam[:kk][None, :]) * pmk[None, :]
-        del AXW, BXW
-        if precise:
-            # True residuals and Rayleigh-refined eigenvalues of the k
-            # wanted pairs; the compensated residual also feeds the
-            # correction (the cache residual carries ~sqrt(n)*eps*λ
-            # noise). Nonexistent pairs read an infinite error.
-            ref = refine.refined_pairs(A_off, diag_a, X[:, :k], B_off=B_off,
-                                       diag_b=diag_b if gen else None,
-                                       rows=rows)
-            pm_k = pair_mask[:k] > 0.5
-            errors = torch.where(pm_k, ref.errors.to(dt),
-                                 torch.full_like(ref.errors.to(dt),
-                                                 float("inf")))
-            evals = ref.evals.to(dt)
-            R[:, :k] = torch.where(pm_k[None, :], ref.residual.to(dt),
-                                   torch.zeros_like(R[:, :k]))
-        else:
-            errors = rows.norms(R[:, :k])
-            evals = lam[:k]
-        conv_now = _converged(cfg, errors, evals)
-        # A pair can only converge if it exists (rank-deficient starts).
-        conv_now = conv_now & (pair_mask[:k] > 0.5)
-        has_conv = (st["has_conv"] | conv_now) if cfg.sticky else conv_now
-
-        # The iteration's one host synchronisation.
-        pending = [torch.all(has_conv)]
-        if precise:
-            worst = torch.max(torch.where(has_conv, torch.zeros_like(errors),
-                                          errors))
-            pending.append(worst < st["best_err"] * (1.0 - 1e-2))
-        for key in ("m", "stalled"):
-            if isinstance(st[key], torch.Tensor):
-                pending.append(st[key])
-        if trap:
-            # Ritz values must be finite; a residual norm may be +inf
-            # (a refined pair that does not exist yet), never NaN.
-            pending.append(torch.all(torch.isfinite(evals))
-                           & ~torch.any(torch.isnan(errors)))
-        flags = torch.stack([t.to(torch.int64) for t in pending]).tolist()
-        all_conv = bool(flags.pop(0))
-        improved = bool(flags.pop(0)) if precise else False
-        for key in ("m", "stalled"):
-            if isinstance(st[key], torch.Tensor):
-                st[key] = flags.pop(0)
-        if trap and not flags.pop(0):
-            raise FloatingPointError(
-                f"NaN in the Ritz values or residual norms at iteration "
-                f"{st['it'] + 1}")
-        st["stalled"] = bool(st["stalled"])
-        if st["stalled"]:
-            # The previous expansion admitted no column: the state is a
-            # fixed point. Exit with that iteration's results.
-            break
-        m = st["m"]
-        st["m_hi"] = m
-        it = st["it"]
-        st["history"][it] = errors
-        st["dims"][it] = m
-        st.update(has_conv=has_conv, all_conv=all_conv, evals=evals,
-                  evecs=X[:, :k], errors=errors, it=it + 1)
-        if precise:
-            st["best_err"] = torch.minimum(st["best_err"], worst)
-        if all_conv:
-            break
+                    f"NaN in the Ritz values or residual norms at iteration "
+                    f"{st['it'] + 1}")
+            st["stalled"] = bool(st["stalled"])
+            if st["stalled"]:
+                # The previous expansion admitted no column: the state is
+                # a fixed point. Exit with that iteration's results.
+                break
+            m = st["m"]
+            st["m_hi"] = m
+            it = st["it"]
+            st["history"][it] = errors
+            st["dims"][it] = m
+            st.update(has_conv=has_conv, all_conv=all_conv, evals=evals,
+                      evecs=X[:, :k], errors=errors, it=it + 1)
+            if precise:
+                st["best_err"] = torch.minimum(st["best_err"], worst)
+            if all_conv:
+                break
 
         collapse = m > cfg.max_dim
         if not collapse:
             # Expansion iff the current dim <= max_dim
             # (``src/davidson.f90:195``).
-            corr_mask = pmk
-            if cfg.locking:
-                # Deflation (``core/loop.py:451-458``): converged pairs keep
-                # their Ritz vectors in the basis but spend no correction
-                # column; the orthonormalization drops their zero columns.
-                unconv = torch.ones((kk,), dtype=dt, device=dev)
-                unconv[:k] = (~has_conv).to(dt)
-                corr_mask = pmk * unconv
-            if cfg.method == "DPR":
-                corr = corr_mod.dpr_correction(R, lam[:kk], diag_a, diag_b,
-                                               corr_mask)
-            elif cfg.method == "OLSEN":
-                corr = corr_mod.olsen_correction(R, lam[:kk], X, diag_a,
-                                                 diag_b, corr_mask, rows)
-            else:
-                warm_t = None
-                if cfg.gjd_warm:
-                    warm_t = st["corr_prev"][:, :kk]
-                corr, it_in = _gjd(cfg, A, B, dt, lam[:kk], X, R, corr_mask,
-                                   diag_a, diag_b, warm_t, rows)
-                st["inner_ops"] += torch.max(it_in)
-                if cfg.gjd_warm:
-                    # The raw correction, before orthonormalization, is
-                    # what the next inner solve recycles.
-                    st["corr_prev"][:, :kk] = corr
-                    st["corr_prev"][:, kk:] = 0
-            del R, X
-            Q, alive_q = orthogonal.orthonormalize_block(
-                V[:, :m], corr, corr_mask, n_reorth=cfg.n_reorth,
-                method=cfg.ortho,
-                rank_width=k if lowest_k else m_max, rows=rows,
-                precise=precise)
+            with annotate("fdt.correction"):
+                corr_mask = pmk
+                if cfg.locking:
+                    # Deflation (``core/loop.py:451-458``): converged pairs
+                    # keep their Ritz vectors in the basis but spend no
+                    # correction column; the orthonormalization drops
+                    # their zero columns.
+                    unconv = torch.ones((kk,), dtype=dt, device=dev)
+                    unconv[:k] = (~has_conv).to(dt)
+                    corr_mask = pmk * unconv
+                if cfg.method == "DPR":
+                    corr = corr_mod.dpr_correction(R, lam[:kk], diag_a,
+                                                   diag_b, corr_mask)
+                elif cfg.method == "OLSEN":
+                    corr = corr_mod.olsen_correction(R, lam[:kk], X, diag_a,
+                                                     diag_b, corr_mask, rows)
+                else:
+                    warm_t = None
+                    if cfg.gjd_warm:
+                        warm_t = st["corr_prev"][:, :kk]
+                    corr, it_in = _gjd(cfg, A, B, dt, lam[:kk], X, R,
+                                       corr_mask, diag_a, diag_b, warm_t,
+                                       rows)
+                    st["inner_ops"] += torch.max(it_in)
+                    if cfg.gjd_warm:
+                        # The raw correction, before orthonormalization, is
+                        # what the next inner solve recycles.
+                        st["corr_prev"][:, :kk] = corr
+                        st["corr_prev"][:, kk:] = 0
+                del R, X
+            with annotate("fdt.orthonormalize"):
+                Q, alive_q = orthogonal.orthonormalize_block(
+                    V[:, :m], corr, corr_mask, n_reorth=cfg.n_reorth,
+                    method=cfg.ortho,
+                    rank_width=k if lowest_k else m_max, rows=rows,
+                    precise=precise)
             del corr
             # The fused engine applies A after the write of Q: the gram
             # needs the basis that holds it.
             AQ = None if fused else _apply(A, Q, dt)
-            st["op_cols"] += torch.sum(alive_q).to(torch.int64)
-            if precise:
-                Q, AQ, alive_q = _rq_gate(Q, AQ, alive_q, lam, pair_mask, k,
-                                          rows)
-            BQ = _apply(B, Q, dt) if gen else None
-            live = torch.sum(alive_q).to(torch.int64)
-            if lowest_k:
-                # Survivors are a prefix of the k-column block: write them
-                # at column m; the live count keeps the basis hole-free.
-                c0 = min(m, m_max - kk)
-                V[:, c0:c0 + kk] = Q
-                if fused:
-                    # G = V[:, :c0+kk]ᵀ (A Q) holds H's new rows and
-                    # columns; dead Q columns are zero, so are theirs.
-                    AQ, G = A.matmat_with_gram(Q, v=V[:, :c0 + kk])
-                    AQ, G = AQ.to(dt), G.to(dt)
-                    H = st["H"]
-                    H[:c0 + kk, c0:c0 + kk] = G
-                    H[c0:c0 + kk, :c0 + kk] = G.T
-                AV[:, c0:c0 + kk] = AQ
-                if gen:
-                    BV[:, c0:c0 + kk] = BQ
-                st["col_ok"][c0:c0 + kk] = alive_q
-                st["m"] = m + live
-                st["m_hi"] = min(m + kk, m_max)
-                # Zero admitted columns leave the state a fixed point.
-                st["stalled"] = live == 0
-            else:
-                # Doubling: new columns shift to [m, 2m); the dimension
-                # bookkeeping follows the reference schedule, not drops.
-                _roll_add(V, Q, m)
-                _roll_add(AV, AQ, m)
-                if gen:
-                    _roll_add(BV, BQ, m)
-                ok = st["col_ok"]
-                _roll_add(ok[None, :], alive_q[None, :], m)
-                st["m"] = st["m_hi"] = 2 * m
+            with annotate("fdt.basis_update"):
+                st["op_cols"] += torch.sum(alive_q).to(torch.int64)
+                if precise:
+                    Q, AQ, alive_q = _rq_gate(Q, AQ, alive_q, lam, pair_mask,
+                                              k, rows)
+                BQ = _apply(B, Q, dt) if gen else None
+                live = torch.sum(alive_q).to(torch.int64)
+                if lowest_k:
+                    # Survivors are a prefix of the k-column block: write
+                    # them at column m; the live count keeps the basis
+                    # hole-free.
+                    c0 = min(m, m_max - kk)
+                    V[:, c0:c0 + kk] = Q
+                    if fused:
+                        # G = V[:, :c0+kk]ᵀ (A Q) holds H's new rows and
+                        # columns; dead Q columns are zero, so are theirs.
+                        with annotate("fdt.apply"):
+                            AQ, G = A.matmat_with_gram(Q, v=V[:, :c0 + kk])
+                            AQ, G = AQ.to(dt), G.to(dt)
+                        H = st["H"]
+                        H[:c0 + kk, c0:c0 + kk] = G
+                        H[c0:c0 + kk, :c0 + kk] = G.T
+                    AV[:, c0:c0 + kk] = AQ
+                    if gen:
+                        BV[:, c0:c0 + kk] = BQ
+                    st["col_ok"][c0:c0 + kk] = alive_q
+                    st["m"] = m + live
+                    st["m_hi"] = min(m + kk, m_max)
+                    # Zero admitted columns leave the state a fixed point.
+                    st["stalled"] = live == 0
+                else:
+                    # Doubling: new columns shift to [m, 2m); the dimension
+                    # bookkeeping follows the reference schedule, not drops.
+                    _roll_add(V, Q, m)
+                    _roll_add(AV, AQ, m)
+                    if gen:
+                        _roll_add(BV, BQ, m)
+                    ok = st["col_ok"]
+                    _roll_add(ok[None, :], alive_q[None, :], m)
+                    st["m"] = st["m_hi"] = 2 * m
         else:
             # Collapse to the first init_dim Ritz vectors
             # (``src/davidson.f90:218``), kept orthonormal by a thin QR;
             # the caches follow by a triangular solve.
-            del R, X
-            W2 = W[:, :init_dim]
-            if _filtered(cfg):
-                # The filtered restart (``core/loop.py:643-674``): damp the
-                # restart block on [first unwanted Ritz value, spectral
-                # upper bound]. The filtered block leaves the span of the
-                # cached AV, so its A-image is applied afresh: degree + 1
-                # block applies, charged to operator_columns.
-                a = lam[init_dim]
-                b = torch.maximum(st["spec_ub"],
-                                  a + 1e-3 * (torch.abs(a) + 1.0))
-                lo = torch.minimum(lam[0], a - 1e-6 * (torch.abs(a) + 1.0))
-                degree = (chebyshev.auto_degree(lo, a, b, dt)
-                          if cfg.cheb_auto else cfg.cheb_degree)
-                X2 = chebyshev.chebyshev_filter(lambda T: _apply(A, T, dt),
-                                                Vw @ W2, degree, a, b, lo)
-                Qc, Rc = orthogonal.thin_qr_collapse(X2, method=cfg.ortho,
-                                                     rows=rows,
-                                                     precise=precise)
-                del X2
-                AQc = _apply(A, Qc, dt)
-                st["op_cols"] += (degree + 1) * init_dim
-            else:
-                Qc, Rc = orthogonal.thin_qr_collapse(Vw @ W2,
-                                                     method=cfg.ortho,
-                                                     rows=rows,
-                                                     precise=precise)
-                AQc = orthogonal.right_tri_solve(AVw @ W2, Rc)
-            BQc = (orthogonal.right_tri_solve(BV[:, :w] @ W2, Rc) if gen
-                   else None)
-            V.zero_()
-            V[:, :init_dim] = Qc
-            AV.zero_()
-            AV[:, :init_dim] = AQc
-            if gen:
-                BV.zero_()
-                BV[:, :init_dim] = BQc
-            if fused:
-                # Re-seed the carried projection from the restart basis.
-                st["H"].zero_()
-                st["H"][:init_dim, :init_dim] = subspace.project(Qc, AQc,
-                                                                 rows)
-            st["col_ok"] = orthogonal.col_mask(init_dim, m_max, dt, dev)
-            st["m"] = st["m_hi"] = init_dim
-            st["stalled"] = lowest_k and init_dim == m
+            with annotate("fdt.basis_update"):
+                del R, X
+                W2 = W[:, :init_dim]
+                if _filtered(cfg):
+                    # The filtered restart (``core/loop.py:643-674``): damp
+                    # the restart block on [first unwanted Ritz value,
+                    # spectral upper bound]. The filtered block leaves the
+                    # span of the cached AV, so its A-image is applied
+                    # afresh: degree + 1 block applies, charged to
+                    # operator_columns.
+                    a = lam[init_dim]
+                    b = torch.maximum(st["spec_ub"],
+                                      a + 1e-3 * (torch.abs(a) + 1.0))
+                    lo = torch.minimum(lam[0],
+                                       a - 1e-6 * (torch.abs(a) + 1.0))
+                    degree = (chebyshev.auto_degree(lo, a, b, dt)
+                              if cfg.cheb_auto else cfg.cheb_degree)
+                    X2 = chebyshev.chebyshev_filter(
+                        lambda T: _apply(A, T, dt), Vw @ W2, degree, a, b, lo)
+                    with annotate("fdt.orthonormalize"):
+                        Qc, Rc = orthogonal.thin_qr_collapse(
+                            X2, method=cfg.ortho, rows=rows, precise=precise)
+                    del X2
+                    AQc = _apply(A, Qc, dt)
+                    st["op_cols"] += (degree + 1) * init_dim
+                else:
+                    X2 = Vw @ W2
+                    with annotate("fdt.orthonormalize"):
+                        Qc, Rc = orthogonal.thin_qr_collapse(
+                            X2, method=cfg.ortho, rows=rows, precise=precise)
+                    del X2
+                    AQc = orthogonal.right_tri_solve(AVw @ W2, Rc)
+                BQc = (orthogonal.right_tri_solve(BV[:, :w] @ W2, Rc) if gen
+                       else None)
+                V.zero_()
+                V[:, :init_dim] = Qc
+                AV.zero_()
+                AV[:, :init_dim] = AQc
+                if gen:
+                    BV.zero_()
+                    BV[:, :init_dim] = BQc
+                if fused:
+                    # Re-seed the carried projection from the restart basis.
+                    st["H"].zero_()
+                    st["H"][:init_dim, :init_dim] = subspace.project(
+                        Qc, AQc, rows)
+                st["col_ok"] = orthogonal.col_mask(init_dim, m_max, dt, dev)
+                st["m"] = st["m_hi"] = init_dim
+                st["stalled"] = lowest_k and init_dim == m
 
         if precise:
             # Plateau tracking (``core/loop.py:732-788``). A collapse is
@@ -586,8 +627,9 @@ def settle(st: dict) -> dict:
     pending = [key for key in ("m", "stalled")
                if isinstance(st[key], torch.Tensor)]
     if pending:
-        vals = torch.stack([st[key].to(torch.int64)
-                            for key in pending]).tolist()
+        with annotate("fdt.host_read"):
+            vals = torch.stack([st[key].to(torch.int64)
+                                for key in pending]).tolist()
         st.update(zip(pending, vals))
     st["stalled"] = bool(st["stalled"])
     return st
@@ -595,6 +637,9 @@ def settle(st: dict) -> dict:
 
 def pack_result(st: dict) -> DavidsonResult:
     """The result of a settled state (:func:`settle`)."""
+    with annotate("fdt.host_read"):
+        op_cols = int(st["op_cols"])
+        inner = int(st["inner_ops"]) if "inner_ops" in st else None
     return DavidsonResult(
         eigenvalues=st["evals"],
         eigenvectors=st["evecs"],
@@ -604,10 +649,9 @@ def pack_result(st: dict) -> DavidsonResult:
         residual_norms=st["errors"],
         residual_history=st["history"],
         subspace_dims=st["dims"],
-        operator_columns=int(st["op_cols"]),
+        operator_columns=op_cols,
         stalled=st["stalled"],
-        inner_iterations=(int(st["inner_ops"]) if "inner_ops" in st
-                          else None),
+        inner_iterations=inner,
     )
 
 
@@ -619,17 +663,19 @@ def _apply_final_polish(cfg: ResolvedConfig, A: LinearOperator,
     re-check (``core/loop.py:837-882``): convergence is evaluated against
     the polished TRUE residuals."""
     dt = getattr(torch, cfg.dtype)
-    pol = refine.polish(A_off, A.diagonal().to(dt), res.eigenvalues,
-                        res.eigenvectors, iterations=cfg.final_polish,
-                        B_off=B_off,
-                        diag_b=None if B is None else B.diagonal().to(dt),
-                        update=cfg.polish_update, rows=rows)
-    conv = _converged(cfg, pol.errors, pol.evals)
+    with annotate("fdt.polish"):
+        pol = refine.polish(A_off, A.diagonal().to(dt), res.eigenvalues,
+                            res.eigenvectors, iterations=cfg.final_polish,
+                            B_off=B_off,
+                            diag_b=None if B is None else B.diagonal().to(dt),
+                            update=cfg.polish_update, rows=rows)
+        conv = _converged(cfg, pol.errors, pol.evals)
+        converged = bool(torch.all(conv))
     return DavidsonResult(
         eigenvalues=pol.evals,
         eigenvectors=pol.evecs_hi,
         iterations=res.iterations,
-        converged=bool(torch.all(conv)),
+        converged=converged,
         converged_pairs=conv,
         residual_norms=pol.errors,
         residual_history=res.residual_history,
@@ -669,7 +715,8 @@ def get_stepper(cfg: ResolvedConfig, rows: Rows = LOCAL):
     under the solve's precision context and ``no_grad``.
     """
     def init(A, B, X0=None):
-        with _precision_ctx(cfg.matmul_precision), torch.no_grad():
+        with _precision_ctx(cfg.matmul_precision), torch.no_grad(), \
+                annotate("fdt.init"):
             return init_state(cfg, A, B, X0=X0, rows=rows)
 
     def step(A, B, st, A_off=None, B_off=None):

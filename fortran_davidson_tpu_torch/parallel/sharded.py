@@ -73,6 +73,7 @@ from fortran_davidson_tpu_torch.parallel.mesh import (ROWS_AXIS, RowMesh,
 from fortran_davidson_tpu_torch.utils.ds import cascade_partials
 from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
+from fortran_davidson_tpu_torch.utils.observability import annotate
 
 # The row-sharded keys of the loop state (``core/loop.init_state``): each
 # rank holds its rows of them; every other key is the same on every rank
@@ -538,12 +539,14 @@ def eigensolve_sharded(matrix, lowest: int, mesh: RowMesh,
     compensated sums shard-locally (:meth:`RowShardConstraint.sum_ds`) and
     takes the operators' exact off-diagonal splits (``offdiag()``).
     """
-    opts = merge_options(options, overrides)
-    A, B, cfg, rows = prepare_sharded(matrix, lowest, mesh, second_matrix,
-                                      axis, opts)
-    X0 = local_initial_vectors(initial_vectors, A.shape[0], cfg, mesh,
-                               canonical_dtype(opts.dtype))
-    if cfg.refined:
-        return _engine(cfg, A, B, X0=X0, rows=rows, A_off=A.offdiag(),
-                       B_off=None if B is None else B.offdiag())
-    return _engine(cfg, A, B, X0=X0, rows=rows)
+    with annotate("fdt.solve"):
+        with annotate("fdt.init"):
+            opts = merge_options(options, overrides)
+            A, B, cfg, rows = prepare_sharded(matrix, lowest, mesh,
+                                              second_matrix, axis, opts)
+            X0 = local_initial_vectors(initial_vectors, A.shape[0], cfg,
+                                       mesh, canonical_dtype(opts.dtype))
+            splits = (dict(A_off=A.offdiag(),
+                           B_off=None if B is None else B.offdiag())
+                      if cfg.refined else {})
+        return _engine(cfg, A, B, X0=X0, rows=rows, **splits)

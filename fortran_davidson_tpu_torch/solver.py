@@ -23,6 +23,7 @@ from fortran_davidson_tpu_torch.core.rows import LOCAL
 from fortran_davidson_tpu_torch.ops.operators import as_operator
 from fortran_davidson_tpu_torch.utils.dtypes import canonical_dtype
 from fortran_davidson_tpu_torch.utils.errors import OperatorError, require
+from fortran_davidson_tpu_torch.utils.observability import annotate
 
 
 def prepare(matrix, lowest: int, second_matrix, opts: DavidsonOptions,
@@ -80,18 +81,21 @@ def eigensolve(matrix, lowest: int, second_matrix=None,
     Returns:
       DavidsonResult, with tensors on A's device.
     """
-    opts = merge_options(options, overrides)
-    A, B, cfg = prepare(matrix, lowest, second_matrix, opts)
-    X0 = validate_initial_vectors(initial_vectors, A.shape[0], cfg.init_dim,
-                                  canonical_dtype(opts.dtype),
-                                  device=A.device)
-    if cfg.refined:
-        # The refined path also takes the off-diagonal splits, for its
-        # compensated true residuals (structural for the sparse formats,
-        # see ``LinearOperator.offdiag``).
-        return _engine(cfg, A, B, X0=X0, A_off=A.offdiag(),
-                       B_off=None if B is None else B.offdiag())
-    return _engine(cfg, A, B, X0=X0)
+    with annotate("fdt.solve"):
+        with annotate("fdt.init"):
+            opts = merge_options(options, overrides)
+            A, B, cfg = prepare(matrix, lowest, second_matrix, opts)
+            X0 = validate_initial_vectors(initial_vectors, A.shape[0],
+                                          cfg.init_dim,
+                                          canonical_dtype(opts.dtype),
+                                          device=A.device)
+            # The refined path also takes the off-diagonal splits, for its
+            # compensated true residuals (structural for the sparse
+            # formats, see ``LinearOperator.offdiag``).
+            splits = (dict(A_off=A.offdiag(),
+                           B_off=None if B is None else B.offdiag())
+                      if cfg.refined else {})
+        return _engine(cfg, A, B, X0=X0, **splits)
 
 
 def polish_eigenpairs(matrix, result: DavidsonResult, iterations: int = 3,

@@ -38,6 +38,7 @@ from fortran_davidson_tpu_torch.utils.observability import (LOGGER,
                                                             ConvergenceLogger,
                                                             annotate,
                                                             profile_trace)
+from tests import torch_dist_worker as worker
 
 
 @pytest.fixture(scope="module")
@@ -138,3 +139,148 @@ def test_jax_package_traps_the_same_operator(matrix):
     with jtrap():
         with pytest.raises(FloatingPointError):
             fdt.eigensolve(bad, 3).block_until_ready()
+
+
+# The program's spans (``utils/observability.py``'s list).
+PHASES = ("fdt.init", "fdt.apply", "fdt.rayleigh_ritz", "fdt.residual",
+          "fdt.host_read", "fdt.correction", "fdt.orthonormalize",
+          "fdt.basis_update")
+
+
+def _traced(solve):
+    """``(result, spans)``: ``solve()`` under a recording CPU profiler and
+    its ``fdt.*`` spans as ``(start, end, name, parent)`` in start order,
+    ``parent`` the innermost ``fdt.*`` span holding the span."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = solve()
+    found = sorted(((e.start_ns(), -e.end_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.is_user_annotation()
+                    and e.name().startswith("fdt.")))
+    spans, stack = [], []
+    for s, neg_f, name in found:
+        while stack and stack[-1][1] <= s:
+            stack.pop()
+        spans.append((s, -neg_f, name, stack[-1][2] if stack else None))
+        stack.append((s, -neg_f, name))
+    return res, spans
+
+
+@pytest.fixture(scope="module")
+def collapsing():
+    """A lowest-4 solve that expands and collapses (width 12): the
+    options, and the operator."""
+    A = convert.dense(np.asarray(generate_diagonal_dominant(120, 1e-1)),
+                      device="cpu")
+    return dict(max_dim_sub=12, tolerance=1e-9), A
+
+
+def test_spans_nest_inside_the_solve(collapsing, matrix):
+    opts, A = collapsing
+    _, spans = _traced(lambda: fdtt.eigensolve(A, 4, **opts))
+    names = [name for _, _, name, _ in spans]
+    assert names[0] == "fdt.solve" and names.count("fdt.solve") == 1
+    assert set(names) == {"fdt.solve", *PHASES}
+    # Every phase inside the solve; the phases themselves nest only for
+    # the applies (and the collapse's thin QR inside its basis rewrite).
+    for _, _, name, parent in spans[1:]:
+        assert parent is not None
+        if parent != "fdt.solve":
+            assert (name, parent) in {("fdt.apply", "fdt.init"),
+                                      ("fdt.orthonormalize",
+                                       "fdt.basis_update")}
+    assert ("fdt.apply", "fdt.init") in {(n, p) for _, _, n, p in spans}
+    # The new block's AQ: an apply right after each expansion's
+    # orthonormalization, directly under the solve.
+    for i, (_, _, name, parent) in enumerate(spans):
+        if name == "fdt.orthonormalize" and parent == "fdt.solve":
+            assert spans[i + 1][2:] == ("fdt.apply", "fdt.solve")
+    # The refined path's polish, also inside the solve.
+    A32 = convert.dense(matrix.astype(np.float32), device="cpu")
+    _, spans = _traced(lambda: fdtt.eigensolve(
+        A32, 3, dtype="float32", refined=True, final_polish=2,
+        tolerance=1e-7))
+    polish = [p for _, _, n, p in spans if n == "fdt.polish"]
+    assert polish and set(polish) == {"fdt.solve"}
+
+
+def test_span_counts_follow_the_iterations(collapsing):
+    opts, A = collapsing
+    res, spans = _traced(lambda: fdtt.eigensolve(A, 4, **opts))
+    count = {name: sum(n == name for _, _, n, _ in spans) for name in PHASES}
+    cfg = resolve_options(DavidsonOptions(**opts), 4, A.shape[0],
+                          generalized=False, device="cpu")
+    dims = res.subspace_dims.tolist()[:res.iterations]
+    # Every pass but the converged last one expands or collapses.
+    expansions = sum(m <= cfg.max_dim for m in dims[:-1])
+    collapses = res.iterations - 1 - expansions
+    assert res.converged and expansions > 0 and collapses > 0
+    assert count["fdt.rayleigh_ritz"] == res.iterations
+    assert count["fdt.residual"] == res.iterations
+    # The iteration's read, and the result's counts at the end.
+    assert count["fdt.host_read"] == res.iterations + 1
+    assert count["fdt.correction"] == expansions
+    assert count["fdt.orthonormalize"] == expansions + collapses
+    assert count["fdt.basis_update"] == expansions + collapses
+    # The init's apply and each expansion's.
+    assert count["fdt.apply"] == 1 + expansions
+
+
+def test_a_recorded_solve_keeps_its_bits(collapsing):
+    opts, A = collapsing
+    plain = fdtt.eigensolve(A, 4, **opts)
+    traced, _ = _traced(lambda: fdtt.eigensolve(A, 4, **opts))
+    assert traced.iterations == plain.iterations
+    assert torch.equal(traced.eigenvalues, plain.eigenvalues)
+    assert torch.equal(traced.eigenvectors, plain.eigenvectors)
+    assert torch.equal(traced.residual_norms, plain.residual_norms)
+
+
+def test_a_span_off_the_profiler_is_the_shared_no_op():
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Dispatched(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    assert hasattr(torch.autograd.profiler, "_is_profiler_enabled"), (
+        "torch.autograd.profiler._is_profiler_enabled is gone: annotate "
+        "now records every span, profiler or not")
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert annotate("fdt.solve") is annotate("fdt.apply")
+    with Dispatched() as off:
+        with annotate("fdt.solve"):
+            pass
+    assert off.ops == []
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]):
+        span = annotate("fdt.solve")
+        with Dispatched() as on:
+            with span:
+                pass
+    assert span is not annotate("fdt.apply")
+    assert any("record_function" in op for op in on.ops)
+
+
+def test_a_span_without_the_gates_flag_is_recorded(monkeypatch):
+    from fortran_davidson_tpu_torch.utils import observability
+    monkeypatch.setattr(observability, "_GATED", False)
+    span = annotate("fdt.solve")
+    assert isinstance(span, torch.profiler.record_function)
+    with span:
+        pass
+
+
+def test_each_rank_of_a_sharded_solve_records_its_spans(tmp_path):
+    ranks = worker.spawn_traced(2, str(tmp_path))
+    for rank in ranks:
+        names = rank["spans"]
+        assert names[0] == "fdt.solve" and names.count("fdt.solve") == 1
+        assert names.count("fdt.rayleigh_ritz") == rank["iterations"]
+    assert ranks[0] == ranks[1]

@@ -25,7 +25,8 @@ gathers x, and at world size 1 they solve the float32 surrogate past the
 cascade's threshold (``scaling_cases``). At world sizes 2 and 4
 (``ROWS_WORLDS``) they solve on operators built from each rank's own
 rows beside the same operators cut from the global tables
-(``rows_cases``).
+(``rows_cases``). :func:`spawn_traced` runs one sharded solve a rank
+under a recording profiler and returns the program's spans.
 
 A spawned process imports the module of its target, and the test
 modules and ``tests/conftest.py`` import JAX: this module imports only
@@ -724,3 +725,42 @@ def _rank_main(rank: int, world: int, run_dir: str) -> None:
         out[f"{name}_converged"] = np.array(res.converged)
     np.savez(os.path.join(run_dir, f"rank{rank}.npz"), **out)
     torch.distributed.destroy_process_group()
+
+
+def _traced_rank_main(rank: int, world: int, run_dir: str) -> None:
+    """One rank of a sharded solve under a recording profiler: the names
+    of the ``fdt.*`` spans its trace holds, in order, to
+    ``spans<r>.json``."""
+    torch.set_num_threads(1)
+    from torch.profiler import ProfilerActivity, profile
+
+    from fortran_davidson_tpu_torch.models.generators import \
+        generate_diagonal_dominant
+    from fortran_davidson_tpu_torch.parallel import (eigensolve_sharded,
+                                                     multihost)
+
+    mesh = multihost.initialize(
+        init_method="file://" + os.path.join(run_dir, "rendezvous"),
+        world_size=world, rank=rank, device="cpu")
+    A = generate_diagonal_dominant(64, 1e-2, seed=5, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = eigensolve_sharded(A, 3, mesh, tolerance=1e-8)
+    spans = sorted((e.start_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.is_user_annotation() and e.name().startswith("fdt."))
+    with open(os.path.join(run_dir, f"spans{rank}.json"), "w") as f:
+        json.dump({"spans": [name for _, name in spans],
+                   "iterations": res.iterations}, f)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_traced(world: int, run_dir: str) -> list:
+    """Each rank's ``fdt.*`` span names and iterations of one traced
+    sharded solve at ``world`` ranks."""
+    mp.spawn(_traced_rank_main, args=(world, run_dir), nprocs=world,
+             join=True)
+    out = []
+    for rank in range(world):
+        with open(os.path.join(run_dir, f"spans{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
